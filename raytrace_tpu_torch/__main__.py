@@ -1,8 +1,10 @@
 """CLI: python -m raytrace_tpu_torch <preset-name | config.json> [options].
 
-Presets: ensemble10k, lat_fan, knee. A JSON file path loads a full
-RunConfig instead. The run goes to the CUDA card unless --device names
-another device; it never falls back to the CPU on its own.
+Presets: ensemble10k, ensemble10k_production, lat_fan, knee, mr_fan (2D
+latitude frame); ensemble10k_3d, ensemble3d, knee_3d, 3d (3D dipole
+frame). A JSON file path loads a full RunConfig instead. The run goes to
+the CUDA card unless --device names another device; it never falls back
+to the CPU on its own.
 """
 
 import argparse

@@ -5,8 +5,10 @@ runs).
 dataclasses, so a RunConfig JSON written by either package loads in the
 other; a field that selects a feature the port has not ported yet raises
 NotImplementedError when the run is built (models/medium.py, run.py).
-`preset()` serves the 2D latitude-frame CA1992 configs ensemble10k,
-lat_fan and knee.
+`preset()` serves the configs whose features are all ported: the 2D
+latitude-frame CA1992 configs ensemble10k, ensemble10k_production,
+lat_fan, knee and mr_fan, and the 3D dipole-frame configs 3d, knee_3d,
+ensemble3d and ensemble10k_3d.
 """
 
 import dataclasses
@@ -204,19 +206,75 @@ _PRESETS = {
         freqs=tuple(np.geomspace(500.0, 8000.0, 16)),
         rtol=1.0e-5, atol=1.0e-8, base_stepper="bs3",
     ),
+    # the same ensemble at the production ceilings: the arc ceiling at
+    # 2e6 m with the phase ceiling relaxed to 8e6 m
+    "ensemble10k_production": lambda: dict(
+        name="ensemble10k_production", frame="2d_lat",
+        medium=MediumConfig(b0=B0_2D),
+        lats=tuple(np.linspace(0.45, 1.1, 40)),
+        chis=tuple(np.linspace(-0.5, 0.5, 16)),
+        freqs=tuple(np.geomspace(500.0, 8000.0, 16)),
+        rtol=1.0e-5, atol=1.0e-8, base_stepper="bs3",
+        ds_max=2.0e6 / RE, dt_max=8.0e6 / RE,
+    ),
+    # RayTrace_3D.jl single ray (RayTrace_3D.jl:390-395), off-shell rho0
+    "3d": lambda: dict(
+        name="3d", frame="3d",
+        medium=MediumConfig(b0=B0_3D),
+        lats=(np.pi / 4,), freqs=(1000.0,), rho0=(1.0, 1.0, 0.0),
+    ),
+    # 3D rays launched to traverse the plasmapause knee
+    "knee_3d": lambda: dict(
+        name="knee_3d", frame="3d",
+        medium=MediumConfig(b0=B0_3D),
+        lats=tuple(np.linspace(0.9, 1.15, 12)),
+        freqs=(500.0, 1000.0, 2000.0),
+        rho0=(1.0, 1.0, 0.0),
+        rtol=1.0e-5, atol=1.0e-8,
+    ),
+    # 1,024 seven-state rays on the dispersion surface at the production
+    # arc ceiling
+    "ensemble3d": lambda: dict(
+        name="ensemble3d", frame="3d",
+        medium=MediumConfig(b0=B0_3D),
+        lats=tuple(np.linspace(0.45, 1.1, 64)),
+        freqs=tuple(np.geomspace(500.0, 8000.0, 16)),
+        rho0=(1.0, 1.0, 0.0), rho_on_shell=True,
+        rtol=1.0e-5, atol=1.0e-8,
+        ds_max=2.0e6 / RE, dt_max=8.0e6 / RE,
+    ),
+    # the 3D headline: 40 lat x 16 chi x 16 f = 10,240 seven-state rays on
+    # the dispersion surface (chi rotates rho0 in the meridional plane) at
+    # the production arc ceiling, with short early rounds
+    "ensemble10k_3d": lambda: dict(
+        name="ensemble10k_3d", frame="3d",
+        medium=MediumConfig(b0=B0_3D),
+        lats=tuple(np.linspace(0.45, 1.1, 40)),
+        chis=tuple(np.linspace(-0.5, 0.5, 16)),
+        freqs=tuple(np.geomspace(500.0, 8000.0, 16)),
+        rho0=(1.0, 1.0, 0.0), rho_on_shell=True,
+        rtol=1.0e-5, atol=1.0e-8, base_stepper="bs3",
+        ds_max=2.0e6 / RE, dt_max=8.0e6 / RE,
+        round_steps=(512, 1024, 2048),
+    ),
+    # magnetospherically reflecting 2D fan: long multi-bounce rays
+    "mr_fan": lambda: dict(
+        name="mr_fan", frame="2d_lat",
+        medium=MediumConfig(),
+        r0=2.5,
+        lats=tuple(np.linspace(0.0, 0.5, 16)),
+        chis=tuple(np.linspace(-0.9, -0.3, 8)),
+        freqs=tuple(np.geomspace(600.0, 1200.0, 16)),
+        group_time_max=10.0, t_max=6.0e10 / RE, max_steps=40960,
+        ds_max=2.0e6 / RE, dt_max=8.0e6 / RE, base_stepper="bs3",
+    ),
 }
 
 # presets of the JAX package that need features the port has not yet
 _LATER = {
     "raymain": "A10 (2d_colat frame)",
-    "3d": "A7 (3D frame)",
-    "ensemble10k_production": "A6/B1 (ds_max arc ceiling)",
     "ensemble10k_local": "A6/B1 (local arc ceiling)",
-    "knee_3d": "A7 (3D frame)",
-    "ensemble3d": "A7 (3D frame)",
-    "ensemble10k_3d": "A7 (3D frame)",
     "ensemble10k_plume": "A8 (MLT-resolved medium)",
-    "mr_fan": "A6/B1 (ds_max arc ceiling)",
     "ensemble10k_tilted": "A9 (tilted field)",
     "ensemble10k_igrf": "A9 (IGRF field)",
     "mr_fan_3d": "A8 (MLT-resolved 3D medium)",
@@ -225,7 +283,7 @@ _LATER = {
 
 
 def preset(name, **overrides):
-    """Named configs the port runs: ensemble10k, lat_fan, knee."""
+    """Named configs the port runs (sorted(_PRESETS))."""
     if name in _LATER:
         raise NotImplementedError(
             f"preset {name!r} is not ported yet (ROADMAP {_LATER[name]}); "

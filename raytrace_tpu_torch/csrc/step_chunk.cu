@@ -3,11 +3,21 @@
 // Replaces raytrace_tpu/ops/pallas_stepper.py::_chunk_kernel (the Pallas
 // TPU kernel built by make_pallas_chunk, pallas_call at :107): n_steps
 // attempted steps of raytrace_tpu/integrate/solve.py::_step_one over a
-// batch of rays of the 2D latitude frame, with the right-hand side
-// ops/rhs.py::rhs_2d_lat over ops/fused.py::mu_and_grads_2d_lat and the
-// make_env_lat medium (centered dipole, one ionosphere fit, CA1992 with
-// hard branches, optional diffusive-equilibrium factor), protons only.
-// Template instances: float and double x bs3 and dopri5.
+// batch of rays, with the arc-length step ceiling ds_max
+// (solve.py:243-317) when it is on. Two frames, each with its right-hand
+// side inlined:
+//   - the 2D latitude frame, 4-state carry (r, lat, chi, T), group delay
+//     at index 3: ops/rhs.py::rhs_2d_lat over
+//     ops/fused.py::mu_and_grads_2d_lat;
+//   - the 3D Kimura frame, 7-state carry (r, theta, phi, rho_r,
+//     rho_theta, rho_phi, T), group delay at index 6: ops/rhs.py::rhs_3d
+//     over ops/fused.py::mu_and_grads_3d in the cos(psi) form (the psi
+//     form divides a 0/0 back out at field-aligned propagation, which
+//     float32 cannot resolve);
+// both over the axisymmetric medium (centered dipole, one ionosphere fit,
+// CA1992 with hard branches, optional diffusive-equilibrium factor),
+// protons only. Template instances: float and double x bs3 and dopri5 x
+// the two frames.
 //
 // Design for the card, not block by block:
 //   - one thread per ray; the thread loads its ray's 14-field carry into
@@ -16,25 +26,32 @@
 //     input_output_aliases were);
 //   - a thread leaves its loop as soon as its ray is no longer ACTIVE:
 //     exact, because _step_one is a no-op on a ray that is not ACTIVE;
-//   - field-major layout: vectors are (4, B), per-ray scalars (B,), so
+//   - field-major layout: vectors are (n, B), per-ray scalars (B,), so
 //     neighbouring threads read neighbouring addresses (the Pallas
 //     kernel's (n, B) layout, kept here for coalescing);
 //   - every scalar of the medium, SolverConfig, StopSpec and the root is a
 //     kernel argument passed by value (Pallas closed over them as
 //     compile-time constants), so one build serves every medium.
 //
-// What bounds it: not bytes. A ray's carry is 144 bytes (float) read and
-// written once per launch, while one attempt is three (bs3) or six
-// (dopri5) evaluations of the fused right-hand side: about 15 dependent
-// transcendentals (sin, cos, exp, log, sqrt, rsqrt) and 20 divisions each.
-// Each thread is one long dependent chain, so the kernel is bound by the
-// latency of that chain, and a 10,240-ray batch fills only part of the
+// What bounds it: operations, not bytes. A launch moves ~210 bytes a
+// ray (float, 2D) or ~310 (float, 3D), the carry read and written once,
+// while one attempt is three (bs3) or six (dopri5) evaluations
+// of the fused right-hand side plus the controller. Counted per attempt
+// from the plain version's elementwise operations
+// (chip_smoke.py::ops_per_attempt, a transcendental counting one), a
+// bs3 attempt is ~1,480 operations in 2D and ~1,780 in 3D (dopri5
+// ~2,960 and ~3,620), so 10,240 rays x 512 float32 bs3 attempts is bound
+// at ~0.07-0.11 ms by the card's 67 TFLOP/s, against ~1e-3 ms for the
+// bytes. Each thread is one long dependent chain, so the kernel runs at
+// the latency of that chain, 25-50x above the bound (2.7 ms in 2D,
+// 3.2 ms in 3D, PERF.md), and a 10,240-ray batch fills only part of the
 // 132 SMs (80 blocks of 128 threads). What the design does about it:
 // nothing leaves registers between attempts, the whole chain is inlined
 // so the compiler can interleave independent sub-chains (the Stix terms,
-// the four state components), and a finished ray costs its warp nothing
-// but the loop exit. More rays per SM
-// or splitting rays across threads is later work.
+// the state components), and a finished ray costs its warp nothing but
+// the loop exit. More rays per SM or splitting rays across threads is
+// later work. The 7-state double dopri5 instance reaches 254 registers
+// and spills 64 bytes to local memory (PERF.md lists -Xptxas -v).
 //
 // Numerics: built WITHOUT --use_fast_math, so isfinite, the inf defaults
 // of StopSpec.r_ceil/t_max/group_time_max, IEEE division and square root,
@@ -51,6 +68,15 @@
 // different accept/reject path within 256 steps. Contraction saved ~3% of
 // the kernel's time (10,240 rays x 512 steps). min/max propagate NaN, as
 // XLA's and torch's do, and sign(0) = 0.
+//
+// rsqrt: the 3D chain normalizes rho with rsqrt (ops/fused.py, as the JAX
+// package does) and the 2D chain forms L^-4.5 with it. CUDA's rsqrtf and
+// rsqrt are not correctly rounded (2 and 1 ulp), and neither is
+// anything that would copy XLA's. The kernel and the plain version share
+// the card's own: torch.rsqrt on a CUDA tensor calls the same CUDA rsqrt
+// as d_rsqrt below, so the two agree bit for bit on the card. On the CPU
+// torch.rsqrt is 1/sqrt, and the plain version is held to the JAX
+// package at the tests' stated tolerance.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -89,7 +115,15 @@ constexpr int EVANESCENT = 9;
 
 constexpr int BS3 = 0;
 constexpr int DOPRI5 = 1;
+constexpr int LAT2D = 0;  // the 2D latitude frame, 4-state carry
+constexpr int KIM3D = 1;  // the 3D Kimura frame, 7-state carry
 constexpr int kThreads = 128;
+
+// state dimension of a frame; the group delay is the last component
+template <int FRAME>
+struct FrameDim {
+  static constexpr int N = FRAME == KIM3D ? 7 : 4;
+};
 
 }  // namespace
 
@@ -98,7 +132,7 @@ struct StepParams {
   double b0, iono_n0, iono_decay, iono_r0, lppi, lppo, ne_lppi, ps_season,
       ps_trough, ps_weight, de_weight, root;
   double rtol, atol, dt_min, dt_max, safety, pi_alpha, pi_beta, fac_min,
-      fac_max, accept_tol, stall_dt_factor, stall_count;
+      fac_max, accept_tol, stall_dt_factor, stall_count, ds_max;
   double r_floor, r_ceil, t_max, group_time_max, stop_at_equator, lat_sign,
       lat_offset, stop_retrograde;
 };
@@ -116,6 +150,8 @@ struct KParams {
       neg_pi_alpha, pi_beta, fac_min, fac_max, accept_tol, order, scale5;
   bool tiny_on;
   double stall_count;
+  T ds_max;
+  bool ds_on;
   T r_floor, r_ceil, t_max, group_time_max, lat_sign, lat_offset;
   bool equator_on, retro_on;
 };
@@ -145,6 +181,8 @@ KParams<T> make_params(const StepParams& h, int stepper) {
   p.tiny_thr = T(h.dt_min * h.stall_dt_factor);
   p.tiny_on = h.stall_dt_factor > 0.0;
   p.stall_count = h.stall_count;
+  p.ds_max = T(h.ds_max);
+  p.ds_on = h.ds_max > 0.0;
   p.safety = T(h.safety);
   p.neg_pi_alpha = T(-h.pi_alpha);
   p.pi_beta = T(h.pi_beta);
@@ -258,9 +296,10 @@ __device__ __forceinline__ void ne_and_grads(T r, T sl, T cl,
   ne_lat = (T(1.0e6) * de) * (dne_p * L_lat);
 }
 
-// ops/fused.py::_stix_quartic_grads (protons only, psi form): mu and its
-// partials w.r.t. (ne, |B|, f, psi)
-template <typename T>
+// ops/fused.py::_stix_quartic_grads (protons only): mu and its partials
+// w.r.t. (ne, |B|, f, geometry); the geometry variable is psi (2D) or,
+// with WRT_COS, cos(psi) (3D)
+template <typename T, bool WRT_COS>
 __device__ __forceinline__ void stix_quartic_grads(T ne, T bm, T f, T sinpsi,
                                                    T cospsi, T root, T& mu,
                                                    T& dmu_dn, T& dmu_db,
@@ -316,7 +355,7 @@ __device__ __forceinline__ void stix_quartic_grads(T ne, T bm, T f, T sinpsi,
   const T inv_F = T(1) / F;
 
   const T halfP = T(0.5) * Pn;
-  const T geo = sinpsi * cospsi;
+  const T geo = WRT_COS ? -cospsi : sinpsi * cospsi;
   const T A_R = T(0.5) * sin2;
   const T A_L = T(0.5) * sin2;
   const T A_P = cos2;
@@ -390,8 +429,8 @@ __device__ __forceinline__ void rhs_2d_lat(const T u[4], T f,
   T ne, ne_r, ne_lat;
   ne_and_grads(r, sl, cl, p, ne, ne_r, ne_lat);
   T mu, dmu_dn, dmu_db, dmu_df, dmu_dpsi;
-  stix_quartic_grads(ne, bm, f, sinpsi, cospsi, p.root, mu, dmu_dn, dmu_db,
-                     dmu_df, dmu_dpsi);
+  stix_quartic_grads<T, false>(ne, bm, f, sinpsi, cospsi, p.root, mu, dmu_dn,
+                               dmu_db, dmu_df, dmu_dpsi);
   const T dmudr = dmu_dn * ne_r + dmu_db * bm_r;
   const T dmudlat = dmu_dn * ne_lat + dmu_db * bm_lat + dmu_dpsi * dpsi_dlat;
 
@@ -403,91 +442,183 @@ __device__ __forceinline__ void rhs_2d_lat(const T u[4], T f,
   out[3] = T(kREOverC) * (T(1) + (f * mu * inv_mu2) * dmu_df);
 }
 
+// ops/rhs.py::rhs_3d over ops/fused.py::mu_and_grads_3d (cos form)
 template <typename T>
-__device__ __forceinline__ T err_norm(const T ev[4], const T u[4],
-                                      const T u_new[4], const KParams<T>& p) {
+__device__ __forceinline__ void rhs_3d(const T u[7], T f, const KParams<T>& p,
+                                       T out[7]) {
+  const T r = u[0], theta = u[1];
+  const T rho_r = u[3], rho_t = u[4], rho_p = u[5];
+  const T lat = T(kPi / 2.0) - theta;
+  const T sl = d_sin(lat), cl = d_cos(lat);
+  const T q2 = T(1) + T(3) * sl * sl;
+  const T q = d_sqrt(q2);
+  const T inv_r = T(1) / r;
+  const T inv_r3 = inv_r * inv_r * inv_r;
+  const T inv_q = T(1) / q;
+  const T inv_q2 = inv_q * inv_q;
+  const T inv_q3 = inv_q2 * inv_q;
+  const T bm = p.b0 * q * inv_r3;
+  const T bm_r = T(-3) * bm * inv_r;
+  const T bm_lat = T(3) * sl * cl * bm * inv_q2;
+  const T bhat_r = T(-2) * sl * inv_q;
+  const T bhat_t = -cl * inv_q;
+  const T dbhat_r_dlat = T(-2) * cl * inv_q3;
+  const T dbhat_t_dlat = T(4) * sl * inv_q3;
+
+  const T inv_rmag = d_rsqrt(rho_r * rho_r + rho_t * rho_t + rho_p * rho_p);
+  const T rhat_r = rho_r * inv_rmag;
+  const T rhat_t = rho_t * inv_rmag;
+  const T rhat_p = rho_p * inv_rmag;
+  const T cospsi = jmin(jmax(bhat_r * rhat_r + bhat_t * rhat_t, T(-1)), T(1));
+  const T cr_m = bhat_r * rhat_t - bhat_t * rhat_r;
+  const T sinpsi = d_sqrt(rhat_p * rhat_p + cr_m * cr_m);
+  const T dcos_dlat = rhat_r * dbhat_r_dlat + rhat_t * dbhat_t_dlat;
+  const T dcos_dtheta = -dcos_dlat;
+  const T dcos_drho_r = (bhat_r - cospsi * rhat_r) * inv_rmag;
+  const T dcos_drho_t = (bhat_t - cospsi * rhat_t) * inv_rmag;
+  const T dcos_drho_p = (T(0) - cospsi * rhat_p) * inv_rmag;
+
+  T ne, ne_r, ne_lat;
+  ne_and_grads(r, sl, cl, p, ne, ne_r, ne_lat);
+  T mu, dmu_dn, dmu_db, dmu_df, dmu_dc;
+  stix_quartic_grads<T, true>(ne, bm, f, sinpsi, cospsi, p.root, mu, dmu_dn,
+                              dmu_db, dmu_df, dmu_dc);
+  const T dmudr = dmu_dn * ne_r + dmu_db * bm_r;
+  const T dmudtheta =
+      -(dmu_dn * ne_lat + dmu_db * bm_lat) + dmu_dc * dcos_dtheta;
+  const T dmudphi = T(0);  // axisymmetric medium
+  const T dmudrr = dmu_dc * dcos_drho_r;
+  const T dmudrt = dmu_dc * dcos_drho_t;
+  const T dmudrp = dmu_dc * dcos_drho_p;
+
+  const T sintheta = d_sin(theta), costheta = d_cos(theta);
+  const T inv_mu2 = T(1) / (mu * mu);
+  const T inv_mu = mu * inv_mu2;
+  const T inv_st = T(1) / sintheta;
+  const T inv_mu2_r = inv_mu2 * inv_r;
+  const T dr = inv_mu2 * (rho_r - mu * dmudrr);
+  const T dtheta = inv_mu2_r * (rho_t - mu * dmudrt);
+  const T dphi = inv_mu2_r * inv_st * (rho_p - mu * dmudrp);
+  out[0] = dr;
+  out[1] = dtheta;
+  out[2] = dphi;
+  out[3] = dmudr * inv_mu + rho_t * dtheta + rho_p * dphi * sintheta;
+  out[4] = (dmudtheta * inv_mu - rho_t * dr + r * rho_p * dphi * costheta) *
+           inv_r;
+  out[5] = (dmudphi * inv_mu - rho_p * dr * sintheta -
+            r * rho_p * dtheta * costheta) *
+           (inv_r * inv_st);
+  out[6] = T(kREOverC) * (T(1) + (f * inv_mu) * dmu_df);
+}
+
+template <typename T, int FRAME>
+__device__ __forceinline__ void rhs(const T* u, T f, const KParams<T>& p,
+                                    T* out) {
+  if constexpr (FRAME == KIM3D)
+    rhs_3d(u, f, p, out);
+  else
+    rhs_2d_lat(u, f, p, out);
+}
+
+// integrate/solve.py::_arc_rate: ds/dtau from the FSAL carry k1
+template <typename T, int N>
+__device__ __forceinline__ T arc_rate(const T u[N], const T k1[N]) {
+  const T r = u[0];
+  T s2 = k1[0] * k1[0] + (r * k1[1]) * (r * k1[1]);
+  if constexpr (N >= 7) {
+    const T vp = r * d_sin(u[1]) * k1[2];
+    s2 = s2 + vp * vp;
+  }
+  return d_sqrt(s2);
+}
+
+// the mean over the N components: a Python-integer divisor, hence a
+// product with its reciprocal on the card (exact for N = 4)
+template <typename T, int N>
+__device__ __forceinline__ T err_norm(const T ev[N], const T u[N],
+                                      const T u_new[N], const KParams<T>& p) {
   T acc = T(0);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < N; ++j) {
     const T scale = p.atol + p.rtol * jmax(d_abs(u[j]), d_abs(u_new[j]));
     const T x = ev[j] / scale;
     acc = j == 0 ? x * x : acc + x * x;
   }
-  return d_sqrt(acc / T(4));
+  return d_sqrt(acc * recip(T(N)));
 }
 
 // integrate/steppers.py::bs3_step (Bogacki-Shampine 3(2), FSAL)
-template <typename T>
-__device__ __forceinline__ T bs3_step(const T u[4], const T k1[4], T h, T f,
-                                      const KParams<T>& p, T u_new[4],
-                                      T k_end[4], T incr[4]) {
-  T y[4], k2[4], k3[4], ev[4];
+template <typename T, int FRAME, int N = FrameDim<FRAME>::N>
+__device__ __forceinline__ T bs3_step(const T u[N], const T k1[N], T h, T f,
+                                      const KParams<T>& p, T u_new[N],
+                                      T k_end[N], T incr[N]) {
+  T y[N], k2[N], k3[N], ev[N];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) y[j] = u[j] + (T(0.5) * h) * k1[j];
-  rhs_2d_lat(y, f, p, k2);
+  for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.5) * h) * k1[j];
+  rhs<T, FRAME>(y, f, p, k2);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) y[j] = u[j] + (T(0.75) * h) * k2[j];
-  rhs_2d_lat(y, f, p, k3);
+  for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.75) * h) * k2[j];
+  rhs<T, FRAME>(y, f, p, k3);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < N; ++j) {
     incr[j] = h * (T(2.0 / 9.0) * k1[j] + T(1.0 / 3.0) * k2[j] +
                    T(4.0 / 9.0) * k3[j]);
     u_new[j] = u[j] + incr[j];
   }
-  rhs_2d_lat(u_new, f, p, k_end);
+  rhs<T, FRAME>(u_new, f, p, k_end);
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < N; ++j)
     ev[j] = h * (T(2.0 / 9.0 - 7.0 / 24.0) * k1[j] +
                  T(1.0 / 3.0 - 0.25) * k2[j] +
                  T(4.0 / 9.0 - 1.0 / 3.0) * k3[j] - T(0.125) * k_end[j]);
-  return err_norm(ev, u, u_new, p);
+  return err_norm<T, N>(ev, u, u_new, p);
 }
 
 // integrate/steppers.py::dopri5_step (Dormand-Prince 5(4), FSAL); the
 // zero tableau entries stay in the sums, as they do in the JAX package
-template <typename T>
-__device__ __forceinline__ T dopri5_step(const T u[4], const T k1[4], T h,
+template <typename T, int FRAME, int N = FrameDim<FRAME>::N>
+__device__ __forceinline__ T dopri5_step(const T u[N], const T k1[N], T h,
                                          T f, const KParams<T>& p,
-                                         T u_new[4], T k_end[4], T incr[4]) {
-  T y[4], k2[4], k3[4], k4[4], k5[4], k6[4], ev[4];
+                                         T u_new[N], T k_end[N], T incr[N]) {
+  T y[N], k2[N], k3[N], k4[N], k5[N], k6[N], ev[N];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) y[j] = u[j] + h * (T(0.2) * k1[j]);
-  rhs_2d_lat(y, f, p, k2);
+  for (int j = 0; j < N; ++j) y[j] = u[j] + h * (T(0.2) * k1[j]);
+  rhs<T, FRAME>(y, f, p, k2);
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < N; ++j)
     y[j] = u[j] + h * (T(3.0 / 40.0) * k1[j] + T(9.0 / 40.0) * k2[j]);
-  rhs_2d_lat(y, f, p, k3);
+  rhs<T, FRAME>(y, f, p, k3);
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < N; ++j)
     y[j] = u[j] + h * (T(44.0 / 45.0) * k1[j] + T(-56.0 / 15.0) * k2[j] +
                        T(32.0 / 9.0) * k3[j]);
-  rhs_2d_lat(y, f, p, k4);
+  rhs<T, FRAME>(y, f, p, k4);
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < N; ++j)
     y[j] = u[j] + h * (T(19372.0 / 6561.0) * k1[j] +
                        T(-25360.0 / 2187.0) * k2[j] +
                        T(64448.0 / 6561.0) * k3[j] +
                        T(-212.0 / 729.0) * k4[j]);
-  rhs_2d_lat(y, f, p, k5);
+  rhs<T, FRAME>(y, f, p, k5);
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < N; ++j)
     y[j] = u[j] + h * (T(9017.0 / 3168.0) * k1[j] +
                        T(-355.0 / 33.0) * k2[j] +
                        T(46732.0 / 5247.0) * k3[j] +
                        T(49.0 / 176.0) * k4[j] +
                        T(-5103.0 / 18656.0) * k5[j]);
-  rhs_2d_lat(y, f, p, k6);
+  rhs<T, FRAME>(y, f, p, k6);
   // the 7th stage is evaluated at u + h * (b5 . k) == u_new (FSAL)
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < N; ++j) {
     incr[j] = h * (T(35.0 / 384.0) * k1[j] + T(0.0) * k2[j] +
                    T(500.0 / 1113.0) * k3[j] + T(125.0 / 192.0) * k4[j] +
                    T(-2187.0 / 6784.0) * k5[j] + T(11.0 / 84.0) * k6[j]);
     u_new[j] = u[j] + incr[j];
   }
-  rhs_2d_lat(u_new, f, p, k_end);
+  rhs<T, FRAME>(u_new, f, p, k_end);
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < N; ++j)
     ev[j] = h * (T(35.0 / 384.0 - 5179.0 / 57600.0) * k1[j] +
                  T(0.0 - 0.0) * k2[j] +
                  T(500.0 / 1113.0 - 7571.0 / 16695.0) * k3[j] +
@@ -495,23 +626,24 @@ __device__ __forceinline__ T dopri5_step(const T u[4], const T k1[4], T h,
                  T(-2187.0 / 6784.0 - -92097.0 / 339200.0) * k5[j] +
                  T(11.0 / 84.0 - 187.0 / 2100.0) * k6[j] +
                  T(0.0 - 1.0 / 40.0) * k_end[j]);
-  return err_norm(ev, u, u_new, p);
+  return err_norm<T, N>(ev, u, u_new, p);
 }
 
 // integrate/events.py::classify_step, with its priority order
-template <typename T>
-__device__ __forceinline__ int classify_step(const T u0[4], const T u1[4],
+template <typename T, int N>
+__device__ __forceinline__ int classify_step(const T u0[N], const T u1[N],
                                              T t1, const KParams<T>& p) {
   const bool surface = u1[0] <= p.r_floor;
   const T lat0 = p.lat_sign * u0[1] + p.lat_offset;
   const T lat1 = p.lat_sign * u1[1] + p.lat_offset;
   const bool equator = p.equator_on && (jsign(lat1) != jsign(lat0));
   const bool escaped = u1[0] >= p.r_ceil;
-  const bool group = u1[3] >= p.group_time_max;
+  const bool group = u1[N - 1] >= p.group_time_max;
   const bool phase = t1 >= p.t_max;
-  const bool invalid = !(isfinite(u1[0]) && isfinite(u1[1]) &&
-                         isfinite(u1[2]) && isfinite(u1[3]));
-  const bool retro = p.retro_on && (u1[3] < T(0));
+  bool invalid = false;
+#pragma unroll
+  for (int j = 0; j < N; ++j) invalid = invalid || !isfinite(u1[j]);
+  const bool retro = p.retro_on && (u1[N - 1] < T(0));
   int st = phase ? MAX_PHASE_TIME : ACTIVE;
   if (retro) st = EVANESCENT;
   if (group) st = MAX_GROUP_TIME;
@@ -522,7 +654,7 @@ __device__ __forceinline__ int classify_step(const T u0[4], const T u1[4],
   return st;
 }
 
-template <typename T, int STEPPER>
+template <typename T, int STEPPER, int FRAME>
 __global__ void __launch_bounds__(kThreads)
     step_chunk_kernel(T* __restrict__ u_g, T* __restrict__ k1_g,
                       T* __restrict__ u_prev_g, T* __restrict__ u_lo_g,
@@ -533,15 +665,16 @@ __global__ void __launch_bounds__(kThreads)
                       int* __restrict__ n_tiny_g, int* __restrict__ caution_g,
                       const T* __restrict__ f_g, long long B, int n_steps,
                       KParams<T> p) {
+  constexpr int N = FrameDim<FRAME>::N;
   const long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
   if (i >= B) return;
   int status = status_g[i];
   // a ray that is not ACTIVE stays as it is (_step_one is a no-op there)
   if (status != ACTIVE || n_steps <= 0) return;
 
-  T u[4], k1[4], u_prev[4], u_lo[4];
+  T u[N], k1[N], u_prev[N], u_lo[N];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < N; ++j) {
     u[j] = u_g[j * B + i];
     k1[j] = k1_g[j * B + i];
     u_prev[j] = u_prev_g[j * B + i];
@@ -553,18 +686,26 @@ __global__ void __launch_bounds__(kThreads)
   const T f = f_g[i];
 
   for (int s = 0; s < n_steps && status == ACTIVE; ++s) {
-    // step ceiling, then no overshoot of the phase-path budget
-    T dt_eff = jmin(dt, p.dt_max);
+    // step ceiling: dt_max, tightened by the arc ceiling where ds_max > 0;
+    // then no overshoot of the phase-path budget
+    T dt_cap = p.dt_max;
+    if (p.ds_on) {
+      const T arc_cap =
+          jmax(p.ds_max / jmax(arc_rate<T, N>(u, k1), T(1.0e-30)), p.dt_min);
+      dt_cap = jmin(p.dt_max, arc_cap);
+    }
+    T dt_eff = jmin(dt, dt_cap);
     dt_eff = jmin(dt_eff, jmax(p.t_max - t, p.dt_min));
 
-    T u_new[4], k_end[4], incr[4];
+    T u_new[N], k_end[N], incr[N];
     const T err_raw =
-        STEPPER == BS3 ? bs3_step(u, k1, dt_eff, f, p, u_new, k_end, incr)
-                       : dopri5_step(u, k1, dt_eff, f, p, u_new, k_end, incr);
+        STEPPER == BS3
+            ? bs3_step<T, FRAME>(u, k1, dt_eff, f, p, u_new, k_end, incr)
+            : dopri5_step<T, FRAME>(u, k1, dt_eff, f, p, u_new, k_end, incr);
     const bool accept = err_raw <= p.accept_tol;
 
     const T t1 = t + dt_eff;
-    int status1 = classify_step(u, u_new, t1, p);
+    int status1 = classify_step<T, N>(u, u_new, t1, p);
     if (status1 == ACTIVE && dt_eff <= p.dt_min2) status1 = DT_UNDERFLOW;
     const bool terminal = status1 == HIT_EARTH || status1 == HIT_EQUATOR;
 
@@ -582,7 +723,7 @@ __global__ void __launch_bounds__(kThreads)
         jmin(jmax(p.safety * d_exp(-log_err * recip(p.order)), T(0.05)),
              T(1));
     const T dt_next =
-        jmin(jmax(dt_eff * (accept ? fac_acc : fac_rej), p.dt_min), p.dt_max);
+        jmin(jmax(dt_eff * (accept ? fac_acc : fac_rej), p.dt_min), dt_cap);
     const bool underflow = !accept && dt_eff <= p.dt_min_uf;
 
     int status_new = accept ? status1 : (underflow ? DT_UNDERFLOW : ACTIVE);
@@ -596,12 +737,12 @@ __global__ void __launch_bounds__(kThreads)
     if (accept) {
       if (terminal) {  // snapshot the terminating step for refine_events
 #pragma unroll
-        for (int j = 0; j < 4; ++j) u_prev[j] = u[j];
+        for (int j = 0; j < N; ++j) u_prev[j] = u[j];
         dt_prev = dt_eff;
       }
       // compensated state update (fast two-sum)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < N; ++j) {
         const T d = incr[j] + u_lo[j];
         const T uc = u[j] + d;
         u_lo[j] = d - (uc - u[j]);
@@ -622,7 +763,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < N; ++j) {
     u_g[j * B + i] = u[j];
     k1_g[j * B + i] = k1[j];
     u_prev_g[j * B + i] = u_prev[j];
@@ -640,40 +781,55 @@ __global__ void __launch_bounds__(kThreads)
   caution_g[i] = caution;
 }
 
-template <typename T, int STEPPER>
+template <typename T, int STEPPER, int FRAME>
 void launch(void** ptrs, long long B, int n_steps, const StepParams& h,
             cudaStream_t stream) {
   const long long blocks = (B + kThreads - 1) / kThreads;
-  step_chunk_kernel<T, STEPPER><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      (T*)ptrs[0], (T*)ptrs[1], (T*)ptrs[2], (T*)ptrs[3], (T*)ptrs[4],
-      (T*)ptrs[5], (T*)ptrs[6], (T*)ptrs[7], (int*)ptrs[8], (int*)ptrs[9],
-      (int*)ptrs[10], (int*)ptrs[11], (int*)ptrs[12], (int*)ptrs[13],
-      (const T*)ptrs[14], B, n_steps, make_params<T>(h, STEPPER));
+  step_chunk_kernel<T, STEPPER, FRAME>
+      <<<(unsigned)blocks, kThreads, 0, stream>>>(
+          (T*)ptrs[0], (T*)ptrs[1], (T*)ptrs[2], (T*)ptrs[3], (T*)ptrs[4],
+          (T*)ptrs[5], (T*)ptrs[6], (T*)ptrs[7], (int*)ptrs[8],
+          (int*)ptrs[9], (int*)ptrs[10], (int*)ptrs[11], (int*)ptrs[12],
+          (int*)ptrs[13], (const T*)ptrs[14], B, n_steps,
+          make_params<T>(h, STEPPER));
+}
+
+template <typename T, int FRAME>
+void launch_stepper(int stepper, void** ptrs, long long B, int n_steps,
+                    const StepParams& h, cudaStream_t stream) {
+  if (stepper == BS3)
+    launch<T, BS3, FRAME>(ptrs, B, n_steps, h, stream);
+  else
+    launch<T, DOPRI5, FRAME>(ptrs, B, n_steps, h, stream);
+}
+
+template <int FRAME>
+void launch_dtype(int dtype, int stepper, void** ptrs, long long B,
+                  int n_steps, const StepParams& h, cudaStream_t stream) {
+  if (dtype == 0)
+    launch_stepper<float, FRAME>(stepper, ptrs, B, n_steps, h, stream);
+  else
+    launch_stepper<double, FRAME>(stepper, ptrs, B, n_steps, h, stream);
 }
 
 }  // namespace
 
-// ptrs: u, k1, u_prev, u_lo (4, B); t, dt, errold, dt_prev (B,) of T;
+// ptrs: u, k1, u_prev, u_lo (n, B); t, dt, errold, dt_prev (B,) of T;
 // status, n_accept, n_reject, rejected, n_tiny, caution (B,) int32; f (B,).
-// dtype 0 = float, 1 = double; stepper 0 = bs3, 1 = dopri5. Launches on
+// dtype 0 = float, 1 = double; stepper 0 = bs3, 1 = dopri5; frame 0 = the
+// 2D latitude frame (n = 4), 1 = the 3D frame (n = 7). Launches on
 // `stream` without synchronising; returns cudaGetLastError().
-extern "C" int step_chunk_launch(int dtype, int stepper, void** ptrs,
-                                 long long B, int n_steps,
+extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
+                                 void** ptrs, long long B, int n_steps,
                                  const StepParams* h, void* stream) {
   if (B <= 0) return 0;
-  if ((dtype != 0 && dtype != 1) || (stepper != BS3 && stepper != DOPRI5))
+  if ((dtype != 0 && dtype != 1) || (stepper != BS3 && stepper != DOPRI5) ||
+      (frame != LAT2D && frame != KIM3D))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) {
-    if (stepper == BS3)
-      launch<float, BS3>(ptrs, B, n_steps, *h, s);
-    else
-      launch<float, DOPRI5>(ptrs, B, n_steps, *h, s);
-  } else {
-    if (stepper == BS3)
-      launch<double, BS3>(ptrs, B, n_steps, *h, s);
-    else
-      launch<double, DOPRI5>(ptrs, B, n_steps, *h, s);
-  }
+  if (frame == KIM3D)
+    launch_dtype<KIM3D>(dtype, stepper, ptrs, B, n_steps, *h, s);
+  else
+    launch_dtype<LAT2D>(dtype, stepper, ptrs, B, n_steps, *h, s);
   return (int)cudaGetLastError();
 }

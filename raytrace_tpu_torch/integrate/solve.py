@@ -5,8 +5,9 @@ adaptive batch diverges freely; stop conditions are per-ray status codes.
 The carry is a `RayCarry` of tensors with the ray axis first: vectors are
 (B, n), per-ray scalars (B,), the JAX package's layouts.
 
-`trace` advances rays of the 2D latitude frame (`ops.rhs.rhs_2d_lat` over
-a medium `env`) in final-state mode. The explicit pairs (bs3, dopri5) step
+`trace` advances rays of a frame (`ops.rhs.frame_rhs`: the 2D latitude
+frame's `rhs_2d_lat` or the 3D frame's `rhs_3d`, over a medium `env`) in
+final-state mode. The explicit pairs (bs3, dopri5) step
 through `ops.step_chunk.step_chunk`, one launch per call: the hand-written
 CUDA kernel on a CUDA tensor, its plain PyTorch loop of `_step_one` on a
 CPU tensor. The Rosenbrock stiff pool (ros3pr) steps as torch ops on the
@@ -42,7 +43,7 @@ class SolverConfig(NamedTuple):
     accept_tol: float = 1.0
     stall_dt_factor: float = 1.0e3
     stall_count: float = 64.0
-    ds_max: float = 0.0            # arc ceiling: not ported (ROADMAP A6)
+    ds_max: float = 0.0            # arc-length step ceiling (RE); 0 = off
     ds_local_knee: float = 0.0     # local arc ceiling: not ported (A6)
     ds_local_frac: float = 1.0
     ds_local_w: float = 0.1
@@ -97,15 +98,15 @@ def check_supported(cfg: SolverConfig, group_idx: int, adaptive: bool,
             f"stepper {stepper!r} is not ported yet (ROADMAP A10); the port "
             f"has {sorted(_ORDER)}"
         )
-    if float(cfg.ds_max) != 0.0 or float(cfg.ds_local_knee) != 0.0:
+    if float(cfg.ds_local_knee) != 0.0:
         raise NotImplementedError(
-            "the ds_max / ds_local arc ceilings are not ported yet "
-            "(ROADMAP A6 and B1 variants)"
+            "the ds_local arc ceiling is not ported yet (ROADMAP A6 and B1 "
+            "variants)"
         )
-    if group_idx != 3:
+    if group_idx not in (3, 6):
         raise NotImplementedError(
-            "only the 4-state 2D frame (group_idx=3) is ported (the 3D frame "
-            "is ROADMAP A7)"
+            "the port has the 4-state frame (group_idx=3) and the 7-state "
+            f"3D frame (group_idx=6); got group_idx={group_idx}"
         )
 
 
@@ -139,6 +140,18 @@ def _jacobian_fn(rhs_fn, f):
     return lambda u: jac(u, f)
 
 
+def _arc_rate(u, k1):
+    """Spatial speed ds/dtau of each ray from the FSAL derivative carry:
+    ds^2 = dr^2 + (r dlat)^2 in the 4-state frames, plus (r sin(theta)
+    dphi)^2 in the 7-state frame."""
+    r = u[..., 0]
+    s2 = k1[..., 0] * k1[..., 0] + (r * k1[..., 1]) * (r * k1[..., 1])
+    if u.shape[-1] >= 7:
+        vp = r * torch.sin(u[..., 1]) * k1[..., 2]
+        s2 = s2 + vp * vp
+    return torch.sqrt(s2)
+
+
 def _step_one(rhs_fn, carry: RayCarry, f, cfg: SolverConfig, spec: StopSpec,
               group_idx: int = 3, adaptive: bool = True,
               stepper: str = "dopri5"):
@@ -148,7 +161,18 @@ def _step_one(rhs_fn, carry: RayCarry, f, cfg: SolverConfig, spec: StopSpec,
     check_supported(cfg, group_idx, adaptive, stepper)
     active = carry.status == events.ACTIVE
     rhs1 = lambda u: rhs_fn(u, f)  # noqa: E731
-    dt_eff = torch.clamp_max(carry.dt, cfg.dt_max)
+    # step ceiling: the phase-path dt_max, tightened where ds_max > 0 by
+    # the arc-length ceiling ds_max / (ds/dtau) (SolverConfig.ds_max).
+    # dt_next is clamped to the same dt_cap. ds_max divides as a tensor:
+    # a Python-scalar numerator would become a reciprocal product, which
+    # rounds otherwise than the kernel's quotient
+    dt_cap = cfg.dt_max
+    if cfg.ds_max > 0.0:
+        rate = torch.clamp_min(_arc_rate(carry.u, carry.k1), 1e-30)
+        arc_cap = torch.clamp_min(torch.full_like(rate, cfg.ds_max) / rate,
+                                  cfg.dt_min)
+        dt_cap = torch.clamp_max(arc_cap, cfg.dt_max)
+    dt_eff = torch.clamp_max(carry.dt, dt_cap)
     # do not overshoot the phase-path budget (CVODE integrates to tstop)
     dt_eff = torch.minimum(
         dt_eff, torch.clamp_min(spec.t_max - carry.t, cfg.dt_min)
@@ -194,8 +218,10 @@ def _step_one(rhs_fn, carry: RayCarry, f, cfg: SolverConfig, spec: StopSpec,
         fac_cap,
     )
     fac_rej = torch.clamp(cfg.safety * torch.exp(-log_err / order), 0.05, 1.0)
-    dt_next = torch.clamp(
-        dt_eff * torch.where(accept, fac_acc, fac_rej), cfg.dt_min, cfg.dt_max
+    dt_next = torch.clamp_max(
+        torch.clamp_min(dt_eff * torch.where(accept, fac_acc, fac_rej),
+                        cfg.dt_min),
+        dt_cap,
     )
     underflow = (~accept) & (dt_eff <= cfg.dt_min * (1.0 + 1.0e-6))
     errold_new = torch.where(accept, torch.clamp_min(err, 1.0e-4),
@@ -304,9 +330,9 @@ def trace(
     u0,
     f,
     *,
+    frame: str = "2d_lat",
     cfg: SolverConfig = SolverConfig(),
     spec: StopSpec = StopSpec(),
-    group_idx: int = 3,
     adaptive: bool = True,
     stepper: str = "dopri5",
     max_steps: int = 20000,
@@ -315,10 +341,12 @@ def trace(
     carry0: Optional[RayCarry] = None,
     root: float = 1.0,
 ):
-    """Integrate a batch of latitude-frame rays through `env`.
+    """Integrate a batch of rays of `frame` through `env`.
 
-    u0: (B, 4) states (r, lat, chi, T); f: (B,) frequencies in Hz; both on
-    the device and in the dtype the run uses. Final-state mode only.
+    u0: (B, n) states -- (r, lat, chi, T) in the "2d_lat" frame, (r,
+    theta, phi, rho_r, rho_theta, rho_phi, T) in the "3d" frame; f: (B,)
+    frequencies in Hz; both on the device and in the dtype the run uses.
+    Final-state mode only.
 
     Each ray gets exactly ceil(max_steps / chunk) * chunk attempts unless
     it stops first -- the count the JAX package's chunked while_loop runs
@@ -330,8 +358,8 @@ def trace(
             "the trajectory channel (save_every > 0) is not ported yet "
             "(ROADMAP A11)"
         )
+    rhs_fn, group_idx = rhs_mod.frame_rhs(frame, env, root)
     check_supported(cfg, group_idx, adaptive, stepper)
-    rhs_fn = lambda u, ff: rhs_mod.rhs_2d_lat(u, ff, env, root=root)  # noqa: E731
     if carry0 is None:
         carry0 = init_carry(rhs_fn, u0, f, cfg)
     else:
@@ -344,7 +372,7 @@ def trace(
         from ..ops.step_chunk import step_chunk
 
         carry = step_chunk(carry0, f, env, cfg, spec, stepper=stepper,
-                           n_steps=n_steps, root=root)
+                           n_steps=n_steps, root=root, frame=frame)
     else:
         carry = step_loop(rhs_fn, carry0, f, cfg, spec, group_idx=group_idx,
                           adaptive=adaptive, stepper=stepper,

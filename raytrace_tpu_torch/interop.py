@@ -3,7 +3,8 @@
 Takes and returns numpy arrays and Python scalars and never imports jax,
 so the tests can step the very same state through both packages: a JAX
 NamedTuple converts through its `_asdict()`, and a dict returned here
-converts back with `JaxType(**d)`.
+converts back with `JaxType(**d)`. Carries of either frame (4-state 2D,
+7-state 3D) convert alike: the state dimension is the arrays' own.
 """
 
 import numpy as np

@@ -1,15 +1,21 @@
 """Environment (medium) models: dipole B-field, ionosphere, plasmasphere."""
 
 from . import dipole, ionosphere, plasmasphere
-from .medium import EnvParams, b_mag, make_env, make_env_lat, ne_total_m3
+from .medium import (
+    EnvParams, b_mag, b_vec, make_env, make_env_lat, mlat_3d, mlon_3d,
+    ne_total_m3,
+)
 
 __all__ = [
     "EnvParams",
     "b_mag",
+    "b_vec",
     "dipole",
     "ionosphere",
     "make_env",
     "make_env_lat",
+    "mlat_3d",
+    "mlon_3d",
     "ne_total_m3",
     "plasmasphere",
 ]

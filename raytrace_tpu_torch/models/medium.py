@@ -1,8 +1,10 @@
 """Composite propagation medium: dipole B-field + electron density.
 
-Port of raytrace_tpu/models/medium.py for the `make_env_lat` feature set:
-the centered dipole, the single ionosphere fit, the CA1992 plasmasphere
-with hard branches, and the optional diffusive-equilibrium factor.
+Port of raytrace_tpu/models/medium.py for the axisymmetric feature set:
+the centered dipole (the 2D frames' |B| and the 3D frame's vector field
+with its magnetic latitude and longitude), the single ionosphere fit, the
+CA1992 plasmasphere with hard branches, and the optional
+diffusive-equilibrium factor.
 `EnvParams` keeps every field of the JAX package's NamedTuple (so a JAX
 `EnvParams._asdict()` converts field for field, see interop.py), but a
 medium whose static gates select a feature not ported yet raises
@@ -13,6 +15,7 @@ computes in the tensor's dtype, which is what the JAX package's cast_env
 does for float32 runs.
 """
 
+import math
 from typing import NamedTuple
 
 from ..constants import B0_2D, B0_3D
@@ -187,3 +190,23 @@ def b_mag(r, lat, env: EnvParams):
     check_env(env)
     return dipole.b_mag_lat(r, lat, env.b0)
 
+
+def b_vec(r, theta, phi, env: EnvParams):
+    """Vector field (B_r, B_theta, B_phi) at (r, theta, phi): the centered
+    dipole (the tilted and IGRF fields are ROADMAP A9)."""
+    check_env(env)
+    return dipole.b_vec_colat(r, theta, phi, env.b0)
+
+
+def mlat_3d(r, theta, phi, env: EnvParams):
+    """Magnetic latitude at (r, theta, phi): pi/2 - theta for the
+    centered dipole."""
+    check_env(env)
+    return math.pi / 2.0 - theta
+
+
+def mlon_3d(r, theta, phi, env: EnvParams):
+    """Magnetic longitude at (r, theta, phi): phi for the centered
+    dipole."""
+    check_env(env)
+    return phi

@@ -1,4 +1,4 @@
-"""Cold-plasma (Stix) dispersion for whistler waves, 2D latitude frame.
+"""Cold-plasma (Stix) dispersion for whistler waves, 2D latitude and 3D frames.
 
 Port of raytrace_tpu/ops/dispersion.py (protons-only subset). Solves
 A mu^4 - B mu^2 + C = 0 in the ratio form X = f_p^2/f^2, Y = f_c/f, with
@@ -80,3 +80,59 @@ def mu_2d_lat(r, lat, chi, f, env: medium.EnvParams, root=1.0):
     b = medium.b_mag(r, lat, env)
     rr, ll, pp = stix_rlp(ne, b, f)
     return mu_from_mu2(mu2_signed_trig(rr, ll, pp, sinpsi, cospsi, root))
+
+
+def _psi_trig_bmag_3d(r, theta, phi, rho_r, rho_t, rho_p,
+                      env: medium.EnvParams):
+    """(sin psi, cos psi, |B|) from one field evaluation.
+
+    sin psi comes from the cross product |B x rho|/(|B||rho|), not
+    sqrt(1 - cos^2), which cancels to the float32 rounding floor at
+    field-aligned propagation (psi -> 0 or pi)."""
+    br, bt, bp = medium.b_vec(r, theta, phi, env)
+    bmag = torch.sqrt(br * br + bt * bt + bp * bp)
+    rmag = torch.sqrt(rho_r * rho_r + rho_t * rho_t + rho_p * rho_p)
+    inv_brm = 1.0 / (bmag * rmag)
+    cospsi = torch.clamp(
+        (br * rho_r + bt * rho_t + bp * rho_p) * inv_brm, -1.0, 1.0
+    )
+    c_r = bt * rho_p - bp * rho_t
+    c_t = bp * rho_r - br * rho_p
+    c_p = br * rho_t - bt * rho_r
+    sinpsi = torch.sqrt(c_r * c_r + c_t * c_t + c_p * c_p) * inv_brm
+    return sinpsi, cospsi, bmag
+
+
+def psi_trig_3d(r, theta, phi, rho_r, rho_t, rho_p, env: medium.EnvParams):
+    """(sin psi, cos psi) of the wave normal rho against B, without
+    arccos; psi in [0, pi], so sin psi >= 0."""
+    sinpsi, cospsi, _ = _psi_trig_bmag_3d(
+        r, theta, phi, rho_r, rho_t, rho_p, env
+    )
+    return sinpsi, cospsi
+
+
+def mu_3d(r, theta, phi, rho_r, rho_t, rho_p, f, env: medium.EnvParams,
+          root=1.0):
+    """3D whistler refractive index (RayTrace_3D.jl:93-219) at the state
+    (r, theta, phi, rho) and frequency f."""
+    sinpsi, cospsi, b = _psi_trig_bmag_3d(
+        r, theta, phi, rho_r, rho_t, rho_p, env
+    )
+    ne = medium.ne_total_m3(r, medium.mlat_3d(r, theta, phi, env), env)
+    rr, ll, pp = stix_rlp(ne, b, f)
+    return mu_from_mu2(mu2_signed_trig(rr, ll, pp, sinpsi, cospsi, root))
+
+
+def consistent_rho_3d(r, theta, phi, khat, f, env: medium.EnvParams,
+                      root=1.0):
+    """Refractive-index vector ON the dispersion surface: rho0 =
+    mu(psi(khat)) khat for the wave-normal direction khat (normalized
+    here). The reference launches with rho0 = (1, 1, 0)
+    (RayTrace_3D.jl:390-391), an off-shell state; this is the physical
+    launch."""
+    kr, kt, kp = khat
+    n = torch.sqrt(kr * kr + kt * kt + kp * kp)
+    kr, kt, kp = kr / n, kt / n, kp / n
+    mu = mu_3d(r, theta, phi, kr, kt, kp, f, env, root)
+    return mu * kr, mu * kt, mu * kp

@@ -1,12 +1,16 @@
-"""Hand-fused analytic gradient chain for the 2D latitude-frame dispersion.
+"""Hand-fused analytic gradient chains of the dispersion relation.
 
 Port of raytrace_tpu/ops/fused.py (the axisymmetric CA1992 hard-branch
-path, protons only). mu and its four partials (r, lat, chi == psi, f)
-come from one forward sweep: every derivative is a rational expression in
-quantities the forward pass already computed. The same chain, line for
-line, is inlined in the CUDA step kernel (csrc/step_chunk.cu); this is
-its plain PyTorch form.
+path, protons only): the 2D latitude frame's chain (mu and its four
+partials r, lat, chi == psi, f) and the 3D dipole frame's chain (mu and
+its seven partials r, theta, phi, rho_r, rho_theta, rho_phi, f, in the
+cos(psi) form). Each comes from one forward sweep: every derivative is a
+rational expression in quantities the forward pass already computed. The
+same chains, line for line, are inlined in the CUDA step kernel
+(csrc/step_chunk.cu); these are their plain PyTorch forms.
 """
+
+import math
 
 import torch
 
@@ -76,10 +80,16 @@ def _compose_ne(r, env, ni, ni_r, ne_p, dne_p, L_r, L_lat):
     return ne, ne_r, ne_lat
 
 
-def _stix_quartic_grads(ne, bm, f, sinpsi, cospsi, root):
-    """mu plus d(mu)/d{ne, bm, f, psi} at fixed geometry (protons only).
+def _stix_quartic_grads(ne, bm, f, sinpsi, cospsi, root, wrt_cos=False):
+    """mu plus d(mu)/d{ne, bm, f, geometry} at fixed geometry (protons
+    only). Returns (mu, dmu_dn, dmu_db, dmu_df, dmu_dgeom).
 
-    Returns (mu, dmu_dn, dmu_db, dmu_df, dmu_dpsi)."""
+    wrt_cos selects the geometry variable of dmu_dgeom: False (2D) gives
+    dmu/dpsi, whose every term carries the factor sin(psi) cos(psi); True
+    (3D) gives dmu/dcos(psi), where that factor becomes -cos(psi) and no
+    1/sin(psi) has to be divided back out at field-aligned propagation
+    (the psi form falsely wedge-retired 65% of a 3D fan in float32,
+    benchmarks/perf_r03j.py)."""
     inv_f = 1.0 / f
     ncm = ne * 1.0e-6
     xe = FPE2_E * ncm * inv_f * inv_f
@@ -133,7 +143,7 @@ def _stix_quartic_grads(ne, bm, f, sinpsi, cospsi, root):
     inv_F = 1.0 / F
 
     halfP = 0.5 * Pn
-    geo = sinpsi * cospsi
+    geo = -cospsi if wrt_cos else sinpsi * cospsi
     A_R = 0.5 * sin2
     A_L = 0.5 * sin2
     A_P = cos2
@@ -213,3 +223,63 @@ def mu_and_grads_2d_lat(r, lat, chi, f, env: medium.EnvParams, root=1.0):
     dmudr = dmu_dn * ne_r + dmu_db * bm_r
     dmudlat = dmu_dn * ne_lat + dmu_db * bm_lat + dmu_dpsi * dpsi_dlat
     return mu, dmudr, dmudlat, dmu_dpsi, dmu_df
+
+
+def mu_and_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
+                    env: medium.EnvParams, root=1.0):
+    """mu and its seven partials for the 3D state (centered dipole,
+    axisymmetric medium) -- one fused sweep.
+
+    Returns (mu, (dmu/dr, dmu/dtheta, dmu/dphi, dmu/drho_r, dmu/drho_t,
+    dmu/drho_p, dmu/df)). Geometry: cos psi = Bhat . rhohat; the field
+    direction does not depend on r, so r enters through |B| and ne only;
+    d(cos psi)/d(rho_k) = (Bhat_k - cos psi rhohat_k)/|rho|; the medium
+    is axisymmetric, so dmu/dphi == 0 (the MLT-resolved medium is ROADMAP
+    A8)."""
+    medium.check_env(env)
+    lat = math.pi / 2.0 - theta
+    sl, cl = torch.sin(lat), torch.cos(lat)
+    q2 = 1.0 + 3.0 * sl * sl
+    q = torch.sqrt(q2)
+    inv_r = 1.0 / r
+    inv_r3 = inv_r * inv_r * inv_r
+    inv_q = 1.0 / q
+    inv_q2 = inv_q * inv_q
+    inv_q3 = inv_q2 * inv_q
+
+    bm = env.b0 * q * inv_r3
+    bm_r = -3.0 * bm * inv_r
+    bm_lat = 3.0 * sl * cl * bm * inv_q2
+
+    bhat_r = -2.0 * sl * inv_q         # b_vec_colat components / |B|
+    bhat_t = -cl * inv_q
+    dbhat_r_dlat = -2.0 * cl * inv_q3
+    dbhat_t_dlat = 4.0 * sl * inv_q3
+
+    # 1/|rho| as rsqrt, the JAX package's form; on the card torch.rsqrt
+    # and the kernel call the same CUDA rsqrt (see csrc/step_chunk.cu)
+    inv_rmag = torch.rsqrt(rho_r * rho_r + rho_t * rho_t + rho_p * rho_p)
+    rhat_r = rho_r * inv_rmag
+    rhat_t = rho_t * inv_rmag
+    rhat_p = rho_p * inv_rmag
+    cospsi = torch.clamp(bhat_r * rhat_r + bhat_t * rhat_t, -1.0, 1.0)
+    # sin psi from the cross product |Bhat x rhohat| (Bhat_phi = 0)
+    cr_m = bhat_r * rhat_t - bhat_t * rhat_r
+    sinpsi = torch.sqrt(rhat_p * rhat_p + cr_m * cr_m)
+    dcos_dlat = rhat_r * dbhat_r_dlat + rhat_t * dbhat_t_dlat
+    dcos_dtheta = -dcos_dlat                   # dlat/dtheta = -1
+    dcos_drho_r = (bhat_r - cospsi * rhat_r) * inv_rmag
+    dcos_drho_t = (bhat_t - cospsi * rhat_t) * inv_rmag
+    dcos_drho_p = (0.0 - cospsi * rhat_p) * inv_rmag
+
+    ne, ne_r, ne_lat = _ne_and_grads(r, lat, env)
+    mu, dmu_dn, dmu_db, dmu_df, dmu_dc = _stix_quartic_grads(
+        ne, bm, f, sinpsi, cospsi, root, wrt_cos=True
+    )
+    dmudr = dmu_dn * ne_r + dmu_db * bm_r
+    dmudtheta = -(dmu_dn * ne_lat + dmu_db * bm_lat) + dmu_dc * dcos_dtheta
+    return mu, (
+        dmudr, dmudtheta, torch.zeros_like(dmudr),
+        dmu_dc * dcos_drho_r, dmu_dc * dcos_drho_t,
+        dmu_dc * dcos_drho_p, dmu_df,
+    )

@@ -1,11 +1,11 @@
-"""Gradient layer: mu and its four partials in the 2D latitude frame.
+"""Gradient layer: mu and its partials in the 2D latitude and 3D frames.
 
 Port of raytrace_tpu/ops/gradients.py (fused and autodiff modes).
-  "fused"    -- the hand-derived chain of ops/fused.py (the default, and
-                the chain the CUDA step kernel inlines);
-  "autodiff" -- torch.func.grad of dispersion.mu_2d_lat: the cross-check
-                that the fused chain is the exact derivative of the traced
-                mu = sqrt(|mu^2|).
+  "fused"    -- the hand-derived chains of ops/fused.py (the default, and
+                the chains the CUDA step kernel inlines);
+  "autodiff" -- torch.func.grad of dispersion.mu_2d_lat / mu_3d: the
+                cross-check that the fused chains are the exact
+                derivatives of the traced mu = sqrt(|mu^2|).
 The reference's mixed gradient set (grad_mode="reference") is ROADMAP A10.
 """
 
@@ -25,6 +25,13 @@ def _mu_sum(r, lat, chi, f, env, root):
     return mu.sum(), mu
 
 
+def _unported_mode(grad_mode):
+    return NotImplementedError(
+        f"grad_mode={grad_mode!r} is not ported yet (ROADMAP A10); "
+        "the port has 'fused' and 'autodiff'"
+    )
+
+
 def mu_grads_2d_lat(r, lat, chi, f, env: medium.EnvParams, grad_mode=FUSED,
                     root=1.0):
     """(mu, dmu/dr, dmu/dlat, dmu/dpsi, dmu/df) at a latitude-frame state."""
@@ -34,11 +41,31 @@ def mu_grads_2d_lat(r, lat, chi, f, env: medium.EnvParams, grad_mode=FUSED,
 
         return fused.mu_and_grads_2d_lat(r, lat, chi, f, env, root)
     if grad_mode != AUTODIFF:
-        raise NotImplementedError(
-            f"grad_mode={grad_mode!r} is not ported yet (ROADMAP A10); "
-            "the port has 'fused' and 'autodiff'"
-        )
+        raise _unported_mode(grad_mode)
     (dmudr, dmudlat, dmudchi, dmudf), mu = torch.func.grad(
         _mu_sum, argnums=(0, 1, 2, 3), has_aux=True
     )(r, lat, chi, f, env, root)
     return mu, dmudr, dmudlat, dmudchi, dmudf
+
+
+def _mu3_sum(r, theta, phi, rho_r, rho_t, rho_p, f, env, root):
+    mu = dispersion.mu_3d(r, theta, phi, rho_r, rho_t, rho_p, f, env, root)
+    return mu.sum(), mu
+
+
+def mu_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
+                env: medium.EnvParams, grad_mode=FUSED, root=1.0):
+    """mu and its seven partials (r, theta, phi, rho_r, rho_t, rho_p, f)
+    at a 3D state, as (mu, (partials...))."""
+    medium.check_env(env)
+    if grad_mode == FUSED:
+        from . import fused
+
+        return fused.mu_and_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
+                                     env, root)
+    if grad_mode != AUTODIFF:
+        raise _unported_mode(grad_mode)
+    grads, mu = torch.func.grad(
+        _mu3_sum, argnums=(0, 1, 2, 3, 4, 5, 6), has_aux=True
+    )(r, theta, phi, rho_r, rho_t, rho_p, f, env, root)
+    return mu, grads

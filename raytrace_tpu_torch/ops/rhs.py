@@ -1,9 +1,11 @@
-"""Haselgrove ray equations, 2D latitude frame (port of raytrace_tpu/ops/rhs.py).
+"""Haselgrove ray equations (port of raytrace_tpu/ops/rhs.py).
 
-State u = (r, lat, chi, T) in the last dimension: r in RE, the
-independent variable t is phase path in RE, T is group delay in seconds,
-f is a parameter (Hz). u is (..., 4) and f is (...,), so the function
-serves a (B, 4) batch and, under torch.func.vmap, a single (4,) ray.
+Two frames, the state in the last dimension: the 2D latitude frame
+u = (r, lat, chi, T) and the 3D Kimura frame u = (r, theta, phi, rho_r,
+rho_theta, rho_phi, T). r is in RE, the independent variable t is phase
+path in RE, T is group delay in seconds, f is a parameter (Hz). u is
+(..., n) and f is (...,), so a function serves a (B, n) batch and, under
+torch.func.vmap, a single (n,) ray.
 """
 
 import torch
@@ -28,3 +30,49 @@ def rhs_2d_lat(u, f, env: medium.EnvParams, grad_mode=gradients.FUSED,
     dchi = inv_mu2_r * (dmudlat * coschi - (r * dmudr + mu) * sinchi)
     dT = RE_OVER_C * (1.0 + (f * mu * inv_mu2) * dmudf)
     return torch.stack([dr, dlat, dchi, dT], dim=-1)
+
+
+def rhs_3d(u, f, env: medium.EnvParams, grad_mode=gradients.FUSED,
+           root=1.0):
+    """du/dt for the 3D ray (RayTrace_3D.jl:350-356), f a true parameter."""
+    r, theta = u[..., 0], u[..., 1]
+    rho_r, rho_t, rho_p = u[..., 3], u[..., 4], u[..., 5]
+    mu, (dmudr, dmudtheta, dmudphi, dmudrr, dmudrt, dmudrp, dmudf) = (
+        gradients.mu_grads_3d(r, theta, u[..., 2], rho_r, rho_t, rho_p, f,
+                              env, grad_mode, root)
+    )
+    sintheta, costheta = torch.sin(theta), torch.cos(theta)
+    inv_mu2 = 1.0 / (mu * mu)
+    inv_mu = mu * inv_mu2
+    inv_r = 1.0 / r
+    inv_st = 1.0 / sintheta
+    inv_mu2_r = inv_mu2 * inv_r
+    dr = inv_mu2 * (rho_r - mu * dmudrr)
+    dtheta = inv_mu2_r * (rho_t - mu * dmudrt)
+    dphi = inv_mu2_r * inv_st * (rho_p - mu * dmudrp)
+    drho_r = dmudr * inv_mu + rho_t * dtheta + rho_p * dphi * sintheta
+    drho_t = (
+        dmudtheta * inv_mu - rho_t * dr + r * rho_p * dphi * costheta
+    ) * inv_r
+    drho_p = (
+        dmudphi * inv_mu - rho_p * dr * sintheta - r * rho_p * dtheta * costheta
+    ) * (inv_r * inv_st)
+    dT = RE_OVER_C * (1.0 + (f * inv_mu) * dmudf)
+    return torch.stack([dr, dtheta, dphi, drho_r, drho_t, drho_p, dT], dim=-1)
+
+
+# frame name -> (right-hand side, index of the group delay in the state)
+FRAMES = {"2d_lat": (rhs_2d_lat, 3), "3d": (rhs_3d, 6)}
+
+
+def frame_rhs(frame, env: medium.EnvParams, root=1.0):
+    """(rhs_fn(u, f), group_idx) of a frame: the one dispatch the tracer
+    and the step kernel's plain version share (the JAX package's
+    parallel/ensemble.py::_frame_rhs)."""
+    if frame not in FRAMES:
+        raise NotImplementedError(
+            f"frame={frame!r} is not ported yet (ROADMAP A10); the port has "
+            f"{sorted(FRAMES)}"
+        )
+    fn, group_idx = FRAMES[frame]
+    return (lambda u, f: fn(u, f, env, root=root)), group_idx

@@ -1,9 +1,11 @@
 """Multi-step integration chunk: the port of ops/pallas_stepper.py.
 
-`step_chunk(carry, f, env, cfg, spec, stepper=..., n_steps=...)` advances
-every ray by exactly `n_steps` attempted `_step_one` steps (a ray that
-stops earlier stays as it stopped, as in the JAX package) over the 2D
-latitude frame's `rhs_2d_lat` and returns the new RayCarry.
+`step_chunk(carry, f, env, cfg, spec, stepper=..., n_steps=..., frame=...)`
+advances every ray by exactly `n_steps` attempted `_step_one` steps (a
+ray that stops earlier stays as it stopped, as in the JAX package) over
+the frame's right-hand side -- `rhs_2d_lat` (frame "2d_lat", 4-state
+carry) or `rhs_3d` (frame "3d", 7-state carry) -- with the ds_max arc
+ceiling when cfg.ds_max > 0, and returns the new RayCarry.
 
 - On CUDA tensors it launches the hand-written kernel of
   csrc/step_chunk.cu: one thread per ray, the whole carry in registers for
@@ -35,6 +37,8 @@ from ..integrate.solve import (
 from ..models import medium
 from . import rhs as rhs_mod
 
+# frame name -> (kernel frame code, state dimension)
+_FRAME_CODE = {"2d_lat": (0, 4), "3d": (1, 7)}
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "step_chunk.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -63,7 +67,7 @@ class StepParams(ctypes.Structure):
         # SolverConfig
         "rtol", "atol", "dt_min", "dt_max", "safety", "pi_alpha",
         "pi_beta", "fac_min", "fac_max", "accept_tol", "stall_dt_factor",
-        "stall_count",
+        "stall_count", "ds_max",
         # StopSpec
         "r_floor", "r_ceil", "t_max", "group_time_max", "stop_at_equator",
         "lat_sign", "lat_offset", "stop_retrograde",
@@ -117,7 +121,8 @@ def build():
         os.replace(tmp, path)
     lib = ctypes.CDLL(path)
     lib.step_chunk_launch.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_void_p),
         ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(StepParams),
         ctypes.c_void_p,
     ]
@@ -136,18 +141,25 @@ def _params(env, cfg: SolverConfig, spec: events.StopSpec, root):
         **{k: getattr(cfg, k) for k in (
             "rtol", "atol", "dt_min", "dt_max", "safety", "pi_alpha",
             "pi_beta", "fac_min", "fac_max", "accept_tol",
-            "stall_dt_factor", "stall_count")},
+            "stall_dt_factor", "stall_count", "ds_max")},
         **spec._asdict(),
     )
     return StepParams(**{k: float(v) for k, v in vals.items()})
 
 
-def _check(carry: RayCarry, f, env, cfg, spec, stepper, n_steps, adaptive):
+def _check(carry: RayCarry, f, env, cfg, spec, stepper, n_steps, adaptive,
+           frame):
     if stepper not in KERNEL_STEPPERS:
         raise ValueError(
             f"step_chunk runs {KERNEL_STEPPERS}; got stepper={stepper!r}"
         )
-    check_supported(cfg, 3, adaptive, stepper)
+    if frame not in _FRAME_CODE:
+        raise NotImplementedError(
+            f"frame={frame!r} is not ported to the step kernel yet (ROADMAP "
+            f"A10 and B1 variants); it has {sorted(_FRAME_CODE)}"
+        )
+    n = _FRAME_CODE[frame][1]
+    check_supported(cfg, n - 1, adaptive, stepper)
     medium.check_env(env)
     if int(n_steps) < 0 or int(n_steps) >= 2 ** 31:
         raise ValueError(f"n_steps={n_steps} out of range")
@@ -158,9 +170,10 @@ def _check(carry: RayCarry, f, env, cfg, spec, stepper, n_steps, adaptive):
         if x.device != f.device:
             raise ValueError(f"carry.{name} is on {x.device}, f on {f.device}")
         if name in _VEC:
-            if tuple(x.shape) != (b, 4) or x.dtype != f.dtype:
+            if tuple(x.shape) != (b, n) or x.dtype != f.dtype:
                 raise ValueError(
-                    f"carry.{name} must be ({b}, 4) {f.dtype}; got "
+                    f"carry.{name} must be ({b}, {n}) {f.dtype} in frame "
+                    f"{frame!r}; got "
                     f"{tuple(x.shape)} {x.dtype}"
                 )
         elif name in _INT:
@@ -172,14 +185,15 @@ def _check(carry: RayCarry, f, env, cfg, spec, stepper, n_steps, adaptive):
 
 def step_chunk_reference(carry: RayCarry, f, env, cfg: SolverConfig,
                          spec: events.StopSpec, *, stepper: str,
-                         n_steps: int, root: float = 1.0):
-    """The plain PyTorch version: n_steps attempts of `_step_one` as torch
-    ops on the tensors' device (leaving early once no ray is ACTIVE, which
-    is exact)."""
+                         n_steps: int, root: float = 1.0,
+                         frame: str = "2d_lat"):
+    """The plain PyTorch version: n_steps attempts of `_step_one` over the
+    frame's right-hand side as torch ops on the tensors' device (leaving
+    early once no ray is ACTIVE, which is exact)."""
     step_chunk_reference.calls += 1
-    rhs_fn = lambda u, ff: rhs_mod.rhs_2d_lat(u, ff, env, root=root)  # noqa: E731
-    return step_loop(rhs_fn, carry, f, cfg, spec, stepper=stepper,
-                     n_steps=int(n_steps), check_every=16)
+    rhs_fn, group_idx = rhs_mod.frame_rhs(frame, env, root)
+    return step_loop(rhs_fn, carry, f, cfg, spec, group_idx=group_idx,
+                     stepper=stepper, n_steps=int(n_steps), check_every=16)
 
 
 step_chunk_reference.calls = 0
@@ -187,18 +201,20 @@ step_chunk_reference.calls = 0
 
 def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
                spec: events.StopSpec, *, stepper: str, n_steps: int,
-               root: float = 1.0, adaptive: bool = True):
+               root: float = 1.0, adaptive: bool = True,
+               frame: str = "2d_lat"):
     """Advance every ray by n_steps attempted steps; returns a new carry.
 
-    carry fields are (B, 4) / (B,) tensors of f's dtype (int32 for the
-    counters), all on f's device. On CUDA the kernel works on field-major
-    (4, B) copies of the vectors, updating them in place, and the result's
-    vector fields are (B, 4) views of those copies."""
-    _check(carry, f, env, cfg, spec, stepper, n_steps, adaptive)
+    carry fields are (B, n) / (B,) tensors of f's dtype (int32 for the
+    counters), all on f's device, with n = 4 in the "2d_lat" frame and 7
+    in the "3d" frame. On CUDA the kernel works on field-major (n, B)
+    copies of the vectors, updating them in place, and the result's
+    vector fields are (B, n) views of those copies."""
+    _check(carry, f, env, cfg, spec, stepper, n_steps, adaptive, frame)
     if f.device.type == "cpu":
         return step_chunk_reference(carry, f, env, cfg, spec,
                                     stepper=stepper, n_steps=n_steps,
-                                    root=root)
+                                    root=root, frame=frame)
     if f.device.type != "cuda":
         raise ValueError(f"step_chunk runs on cuda or cpu, not {f.device}")
     lib = build()
@@ -220,8 +236,8 @@ def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
         stream = torch.cuda.current_stream(f.device).cuda_stream
         rc = lib.step_chunk_launch(
             0 if f.dtype == torch.float32 else 1, _STEPPER_CODE[stepper],
-            ptrs, f.shape[0], int(n_steps), ctypes.byref(params),
-            ctypes.c_void_p(stream),
+            _FRAME_CODE[frame][0], ptrs, f.shape[0], int(n_steps),
+            ctypes.byref(params), ctypes.c_void_p(stream),
         )
     if rc != 0:
         raise RuntimeError(f"step_chunk kernel launch failed: CUDA error {rc}")

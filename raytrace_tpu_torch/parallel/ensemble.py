@@ -1,8 +1,10 @@
 """Launch grids and the bucketed rounds tracer (port of
 raytrace_tpu/parallel/ensemble.py, single device).
 
-A LaunchSpec builds the (latitude x wave-normal angle x frequency) grid,
-the batch is padded to a multiple of 8, and `make_rounds_tracer` integrates
+A LaunchSpec builds the 2D (latitude x wave-normal angle x frequency)
+grid, `build_launch_3d` the 3D (latitude x longitude x wave-normal angle x
+frequency) grid, the batch is padded to a multiple of 8, and
+`make_rounds_tracer` integrates
 it in rounds: after each round the still-active rays are gathered into the
 next power-of-two bucket ON THE DEVICE and continue from their exact
 RayCarry. The whole carry rides one packed float tensor that stays on the
@@ -48,6 +50,32 @@ def build_launch(spec: LaunchSpec, dtype=np.float32):
     u0[:, 0] = spec.r0
     u0[:, 1] = lat.ravel()
     u0[:, 2] = chi.ravel()
+    return u0, fr.ravel().astype(dtype)
+
+
+def build_launch_3d(r0, lats, phis, chis, freqs, rho0, dtype=np.float32):
+    """(u0 (N,7), f (N,)) numpy arrays for the 3D frame, rays in the order
+    of itertools.product(lats, phis, chis, freqs) (the JAX package's
+    run._build_u0). Each chi rotates the rho0 direction within the launch
+    meridional plane (positive chi tilts r-hat toward theta-hat); chi = 0
+    keeps rho0 exactly. rho0 is a direction here: run.py puts it on the
+    dispersion surface when asked to."""
+    pr, pt, pp = (float(x) for x in rho0)
+    # cos/sin per chi as numpy scalar calls, the JAX package's values
+    c = np.array([np.cos(chi) for chi in chis], np.float64)
+    s = np.array([np.sin(chi) for chi in chis], np.float64)
+    lat, phi, ci, fr = np.meshgrid(
+        np.asarray(lats, np.float64), np.asarray(phis, np.float64),
+        np.arange(len(chis)), np.asarray(freqs, np.float64), indexing="ij",
+    )
+    ci = ci.ravel()
+    u0 = np.zeros((ci.size, 7), dtype)
+    u0[:, 0] = r0
+    u0[:, 1] = np.pi / 2 - lat.ravel()
+    u0[:, 2] = phi.ravel()
+    u0[:, 3] = c[ci] * pr - s[ci] * pt
+    u0[:, 4] = s[ci] * pr + c[ci] * pt
+    u0[:, 5] = pp
     return u0, fr.ravel().astype(dtype)
 
 
@@ -123,7 +151,7 @@ def packed_state_dim(fl):
 def make_rounds_tracer(
     env,
     *,
-    device,
+    device="cuda",
     dtype,
     frame="2d_lat",
     cfg: SolverConfig = SolverConfig(),
@@ -159,8 +187,9 @@ def make_rounds_tracer(
     floor) the rest of the budget runs as one merged-tail round. Each
     round is one `trace` call, i.e. one step-kernel launch per pool.
 
-    device/dtype: where and in what precision the carry lives. u0 and f
-    are cast to them. The returned TraceResult holds numpy arrays (the
+    frame: "2d_lat" (4-state) or "3d" (7-state). device/dtype: where and
+    in what precision the carry lives (the card unless the caller asks for
+    the CPU); u0 and f are cast to them. The returned TraceResult holds numpy arrays (the
     final fetch); `run.last_rounds` and `run.last_stiff` record per-round
     diagnostics and which rays ended on the stiff pool.
 
@@ -172,7 +201,7 @@ def make_rounds_tracer(
         "tail_stepper": bool(tail_stepper),
         "save_every > 0 (trajectory channel, ROADMAP A11)": save_every > 0,
         "legacy_freq_state (ROADMAP A10)": legacy_freq_state,
-        f"frame={frame!r} (ROADMAP A7/A10)": frame != "2d_lat",
+        f"frame={frame!r} (ROADMAP A10)": frame not in ("2d_lat", "3d"),
         f"grad_mode={grad_mode!r}": grad_mode != "fused",
     }
     bad = [k for k, v in unported.items() if v]
@@ -199,8 +228,8 @@ def make_rounds_tracer(
     T_, ST_, ACC_, REJ_ = 0, 1, 2, 3  # columns of the host stats mirror
 
     def make_kw(n, st):
-        return dict(cfg=cfg, spec=spec, adaptive=adaptive, stepper=st,
-                    max_steps=n, chunk=min(chunk, n), root=root)
+        return dict(frame=frame, cfg=cfg, spec=spec, adaptive=adaptive,
+                    stepper=st, max_steps=n, chunk=min(chunk, n), root=root)
 
     def stat_cols(sd):
         base = 4 * sd
@@ -341,7 +370,10 @@ def ensemble_stats(result, valid, lat_sign=1.0, lat_offset=0.0):
 
     Per-status counts, mean/median group delay and landing L-shell among
     surface hits, total accepted/rejected steps and the count of rays whose
-    final group delay is negative (the abs(mu^2) regime)."""
+    final group delay is negative (the abs(mu^2) regime). lat_sign and
+    lat_offset map state[1] to magnetic latitude: (1, 0) in the latitude
+    frame, (-1, pi/2) in the 3D frame, where state[1] is the colatitude
+    and the landing L = r / sin^2(theta)."""
     valid = np.asarray(valid)
     status = np.where(valid, result.status, PAD_STATUS)
     out = {

@@ -1,9 +1,10 @@
 """High-level runner: RunConfig in, traced ensemble out (port of
 raytrace_tpu/run.py, the rounds path).
 
-Builds the medium and the launch grid, traces the batch on one device
-with the bucketed rounds tracer (each round one step-kernel launch per
-pool), and reduces the ensemble statistics on the host.
+Builds the medium and the launch grid (in the 3D frame optionally put on
+the dispersion surface), traces the batch on one device with the bucketed
+rounds tracer (each round one step-kernel launch per pool), and reduces
+the ensemble statistics on the host.
 """
 
 import json
@@ -14,37 +15,65 @@ import torch
 
 from .config import RunConfig
 from .integrate import events
+from .ops.dispersion import consistent_rho_3d
 from .parallel.ensemble import (
-    build_launch, ensemble_stats, make_rounds_tracer, pad_batch,
+    build_launch, build_launch_3d, ensemble_stats, make_rounds_tracer,
+    pad_batch,
 )
 
 
 def _check_supported(config: RunConfig):
     unported = {
-        f"frame={config.frame!r} (ROADMAP A7/A10)": config.frame != "2d_lat",
+        f"frame={config.frame!r} (ROADMAP A10)":
+            config.frame not in ("2d_lat", "3d"),
         "use_rounds=False (the single-program tracer)": not config.use_rounds,
         "save_every > 0 (ROADMAP A11)": config.save_every > 0,
         "continue_until_done (ROADMAP A10)": config.continue_until_done,
         "sensitivity_rays > 0 (ROADMAP A13)": config.sensitivity_rays > 0,
         "explicit ray lists (ROADMAP A11)": bool(config.rays),
-        "a phis fan (3D only)": tuple(config.phis) != (0.0,),
+        "a phis fan (the MLT-resolved 3D medium, ROADMAP A8)":
+            tuple(config.phis) != (0.0,),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
 
 
-def run(config: RunConfig, *, device, out_dir=None):
-    """Execute a RunConfig on `device` ("cuda", "cpu", ...) in
-    config.dtype. Returns dict(result, stats, valid, paths, rounds,
-    stiff): the TraceResult (host numpy arrays), the ensemble statistics,
-    the valid-ray mask, written file paths, the per-round diagnostics and
-    the per-ray stiff-pool flags."""
+def _build_u0(config: RunConfig, env, np_dtype, device):
+    """Launch states (u0, f) of the configured frame, numpy in np_dtype.
+
+    In the 3D frame with rho_on_shell, rho0 is a direction and |rho| is
+    solved as mu(psi) for every ray in one batched float64 call on
+    `device`, from theta and f already rounded to the run dtype, then cast
+    to it (what the JAX package computes)."""
+    if config.frame == "2d_lat":
+        return build_launch(config.launch(), np_dtype)
+    u0, f = build_launch_3d(config.r0, config.lats, config.phis,
+                            config.chis, config.freqs, config.rho0, np_dtype)
+    if config.rho_on_shell:
+        as64 = lambda a: torch.as_tensor(  # noqa: E731
+            np.asarray(a, np.float64), device=device)
+        theta = as64(u0[:, 1])
+        rho = consistent_rho_3d(
+            torch.full_like(theta, config.r0), theta, as64(u0[:, 2]),
+            tuple(as64(u0[:, k]) for k in (3, 4, 5)), as64(f), env,
+            config.root,
+        )
+        u0[:, 3:6] = torch.stack(rho, dim=1).cpu().numpy().astype(np_dtype)
+    return u0, f
+
+
+def run(config: RunConfig, *, device="cuda", out_dir=None):
+    """Execute a RunConfig on `device` (the card unless the caller asks
+    for "cpu") in config.dtype. Returns dict(result, stats, valid, paths,
+    rounds, stiff): the TraceResult (host numpy arrays), the ensemble
+    statistics, the valid-ray mask, written file paths, the per-round
+    diagnostics and the per-ray stiff-pool flags."""
     _check_supported(config)
     env = config.medium.build()
     np_dtype = np.float32 if config.dtype == "float32" else np.float64
     dtype = torch.float32 if config.dtype == "float32" else torch.float64
-    u0, f = build_launch(config.launch(), np_dtype)
+    u0, f = _build_u0(config, env, np_dtype, torch.device(device))
     u0, f, valid = pad_batch(u0, f)
 
     cfg = config.solver()

@@ -19,6 +19,7 @@ from raytrace_tpu_torch.integrate.solve import (
 from raytrace_tpu_torch.models.medium import make_env_lat
 from raytrace_tpu_torch.ops import rhs
 from raytrace_tpu_torch.ops import step_chunk as sc
+from raytrace_tpu_torch.run import _build_u0
 
 pytestmark = pytest.mark.gpu
 
@@ -49,6 +50,10 @@ def test_kernel_matches_plain_version_float64(cuda, stepper):
     ref = sc.step_chunk_reference(carry, f, env, cfg, spec, stepper=stepper,
                                   n_steps=1)
     torch.cuda.synchronize()
+    _assert_same(got, ref)
+
+
+def _assert_same(got, ref):
     for name in RayCarry._fields:
         a, b = getattr(got, name).cpu(), getattr(ref, name).cpu()
         if a.dtype == torch.int32:
@@ -61,6 +66,33 @@ def test_kernel_matches_plain_version_float64(cuda, stepper):
             scale = b.abs().amax(dim=0) if b.dim() == 2 else b.abs()
             scale = scale.clamp_min(torch.finfo(b.dtype).tiny)
             assert float(((a - b).abs() / scale).max()) <= 1e-12, name
+
+
+@pytest.mark.parametrize("name", ["ensemble10k_3d", "ensemble10k_production"])
+@pytest.mark.parametrize("stepper", ["bs3", "dopri5"])
+def test_kernel_with_arc_ceiling_matches_plain_version(cuda, name, stepper):
+    """256 rays of the 3D launch (7-state frame, rhs_3d) and of the 2D
+    production launch, one step from dt = dt_max with the arc ceiling at
+    1e-4 RE, so that it sets every ray's step (the launch's arc rates are
+    1/mu-small: at the presets' 2e6 m it binds only where mu < ~4)."""
+    conf = preset(name, dtype="float64")
+    env = conf.medium.build()
+    cfg, spec = conf.solver()._replace(ds_max=1e-4), conf.stop()
+    u0, f = _build_u0(conf, env, np.float64, cuda)
+    u0 = torch.as_tensor(u0[::40], device=cuda)
+    f = torch.as_tensor(f[::40], device=cuda)
+    rhs_fn, _ = rhs.frame_rhs(conf.frame, env)
+    carry = init_carry(rhs_fn, u0, f, cfg)
+    carry = carry._replace(dt=torch.full_like(carry.dt, cfg.dt_max))
+    launches = sc.step_chunk.launches
+    got = sc.step_chunk(carry, f, env, cfg, spec, stepper=stepper, n_steps=1,
+                        frame=conf.frame)
+    assert sc.step_chunk.launches == launches + 1
+    ref = sc.step_chunk_reference(carry, f, env, cfg, spec, stepper=stepper,
+                                  n_steps=1, frame=conf.frame)
+    torch.cuda.synchronize()
+    assert bool((ref.dt < cfg.dt_max).all())   # the ceiling bound
+    _assert_same(got, ref)
 
 
 def test_canonical_ray_through_the_kernel(cuda):

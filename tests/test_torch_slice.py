@@ -108,8 +108,9 @@ def test_config_json_round_trips_across_packages():
             j_config.preset(name).to_json())
 
 
-@pytest.mark.parametrize("name", ["raymain", "3d", "ensemble10k_3d",
-                                  "ensemble10k_production", "emic_heband"])
+@pytest.mark.parametrize("name", ["raymain", "ensemble10k_local",
+                                  "ensemble10k_plume", "ensemble10k_tilted",
+                                  "emic_heband"])
 def test_unported_presets_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_config.preset(name)
@@ -117,7 +118,7 @@ def test_unported_presets_raise(name):
 
 @pytest.mark.parametrize("kw", [
     dict(frame="2d_colat"), dict(use_rounds=False), dict(save_every=8),
-    dict(continue_until_done=True), dict(ds_max=0.1),
+    dict(continue_until_done=True), dict(ds_local=True),
 ])
 def test_run_refuses_unported_features(kw):
     cfg = t_config.preset("ensemble10k", lats=(0.8,), chis=(0.3,),
@@ -133,11 +134,14 @@ def _python(*args, cwd=REPO):
 
 
 def test_port_never_imports_jax():
+    # every module of the package (the 3D slice's included) and the smoke
     proc = _python("-c", (
-        "import sys\n"
-        "import raytrace_tpu_torch, raytrace_tpu_torch.run, "
-        "raytrace_tpu_torch.__main__, raytrace_tpu_torch.interop, "
-        "raytrace_tpu_torch.ops.step_chunk\n"
+        "import importlib, pkgutil, sys\n"
+        "import raytrace_tpu_torch, raytrace_tpu_torch.__main__, chip_smoke\n"
+        "for m in pkgutil.walk_packages(raytrace_tpu_torch.__path__, "
+        "'raytrace_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert 'raytrace_tpu_torch.ops.fused' in sys.modules\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'raytrace_tpu' or m.startswith('raytrace_tpu.')]\n"
         "print(bad)\n"

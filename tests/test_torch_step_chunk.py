@@ -127,7 +127,7 @@ def _small_carry(n=8, dtype=torch.float64):
 
 @pytest.mark.parametrize("case,exc", [
     ("stepper", ValueError),
-    ("ds_max", NotImplementedError),
+    ("frame", NotImplementedError),
     ("ds_local", NotImplementedError),
     ("rk4", NotImplementedError),
     ("medium", NotImplementedError),
@@ -141,8 +141,8 @@ def test_step_chunk_refuses_what_the_kernel_does_not_take(case, exc):
     kw = dict(stepper="bs3", n_steps=4)
     if case == "stepper":
         kw["stepper"] = "ros3pr"
-    elif case == "ds_max":
-        cfg = cfg._replace(ds_max=0.1)
+    elif case == "frame":
+        kw["frame"] = "2d_colat"
     elif case == "ds_local":
         cfg = cfg._replace(ds_local_knee=4.0)
     elif case == "rk4":
