@@ -7,8 +7,9 @@ other; a field that selects a feature the port has not ported yet raises
 NotImplementedError when the run is built (models/medium.py, run.py).
 `preset()` serves the configs whose features are all ported: the 2D
 latitude-frame CA1992 configs ensemble10k, ensemble10k_production,
-lat_fan, knee and mr_fan, and the 3D dipole-frame configs 3d, knee_3d,
-ensemble3d and ensemble10k_3d.
+lat_fan, knee and mr_fan, the 3D dipole-frame configs 3d, knee_3d,
+ensemble3d and ensemble10k_3d, and the 3D configs over the MLT-resolved
+medium, ensemble10k_plume and mr_fan_3d.
 """
 
 import dataclasses
@@ -56,18 +57,20 @@ class MediumConfig:
 
     def build(self):
         fit = TRACED_FIT if self.iono_fit == "traced" else IRI_DAYSIDE_FIT
-        # the GCPM, tilt and MLT-shape knobs act only with their features,
-        # which make_env refuses, so they are not passed on
         return make_env(
             b0=self.b0, iono_fit=fit, plasmasphere_on=self.plasmasphere,
             kp_max=self.kp_max, day=self.day, rbar=self.rbar, mlt=self.mlt,
             de_correction=self.de_correction, ps_smooth=self.ps_smooth,
             iono_mlt=self.iono_mlt, ps_model=self.ps_model,
-            b_model=self.b_model, duct_amp=self.duct_amp,
+            gcpm_bpow=self.gcpm_bpow, gcpm_knee=self.gcpm_knee,
+            b_model=self.b_model, b_tilt=self.b_tilt,
+            b_tilt_phi=self.b_tilt_phi, duct_amp=self.duct_amp,
             duct_l0=self.duct_l0, duct_w=self.duct_w,
             eta_he=self.eta_he, eta_o=self.eta_o,
             ps_refill=self.ps_refill, ps_refill_q=self.ps_refill_q,
-            ps_refill_lref=self.ps_refill_lref, ps_mlt=self.ps_mlt,
+            ps_refill_lref=self.ps_refill_lref,
+            ps_mlt=self.ps_mlt, ps_mlt_harmonics=self.ps_mlt_harmonics,
+            ps_mlt_tamp=self.ps_mlt_tamp,
         )
 
 
@@ -257,6 +260,22 @@ _PRESETS = {
         ds_max=2.0e6 / RE, dt_max=8.0e6 / RE,
         round_steps=(512, 1024, 2048),
     ),
+    # the 3D headline through the MLT-resolved plasmasphere: 10 lat x 8
+    # phi x 8 chi x 16 f = 10,240 seven-state rays spread over all local
+    # times, so they sample the dusk plume; solver settings of
+    # ensemble10k_3d
+    "ensemble10k_plume": lambda: dict(
+        name="ensemble10k_plume", frame="3d",
+        medium=MediumConfig(b0=B0_3D, ps_mlt=True),
+        lats=tuple(np.linspace(0.45, 1.1, 10)),
+        phis=tuple(np.linspace(-np.pi, np.pi, 8, endpoint=False)),
+        chis=tuple(np.linspace(-0.5, 0.5, 8)),
+        freqs=tuple(np.geomspace(500.0, 8000.0, 16)),
+        rho0=(1.0, 1.0, 0.0), rho_on_shell=True,
+        rtol=1.0e-5, atol=1.0e-8, base_stepper="bs3",
+        ds_max=2.0e6 / RE, dt_max=8.0e6 / RE,
+        round_steps=(512, 1024, 2048),
+    ),
     # magnetospherically reflecting 2D fan: long multi-bounce rays
     "mr_fan": lambda: dict(
         name="mr_fan", frame="2d_lat",
@@ -268,16 +287,30 @@ _PRESETS = {
         group_time_max=10.0, t_max=6.0e10 / RE, max_steps=40960,
         ds_max=2.0e6 / RE, dt_max=8.0e6 / RE, base_stepper="bs3",
     ),
+    # magnetospheric reflection in the 3D frame over the MLT-resolved
+    # medium: 8 lat x 8 phi x 4 chi x 8 f = 2,048 low-altitude rays that
+    # mirror at the f = f_LHR surface, drift in longitude through the dusk
+    # plume and live for many bounces (the extreme-straggler workload)
+    "mr_fan_3d": lambda: dict(
+        name="mr_fan_3d", frame="3d",
+        medium=MediumConfig(b0=B0_3D, ps_mlt=True),
+        lats=tuple(np.linspace(0.95, 1.2, 8)),
+        phis=tuple(np.linspace(-np.pi, np.pi, 8, endpoint=False)),
+        chis=tuple(np.linspace(-0.3, 0.1, 4)),
+        freqs=tuple(np.geomspace(700.0, 1600.0, 8)),
+        rho0=(1.0, 0.0, 0.0), rho_on_shell=True,
+        rtol=1.0e-6, atol=1.0e-10, base_stepper="bs3",
+        dt_max=1.0e6 / RE,
+        group_time_max=10.0, t_max=6.0e10 / RE, max_steps=40960,
+    ),
 }
 
 # presets of the JAX package that need features the port has not yet
 _LATER = {
     "raymain": "A10 (2d_colat frame)",
     "ensemble10k_local": "A6/B1 (local arc ceiling)",
-    "ensemble10k_plume": "A8 (MLT-resolved medium)",
     "ensemble10k_tilted": "A9 (tilted field)",
     "ensemble10k_igrf": "A9 (IGRF field)",
-    "mr_fan_3d": "A8 (MLT-resolved 3D medium)",
     "emic_heband": "A10 (multi-ion EMIC)",
 }
 

@@ -14,10 +14,24 @@
 //     over ops/fused.py::mu_and_grads_3d in the cos(psi) form (the psi
 //     form divides a 0/0 back out at field-aligned propagation, which
 //     float32 cannot resolve);
-// both over the axisymmetric medium (centered dipole, one ionosphere fit,
-// CA1992 with hard branches, optional diffusive-equilibrium factor),
-// protons only. Template instances: float and double x bs3 and dopri5 x
-// the two frames.
+// both over the centered dipole, protons only, and one of two media:
+//   - the axisymmetric medium (MEDIUM = AXI: one ionosphere fit, CA1992
+//     with hard branches, optional diffusive-equilibrium factor), the
+//     code of the first two slices, kept as it was;
+//   - the full density chain (MEDIUM = FULL: ops/fused.py::_ne_and_grads
+//     + _compose_ne whole): the day/night ionosphere, CA1992 with hard or
+//     sigmoid-smoothed plasmapause and the trough refill (per L with
+//     ps_refill_q), the simplified GCPM, the field-aligned duct, the
+//     diffusive-equilibrium factor, and in the 3D frame the MLT-resolved
+//     plasmasphere (models/medium.py::mlt_ps_params, mlt_gcpm_params),
+//     whose d ne/dphi feeds rhs_3d's dmu/dphi. Each feature is a runtime
+//     flag of KParams, the same for every thread (no divergence). With
+//     every flag off it performs the AXI chain's operations in the same
+//     order (chip_smoke.py phase 8 holds the two bit for bit), but runs
+//     the axisymmetric launches 17% (bs3) to 105% (3D float dopri5)
+//     slower than AXI on an H100 (PERF.md), so AXI keeps its instances.
+// Template instances: float and double x bs3 and dopri5 x the two frames
+// x the two media (16), one library.
 //
 // Design for the card, not block by block:
 //   - one thread per ray; the thread loads its ray's 14-field carry into
@@ -40,18 +54,26 @@
 // from the plain version's elementwise operations
 // (chip_smoke.py::ops_per_attempt, a transcendental counting one), a
 // bs3 attempt is ~1,480 operations in 2D and ~1,780 in 3D (dopri5
-// ~2,960 and ~3,620), so 10,240 rays x 512 float32 bs3 attempts is bound
-// at ~0.07-0.11 ms by the card's 67 TFLOP/s, against ~1e-3 ms for the
-// bytes. Each thread is one long dependent chain, so the kernel runs at
-// the latency of that chain, 25-50x above the bound (2.7 ms in 2D,
-// 3.2 ms in 3D, PERF.md), and a 10,240-ray batch fills only part of the
+// ~2,960 and ~3,620; over the full medium ~1,620 in 2D and ~2,010 in 3D
+// with the MLT plasmapause), so 10,240 rays x 512 float32 bs3 attempts is
+// bound at ~0.07-0.11 ms by the card's 67 TFLOP/s, against ~1e-3 ms for
+// the bytes. Each thread is one long dependent chain, so the kernel runs
+// at the latency of that chain, 25-50x above the bound (2.7 ms in 2D,
+// 3.2 ms in 3D, 4.2 ms in 3D over the MLT medium, PERF.md), and a
+// 10,240-ray batch fills only part of the
 // 132 SMs (80 blocks of 128 threads). What the design does about it:
 // nothing leaves registers between attempts, the whole chain is inlined
 // so the compiler can interleave independent sub-chains (the Stix terms,
 // the state components), and a finished ray costs its warp nothing but
 // the loop exit. More rays per SM or splitting rays across threads is
-// later work. The 7-state double dopri5 instance reaches 254 registers
-// and spills 64 bytes to local memory (PERF.md lists -Xptxas -v).
+// later work. The 7-state dopri5 instances spill: double 64 bytes
+// (axisymmetric) and 56 (full medium), and float over the full medium 48
+// bytes at 128 registers (PERF.md lists -Xptxas -v).
+//
+// The FULL medium's scalars that depend on the env alone (1/ps_smooth,
+// log(gcpm_ne0), cos(ps_mlt_a0), ...: ops/fused.py::MediumConsts) are
+// formed once in double on the host, by the same Python function the plain
+// version uses, and cast to T here, so both round them alike.
 //
 // Numerics: built WITHOUT --use_fast_math, so isfinite, the inf defaults
 // of StopSpec.r_ceil/t_max/group_time_max, IEEE division and square root,
@@ -117,7 +139,10 @@ constexpr int BS3 = 0;
 constexpr int DOPRI5 = 1;
 constexpr int LAT2D = 0;  // the 2D latitude frame, 4-state carry
 constexpr int KIM3D = 1;  // the 3D Kimura frame, 7-state carry
+constexpr int AXI = 0;    // the axisymmetric medium of the first slices
+constexpr int FULL = 1;   // the full density chain
 constexpr int kThreads = 128;
+constexpr int kMaxHarm = 8;  // harmonics of the MLT plasmapause shape
 
 // state dimension of a frame; the group delay is the last component
 template <int FRAME>
@@ -135,6 +160,14 @@ struct StepParams {
       fac_max, accept_tol, stall_dt_factor, stall_count, ds_max;
   double r_floor, r_ceil, t_max, group_time_max, stop_at_equator, lat_sign,
       lat_offset, stop_retrograde;
+  // the FULL medium: env fields (gcpm 1.0 = ps_model "gcpm")
+  double iono_n0_b, iono_decay_b, iono_mix, gcpm, gcpm_bpow, ps_smooth,
+      ps_refill, ps_refill_q, duct_amp, duct_l0, ps_mlt, ps_mlt_a0,
+      ps_mlt_tamp, ps_mlt_c3, n_harm;
+  // ... and ops/fused.py::MediumConsts, formed in double on the host
+  double one_m_mix, ln_ne_lppi, inv_smooth, one_m_refill, ln_lref, ln_keep,
+      ln_gcpm_ne0, inv_lscale, inv_knee, inv_duct_w, duct_slope, cos_a0;
+  double ps_mlt_c[1 + 2 * kMaxHarm];  // (c0, c1, s1, c2, s2, ...)
 };
 
 namespace {
@@ -154,6 +187,15 @@ struct KParams {
   bool ds_on;
   T r_floor, r_ceil, t_max, group_time_max, lat_sign, lat_offset;
   bool equator_on, retro_on;
+  // the FULL medium
+  T iono_n0_b, iono_decay_b, iono_mix, gcpm_bpow, ps_refill, ps_refill_q,
+      duct_amp, duct_l0, ps_mlt_a0, ps_mlt_tamp, ps_mlt_c3;
+  T one_m_mix, ln_ne_lppi, inv_smooth, one_m_refill, ln_lref, ln_keep,
+      ln_gcpm_ne0, inv_lscale, inv_knee, inv_duct_w, duct_slope, cos_a0;
+  T mlt_c[1 + 2 * kMaxHarm];
+  int n_harm;
+  bool iono_mix_on, gcpm_on, smooth_on, refill_on, refill_q_on, duct_on,
+      mlt_on;
 };
 
 template <typename T>
@@ -199,6 +241,38 @@ KParams<T> make_params(const StepParams& h, int stepper) {
   p.lat_offset = T(h.lat_offset);
   p.equator_on = h.stop_at_equator > 0.5;
   p.retro_on = h.stop_retrograde > 0.5;
+  p.iono_n0_b = T(h.iono_n0_b);
+  p.iono_decay_b = T(h.iono_decay_b);
+  p.iono_mix = T(h.iono_mix);
+  p.gcpm_bpow = T(h.gcpm_bpow);
+  p.ps_refill = T(h.ps_refill);
+  p.ps_refill_q = T(h.ps_refill_q);
+  p.duct_amp = T(h.duct_amp);
+  p.duct_l0 = T(h.duct_l0);
+  p.ps_mlt_a0 = T(h.ps_mlt_a0);
+  p.ps_mlt_tamp = T(h.ps_mlt_tamp);
+  p.ps_mlt_c3 = T(h.ps_mlt_c3);
+  p.one_m_mix = T(h.one_m_mix);
+  p.ln_ne_lppi = T(h.ln_ne_lppi);
+  p.inv_smooth = T(h.inv_smooth);
+  p.one_m_refill = T(h.one_m_refill);
+  p.ln_lref = T(h.ln_lref);
+  p.ln_keep = T(h.ln_keep);
+  p.ln_gcpm_ne0 = T(h.ln_gcpm_ne0);
+  p.inv_lscale = T(h.inv_lscale);
+  p.inv_knee = T(h.inv_knee);
+  p.inv_duct_w = T(h.inv_duct_w);
+  p.duct_slope = T(h.duct_slope);
+  p.cos_a0 = T(h.cos_a0);
+  for (int k = 0; k < 1 + 2 * kMaxHarm; ++k) p.mlt_c[k] = T(h.ps_mlt_c[k]);
+  p.n_harm = (int)h.n_harm;
+  p.iono_mix_on = h.iono_mix != 1.0;
+  p.gcpm_on = h.gcpm != 0.0;
+  p.smooth_on = h.ps_smooth != 0.0;
+  p.refill_on = h.ps_refill != 0.0;
+  p.refill_q_on = h.ps_refill_q != 0.0;
+  p.duct_on = h.duct_amp != 0.0;
+  p.mlt_on = h.ps_mlt != 0.0;
   return p;
 }
 
@@ -294,6 +368,222 @@ __device__ __forceinline__ void ne_and_grads(T r, T sl, T cl,
   ne = T(1.0e6) * (ni + ne_p * de);
   ne_r = T(1.0e6) * (ni_r + (dne_p * L_r * de + ne_p * de_r));
   ne_lat = (T(1.0e6) * de) * (dne_p * L_lat);
+}
+
+// models/medium.py::_mlt_shape: the Fourier plasmapause shape at a0 + phi
+// and its phi-slope by angle recursion (one sin, one cos), and the
+// day-night trough with its phi-slope. Unrolled to kMaxHarm so that every
+// coefficient index is a constant (no local copy of the parameters).
+template <typename T>
+__device__ __forceinline__ void mlt_shape(T phi, const KParams<T>& p,
+                                          T& shape, T& dshape, T& trough_e,
+                                          T& dtrough) {
+  const T ang = p.ps_mlt_a0 + phi;
+  const T s1a = d_sin(ang), c1a = d_cos(ang);
+  T sk = s1a, ck = c1a;
+  shape = p.mlt_c[0];
+  dshape = T(0);
+#pragma unroll
+  for (int k = 1; k <= kMaxHarm; ++k) {
+    if (k > p.n_harm) break;
+    if (k > 1) {
+      const T sn = sk * c1a + ck * s1a;
+      const T cn = ck * c1a - sk * s1a;
+      sk = sn;
+      ck = cn;
+    }
+    shape = shape + p.mlt_c[2 * k - 1] * ck + p.mlt_c[2 * k] * sk;
+    dshape = dshape + T(k) * (p.mlt_c[2 * k] * ck - p.mlt_c[2 * k - 1] * sk);
+  }
+  trough_e = p.ps_trough + p.ps_mlt_tamp * (c1a - p.cos_a0);
+  dtrough = -p.ps_mlt_tamp * s1a;
+}
+
+// ops/fused.py::_ne_and_grads + _gcpm_and_grads + _compose_ne over the
+// whole medium: total density (m^-3) and its (r, lat) partials and, with
+// `mlt` (the 3D frame over the MLT-resolved medium, phi the longitude),
+// its phi partial; ne_phi is 0 otherwise. Every gate is a flag of p.
+template <typename T>
+__device__ __forceinline__ void ne_and_grads_full(T r, T sl, T cl, T phi,
+                                                  bool mlt,
+                                                  const KParams<T>& p, T& ne,
+                                                  T& ne_r, T& ne_lat,
+                                                  T& ne_phi) {
+  const T dr0 = r - p.iono_r0;
+  T ni = p.iono_n0 * d_exp(-p.iono_decay * dr0);
+  T ni_r = -p.iono_decay * ni;
+  if (p.iono_mix_on) {  // day/night blend of two fits
+    const T nb = p.iono_n0_b * d_exp(-p.iono_decay_b * dr0);
+    ni = p.iono_mix * ni + p.one_m_mix * nb;
+    ni_r = p.iono_mix * ni_r + p.one_m_mix * (-p.iono_decay_b * nb);
+  }
+  ne_phi = T(0);
+  if (!p.ps_on) {
+    ne = T(1.0e6) * ni;
+    ne_r = T(1.0e6) * ni_r;
+    ne_lat = T(0);
+    return;
+  }
+  const T inv_cl = T(1) / cl;
+  const T inv_cl2 = inv_cl * inv_cl;
+  const T L = r * inv_cl2;
+  const T L_r = inv_cl2;
+  const T L_lat = T(2) * L * sl * inv_cl;
+
+  T ne_p, dne_p, ne_p_phi = T(0), lat_direct = T(0);
+  if (p.gcpm_on) {
+    // simplified GCPM: log-space value, d/dL and the direct d/dlat at
+    // fixed L (the mirror ratio); the knee and trough move with MLT
+    T lppo_e = p.lppo, trough_e = p.ps_trough, dlppo = T(0), dtrough = T(0);
+    if (mlt) {
+      T shape, dshape;
+      mlt_shape(phi, p, shape, dshape, trough_e, dtrough);
+      lppo_e = p.lppo * shape;
+      dlppo = p.lppo * dshape;
+    }
+    const T q2g = T(1) + T(3) * sl * sl;
+    const T ln_m = T(0.5) * d_log(q2g) - T(6) * d_log(cl);
+    const T dln_m = T(3) * sl * cl / q2g + T(6) * sl / cl;
+    const T ln_ps =
+        (p.ln_gcpm_ne0 - (L - T(2)) * p.inv_lscale) + p.gcpm_bpow * ln_m;
+    const T Lsg = jmax(L, T(1.0e-6));
+    const T f45g = d_exp(T(-4.5) * d_log(Lsg));
+    const T p3g = trough_e * f45g;
+    const T e3g = d_exp((T(2) - L) * recip(T(10)));
+    const T ne3g = p3g + (T(1) - e3g);
+    const T ln_tr = d_log(ne3g);
+    const T dln_tr = (T(-4.5) * p3g / Lsg + e3g * recip(T(10))) / ne3g;
+    const T wk = T(1) / (T(1) + d_exp(-(lppo_e - L) * p.inv_knee));
+    const T dwk = -wk * (T(1) - wk) * p.inv_knee;
+    ne_p = d_exp(wk * ln_ps + (T(1) - wk) * ln_tr);
+    dne_p = ne_p * (dwk * (ln_ps - ln_tr) - wk * p.inv_lscale +
+                    (T(1) - wk) * dln_tr);
+    lat_direct = ne_p * wk * p.gcpm_bpow * dln_m;
+    if (mlt) {
+      const T dwk_phi = wk * (T(1) - wk) * p.inv_knee * dlppo;
+      const T dln_tr_phi = dtrough * f45g / ne3g;
+      ne_p_phi =
+          ne_p * (dwk_phi * (ln_ps - ln_tr) + (T(1) - wk) * dln_tr_phi);
+    }
+  } else {
+    // CA1992 at the effective (MLT-resolved) or the env parameters
+    T lppi_e = p.lppi, lppo_e = p.lppo, ne_lppi_e = p.ne_lppi,
+      trough_e = p.ps_trough;
+    T dlppi = T(0), dlppo = T(0), dg1i = T(0), dtrough = T(0);
+    if (mlt) {  // models/medium.py::mlt_ps_params
+      T shape, dshape;
+      mlt_shape(phi, p, shape, dshape, trough_e, dtrough);
+      lppi_e = p.lppi * shape;
+      dlppi = p.lppi * dshape;
+      const T e_i = d_exp((T(2) - lppi_e) * recip(T(1.5)));
+      const T g1i = (T(-0.3145) * lppi_e + T(3.9043)) + p.ps_season * e_i;
+      dg1i = (T(-0.3145) - p.ps_season * e_i * recip(T(1.5))) * dlppi;
+      ne_lppi_e = d_exp(T(kLN10) * g1i);
+      lppo_e = lppi_e + T(0.1) * (g1i - p.ps_mlt_c3);
+      dlppo = dlppi + T(0.1) * dg1i;
+    }
+    const T e1 = d_exp((T(2) - L) * recip(T(1.5)));
+    const T g1 = (T(-0.3145) * L + T(3.9043)) + p.ps_season * e1;
+    const T ne1 = d_exp(T(kLN10) * g1);
+    const T dne1 =
+        T(kLN10) * ne1 * (T(-0.3145) - p.ps_season * e1 * recip(T(1.5)));
+    const T ne2 =
+        ne_lppi_e * d_exp(T(kLN10) * (lppi_e - L) * recip(T(0.1)));
+    const T dne2 = T(-(kLN10 / 0.1)) * ne2;
+    const T Ls = jmax(L, T(1.0e-6));
+    const T inv_Ls = T(1) / Ls;
+    const T inv_Ls2 = inv_Ls * inv_Ls;
+    const T f45 = (inv_Ls2 * inv_Ls2) * d_rsqrt(Ls);
+    const T p3 = trough_e * f45;
+    const T e3 = d_exp((T(2) - L) * T(0.1));
+    T ne3 = p3 + (T(1) - e3);
+    T dne3 = T(-4.5) * p3 * inv_Ls + e3 * T(0.1);
+    T dln2_phi = T(0), dne2_phi = T(0), dne3_phi = T(0);
+    if (mlt) {
+      dln2_phi = T(kLN10) * (dg1i + dlppi * recip(T(0.1)));
+      dne2_phi = ne2 * dln2_phi;
+      dne3_phi = dtrough * f45;
+    }
+    if (p.refill_on) {  // log-space trough refill toward branch 1
+      const T ln3 = d_log(ne3);
+      const T ln1 = T(kLN10) * g1;
+      T w_r = p.ps_refill, one_m_w = p.one_m_refill, dw = T(0);
+      if (p.refill_q_on) {  // per-L weight (plasmasphere.refill_weight)
+        const T e_r = d_exp(p.ps_refill_q * (p.ln_lref - d_log(Ls)));
+        const T keep = d_exp(e_r * p.ln_keep);
+        w_r = T(1) - keep;
+        one_m_w = T(1) - w_r;
+        dw = keep * p.ln_keep * p.ps_refill_q * e_r / Ls;
+      }
+      const T ln3_eff = one_m_w * ln3 + w_r * ln1;
+      T dln3_eff = one_m_w * (dne3 / ne3) + w_r * (dne1 / ne1);
+      if (p.refill_q_on) dln3_eff = dln3_eff + dw * (ln1 - ln3);
+      const T ne3_eff = d_exp(ln3_eff);
+      if (mlt) dne3_phi = ne3_eff * one_m_w * (dne3_phi / ne3);
+      ne3 = ne3_eff;
+      dne3 = ne3 * dln3_eff;
+    }
+    if (p.smooth_on) {
+      // log-space sigmoid blends; ln2 analytically (ne2 may underflow)
+      const T inv_w = p.inv_smooth;
+      const T s1 = T(1) / (T(1) + d_exp(-(lppi_e - L) * inv_w));
+      const T s2 = T(1) / (T(1) + d_exp(-(lppo_e - L) * inv_w));
+      const T ds1 = -s1 * (T(1) - s1) * inv_w;
+      const T ds2 = -s2 * (T(1) - s2) * inv_w;
+      const T ln1 = T(kLN10) * g1;
+      const T dln1 = dne1 / ne1;
+      const T ln_nl = mlt ? d_log(ne_lppi_e) : p.ln_ne_lppi;
+      const T ln2 = ln_nl + T(kLN10) * (lppi_e - L) * recip(T(0.1));
+      const T dln2 = T(-(kLN10 / 0.1));
+      const T ln3 = d_log(ne3);
+      const T dln3 = dne3 / ne3;
+      const T inner = s2 * ln2 + (T(1) - s2) * ln3;
+      const T dinner = ds2 * (ln2 - ln3) + s2 * dln2 + (T(1) - s2) * dln3;
+      const T lns = s1 * ln1 + (T(1) - s1) * inner;
+      ne_p = d_exp(lns);
+      dne_p = ne_p * (ds1 * (ln1 - inner) + s1 * dln1 + (T(1) - s1) * dinner);
+      if (mlt) {
+        const T ds1_phi = -ds1 * dlppi;
+        const T ds2_phi = -ds2 * dlppo;
+        const T dln3_phi = dne3_phi / ne3;
+        const T dinner_phi = ds2_phi * (ln2 - ln3) + s2 * dln2_phi +
+                             (T(1) - s2) * dln3_phi;
+        ne_p_phi = ne_p * (ds1_phi * (ln1 - inner) + (T(1) - s1) * dinner_phi);
+      }
+    } else {
+      // hard branches with <= at the effective boundaries; the d/dphi of
+      // branch 1 is exactly 0
+      const bool in1 = L <= lppi_e;
+      const bool in2 = L <= lppo_e;
+      ne_p = in1 ? ne1 : (in2 ? ne2 : ne3);
+      dne_p = in1 ? dne1 : (in2 ? dne2 : dne3);
+      if (mlt) ne_p_phi = in1 ? T(0) : (in2 ? dne2_phi : dne3_phi);
+    }
+  }
+
+  if (p.duct_on) {  // Gaussian duct: value and d/dL together
+    const T x = (L - p.duct_l0) * p.inv_duct_w;
+    const T e = d_exp(T(-0.5) * x * x);
+    const T g = T(1) + p.duct_amp * e;
+    const T dg = p.duct_slope * x * e;
+    dne_p = dne_p * g + ne_p * dg;
+    ne_p = ne_p * g;
+    lat_direct = lat_direct * g;
+    ne_p_phi = ne_p_phi * g;
+  }
+  T de = T(1), de_r = T(0);
+  if (p.de_on) {
+    const T G = T(kDeRbase) * (T(1) - recip(r * T(kRE)) * T(kDeRbase));
+    de = d_sqrt(d_exp(-G * recip(T(kDeS))));
+    de_r = -de * T(kDeRbase) * T(kDeRbase) /
+           (T(2.0 * kDeS) * r * r * T(kRE));
+  }
+  T lat_term = dne_p * L_lat;
+  if (p.gcpm_on) lat_term = lat_term + lat_direct;
+  ne = T(1.0e6) * (ni + ne_p * de);
+  ne_r = T(1.0e6) * (ni_r + (dne_p * L_r * de + ne_p * de_r));
+  ne_lat = (T(1.0e6) * de) * lat_term;
+  if (mlt) ne_phi = (T(1.0e6) * de) * ne_p_phi;
 }
 
 // ops/fused.py::_stix_quartic_grads (protons only): mu and its partials
@@ -404,8 +694,9 @@ __device__ __forceinline__ void stix_quartic_grads(T ne, T bm, T f, T sinpsi,
   dmu_dpsi = gscale * s * m_psi;
 }
 
-// ops/rhs.py::rhs_2d_lat over ops/fused.py::mu_and_grads_2d_lat
-template <typename T>
+// ops/rhs.py::rhs_2d_lat over ops/fused.py::mu_and_grads_2d_lat (the 2D
+// frames trace the phi = 0 meridian: never the MLT path)
+template <typename T, int MEDIUM>
 __device__ __forceinline__ void rhs_2d_lat(const T u[4], T f,
                                            const KParams<T>& p, T out[4]) {
   const T r = u[0], lat = u[1], chi = u[2];
@@ -427,7 +718,12 @@ __device__ __forceinline__ void rhs_2d_lat(const T u[4], T f,
   const T dpsi_dlat = T(2) * inv_q2;
 
   T ne, ne_r, ne_lat;
-  ne_and_grads(r, sl, cl, p, ne, ne_r, ne_lat);
+  if constexpr (MEDIUM == FULL) {
+    T ne_phi;
+    ne_and_grads_full(r, sl, cl, T(0), false, p, ne, ne_r, ne_lat, ne_phi);
+  } else {
+    ne_and_grads(r, sl, cl, p, ne, ne_r, ne_lat);
+  }
   T mu, dmu_dn, dmu_db, dmu_df, dmu_dpsi;
   stix_quartic_grads<T, false>(ne, bm, f, sinpsi, cospsi, p.root, mu, dmu_dn,
                                dmu_db, dmu_df, dmu_dpsi);
@@ -442,8 +738,9 @@ __device__ __forceinline__ void rhs_2d_lat(const T u[4], T f,
   out[3] = T(kREOverC) * (T(1) + (f * mu * inv_mu2) * dmu_df);
 }
 
-// ops/rhs.py::rhs_3d over ops/fused.py::mu_and_grads_3d (cos form)
-template <typename T>
+// ops/rhs.py::rhs_3d over ops/fused.py::mu_and_grads_3d (cos form); over
+// the MLT-resolved medium dmu/dphi = dmu_dn * d ne/dphi
+template <typename T, int MEDIUM>
 __device__ __forceinline__ void rhs_3d(const T u[7], T f, const KParams<T>& p,
                                        T out[7]) {
   const T r = u[0], theta = u[1];
@@ -478,15 +775,23 @@ __device__ __forceinline__ void rhs_3d(const T u[7], T f, const KParams<T>& p,
   const T dcos_drho_t = (bhat_t - cospsi * rhat_t) * inv_rmag;
   const T dcos_drho_p = (T(0) - cospsi * rhat_p) * inv_rmag;
 
-  T ne, ne_r, ne_lat;
-  ne_and_grads(r, sl, cl, p, ne, ne_r, ne_lat);
+  T ne, ne_r, ne_lat, ne_phi = T(0);
+  if constexpr (MEDIUM == FULL)
+    ne_and_grads_full(r, sl, cl, u[2], p.mlt_on, p, ne, ne_r, ne_lat,
+                      ne_phi);
+  else
+    ne_and_grads(r, sl, cl, p, ne, ne_r, ne_lat);
   T mu, dmu_dn, dmu_db, dmu_df, dmu_dc;
   stix_quartic_grads<T, true>(ne, bm, f, sinpsi, cospsi, p.root, mu, dmu_dn,
                               dmu_db, dmu_df, dmu_dc);
   const T dmudr = dmu_dn * ne_r + dmu_db * bm_r;
   const T dmudtheta =
       -(dmu_dn * ne_lat + dmu_db * bm_lat) + dmu_dc * dcos_dtheta;
-  const T dmudphi = T(0);  // axisymmetric medium
+  // exactly 0 over an axisymmetric medium
+  T dmudphi = T(0);
+  if constexpr (MEDIUM == FULL) {
+    if (p.mlt_on) dmudphi = dmu_dn * ne_phi;
+  }
   const T dmudrr = dmu_dc * dcos_drho_r;
   const T dmudrt = dmu_dc * dcos_drho_t;
   const T dmudrp = dmu_dc * dcos_drho_p;
@@ -511,13 +816,13 @@ __device__ __forceinline__ void rhs_3d(const T u[7], T f, const KParams<T>& p,
   out[6] = T(kREOverC) * (T(1) + (f * inv_mu) * dmu_df);
 }
 
-template <typename T, int FRAME>
+template <typename T, int FRAME, int MEDIUM>
 __device__ __forceinline__ void rhs(const T* u, T f, const KParams<T>& p,
                                     T* out) {
   if constexpr (FRAME == KIM3D)
-    rhs_3d(u, f, p, out);
+    rhs_3d<T, MEDIUM>(u, f, p, out);
   else
-    rhs_2d_lat(u, f, p, out);
+    rhs_2d_lat<T, MEDIUM>(u, f, p, out);
 }
 
 // integrate/solve.py::_arc_rate: ds/dtau from the FSAL carry k1
@@ -548,24 +853,24 @@ __device__ __forceinline__ T err_norm(const T ev[N], const T u[N],
 }
 
 // integrate/steppers.py::bs3_step (Bogacki-Shampine 3(2), FSAL)
-template <typename T, int FRAME, int N = FrameDim<FRAME>::N>
+template <typename T, int FRAME, int MEDIUM, int N = FrameDim<FRAME>::N>
 __device__ __forceinline__ T bs3_step(const T u[N], const T k1[N], T h, T f,
                                       const KParams<T>& p, T u_new[N],
                                       T k_end[N], T incr[N]) {
   T y[N], k2[N], k3[N], ev[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.5) * h) * k1[j];
-  rhs<T, FRAME>(y, f, p, k2);
+  rhs<T, FRAME, MEDIUM>(y, f, p, k2);
 #pragma unroll
   for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.75) * h) * k2[j];
-  rhs<T, FRAME>(y, f, p, k3);
+  rhs<T, FRAME, MEDIUM>(y, f, p, k3);
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     incr[j] = h * (T(2.0 / 9.0) * k1[j] + T(1.0 / 3.0) * k2[j] +
                    T(4.0 / 9.0) * k3[j]);
     u_new[j] = u[j] + incr[j];
   }
-  rhs<T, FRAME>(u_new, f, p, k_end);
+  rhs<T, FRAME, MEDIUM>(u_new, f, p, k_end);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     ev[j] = h * (T(2.0 / 9.0 - 7.0 / 24.0) * k1[j] +
@@ -576,30 +881,30 @@ __device__ __forceinline__ T bs3_step(const T u[N], const T k1[N], T h, T f,
 
 // integrate/steppers.py::dopri5_step (Dormand-Prince 5(4), FSAL); the
 // zero tableau entries stay in the sums, as they do in the JAX package
-template <typename T, int FRAME, int N = FrameDim<FRAME>::N>
+template <typename T, int FRAME, int MEDIUM, int N = FrameDim<FRAME>::N>
 __device__ __forceinline__ T dopri5_step(const T u[N], const T k1[N], T h,
                                          T f, const KParams<T>& p,
                                          T u_new[N], T k_end[N], T incr[N]) {
   T y[N], k2[N], k3[N], k4[N], k5[N], k6[N], ev[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) y[j] = u[j] + h * (T(0.2) * k1[j]);
-  rhs<T, FRAME>(y, f, p, k2);
+  rhs<T, FRAME, MEDIUM>(y, f, p, k2);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     y[j] = u[j] + h * (T(3.0 / 40.0) * k1[j] + T(9.0 / 40.0) * k2[j]);
-  rhs<T, FRAME>(y, f, p, k3);
+  rhs<T, FRAME, MEDIUM>(y, f, p, k3);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     y[j] = u[j] + h * (T(44.0 / 45.0) * k1[j] + T(-56.0 / 15.0) * k2[j] +
                        T(32.0 / 9.0) * k3[j]);
-  rhs<T, FRAME>(y, f, p, k4);
+  rhs<T, FRAME, MEDIUM>(y, f, p, k4);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     y[j] = u[j] + h * (T(19372.0 / 6561.0) * k1[j] +
                        T(-25360.0 / 2187.0) * k2[j] +
                        T(64448.0 / 6561.0) * k3[j] +
                        T(-212.0 / 729.0) * k4[j]);
-  rhs<T, FRAME>(y, f, p, k5);
+  rhs<T, FRAME, MEDIUM>(y, f, p, k5);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     y[j] = u[j] + h * (T(9017.0 / 3168.0) * k1[j] +
@@ -607,7 +912,7 @@ __device__ __forceinline__ T dopri5_step(const T u[N], const T k1[N], T h,
                        T(46732.0 / 5247.0) * k3[j] +
                        T(49.0 / 176.0) * k4[j] +
                        T(-5103.0 / 18656.0) * k5[j]);
-  rhs<T, FRAME>(y, f, p, k6);
+  rhs<T, FRAME, MEDIUM>(y, f, p, k6);
   // the 7th stage is evaluated at u + h * (b5 . k) == u_new (FSAL)
 #pragma unroll
   for (int j = 0; j < N; ++j) {
@@ -616,7 +921,7 @@ __device__ __forceinline__ T dopri5_step(const T u[N], const T k1[N], T h,
                    T(-2187.0 / 6784.0) * k5[j] + T(11.0 / 84.0) * k6[j]);
     u_new[j] = u[j] + incr[j];
   }
-  rhs<T, FRAME>(u_new, f, p, k_end);
+  rhs<T, FRAME, MEDIUM>(u_new, f, p, k_end);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     ev[j] = h * (T(35.0 / 384.0 - 5179.0 / 57600.0) * k1[j] +
@@ -654,7 +959,7 @@ __device__ __forceinline__ int classify_step(const T u0[N], const T u1[N],
   return st;
 }
 
-template <typename T, int STEPPER, int FRAME>
+template <typename T, int STEPPER, int FRAME, int MEDIUM>
 __global__ void __launch_bounds__(kThreads)
     step_chunk_kernel(T* __restrict__ u_g, T* __restrict__ k1_g,
                       T* __restrict__ u_prev_g, T* __restrict__ u_lo_g,
@@ -700,8 +1005,10 @@ __global__ void __launch_bounds__(kThreads)
     T u_new[N], k_end[N], incr[N];
     const T err_raw =
         STEPPER == BS3
-            ? bs3_step<T, FRAME>(u, k1, dt_eff, f, p, u_new, k_end, incr)
-            : dopri5_step<T, FRAME>(u, k1, dt_eff, f, p, u_new, k_end, incr);
+            ? bs3_step<T, FRAME, MEDIUM>(u, k1, dt_eff, f, p, u_new, k_end,
+                                         incr)
+            : dopri5_step<T, FRAME, MEDIUM>(u, k1, dt_eff, f, p, u_new,
+                                            k_end, incr);
     const bool accept = err_raw <= p.accept_tol;
 
     const T t1 = t + dt_eff;
@@ -781,11 +1088,11 @@ __global__ void __launch_bounds__(kThreads)
   caution_g[i] = caution;
 }
 
-template <typename T, int STEPPER, int FRAME>
+template <typename T, int STEPPER, int FRAME, int MEDIUM>
 void launch(void** ptrs, long long B, int n_steps, const StepParams& h,
             cudaStream_t stream) {
   const long long blocks = (B + kThreads - 1) / kThreads;
-  step_chunk_kernel<T, STEPPER, FRAME>
+  step_chunk_kernel<T, STEPPER, FRAME, MEDIUM>
       <<<(unsigned)blocks, kThreads, 0, stream>>>(
           (T*)ptrs[0], (T*)ptrs[1], (T*)ptrs[2], (T*)ptrs[3], (T*)ptrs[4],
           (T*)ptrs[5], (T*)ptrs[6], (T*)ptrs[7], (int*)ptrs[8],
@@ -794,22 +1101,34 @@ void launch(void** ptrs, long long B, int n_steps, const StepParams& h,
           make_params<T>(h, STEPPER));
 }
 
-template <typename T, int FRAME>
+template <typename T, int FRAME, int MEDIUM>
 void launch_stepper(int stepper, void** ptrs, long long B, int n_steps,
                     const StepParams& h, cudaStream_t stream) {
   if (stepper == BS3)
-    launch<T, BS3, FRAME>(ptrs, B, n_steps, h, stream);
+    launch<T, BS3, FRAME, MEDIUM>(ptrs, B, n_steps, h, stream);
   else
-    launch<T, DOPRI5, FRAME>(ptrs, B, n_steps, h, stream);
+    launch<T, DOPRI5, FRAME, MEDIUM>(ptrs, B, n_steps, h, stream);
 }
 
-template <int FRAME>
+template <int FRAME, int MEDIUM>
 void launch_dtype(int dtype, int stepper, void** ptrs, long long B,
                   int n_steps, const StepParams& h, cudaStream_t stream) {
   if (dtype == 0)
-    launch_stepper<float, FRAME>(stepper, ptrs, B, n_steps, h, stream);
+    launch_stepper<float, FRAME, MEDIUM>(stepper, ptrs, B, n_steps, h,
+                                         stream);
   else
-    launch_stepper<double, FRAME>(stepper, ptrs, B, n_steps, h, stream);
+    launch_stepper<double, FRAME, MEDIUM>(stepper, ptrs, B, n_steps, h,
+                                          stream);
+}
+
+template <int FRAME>
+void launch_medium(int medium, int dtype, int stepper, void** ptrs,
+                   long long B, int n_steps, const StepParams& h,
+                   cudaStream_t stream) {
+  if (medium == FULL)
+    launch_dtype<FRAME, FULL>(dtype, stepper, ptrs, B, n_steps, h, stream);
+  else
+    launch_dtype<FRAME, AXI>(dtype, stepper, ptrs, B, n_steps, h, stream);
 }
 
 }  // namespace
@@ -817,19 +1136,23 @@ void launch_dtype(int dtype, int stepper, void** ptrs, long long B,
 // ptrs: u, k1, u_prev, u_lo (n, B); t, dt, errold, dt_prev (B,) of T;
 // status, n_accept, n_reject, rejected, n_tiny, caution (B,) int32; f (B,).
 // dtype 0 = float, 1 = double; stepper 0 = bs3, 1 = dopri5; frame 0 = the
-// 2D latitude frame (n = 4), 1 = the 3D frame (n = 7). Launches on
-// `stream` without synchronising; returns cudaGetLastError().
+// 2D latitude frame (n = 4), 1 = the 3D frame (n = 7); medium 0 = the
+// axisymmetric medium, 1 = the full density chain. Launches on `stream`
+// without synchronising; returns cudaGetLastError().
 extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
-                                 void** ptrs, long long B, int n_steps,
-                                 const StepParams* h, void* stream) {
+                                 int medium, void** ptrs, long long B,
+                                 int n_steps, const StepParams* h,
+                                 void* stream) {
   if (B <= 0) return 0;
   if ((dtype != 0 && dtype != 1) || (stepper != BS3 && stepper != DOPRI5) ||
-      (frame != LAT2D && frame != KIM3D))
+      (frame != LAT2D && frame != KIM3D) ||
+      (medium != AXI && medium != FULL) || h->n_harm < 0.0 ||
+      h->n_harm > kMaxHarm)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (frame == KIM3D)
-    launch_dtype<KIM3D>(dtype, stepper, ptrs, B, n_steps, *h, s);
+    launch_medium<KIM3D>(medium, dtype, stepper, ptrs, B, n_steps, *h, s);
   else
-    launch_dtype<LAT2D>(dtype, stepper, ptrs, B, n_steps, *h, s);
+    launch_medium<LAT2D>(medium, dtype, stepper, ptrs, B, n_steps, *h, s);
   return (int)cudaGetLastError();
 }

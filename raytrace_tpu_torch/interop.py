@@ -20,14 +20,20 @@ def _fields(obj):
 
 
 def _scalar(v):
-    if isinstance(v, (str, tuple)):
+    if isinstance(v, str):
         return v
-    return float(np.asarray(v))
+    a = np.asarray(v)
+    if isinstance(v, tuple) or a.ndim > 0:
+        # ps_mlt_c and igrf_coeffs: tuples of Python floats (a JAX cast_env
+        # holds ps_mlt_c as an array)
+        return tuple(float(x) for x in a.ravel())
+    return float(a)
 
 
 def env_from_numpy(fields):
     """The port's EnvParams from a JAX `EnvParams._asdict()` (values may
-    be Python floats or 0-d arrays); tuples and strings pass through."""
+    be Python floats or arrays); strings pass through, and the coefficient
+    tuples come back as tuples of Python floats."""
     return EnvParams(**{k: _scalar(v) for k, v in _fields(fields).items()})
 
 

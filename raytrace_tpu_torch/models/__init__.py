@@ -3,7 +3,7 @@
 from . import dipole, ionosphere, plasmasphere
 from .medium import (
     EnvParams, b_mag, b_vec, make_env, make_env_lat, mlat_3d, mlon_3d,
-    ne_total_m3,
+    mlt_gcpm_params, mlt_on, mlt_ps_params, ne_total_m3,
 )
 
 __all__ = [
@@ -16,6 +16,9 @@ __all__ = [
     "make_env_lat",
     "mlat_3d",
     "mlon_3d",
+    "mlt_gcpm_params",
+    "mlt_on",
+    "mlt_ps_params",
     "ne_total_m3",
     "plasmasphere",
 ]

@@ -119,7 +119,8 @@ def mu_3d(r, theta, phi, rho_r, rho_t, rho_p, f, env: medium.EnvParams,
     sinpsi, cospsi, b = _psi_trig_bmag_3d(
         r, theta, phi, rho_r, rho_t, rho_p, env
     )
-    ne = medium.ne_total_m3(r, medium.mlat_3d(r, theta, phi, env), env)
+    ne = medium.ne_total_m3(r, medium.mlat_3d(r, theta, phi, env), env,
+                            phi=medium.mlon_3d(r, theta, phi, env))
     rr, ll, pp = stix_rlp(ne, b, f)
     return mu_from_mu2(mu2_signed_trig(rr, ll, pp, sinpsi, cospsi, root))
 

@@ -1,16 +1,22 @@
 """Hand-fused analytic gradient chains of the dispersion relation.
 
-Port of raytrace_tpu/ops/fused.py (the axisymmetric CA1992 hard-branch
-path, protons only): the 2D latitude frame's chain (mu and its four
-partials r, lat, chi == psi, f) and the 3D dipole frame's chain (mu and
-its seven partials r, theta, phi, rho_r, rho_theta, rho_phi, f, in the
-cos(psi) form). Each comes from one forward sweep: every derivative is a
-rational expression in quantities the forward pass already computed. The
-same chains, line for line, are inlined in the CUDA step kernel
-(csrc/step_chunk.cu); these are their plain PyTorch forms.
+Port of raytrace_tpu/ops/fused.py (protons only): the density chain
+`_ne_and_grads` + `_compose_ne` over the whole medium (ionosphere with
+the day/night blend, CA1992 with hard or smoothed plasmapause and trough
+refill, GCPM, duct, diffusive equilibrium, and the MLT-resolved
+parameters with their d/dphi channel), the 2D latitude frame's chain (mu
+and its four partials r, lat, chi == psi, f) and the 3D dipole frame's
+chain (mu and its seven partials r, theta, phi, rho_r, rho_theta,
+rho_phi, f, in the cos(psi) form). Each comes from one forward sweep:
+every derivative is a rational expression in quantities the forward pass
+already computed. The same chains, line for line, are inlined in the
+CUDA step kernel (csrc/step_chunk.cu); these are their plain PyTorch
+forms, and the kernel rounds as they do on the card.
 """
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -19,16 +25,92 @@ from ..models import medium
 from ..models.plasmasphere import DE_RBASE_M, DE_S, LN10
 
 
-def _ne_and_grads(r, lat, env: medium.EnvParams):
-    """(ne_m3, d ne/dr, d ne/dlat): ionosphere + CA1992 hard branches.
+class MediumConsts(NamedTuple):
+    """Subexpressions of env scalars alone, formed once in double on the
+    host. The plain chain below multiplies by them, and ops/step_chunk.py
+    passes the same doubles to the kernel, which casts each to its type,
+    so both round them alike (the JAX package forms some of them in the
+    run dtype; they differ from these by an ulp of that dtype)."""
 
-    A Python-float-zero ps_weight drops the plasmasphere entirely, as in
-    the JAX package."""
+    one_m_mix: float      # 1 - iono_mix
+    ln_ne_lppi: float     # log(ne_lppi)
+    inv_smooth: float     # 1 / ps_smooth
+    one_m_refill: float   # 1 - ps_refill
+    ln_lref: float        # log(ps_refill_lref)
+    ln_keep: float        # log(max(1 - ps_refill, 1e-30))
+    ln_gcpm_ne0: float    # log(gcpm_ne0)
+    inv_lscale: float     # 1 / gcpm_lscale
+    inv_knee: float       # 1 / gcpm_knee
+    inv_duct_w: float     # 1 / duct_w
+    duct_slope: float     # -(duct_amp / duct_w)
+    cos_a0: float         # cos(ps_mlt_a0)
+
+
+def _inv(x):
+    return 1.0 / x if x != 0.0 else 0.0
+
+
+def _log(x):
+    return math.log(x) if x > 0.0 else 0.0
+
+
+@functools.lru_cache(maxsize=64)
+def medium_consts(env: medium.EnvParams) -> MediumConsts:
+    """The env-only subexpressions of the density chain (0.0 where the
+    feature that uses one is off)."""
+    return MediumConsts(
+        one_m_mix=1.0 - env.iono_mix,
+        ln_ne_lppi=_log(env.ne_lppi),
+        inv_smooth=_inv(env.ps_smooth),
+        one_m_refill=1.0 - env.ps_refill,
+        ln_lref=_log(env.ps_refill_lref),
+        ln_keep=math.log(max(1.0 - env.ps_refill, 1.0e-30)),
+        ln_gcpm_ne0=_log(env.gcpm_ne0),
+        inv_lscale=_inv(env.gcpm_lscale),
+        inv_knee=_inv(env.gcpm_knee),
+        inv_duct_w=_inv(env.duct_w),
+        duct_slope=-(env.duct_amp / env.duct_w) if env.duct_w else 0.0,
+        cos_a0=math.cos(env.ps_mlt_a0),
+    )
+
+
+def mlt_params(phi, env: medium.EnvParams):
+    """The MLT-resolved parameters and their phi-slopes at longitude phi
+    (medium.mlt_gcpm_params or mlt_ps_params, with_grads=True), the
+    `mlt` argument of _ne_and_grads."""
+    if env.ps_model == "gcpm":
+        return medium.mlt_gcpm_params(phi, env, with_grads=True)
+    return medium.mlt_ps_params(phi, env, with_grads=True)
+
+
+def _ne_and_grads(r, lat, env: medium.EnvParams, mlt=None):
+    """(ne_m3, d ne/dr, d ne/dlat[, d ne/dphi]) over the whole medium.
+
+    Python-float gates select the code path, as in the JAX package: a
+    zero ps_weight drops the plasmasphere, iono_mix == 1 keeps one
+    ionosphere fit, ps_model selects CA1992 or GCPM, and ps_smooth,
+    ps_refill, ps_refill_q and duct_amp at zero drop their terms.
+
+    mlt: None (axisymmetric; 3-tuple return) or `mlt_params(phi, env)`,
+    the MLT-resolved parameters and their phi-derivatives; the return
+    then grows a 4th element d ne/dphi (branch 1 does not depend on MLT,
+    branch 2 moves with the plasmapause shape and its continuity
+    density, branch 3 with the day-night trough level; the GCPM knee
+    center and trough move alike)."""
     medium.check_env(env)
+    k = medium_consts(env)
     ni = env.iono_n0 * torch.exp(-env.iono_decay * (r - env.iono_r0))
     ni_r = -env.iono_decay * ni
+    if env.iono_mix != 1.0:
+        # day/night blend: a second exponential term, the derivative the
+        # blend of the two terms' derivatives
+        nb = env.iono_n0_b * torch.exp(-env.iono_decay_b * (r - env.iono_r0))
+        ni = env.iono_mix * ni + k.one_m_mix * nb
+        ni_r = env.iono_mix * ni_r + k.one_m_mix * (-env.iono_decay_b * nb)
     if env.ps_weight == 0.0:
         z = torch.zeros_like(ni)
+        if mlt is not None:
+            return 1.0e6 * ni, 1.0e6 * ni_r, z, z
         return 1.0e6 * ni, 1.0e6 * ni_r, z
 
     sl, cl = torch.sin(lat), torch.cos(lat)
@@ -38,32 +120,176 @@ def _ne_and_grads(r, lat, env: medium.EnvParams):
     L_r = inv_cl2
     L_lat = 2.0 * L * sl * inv_cl
 
+    if env.ps_model == "gcpm":
+        return _gcpm_and_grads(r, env, k, ni, ni_r, sl, cl, L, L_r, L_lat,
+                               mlt)
+
+    if mlt is not None:
+        (lppi_e, lppo_e, ne_lppi_e, trough_e), (
+            dlppi, dlppo, dg1i, dtrough) = mlt
+    else:
+        lppi_e, lppo_e = env.lppi, env.lppo
+        ne_lppi_e, trough_e = env.ne_lppi, env.ps_trough
+
     # CA1992 branches: value and d/dL together (RayTrace_lat.jl:72-81)
     e1 = torch.exp((2.0 - L) / 1.5)
     g1 = (-0.3145 * L + 3.9043) + env.ps_season * e1
     ne1 = torch.exp(LN10 * g1)
     dne1 = LN10 * ne1 * (-0.3145 - env.ps_season * e1 / 1.5)
-    ne2 = env.ne_lppi * torch.exp(LN10 * (env.lppi - L) / 0.1)
+    ne2 = ne_lppi_e * torch.exp(LN10 * (lppi_e - L) / 0.1)
     dne2 = -(LN10 / 0.1) * ne2
     Ls = torch.clamp_min(L, 1.0e-6)
     # L^-4.5 as (1/L)^4 * rsqrt(L)
     inv_Ls = 1.0 / Ls
     inv_Ls2 = inv_Ls * inv_Ls
     f45 = (inv_Ls2 * inv_Ls2) * torch.rsqrt(Ls)
-    p3 = env.ps_trough * f45
+    p3 = trough_e * f45
     e3 = torch.exp((2.0 - L) * 0.1)
     ne3 = p3 + (1.0 - e3)
     dne3 = -4.5 * p3 * inv_Ls + e3 * 0.1
-    in1 = L <= env.lppi
-    in2 = L <= env.lppo
-    ne_p = torch.where(in1, ne1, torch.where(in2, ne2, ne3))
-    dne_p = torch.where(in1, dne1, torch.where(in2, dne2, dne3))
-    return _compose_ne(r, env, ni, ni_r, ne_p, dne_p, L_r, L_lat)
+    if mlt is not None:
+        # ln ne2 = LN10 (g1(lppi_e) + (lppi_e - L)/0.1): its phi-slope is
+        # parameter motion only; branch 3 scales its power-law term with
+        # the trough level
+        dln2_phi = LN10 * (dg1i + dlppi / 0.1)
+        dne2_phi = ne2 * dln2_phi
+        dne3_phi = dtrough * f45
+    if env.ps_refill != 0.0:
+        # trough refill: a log-space blend toward the saturated branch-1
+        # profile, value and d/dL together; with ps_refill_q the weight
+        # is per L (plasmasphere.refill_weight), adding its dw/dL term
+        ln3 = torch.log(ne3)
+        ln1 = LN10 * g1
+        qr = env.ps_refill_q
+        if qr == 0.0:
+            w_r, one_m_w, dw = env.ps_refill, k.one_m_refill, None
+        else:
+            e_r = torch.exp(qr * (k.ln_lref - torch.log(Ls)))
+            keep = torch.exp(e_r * k.ln_keep)
+            w_r = 1.0 - keep
+            one_m_w = 1.0 - w_r
+            dw = keep * k.ln_keep * qr * e_r / Ls
+        ln3_eff = one_m_w * ln3 + w_r * ln1
+        dln3_eff = one_m_w * (dne3 / ne3) + w_r * (dne1 / ne1)
+        if dw is not None:
+            dln3_eff = dln3_eff + dw * (ln1 - ln3)
+        ne3_eff = torch.exp(ln3_eff)
+        if mlt is not None:
+            # the blend's target, branch 1, does not depend on MLT
+            dne3_phi = ne3_eff * one_m_w * (dne3_phi / ne3)
+        ne3 = ne3_eff
+        dne3 = ne3 * dln3_eff
+    ne_p_phi = None
+    if env.ps_smooth != 0.0:
+        # log-space sigmoid blends (plasmasphere.ne_plasma_cm3), value and
+        # d/dL together; ln2 analytically, not log(ne2), which may
+        # underflow to 0 at extreme L
+        inv_w = k.inv_smooth
+        s1 = 1.0 / (1.0 + torch.exp(-(lppi_e - L) * inv_w))
+        s2 = 1.0 / (1.0 + torch.exp(-(lppo_e - L) * inv_w))
+        ds1 = -s1 * (1.0 - s1) * inv_w     # d s1/dL
+        ds2 = -s2 * (1.0 - s2) * inv_w
+        ln1 = LN10 * g1
+        dln1 = dne1 / ne1
+        ln_ne_lppi = k.ln_ne_lppi if mlt is None else torch.log(ne_lppi_e)
+        ln2 = ln_ne_lppi + LN10 * (lppi_e - L) / 0.1
+        dln2 = -(LN10 / 0.1)
+        ln3 = torch.log(ne3)
+        dln3 = dne3 / ne3
+        inner = s2 * ln2 + (1.0 - s2) * ln3
+        dinner = ds2 * (ln2 - ln3) + s2 * dln2 + (1.0 - s2) * dln3
+        lns = s1 * ln1 + (1.0 - s1) * inner
+        ne_p = torch.exp(lns)
+        dne_p = ne_p * (
+            ds1 * (ln1 - inner) + s1 * dln1 + (1.0 - s1) * dinner
+        )
+        if mlt is not None:
+            # the weights move with the boundaries: d s/dphi = -ds/dL *
+            # dboundary/dphi
+            ds1_phi = -ds1 * dlppi
+            ds2_phi = -ds2 * dlppo
+            dln3_phi = dne3_phi / ne3
+            dinner_phi = (
+                ds2_phi * (ln2 - ln3) + s2 * dln2_phi
+                + (1.0 - s2) * dln3_phi
+            )
+            ne_p_phi = ne_p * (
+                ds1_phi * (ln1 - inner) + (1.0 - s1) * dinner_phi
+            )
+    else:
+        # hard branches with <=, at the effective boundaries
+        in1 = L <= lppi_e
+        in2 = L <= lppo_e
+        ne_p = torch.where(in1, ne1, torch.where(in2, ne2, ne3))
+        dne_p = torch.where(in1, dne1, torch.where(in2, dne2, dne3))
+        if mlt is not None:
+            ne_p_phi = torch.where(
+                in1, torch.zeros_like(ne_p),
+                torch.where(in2, dne2_phi, dne3_phi),
+            )
+    return _compose_ne(r, env, k, ni, ni_r, ne_p, dne_p, L_r, L_lat, L,
+                       ne_p_phi=ne_p_phi)
 
 
-def _compose_ne(r, env, ni, ni_r, ne_p, dne_p, L_r, L_lat):
-    """Apply the diffusive-equilibrium factor and assemble the total
-    density with its (r, lat) partials."""
+def _gcpm_and_grads(r, env, k, ni, ni_r, sl, cl, L, L_r, L_lat, mlt):
+    """The simplified-GCPM branch of _ne_and_grads: log-space value, d/dL
+    and the direct d/dlat at fixed L (the mirror ratio) together; with
+    `mlt` the knee center and trough level move with local time."""
+    if mlt is not None:
+        (lppo_e, trough_e), (dlppo, dtrough) = mlt
+    else:
+        lppo_e, trough_e = env.lppo, env.ps_trough
+    q2g = 1.0 + 3.0 * sl * sl
+    ln_m = 0.5 * torch.log(q2g) - 6.0 * torch.log(cl)
+    dln_m = 3.0 * sl * cl / q2g + 6.0 * sl / cl
+    ln_ps = (k.ln_gcpm_ne0 - (L - 2.0) * k.inv_lscale
+             + env.gcpm_bpow * ln_m)
+    Lsg = torch.clamp_min(L, 1.0e-6)
+    f45g = torch.exp(-4.5 * torch.log(Lsg))
+    p3g = trough_e * f45g
+    e3g = torch.exp((2.0 - L) / 10.0)
+    ne3g = p3g + (1.0 - e3g)
+    ln_tr = torch.log(ne3g)
+    dln_tr = (-4.5 * p3g / Lsg + e3g / 10.0) / ne3g
+    wk = 1.0 / (1.0 + torch.exp(-(lppo_e - L) * k.inv_knee))
+    dwk = -wk * (1.0 - wk) * k.inv_knee
+    ne_p = torch.exp(wk * ln_ps + (1.0 - wk) * ln_tr)
+    dne_p = ne_p * (
+        dwk * (ln_ps - ln_tr) - wk * k.inv_lscale + (1.0 - wk) * dln_tr
+    )
+    ne_p_lat_direct = ne_p * wk * env.gcpm_bpow * dln_m
+    ne_p_phi = None
+    if mlt is not None:
+        # knee motion (wk through lppo) and trough-level motion
+        dwk_phi = wk * (1.0 - wk) * k.inv_knee * dlppo
+        dln_tr_phi = dtrough * f45g / ne3g
+        ne_p_phi = ne_p * (
+            dwk_phi * (ln_ps - ln_tr) + (1.0 - wk) * dln_tr_phi
+        )
+    return _compose_ne(r, env, k, ni, ni_r, ne_p, dne_p, L_r, L_lat, L,
+                       ne_p_lat_direct, ne_p_phi)
+
+
+def _compose_ne(r, env, k, ni, ni_r, ne_p, dne_p, L_r, L_lat, L,
+                ne_p_lat_direct=None, ne_p_phi=None):
+    """Common tail of _ne_and_grads: apply the duct and the
+    diffusive-equilibrium factor and assemble the total density with its
+    (r, lat) partials. ne_p_lat_direct carries the plasmasphere's
+    lat-dependence at fixed L (the GCPM mirror ratio); ne_p_phi (the MLT
+    medium) rides the same L- and r-only factors and appends d ne/dphi."""
+    if env.duct_amp != 0.0:
+        # Gaussian duct (plasmasphere.duct_factor): value and d/dL
+        # together; it multiplies the whole plasmasphere term
+        x = (L - env.duct_l0) * k.inv_duct_w
+        e = torch.exp(-0.5 * x * x)
+        g = 1.0 + env.duct_amp * e
+        dg = k.duct_slope * x * e
+        dne_p = dne_p * g + ne_p * dg
+        ne_p = ne_p * g
+        if ne_p_lat_direct is not None:
+            ne_p_lat_direct = ne_p_lat_direct * g
+        if ne_p_phi is not None:
+            ne_p_phi = ne_p_phi * g
     if env.de_weight != 0.0:
         G = DE_RBASE_M * (1.0 - DE_RBASE_M / (r * RE))
         de = torch.sqrt(torch.exp(-G / DE_S))
@@ -76,7 +302,12 @@ def _compose_ne(r, env, ni, ni_r, ne_p, dne_p, L_r, L_lat):
     w = env.ps_weight
     ne = 1.0e6 * (ni + w * ne_p * de)
     ne_r = 1.0e6 * (ni_r + w * (dne_p * L_r * de + ne_p * de_r))
-    ne_lat = 1.0e6 * w * de * (dne_p * L_lat)
+    lat_term = dne_p * L_lat
+    if ne_p_lat_direct is not None:
+        lat_term = lat_term + ne_p_lat_direct
+    ne_lat = 1.0e6 * w * de * lat_term
+    if ne_p_phi is not None:
+        return ne, ne_r, ne_lat, 1.0e6 * w * de * ne_p_phi
     return ne, ne_r, ne_lat
 
 
@@ -196,7 +427,9 @@ def mu_and_grads_2d_lat(r, lat, chi, f, env: medium.EnvParams, root=1.0):
     """(mu, dmu/dr, dmu/dlat, dmu/dpsi, dmu/df) -- one fused sweep.
 
     dmu/dpsi == dmu/dchi (psi = pi/2 + dip + chi). Value equal to
-    dispersion.mu_2d_lat; partials equal to its autodiff gradient."""
+    dispersion.mu_2d_lat; partials equal to its autodiff gradient. The
+    2D frames trace the phi = 0 meridian, so an MLT-resolved medium is
+    its axisymmetric parameters here."""
     sl, cl = torch.sin(lat), torch.cos(lat)
     q2 = 1.0 + 3.0 * sl * sl
     q = torch.sqrt(q2)
@@ -233,9 +466,10 @@ def mu_and_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
     Returns (mu, (dmu/dr, dmu/dtheta, dmu/dphi, dmu/drho_r, dmu/drho_t,
     dmu/drho_p, dmu/df)). Geometry: cos psi = Bhat . rhohat; the field
     direction does not depend on r, so r enters through |B| and ne only;
-    d(cos psi)/d(rho_k) = (Bhat_k - cos psi rhohat_k)/|rho|; the medium
-    is axisymmetric, so dmu/dphi == 0 (the MLT-resolved medium is ROADMAP
-    A8)."""
+    d(cos psi)/d(rho_k) = (Bhat_k - cos psi rhohat_k)/|rho|. The field
+    is axisymmetric, so with the MLT-resolved medium (env.ps_mlt) dmu/dphi
+    flows entirely through the density, dmu_dn * dne/dphi; the
+    axisymmetric medium keeps dmu/dphi == 0 exactly."""
     medium.check_env(env)
     lat = math.pi / 2.0 - theta
     sl, cl = torch.sin(lat), torch.cos(lat)
@@ -272,14 +506,20 @@ def mu_and_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
     dcos_drho_t = (bhat_t - cospsi * rhat_t) * inv_rmag
     dcos_drho_p = (0.0 - cospsi * rhat_p) * inv_rmag
 
-    ne, ne_r, ne_lat = _ne_and_grads(r, lat, env)
+    if medium.mlt_on(env):
+        ne, ne_r, ne_lat, ne_phi = _ne_and_grads(r, lat, env,
+                                                 mlt=mlt_params(phi, env))
+    else:
+        ne, ne_r, ne_lat = _ne_and_grads(r, lat, env)
+        ne_phi = None
     mu, dmu_dn, dmu_db, dmu_df, dmu_dc = _stix_quartic_grads(
         ne, bm, f, sinpsi, cospsi, root, wrt_cos=True
     )
     dmudr = dmu_dn * ne_r + dmu_db * bm_r
     dmudtheta = -(dmu_dn * ne_lat + dmu_db * bm_lat) + dmu_dc * dcos_dtheta
+    dmudphi = torch.zeros_like(dmudr) if ne_phi is None else dmu_dn * ne_phi
     return mu, (
-        dmudr, dmudtheta, torch.zeros_like(dmudr),
+        dmudr, dmudtheta, dmudphi,
         dmu_dc * dcos_drho_r, dmu_dc * dcos_drho_t,
         dmu_dc * dcos_drho_p, dmu_df,
     )

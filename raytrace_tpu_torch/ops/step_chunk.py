@@ -5,7 +5,9 @@ advances every ray by exactly `n_steps` attempted `_step_one` steps (a
 ray that stops earlier stays as it stopped, as in the JAX package) over
 the frame's right-hand side -- `rhs_2d_lat` (frame "2d_lat", 4-state
 carry) or `rhs_3d` (frame "3d", 7-state carry) -- with the ds_max arc
-ceiling when cfg.ds_max > 0, and returns the new RayCarry.
+ceiling when cfg.ds_max > 0, and returns the new RayCarry. The kernel
+takes the axisymmetric medium of the first slices in its own instances
+and every other medium (`medium_code`) through the full density chain.
 
 - On CUDA tensors it launches the hand-written kernel of
   csrc/step_chunk.cu: one thread per ray, the whole carry in registers for
@@ -23,6 +25,7 @@ ceiling when cfg.ds_max > 0, and returns the new RayCarry.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -35,6 +38,7 @@ from ..integrate.solve import (
     KERNEL_STEPPERS, RayCarry, SolverConfig, check_supported, step_loop,
 )
 from ..models import medium
+from . import fused
 from . import rhs as rhs_mod
 
 # frame name -> (kernel frame code, state dimension)
@@ -50,6 +54,8 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# harmonics of the MLT plasmapause shape the kernel takes (kMaxHarm)
+MAX_HARM = 8
 _VEC = ("u", "k1", "u_prev", "u_lo")
 _INT = ("status", "n_accept", "n_reject", "rejected", "n_tiny", "caution")
 _STEPPER_CODE = {"bs3": 0, "dopri5": 1}
@@ -71,7 +77,13 @@ class StepParams(ctypes.Structure):
         # StopSpec
         "r_floor", "r_ceil", "t_max", "group_time_max", "stop_at_equator",
         "lat_sign", "lat_offset", "stop_retrograde",
-    )]
+        # the full medium: env fields (gcpm 1.0 = ps_model "gcpm")
+        "iono_n0_b", "iono_decay_b", "iono_mix", "gcpm", "gcpm_bpow",
+        "ps_smooth", "ps_refill", "ps_refill_q", "duct_amp", "duct_l0",
+        "ps_mlt", "ps_mlt_a0", "ps_mlt_tamp", "ps_mlt_c3", "n_harm",
+        # ... and the env-only subexpressions (fused.MediumConsts)
+        *fused.MediumConsts._fields,
+    )] + [("ps_mlt_c", ctypes.c_double * (1 + 2 * MAX_HARM))]
 
 
 _LIB = None
@@ -121,7 +133,7 @@ def build():
         os.replace(tmp, path)
     lib = ctypes.CDLL(path)
     lib.step_chunk_launch.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_void_p),
         ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(StepParams),
         ctypes.c_void_p,
@@ -129,6 +141,53 @@ def build():
     lib.step_chunk_launch.restype = ctypes.c_int
     _LIB = lib
     return lib
+
+
+def ptxas_usage(log):
+    """{instance: "N registers, <stack and spill line>"} from nvcc's
+    -Xptxas -v output (BUILD_LOG), one entry per template instance
+    step_chunk_kernel<T, STEPPER, FRAME, MEDIUM> (or <T, STEPPER, FRAME>,
+    as builds before the full medium named them)."""
+
+    def key(name):
+        m = re.search(r"step_chunk_kernelI([fd])Li(\d)ELi(\d)E(?:Li(\d)E)?",
+                      name or "")
+        if m is None:
+            return None
+        words = [("float", "double")[m[1] == "d"],
+                 ("bs3", "dopri5")[int(m[2])], ("2d_lat", "3d")[int(m[3])]]
+        if m[4] is not None:
+            words.append(("axi", "full")[int(m[4])])
+        return " ".join(words)
+
+    regs, spills, fn, entry = {}, {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w.$]+)", line)
+        if m:
+            fn = m[1]
+            entry = fn if "Compiling entry" in line else entry
+        elif "spill" in line and fn == entry and key(fn):
+            spills[key(fn)] = line.strip()
+        elif (r := re.search(r"Used (\d+) registers", line)) and key(entry):
+            regs[key(entry)] = r[1]
+    return {k: f"{regs.get(k, '?')} registers, {spills.get(k, '')}"
+            for k in sorted(set(regs) | set(spills))}
+
+
+def medium_code(env):
+    """0: the axisymmetric medium of the first slices (one ionosphere fit,
+    CA1992 with hard branches, optional DE factor), which the kernel runs
+    in its own instances; 1: any other medium, through the full density
+    chain."""
+    full = (env.iono_mix != 1.0 or env.ps_model != "ca1992"
+            or env.ps_smooth != 0.0 or env.ps_refill != 0.0
+            or env.duct_amp != 0.0 or medium.mlt_on(env))
+    return 1 if full else 0
+
+
+def _n_harm(env):
+    return (len(env.ps_mlt_c) - 1) // 2 if env.ps_mlt_c else 0
 
 
 def _params(env, cfg: SolverConfig, spec: events.StopSpec, root):
@@ -143,8 +202,18 @@ def _params(env, cfg: SolverConfig, spec: events.StopSpec, root):
             "pi_beta", "fac_min", "fac_max", "accept_tol",
             "stall_dt_factor", "stall_count", "ds_max")},
         **spec._asdict(),
+        **{k: getattr(env, k) for k in (
+            "iono_n0_b", "iono_decay_b", "iono_mix", "gcpm_bpow",
+            "ps_smooth", "ps_refill", "ps_refill_q", "duct_amp", "duct_l0",
+            "ps_mlt", "ps_mlt_a0", "ps_mlt_tamp", "ps_mlt_c3")},
+        gcpm=1.0 if env.ps_model == "gcpm" else 0.0,
+        n_harm=_n_harm(env),
+        **fused.medium_consts(env)._asdict(),
     )
-    return StepParams(**{k: float(v) for k, v in vals.items()})
+    c = [float(x) for x in env.ps_mlt_c]
+    return StepParams(**{k: float(v) for k, v in vals.items()},
+                      ps_mlt_c=(ctypes.c_double * (1 + 2 * MAX_HARM))(
+                          *(c + [0.0] * (1 + 2 * MAX_HARM - len(c)))))
 
 
 def _check(carry: RayCarry, f, env, cfg, spec, stepper, n_steps, adaptive,
@@ -161,6 +230,12 @@ def _check(carry: RayCarry, f, env, cfg, spec, stepper, n_steps, adaptive,
     n = _FRAME_CODE[frame][1]
     check_supported(cfg, n - 1, adaptive, stepper)
     medium.check_env(env)
+    n_harm = _n_harm(env)
+    if n_harm > MAX_HARM:
+        raise ValueError(
+            f"the MLT plasmapause shape has {n_harm} harmonics; the kernel "
+            f"takes at most {MAX_HARM} (ps_mlt_harmonics)"
+        )
     if int(n_steps) < 0 or int(n_steps) >= 2 ** 31:
         raise ValueError(f"n_steps={n_steps} out of range")
     if f.dim() != 1 or f.dtype not in (torch.float32, torch.float64):
@@ -217,6 +292,7 @@ def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
                                     root=root, frame=frame)
     if f.device.type != "cuda":
         raise ValueError(f"step_chunk runs on cuda or cpu, not {f.device}")
+    code = medium_code(env)
     lib = build()
     # always fresh buffers: carry fields may share storage (init_carry's
     # u/u_prev and zero counters), and the kernel writes in place
@@ -236,7 +312,8 @@ def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
         stream = torch.cuda.current_stream(f.device).cuda_stream
         rc = lib.step_chunk_launch(
             0 if f.dtype == torch.float32 else 1, _STEPPER_CODE[stepper],
-            _FRAME_CODE[frame][0], ptrs, f.shape[0], int(n_steps),
+            _FRAME_CODE[frame][0], code, ptrs, f.shape[0],
+            int(n_steps),
             ctypes.byref(params), ctypes.c_void_p(stream),
         )
     if rc != 0:

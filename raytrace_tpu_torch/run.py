@@ -31,12 +31,13 @@ def _check_supported(config: RunConfig):
         "continue_until_done (ROADMAP A10)": config.continue_until_done,
         "sensitivity_rays > 0 (ROADMAP A13)": config.sensitivity_rays > 0,
         "explicit ray lists (ROADMAP A11)": bool(config.rays),
-        "a phis fan (the MLT-resolved 3D medium, ROADMAP A8)":
-            tuple(config.phis) != (0.0,),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    if config.frame != "3d" and tuple(config.phis) != (0.0,):
+        raise ValueError("phis launch fan is 3D-only (the 2D state "
+                         "carries no longitude)")
 
 
 def _build_u0(config: RunConfig, env, np_dtype, device):

@@ -109,3 +109,62 @@ def test_canonical_ray_through_the_kernel(cuda):
     assert abs(np.degrees(u[1]) - 2.747) <= 0.01
     assert abs(u[3] - 3.1251) <= 0.001
     assert abs(int(res.n_accept[0]) - 4135) <= 0.02 * 4135
+
+
+def _assert_bitwise(got, ref):
+    for name in RayCarry._fields:
+        a, b = getattr(got, name).cpu(), getattr(ref, name).cpu()
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+        assert bool(same.all()), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("stepper", ["bs3", "dopri5"])
+def test_full_medium_kernel_matches_plain_version_bitwise(cuda, dtype,
+                                                          stepper):
+    """Every 40th ray of the ensemble10k_plume launch (3D, the MLT-resolved
+    medium: the kernel's full-medium instances with d mu/d phi), 64
+    attempts: the kernel rounds as its plain version does, so every field
+    agrees bit for bit."""
+    conf = preset("ensemble10k_plume", dtype=dtype)
+    env = conf.medium.build()
+    cfg, spec = conf.solver(), conf.stop()
+    np_dt = np.float32 if dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, cuda)
+    u0 = torch.as_tensor(u0[::40], device=cuda)
+    f = torch.as_tensor(f[::40], device=cuda)
+    rhs_fn, _ = rhs.frame_rhs(conf.frame, env)
+    carry = init_carry(rhs_fn, u0, f, cfg)
+    assert sc.medium_code(env) == 1
+    launches = sc.step_chunk.launches
+    got = sc.step_chunk(carry, f, env, cfg, spec, stepper=stepper,
+                        n_steps=64, frame="3d")
+    assert sc.step_chunk.launches == launches + 1
+    ref = sc.step_chunk_reference(carry, f, env, cfg, spec, stepper=stepper,
+                                  n_steps=64, frame="3d")
+    torch.cuda.synchronize()
+    _assert_bitwise(got, ref)
+    assert float(got.k1[:, 5].abs().max()) > 0.0   # d mu/d phi on the path
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_full_medium_2d_kernel_matches_plain_version_bitwise(cuda, dtype):
+    """The 2D frame through the full chain (GCPM, the day/night
+    ionosphere and a duct), 256 rays of the knee fan x 64 bs3 attempts,
+    bit for bit."""
+    from raytrace_tpu_torch.models.medium import make_env
+
+    conf = preset("knee", dtype=dtype)
+    env = make_env(b0=conf.medium.b0, ps_model="gcpm", iono_mlt=True,
+                   duct_amp=0.5, duct_l0=3.0, duct_w=0.1)
+    cfg, spec = conf.solver(), conf.stop()
+    np_dt = np.float32 if dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, cuda)
+    u0 = torch.as_tensor(u0[:256], device=cuda)
+    f = torch.as_tensor(f[:256], device=cuda)
+    carry = init_carry(lambda u, ff: rhs.rhs_2d_lat(u, ff, env), u0, f, cfg)
+    got = sc.step_chunk(carry, f, env, cfg, spec, stepper="bs3", n_steps=64)
+    ref = sc.step_chunk_reference(carry, f, env, cfg, spec, stepper="bs3",
+                                  n_steps=64)
+    torch.cuda.synchronize()
+    _assert_bitwise(got, ref)

@@ -109,7 +109,7 @@ def test_config_json_round_trips_across_packages():
 
 
 @pytest.mark.parametrize("name", ["raymain", "ensemble10k_local",
-                                  "ensemble10k_plume", "ensemble10k_tilted",
+                                  "ensemble10k_igrf", "ensemble10k_tilted",
                                   "emic_heband"])
 def test_unported_presets_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -4,12 +4,17 @@ ensemble10k_production (float64, CPU), the float32-vs-float64 landing pin
 of the 3D production setting, the newly served presets and the launch.
 
 Run as a script, the file prints the JAX package's census of a preset on
-the CPU, traced in batches of 1,024 rays (the numbers chip_smoke.py pins
-and PERF.md records); --against a census of the same preset in the other
-dtype adds the float32-vs-float64 agreement (statuses, median landing L):
+the CPU, traced in batches of --batch rays (1,024 by default; the numbers
+chip_smoke.py pins and PERF.md records, for ensemble10k_3d,
+ensemble10k_production, ensemble10k_plume and, in one batch of 2,048,
+mr_fan_3d); --against a census of the same preset in the other dtype adds
+the float32-vs-float64 agreement (statuses, median landing L); --rays
+i,j,... instead traces each listed ray alone in both packages on the CPU
+(status and step counters):
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_slice3d.py \\
-        ensemble10k_3d float64 [--out census.npz] [--against other.npz]
+        ensemble10k_plume float64 [--out census.npz] [--against other.npz] \\
+        [--batch 1024] [--rays 1346,1410]
 """
 
 import json
@@ -165,10 +170,21 @@ def test_3d_launch_matches_jax(dtype):
 
 
 def test_3d_refuses_a_phis_fan():
-    cfg = t_config.preset("ensemble10k_3d", lats=(0.8,), chis=(0.0,),
-                          freqs=(2000.0,), phis=(0.0, 1.0), max_steps=8)
-    with pytest.raises(NotImplementedError, match="A8"):
+    """A phis fan runs in 3D over the MLT-resolved medium since the plume
+    slice (test_torch_slice_mlt.py); what is refused is a phis fan over a
+    field the port does not have (the tilted dipole, A9) and a phis fan in
+    a 2D frame, whose state carries no longitude (as the JAX package
+    refuses it)."""
+    cut = dict(lats=(0.8,), chis=(0.0,), freqs=(2000.0,), phis=(0.0, 1.0),
+               max_steps=8)
+    cfg = t_config.preset("ensemble10k_3d", **cut)
+    cfg.medium.b_model = "tilted"
+    with pytest.raises(NotImplementedError, match="A9"):
         t_run.run(cfg, device="cpu")
+    with pytest.raises(ValueError, match="3D-only"):
+        t_run.run(t_config.preset("ensemble10k", **cut), device="cpu")
+    with pytest.raises(ValueError, match="3D-only"):
+        j_run._build_u0(j_config.preset("ensemble10k", **cut), np.float64)
 
 
 def _jax_census(name, dtype, batch=1024):
@@ -209,6 +225,27 @@ def _jax_census(name, dtype, batch=1024):
     return arrays, {k: np.asarray(v).item() for k, v in stats.items()}
 
 
+def _rays_alone(name, dtype, rays):
+    """Each listed ray of preset `name` traced alone (one ray, one
+    full-budget round) by the JAX package and by the port's plain version,
+    both on the CPU: {ray: {"launch": ..., "jax": [status, n_accept,
+    n_reject], "port": [...]}}."""
+    axes = ("lats", "phis", "chis", "freqs")
+    base = j_config.preset(name, dtype=dtype)
+    out = {}
+    for i in rays:
+        idx = np.unravel_index(i, [len(getattr(base, k)) for k in axes])
+        one = {k: (getattr(base, k)[j],) for k, j in zip(axes, idx)}
+        res = {"jax": j_run.run(j_config.preset(name, dtype=dtype, **one)),
+               "port": t_run.run(t_config.preset(name, dtype=dtype, **one),
+                                 device="cpu")}
+        out[i] = {"launch": {k: float(v[0]) for k, v in one.items()}}
+        for pkg, r in res.items():
+            out[i][pkg] = [int(np.asarray(getattr(r["result"], k))[0])
+                           for k in ("status", "n_accept", "n_reject")]
+    return out
+
+
 if __name__ == "__main__":
     import argparse
 
@@ -221,8 +258,17 @@ if __name__ == "__main__":
     p.add_argument("dtype", choices=("float32", "float64"))
     p.add_argument("--out", default="")
     p.add_argument("--against", default="")
+    p.add_argument("--batch", type=int, default=1024)
+    p.add_argument("--rays", default="",
+                   help="comma-separated ray indices: trace each alone in "
+                        "both packages instead of the census")
     args = p.parse_args()
-    arrays, stats = _jax_census(args.preset, args.dtype)
+    if args.rays:
+        rays = [int(x) for x in args.rays.split(",")]
+        print(json.dumps(_rays_alone(args.preset, args.dtype, rays),
+                         indent=1))
+        raise SystemExit(0)
+    arrays, stats = _jax_census(args.preset, args.dtype, args.batch)
     if args.out:
         np.savez(args.out, **arrays)
     stats["attempted_steps"] = (stats["total_accepted_steps"]

@@ -131,6 +131,7 @@ def _small_carry(n=8, dtype=torch.float64):
     ("ds_local", NotImplementedError),
     ("rk4", NotImplementedError),
     ("medium", NotImplementedError),
+    ("harmonics", ValueError),
     ("dtype", ValueError),
     ("shape", ValueError),
     ("int_field", ValueError),
@@ -148,7 +149,9 @@ def test_step_chunk_refuses_what_the_kernel_does_not_take(case, exc):
     elif case == "rk4":
         kw["adaptive"] = False
     elif case == "medium":
-        env = env._replace(ps_smooth=0.1)
+        env = env._replace(eta_he=0.1)
+    elif case == "harmonics":   # the kernel takes at most MAX_HARM
+        env = env._replace(ps_mlt=1.0, ps_mlt_c=(1.0,) + (0.0,) * 18)
     elif case == "dtype":
         carry = carry._replace(t=carry.t.float())
     elif case == "shape":
