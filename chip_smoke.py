@@ -39,10 +39,23 @@ Phases, each printed as it runs; any failed check exits non-zero:
      package's float64 result on a CPU, float32 against float64;
  10. the mr_fan_3d slice through run.run: float32 against the JAX
      package's float32 census on a CPU (the TPU record, BENCH_r05.json ->
-     mr_fan_3d, printed beside it), float64 against the JAX package's.
-The line before the last is the kernels' JSON record, the last line
-{"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
-no result. It imports nothing of JAX.
+     mr_fan_3d, printed beside it), float64 against the JAX package's;
+ 11. the general-field kernel instances (tilted dipole, IGRF) against
+     their plain versions, bit for bit: the ensemble10k_tilted and
+     ensemble10k_igrf launches in float32 and float64, a tilted field over
+     an axisymmetric density, IGRF over the MLT-resolved GCPM, and tilt = 0
+     through the general instance against the dipole instance; then every
+     new instance timed in turns with the dipole plume instance;
+ 12. the ensemble10k_tilted slice and
+ 13. the ensemble10k_igrf slice through run.run: float32 against the TPU
+     record (benchmarks/perf_r05_tilted_fused.json), float64 against the
+     JAX package's float64 result on a CPU, float32 against float64.
+The plain version is timed at the full launch where its instance is on a
+main path (the kernels' JSON record); elsewhere over every 10th ray x 64
+attempts (its time is set by its ~2,000 small launches per attempt, not
+by the rays). The line before the last is the kernels' JSON record, the
+last line {"ok": true, "device": {...}}. Without a CUDA device it exits 1
+and prints no result. It imports nothing of JAX.
 """
 
 import json
@@ -168,6 +181,42 @@ F64_R_DT_UNDERFLOW_REST = 82
 F64_R_MAX_STEPS = 692
 F64_R_STEPS = 31_972_417
 
+# the TPU float32 records of ensemble10k_tilted and ensemble10k_igrf
+# (benchmarks/perf_r05_tilted_fused.json; physics, not speed): tilted
+# HIT_EARTH 9566 / MAX_PHASE_TIME 4 / DT_UNDERFLOW 669 / 1 other, 3,045,896
+# attempted steps; IGRF 9704 / 3 / 532 / 1, 2,976,026. The JAX package's
+# float32 census on a CPU (tests/test_torch_slice3d.py run as a script
+# with --batch 10240: one batch, as the port traces it; in batches of 1,024
+# the stragglers' stall checks fall elsewhere and the float64 steps come
+# to 3,207,767 and 3,530,674) falls inside both bands: tilted HIT_EARTH
+# 9507 (0.6% low), 2,966,665 steps (2.6% low), DT_UNDERFLOW 728; IGRF 9668
+# (0.4% low), 2,883,675 (3.1% low), DT_UNDERFLOW 567. Its float64 census:
+# tilted HIT_EARTH 9968 / MAX_PHASE_TIME 5 / DT_UNDERFLOW 263 / MAX_STEPS
+# 4; IGRF 9975 / 5 / 255 / 5. Its own float32-vs-float64 agreement: tilted
+# 95.46% of statuses, median relative landing-L error 1.12e-6; IGRF 96.95%,
+# 7.65e-7; the port is held to that match less 0.5 points and to 1e-4.
+# One float64 ray of the tilted fan (6287: lat 0.8833 rad, phi -3 pi/4,
+# chi -0.5, f 8 kHz) meets a wedge ~950 attempts in, at r ~ 9 RE on its
+# way out: the JAX package retires it there as DT_UNDERFLOW (768 + 182
+# attempts), on an H100 it passes and escapes to MAX_PHASE_TIME (15,371 +
+# 180), the same when traced alone (PERF.md). HIT_EARTH and MAX_PHASE_TIME
+# are held exactly over the other 10,239 rays and the named ray is checked
+# alone on the card
+FIELD_PINS = {
+    "ensemble10k_tilted": dict(
+        rec_hit=9566, rec_steps=3_045_896, cpu_f32_hit=9507,
+        cpu_f32_steps=2_966_665, f64_hit=9968, f64_mpt=5,
+        f64_steps=3_018_020, f64_median_l=2.7990589009559614,
+        jax_match=0.9546, f64_wedge_rays=(6287,)),
+    "ensemble10k_igrf": dict(
+        rec_hit=9704, rec_steps=2_976_026, cpu_f32_hit=9668,
+        cpu_f32_steps=2_883_675, f64_hit=9975, f64_mpt=5,
+        f64_steps=3_000_242, f64_median_l=2.328949656899414,
+        jax_match=0.9695, f64_wedge_rays=()),
+}
+FIELD_HIT_RTOL = 0.02
+FIELD_F32_F64_MEDIAN_DL = 1e-4
+
 # the 2D media of phase 8: GCPM and the smoothed plasmapause are separate
 # code paths of the full chain, so two media hold every gate
 FULL_2D = {
@@ -209,10 +258,11 @@ def rel_err(a, b):
     return (np.abs(a - b) / scale).max(axis=1)
 
 
-def start(name, dtype_name, dev, every=1, medium=None):
+def start(name, dtype_name, dev, every=1, medium=None, **over):
     """(carry, f, env, cfg, spec, frame) of a preset's launch on `dev`
-    (over `medium`, a MediumConfig, in place of the preset's): every
-    `every`-th ray, init_carry applied."""
+    (over `medium`, a MediumConfig, in place of the preset's; `over`
+    overrides other fields of the preset): every `every`-th ray,
+    init_carry applied."""
     import torch
 
     from raytrace_tpu_torch.config import preset
@@ -220,7 +270,7 @@ def start(name, dtype_name, dev, every=1, medium=None):
     from raytrace_tpu_torch.ops import rhs as rhs_mod
     from raytrace_tpu_torch.run import _build_u0
 
-    conf = preset(name, dtype=dtype_name,
+    conf = preset(name, dtype=dtype_name, **over,
                   **({"medium": medium} if medium else {}))
     env = conf.medium.build()
     np_dt = np.float32 if dtype_name == "float32" else np.float64
@@ -427,21 +477,12 @@ def full_chain_off(name, dtype_name, stepper, dev, n=512, reps=5):
     return ms, n_differ(outs["full"], outs["axi"])
 
 
-def time_instance(name, dtype_name, stepper, dev, n=512, reps=5,
-                  medium=None):
-    """The kernel over a preset's whole launch x n attempts (CUDA events,
-    mean of reps after a warm-up launch) beside one plain-version run of
-    the same launch, and its bound. Returns a dict."""
+def time_plain(carry, f, env, cfg, spec, stepper, n, frame):
+    """One plain-version run between two CUDA events, ms."""
     import torch
 
     from raytrace_tpu_torch.ops import step_chunk as sc
 
-    carry, f, env, cfg, spec, frame = start(name, dtype_name, dev,
-                                            medium=medium)
-    kernel_ms, out = time_kernel(carry, f, env, cfg, spec, stepper, n, frame,
-                                 reps)
-    attempts = int(((out.n_accept + out.n_reject)
-                    - (carry.n_accept + carry.n_reject)).sum())
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -449,20 +490,274 @@ def time_instance(name, dtype_name, stepper, dev, n=512, reps=5,
                             n_steps=n, frame=frame)
     e1.record()
     torch.cuda.synchronize()
-    plain_ms = e0.elapsed_time(e1)
+    return e0.elapsed_time(e1)
+
+
+def plain_cut(name, dtype_name, stepper, dev, medium=None, every=10, n=64):
+    """The plain version over every `every`-th ray of a preset's launch x
+    n attempts: {plain_ms, plain_rays, plain_n}. Its time is set by the
+    small launches of each attempt, not by the rays, so this says what an
+    attempt costs it at a sixteenth of the full timing's wait."""
+    carry, f, env, cfg, spec, frame = start(name, dtype_name, dev,
+                                            every=every, medium=medium)
+    return dict(plain_ms=time_plain(carry, f, env, cfg, spec, stepper, n,
+                                    frame),
+                plain_rays=f.shape[0], plain_n=n)
+
+
+def time_instance(name, dtype_name, stepper, dev, n=512, reps=5,
+                  medium=None, plain_full=True):
+    """The kernel over a preset's whole launch x n attempts (CUDA events,
+    mean of reps after a warm-up launch) beside its bound and one
+    plain-version run: of the same launch (plain_full, the instances of
+    the kernels' JSON record) or of plain_cut's. Returns a dict."""
+    carry, f, env, cfg, spec, frame = start(name, dtype_name, dev,
+                                            medium=medium)
+    kernel_ms, out = time_kernel(carry, f, env, cfg, spec, stepper, n, frame,
+                                 reps)
+    attempts = int(((out.n_accept + out.n_reject)
+                    - (carry.n_accept + carry.n_reject)).sum())
+    if plain_full:
+        plain = dict(plain_ms=time_plain(carry, f, env, cfg, spec, stepper,
+                                         n, frame),
+                     plain_rays=f.shape[0], plain_n=n)
+    else:
+        plain = plain_cut(name, dtype_name, stepper, dev, medium)
     bound_ms, by = bound(name, dtype_name, stepper, carry.u.shape[1],
                          attempts, f.shape[0], medium)
-    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=by, attempts=attempts, rays=f.shape[0], n=n)
+    return dict(ms=kernel_ms, bound_ms=bound_ms, bound_by=by,
+                attempts=attempts, rays=f.shape[0], n=n, **plain)
 
 
 def print_timing(what, t, card):
+    if (t["plain_rays"], t["plain_n"]) == (t["rays"], t["n"]):
+        plain = (f"plain PyTorch {t['plain_ms']:.1f} ms "
+                 f"({t['plain_ms'] / t['ms']:.1f}x)")
+    else:
+        plain = (f"plain PyTorch {t['plain_ms']:.1f} ms for "
+                 f"{t['plain_rays']:,} rays x {t['plain_n']} steps")
     print(f"  {what}, {t['rays']:,} rays x {t['n']} steps "
           f"({t['attempts']:,} attempts made): kernel {t['ms']:.3f} ms, "
-          f"plain PyTorch {t['plain_ms']:.1f} ms "
-          f"({t['plain_ms'] / t['ms']:.1f}x), "
-          f"bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+          f"{plain}, bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
           f"({t['bound_ms'] / t['ms']:.1%} of it) on {card}", flush=True)
+
+
+def bit_for_bit(what, name, dtype_name, stepper, dev, n, every=1,
+                medium=None):
+    """One launch through the kernel and the plain version; fails unless
+    every field agrees bit for bit. Returns (max abs err, plain ms)."""
+    carry, f, env, cfg, spec, frame = start(name, dtype_name, dev,
+                                            every=every, medium=medium)
+    got, ref, plain_ms = both(carry, f, env, cfg, spec, stepper, n, frame)
+    n_diff = n_differ(got, ref)
+    print(f"  {what} {dtype_name} {stepper}, {f.shape[0]:,} rays x {n} "
+          f"steps: {int((got['status'] != 0).sum())} rays stopped, {n_diff} "
+          f"values differ"
+          + (f", max |drho_phi/dt| "
+             f"{float(np.abs(got['k1'][:, 5]).max()):.3e}"
+             if frame == "3d" else ""), flush=True)
+    check(n_diff == 0, f"{what} {dtype_name} {stepper}: bit for bit")
+    return max_abs(got, ref), plain_ms
+
+
+def field_cost(dtype_name, stepper, dev, card, n=512, reps=5):
+    """The plume launch (dipole instance) and the same fan over the tilted
+    and the IGRF field (the general-field instances), all 10,240 rays x n
+    attempts, timed in turns plume, tilted, igrf, igrf, tilted, plume on
+    one card. Returns {field: dict(ms, bound_ms, ...)} of the two fields,
+    each with `ratio`, its mean time over the plume's."""
+    names = {"plume": "ensemble10k_plume", "tilted": "ensemble10k_tilted",
+             "igrf": "ensemble10k_igrf"}
+    starts = {k: start(v, dtype_name, dev) for k, v in names.items()}
+    ms, outs = {k: [] for k in names}, {}
+    for k in ("plume", "tilted", "igrf", "igrf", "tilted", "plume"):
+        carry, f, env, cfg, spec, frame = starts[k]
+        t, outs[k] = time_kernel(carry, f, env, cfg, spec, stepper, n, frame,
+                                 reps)
+        ms[k].append(t)
+    res = {}
+    for k in ("tilted", "igrf"):
+        carry, f = starts[k][:2]
+        attempts = int(((outs[k].n_accept + outs[k].n_reject)
+                        - (carry.n_accept + carry.n_reject)).sum())
+        bound_ms, by = bound(names[k], dtype_name, stepper, 7, attempts,
+                             f.shape[0])
+        res[k] = dict(ms=sum(ms[k]) / 2, bound_ms=bound_ms, bound_by=by,
+                      attempts=attempts, rays=f.shape[0], n=n,
+                      ratio=sum(ms[k]) / sum(ms["plume"]))
+        print(f"  {k} {dtype_name} {stepper}: {ms[k][0]:.3f} / "
+              f"{ms[k][1]:.3f} ms beside the dipole plume instance "
+              f"{ms['plume'][0]:.3f} / {ms['plume'][1]:.3f} ms "
+              f"({res[k]['ratio']:.3f}x) on {card}", flush=True)
+    return res
+
+
+def field_slice(name, card):
+    """Phases 12 and 13: a non-axial-field preset through run.run in
+    float32 and float64 against FIELD_PINS. Returns the float32 run's
+    kernel launches."""
+    from raytrace_tpu_torch.config import preset
+
+    pin = FIELD_PINS[name]
+    print(f"  {name} through raytrace_tpu_torch.run.run, float32",
+          flush=True)
+    conf = preset(name)
+    drive(conf, "warm-up", card)
+    out32, _, launches32, ref_calls = drive(conf, "float32", card)
+    stats = out32["stats"]
+    steps = int(stats["total_accepted_steps"] + stats["total_rejected_steps"])
+    n_hit = int(stats["n_hit_earth"])
+    check(launches32 > 0, "the slice stepped through the kernel")
+    check(ref_calls == 0, "the plain version was not called")
+    check(abs(n_hit - pin["rec_hit"]) <= FIELD_HIT_RTOL * pin["rec_hit"],
+          f"HIT_EARTH {n_hit} within {FIELD_HIT_RTOL:.0%} of the TPU record "
+          f"{pin['rec_hit']} (the JAX package on a CPU: "
+          f"{pin['cpu_f32_hit']})")
+    check(abs(steps - pin["rec_steps"]) <= 0.05 * pin["rec_steps"],
+          f"attempted steps {steps} within 5% of the TPU record "
+          f"{pin['rec_steps']} (the JAX package on a CPU: "
+          f"{pin['cpu_f32_steps']})")
+    check(np.isfinite(out32["result"].u[out32["valid"]]).all(),
+          "every final state is finite")
+
+    print(f"  {name}, float64", flush=True)
+    out64, _, launches, ref_calls = drive(preset(name, dtype="float64"),
+                                          "float64", card)
+    st64 = out64["stats"]
+    steps64 = int(st64["total_accepted_steps"] + st64["total_rejected_steps"])
+    med64 = float(st64["median_landing_l"])
+    check(launches > 0 and ref_calls == 0,
+          "float64 stepped through the kernel, never the plain version")
+    from raytrace_tpu_torch.integrate import events
+
+    wedge = pin["f64_wedge_rays"]
+    status = np.asarray(out64["result"].status)[out64["valid"]]
+    rest = np.ones(status.size, bool)
+    rest[list(wedge)] = False
+    n_hit = int((status[rest] == events.HIT_EARTH).sum())
+    n_mpt = int((status[rest] == events.MAX_PHASE_TIME).sum())
+    check(n_hit == pin["f64_hit"] and n_mpt == pin["f64_mpt"],
+          f"over the {int(rest.sum())} rays besides {wedge}: HIT_EARTH "
+          f"{n_hit} and MAX_PHASE_TIME {n_mpt} equal the JAX package's "
+          f"float64 {pin['f64_hit']} and {pin['f64_mpt']}")
+    rays_alone(name, wedge, out64)
+    check(abs(steps64 - pin["f64_steps"]) <= 0.01 * pin["f64_steps"],
+          f"attempted steps {steps64} within 1% of the JAX package's float64 "
+          f"{pin['f64_steps']}")
+    check(abs(med64 - pin["f64_median_l"]) <= 1e-9 * pin["f64_median_l"],
+          f"median landing L within 1e-9 of the JAX package's float64 "
+          f"{pin['f64_median_l']}")
+    match, med_rel, n_m = landing_agreement(
+        out32, out64, lambda u: u[:, 0] / np.sin(u[:, 1]) ** 2)
+    print(f"  float32 vs float64: {match * 100:.2f}% statuses match, "
+          f"median relative landing-L error {med_rel:.3e} over {n_m} "
+          "matched HIT_EARTH rays")
+    floor = pin["jax_match"] - 0.005
+    check(match >= floor,
+          f"statuses match on >= {floor:.2%} of rays (the JAX package's "
+          f"own: {pin['jax_match']:.2%})")
+    check(med_rel < FIELD_F32_F64_MEDIAN_DL,
+          f"median relative landing-L error < {FIELD_F32_F64_MEDIAN_DL:g}")
+    return launches32
+
+
+def general_field_kernels(dev, card):
+    """Phase 11. Returns {field: (max abs err, timing dict)} of the two
+    float32 bs3 instances, the ones on the main paths of phases 12-13."""
+    from raytrace_tpu_torch.config import MediumConfig
+    from raytrace_tpu_torch.constants import B0_3D
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    fields = {"tilted": "ensemble10k_tilted", "igrf": "ensemble10k_igrf"}
+    errs, plain_ms = {}, {}
+    for k, name in fields.items():
+        # the slice's first launch: 10,240 rays x 512 float32 bs3 attempts
+        errs[k], plain_ms[k] = bit_for_bit(k, name, "float32", "bs3", dev,
+                                           512)
+        for stepper in ("bs3", "dopri5"):
+            bit_for_bit(k, name, "float64", stepper, dev, 256, every=10)
+    # a tilted field with an axisymmetric density (ps_mlt off: the chain
+    # rule through mlat alone), and IGRF over the MLT-resolved GCPM
+    bit_for_bit("tilted field, axisymmetric density", "ensemble10k_plume",
+                "float32", "bs3", dev, 256, every=10,
+                medium=MediumConfig(b0=B0_3D, b_model="tilted", b_tilt=0.2,
+                                    b_tilt_phi=0.5))
+    bit_for_bit("IGRF x MLT GCPM", "ensemble10k_plume", "float64", "dopri5",
+                dev, 256, every=10,
+                medium=MediumConfig(b0=B0_3D, ps_mlt=True, ps_model="gcpm",
+                                    b_model="igrf"))
+
+    # tilt = 0 through the general instance against the dipole instance of
+    # the full chain on the plume launch: not bit for bit (the magnetic
+    # longitude passes through atan2, the latitude through asin: last-ulp
+    # differences), and not within 1e-12 for every ray either: the general
+    # chain forms d cos psi/dr as a difference that is 0 for a dipole, and
+    # near the resonance cone dmu/dcos psi multiplies that rounding noise
+    # up (measured: 1% of the rays differ by 1e-7..2e-6 after 24 attempts,
+    # the median by 1.4e-16). Over 24 dopri5 attempts where the arc
+    # ceiling sets every step (ds_max 0.002 RE, as the CPU tests hold the
+    # JAX package) statuses and counters must be identical, the median
+    # difference of the state within 1e-12 and the worst within 1e-5.
+    # Over 256 attempts the rays that pass a wedge turn the noise into
+    # other accept/reject paths (6 of 1,024): >= 98% must keep their
+    # counters; at the preset's own ceiling, where the controller sets
+    # most steps, the shares are printed and not gated (PERF.md).
+    from raytrace_tpu_torch.integrate.solve import RayCarry
+
+    tilt0 = MediumConfig(b0=B0_3D, ps_mlt=True, b_model="tilted", b_tilt=0.0)
+    ceiling = dict(ds_max=0.002, dt0=1e-4)
+    for what, over, n in (("ds_max 0.002 RE", ceiling, 24),
+                          ("ds_max 0.002 RE", ceiling, 256),
+                          ("the preset's ds_max", {}, 256)):
+        outs = {}
+        for k, med in (("dipole", None), ("tilt = 0", tilt0)):
+            carry, f, env, cfg, spec, frame = start(
+                "ensemble10k_plume", "float64", dev, every=10, medium=med,
+                **over)
+            check(sc.field_code(env) == (0 if med is None else 1),
+                  f"{k}: field code {sc.field_code(env)}")
+            out = sc.step_chunk(carry, f, env, cfg, spec, stepper="dopri5",
+                                n_steps=n, frame=frame)
+            outs[k] = {m: getattr(out, m).cpu().numpy()
+                       for m in RayCarry._fields}
+        a, b = outs["tilt = 0"], outs["dipole"]
+        same = np.ones(a["status"].shape, bool)
+        for m in ("status", "n_accept", "n_reject"):
+            same &= a[m] == b[m]
+        err = np.max([rel_err(a[m], b[m]) for m in ("u", "t")], axis=0)
+        print(f"  tilt = 0 through the general instance against the dipole "
+              f"instance, float64 dopri5, {same.size:,} rays x {n} steps at "
+              f"{what}: {int((~same).sum())} rays took another accept/reject "
+              f"path; relative difference of u, t over the rest: median "
+              f"{float(np.median(err[same])):.3e}, 99th percentile "
+              f"{float(np.quantile(err[same], 0.99)):.3e}, worst "
+              f"{float(err[same].max()):.3e}", flush=True)
+        if over and n == 24:
+            check(bool(same.all()), "tilt = 0, 24 steps: statuses and "
+                                    "counters identical")
+            check(float(np.median(err)) <= 1e-12 and float(err.max()) <= 1e-5,
+                  "tilt = 0, 24 steps: u and t within 1e-12 in the median, "
+                  "1e-5 at worst")
+        elif over:
+            check(same.mean() >= 0.98, "tilt = 0, 256 steps: >= 98% of rays "
+                                       "keep their counters")
+
+    # every new instance beside the dipole plume instance, in turns
+    out = {}
+    for dt_name, stepper in (("float32", "bs3"), ("float32", "dopri5"),
+                             ("float64", "bs3"), ("float64", "dopri5")):
+        res = field_cost(dt_name, stepper, dev, card)
+        for k, name in fields.items():
+            t = res[k]
+            if (dt_name, stepper) == ("float32", "bs3"):
+                t.update(plain_ms=plain_ms[k], plain_rays=t["rays"],
+                         plain_n=t["n"])
+                out[k] = (errs[k], t)
+            else:
+                t.update(plain_cut(name, dt_name, stepper, dev))
+            print_timing(f"{k} {dt_name} {stepper}", t, card)
+    return out
+
 
 
 def drive(conf, what, card):
@@ -492,6 +787,30 @@ def drive(conf, what, card):
     print(f"  {what}: wall {wall:.4f} s, {steps} attempted ray-steps, "
           f"{steps / wall / 1e6:.2f}M ray-steps/s on {card}", flush=True)
     return out, wall, launches, calls
+
+
+def rays_alone(name, rays, out64):
+    """Each named ray of a float64 run of preset `name`, traced alone on
+    the card (one ray, one full-budget round): it must keep the status it
+    has in the fan."""
+    from raytrace_tpu_torch.config import preset
+    from raytrace_tpu_torch.integrate import events
+    from raytrace_tpu_torch.run import run
+
+    conf = preset(name)
+    axes = ("lats", "phis", "chis", "freqs")
+    for i in rays:
+        idx = np.unravel_index(i, [len(getattr(conf, k)) for k in axes])
+        one = run(preset(name, dtype="float64",
+                         **{k: (getattr(conf, k)[j],)
+                            for k, j in zip(axes, idx)}), device="cuda")
+        res, res1 = out64["result"], one["result"]
+        print(f"  ray {i}: {events.STATUS_NAMES[int(res.status[i])]} after "
+              f"{int(res.n_accept[i])} accepted + {int(res.n_reject[i])} "
+              f"rejected; alone {events.STATUS_NAMES[int(res1.status[0])]} "
+              f"after {int(res1.n_accept[0])} + {int(res1.n_reject[0])}")
+        check(int(res1.status[0]) == int(res.status[i]),
+              f"ray {i} alone keeps its status in the fan")
 
 
 def landing_agreement(out32, out64, lat_to_l):
@@ -526,7 +845,7 @@ def main():
     from raytrace_tpu_torch.integrate.solve import SolverConfig, trace
     from raytrace_tpu_torch.models.medium import make_env_lat
     from raytrace_tpu_torch.ops import step_chunk as sc
-    from raytrace_tpu_torch.run import _build_u0, run
+    from raytrace_tpu_torch.run import _build_u0
 
     dev = torch.device("cuda")
 
@@ -694,7 +1013,8 @@ def main():
         ("ensemble10k", "float64", "dopri5"),
         ("ensemble10k_3d", "float64", "dopri5"),
     ):
-        t = time_instance(name, dt_name, stepper, dev)
+        t = time_instance(name, dt_name, stepper, dev,
+                          plain_full=(dt_name, stepper) == ("float32", "bs3"))
         timings[name, dt_name, stepper] = t
         print_timing(f"{name} {dt_name} {stepper}", t, card)
     # the axisymmetric medium runs through the whole density chain with
@@ -783,58 +1103,25 @@ def main():
     print("[8] full density chain (MLT-resolved 3D, GCPM, every 2D gate) "
           "vs plain PyTorch", flush=True)
     # the plume path's first launch: 10,240 rays x 512 float32 bs3 attempts
-    carry, f, env, cfg, spec, frame = start("ensemble10k_plume", "float32",
-                                            dev)
-    got, ref, _ = both(carry, f, env, cfg, spec, "bs3", 512, frame)
-    n_diff = n_differ(got, ref)
-    err_plume = max_abs(got, ref)
-    print(f"  plume float32 bs3, 10,240 rays x 512 steps (the first round's "
-          f"launch): {int((got['status'] != 0).sum())} rays stopped, "
-          f"{n_diff} values differ, max abs err {err_plume:.3e}, max "
-          f"|drho_phi/dt| {float(np.abs(got['k1'][:, 5]).max()):.3e}")
-    check(n_diff == 0, "plume first launch: kernel and plain version agree "
-                       "bit for bit in every field")
-    carry, f, env, cfg, spec, frame = start("ensemble10k_plume", "float64",
-                                            dev, every=10)
+    err_plume, _ = bit_for_bit("plume (the first round's launch)",
+                               "ensemble10k_plume", "float32", "bs3", dev,
+                               512)
     for stepper in ("bs3", "dopri5"):
-        got, ref, _ = both(carry, f, env, cfg, spec, stepper, 256, frame)
-        n_diff = n_differ(got, ref)
-        print(f"  plume float64 {stepper}, {f.shape[0]} rays x 256 steps: "
-              f"{int((got['status'] != 0).sum())} rays stopped, {n_diff} "
-              f"values differ")
-        check(n_diff == 0, f"plume float64 {stepper}: bit for bit")
+        bit_for_bit("plume", "ensemble10k_plume", "float64", stepper, dev,
+                    256, every=10)
     # mr_fan_3d's launch: 2,048 low-altitude rays near f_LHR
-    carry, f, env, cfg, spec, frame = start("mr_fan_3d", "float32", dev)
-    got, ref, _ = both(carry, f, env, cfg, spec, "bs3", 512, frame)
-    n_diff = n_differ(got, ref)
-    err_mr = max_abs(got, ref)
-    print(f"  mr_fan_3d float32 bs3, 2,048 rays x 512 steps: {n_diff} values "
-          f"differ, max abs err {err_mr:.3e}")
-    check(n_diff == 0, "mr_fan_3d launch: bit for bit")
+    err_mr, _ = bit_for_bit("mr_fan_3d", "mr_fan_3d", "float32", "bs3", dev,
+                            512)
     gcpm = MediumConfig(b0=B0_3D, ps_mlt=True, ps_model="gcpm")
     for dt_name, stepper, every, n in (("float32", "bs3", 1, 512),
                                        ("float64", "dopri5", 10, 256)):
-        carry, f, env, cfg, spec, frame = start(
-            "ensemble10k_plume", dt_name, dev, every=every, medium=gcpm)
-        got, ref, _ = both(carry, f, env, cfg, spec, stepper, n, frame)
-        n_diff = n_differ(got, ref)
-        print(f"  plume fan over the MLT GCPM, {dt_name} {stepper}, "
-              f"{f.shape[0]} rays x {n} steps: "
-              f"{int((got['status'] != 0).sum())} rays stopped, {n_diff} "
-              f"values differ")
-        check(n_diff == 0, f"MLT GCPM {dt_name} {stepper}: bit for bit")
+        bit_for_bit("plume fan over the MLT GCPM", "ensemble10k_plume",
+                    dt_name, stepper, dev, n, every=every, medium=gcpm)
     for label, kw in FULL_2D.items():
         med = MediumConfig(b0=B0_2D, **kw)
         for dt_name, stepper in (("float32", "bs3"), ("float64", "dopri5")):
-            carry, f, env, cfg, spec, frame = start("knee", dt_name, dev,
-                                                    medium=med)
-            got, ref, _ = both(carry, f, env, cfg, spec, stepper, 512, frame)
-            n_diff = n_differ(got, ref)
-            print(f"  2D knee fan over {label}, {dt_name} {stepper}, "
-                  f"{f.shape[0]} rays x 512 steps: "
-                  f"{int((got['status'] != 0).sum())} rays stopped, {n_diff} "
-                  "values differ")
-            check(n_diff == 0, f"2D {label} {dt_name} {stepper}: bit for bit")
+            bit_for_bit(f"2D knee fan over {label}", "knee", dt_name,
+                        stepper, dev, 512, medium=med)
 
     # the full chain with every feature flag off performs the axisymmetric
     # chain's operations in the same order, so it must agree with the
@@ -873,7 +1160,9 @@ def main():
         ("2D full (ensemble10k fan, gcpm+iono_mlt+duct)", "ensemble10k",
          full_2d, "float64", "dopri5"),
     ):
-        t = time_instance(name, dt_name, stepper, dev, medium=med)
+        t = time_instance(name, dt_name, stepper, dev, medium=med,
+                          plain_full=(label, dt_name, stepper)
+                          == ("plume", "float32", "bs3"))
         t_full[label, dt_name, stepper] = t
         print_timing(f"{label} {dt_name} {stepper}", t, card)
     # mr_fan_3d's launch width: its 2,048 rays x 512 attempts
@@ -970,27 +1259,24 @@ def main():
           f"HIT_EARTH {n_hit_rest} and DT_UNDERFLOW {n_uf_rest} equal the "
           f"JAX package's float64 {F64_R_HIT_EARTH_REST} and "
           f"{F64_R_DT_UNDERFLOW_REST}")
-    # the named rays, each traced alone (one ray, one full-budget round):
-    # the same status as in the fan
-    axes = ("lats", "phis", "chis", "freqs")
-    for i in F64_R_WEDGE_RAYS:
-        idx = np.unravel_index(i, [len(getattr(mr, k)) for k in axes])
-        one = run(preset("mr_fan_3d", dtype="float64",
-                         **{k: (getattr(mr, k)[j],)
-                            for k, j in zip(axes, idx)}), device="cuda")
-        res, res1 = outr64["result"], one["result"]
-        print(f"  ray {i}: {events.STATUS_NAMES[int(res.status[i])]} after "
-              f"{int(res.n_accept[i])} accepted + {int(res.n_reject[i])} "
-              f"rejected; alone {events.STATUS_NAMES[int(res1.status[0])]} "
-              f"after {int(res1.n_accept[0])} + {int(res1.n_reject[0])}")
-        check(int(res1.status[0]) == int(res.status[i]),
-              f"ray {i} alone keeps its status in the fan")
+    rays_alone("mr_fan_3d", F64_R_WEDGE_RAYS, outr64)
     check(int(st64["n_max_steps"]) == F64_R_MAX_STEPS,
           f"MAX_STEPS {int(st64['n_max_steps'])} equals the JAX package's "
           f"float64 {F64_R_MAX_STEPS}")
     check(abs(steps64 - F64_R_STEPS) <= 0.01 * F64_R_STEPS,
           f"attempted steps {steps64} within 1% of the JAX package's float64 "
           f"{F64_R_STEPS}")
+
+    # ---- 11. the general-field kernel vs plain PyTorch ------------------
+    print("[11] general-field instances (tilted dipole, IGRF) vs plain "
+          "PyTorch", flush=True)
+    general = general_field_kernels(dev, card)
+
+    # ---- 12, 13. the non-axial-field slices ------------------------------
+    print("[12] ensemble10k_tilted", flush=True)
+    launches_tilted = field_slice("ensemble10k_tilted", card)
+    print("[13] ensemble10k_igrf", flush=True)
+    launches_igrf = field_slice("ensemble10k_igrf", card)
 
     def entry(name, launches, err, t):
         return {
@@ -1018,6 +1304,10 @@ def main():
               err_plume, t_full["plume", "float32", "bs3"]),
         entry("step_chunk[3d+full_medium(mlt),float32,bs3](mr_fan_3d)",
               launches_mr, err_mr, t_mr),
+        entry("step_chunk[3d+full_medium(mlt)+tilted_field,float32,bs3]",
+              launches_tilted, *general["tilted"]),
+        entry("step_chunk[3d+full_medium(mlt)+igrf_field,float32,bs3]",
+              launches_igrf, *general["igrf"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 
 Presets: ensemble10k, ensemble10k_production, lat_fan, knee, mr_fan (2D
 latitude frame); ensemble10k_3d, ensemble3d, knee_3d, 3d (3D dipole
-frame). A JSON file path loads a full RunConfig instead. The run goes to
+frame); ensemble10k_plume, mr_fan_3d (3D, the MLT-resolved medium);
+ensemble10k_tilted, ensemble10k_igrf (3D, the tilted dipole and the IGRF
+truncation). A JSON file path loads a full RunConfig instead. The run goes to
 the CUDA card unless --device names another device; it never falls back
 to the CPU on its own.
 """

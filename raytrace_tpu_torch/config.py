@@ -9,7 +9,8 @@ NotImplementedError when the run is built (models/medium.py, run.py).
 latitude-frame CA1992 configs ensemble10k, ensemble10k_production,
 lat_fan, knee and mr_fan, the 3D dipole-frame configs 3d, knee_3d,
 ensemble3d and ensemble10k_3d, and the 3D configs over the MLT-resolved
-medium, ensemble10k_plume and mr_fan_3d.
+medium, ensemble10k_plume and mr_fan_3d, and the plume fan over the
+non-axial fields, ensemble10k_tilted and ensemble10k_igrf.
 """
 
 import dataclasses
@@ -276,6 +277,36 @@ _PRESETS = {
         ds_max=2.0e6 / RE, dt_max=8.0e6 / RE,
         round_steps=(512, 1024, 2048),
     ),
+    # the plume fan on a tilted dipole (the realistic ~11.5 deg moment
+    # tilt): the MLT axis rides the magnetic longitude and the gradients
+    # the general chain (ops/fused.py::mu_and_grads_3d_general); fan and
+    # solver settings of ensemble10k_plume
+    "ensemble10k_tilted": lambda: dict(
+        name="ensemble10k_tilted", frame="3d",
+        medium=MediumConfig(b0=B0_3D, ps_mlt=True, b_model="tilted",
+                            b_tilt=0.2, b_tilt_phi=0.5),
+        lats=tuple(np.linspace(0.45, 1.1, 10)),
+        phis=tuple(np.linspace(-np.pi, np.pi, 8, endpoint=False)),
+        chis=tuple(np.linspace(-0.5, 0.5, 8)),
+        freqs=tuple(np.geomspace(500.0, 8000.0, 16)),
+        rho0=(1.0, 1.0, 0.0), rho_on_shell=True,
+        rtol=1.0e-5, atol=1.0e-8, base_stepper="bs3",
+        ds_max=2.0e6 / RE, dt_max=8.0e6 / RE,
+        round_steps=(512, 1024, 2048),
+    ),
+    # the same fan on the degree-3 IGRF truncation
+    "ensemble10k_igrf": lambda: dict(
+        name="ensemble10k_igrf", frame="3d",
+        medium=MediumConfig(b0=B0_3D, ps_mlt=True, b_model="igrf"),
+        lats=tuple(np.linspace(0.45, 1.1, 10)),
+        phis=tuple(np.linspace(-np.pi, np.pi, 8, endpoint=False)),
+        chis=tuple(np.linspace(-0.5, 0.5, 8)),
+        freqs=tuple(np.geomspace(500.0, 8000.0, 16)),
+        rho0=(1.0, 1.0, 0.0), rho_on_shell=True,
+        rtol=1.0e-5, atol=1.0e-8, base_stepper="bs3",
+        ds_max=2.0e6 / RE, dt_max=8.0e6 / RE,
+        round_steps=(512, 1024, 2048),
+    ),
     # magnetospherically reflecting 2D fan: long multi-bounce rays
     "mr_fan": lambda: dict(
         name="mr_fan", frame="2d_lat",
@@ -309,8 +340,6 @@ _PRESETS = {
 _LATER = {
     "raymain": "A10 (2d_colat frame)",
     "ensemble10k_local": "A6/B1 (local arc ceiling)",
-    "ensemble10k_tilted": "A9 (tilted field)",
-    "ensemble10k_igrf": "A9 (IGRF field)",
     "emic_heband": "A10 (multi-ion EMIC)",
 }
 

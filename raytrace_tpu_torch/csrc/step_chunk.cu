@@ -14,7 +14,25 @@
 //     over ops/fused.py::mu_and_grads_3d in the cos(psi) form (the psi
 //     form divides a 0/0 back out at field-aligned propagation, which
 //     float32 cannot resolve);
-// both over the centered dipole, protons only, and one of two media:
+// protons only, over the centered dipole (FIELD = DIPOLE) or, in the 3D
+// frame with the full medium, over a non-axial field (FIELD = TILTED, the
+// tilted dipole; FIELD = IGRF, the degree-3 IGRF truncation): rhs_3d over
+// ops/fused.py::mu_and_grads_3d_general, whose geometry (the field's three
+// components, the magnetic latitude and longitude of the tilted frame)
+// and its fifteen tangents d/dr, d/dtheta, d/dphi are the closed forms of
+// models/dipole.py (tilted_field, igrf_field, magnetic_coords), a scalar
+// per thread each, in front of the same density chain and Stix quartic.
+// The field is a template value and not a runtime flag of the full chain:
+// the full chain with every flag off already costs the axisymmetric
+// launches 15% (bs3) to 100% (3D float dopri5) (PERF.md), so the dipole
+// instances keep their code, their registers and their times. The tilt's
+// sines and cosines (the moment unit vector and the two rotated axes of
+// the magnetic longitude) are formed in double on the host by the
+// functions the plain version uses (models/dipole.py::moment_unit,
+// mlon_axes) and ride by value with the 15 IGRF coefficients. asin, atan2
+// and sqrt are the card's own in both the kernel and the plain version
+// (torch.asin and torch.atan2 on a CUDA tensor call the same functions).
+// One of two media:
 //   - the axisymmetric medium (MEDIUM = AXI: one ionosphere fit, CA1992
 //     with hard branches, optional diffusive-equilibrium factor), the
 //     code of the first two slices, kept as it was;
@@ -31,7 +49,9 @@
 //     the axisymmetric launches 17% (bs3) to 105% (3D float dopri5)
 //     slower than AXI on an H100 (PERF.md), so AXI keeps its instances.
 // Template instances: float and double x bs3 and dopri5 x the two frames
-// x the two media (16), one library.
+// x the two media over the dipole (16), and float and double x bs3 and
+// dopri5 x the two non-axial fields in the 3D frame over the full medium
+// (8): 24, one library.
 //
 // Design for the card, not block by block:
 //   - one thread per ray; the thread loads its ray's 14-field carry into
@@ -59,7 +79,8 @@
 // bound at ~0.07-0.11 ms by the card's 67 TFLOP/s, against ~1e-3 ms for
 // the bytes. Each thread is one long dependent chain, so the kernel runs
 // at the latency of that chain, 25-50x above the bound (2.7 ms in 2D,
-// 3.2 ms in 3D, 4.2 ms in 3D over the MLT medium, PERF.md), and a
+// 3.2 ms in 3D, 4.2 ms in 3D over the MLT medium, 5.3 ms over the tilted
+// field and 6.1 ms over IGRF, PERF.md), and a
 // 10,240-ray batch fills only part of the
 // 132 SMs (80 blocks of 128 threads). What the design does about it:
 // nothing leaves registers between attempts, the whole chain is inlined
@@ -123,6 +144,11 @@ constexpr double kLN10 = 2.302585092994046;
 constexpr double kDeRbase = 7.37e6;
 constexpr double kDeS =
     1.506 * 2500.0 * ((kDeRbase / 7370.0) * (kDeRbase / 7370.0));
+// sqrt(3), sqrt(6), sqrt(15), sqrt(10) of the Schmidt normalization
+constexpr double kRt3 = 1.7320508075688772;
+constexpr double kRt6 = 2.449489742783178;
+constexpr double kRt15 = 3.872983346207417;
+constexpr double kRt10 = 3.1622776601683795;
 
 // status codes (integrate/events.py)
 constexpr int ACTIVE = 0;
@@ -141,6 +167,9 @@ constexpr int LAT2D = 0;  // the 2D latitude frame, 4-state carry
 constexpr int KIM3D = 1;  // the 3D Kimura frame, 7-state carry
 constexpr int AXI = 0;    // the axisymmetric medium of the first slices
 constexpr int FULL = 1;   // the full density chain
+constexpr int DIPOLE = 0;  // the centered dipole
+constexpr int TILTED = 1;  // the tilted dipole (3D frame, full medium)
+constexpr int IGRF = 2;    // the degree-3 IGRF truncation (likewise)
 constexpr int kThreads = 128;
 constexpr int kMaxHarm = 8;  // harmonics of the MLT plasmapause shape
 
@@ -152,7 +181,9 @@ struct FrameDim {
 
 }  // namespace
 
-// host-side scalars, all double (mirror of ops/step_chunk.py::StepParams)
+// host-side scalars, all double (mirror of ops/step_chunk.py::StepParams):
+// 101 doubles, 808 bytes; the kernel's own KParams<double> stays under
+// 900 bytes, far below the 4 KB a kernel's parameters may take
 struct StepParams {
   double b0, iono_n0, iono_decay, iono_r0, lppi, lppo, ne_lppi, ps_season,
       ps_trough, ps_weight, de_weight, root;
@@ -168,6 +199,9 @@ struct StepParams {
   double one_m_mix, ln_ne_lppi, inv_smooth, one_m_refill, ln_lref, ln_keep,
       ln_gcpm_ne0, inv_lscale, inv_knee, inv_duct_w, duct_slope, cos_a0;
   double ps_mlt_c[1 + 2 * kMaxHarm];  // (c0, c1, s1, c2, s2, ...)
+  // the non-axial fields: models/dipole.py::moment_unit and mlon_axes of
+  // (b_tilt, b_tilt_phi), and the 15 Schmidt coefficients (nT)
+  double b_mom[3], b_xm[3], b_ym[3], igrf[15];
 };
 
 namespace {
@@ -193,6 +227,7 @@ struct KParams {
   T one_m_mix, ln_ne_lppi, inv_smooth, one_m_refill, ln_lref, ln_keep,
       ln_gcpm_ne0, inv_lscale, inv_knee, inv_duct_w, duct_slope, cos_a0;
   T mlt_c[1 + 2 * kMaxHarm];
+  T mom[3], xm[3], ym[3], igrf[15];  // the non-axial fields
   int n_harm;
   bool iono_mix_on, gcpm_on, smooth_on, refill_on, refill_q_on, duct_on,
       mlt_on;
@@ -265,6 +300,12 @@ KParams<T> make_params(const StepParams& h, int stepper) {
   p.duct_slope = T(h.duct_slope);
   p.cos_a0 = T(h.cos_a0);
   for (int k = 0; k < 1 + 2 * kMaxHarm; ++k) p.mlt_c[k] = T(h.ps_mlt_c[k]);
+  for (int k = 0; k < 3; ++k) {
+    p.mom[k] = T(h.b_mom[k]);
+    p.xm[k] = T(h.b_xm[k]);
+    p.ym[k] = T(h.b_ym[k]);
+  }
+  for (int k = 0; k < 15; ++k) p.igrf[k] = T(h.igrf[k]);
   p.n_harm = (int)h.n_harm;
   p.iono_mix_on = h.iono_mix != 1.0;
   p.gcpm_on = h.gcpm != 0.0;
@@ -288,6 +329,14 @@ __device__ __forceinline__ float d_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double d_sqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float d_rsqrt(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double d_rsqrt(double x) { return rsqrt(x); }
+__device__ __forceinline__ float d_asin(float x) { return asinf(x); }
+__device__ __forceinline__ double d_asin(double x) { return asin(x); }
+__device__ __forceinline__ float d_atan2(float y, float x) {
+  return atan2f(y, x);
+}
+__device__ __forceinline__ double d_atan2(double y, double x) {
+  return atan2(y, x);
+}
 __device__ __forceinline__ float d_abs(float x) { return fabsf(x); }
 __device__ __forceinline__ double d_abs(double x) { return fabs(x); }
 
@@ -738,6 +787,36 @@ __device__ __forceinline__ void rhs_2d_lat(const T u[4], T f,
   out[3] = T(kREOverC) * (T(1) + (f * mu * inv_mu2) * dmu_df);
 }
 
+// ops/rhs.py::rhs_3d below its gradient layer: the seven Haselgrove rows
+// of the Kimura frame from mu and its seven partials
+template <typename T>
+__device__ __forceinline__ void kimura_rows(const T u[7], T f, T mu, T dmudr,
+                                            T dmudtheta, T dmudphi, T dmudrr,
+                                            T dmudrt, T dmudrp, T dmu_df,
+                                            T out[7]) {
+  const T r = u[0], theta = u[1];
+  const T rho_r = u[3], rho_t = u[4], rho_p = u[5];
+  const T sintheta = d_sin(theta), costheta = d_cos(theta);
+  const T inv_mu2 = T(1) / (mu * mu);
+  const T inv_mu = mu * inv_mu2;
+  const T inv_r = T(1) / r;
+  const T inv_st = T(1) / sintheta;
+  const T inv_mu2_r = inv_mu2 * inv_r;
+  const T dr = inv_mu2 * (rho_r - mu * dmudrr);
+  const T dtheta = inv_mu2_r * (rho_t - mu * dmudrt);
+  const T dphi = inv_mu2_r * inv_st * (rho_p - mu * dmudrp);
+  out[0] = dr;
+  out[1] = dtheta;
+  out[2] = dphi;
+  out[3] = dmudr * inv_mu + rho_t * dtheta + rho_p * dphi * sintheta;
+  out[4] = (dmudtheta * inv_mu - rho_t * dr + r * rho_p * dphi * costheta) *
+           inv_r;
+  out[5] = (dmudphi * inv_mu - rho_p * dr * sintheta -
+            r * rho_p * dtheta * costheta) *
+           (inv_r * inv_st);
+  out[6] = T(kREOverC) * (T(1) + (f * inv_mu) * dmu_df);
+}
+
 // ops/rhs.py::rhs_3d over ops/fused.py::mu_and_grads_3d (cos form); over
 // the MLT-resolved medium dmu/dphi = dmu_dn * d ne/dphi
 template <typename T, int MEDIUM>
@@ -792,34 +871,261 @@ __device__ __forceinline__ void rhs_3d(const T u[7], T f, const KParams<T>& p,
   if constexpr (MEDIUM == FULL) {
     if (p.mlt_on) dmudphi = dmu_dn * ne_phi;
   }
-  const T dmudrr = dmu_dc * dcos_drho_r;
-  const T dmudrt = dmu_dc * dcos_drho_t;
-  const T dmudrp = dmu_dc * dcos_drho_p;
-
-  const T sintheta = d_sin(theta), costheta = d_cos(theta);
-  const T inv_mu2 = T(1) / (mu * mu);
-  const T inv_mu = mu * inv_mu2;
-  const T inv_st = T(1) / sintheta;
-  const T inv_mu2_r = inv_mu2 * inv_r;
-  const T dr = inv_mu2 * (rho_r - mu * dmudrr);
-  const T dtheta = inv_mu2_r * (rho_t - mu * dmudrt);
-  const T dphi = inv_mu2_r * inv_st * (rho_p - mu * dmudrp);
-  out[0] = dr;
-  out[1] = dtheta;
-  out[2] = dphi;
-  out[3] = dmudr * inv_mu + rho_t * dtheta + rho_p * dphi * sintheta;
-  out[4] = (dmudtheta * inv_mu - rho_t * dr + r * rho_p * dphi * costheta) *
-           inv_r;
-  out[5] = (dmudphi * inv_mu - rho_p * dr * sintheta -
-            r * rho_p * dtheta * costheta) *
-           (inv_r * inv_st);
-  out[6] = T(kREOverC) * (T(1) + (f * inv_mu) * dmu_df);
+  kimura_rows(u, f, mu, dmudr, dmudtheta, dmudphi, dmu_dc * dcos_drho_r,
+              dmu_dc * dcos_drho_t, dmu_dc * dcos_drho_p, dmu_df, out);
 }
 
-template <typename T, int FRAME, int MEDIUM>
+// The geometry of a non-axial field at one point and its tangents, every
+// one a scalar in a register (ops/fused.py::field_geometry): the field's
+// components, the magnetic latitude and longitude of the tilted frame, and
+// their d/dr (_r), d/dtheta (_t), d/dphi (_p); mlat and mlon do not depend
+// on r.
+template <typename T>
+struct FieldGeom {
+  T br, bt, bp, br_r, bt_r, bp_r, br_t, bt_t, bp_t, br_p, bt_p, bp_p;
+  T mlat, mlon, mlat_t, mlon_t, mlat_p, mlon_p;
+};
+
+// models/dipole.py::_moment_components: the moment unit vector on the
+// local spherical basis
+template <typename T>
+__device__ __forceinline__ void moment_components(T st, T ct, T sp, T cp,
+                                                  const KParams<T>& p, T& m_r,
+                                                  T& m_t, T& m_p) {
+  m_r = p.mom[0] * st * cp + p.mom[1] * st * sp + p.mom[2] * ct;
+  m_t = p.mom[0] * ct * cp + p.mom[1] * ct * sp - p.mom[2] * st;
+  m_p = -p.mom[0] * sp + p.mom[1] * cp;
+}
+
+// models/dipole.py::magnetic_coords with its tangents: mlat = asin of the
+// clipped sine -(m . rhat) (then sin and cos of it in the density chain,
+// as the plain version does), mlon = atan2(y_m . rhat, x_m . rhat); a zero
+// tangent where the clip is active
+template <typename T>
+__device__ __forceinline__ void magnetic_coords(T st, T ct, T sp, T cp, T m_r,
+                                                T m_t, T m_p,
+                                                const KParams<T>& p,
+                                                FieldGeom<T>& g) {
+  const T s = -m_r;
+  const T sc = jmin(jmax(s, T(-1)), T(1));
+  g.mlat = d_asin(sc);
+  const T rx = st * cp, ry = st * sp, rz = ct;
+  const T y = p.ym[0] * rx + p.ym[1] * ry + p.ym[2] * rz;
+  const T x = p.xm[0] * rx + p.xm[1] * ry + p.xm[2] * rz;
+  g.mlon = d_atan2(y, x);
+  const bool inside = s > T(-1) && s < T(1);
+  const T inv_c = T(1) / d_sqrt(T(1) - sc * sc);
+  g.mlat_t = (inside ? -m_t : T(0)) * inv_c;
+  g.mlat_p = (inside ? -(st * m_p) : T(0)) * inv_c;
+  const T rx_t = ct * cp, ry_t = ct * sp;
+  const T y_t = p.ym[0] * rx_t + p.ym[1] * ry_t - p.ym[2] * st;
+  const T x_t = p.xm[0] * rx_t + p.xm[1] * ry_t - p.xm[2] * st;
+  const T y_p = p.ym[1] * rx - p.ym[0] * ry;
+  const T x_p = p.xm[1] * rx - p.xm[0] * ry;
+  const T inv_h = T(1) / (x * x + y * y);
+  g.mlon_t = (x * y_t - y * x_t) * inv_h;
+  g.mlon_p = (x * y_p - y * x_p) * inv_h;
+}
+
+// models/dipole.py::tilted_field with its tangents, then magnetic_coords
+// from the same moment components
+template <typename T>
+__device__ __forceinline__ void geometry_tilted(T r, T st, T ct, T sp, T cp,
+                                                const KParams<T>& p,
+                                                FieldGeom<T>& g) {
+  T m_r, m_t, m_p;
+  moment_components(st, ct, sp, cp, p, m_r, m_t, m_p);
+  const T inv_r = T(1) / r;
+  const T k = p.b0 * (inv_r * inv_r * inv_r);
+  const T k2 = T(2) * k;
+  g.br = k2 * m_r;
+  g.bt = -k * m_t;
+  g.bp = -k * m_p;
+  const T m3 = T(-3) * inv_r;
+  g.br_r = g.br * m3;
+  g.bt_r = g.bt * m3;
+  g.bp_r = g.bp * m3;
+  g.br_t = k2 * m_t;
+  g.bt_t = k * m_r;
+  g.bp_t = T(0);
+  g.br_p = k2 * (st * m_p);
+  g.bt_p = -k * (ct * m_p);
+  g.bp_p = k * (p.mom[0] * cp + p.mom[1] * sp);
+  magnetic_coords(st, ct, sp, cp, m_r, m_t, m_p, p, g);
+}
+
+// models/dipole.py::igrf_field with its tangents (closed-form Schmidt
+// P_nm, n <= 3, their first and second theta-derivatives; cubes as
+// s * s * s), then magnetic_coords of the degree-1 part's tilted frame
+template <typename T>
+__device__ __forceinline__ void geometry_igrf(T r, T s, T c, T sp, T cp,
+                                              const KParams<T>& p,
+                                              FieldGeom<T>& g) {
+  const T g10 = p.igrf[0], g11 = p.igrf[1], h11 = p.igrf[2],
+          g20 = p.igrf[3], g21 = p.igrf[4], h21 = p.igrf[5],
+          g22 = p.igrf[6], h22 = p.igrf[7], g30 = p.igrf[8],
+          g31 = p.igrf[9], h31 = p.igrf[10], g32 = p.igrf[11],
+          h32 = p.igrf[12], g33 = p.igrf[13], h33 = p.igrf[14];
+  const T s2p = T(2) * sp * cp;
+  const T c2p = cp * cp - sp * sp;
+  const T s3p = s2p * cp + c2p * sp;
+  const T c3p = c2p * cp - s2p * sp;
+
+  const T p10 = c, d10 = -s;
+  const T p11 = s, d11 = c;
+  const T p20 = T(1.5) * c * c - T(0.5), d20 = T(-3) * s * c;
+  const T p21 = T(kRt3) * s * c, d21 = T(kRt3) * (c * c - s * s);
+  const T p22 = T(0.5 * kRt3) * s * s, d22 = T(kRt3) * s * c;
+  const T c5 = T(5) * c * c - T(1);
+  const T p30 = T(2.5) * c * c * c - T(1.5) * c, d30 = T(-1.5) * s * c5;
+  const T p31 = T(0.25 * kRt6) * s * c5;
+  const T d31 = T(0.25 * kRt6) * (c * c5 - T(10) * c * s * s);
+  const T p32 = T(0.5 * kRt15) * s * s * c;
+  const T d32 = T(0.5 * kRt15) * (T(2) * s * c * c - s * s * s);
+  const T p33 = T(0.25 * kRt10) * s * s * s;
+  const T d33 = T(0.75 * kRt10) * s * s * c;
+
+  const T inv_r = T(1) / r;
+  const T f1 = inv_r * inv_r * inv_r;
+  const T f2 = f1 * inv_r;
+  const T f3 = f2 * inv_r;
+
+  const T a11 = g11 * cp + h11 * sp, q11 = g11 * sp - h11 * cp;
+  const T a21 = g21 * cp + h21 * sp, q21 = g21 * sp - h21 * cp;
+  const T a22 = g22 * c2p + h22 * s2p, q22 = T(2) * (g22 * s2p - h22 * c2p);
+  const T a31 = g31 * cp + h31 * sp, q31 = g31 * sp - h31 * cp;
+  const T a32 = g32 * c2p + h32 * s2p, q32 = T(2) * (g32 * s2p - h32 * c2p);
+  const T a33 = g33 * c3p + h33 * s3p, q33 = T(3) * (g33 * s3p - h33 * c3p);
+  const T t1 = g10 * p10 + a11 * p11;
+  const T dt1 = g10 * d10 + a11 * d11;
+  const T pt1 = q11 * p11;
+  const T t2 = g20 * p20 + a21 * p21 + a22 * p22;
+  const T dt2 = g20 * d20 + a21 * d21 + a22 * d22;
+  const T pt2 = q21 * p21 + q22 * p22;
+  const T t3 = g30 * p30 + a31 * p31 + a32 * p32 + a33 * p33;
+  const T dt3 = g30 * d30 + a31 * d31 + a32 * d32 + a33 * d33;
+  const T pt3 = q31 * p31 + q32 * p32 + q33 * p33;
+
+  const T nt = T(1.0e-9);
+  const T s_min = T(1.0e-12);
+  const T inv_s = T(1) / jmax(s, s_min);
+  const T sum_p = f1 * pt1 + f2 * pt2 + f3 * pt3;
+  g.br = nt * (T(2) * f1 * t1 + T(3) * f2 * t2 + T(4) * f3 * t3);
+  g.bt = -nt * (f1 * dt1 + f2 * dt2 + f3 * dt3);
+  g.bp = nt * inv_s * sum_p;
+
+  const T e10 = -c, e11 = -s;
+  const T e20 = T(-3) * (c * c - s * s), e21 = T(-4.0 * kRt3) * s * c,
+          e22 = d21;
+  const T e30 = T(-1.5) * (c * c5 - T(10) * c * s * s);
+  const T e31 =
+      T(0.25 * kRt6) * (T(10) * s * s * s - s * c5 - T(30) * c * c * s);
+  const T e32 = T(0.5 * kRt15) * (T(2) * c * c * c - T(7) * s * s * c);
+  const T e33 = T(0.75 * kRt10) * (T(2) * s * c * c - s * s * s);
+  const T ddt1 = g10 * e10 + a11 * e11;
+  const T ddt2 = g20 * e20 + a21 * e21 + a22 * e22;
+  const T ddt3 = g30 * e30 + a31 * e31 + a32 * e32 + a33 * e33;
+  const T dpt1 = q11 * d11;
+  const T dpt2 = q21 * d21 + q22 * d22;
+  const T dpt3 = q31 * d31 + q32 * d32 + q33 * d33;
+  const T ppt1 = a11 * p11;
+  const T ppt2 = a21 * p21 + T(4) * a22 * p22;
+  const T ppt3 = a31 * p31 + T(4) * a32 * p32 + T(9) * a33 * p33;
+
+  const T nt_r = nt * inv_r;
+  const T sum_dp = f1 * dpt1 + f2 * dpt2 + f3 * dpt3;
+  g.br_r = -nt_r * (T(6) * f1 * t1 + T(12) * f2 * t2 + T(20) * f3 * t3);
+  g.bt_r = nt_r * (T(3) * f1 * dt1 + T(4) * f2 * dt2 + T(5) * f3 * dt3);
+  g.bp_r =
+      -nt_r * inv_s * (T(3) * f1 * pt1 + T(4) * f2 * pt2 + T(5) * f3 * pt3);
+  const T c_eff = s > s_min ? c : T(0);
+  g.br_t = nt * (T(2) * f1 * dt1 + T(3) * f2 * dt2 + T(4) * f3 * dt3);
+  g.bt_t = -nt * (f1 * ddt1 + f2 * ddt2 + f3 * ddt3);
+  g.bp_t = nt * (inv_s * sum_dp - inv_s * inv_s * c_eff * sum_p);
+  g.br_p = -nt * (T(2) * f1 * pt1 + T(3) * f2 * pt2 + T(4) * f3 * pt3);
+  g.bt_p = nt * sum_dp;
+  g.bp_p = nt * inv_s * (f1 * ppt1 + f2 * ppt2 + f3 * ppt3);
+
+  T m_r, m_t, m_p;
+  moment_components(s, c, sp, cp, p, m_r, m_t, m_p);
+  magnetic_coords(s, c, sp, cp, m_r, m_t, m_p, p, g);
+}
+
+// ops/rhs.py::rhs_3d over ops/fused.py::mu_and_grads_3d_general: the
+// field's geometry and tangents, |B| and the unit field with their
+// partials, cos psi and the full three-component cross for sin psi, the
+// full density chain at (r, mlat, mlon) with the chain rule through the
+// magnetic coordinates, the Stix quartic in the cos(psi) form.
+//
+// NOT inlined into the stepper's stages: one body per instance that the
+// three (bs3) or seven (dopri5) evaluations of an attempt call. Inlined,
+// the general-field instances ran 1.4x (float bs3) to 2.0x (float dopri5)
+// longer for the same arithmetic and took 4x as long to compile (PERF.md):
+// with 4 warps a SM nothing hides the instruction fetches of a straight
+// line of that length. The state and the derivative then pass through
+// local memory (u, out), which costs less than the fetches did. The
+// results do not change: no operation is reordered across the call.
+template <typename T, int FIELD>
+__device__ __noinline__ void rhs_3d_general(const T u[7], T f,
+                                            const KParams<T>& p, T out[7]) {
+  const T r = u[0], theta = u[1], phi = u[2];
+  const T rho_r = u[3], rho_t = u[4], rho_p = u[5];
+  const T st = d_sin(theta), ct = d_cos(theta);
+  const T sp = d_sin(phi), cp = d_cos(phi);
+  FieldGeom<T> g;
+  if constexpr (FIELD == TILTED)
+    geometry_tilted(r, st, ct, sp, cp, p, g);
+  else
+    geometry_igrf(r, st, ct, sp, cp, p, g);
+
+  const T bm = d_sqrt(g.br * g.br + g.bt * g.bt + g.bp * g.bp);
+  const T inv_bm = T(1) / bm;
+  const T bm_r = (g.br * g.br_r + g.bt * g.bt_r + g.bp * g.bp_r) * inv_bm;
+  const T bm_t = (g.br * g.br_t + g.bt * g.bt_t + g.bp * g.bp_t) * inv_bm;
+  const T bm_p = (g.br * g.br_p + g.bt * g.bt_p + g.bp * g.bp_p) * inv_bm;
+  const T hr = g.br * inv_bm, ht = g.bt * inv_bm, hp = g.bp * inv_bm;
+
+  const T inv_rmag = d_rsqrt(rho_r * rho_r + rho_t * rho_t + rho_p * rho_p);
+  const T rr = rho_r * inv_rmag, rt = rho_t * inv_rmag, rp = rho_p * inv_rmag;
+  const T cospsi = jmin(jmax(hr * rr + ht * rt + hp * rp, T(-1)), T(1));
+  const T c1 = ht * rp - hp * rt;
+  const T c2 = hp * rr - hr * rp;
+  const T c3 = hr * rt - ht * rr;
+  const T sinpsi = d_sqrt(c1 * c1 + c2 * c2 + c3 * c3);
+  const T dcos_dr =
+      ((g.br_r * rr + g.bt_r * rt + g.bp_r * rp) - cospsi * bm_r) * inv_bm;
+  const T dcos_dt =
+      ((g.br_t * rr + g.bt_t * rt + g.bp_t * rp) - cospsi * bm_t) * inv_bm;
+  const T dcos_dp =
+      ((g.br_p * rr + g.bt_p * rt + g.bp_p * rp) - cospsi * bm_p) * inv_bm;
+  const T dcos_drho_r = (hr - cospsi * rr) * inv_rmag;
+  const T dcos_drho_t = (ht - cospsi * rt) * inv_rmag;
+  const T dcos_drho_p = (hp - cospsi * rp) * inv_rmag;
+
+  T ne, ne_r, ne_lat, ne_mlon;
+  ne_and_grads_full(r, d_sin(g.mlat), d_cos(g.mlat), g.mlon, p.mlt_on, p, ne,
+                    ne_r, ne_lat, ne_mlon);
+  T dne_dt = ne_lat * g.mlat_t, dne_dp = ne_lat * g.mlat_p;
+  if (p.mlt_on) {
+    dne_dt = dne_dt + ne_mlon * g.mlon_t;
+    dne_dp = dne_dp + ne_mlon * g.mlon_p;
+  }
+  T mu, dmu_dn, dmu_db, dmu_df, dmu_dc;
+  stix_quartic_grads<T, true>(ne, bm, f, sinpsi, cospsi, p.root, mu, dmu_dn,
+                              dmu_db, dmu_df, dmu_dc);
+  kimura_rows(u, f, mu, dmu_dn * ne_r + dmu_db * bm_r + dmu_dc * dcos_dr,
+              dmu_dn * dne_dt + dmu_db * bm_t + dmu_dc * dcos_dt,
+              dmu_dn * dne_dp + dmu_db * bm_p + dmu_dc * dcos_dp,
+              dmu_dc * dcos_drho_r, dmu_dc * dcos_drho_t,
+              dmu_dc * dcos_drho_p, dmu_df, out);
+}
+
+template <typename T, int FRAME, int MEDIUM, int FIELD>
 __device__ __forceinline__ void rhs(const T* u, T f, const KParams<T>& p,
                                     T* out) {
-  if constexpr (FRAME == KIM3D)
+  if constexpr (FIELD != DIPOLE)
+    rhs_3d_general<T, FIELD>(u, f, p, out);
+  else if constexpr (FRAME == KIM3D)
     rhs_3d<T, MEDIUM>(u, f, p, out);
   else
     rhs_2d_lat<T, MEDIUM>(u, f, p, out);
@@ -853,24 +1159,25 @@ __device__ __forceinline__ T err_norm(const T ev[N], const T u[N],
 }
 
 // integrate/steppers.py::bs3_step (Bogacki-Shampine 3(2), FSAL)
-template <typename T, int FRAME, int MEDIUM, int N = FrameDim<FRAME>::N>
+template <typename T, int FRAME, int MEDIUM, int FIELD,
+          int N = FrameDim<FRAME>::N>
 __device__ __forceinline__ T bs3_step(const T u[N], const T k1[N], T h, T f,
                                       const KParams<T>& p, T u_new[N],
                                       T k_end[N], T incr[N]) {
   T y[N], k2[N], k3[N], ev[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.5) * h) * k1[j];
-  rhs<T, FRAME, MEDIUM>(y, f, p, k2);
+  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k2);
 #pragma unroll
   for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.75) * h) * k2[j];
-  rhs<T, FRAME, MEDIUM>(y, f, p, k3);
+  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k3);
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     incr[j] = h * (T(2.0 / 9.0) * k1[j] + T(1.0 / 3.0) * k2[j] +
                    T(4.0 / 9.0) * k3[j]);
     u_new[j] = u[j] + incr[j];
   }
-  rhs<T, FRAME, MEDIUM>(u_new, f, p, k_end);
+  rhs<T, FRAME, MEDIUM, FIELD>(u_new, f, p, k_end);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     ev[j] = h * (T(2.0 / 9.0 - 7.0 / 24.0) * k1[j] +
@@ -881,30 +1188,31 @@ __device__ __forceinline__ T bs3_step(const T u[N], const T k1[N], T h, T f,
 
 // integrate/steppers.py::dopri5_step (Dormand-Prince 5(4), FSAL); the
 // zero tableau entries stay in the sums, as they do in the JAX package
-template <typename T, int FRAME, int MEDIUM, int N = FrameDim<FRAME>::N>
+template <typename T, int FRAME, int MEDIUM, int FIELD,
+          int N = FrameDim<FRAME>::N>
 __device__ __forceinline__ T dopri5_step(const T u[N], const T k1[N], T h,
                                          T f, const KParams<T>& p,
                                          T u_new[N], T k_end[N], T incr[N]) {
   T y[N], k2[N], k3[N], k4[N], k5[N], k6[N], ev[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) y[j] = u[j] + h * (T(0.2) * k1[j]);
-  rhs<T, FRAME, MEDIUM>(y, f, p, k2);
+  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k2);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     y[j] = u[j] + h * (T(3.0 / 40.0) * k1[j] + T(9.0 / 40.0) * k2[j]);
-  rhs<T, FRAME, MEDIUM>(y, f, p, k3);
+  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k3);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     y[j] = u[j] + h * (T(44.0 / 45.0) * k1[j] + T(-56.0 / 15.0) * k2[j] +
                        T(32.0 / 9.0) * k3[j]);
-  rhs<T, FRAME, MEDIUM>(y, f, p, k4);
+  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k4);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     y[j] = u[j] + h * (T(19372.0 / 6561.0) * k1[j] +
                        T(-25360.0 / 2187.0) * k2[j] +
                        T(64448.0 / 6561.0) * k3[j] +
                        T(-212.0 / 729.0) * k4[j]);
-  rhs<T, FRAME, MEDIUM>(y, f, p, k5);
+  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k5);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     y[j] = u[j] + h * (T(9017.0 / 3168.0) * k1[j] +
@@ -912,7 +1220,7 @@ __device__ __forceinline__ T dopri5_step(const T u[N], const T k1[N], T h,
                        T(46732.0 / 5247.0) * k3[j] +
                        T(49.0 / 176.0) * k4[j] +
                        T(-5103.0 / 18656.0) * k5[j]);
-  rhs<T, FRAME, MEDIUM>(y, f, p, k6);
+  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k6);
   // the 7th stage is evaluated at u + h * (b5 . k) == u_new (FSAL)
 #pragma unroll
   for (int j = 0; j < N; ++j) {
@@ -921,7 +1229,7 @@ __device__ __forceinline__ T dopri5_step(const T u[N], const T k1[N], T h,
                    T(-2187.0 / 6784.0) * k5[j] + T(11.0 / 84.0) * k6[j]);
     u_new[j] = u[j] + incr[j];
   }
-  rhs<T, FRAME, MEDIUM>(u_new, f, p, k_end);
+  rhs<T, FRAME, MEDIUM, FIELD>(u_new, f, p, k_end);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     ev[j] = h * (T(35.0 / 384.0 - 5179.0 / 57600.0) * k1[j] +
@@ -959,7 +1267,7 @@ __device__ __forceinline__ int classify_step(const T u0[N], const T u1[N],
   return st;
 }
 
-template <typename T, int STEPPER, int FRAME, int MEDIUM>
+template <typename T, int STEPPER, int FRAME, int MEDIUM, int FIELD>
 __global__ void __launch_bounds__(kThreads)
     step_chunk_kernel(T* __restrict__ u_g, T* __restrict__ k1_g,
                       T* __restrict__ u_prev_g, T* __restrict__ u_lo_g,
@@ -1005,10 +1313,10 @@ __global__ void __launch_bounds__(kThreads)
     T u_new[N], k_end[N], incr[N];
     const T err_raw =
         STEPPER == BS3
-            ? bs3_step<T, FRAME, MEDIUM>(u, k1, dt_eff, f, p, u_new, k_end,
-                                         incr)
-            : dopri5_step<T, FRAME, MEDIUM>(u, k1, dt_eff, f, p, u_new,
-                                            k_end, incr);
+            ? bs3_step<T, FRAME, MEDIUM, FIELD>(u, k1, dt_eff, f, p, u_new,
+                                                k_end, incr)
+            : dopri5_step<T, FRAME, MEDIUM, FIELD>(u, k1, dt_eff, f, p,
+                                                   u_new, k_end, incr);
     const bool accept = err_raw <= p.accept_tol;
 
     const T t1 = t + dt_eff;
@@ -1088,11 +1396,11 @@ __global__ void __launch_bounds__(kThreads)
   caution_g[i] = caution;
 }
 
-template <typename T, int STEPPER, int FRAME, int MEDIUM>
+template <typename T, int STEPPER, int FRAME, int MEDIUM, int FIELD>
 void launch(void** ptrs, long long B, int n_steps, const StepParams& h,
             cudaStream_t stream) {
   const long long blocks = (B + kThreads - 1) / kThreads;
-  step_chunk_kernel<T, STEPPER, FRAME, MEDIUM>
+  step_chunk_kernel<T, STEPPER, FRAME, MEDIUM, FIELD>
       <<<(unsigned)blocks, kThreads, 0, stream>>>(
           (T*)ptrs[0], (T*)ptrs[1], (T*)ptrs[2], (T*)ptrs[3], (T*)ptrs[4],
           (T*)ptrs[5], (T*)ptrs[6], (T*)ptrs[7], (int*)ptrs[8],
@@ -1101,24 +1409,24 @@ void launch(void** ptrs, long long B, int n_steps, const StepParams& h,
           make_params<T>(h, STEPPER));
 }
 
-template <typename T, int FRAME, int MEDIUM>
+template <typename T, int FRAME, int MEDIUM, int FIELD>
 void launch_stepper(int stepper, void** ptrs, long long B, int n_steps,
                     const StepParams& h, cudaStream_t stream) {
   if (stepper == BS3)
-    launch<T, BS3, FRAME, MEDIUM>(ptrs, B, n_steps, h, stream);
+    launch<T, BS3, FRAME, MEDIUM, FIELD>(ptrs, B, n_steps, h, stream);
   else
-    launch<T, DOPRI5, FRAME, MEDIUM>(ptrs, B, n_steps, h, stream);
+    launch<T, DOPRI5, FRAME, MEDIUM, FIELD>(ptrs, B, n_steps, h, stream);
 }
 
-template <int FRAME, int MEDIUM>
+template <int FRAME, int MEDIUM, int FIELD>
 void launch_dtype(int dtype, int stepper, void** ptrs, long long B,
                   int n_steps, const StepParams& h, cudaStream_t stream) {
   if (dtype == 0)
-    launch_stepper<float, FRAME, MEDIUM>(stepper, ptrs, B, n_steps, h,
-                                         stream);
+    launch_stepper<float, FRAME, MEDIUM, FIELD>(stepper, ptrs, B, n_steps, h,
+                                                stream);
   else
-    launch_stepper<double, FRAME, MEDIUM>(stepper, ptrs, B, n_steps, h,
-                                          stream);
+    launch_stepper<double, FRAME, MEDIUM, FIELD>(stepper, ptrs, B, n_steps,
+                                                 h, stream);
 }
 
 template <int FRAME>
@@ -1126,9 +1434,11 @@ void launch_medium(int medium, int dtype, int stepper, void** ptrs,
                    long long B, int n_steps, const StepParams& h,
                    cudaStream_t stream) {
   if (medium == FULL)
-    launch_dtype<FRAME, FULL>(dtype, stepper, ptrs, B, n_steps, h, stream);
+    launch_dtype<FRAME, FULL, DIPOLE>(dtype, stepper, ptrs, B, n_steps, h,
+                                      stream);
   else
-    launch_dtype<FRAME, AXI>(dtype, stepper, ptrs, B, n_steps, h, stream);
+    launch_dtype<FRAME, AXI, DIPOLE>(dtype, stepper, ptrs, B, n_steps, h,
+                                     stream);
 }
 
 }  // namespace
@@ -1137,20 +1447,29 @@ void launch_medium(int medium, int dtype, int stepper, void** ptrs,
 // status, n_accept, n_reject, rejected, n_tiny, caution (B,) int32; f (B,).
 // dtype 0 = float, 1 = double; stepper 0 = bs3, 1 = dopri5; frame 0 = the
 // 2D latitude frame (n = 4), 1 = the 3D frame (n = 7); medium 0 = the
-// axisymmetric medium, 1 = the full density chain. Launches on `stream`
-// without synchronising; returns cudaGetLastError().
+// axisymmetric medium, 1 = the full density chain; field 0 = the centered
+// dipole, 1 = the tilted dipole, 2 = the IGRF truncation (the last two
+// only in the 3D frame over the full chain). Launches on `stream` without
+// synchronising; returns cudaGetLastError().
 extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
-                                 int medium, void** ptrs, long long B,
-                                 int n_steps, const StepParams* h,
-                                 void* stream) {
+                                 int medium, int field, void** ptrs,
+                                 long long B, int n_steps,
+                                 const StepParams* h, void* stream) {
   if (B <= 0) return 0;
   if ((dtype != 0 && dtype != 1) || (stepper != BS3 && stepper != DOPRI5) ||
       (frame != LAT2D && frame != KIM3D) ||
-      (medium != AXI && medium != FULL) || h->n_harm < 0.0 ||
-      h->n_harm > kMaxHarm)
+      (medium != AXI && medium != FULL) ||
+      (field != DIPOLE && field != TILTED && field != IGRF) ||
+      (field != DIPOLE && (frame != KIM3D || medium != FULL)) ||
+      h->n_harm < 0.0 || h->n_harm > kMaxHarm)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (frame == KIM3D)
+  if (field == TILTED)
+    launch_dtype<KIM3D, FULL, TILTED>(dtype, stepper, ptrs, B, n_steps, *h,
+                                      s);
+  else if (field == IGRF)
+    launch_dtype<KIM3D, FULL, IGRF>(dtype, stepper, ptrs, B, n_steps, *h, s);
+  else if (frame == KIM3D)
     launch_medium<KIM3D>(medium, dtype, stepper, ptrs, B, n_steps, *h, s);
   else
     launch_medium<LAT2D>(medium, dtype, stepper, ptrs, B, n_steps, *h, s);

@@ -1,16 +1,19 @@
 """The step kernel of this checkout against another checkout's, on one card.
 
     python -m raytrace_tpu_torch.kernel_ab --against DIR [--n 512] [--reps 20]
+        [--presets ensemble10k,ensemble10k_3d]
 
 DIR is the root of another checkout of the repository (for example an
 earlier commit unpacked with `git archive` into a directory that
 .gitignore lists). Each checkout builds its own csrc/step_chunk.cu (both
 builds at once, each cached in its checkout's _build/); then the two are
 timed in turns, other / this / this / other, one process per turn, over
-the axisymmetric launches that every checkout of the port serves:
-ensemble10k (2D) and ensemble10k_3d (3D), all 10,240 rays x n attempts,
-float32 and float64, bs3 and dopri5 -- the eight instances that serve
-the axisymmetric medium. A time is the mean of `reps` launches between two CUDA events
+the launches of `--presets`, all rays x n attempts, float32 and float64,
+bs3 and dopri5. The default is the axisymmetric launches that every
+checkout of the port serves, ensemble10k (2D) and ensemble10k_3d (3D):
+the eight instances that serve the axisymmetric medium; any preset that
+both checkouts serve can be named (ensemble10k_plume, ensemble10k_tilted,
+...). A time is the mean of `reps` launches between two CUDA events
 after a warm-up launch. Prints each checkout's registers and spills
 (-Xptxas -v), one line per instance with the two turns of each side and
 the ratio of the means, and a JSON record as the last line.
@@ -23,15 +26,17 @@ import subprocess
 import sys
 import time
 
-INSTANCES = [(name, dt, st)
-             for name in ("ensemble10k", "ensemble10k_3d")
-             for dt in ("float32", "float64")
-             for st in ("bs3", "dopri5")]
+DEFAULT_PRESETS = "ensemble10k,ensemble10k_3d"
 _HERE = os.path.abspath(__file__)
 _ROOT = os.path.dirname(os.path.dirname(_HERE))
 
 
-def _child(root, mode, n, reps):
+def _instances(presets):
+    return [(name, dt, st) for name in presets.split(",")
+            for dt in ("float32", "float64") for st in ("bs3", "dopri5")]
+
+
+def _child(root, mode, n, reps, presets):
     """Runs in a process of its own with `root`'s package on the path (and
     not this file's directory, which Python put first)."""
     here = os.path.dirname(_HERE)
@@ -55,7 +60,7 @@ def _child(root, mode, n, reps):
         return
     dev = torch.device("cuda")
     times = {}
-    for name, dt, st in INSTANCES:
+    for name, dt, st in _instances(presets):
         conf = preset(name, dtype=dt)
         env = conf.medium.build()
         np_dt = np.float32 if dt == "float32" else np.float64
@@ -85,7 +90,8 @@ def _child(root, mode, n, reps):
 def _run(root, mode, args, wait=True):
     proc = subprocess.Popen(
         [sys.executable, _HERE, "--child", root, "--mode", mode,
-         "--n", str(args.n), "--reps", str(args.reps)],
+         "--n", str(args.n), "--reps", str(args.reps),
+         "--presets", args.presets],
         stdout=subprocess.PIPE, text=True)
     if not wait:
         return proc
@@ -105,11 +111,14 @@ def main():
     p.add_argument("--against", help="root of the other checkout")
     p.add_argument("--n", type=int, default=512)
     p.add_argument("--reps", type=int, default=20)
+    p.add_argument("--presets", default=DEFAULT_PRESETS,
+                   help="comma-separated presets that both checkouts serve")
     p.add_argument("--child", help=argparse.SUPPRESS)
     p.add_argument("--mode", default="time", help=argparse.SUPPRESS)
     args = p.parse_args()
     if args.child:
-        _child(os.path.abspath(args.child), args.mode, args.n, args.reps)
+        _child(os.path.abspath(args.child), args.mode, args.n, args.reps,
+               args.presets)
         return 0
     if not args.against:
         p.error("--against DIR is required")
@@ -137,9 +146,9 @@ def main():
         print(f"turn {len(turns['this']) + len(turns['other'])} ({k}) done",
               flush=True)
     record = {}
-    print(f"{args.n} attempts over 10,240 rays, mean of {args.reps} "
+    print(f"{args.n} attempts over each preset's rays, mean of {args.reps} "
           f"launches; turns in order other, this, this, other; {smi}")
-    for inst in (" ".join(i) for i in INSTANCES):
+    for inst in (" ".join(i) for i in _instances(args.presets)):
         a = [t[inst] for t in turns["this"]]
         b = [t[inst] for t in turns["other"]]
         ratio = (sum(a) / 2) / (sum(b) / 2)

@@ -1,8 +1,10 @@
-"""Composite propagation medium: dipole B-field + electron density.
+"""Composite propagation medium: geomagnetic field + electron density.
 
 Port of raytrace_tpu/models/medium.py: the centered dipole (the 2D
-frames' |B| and the 3D frame's vector field with its magnetic latitude and
-longitude) and the whole density medium -- the ionosphere (one fit, or
+frames' |B| and the 3D frame's vector field), the tilted dipole and the
+degree-3 IGRF truncation of the 3D frame (with the magnetic latitude and
+longitude of their tilted frame, which organize the density models) and
+the whole density medium -- the ionosphere (one fit, or
 the day/night blend), the CA1992 plasmasphere (hard or sigmoid-smoothed
 plasmapause, optional trough refill) or the simplified GCPM, the
 field-aligned duct, the optional diffusive-equilibrium factor, and the
@@ -10,8 +12,8 @@ MLT-resolved plasmasphere of the 3D frame (the plasmapause follows the
 drift-derived teardrop and the trough a day-night modulation in
 longitude). `EnvParams` keeps every field of the JAX package's NamedTuple
 (so a JAX `EnvParams._asdict()` converts field for field, see
-interop.py); the multi-ion composition (ROADMAP A10) and the tilted and
-IGRF fields (A9) raise NotImplementedError naming their ROADMAP item.
+interop.py); the multi-ion composition (ROADMAP A10) raises
+NotImplementedError naming its ROADMAP item.
 
 The scalars are Python floats. A tensor op with a Python float operand
 computes in the tensor's dtype, which is what the JAX package's cast_env
@@ -74,7 +76,6 @@ class EnvParams(NamedTuple):
 _GATES = (
     ("eta_he", 0.0, "A10 (multi-ion composition)"),
     ("eta_o", 0.0, "A10 (multi-ion composition)"),
-    ("b_model", "dipole", "A9 (tilted and IGRF fields)"),
 )
 
 
@@ -142,9 +143,15 @@ def make_env(
         the drift-derived teardrop (convection.mlt_shape_fourier),
         anchored at this env's mlt, and the trough a day-night
         modulation of half-amplitude ps_mlt_tamp; the 2D frames trace its
-        phi = 0 meridian, the axisymmetric medium.
-    b_model "tilted"/"igrf" (A9) and nonzero eta_he/eta_o (A10) raise
-    NotImplementedError."""
+        phi = 0 meridian, the axisymmetric medium;
+      - b_model="tilted" tilts the dipole moment by b_tilt (rad) from -z
+        toward geographic longitude b_tilt_phi; b_model="igrf" takes the
+        degree-3 IGRF truncation (igrf_coeffs, 15 Schmidt coefficients in
+        nT, IGRF-13 epoch 2020 by default), whose degree-1 part replaces
+        b0 and sets b_tilt and b_tilt_phi. Both are 3D-frame-only; the
+        density models and the MLT axis ride the tilted frame's magnetic
+        latitude and longitude (mlat_3d, mlon_3d).
+    Nonzero eta_he/eta_o (A10) raise NotImplementedError."""
     lppi = plasmasphere.lppi_from_kp(kp_max)
     lppo, ne_lppi = plasmasphere.initialize_plasmasphere(lppi, day, rbar, mlt)
     if iono_mlt:
@@ -183,11 +190,6 @@ def make_env(
         )
     if b_model not in ("dipole", "tilted", "igrf"):
         raise ValueError(f"unknown b_model {b_model!r}")
-    if b_model != "dipole":
-        raise NotImplementedError(
-            f"b_model={b_model!r} is not ported yet (ROADMAP A9 (tilted and "
-            "IGRF fields)); the port takes b_model='dipole'"
-        )
     mlt_kw = {}
     if ps_mlt:
         if not plasmasphere_on:
@@ -217,6 +219,23 @@ def make_env(
             ps_mlt_tamp=float(ps_mlt_tamp),
             ps_mlt_c3=c3,
         )
+    if b_model == "tilted":
+        b_kw = dict(b_model="tilted", b_tilt=float(b_tilt),
+                    b_tilt_phi=float(b_tilt_phi))
+    elif b_model == "igrf":
+        coeffs = tuple(
+            float(c) for c in
+            (dipole.IGRF13_2020 if igrf_coeffs is None else igrf_coeffs)
+        )
+        if len(coeffs) != 15:
+            raise ValueError("igrf_coeffs must hold 15 Schmidt coefficients")
+        # the degree-1 part is a tilted centered dipole: it gives b0 and
+        # the magnetic-latitude organization of the density models
+        b0, tilt, phi0 = dipole.igrf_dipole(coeffs)
+        b_kw = dict(b_model="igrf", b_tilt=tilt, b_tilt_phi=phi0,
+                    igrf_coeffs=coeffs)
+    else:
+        b_kw = {}
     gcpm_kw = (
         dict(
             ps_model="gcpm",
@@ -240,6 +259,7 @@ def make_env(
         ps_smooth=float(ps_smooth),
         **{k: float(v) for k, v in iono_kw.items()},
         **gcpm_kw,
+        **b_kw,
         duct_amp=float(duct_amp),
         duct_l0=float(duct_l0),
         duct_w=float(duct_w),
@@ -371,28 +391,55 @@ def ne_total_m3(r, lat, env: EnvParams, phi=None):
     return (ne_i + env.ps_weight * ne_p) * 1.0e6
 
 
+def require_dipole_2d(env: EnvParams):
+    """The 2D frames assume the centered axial dipole (a tilted field has
+    no meridional symmetry): tilted and IGRF media are 3D-only."""
+    if env.b_model != "dipole":
+        raise ValueError(
+            "the 2D frames assume the centered axial dipole; "
+            f"b_model={env.b_model!r} is 3D-only"
+        )
+
+
 def b_mag(r, lat, env: EnvParams):
-    """Dipole field magnitude at (r [RE], lat [rad]) in Tesla."""
+    """Dipole field magnitude at (r [RE], lat [rad]) in Tesla: the 2D
+    (meridional) entry point, which refuses the non-axial fields."""
     check_env(env)
+    require_dipole_2d(env)
     return dipole.b_mag_lat(r, lat, env.b0)
 
 
 def b_vec(r, theta, phi, env: EnvParams):
-    """Vector field (B_r, B_theta, B_phi) at (r, theta, phi): the centered
-    dipole (the tilted and IGRF fields are ROADMAP A9)."""
+    """Vector field (B_r, B_theta, B_phi) at geographic (r, theta, phi),
+    by the static b_model selector."""
     check_env(env)
+    if env.b_model == "tilted":
+        return dipole.b_vec_tilted(r, theta, phi, env.b0, env.b_tilt,
+                                   env.b_tilt_phi)
+    if env.b_model == "igrf":
+        return dipole.b_vec_igrf(r, theta, phi, env.igrf_coeffs)
     return dipole.b_vec_colat(r, theta, phi, env.b0)
 
 
 def mlat_3d(r, theta, phi, env: EnvParams):
-    """Magnetic latitude at (r, theta, phi): pi/2 - theta for the
-    centered dipole."""
+    """Magnetic latitude at geographic (r, theta, phi), which organizes
+    the density models in the 3D frame: pi/2 - theta for the centered
+    dipole, the tilted frame's latitude otherwise (for "igrf" the tilt of
+    its degree-1 part, set by make_env)."""
     check_env(env)
+    if env.b_model in ("tilted", "igrf"):
+        return dipole.magnetic_coords(theta, phi, env.b_tilt,
+                                      env.b_tilt_phi)[0]
     return math.pi / 2.0 - theta
 
 
 def mlon_3d(r, theta, phi, env: EnvParams):
-    """Magnetic longitude at (r, theta, phi): phi for the centered
-    dipole."""
+    """Magnetic longitude at geographic (r, theta, phi), the MLT axis of
+    the density models in the 3D frame: phi itself for the centered
+    dipole, the tilted frame's azimuth (dipole.mlon_tilted) for
+    tilted/IGRF: the plasmasphere's local-time structure rides the
+    field."""
     check_env(env)
+    if env.b_model in ("tilted", "igrf"):
+        return dipole.mlon_tilted(theta, phi, env.b_tilt, env.b_tilt_phi)
     return phi

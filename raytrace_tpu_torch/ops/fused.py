@@ -7,7 +7,10 @@ refill, GCPM, duct, diffusive equilibrium, and the MLT-resolved
 parameters with their d/dphi channel), the 2D latitude frame's chain (mu
 and its four partials r, lat, chi == psi, f) and the 3D dipole frame's
 chain (mu and its seven partials r, theta, phi, rho_r, rho_theta,
-rho_phi, f, in the cos(psi) form). Each comes from one forward sweep:
+rho_phi, f, in the cos(psi) form), and the general chain of the 3D frame
+over the tilted dipole and the IGRF truncation (mu_and_grads_3d_general:
+the field's hand-written tangents in front of the same density and Stix
+core). Each comes from one forward sweep:
 every derivative is a rational expression in quantities the forward pass
 already computed. The same chains, line for line, are inlined in the
 CUDA step kernel (csrc/step_chunk.cu); these are their plain PyTorch
@@ -21,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ..constants import FCE_E, FCE_P, FPE2_E, FPE2_P, RE
-from ..models import medium
+from ..models import dipole, medium
 from ..models.plasmasphere import DE_RBASE_M, DE_S, LN10
 
 
@@ -520,6 +523,100 @@ def mu_and_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
     dmudphi = torch.zeros_like(dmudr) if ne_phi is None else dmu_dn * ne_phi
     return mu, (
         dmudr, dmudtheta, dmudphi,
+        dmu_dc * dcos_drho_r, dmu_dc * dcos_drho_t,
+        dmu_dc * dcos_drho_p, dmu_df,
+    )
+
+
+def field_geometry(r, theta, phi, env: medium.EnvParams):
+    """The non-axial field's geometry with its tangents, every one a
+    scalar per ray: ((B_r, B_theta, B_phi, mlat, mlon), d/dr, d/dtheta,
+    d/dphi), each a 5-tuple, from the closed forms of models/dipole.py
+    (tilted_field or igrf_field, and magnetic_coords in the tilted frame,
+    which for IGRF is that of its degree-1 part). The values are those of
+    medium.b_vec, mlat_3d and mlon_3d: the same functions compute them."""
+    if env.b_model == "tilted":
+        b, b_r, b_t, b_p = dipole.tilted_field(
+            r, theta, phi, env.b0, env.b_tilt, env.b_tilt_phi, tangents=True)
+    elif env.b_model == "igrf":
+        b, b_r, b_t, b_p = dipole.igrf_field(
+            r, theta, phi, env.igrf_coeffs, tangents=True)
+    else:
+        raise ValueError(
+            f"field_geometry serves the tilted and IGRF fields; "
+            f"b_model={env.b_model!r} has the dipole chain mu_and_grads_3d"
+        )
+    m, m_t, m_p = dipole.magnetic_coords(
+        theta, phi, env.b_tilt, env.b_tilt_phi, tangents=True)
+    zero = torch.zeros_like(m[0])
+    return (*b, *m), (*b_r, zero, zero), (*b_t, *m_t), (*b_p, *m_p)
+
+
+def mu_and_grads_3d_general(r, theta, phi, rho_r, rho_t, rho_p, f,
+                            env: medium.EnvParams, root=1.0):
+    """mu and its seven partials over a non-axial field (tilted / IGRF).
+
+    The geometry (field components, magnetic latitude and longitude) and
+    its fifteen tangents come from field_geometry, scalar per ray; the
+    density chain and the Stix quartic are those of the dipole chain
+    (_ne_and_grads, _stix_quartic_grads in the cos(psi) form), with the
+    MLT parameters taken at the magnetic longitude. On top of the
+    tangents (x in r, theta, phi):
+      |B|_x   = (B . B_x)/|B|
+      cos psi = Bhat . rhohat;  d cos/dx = (B_x . rhohat - cos psi |B|_x)/|B|
+                (formed from the unclipped products, as the JAX package's)
+      sin psi = |Bhat x rhohat|, the full three-component cross (a tilted
+                field has Bhat_phi != 0 in geographic coordinates)
+      d cos/d rho_k = (Bhat_k - cos psi rhohat_k)/|rho|
+      d ne/dx = ne_r [x == r] + ne_lat dmlat/dx + ne_mlon dmlon/dx
+    Values and partials equal torch.func.grad of dispersion.mu_3d; at
+    tilt = 0 they reduce to mu_and_grads_3d's (to rounding: the magnetic
+    longitude still passes through atan2)."""
+    medium.check_env(env)
+    ((br, bt, bp, mlat, mlon), (br_r, bt_r, bp_r, _, _),
+     (br_t, bt_t, bp_t, mlat_t, mlon_t),
+     (br_p, bt_p, bp_p, mlat_p, mlon_p)) = field_geometry(r, theta, phi, env)
+
+    bm = torch.sqrt(br * br + bt * bt + bp * bp)
+    inv_bm = 1.0 / bm
+    bm_r = (br * br_r + bt * bt_r + bp * bp_r) * inv_bm
+    bm_t = (br * br_t + bt * bt_t + bp * bp_t) * inv_bm
+    bm_p = (br * br_p + bt * bt_p + bp * bp_p) * inv_bm
+    hr, ht, hp = br * inv_bm, bt * inv_bm, bp * inv_bm
+
+    inv_rmag = torch.rsqrt(rho_r * rho_r + rho_t * rho_t + rho_p * rho_p)
+    rr, rt, rp = rho_r * inv_rmag, rho_t * inv_rmag, rho_p * inv_rmag
+    cospsi = torch.clamp(hr * rr + ht * rt + hp * rp, -1.0, 1.0)
+    c1 = ht * rp - hp * rt
+    c2 = hp * rr - hr * rp
+    c3 = hr * rt - ht * rr
+    sinpsi = torch.sqrt(c1 * c1 + c2 * c2 + c3 * c3)
+    dcos_dr = ((br_r * rr + bt_r * rt + bp_r * rp) - cospsi * bm_r) * inv_bm
+    dcos_dt = ((br_t * rr + bt_t * rt + bp_t * rp) - cospsi * bm_t) * inv_bm
+    dcos_dp = ((br_p * rr + bt_p * rt + bp_p * rp) - cospsi * bm_p) * inv_bm
+    dcos_drho_r = (hr - cospsi * rr) * inv_rmag
+    dcos_drho_t = (ht - cospsi * rt) * inv_rmag
+    dcos_drho_p = (hp - cospsi * rp) * inv_rmag
+
+    if medium.mlt_on(env):
+        ne, ne_r, ne_lat, ne_mlon = _ne_and_grads(
+            r, mlat, env, mlt=mlt_params(mlon, env))
+        dne_dr = ne_r
+        dne_dt = ne_lat * mlat_t + ne_mlon * mlon_t
+        dne_dp = ne_lat * mlat_p + ne_mlon * mlon_p
+    else:
+        ne, ne_r, ne_lat = _ne_and_grads(r, mlat, env)
+        dne_dr = ne_r
+        dne_dt = ne_lat * mlat_t
+        dne_dp = ne_lat * mlat_p
+
+    mu, dmu_dn, dmu_db, dmu_df, dmu_dc = _stix_quartic_grads(
+        ne, bm, f, sinpsi, cospsi, root, wrt_cos=True
+    )
+    return mu, (
+        dmu_dn * dne_dr + dmu_db * bm_r + dmu_dc * dcos_dr,
+        dmu_dn * dne_dt + dmu_db * bm_t + dmu_dc * dcos_dt,
+        dmu_dn * dne_dp + dmu_db * bm_p + dmu_dc * dcos_dp,
         dmu_dc * dcos_drho_r, dmu_dc * dcos_drho_t,
         dmu_dc * dcos_drho_p, dmu_df,
     )

@@ -36,6 +36,7 @@ def mu_grads_2d_lat(r, lat, chi, f, env: medium.EnvParams, grad_mode=FUSED,
                     root=1.0):
     """(mu, dmu/dr, dmu/dlat, dmu/dpsi, dmu/df) at a latitude-frame state."""
     medium.check_env(env)
+    medium.require_dipole_2d(env)
     if grad_mode == FUSED:
         from . import fused
 
@@ -56,11 +57,16 @@ def _mu3_sum(r, theta, phi, rho_r, rho_t, rho_p, f, env, root):
 def mu_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
                 env: medium.EnvParams, grad_mode=FUSED, root=1.0):
     """mu and its seven partials (r, theta, phi, rho_r, rho_t, rho_p, f)
-    at a 3D state, as (mu, (partials...))."""
+    at a 3D state, as (mu, (partials...)). The fused chain of the centered
+    dipole hand-codes its geometry; the tilted and IGRF fields go through
+    the general chain (fused.mu_and_grads_3d_general)."""
     medium.check_env(env)
     if grad_mode == FUSED:
         from . import fused
 
+        if env.b_model != "dipole":
+            return fused.mu_and_grads_3d_general(
+                r, theta, phi, rho_r, rho_t, rho_p, f, env, root)
         return fused.mu_and_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
                                      env, root)
     if grad_mode != AUTODIFF:

@@ -7,7 +7,10 @@ the frame's right-hand side -- `rhs_2d_lat` (frame "2d_lat", 4-state
 carry) or `rhs_3d` (frame "3d", 7-state carry) -- with the ds_max arc
 ceiling when cfg.ds_max > 0, and returns the new RayCarry. The kernel
 takes the axisymmetric medium of the first slices in its own instances
-and every other medium (`medium_code`) through the full density chain.
+and every other medium (`medium_code`) through the full density chain;
+the tilted dipole and the IGRF truncation (`field_code`, 3D frame only)
+have instances of their own over the full chain, with the general
+geometry chain of ops/fused.py::mu_and_grads_3d_general inlined.
 
 - On CUDA tensors it launches the hand-written kernel of
   csrc/step_chunk.cu: one thread per ray, the whole carry in registers for
@@ -37,7 +40,7 @@ from ..integrate import events
 from ..integrate.solve import (
     KERNEL_STEPPERS, RayCarry, SolverConfig, check_supported, step_loop,
 )
-from ..models import medium
+from ..models import dipole, medium
 from . import fused
 from . import rhs as rhs_mod
 
@@ -59,11 +62,13 @@ MAX_HARM = 8
 _VEC = ("u", "k1", "u_prev", "u_lo")
 _INT = ("status", "n_accept", "n_reject", "rejected", "n_tiny", "caution")
 _STEPPER_CODE = {"bs3": 0, "dopri5": 1}
+_FIELD_CODE = {"dipole": 0, "tilted": 1, "igrf": 2}
 
 
 class StepParams(ctypes.Structure):
     """Scalars passed to the kernel by value (mirror of the C struct
-    StepParams in csrc/step_chunk.cu; every field a double)."""
+    StepParams in csrc/step_chunk.cu; every field a double: 101 of
+    them, 808 bytes)."""
 
     _fields_ = [(name, ctypes.c_double) for name in (
         # medium (make_env_lat feature set) and root
@@ -83,7 +88,13 @@ class StepParams(ctypes.Structure):
         "ps_mlt", "ps_mlt_a0", "ps_mlt_tamp", "ps_mlt_c3", "n_harm",
         # ... and the env-only subexpressions (fused.MediumConsts)
         *fused.MediumConsts._fields,
-    )] + [("ps_mlt_c", ctypes.c_double * (1 + 2 * MAX_HARM))]
+    )] + [
+        ("ps_mlt_c", ctypes.c_double * (1 + 2 * MAX_HARM)),
+        # the non-axial fields: dipole.moment_unit, dipole.mlon_axes and
+        # the 15 Schmidt coefficients
+        ("b_mom", ctypes.c_double * 3), ("b_xm", ctypes.c_double * 3),
+        ("b_ym", ctypes.c_double * 3), ("igrf", ctypes.c_double * 15),
+    ]
 
 
 _LIB = None
@@ -133,7 +144,7 @@ def build():
         os.replace(tmp, path)
     lib = ctypes.CDLL(path)
     lib.step_chunk_launch.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_void_p),
         ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(StepParams),
         ctypes.c_void_p,
@@ -146,18 +157,21 @@ def build():
 def ptxas_usage(log):
     """{instance: "N registers, <stack and spill line>"} from nvcc's
     -Xptxas -v output (BUILD_LOG), one entry per template instance
-    step_chunk_kernel<T, STEPPER, FRAME, MEDIUM> (or <T, STEPPER, FRAME>,
-    as builds before the full medium named them)."""
+    step_chunk_kernel<T, STEPPER, FRAME, MEDIUM, FIELD> (or with fewer
+    parameters, as builds before the full medium and before the non-axial
+    fields named them)."""
 
     def key(name):
-        m = re.search(r"step_chunk_kernelI([fd])Li(\d)ELi(\d)E(?:Li(\d)E)?",
-                      name or "")
+        m = re.search(r"step_chunk_kernelI([fd])Li(\d)ELi(\d)E"
+                      r"(?:Li(\d)E)?(?:Li(\d)E)?", name or "")
         if m is None:
             return None
         words = [("float", "double")[m[1] == "d"],
                  ("bs3", "dopri5")[int(m[2])], ("2d_lat", "3d")[int(m[3])]]
         if m[4] is not None:
             words.append(("axi", "full")[int(m[4])])
+        if m[5] is not None and int(m[5]):
+            words.append(("dipole", "tilted", "igrf")[int(m[5])])
         return " ".join(words)
 
     regs, spills, fn, entry = {}, {}, None, None
@@ -178,12 +192,19 @@ def ptxas_usage(log):
 def medium_code(env):
     """0: the axisymmetric medium of the first slices (one ionosphere fit,
     CA1992 with hard branches, optional DE factor), which the kernel runs
-    in its own instances; 1: any other medium, through the full density
-    chain."""
+    in its own instances; 1: any other medium, and every medium over a
+    non-axial field, through the full density chain."""
     full = (env.iono_mix != 1.0 or env.ps_model != "ca1992"
             or env.ps_smooth != 0.0 or env.ps_refill != 0.0
-            or env.duct_amp != 0.0 or medium.mlt_on(env))
+            or env.duct_amp != 0.0 or medium.mlt_on(env)
+            or env.b_model != "dipole")
     return 1 if full else 0
+
+
+def field_code(env):
+    """0: the centered dipole; 1: the tilted dipole; 2: the IGRF
+    truncation (the kernel's FIELD template value)."""
+    return _FIELD_CODE[env.b_model]
 
 
 def _n_harm(env):
@@ -211,9 +232,16 @@ def _params(env, cfg: SolverConfig, spec: events.StopSpec, root):
         **fused.medium_consts(env)._asdict(),
     )
     c = [float(x) for x in env.ps_mlt_c]
+    xm, ym = dipole.mlon_axes(env.b_tilt, env.b_tilt_phi)
+    vec3 = ctypes.c_double * 3
     return StepParams(**{k: float(v) for k, v in vals.items()},
                       ps_mlt_c=(ctypes.c_double * (1 + 2 * MAX_HARM))(
-                          *(c + [0.0] * (1 + 2 * MAX_HARM - len(c)))))
+                          *(c + [0.0] * (1 + 2 * MAX_HARM - len(c)))),
+                      b_mom=vec3(*dipole.moment_unit(env.b_tilt,
+                                                     env.b_tilt_phi)),
+                      b_xm=vec3(*xm), b_ym=vec3(*ym),
+                      igrf=(ctypes.c_double * 15)(
+                          *(env.igrf_coeffs or (0.0,) * 15)))
 
 
 def _check(carry: RayCarry, f, env, cfg, spec, stepper, n_steps, adaptive,
@@ -230,6 +258,8 @@ def _check(carry: RayCarry, f, env, cfg, spec, stepper, n_steps, adaptive,
     n = _FRAME_CODE[frame][1]
     check_supported(cfg, n - 1, adaptive, stepper)
     medium.check_env(env)
+    if frame != "3d":
+        medium.require_dipole_2d(env)
     n_harm = _n_harm(env)
     if n_harm > MAX_HARM:
         raise ValueError(
@@ -292,7 +322,7 @@ def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
                                     root=root, frame=frame)
     if f.device.type != "cuda":
         raise ValueError(f"step_chunk runs on cuda or cpu, not {f.device}")
-    code = medium_code(env)
+    code, field = medium_code(env), field_code(env)
     lib = build()
     # always fresh buffers: carry fields may share storage (init_carry's
     # u/u_prev and zero counters), and the kernel writes in place
@@ -312,7 +342,7 @@ def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
         stream = torch.cuda.current_stream(f.device).cuda_stream
         rc = lib.step_chunk_launch(
             0 if f.dtype == torch.float32 else 1, _STEPPER_CODE[stepper],
-            _FRAME_CODE[frame][0], code, ptrs, f.shape[0],
+            _FRAME_CODE[frame][0], code, field, ptrs, f.shape[0],
             int(n_steps),
             ctypes.byref(params), ctypes.c_void_p(stream),
         )

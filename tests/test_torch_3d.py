@@ -166,7 +166,7 @@ def test_rhs_3d_matches_jax(root):
 def test_unported_3d_media_raise():
     x = torch.ones(2, dtype=torch.float64)
     for kw, item in ((dict(ps_mlt=True, eta_he=0.1), "A10"),
-                     (dict(b_model="tilted"), "A9")):
+                     (dict(b_model="tilted", eta_o=0.1), "A10")):
         env = env_from_numpy(j_make_env(**kw)._asdict())
         with pytest.raises(NotImplementedError, match=item):
             fused.mu_and_grads_3d(x, x, x, x, x, x, x * 1e3, env)

@@ -168,3 +168,53 @@ def test_full_medium_2d_kernel_matches_plain_version_bitwise(cuda, dtype):
                                   n_steps=64)
     torch.cuda.synchronize()
     _assert_bitwise(got, ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("stepper", ["bs3", "dopri5"])
+@pytest.mark.parametrize("name", ["ensemble10k_tilted", "ensemble10k_igrf"])
+def test_general_field_kernel_matches_plain_version_bitwise(cuda, name,
+                                                            dtype, stepper):
+    """Every 40th ray of the preset's launch (3D, the MLT-resolved medium
+    over the tilted dipole or the IGRF truncation: the kernel's
+    general-field instances), 64 attempts: asin, atan2 and sqrt are the
+    card's own in both, so every field agrees bit for bit."""
+    conf = preset(name, dtype=dtype)
+    env = conf.medium.build()
+    cfg, spec = conf.solver(), conf.stop()
+    np_dt = np.float32 if dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, cuda)
+    u0 = torch.as_tensor(u0[::40], device=cuda)
+    f = torch.as_tensor(f[::40], device=cuda)
+    rhs_fn, _ = rhs.frame_rhs(conf.frame, env)
+    carry = init_carry(rhs_fn, u0, f, cfg)
+    assert sc.medium_code(env) == 1 and sc.field_code(env) > 0
+    launches = sc.step_chunk.launches
+    got = sc.step_chunk(carry, f, env, cfg, spec, stepper=stepper,
+                        n_steps=64, frame="3d")
+    assert sc.step_chunk.launches == launches + 1
+    ref = sc.step_chunk_reference(carry, f, env, cfg, spec, stepper=stepper,
+                                  n_steps=64, frame="3d")
+    torch.cuda.synchronize()
+    _assert_bitwise(got, ref)
+    assert float(got.k1[:, 5].abs().max()) > 0.0   # d mu/d phi on the path
+
+
+@pytest.mark.parametrize("name", ["ensemble10k_tilted", "ensemble10k_igrf"])
+def test_field_presets_run_through_the_kernel(cuda, name):
+    """run.run of a cut of each preset on the card: every round a kernel
+    launch, the plain version never called, every ray finite and
+    stopped."""
+    from raytrace_tpu_torch.run import run
+
+    conf = preset(name, lats=(0.7, 0.85, 1.0, 1.1), chis=(-0.2, 0.2),
+                  freqs=(1000.0, 2000.0, 4000.0))
+    sc.step_chunk.launches = 0
+    sc.step_chunk_reference.calls = 0
+    out = run(conf, device="cuda")
+    assert sc.step_chunk.launches > 0
+    assert sc.step_chunk_reference.calls == 0
+    assert int(out["valid"].sum()) == 4 * 8 * 2 * 3
+    assert np.isfinite(out["result"].u[out["valid"]]).all()
+    assert int(out["stats"]["n_active"]) == 0
+    assert int(out["stats"]["n_hit_earth"]) > 0

@@ -105,14 +105,16 @@ def test_plasmasphere_density_and_de_factor():
     )
 
 
-# what the port still refuses: the multi-ion composition (A10) and the
-# tilted and IGRF fields (A9), alone and under the media ported since
+# what the port still refuses: the multi-ion composition (A10), alone
+# and under the media and the fields ported since
 @pytest.mark.parametrize("kw", [
-    dict(eta_o=0.1), dict(b_model="igrf"), dict(ps_model="gcpm", eta_he=0.1),
-    dict(duct_amp=0.5, b_model="tilted", b_tilt=0.2), dict(eta_he=0.1),
-    dict(ps_refill=0.5, eta_o=0.02),
-    dict(ps_mlt=True, b_model="tilted", b_tilt=0.2, b_tilt_phi=0.5),
-    dict(b_model="tilted"),
+    dict(eta_o=0.1), dict(b_model="igrf", eta_he=0.2),
+    dict(ps_model="gcpm", eta_he=0.1),
+    dict(duct_amp=0.5, b_model="tilted", b_tilt=0.2, eta_he=0.1),
+    dict(eta_he=0.1), dict(ps_refill=0.5, eta_o=0.02),
+    dict(ps_mlt=True, b_model="tilted", b_tilt=0.2, b_tilt_phi=0.5,
+         eta_o=0.1),
+    dict(eta_he=0.05, eta_o=0.05),
 ])
 def test_unported_medium_gates_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

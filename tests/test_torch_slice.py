@@ -108,12 +108,16 @@ def test_config_json_round_trips_across_packages():
             j_config.preset(name).to_json())
 
 
-@pytest.mark.parametrize("name", ["raymain", "ensemble10k_local",
-                                  "ensemble10k_igrf", "ensemble10k_tilted",
-                                  "emic_heband"])
-def test_unported_presets_raise(name):
+# the presets still refused, by name and whatever the overrides (a
+# refused name stays refused with its feature switched off or on)
+@pytest.mark.parametrize("name,over", [
+    ("raymain", {}), ("ensemble10k_local", {}),
+    ("ensemble10k_local", dict(ds_local=False)),
+    ("emic_heband", dict(wave_mode="whistler")), ("emic_heband", {}),
+])
+def test_unported_presets_raise(name, over):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_config.preset(name)
+        t_config.preset(name, **over)
 
 
 @pytest.mark.parametrize("kw", [

@@ -171,15 +171,17 @@ def test_3d_launch_matches_jax(dtype):
 
 def test_3d_refuses_a_phis_fan():
     """A phis fan runs in 3D over the MLT-resolved medium since the plume
-    slice (test_torch_slice_mlt.py); what is refused is a phis fan over a
-    field the port does not have (the tilted dipole, A9) and a phis fan in
-    a 2D frame, whose state carries no longitude (as the JAX package
-    refuses it)."""
+    slice (test_torch_slice_mlt.py) and over the tilted and IGRF fields
+    (test_torch_slice_fields.py); what is refused is a phis fan over a
+    medium the port does not have (the multi-ion composition, A10) and a
+    phis fan in a 2D frame, whose state carries no longitude (as the JAX
+    package refuses it)."""
     cut = dict(lats=(0.8,), chis=(0.0,), freqs=(2000.0,), phis=(0.0, 1.0),
                max_steps=8)
     cfg = t_config.preset("ensemble10k_3d", **cut)
     cfg.medium.b_model = "tilted"
-    with pytest.raises(NotImplementedError, match="A9"):
+    cfg.medium.eta_he = 0.1
+    with pytest.raises(NotImplementedError, match="A10"):
         t_run.run(cfg, device="cpu")
     with pytest.raises(ValueError, match="3D-only"):
         t_run.run(t_config.preset("ensemble10k", **cut), device="cpu")
