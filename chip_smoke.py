@@ -49,7 +49,25 @@ Phases, each printed as it runs; any failed check exits non-zero:
  12. the ensemble10k_tilted slice and
  13. the ensemble10k_igrf slice through run.run: float32 against the TPU
      record (benchmarks/perf_r05_tilted_fused.json), float64 against the
-     JAX package's float64 result on a CPU, float32 against float64.
+     JAX package's float64 result on a CPU, float32 against float64;
+ 14. the instances of the last variants against their plain versions, bit
+     for bit: the local arc ceiling (the ensemble10k_local launch), the
+     colatitude frame (the ensemble10k launch in it), the multi-ion medium
+     (the emic_heband launch at root -1 and the ensemble10k fan over He+
+     and O+) and fixed-step rk4 (the ensemble10k launch at dt0 = dt_max),
+     float32 over all rays and float64 over every 10th ray for 256 steps,
+     and each variant through a full-medium and a general-field instance;
+     then every instance a path of phases 15-18 launches timed beside its
+     plain version and its bound;
+ 15. the ensemble10k_local slice: float32 against the TPU record
+     (benchmarks/perf_r03k.json -> local), float64 against the JAX
+     package's float64 census on a CPU;
+ 16. raymain (the colatitude frame's single ray) and the ensemble10k fan
+     in the colatitude frame, each against the JAX package on a CPU;
+ 17. emic_heband (He+ and O+, the EMIC root) against the JAX package on a
+     CPU, float64 ray by ray;
+ 18. the ensemble10k fan with fixed-step rk4 at dt0 = dt_max: float64
+     against the JAX package's census on a CPU, float32 reported.
 The plain version is timed at the full launch where its instance is on a
 main path (the kernels' JSON record); elsewhere over every 10th ray x 64
 attempts (its time is set by its ~2,000 small launches per attempt, not
@@ -227,6 +245,80 @@ FULL_2D = {
         duct_amp=0.5, duct_l0=3.0, duct_w=0.1),
 }
 
+# The pins of phases 15-18: the JAX package on a CPU, traced by
+# tests/test_torch_slice3d.py run as a script in one batch of 10,240 rays
+# (--batch 10240; --set frame='"2d_colat"' for the colatitude fan,
+# --set adaptive=False --set dt0=0.15695630336514316 for rk4), and
+# raytrace_tpu.run.run for the two small presets.
+# ensemble10k_local: the TPU float32 record (benchmarks/perf_r03k.json ->
+# local) HIT_EARTH 8799, 5,650,351 attempted steps, median landing L
+# 1.255669; the JAX package's float32 census falls inside its bands
+# (HIT_EARTH 8737, 0.7% low; 5,443,492 steps, 3.7% low; median L 1.252012,
+# 2.9e-3 low). Its float64 census: HIT_EARTH 9111 / MAX_PHASE_TIME 937 /
+# DT_UNDERFLOW 72 / MAX_STEPS 120, 7,636,198 attempted steps, median
+# landing L 1.275356814402513; its own float32-vs-float64 agreement 95.02%
+# of statuses, median landing-L error 2.39e-4 (printed, not gated: the
+# preset's pins are the record and the float64 census). The median landing
+# L is held at 1e-8, not 1e-9: under the local ceiling a ray's landing
+# carries the last-ulp differences of the math libraries further than at
+# the phase ceiling (the JAX package and the port's plain version, both on
+# a CPU, land 48 rays of this fan a median 3.6e-9 apart, against 2.6e-10
+# for ensemble10k), and the H100's median sits 2.6e-9 from the JAX
+# package's (PERF.md)
+LOCAL_PINS = dict(rec_hit=8799, rec_steps=5_650_351, rec_median_l=1.255669,
+                  f64_hit=9111, f64_mpt=937, f64_steps=7_636_198,
+                  f64_median_l=1.275356814402513, f64_median_l_rtol=1e-8)
+# ensemble10k in the colatitude frame (its chi fans the other way about
+# the field, so the rays run otherwise than in the latitude frame: 47.6M
+# attempted steps, most rays to MAX_PHASE_TIME). float64: HIT_EARTH 4934 /
+# MAX_PHASE_TIME 5270 / DT_UNDERFLOW 31 / MAX_STEPS 5, 47,639,025 attempted
+# steps (in batches of 1,024: the same statuses, 47,644,132), median
+# landing L 1.012830557894701. float32: 4516 / 5251 / 471 / 2, 47,277,151;
+# its own float32-vs-float64 agreement 95.56% of statuses, median landing-L
+# error 3.58e-6. The port is held to that match less 0.5 points and to
+# 1e-4 in landing L
+COLAT_PINS = dict(f64_hit=4934, f64_mpt=5270, f64_steps=47_639_025,
+                  f64_median_l=1.012830557894701, jax_match=0.9556)
+# raymain: float64 HIT_EARTH after 2732 accepted and 4 rejected steps,
+# final (r, theta, chi, T) and phase path t below; float32 HIT_EARTH (2743
+# accepted, 2 rejected)
+RAYMAIN_F64 = dict(n_accept=2732, n_reject=4,
+                   u=(0.9999999999999961, 1.496337217990451,
+                      2.9934728053095148, 0.4850911279766074),
+                   t=421.4872177438297)
+# emic_heband: all 48 rays MAX_PHASE_TIME at t = 200 after 1279 accepted
+# steps and no rejection, in float64 and float32 alike; the float64 final
+# states summed over the 48 rays, component by component, and their
+# magnitudes summed likewise
+EMIC_F64 = dict(n_accept=1279, t=200.0,
+                u_sum=(105.0442457846833, 6.600652812512754,
+                       -8.261519594988023, 217.9280353554698),
+                u_abs_sum=(105.0442457846833, 14.379146312737305,
+                           20.2625869257972, 217.9280353554698))
+# ensemble10k with fixed-step rk4 at dt0 = dt_max (1e6 m, the ceiling the
+# adaptive run rides at a median 0.985 dt_max): float64 HIT_EARTH 9165 /
+# MAX_PHASE_TIME 1075, 20,448,302 steps (no rejections), median landing L
+# 1.2806808463207082; float32 9136 / 1077 / INVALID 27, 20,425,402 steps
+# (reported, not gated). With no error control some rays lose their
+# trajectory at this step (chi runs to hundreds of radians, r to ~1,400
+# RE), and last-ulp differences then decide where they end: the port's
+# plain version on a CPU (run.run, device="cpu") ends rays 4047 and 4303
+# (lat 0.7 and 0.7167, chi 0.3, 8 kHz) at MAX_PHASE_TIME where the JAX
+# package lands them and lands ray 8621 (lat 1.0, chi 0.1667, 5.53 kHz)
+# where it runs out, and 27 of the 9,163 rays both land differ in landing
+# L by more than 1e-9 (18 by more than 1e-6); on an H100 three rays flip
+# as well, not the same three (HIT_EARTH 9164, MAX_PHASE_TIME 1076). So
+# every ray must end HIT_EARTH or MAX_PHASE_TIME, HIT_EARTH within 3 rays
+# of the JAX package's, and the median landing L, a rank that those rays
+# move by a rank (~1.2e-4), within 2e-4
+RK4_F64 = dict(hit=9165, flips=3, steps=20_448_302,
+               median_l=1.2806808463207082, median_l_rtol=2e-4)
+RK4 = dict(adaptive=False, dt0=1.0e6 / 6.3712e6)  # dt_max: 1e6 m over RE
+COLAT = dict(frame="2d_colat")
+# the 10,240-ray fan of phase 14's multi-ion instance: ensemble10k over He+
+# and O+ (the fractions of emic_heband)
+MULTI_ION = dict(eta_he=0.1, eta_o=0.02)
+
 # the 3D float32 bs3 kernel at 10,240 rays x 512 attempts of the
 # ensemble10k_3d launch when it held only the axisymmetric medium (NVIDIA
 # H100 80GB HBM3, 700.00 W; PERF.md)
@@ -259,10 +351,11 @@ def rel_err(a, b):
 
 
 def start(name, dtype_name, dev, every=1, medium=None, **over):
-    """(carry, f, env, cfg, spec, frame) of a preset's launch on `dev`
-    (over `medium`, a MediumConfig, in place of the preset's; `over`
-    overrides other fields of the preset): every `every`-th ray,
-    init_carry applied."""
+    """(carry, f, env, cfg, spec, kw) of a preset's launch on `dev` (over
+    `medium`, a MediumConfig, in place of the preset's; `over` overrides
+    other fields of the preset): every `every`-th ray, init_carry applied;
+    kw holds the launch's frame, root and adaptive, the keywords of
+    step_chunk."""
     import torch
 
     from raytrace_tpu_torch.config import preset
@@ -277,13 +370,13 @@ def start(name, dtype_name, dev, every=1, medium=None, **over):
     u0, f = _build_u0(conf, env, np_dt, torch.device(dev))
     u0 = torch.as_tensor(u0[::every]).to(dev)
     f = torch.as_tensor(f[::every]).to(dev)
-    rhs_fn, _ = rhs_mod.frame_rhs(conf.frame, env)
+    rhs_fn, _ = rhs_mod.frame_rhs(conf.frame, env, conf.root)
     cfg = conf.solver()
     return (init_carry(rhs_fn, u0, f, cfg), f, env, cfg, conf.stop(),
-            conf.frame)
+            dict(frame=conf.frame, root=conf.root, adaptive=conf.adaptive))
 
 
-def both(carry, f, env, cfg, spec, stepper, n, frame):
+def both(carry, f, env, cfg, spec, stepper, n, kw):
     """The kernel and the plain version from the same carry, on the host,
     and the plain version's time in ms (CUDA events)."""
     import torch
@@ -292,12 +385,12 @@ def both(carry, f, env, cfg, spec, stepper, n, frame):
     from raytrace_tpu_torch.ops import step_chunk as sc
 
     got = sc.step_chunk(carry, f, env, cfg, spec, stepper=stepper,
-                        n_steps=n, frame=frame)
+                        n_steps=n, **kw)
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
     ref = sc.step_chunk_reference(carry, f, env, cfg, spec, stepper=stepper,
-                                  n_steps=n, frame=frame)
+                                  n_steps=n, **kw)
     e1.record()
     torch.cuda.synchronize()
     host = lambda c: {k: getattr(c, k).cpu().numpy()  # noqa: E731
@@ -317,13 +410,13 @@ def max_abs(got, ref):
                for k in got)
 
 
-def hold_to_plain(carry, f, env, cfg, spec, frame, what):
+def hold_to_plain(carry, f, env, cfg, spec, kw, what):
     """Phase 2's checks of one launch: float64, 1 step within rtol 1e-12
     and 256 steps with >= 99% of rays identical, per stepper."""
     from raytrace_tpu_torch.integrate.solve import RayCarry
 
     for stepper in ("bs3", "dopri5"):
-        got, ref, _ = both(carry, f, env, cfg, spec, stepper, 1, frame)
+        got, ref, _ = both(carry, f, env, cfg, spec, stepper, 1, kw)
         ints = [k for k in RayCarry._fields if got[k].dtype.kind == "i"]
         check(all(np.array_equal(got[k], ref[k]) for k in ints),
               f"{what} float64 {stepper} 1 step, {f.shape[0]} rays: "
@@ -349,7 +442,7 @@ def hold_to_plain(carry, f, env, cfg, spec, frame, what):
         # last-ulp differences (the cancelling error estimate feeds them
         # into dt), are counted, not failed, as the JAX package's own
         # on-chip Pallas check records (benchmarks/pallas_on_chip.py)
-        got, ref, _ = both(carry, f, env, cfg, spec, stepper, 256, frame)
+        got, ref, _ = both(carry, f, env, cfg, spec, stepper, 256, kw)
         same = np.ones(f.shape[0], bool)
         for name in ("status", "n_accept", "n_reject"):
             same &= got[name] == ref[name]
@@ -366,9 +459,9 @@ def hold_to_plain(carry, f, env, cfg, spec, frame, what):
               "in u, t, dt")
 
 
-def hold_to_plain_f32(carry, f, env, cfg, spec, frame, what):
+def hold_to_plain_f32(carry, f, env, cfg, spec, kw, what):
     for stepper in ("bs3", "dopri5"):
-        got, ref, _ = both(carry, f, env, cfg, spec, stepper, 1, frame)
+        got, ref, _ = both(carry, f, env, cfg, spec, stepper, 1, kw)
         check(all(np.array_equal(got[k], ref[k])
                   for k in ("status", "n_accept", "n_reject")),
               f"{what} float32 {stepper} 1 step, {f.shape[0]} rays: statuses "
@@ -379,7 +472,7 @@ def hold_to_plain_f32(carry, f, env, cfg, spec, frame, what):
                              f"within rtol 1e-5 ({worst:.3e})")
 
 
-def ops_per_attempt(name, stepper, medium=None):
+def ops_per_attempt(name, stepper, medium=None, **over):
     """Operations of one attempt of one ray, counted from the plain
     version: every elementwise (pointwise) aten op of one `_step_one` call
     adds its output's element count. A transcendental (sin, exp, sqrt,
@@ -391,8 +484,8 @@ def ops_per_attempt(name, stepper, medium=None):
     from raytrace_tpu_torch.integrate.solve import _step_one
     from raytrace_tpu_torch.ops import rhs as rhs_mod
 
-    carry, f, env, cfg, spec, frame = start(name, "float64", "cpu",
-                                            every=640, medium=medium)
+    carry, f, env, cfg, spec, kw = start(name, "float64", "cpu", every=640,
+                                         medium=medium, **over)
 
     class Count(TorchDispatchMode):
         n = 0
@@ -405,9 +498,9 @@ def ops_per_attempt(name, stepper, medium=None):
                                if isinstance(o, torch.Tensor))
             return out
 
-    rhs_fn, gidx = rhs_mod.frame_rhs(frame, env)
+    rhs_fn, gidx = rhs_mod.frame_rhs(kw["frame"], env, kw["root"])
     with Count():
-        _step_one(rhs_fn, carry, f, cfg, spec, gidx, True, stepper)
+        _step_one(rhs_fn, carry, f, cfg, spec, gidx, kw["adaptive"], stepper)
     return Count.n / f.shape[0]
 
 
@@ -419,11 +512,12 @@ def carry_bytes(n_state, itemsize, rays):
     return per_ray * rays
 
 
-def bound(name, dtype_name, stepper, n_state, attempts, rays, medium=None):
+def bound(name, dtype_name, stepper, n_state, attempts, rays, medium=None,
+          **over):
     """The least time (ms) the card could take for a launch: the larger of
     its operations over the peak rate of its type and its bytes over the
     memory rate. attempts: the attempts this launch's data needed."""
-    ops_ms = (ops_per_attempt(name, stepper, medium) * attempts
+    ops_ms = (ops_per_attempt(name, stepper, medium, **over) * attempts
               / PEAK_OPS[dtype_name])
     itemsize = 4 if dtype_name == "float32" else 8
     bytes_ms = carry_bytes(n_state, itemsize, rays) / PEAK_BYTES
@@ -431,7 +525,7 @@ def bound(name, dtype_name, stepper, n_state, attempts, rays, medium=None):
     return max(ops_ms, bytes_ms) * 1e3, by
 
 
-def time_kernel(carry, f, env, cfg, spec, stepper, n, frame, reps):
+def time_kernel(carry, f, env, cfg, spec, stepper, n, kw, reps):
     """(mean ms of reps kernel launches between two CUDA events, the
     carry of the warm-up launch before them)."""
     import torch
@@ -439,14 +533,14 @@ def time_kernel(carry, f, env, cfg, spec, stepper, n, frame, reps):
     from raytrace_tpu_torch.ops import step_chunk as sc
 
     out = sc.step_chunk(carry, f, env, cfg, spec, stepper=stepper,
-                        n_steps=n, frame=frame)
+                        n_steps=n, **kw)
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
     for _ in range(reps):
         sc.step_chunk(carry, f, env, cfg, spec, stepper=stepper, n_steps=n,
-                      frame=frame)
+                      **kw)
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps, out
@@ -460,14 +554,14 @@ def full_chain_off(name, dtype_name, stepper, dev, n=512, reps=5):
     from raytrace_tpu_torch.integrate.solve import RayCarry
     from raytrace_tpu_torch.ops import step_chunk as sc
 
-    carry, f, env, cfg, spec, frame = start(name, dtype_name, dev)
+    carry, f, env, cfg, spec, kw = start(name, dtype_name, dev)
     own = sc.medium_code
     check(own(env) == 0, f"{name} takes the axisymmetric instances")
     ms, outs = {"axi": [], "full": []}, {}
     for which in ("axi", "full", "full", "axi"):
-        sc.medium_code = own if which == "axi" else (lambda env: 1)
+        sc.medium_code = own if which == "axi" else (lambda env, cfg: 1)
         try:
-            t, out = time_kernel(carry, f, env, cfg, spec, stepper, n, frame,
+            t, out = time_kernel(carry, f, env, cfg, spec, stepper, n, kw,
                                  reps)
         finally:
             sc.medium_code = own
@@ -477,7 +571,7 @@ def full_chain_off(name, dtype_name, stepper, dev, n=512, reps=5):
     return ms, n_differ(outs["full"], outs["axi"])
 
 
-def time_plain(carry, f, env, cfg, spec, stepper, n, frame):
+def time_plain(carry, f, env, cfg, spec, stepper, n, kw):
     """One plain-version run between two CUDA events, ms."""
     import torch
 
@@ -487,44 +581,47 @@ def time_plain(carry, f, env, cfg, spec, stepper, n, frame):
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
     sc.step_chunk_reference(carry, f, env, cfg, spec, stepper=stepper,
-                            n_steps=n, frame=frame)
+                            n_steps=n, **kw)
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1)
 
 
-def plain_cut(name, dtype_name, stepper, dev, medium=None, every=10, n=64):
+def plain_cut(name, dtype_name, stepper, dev, medium=None, every=10, n=64,
+              **over):
     """The plain version over every `every`-th ray of a preset's launch x
     n attempts: {plain_ms, plain_rays, plain_n}. Its time is set by the
     small launches of each attempt, not by the rays, so this says what an
     attempt costs it at a sixteenth of the full timing's wait."""
-    carry, f, env, cfg, spec, frame = start(name, dtype_name, dev,
-                                            every=every, medium=medium)
+    carry, f, env, cfg, spec, kw = start(name, dtype_name, dev, every=every,
+                                         medium=medium, **over)
     return dict(plain_ms=time_plain(carry, f, env, cfg, spec, stepper, n,
-                                    frame),
+                                    kw),
                 plain_rays=f.shape[0], plain_n=n)
 
 
 def time_instance(name, dtype_name, stepper, dev, n=512, reps=5,
-                  medium=None, plain_full=True):
+                  medium=None, plain_full=True, plain_ms=None, **over):
     """The kernel over a preset's whole launch x n attempts (CUDA events,
     mean of reps after a warm-up launch) beside its bound and one
     plain-version run: of the same launch (plain_full, the instances of
-    the kernels' JSON record) or of plain_cut's. Returns a dict."""
-    carry, f, env, cfg, spec, frame = start(name, dtype_name, dev,
-                                            medium=medium)
-    kernel_ms, out = time_kernel(carry, f, env, cfg, spec, stepper, n, frame,
+    the kernels' JSON record; plain_ms where that run was timed already)
+    or of plain_cut's. `over` overrides fields of the preset. Returns a
+    dict."""
+    carry, f, env, cfg, spec, kw = start(name, dtype_name, dev,
+                                         medium=medium, **over)
+    kernel_ms, out = time_kernel(carry, f, env, cfg, spec, stepper, n, kw,
                                  reps)
     attempts = int(((out.n_accept + out.n_reject)
                     - (carry.n_accept + carry.n_reject)).sum())
     if plain_full:
-        plain = dict(plain_ms=time_plain(carry, f, env, cfg, spec, stepper,
-                                         n, frame),
-                     plain_rays=f.shape[0], plain_n=n)
+        if plain_ms is None:
+            plain_ms = time_plain(carry, f, env, cfg, spec, stepper, n, kw)
+        plain = dict(plain_ms=plain_ms, plain_rays=f.shape[0], plain_n=n)
     else:
-        plain = plain_cut(name, dtype_name, stepper, dev, medium)
+        plain = plain_cut(name, dtype_name, stepper, dev, medium, **over)
     bound_ms, by = bound(name, dtype_name, stepper, carry.u.shape[1],
-                         attempts, f.shape[0], medium)
+                         attempts, f.shape[0], medium, **over)
     return dict(ms=kernel_ms, bound_ms=bound_ms, bound_by=by,
                 attempts=attempts, rays=f.shape[0], n=n, **plain)
 
@@ -543,19 +640,20 @@ def print_timing(what, t, card):
 
 
 def bit_for_bit(what, name, dtype_name, stepper, dev, n, every=1,
-                medium=None):
+                medium=None, **over):
     """One launch through the kernel and the plain version; fails unless
-    every field agrees bit for bit. Returns (max abs err, plain ms)."""
-    carry, f, env, cfg, spec, frame = start(name, dtype_name, dev,
-                                            every=every, medium=medium)
-    got, ref, plain_ms = both(carry, f, env, cfg, spec, stepper, n, frame)
+    every field agrees bit for bit. `over` overrides fields of the
+    preset. Returns (max abs err, plain ms)."""
+    carry, f, env, cfg, spec, kw = start(name, dtype_name, dev, every=every,
+                                         medium=medium, **over)
+    got, ref, plain_ms = both(carry, f, env, cfg, spec, stepper, n, kw)
     n_diff = n_differ(got, ref)
     print(f"  {what} {dtype_name} {stepper}, {f.shape[0]:,} rays x {n} "
           f"steps: {int((got['status'] != 0).sum())} rays stopped, {n_diff} "
           f"values differ"
           + (f", max |drho_phi/dt| "
              f"{float(np.abs(got['k1'][:, 5]).max()):.3e}"
-             if frame == "3d" else ""), flush=True)
+             if kw["frame"] == "3d" else ""), flush=True)
     check(n_diff == 0, f"{what} {dtype_name} {stepper}: bit for bit")
     return max_abs(got, ref), plain_ms
 
@@ -571,8 +669,8 @@ def field_cost(dtype_name, stepper, dev, card, n=512, reps=5):
     starts = {k: start(v, dtype_name, dev) for k, v in names.items()}
     ms, outs = {k: [] for k in names}, {}
     for k in ("plume", "tilted", "igrf", "igrf", "tilted", "plume"):
-        carry, f, env, cfg, spec, frame = starts[k]
-        t, outs[k] = time_kernel(carry, f, env, cfg, spec, stepper, n, frame,
+        carry, f, env, cfg, spec, kw = starts[k]
+        t, outs[k] = time_kernel(carry, f, env, cfg, spec, stepper, n, kw,
                                  reps)
         ms[k].append(t)
     res = {}
@@ -711,13 +809,13 @@ def general_field_kernels(dev, card):
                           ("the preset's ds_max", {}, 256)):
         outs = {}
         for k, med in (("dipole", None), ("tilt = 0", tilt0)):
-            carry, f, env, cfg, spec, frame = start(
+            carry, f, env, cfg, spec, kw = start(
                 "ensemble10k_plume", "float64", dev, every=10, medium=med,
                 **over)
             check(sc.field_code(env) == (0 if med is None else 1),
                   f"{k}: field code {sc.field_code(env)}")
             out = sc.step_chunk(carry, f, env, cfg, spec, stepper="dopri5",
-                                n_steps=n, frame=frame)
+                                n_steps=n, **kw)
             outs[k] = {m: getattr(out, m).cpu().numpy()
                        for m in RayCarry._fields}
         a, b = outs["tilt = 0"], outs["dipole"]
@@ -831,6 +929,300 @@ def landing_agreement(out32, out64, lat_to_l):
             int(hit.sum()))
 
 
+def variant_kernels(dev, card):
+    """Phase 14. Returns {variant: (max abs err, timing dict)} of the four
+    instances of the kernels' JSON record."""
+    from raytrace_tpu_torch.config import MediumConfig
+    from raytrace_tpu_torch.constants import B0_2D, B0_3D
+
+    ions_2d = MediumConfig(b0=B0_2D, **MULTI_ION)
+    errs, plain = {}, {}
+    # float32 over all rays: the main paths' first launches (10,240 rays x
+    # 512 attempts) where an instance is in the kernels' record, else 1
+    # attempt
+    for k, label, name, st, n, med, over in (
+        ("local", "ensemble10k_local (the first round's launch)",
+         "ensemble10k_local", "bs3", 512, None, {}),
+        ("colat", "the ensemble10k launch in the colatitude frame",
+         "ensemble10k", "bs3", 512, None, COLAT),
+        ("multi_ion", "the ensemble10k fan over He+ and O+", "ensemble10k",
+         "dopri5", 512, ions_2d, {}),
+        ("emic", "emic_heband (root -1)", "emic_heband", "dopri5", 1, None,
+         {}),
+        ("rk4_f32", "rk4, the ensemble10k launch at dt0 = dt_max",
+         "ensemble10k", "bs3", 1, None, RK4),
+        ("raymain", "raymain", "raymain", "dopri5", 1, None, {}),
+    ):
+        errs[k], plain[k] = bit_for_bit(label, name, "float32", st, dev, n,
+                                        medium=med, **over)
+    # the rk4 instance of the record is float64: the whole launch
+    errs["rk4"], plain["rk4"] = bit_for_bit(
+        "rk4, the ensemble10k launch at dt0 = dt_max", "ensemble10k",
+        "float64", "bs3", dev, 512, **RK4)
+    # float64 over every 10th ray (emic_heband's 48 whole), 256 attempts
+    # (64 for the further full-medium and general-field instances)
+    for label, name, steppers, every, med, over, n in (
+        ("ensemble10k_local", "ensemble10k_local", ("bs3", "dopri5"), 10,
+         None, {}, 256),
+        ("colatitude frame", "ensemble10k", ("bs3", "dopri5"), 10, None,
+         COLAT, 256),
+        ("emic_heband", "emic_heband", ("bs3", "dopri5"), 1, None, {}, 256),
+        ("He+ and O+ fan", "ensemble10k", ("dopri5",), 10, ions_2d, {},
+         256),
+        ("rk4 in the colatitude frame", "ensemble10k", ("bs3",), 10, None,
+         dict(RK4, **COLAT), 256),
+        # each variant through the full density chain and a general field,
+        # 64 attempts
+        ("ds_local over GCPM, a duct (a second shell), day/night",
+         "ensemble10k_local", ("bs3",), 10,
+         MediumConfig(b0=B0_2D, **FULL_2D["gcpm+iono_mlt+duct"]), {}, 64),
+        ("ds_local over the tilted field", "ensemble10k_tilted",
+         ("dopri5",), 10, None, dict(ds_local=True), 64),
+        ("colatitude frame over the smoothed, refilled medium",
+         "ensemble10k", ("dopri5",), 10,
+         MediumConfig(b0=B0_2D, **FULL_2D["smooth+refill_q+iono_mlt+duct"]),
+         COLAT, 64),
+        ("He+ and O+ over the MLT medium (3D)", "ensemble10k_plume",
+         ("bs3",), 10, MediumConfig(b0=B0_3D, ps_mlt=True, **MULTI_ION), {},
+         64),
+        ("He+ and O+ over IGRF", "ensemble10k_igrf", ("dopri5",), 10,
+         MediumConfig(b0=B0_3D, ps_mlt=True, b_model="igrf", **MULTI_ION),
+         {}, 64),
+        ("rk4 over the MLT medium (3D)", "ensemble10k_plume", ("bs3",), 10,
+         None, dict(adaptive=False, dt0=1.0e-3), 64),
+        ("rk4 over the tilted field", "ensemble10k_tilted", ("bs3",), 10,
+         None, dict(adaptive=False, dt0=1.0e-3), 64),
+    ):
+        for st in steppers:
+            bit_for_bit(label, name, "float64", st, dev, n, every=every,
+                        medium=med, **over)
+
+    # every instance that a path of phases 15-18 launches, at 10,240 rays
+    # (the multi-ion ones on the He+ and O+ fan) x 512 attempts; the plain
+    # version at full size where the instance is in the kernels' record
+    out = {}
+    for k, label, name, dt_name, st, med, over in (
+        ("local", "ds_local", "ensemble10k_local", "float32", "bs3", None,
+         {}),
+        (None, "ds_local", "ensemble10k_local", "float64", "bs3", None, {}),
+        ("colat", "colat", "ensemble10k", "float32", "bs3", None, COLAT),
+        (None, "colat", "ensemble10k", "float64", "bs3", None, COLAT),
+        (None, "colat", "ensemble10k", "float32", "dopri5", None, COLAT),
+        (None, "colat", "ensemble10k", "float64", "dopri5", None, COLAT),
+        ("multi_ion", "multi-ion", "ensemble10k", "float32", "dopri5",
+         ions_2d, {}),
+        (None, "multi-ion", "ensemble10k", "float64", "dopri5", ions_2d, {}),
+        (None, "rk4", "ensemble10k", "float32", "bs3", None, RK4),
+        ("rk4", "rk4", "ensemble10k", "float64", "bs3", None, RK4),
+    ):
+        t = time_instance(name, dt_name, st, dev, medium=med,
+                          plain_full=k is not None,
+                          plain_ms=plain.get(k), **over)
+        stepper = "rk4" if over.get("adaptive") is False else st
+        print_timing(f"{label} {dt_name} {stepper}", t, card)
+        if k is not None:
+            out[k] = (errs[k], t)
+    return out
+
+
+def local_slice(card):
+    """Phase 15. Returns the float32 run's kernel launches."""
+    from raytrace_tpu_torch.config import preset
+
+    pin = LOCAL_PINS
+    conf = preset("ensemble10k_local")
+    drive(conf, "warm-up", card)
+    out32, _, launches32, calls = drive(conf, "float32", card)
+    stats = out32["stats"]
+    steps = int(stats["total_accepted_steps"] + stats["total_rejected_steps"])
+    n_hit = int(stats["n_hit_earth"])
+    med_l = float(stats["median_landing_l"])
+    check(launches32 > 0 and calls == 0,
+          "the slice stepped through the kernel, never the plain version")
+    check(abs(n_hit - pin["rec_hit"]) <= 0.01 * pin["rec_hit"],
+          f"HIT_EARTH {n_hit} within 1% of the TPU record {pin['rec_hit']}")
+    check(abs(steps - pin["rec_steps"]) <= 0.05 * pin["rec_steps"],
+          f"attempted steps {steps} within 5% of the TPU record "
+          f"{pin['rec_steps']}")
+    check(abs(med_l - pin["rec_median_l"])
+          <= REC_MEDIAN_L_RTOL * pin["rec_median_l"],
+          f"median landing L {med_l:.6f} within {REC_MEDIAN_L_RTOL:g} of the "
+          f"TPU record {pin['rec_median_l']}")
+    print("  ensemble10k_local, float64", flush=True)
+    out64, _, launches, calls = drive(
+        preset("ensemble10k_local", dtype="float64"), "float64", card)
+    st64 = out64["stats"]
+    steps64 = int(st64["total_accepted_steps"] + st64["total_rejected_steps"])
+    med64 = float(st64["median_landing_l"])
+    check(launches > 0 and calls == 0,
+          "float64 stepped through the kernel, never the plain version")
+    check(int(st64["n_hit_earth"]) == pin["f64_hit"]
+          and int(st64["n_max_phase_time"]) == pin["f64_mpt"],
+          f"HIT_EARTH and MAX_PHASE_TIME equal the JAX package's float64 "
+          f"{pin['f64_hit']} and {pin['f64_mpt']}")
+    check(abs(steps64 - pin["f64_steps"]) <= 0.01 * pin["f64_steps"],
+          f"attempted steps {steps64} within 1% of the JAX package's float64 "
+          f"{pin['f64_steps']}")
+    rtol = pin["f64_median_l_rtol"]
+    check(abs(med64 - pin["f64_median_l"]) <= rtol * pin["f64_median_l"],
+          f"median landing L {med64!r} within {rtol:g} of the JAX package's "
+          f"float64 {pin['f64_median_l']}")
+    match, med_rel, n_m = landing_agreement(
+        out32, out64, lambda u: u[:, 0] / np.cos(u[:, 1]) ** 2)
+    print(f"  float32 vs float64: {match * 100:.2f}% statuses match, median "
+          f"relative landing-L error {med_rel:.3e} over {n_m} matched "
+          "HIT_EARTH rays (the JAX package's own: 95.02%, 2.39e-4)")
+    return launches32
+
+
+def colat_slices(card):
+    """Phase 16. Returns the kernel launches of the float32 colatitude
+    fan."""
+    from raytrace_tpu_torch.config import preset
+    from raytrace_tpu_torch.integrate import events
+
+    print("  raymain, float64 and float32", flush=True)
+    ray64, _, launches, calls = drive(preset("raymain", dtype="float64"),
+                                      "float64", card)
+    res = ray64["result"]
+    check(launches > 0 and calls == 0,
+          "raymain stepped through the kernel, never the plain version")
+    check(int(res.status[0]) == events.HIT_EARTH
+          and (int(res.n_accept[0]), int(res.n_reject[0]))
+          == (RAYMAIN_F64["n_accept"], RAYMAIN_F64["n_reject"]),
+          f"float64 HIT_EARTH after {RAYMAIN_F64['n_accept']} accepted and "
+          f"{RAYMAIN_F64['n_reject']} rejected steps, as the JAX package's")
+    err = max(float(np.max(np.abs(res.u[0] - np.asarray(RAYMAIN_F64["u"]))
+                           / np.abs(RAYMAIN_F64["u"]))),
+              abs(float(res.t[0]) / RAYMAIN_F64["t"] - 1.0))
+    print(f"  final state and phase path: worst relative difference "
+          f"{err:.3e} from the JAX package's float64")
+    check(err <= 1e-9, "raymain float64 final state and t within 1e-9")
+    ray32, _, _, _ = drive(preset("raymain"), "float32", card)
+    check(int(ray32["result"].status[0]) == events.HIT_EARTH,
+          "raymain float32 HIT_EARTH, as the JAX package's float32")
+
+    print("  the ensemble10k fan in the colatitude frame, float32",
+          flush=True)
+    pin = COLAT_PINS
+    conf = preset("ensemble10k", **COLAT)
+    drive(conf, "warm-up", card)
+    out32, _, launches32, calls = drive(conf, "float32", card)
+    check(launches32 > 0 and calls == 0,
+          "the colatitude fan stepped through the kernel, never the plain "
+          "version")
+    check(np.isfinite(out32["result"].u[out32["valid"]]).all(),
+          "every final state is finite")
+    print("  the colatitude fan, float64", flush=True)
+    out64, _, launches, calls = drive(
+        preset("ensemble10k", dtype="float64", **COLAT), "float64", card)
+    st64 = out64["stats"]
+    steps64 = int(st64["total_accepted_steps"] + st64["total_rejected_steps"])
+    med64 = float(st64["median_landing_l"])
+    check(launches > 0 and calls == 0,
+          "float64 stepped through the kernel, never the plain version")
+    check(int(st64["n_hit_earth"]) == pin["f64_hit"]
+          and int(st64["n_max_phase_time"]) == pin["f64_mpt"],
+          f"HIT_EARTH and MAX_PHASE_TIME equal the JAX package's float64 "
+          f"{pin['f64_hit']} and {pin['f64_mpt']}")
+    check(abs(steps64 - pin["f64_steps"]) <= 0.01 * pin["f64_steps"],
+          f"attempted steps {steps64} within 1% of the JAX package's float64 "
+          f"{pin['f64_steps']}")
+    check(abs(med64 - pin["f64_median_l"]) <= 1e-9 * pin["f64_median_l"],
+          f"median landing L within 1e-9 of the JAX package's float64 "
+          f"{pin['f64_median_l']}")
+    # the colatitude frame carries theta: landing L = r / sin^2(theta)
+    match, med_rel, n_m = landing_agreement(
+        out32, out64, lambda u: u[:, 0] / np.sin(u[:, 1]) ** 2)
+    print(f"  float32 vs float64: {match * 100:.2f}% statuses match, median "
+          f"relative landing-L error {med_rel:.3e} over {n_m} matched "
+          "HIT_EARTH rays")
+    floor = pin["jax_match"] - 0.005
+    check(match >= floor, f"statuses match on >= {floor:.2%} of rays (the "
+                          f"JAX package's own: {pin['jax_match']:.2%})")
+    check(med_rel < 1e-4, "median relative landing-L error < 1e-4 (the JAX "
+                          "package's own: 3.58e-6)")
+    return launches32
+
+
+def emic_slice(card):
+    """Phase 17. Returns the float32 run's kernel launches."""
+    from raytrace_tpu_torch.config import preset
+    from raytrace_tpu_torch.integrate import events
+
+    out32, _, launches32, calls = drive(preset("emic_heband"), "float32",
+                                        card)
+    check(launches32 > 0 and calls == 0,
+          "emic_heband stepped through the kernel, never the plain version")
+    n_mpt = int(out32["stats"]["n_max_phase_time"])
+    check(abs(n_mpt - 48) <= 2,
+          f"float32 MAX_PHASE_TIME {n_mpt} within 2 rays of the JAX "
+          "package's float32 (all 48)")
+    out64, _, launches, calls = drive(preset("emic_heband", dtype="float64"),
+                                      "float64", card)
+    res, valid = out64["result"], out64["valid"]
+    check(launches > 0 and calls == 0,
+          "float64 stepped through the kernel, never the plain version")
+    check(bool((res.status[valid] == events.MAX_PHASE_TIME).all()
+               and (res.n_accept[valid] == EMIC_F64["n_accept"]).all()
+               and (res.n_reject[valid] == 0).all()),
+          f"float64: every ray MAX_PHASE_TIME after {EMIC_F64['n_accept']} "
+          "accepted steps and no rejection, as in the JAX package")
+    u = res.u[valid]
+    err = max(float(np.max(np.abs(u.sum(0) - EMIC_F64["u_sum"])
+                           / np.asarray(EMIC_F64["u_abs_sum"]))),
+              float(np.max(np.abs(np.abs(u).sum(0) - EMIC_F64["u_abs_sum"])
+                           / np.asarray(EMIC_F64["u_abs_sum"]))),
+              float(np.max(np.abs(res.t[valid] / EMIC_F64["t"] - 1.0))))
+    print(f"  float64 final states summed over the rays: worst relative "
+          f"difference {err:.3e} from the JAX package's")
+    check(err <= 1e-9, "float64 final states and t within 1e-9")
+    return launches32
+
+
+def rk4_slice(card):
+    """Phase 18. Returns the float64 run's kernel launches."""
+    from raytrace_tpu_torch.config import preset
+
+    conf = preset("ensemble10k", **RK4)
+    drive(conf, "warm-up", card)
+    out32, _, launches, calls = drive(conf, "float32", card)
+    check(launches > 0 and calls == 0,
+          "the rk4 fan stepped through the kernel, never the plain version")
+    check(int(out32["stats"]["total_rejected_steps"]) == 0,
+          "fixed steps: no rejection")
+    print("  (float32 reported: the JAX package's on a CPU is HIT_EARTH "
+          "9136 / MAX_PHASE_TIME 1077 / INVALID 27, 20,425,402 steps)")
+    out64, _, launches64, calls = drive(preset("ensemble10k", dtype="float64",
+                                               **RK4), "float64", card)
+    st64 = out64["stats"]
+    steps64 = int(st64["total_accepted_steps"] + st64["total_rejected_steps"])
+    med64 = float(st64["median_landing_l"])
+    check(launches64 > 0 and calls == 0,
+          "float64 stepped through the kernel, never the plain version")
+    pin = RK4_F64
+    n_hit = int(st64["n_hit_earth"])
+    n_mpt = int(st64["n_max_phase_time"])
+    check(n_hit + n_mpt == int(np.asarray(out64["valid"]).sum())
+          and abs(n_hit - pin["hit"]) <= pin["flips"],
+          f"float64: every ray HIT_EARTH or MAX_PHASE_TIME, HIT_EARTH "
+          f"{n_hit} within {pin['flips']} rays of the JAX package's "
+          f"{pin['hit']}")
+    check(abs(steps64 - pin["steps"]) <= 0.01 * pin["steps"],
+          f"steps {steps64} within 1% of the JAX package's float64 "
+          f"{pin['steps']}")
+    check(abs(med64 - pin["median_l"]) <= pin["median_l_rtol"]
+          * pin["median_l"],
+          f"median landing L {med64!r} within {pin['median_l_rtol']:g} of "
+          f"the JAX package's float64 {pin['median_l']}")
+    match, med_rel, n_m = landing_agreement(
+        out32, out64, lambda u: u[:, 0] / np.cos(u[:, 1]) ** 2)
+    print(f"  float32 vs float64: {match * 100:.2f}% statuses match, median "
+          f"relative landing-L error {med_rel:.3e} over {n_m} matched "
+          "HIT_EARTH rays (the JAX package's own: 99.53%, 2.35e-6)")
+    return launches64
+
+
 def main():
     import torch
 
@@ -872,18 +1264,18 @@ def main():
 
     # ---- 2. kernel vs plain PyTorch on the card ---------------------------
     print("[2] step kernel vs plain PyTorch", flush=True)
-    carry, f, env, cfg, spec, frame = start("ensemble10k", "float64", dev,
+    carry, f, env, cfg, spec, kw = start("ensemble10k", "float64", dev,
                                             every=10)
-    hold_to_plain(carry, f, env, cfg, spec, frame, "2D")
-    carry, f, env, cfg, spec, frame = start("ensemble10k", "float32", dev)
-    hold_to_plain_f32(carry, f, env, cfg, spec, frame, "2D")
+    hold_to_plain(carry, f, env, cfg, spec, kw, "2D")
+    carry, f, env, cfg, spec, kw = start("ensemble10k", "float32", dev)
+    hold_to_plain_f32(carry, f, env, cfg, spec, kw, "2D")
 
     # the main path's first launch: all 10,240 rays x 2,048 steps, float32
     # bs3. The kernel rounds as its plain version does (no FMA
     # contraction, quotients by constants as reciprocal products, the
     # error norm summed in component order), so every field must agree
     # bit for bit
-    got, ref, _ = both(carry, f, env, cfg, spec, "bs3", 2048, frame)
+    got, ref, _ = both(carry, f, env, cfg, spec, "bs3", 2048, kw)
     n_diff = n_differ(got, ref)
     err_2d = max_abs(got, ref)
     print(f"  float32 bs3, 10,240 rays x 2,048 steps (the first round's "
@@ -971,16 +1363,16 @@ def main():
 
     # ---- 5. the 3D kernel and the arc ceiling vs plain PyTorch -----------
     print("[5] 3D step kernel (rhs_3d, ds_max) vs plain PyTorch", flush=True)
-    carry, f, env, cfg, spec, frame = start("ensemble10k_3d", "float64", dev,
+    carry, f, env, cfg, spec, kw = start("ensemble10k_3d", "float64", dev,
                                             every=10)
-    hold_to_plain(carry, f, env, cfg, spec, frame, "3D")
-    carry, f, env, cfg, spec, frame = start("ensemble10k_3d", "float32", dev)
-    hold_to_plain_f32(carry, f, env, cfg, spec, frame, "3D")
+    hold_to_plain(carry, f, env, cfg, spec, kw, "3D")
+    carry, f, env, cfg, spec, kw = start("ensemble10k_3d", "float32", dev)
+    hold_to_plain_f32(carry, f, env, cfg, spec, kw, "3D")
 
     # the 3D path's first launch: 10,240 rays x 512 float32 bs3 attempts
     # (schedule (512, 1024, 2048)); rsqrt is the card's own in both (the
     # note in csrc/step_chunk.cu), so every field must agree bit for bit
-    got, ref, plain_3d_ms = both(carry, f, env, cfg, spec, "bs3", 512, frame)
+    got, ref, plain_3d_ms = both(carry, f, env, cfg, spec, "bs3", 512, kw)
     n_diff = n_differ(got, ref)
     err_3d = max_abs(got, ref)
     print(f"  3D float32 bs3, 10,240 rays x 512 steps (the first round's "
@@ -990,9 +1382,9 @@ def main():
     check(n_diff == 0, "3D first launch: kernel and plain version agree bit "
                        "for bit in every field")
 
-    carry, f, env, cfg, spec, frame = start("ensemble10k_production",
+    carry, f, env, cfg, spec, kw = start("ensemble10k_production",
                                             "float32", dev)
-    got, ref, _ = both(carry, f, env, cfg, spec, "bs3", 512, frame)
+    got, ref, _ = both(carry, f, env, cfg, spec, "bs3", 512, kw)
     n_diff = n_differ(got, ref)
     err_prod = max_abs(got, ref)
     print(f"  2D ds_max float32 bs3, 10,240 rays x 512 steps: "
@@ -1278,6 +1670,21 @@ def main():
     print("[13] ensemble10k_igrf", flush=True)
     launches_igrf = field_slice("ensemble10k_igrf", card)
 
+    # ---- 14-18. the last variants: ds_local, colatitude, multi-ion, rk4 --
+    print("[14] instances of the local arc ceiling, the colatitude frame, "
+          "the multi-ion medium and rk4 vs plain PyTorch", flush=True)
+    variants = variant_kernels(dev, card)
+    print("[15] ensemble10k_local through raytrace_tpu_torch.run.run, "
+          "float32", flush=True)
+    launches_local = local_slice(card)
+    print("[16] raymain and the ensemble10k fan in the colatitude frame",
+          flush=True)
+    launches_colat = colat_slices(card)
+    print("[17] emic_heband", flush=True)
+    launches_emic = emic_slice(card)
+    print("[18] the ensemble10k fan with fixed-step rk4", flush=True)
+    launches_rk4 = rk4_slice(card)
+
     def entry(name, launches, err, t):
         return {
             "name": name,
@@ -1308,6 +1715,14 @@ def main():
               launches_tilted, *general["tilted"]),
         entry("step_chunk[3d+full_medium(mlt)+igrf_field,float32,bs3]",
               launches_igrf, *general["igrf"]),
+        entry("step_chunk[2d_lat+ds_local,float32,bs3]", launches_local,
+              *variants["local"]),
+        entry("step_chunk[2d_colat,float32,bs3]", launches_colat,
+              *variants["colat"]),
+        entry("step_chunk[2d_lat+multi_ion,float32,dopri5]", launches_emic,
+              *variants["multi_ion"]),
+        entry("step_chunk[2d_lat,float64,rk4]", launches_rk4,
+              *variants["rk4"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

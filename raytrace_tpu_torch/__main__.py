@@ -1,7 +1,8 @@
 """CLI: python -m raytrace_tpu_torch <preset-name | config.json> [options].
 
-Presets: ensemble10k, ensemble10k_production, lat_fan, knee, mr_fan (2D
-latitude frame); ensemble10k_3d, ensemble3d, knee_3d, 3d (3D dipole
+Presets: ensemble10k, ensemble10k_production, ensemble10k_local, lat_fan,
+knee, mr_fan, emic_heband (2D latitude frame); raymain (2D colatitude
+frame); ensemble10k_3d, ensemble3d, knee_3d, 3d (3D dipole
 frame); ensemble10k_plume, mr_fan_3d (3D, the MLT-resolved medium);
 ensemble10k_tilted, ensemble10k_igrf (3D, the tilted dipole and the IGRF
 truncation). A JSON file path loads a full RunConfig instead. The run goes to

@@ -5,10 +5,12 @@ runs).
 dataclasses, so a RunConfig JSON written by either package loads in the
 other; a field that selects a feature the port has not ported yet raises
 NotImplementedError when the run is built (models/medium.py, run.py).
-`preset()` serves the configs whose features are all ported: the 2D
+`preset()` serves every preset of the JAX package: the 2D
 latitude-frame CA1992 configs ensemble10k, ensemble10k_production,
-lat_fan, knee and mr_fan, the 3D dipole-frame configs 3d, knee_3d,
-ensemble3d and ensemble10k_3d, and the 3D configs over the MLT-resolved
+ensemble10k_local (the local arc ceiling), lat_fan, knee and mr_fan, the
+He+-band EMIC fan emic_heband (multi-ion, the '-' root), the colatitude
+frame's single ray raymain, the 3D dipole-frame configs 3d, knee_3d,
+ensemble3d and ensemble10k_3d, the 3D configs over the MLT-resolved
 medium, ensemble10k_plume and mr_fan_3d, and the plume fan over the
 non-axial fields, ensemble10k_tilted and ensemble10k_igrf.
 """
@@ -185,6 +187,13 @@ class RunConfig:
 
 
 _PRESETS = {
+    # RayMain.jl single ray (RayMain.jl:382-387): the colatitude frame,
+    # ionosphere only
+    "raymain": lambda: dict(
+        name="raymain", frame="2d_colat",
+        medium=MediumConfig(b0=B0_2D, plasmasphere=False),
+        lats=(np.pi / 4,), chis=(0.0,), freqs=(5000.0,),
+    ),
     # RayTrace_lat.jl fan (RayTrace_lat.jl:333-338)
     "lat_fan": lambda: dict(
         name="lat_fan", frame="2d_lat",
@@ -220,6 +229,29 @@ _PRESETS = {
         freqs=tuple(np.geomspace(500.0, 8000.0, 16)),
         rtol=1.0e-5, atol=1.0e-8, base_stepper="bs3",
         ds_max=2.0e6 / RE, dt_max=8.0e6 / RE,
+    ),
+    # the production fan on the local arc ceiling: tight only within
+    # ds_local_w of the plasmapause shell, opening to r/4.5 over the smooth
+    # plasmasphere; the phase ceiling stays the 8e6 m outer bound
+    "ensemble10k_local": lambda: dict(
+        name="ensemble10k_local", frame="2d_lat",
+        medium=MediumConfig(b0=B0_2D),
+        lats=tuple(np.linspace(0.45, 1.1, 40)),
+        chis=tuple(np.linspace(-0.5, 0.5, 16)),
+        freqs=tuple(np.geomspace(500.0, 8000.0, 16)),
+        rtol=1.0e-5, atol=1.0e-8, base_stepper="bs3",
+        ds_local=True, dt_max=8.0e6 / RE,
+    ),
+    # He+-band EMIC rays (the '-' root) in a multi-ion plasma: equatorial
+    # launches just below the local He+ gyrofrequency
+    "emic_heband": lambda: dict(
+        name="emic_heband", frame="2d_lat", wave_mode="emic",
+        medium=MediumConfig(b0=B0_2D, eta_he=0.1, eta_o=0.02),
+        r0=2.0,
+        lats=tuple(np.linspace(-0.1, 0.1, 8)),
+        chis=(0.0, 0.2),
+        freqs=(1.0, 1.4, 1.8),
+        t_max=200.0, max_steps=8000,
     ),
     # RayTrace_3D.jl single ray (RayTrace_3D.jl:390-395), off-shell rho0
     "3d": lambda: dict(
@@ -337,11 +369,8 @@ _PRESETS = {
 }
 
 # presets of the JAX package that need features the port has not yet
-_LATER = {
-    "raymain": "A10 (2d_colat frame)",
-    "ensemble10k_local": "A6/B1 (local arc ceiling)",
-    "emic_heband": "A10 (multi-ion EMIC)",
-}
+# ported ({name: ROADMAP item}): none left
+_LATER = {}
 
 
 def preset(name, **overrides):

@@ -3,18 +3,24 @@
 // Replaces raytrace_tpu/ops/pallas_stepper.py::_chunk_kernel (the Pallas
 // TPU kernel built by make_pallas_chunk, pallas_call at :107): n_steps
 // attempted steps of raytrace_tpu/integrate/solve.py::_step_one over a
-// batch of rays, with the arc-length step ceiling ds_max
-// (solve.py:243-317) when it is on. Two frames, each with its right-hand
-// side inlined:
+// batch of rays: bs3 or dopri5 under the step controller, with the
+// arc-length step ceiling ds_max or the local arc ceiling
+// (_local_arc_ceiling, solve.py:216-240, 283-317) when one is on, or with
+// adaptive=False fixed-step rk4 (steppers.py:29-37: no ceiling, no
+// controller, every step accepted). Three frames, each with its
+// right-hand side inlined:
 //   - the 2D latitude frame, 4-state carry (r, lat, chi, T), group delay
 //     at index 3: ops/rhs.py::rhs_2d_lat over
 //     ops/fused.py::mu_and_grads_2d_lat;
+//   - the 2D colatitude frame, 4-state carry (r, theta, chi, T):
+//     ops/rhs.py::rhs_2d_colat over the same chain at lat = pi/2 - theta,
+//     formed in T as the JAX package forms it;
 //   - the 3D Kimura frame, 7-state carry (r, theta, phi, rho_r,
 //     rho_theta, rho_phi, T), group delay at index 6: ops/rhs.py::rhs_3d
 //     over ops/fused.py::mu_and_grads_3d in the cos(psi) form (the psi
 //     form divides a 0/0 back out at field-aligned propagation, which
 //     float32 cannot resolve);
-// protons only, over the centered dipole (FIELD = DIPOLE) or, in the 3D
+// over the centered dipole (FIELD = DIPOLE) or, in the 3D
 // frame with the full medium, over a non-axial field (FIELD = TILTED, the
 // tilted dipole; FIELD = IGRF, the degree-3 IGRF truncation): rhs_3d over
 // ops/fused.py::mu_and_grads_3d_general, whose geometry (the field's three
@@ -48,10 +54,24 @@
 //     order (chip_smoke.py phase 8 holds the two bit for bit), but runs
 //     the axisymmetric launches 17% (bs3) to 105% (3D float dopri5)
 //     slower than AXI on an H100 (PERF.md), so AXI keeps its instances.
-// Template instances: float and double x bs3 and dopri5 x the two frames
-// x the two media over the dipole (16), and float and double x bs3 and
-// dopri5 x the two non-axial fields in the 3D frame over the full medium
-// (8): 24, one library.
+// The AXI and FULL instances keep the code of the first slices: protons
+// only, and no local arc ceiling. A medium with He+ or O+
+// (dispersion.ion_species) or a run with the local ceiling takes the EXT
+// instances: the full chain (which with its flags off is the AXI chain, bit
+// for bit) whose Stix sums run over a species count and coefficients,
+// formed in double on the host, that ride by value (a species whose
+// fraction is 0 is not formed: 0 * inf at y = 1 would be NaN), and whose
+// step ceiling takes the local one (up to kMaxShells shells), both at run
+// time. The species count at run time in every instance cost the
+// protons-only launches 2-9% and the 3D float dopri5 one 30% (its register
+// allocation fell to 128 with spills), and the local ceiling's code cost
+// the 3D full float64 bs3 one 5-7% wherever it sat (PERF.md), hence the
+// third medium value. The root (+1 whistler, -1 EMIC) rides by value.
+// Template instances: float and double x bs3, dopri5 and rk4 x the three
+// frames x the three media over the dipole (2 x 3 x 3 x 3 = 54), and x the
+// two non-axial fields in the 3D frame over FULL and EXT (24): 78,
+// compiled in five parts (one per frame, and one per non-axial field) by
+// parallel nvcc processes and linked into one library (SC_PART below).
 //
 // Design for the card, not block by block:
 //   - one thread per ray; the thread loads its ray's 14-field carry into
@@ -163,15 +183,20 @@ constexpr int EVANESCENT = 9;
 
 constexpr int BS3 = 0;
 constexpr int DOPRI5 = 1;
-constexpr int LAT2D = 0;  // the 2D latitude frame, 4-state carry
-constexpr int KIM3D = 1;  // the 3D Kimura frame, 7-state carry
+constexpr int RK4 = 2;      // fixed step: what adaptive=False runs
+constexpr int LAT2D = 0;    // the 2D latitude frame, 4-state carry
+constexpr int KIM3D = 1;    // the 3D Kimura frame, 7-state carry
+constexpr int COLAT2D = 2;  // the 2D colatitude frame, 4-state carry
 constexpr int AXI = 0;    // the axisymmetric medium of the first slices
 constexpr int FULL = 1;   // the full density chain
+constexpr int EXT = 2;    // the full chain with the ion species and ds_local
 constexpr int DIPOLE = 0;  // the centered dipole
 constexpr int TILTED = 1;  // the tilted dipole (3D frame, full medium)
 constexpr int IGRF = 2;    // the degree-3 IGRF truncation (likewise)
 constexpr int kThreads = 128;
 constexpr int kMaxHarm = 8;  // harmonics of the MLT plasmapause shape
+constexpr int kMaxShells = 4;  // shells of the local arc ceiling
+constexpr int kMaxIon = 3;     // ion species: protons, He+, O+
 
 // state dimension of a frame; the group delay is the last component
 template <int FRAME>
@@ -182,8 +207,8 @@ struct FrameDim {
 }  // namespace
 
 // host-side scalars, all double (mirror of ops/step_chunk.py::StepParams):
-// 101 doubles, 808 bytes; the kernel's own KParams<double> stays under
-// 900 bytes, far below the 4 KB a kernel's parameters may take
+// 118 doubles, 944 bytes; the kernel's own KParams<double> stays near
+// 1 KB, far below the 4 KB a kernel's parameters may take
 struct StepParams {
   double b0, iono_n0, iono_decay, iono_r0, lppi, lppo, ne_lppi, ps_season,
       ps_trough, ps_weight, de_weight, root;
@@ -202,6 +227,12 @@ struct StepParams {
   // the non-axial fields: models/dipole.py::moment_unit and mlon_axes of
   // (b_tilt, b_tilt_phi), and the 15 Schmidt coefficients (nT)
   double b_mom[3], b_xm[3], b_ym[3], igrf[15];
+  // the local arc ceiling: frac, the shell count (0 = off) and each
+  // shell's L and width, the knee first
+  double ds_local_frac, n_shells, shell_l[kMaxShells], shell_w[kMaxShells];
+  // the ion species: count, then fpe2 coefficient x fraction and fce
+  // coefficient of each (dispersion.ion_species)
+  double n_ion, ion_fpe2[kMaxIon], ion_fce[kMaxIon];
 };
 
 namespace {
@@ -219,6 +250,11 @@ struct KParams {
   double stall_count;
   T ds_max;
   bool ds_on;
+  T ds_local_frac, shell_l[kMaxShells], shell_w[kMaxShells];
+  int n_shells;
+  bool ds_local_on;
+  T ion_fpe2[kMaxIon], ion_fce[kMaxIon];
+  int n_ion;
   T r_floor, r_ceil, t_max, group_time_max, lat_sign, lat_offset;
   bool equator_on, retro_on;
   // the FULL medium
@@ -248,6 +284,7 @@ KParams<T> make_params(const StepParams& h, int stepper) {
   p.root = T(h.root);
   p.ps_on = h.ps_weight != 0.0;
   p.de_on = h.de_weight != 0.0;
+  // the controller's order (rk4 has no controller; _step_one sets 5)
   const double order = stepper == BS3 ? 3.0 : 5.0;
   p.rtol = T(h.rtol);
   p.atol = T(h.atol);
@@ -260,6 +297,18 @@ KParams<T> make_params(const StepParams& h, int stepper) {
   p.stall_count = h.stall_count;
   p.ds_max = T(h.ds_max);
   p.ds_on = h.ds_max > 0.0;
+  p.ds_local_frac = T(h.ds_local_frac);
+  p.n_shells = (int)h.n_shells;
+  p.ds_local_on = p.n_shells > 0;
+  for (int k = 0; k < kMaxShells; ++k) {
+    p.shell_l[k] = T(h.shell_l[k]);
+    p.shell_w[k] = T(h.shell_w[k]);
+  }
+  p.n_ion = (int)h.n_ion;
+  for (int k = 0; k < kMaxIon; ++k) {
+    p.ion_fpe2[k] = T(h.ion_fpe2[k]);
+    p.ion_fce[k] = T(h.ion_fce[k]);
+  }
   p.safety = T(h.safety);
   p.neg_pi_alpha = T(-h.pi_alpha);
   p.pi_beta = T(h.pi_beta);
@@ -635,14 +684,17 @@ __device__ __forceinline__ void ne_and_grads_full(T r, T sl, T cl, T phi,
   if (mlt) ne_phi = (T(1.0e6) * de) * ne_p_phi;
 }
 
-// ops/fused.py::_stix_quartic_grads (protons only): mu and its partials
-// w.r.t. (ne, |B|, f, geometry); the geometry variable is psi (2D) or,
+// ops/fused.py::_stix_quartic_grads: mu and its partials w.r.t. (ne, |B|,
+// f, geometry), over the protons alone or, with IONS, over the p.n_ion
+// species of p.ion_fpe2/p.ion_fce; the geometry variable is psi (2D) or,
 // with WRT_COS, cos(psi) (3D)
-template <typename T, bool WRT_COS>
+template <typename T, bool WRT_COS, bool IONS>
 __device__ __forceinline__ void stix_quartic_grads(T ne, T bm, T f, T sinpsi,
-                                                   T cospsi, T root, T& mu,
+                                                   T cospsi,
+                                                   const KParams<T>& p, T& mu,
                                                    T& dmu_dn, T& dmu_db,
                                                    T& dmu_df, T& dmu_dpsi) {
+  const T root = p.root;
   const T inv_f = T(1) / f;
   const T ncm = ne * T(1.0e-6);
   const T xe = T(kFPE2_E) * ncm * inv_f * inv_f;
@@ -650,16 +702,45 @@ __device__ __forceinline__ void stix_quartic_grads(T ne, T bm, T f, T sinpsi,
   const T inv_de = T(1) / (T(1) - ye * ye);
   const T ae = (T(1) + ye) * inv_de;
   const T be = (T(1) - ye) * inv_de;
-  const T xi = T(kFPE2_P) * ncm * inv_f * inv_f;
-  const T yi = T(kFCE_P) * bm * inv_f;
-  const T inv_di = T(1) / (T(1) - yi * yi);
-  const T ai = (T(1) - yi) * inv_di;
-  const T bi = (T(1) + yi) * inv_di;
-  const T Sa = xi * ai;
-  const T Sb = xi * bi;
-  const T Say = xi * ai * ai * yi;
-  const T Sby = xi * bi * bi * yi;
-  const T Sx = xi;
+  // species sums in species order, Sa = sum x a, Say = sum x a^2 y (ditto
+  // b) with a = 1/(1 + y), b = 1/(1 - y); the protons start each sum
+  T Sa, Sb, Say, Sby, Sx;
+  if constexpr (!IONS) {
+    const T xi = T(kFPE2_P) * ncm * inv_f * inv_f;
+    const T yi = T(kFCE_P) * bm * inv_f;
+    const T inv_di = T(1) / (T(1) - yi * yi);
+    const T ai = (T(1) - yi) * inv_di;
+    const T bi = (T(1) + yi) * inv_di;
+    Sa = xi * ai;
+    Sb = xi * bi;
+    Say = xi * ai * ai * yi;
+    Sby = xi * bi * bi * yi;
+    Sx = xi;
+  } else {
+    Sa = Sb = Say = Sby = Sx = T(0);
+#pragma unroll
+    for (int k = 0; k < kMaxIon; ++k) {
+      if (k >= p.n_ion) break;
+      const T xi = p.ion_fpe2[k] * ncm * inv_f * inv_f;
+      const T yi = p.ion_fce[k] * bm * inv_f;
+      const T inv_di = T(1) / (T(1) - yi * yi);
+      const T ai = (T(1) - yi) * inv_di;
+      const T bi = (T(1) + yi) * inv_di;
+      if (k == 0) {
+        Sa = xi * ai;
+        Sb = xi * bi;
+        Say = xi * ai * ai * yi;
+        Sby = xi * bi * bi * yi;
+        Sx = xi;
+      } else {
+        Sa = Sa + xi * ai;
+        Sb = Sb + xi * bi;
+        Say = Say + xi * ai * ai * yi;
+        Sby = Sby + xi * bi * bi * yi;
+        Sx = Sx + xi;
+      }
+    }
+  }
   const T R = T(1) - xe * ae - Sa;
   const T L = T(1) - xe * be - Sb;
   const T P = T(1) - xe - Sx;
@@ -743,12 +824,18 @@ __device__ __forceinline__ void stix_quartic_grads(T ne, T bm, T f, T sinpsi,
   dmu_dpsi = gscale * s * m_psi;
 }
 
-// ops/rhs.py::rhs_2d_lat over ops/fused.py::mu_and_grads_2d_lat (the 2D
-// frames trace the phi = 0 meridian: never the MLT path)
+// ops/fused.py::mu_and_grads_2d_lat: mu and its partials r, lat, psi, f
+// at (r, lat, chi), with 1/r and the sine and cosine of chi that the rows
+// of the 2D frames reuse (the 2D frames trace the phi = 0 meridian: never
+// the MLT path)
+template <typename T>
+struct Mu2D {
+  T mu, dmudr, dmudlat, dmu_dpsi, dmu_df, inv_r, sc, cc;
+};
+
 template <typename T, int MEDIUM>
-__device__ __forceinline__ void rhs_2d_lat(const T u[4], T f,
-                                           const KParams<T>& p, T out[4]) {
-  const T r = u[0], lat = u[1], chi = u[2];
+__device__ __forceinline__ Mu2D<T> mu_grads_2d(T r, T lat, T chi, T f,
+                                               const KParams<T>& p) {
   const T sl = d_sin(lat), cl = d_cos(lat);
   const T q2 = T(1) + T(3) * sl * sl;
   const T q = d_sqrt(q2);
@@ -767,24 +854,55 @@ __device__ __forceinline__ void rhs_2d_lat(const T u[4], T f,
   const T dpsi_dlat = T(2) * inv_q2;
 
   T ne, ne_r, ne_lat;
-  if constexpr (MEDIUM == FULL) {
+  if constexpr (MEDIUM != AXI) {
     T ne_phi;
     ne_and_grads_full(r, sl, cl, T(0), false, p, ne, ne_r, ne_lat, ne_phi);
   } else {
     ne_and_grads(r, sl, cl, p, ne, ne_r, ne_lat);
   }
-  T mu, dmu_dn, dmu_db, dmu_df, dmu_dpsi;
-  stix_quartic_grads<T, false>(ne, bm, f, sinpsi, cospsi, p.root, mu, dmu_dn,
-                               dmu_db, dmu_df, dmu_dpsi);
-  const T dmudr = dmu_dn * ne_r + dmu_db * bm_r;
-  const T dmudlat = dmu_dn * ne_lat + dmu_db * bm_lat + dmu_dpsi * dpsi_dlat;
+  Mu2D<T> m;
+  T dmu_dn, dmu_db;
+  stix_quartic_grads<T, false, MEDIUM == EXT>(
+      ne, bm, f, sinpsi, cospsi, p, m.mu, dmu_dn, dmu_db, m.dmu_df,
+      m.dmu_dpsi);
+  m.dmudr = dmu_dn * ne_r + dmu_db * bm_r;
+  m.dmudlat = dmu_dn * ne_lat + dmu_db * bm_lat + m.dmu_dpsi * dpsi_dlat;
+  m.inv_r = inv_r;
+  m.sc = sc;
+  m.cc = cc;
+  return m;
+}
 
-  const T inv_mu2 = T(1) / (mu * mu);
-  const T inv_mu2_r = inv_mu2 * inv_r;
-  out[0] = inv_mu2 * (mu * cc + dmu_dpsi * sc);
-  out[1] = inv_mu2_r * (mu * sc - dmu_dpsi * cc);
-  out[2] = inv_mu2_r * (dmudlat * cc - (r * dmudr + mu) * sc);
-  out[3] = T(kREOverC) * (T(1) + (f * mu * inv_mu2) * dmu_df);
+// ops/rhs.py::rhs_2d_lat over the 2D chain
+template <typename T, int MEDIUM>
+__device__ __forceinline__ void rhs_2d_lat(const T u[4], T f,
+                                           const KParams<T>& p, T out[4]) {
+  const T r = u[0];
+  const Mu2D<T> m = mu_grads_2d<T, MEDIUM>(r, u[1], u[2], f, p);
+  const T inv_mu2 = T(1) / (m.mu * m.mu);
+  const T inv_mu2_r = inv_mu2 * m.inv_r;
+  out[0] = inv_mu2 * (m.mu * m.cc + m.dmu_dpsi * m.sc);
+  out[1] = inv_mu2_r * (m.mu * m.sc - m.dmu_dpsi * m.cc);
+  out[2] = inv_mu2_r * (m.dmudlat * m.cc - (r * m.dmudr + m.mu) * m.sc);
+  out[3] = T(kREOverC) * (T(1) + (f * m.mu * inv_mu2) * m.dmu_df);
+}
+
+// ops/rhs.py::rhs_2d_colat: the 2D chain at lat = pi/2 - theta
+// (ops/gradients.py::mu_grads_2d_colat, dmu/dtheta = -dmu/dlat); the signs
+// of the r and theta rows flip against the latitude frame's
+template <typename T, int MEDIUM>
+__device__ __forceinline__ void rhs_2d_colat(const T u[4], T f,
+                                             const KParams<T>& p, T out[4]) {
+  const T r = u[0];
+  const Mu2D<T> m =
+      mu_grads_2d<T, MEDIUM>(r, T(kPi / 2.0) - u[1], u[2], f, p);
+  const T dmudtheta = -m.dmudlat;
+  const T inv_mu2 = T(1) / (m.mu * m.mu);
+  const T inv_mu2_r = inv_mu2 * m.inv_r;
+  out[0] = inv_mu2 * (m.mu * m.cc - m.dmu_dpsi * m.sc);
+  out[1] = inv_mu2_r * (m.mu * m.sc + m.dmu_dpsi * m.cc);
+  out[2] = inv_mu2_r * (dmudtheta * m.cc - (r * m.dmudr + m.mu) * m.sc);
+  out[3] = T(kREOverC) * (T(1) + (f * m.mu * inv_mu2) * m.dmu_df);
 }
 
 // ops/rhs.py::rhs_3d below its gradient layer: the seven Haselgrove rows
@@ -855,20 +973,20 @@ __device__ __forceinline__ void rhs_3d(const T u[7], T f, const KParams<T>& p,
   const T dcos_drho_p = (T(0) - cospsi * rhat_p) * inv_rmag;
 
   T ne, ne_r, ne_lat, ne_phi = T(0);
-  if constexpr (MEDIUM == FULL)
+  if constexpr (MEDIUM != AXI)
     ne_and_grads_full(r, sl, cl, u[2], p.mlt_on, p, ne, ne_r, ne_lat,
                       ne_phi);
   else
     ne_and_grads(r, sl, cl, p, ne, ne_r, ne_lat);
   T mu, dmu_dn, dmu_db, dmu_df, dmu_dc;
-  stix_quartic_grads<T, true>(ne, bm, f, sinpsi, cospsi, p.root, mu, dmu_dn,
-                              dmu_db, dmu_df, dmu_dc);
+  stix_quartic_grads<T, true, MEDIUM == EXT>(
+      ne, bm, f, sinpsi, cospsi, p, mu, dmu_dn, dmu_db, dmu_df, dmu_dc);
   const T dmudr = dmu_dn * ne_r + dmu_db * bm_r;
   const T dmudtheta =
       -(dmu_dn * ne_lat + dmu_db * bm_lat) + dmu_dc * dcos_dtheta;
   // exactly 0 over an axisymmetric medium
   T dmudphi = T(0);
-  if constexpr (MEDIUM == FULL) {
+  if constexpr (MEDIUM != AXI) {
     if (p.mlt_on) dmudphi = dmu_dn * ne_phi;
   }
   kimura_rows(u, f, mu, dmudr, dmudtheta, dmudphi, dmu_dc * dcos_drho_r,
@@ -1065,7 +1183,7 @@ __device__ __forceinline__ void geometry_igrf(T r, T s, T c, T sp, T cp,
 // line of that length. The state and the derivative then pass through
 // local memory (u, out), which costs less than the fetches did. The
 // results do not change: no operation is reordered across the call.
-template <typename T, int FIELD>
+template <typename T, int MEDIUM, int FIELD>
 __device__ __noinline__ void rhs_3d_general(const T u[7], T f,
                                             const KParams<T>& p, T out[7]) {
   const T r = u[0], theta = u[1], phi = u[2];
@@ -1111,8 +1229,8 @@ __device__ __noinline__ void rhs_3d_general(const T u[7], T f,
     dne_dp = dne_dp + ne_mlon * g.mlon_p;
   }
   T mu, dmu_dn, dmu_db, dmu_df, dmu_dc;
-  stix_quartic_grads<T, true>(ne, bm, f, sinpsi, cospsi, p.root, mu, dmu_dn,
-                              dmu_db, dmu_df, dmu_dc);
+  stix_quartic_grads<T, true, MEDIUM == EXT>(
+      ne, bm, f, sinpsi, cospsi, p, mu, dmu_dn, dmu_db, dmu_df, dmu_dc);
   kimura_rows(u, f, mu, dmu_dn * ne_r + dmu_db * bm_r + dmu_dc * dcos_dr,
               dmu_dn * dne_dt + dmu_db * bm_t + dmu_dc * dcos_dt,
               dmu_dn * dne_dp + dmu_db * bm_p + dmu_dc * dcos_dp,
@@ -1124,9 +1242,11 @@ template <typename T, int FRAME, int MEDIUM, int FIELD>
 __device__ __forceinline__ void rhs(const T* u, T f, const KParams<T>& p,
                                     T* out) {
   if constexpr (FIELD != DIPOLE)
-    rhs_3d_general<T, FIELD>(u, f, p, out);
+    rhs_3d_general<T, MEDIUM, FIELD>(u, f, p, out);
   else if constexpr (FRAME == KIM3D)
     rhs_3d<T, MEDIUM>(u, f, p, out);
+  else if constexpr (FRAME == COLAT2D)
+    rhs_2d_colat<T, MEDIUM>(u, f, p, out);
   else
     rhs_2d_lat<T, MEDIUM>(u, f, p, out);
 }
@@ -1141,6 +1261,46 @@ __device__ __forceinline__ T arc_rate(const T u[N], const T k1[N]) {
     s2 = s2 + vp * vp;
   }
   return d_sqrt(s2);
+}
+
+// integrate/solve.py::_local_arc_ceiling: r/4.5 tightened near each shell
+// to w + |r - L cos^2(lat)| (the knee first, in the JAX order), lat from
+// the frame's lat_sign/lat_offset map (events.lat_of), times frac. The
+// 1/4.5 is a product of Python floats there, formed in double here
+template <typename T>
+__device__ __forceinline__ T local_arc_ceiling(const T* u,
+                                               const KParams<T>& p) {
+  const T r = u[0];
+  T g = r * T(1.0 / 4.5);
+  const T c = d_cos(p.lat_sign * u[1] + p.lat_offset);
+  const T c2 = c * c;
+#pragma unroll
+  for (int k = 0; k < kMaxShells; ++k) {
+    if (k >= p.n_shells) break;
+    g = jmin(g, p.shell_w[k] + d_abs(r - p.shell_l[k] * c2));
+  }
+  return p.ds_local_frac * g;
+}
+
+// _step_one's step ceiling of the state (u, k1): dt_max, tightened by the
+// arc ceiling ds / (ds/dtau) where ds is ds_max or, in the EXT instances,
+// the local ceiling (clamped by ds_max where that is on too)
+template <typename T, int N, int MEDIUM>
+__device__ __forceinline__ T step_ceiling(const T u[N], const T k1[N],
+                                          const KParams<T>& p) {
+  bool local = false;
+  if constexpr (MEDIUM == EXT) local = p.ds_local_on;
+  if (!local && !p.ds_on) return p.dt_max;
+  T ds = p.ds_max;
+  if constexpr (MEDIUM == EXT) {
+    if (local) {
+      ds = local_arc_ceiling<T>(u, p);
+      if (p.ds_on) ds = jmin(ds, p.ds_max);
+    }
+  }
+  const T arc_cap =
+      jmax(ds / jmax(arc_rate<T, N>(u, k1), T(1.0e-30)), p.dt_min);
+  return jmin(p.dt_max, arc_cap);
 }
 
 // the mean over the N components: a Python-integer divisor, hence a
@@ -1242,6 +1402,33 @@ __device__ __forceinline__ T dopri5_step(const T u[N], const T k1[N], T h,
   return err_norm<T, N>(ev, u, u_new, p);
 }
 
+// integrate/steppers.py::rk4_step (classic RK4, FSAL: k_end = rhs(u_new)
+// is the next step's k1); h / 6 is a reciprocal product, as the plain
+// version's quotient by a Python scalar is on the card
+template <typename T, int FRAME, int MEDIUM, int FIELD,
+          int N = FrameDim<FRAME>::N>
+__device__ __forceinline__ void rk4_step(const T u[N], const T k1[N], T h,
+                                         T f, const KParams<T>& p,
+                                         T u_new[N], T k_end[N], T incr[N]) {
+  T y[N], k2[N], k3[N], k4[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.5) * h) * k1[j];
+  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k2);
+#pragma unroll
+  for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.5) * h) * k2[j];
+  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k3);
+#pragma unroll
+  for (int j = 0; j < N; ++j) y[j] = u[j] + h * k3[j];
+  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k4);
+  const T h6 = h * recip(T(6));
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    incr[j] = h6 * (k1[j] + T(2) * k2[j] + T(2) * k3[j] + k4[j]);
+    u_new[j] = u[j] + incr[j];
+  }
+  rhs<T, FRAME, MEDIUM, FIELD>(u_new, f, p, k_end);
+}
+
 // integrate/events.py::classify_step, with its priority order
 template <typename T, int N>
 __device__ __forceinline__ int classify_step(const T u0[N], const T u1[N],
@@ -1299,63 +1486,21 @@ __global__ void __launch_bounds__(kThreads)
   const T f = f_g[i];
 
   for (int s = 0; s < n_steps && status == ACTIVE; ++s) {
-    // step ceiling: dt_max, tightened by the arc ceiling where ds_max > 0;
-    // then no overshoot of the phase-path budget
-    T dt_cap = p.dt_max;
-    if (p.ds_on) {
-      const T arc_cap =
-          jmax(p.ds_max / jmax(arc_rate<T, N>(u, k1), T(1.0e-30)), p.dt_min);
-      dt_cap = jmin(p.dt_max, arc_cap);
-    }
-    T dt_eff = jmin(dt, dt_cap);
-    dt_eff = jmin(dt_eff, jmax(p.t_max - t, p.dt_min));
-
-    T u_new[N], k_end[N], incr[N];
-    const T err_raw =
-        STEPPER == BS3
-            ? bs3_step<T, FRAME, MEDIUM, FIELD>(u, k1, dt_eff, f, p, u_new,
-                                                k_end, incr)
-            : dopri5_step<T, FRAME, MEDIUM, FIELD>(u, k1, dt_eff, f, p,
-                                                   u_new, k_end, incr);
-    const bool accept = err_raw <= p.accept_tol;
-
-    const T t1 = t + dt_eff;
-    int status1 = classify_step<T, N>(u, u_new, t1, p);
-    if (status1 == ACTIVE && dt_eff <= p.dt_min2) status1 = DT_UNDERFLOW;
-    const bool terminal = status1 == HIT_EARTH || status1 == HIT_EQUATOR;
-
-    // PI controller; a non-finite error estimate is a hard rejection
-    const T err = isfinite(err_raw) ? jmax(err_raw, T(1.0e-10)) : T(1.0e10);
-    const T log_err = d_log(err);
-    const T fac_cap =
-        rejected > 0 ? T(1) : (caution > 8 ? T(1.3) : p.fac_max);
-    const T fac_acc = jmin(
-        jmax(p.safety * d_exp(p.scale5 * (p.neg_pi_alpha * log_err +
-                                          p.pi_beta * d_log(errold))),
-             p.fac_min),
-        fac_cap);
-    const T fac_rej =
-        jmin(jmax(p.safety * d_exp(-log_err * recip(p.order)), T(0.05)),
-             T(1));
-    const T dt_next =
-        jmin(jmax(dt_eff * (accept ? fac_acc : fac_rej), p.dt_min), dt_cap);
-    const bool underflow = !accept && dt_eff <= p.dt_min_uf;
-
-    int status_new = accept ? status1 : (underflow ? DT_UNDERFLOW : ACTIVE);
-    // device-side wedge retirement (SolverConfig.stall_dt_factor)
-    const bool tiny = p.tiny_on && dt_eff < p.tiny_thr;
-    const int n_tiny_new = accept ? (tiny ? n_tiny + 1 : 0) : n_tiny;
-    if (accept && double(n_tiny_new) >= p.stall_count &&
-        status_new == ACTIVE)
-      status_new = DT_UNDERFLOW;
-
-    if (accept) {
-      if (terminal) {  // snapshot the terminating step for refine_events
+    if constexpr (STEPPER == RK4) {
+      // adaptive=False: the carry's dt within the phase-path budget, no
+      // ceiling; every step is accepted, with no stall flag; dt, errold
+      // and n_tiny stay, caution counts down
+      const T dt_eff = jmin(dt, jmax(p.t_max - t, p.dt_min));
+      T u_new[N], k_end[N], incr[N];
+      rk4_step<T, FRAME, MEDIUM, FIELD>(u, k1, dt_eff, f, p, u_new, k_end,
+                                        incr);
+      const T t1 = t + dt_eff;
+      status = classify_step<T, N>(u, u_new, t1, p);
+      if (status == HIT_EARTH || status == HIT_EQUATOR) {
 #pragma unroll
         for (int j = 0; j < N; ++j) u_prev[j] = u[j];
         dt_prev = dt_eff;
       }
-      // compensated state update (fast two-sum)
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         const T d = incr[j] + u_lo[j];
@@ -1365,16 +1510,83 @@ __global__ void __launch_bounds__(kThreads)
         k1[j] = k_end[j];
       }
       t = t1;
-      errold = jmax(err, T(1.0e-4));
       n_acc += 1;
+      rejected = 0;
+      caution = min(max(caution - 1, 0), 60);
     } else {
-      n_rej += 1;
+      // the step ceiling, then no overshoot of the phase-path budget
+      const T dt_cap = step_ceiling<T, N, MEDIUM>(u, k1, p);
+      T dt_eff = jmin(dt, dt_cap);
+      dt_eff = jmin(dt_eff, jmax(p.t_max - t, p.dt_min));
+
+      T u_new[N], k_end[N], incr[N];
+      T err_raw;
+      if constexpr (STEPPER == BS3)
+        err_raw = bs3_step<T, FRAME, MEDIUM, FIELD>(u, k1, dt_eff, f, p,
+                                                    u_new, k_end, incr);
+      else
+        err_raw = dopri5_step<T, FRAME, MEDIUM, FIELD>(u, k1, dt_eff, f, p,
+                                                       u_new, k_end, incr);
+      const bool accept = err_raw <= p.accept_tol;
+
+      const T t1 = t + dt_eff;
+      int status1 = classify_step<T, N>(u, u_new, t1, p);
+      if (status1 == ACTIVE && dt_eff <= p.dt_min2) status1 = DT_UNDERFLOW;
+      const bool terminal = status1 == HIT_EARTH || status1 == HIT_EQUATOR;
+
+      // PI controller; a non-finite error estimate is a hard rejection
+      const T err =
+          isfinite(err_raw) ? jmax(err_raw, T(1.0e-10)) : T(1.0e10);
+      const T log_err = d_log(err);
+      const T fac_cap =
+          rejected > 0 ? T(1) : (caution > 8 ? T(1.3) : p.fac_max);
+      const T fac_acc = jmin(
+          jmax(p.safety * d_exp(p.scale5 * (p.neg_pi_alpha * log_err +
+                                            p.pi_beta * d_log(errold))),
+               p.fac_min),
+          fac_cap);
+      const T fac_rej =
+          jmin(jmax(p.safety * d_exp(-log_err * recip(p.order)), T(0.05)),
+               T(1));
+      const T dt_next =
+          jmin(jmax(dt_eff * (accept ? fac_acc : fac_rej), p.dt_min), dt_cap);
+      const bool underflow = !accept && dt_eff <= p.dt_min_uf;
+
+      int status_new = accept ? status1 : (underflow ? DT_UNDERFLOW : ACTIVE);
+      // device-side wedge retirement (SolverConfig.stall_dt_factor)
+      const bool tiny = p.tiny_on && dt_eff < p.tiny_thr;
+      const int n_tiny_new = accept ? (tiny ? n_tiny + 1 : 0) : n_tiny;
+      if (accept && double(n_tiny_new) >= p.stall_count &&
+          status_new == ACTIVE)
+        status_new = DT_UNDERFLOW;
+
+      if (accept) {
+        if (terminal) {  // snapshot the terminating step for refine_events
+#pragma unroll
+          for (int j = 0; j < N; ++j) u_prev[j] = u[j];
+          dt_prev = dt_eff;
+        }
+        // compensated state update (fast two-sum)
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          const T d = incr[j] + u_lo[j];
+          const T uc = u[j] + d;
+          u_lo[j] = d - (uc - u[j]);
+          u[j] = uc;
+          k1[j] = k_end[j];
+        }
+        t = t1;
+        errold = jmax(err, T(1.0e-4));
+        n_acc += 1;
+      } else {
+        n_rej += 1;
+      }
+      dt = dt_next;
+      status = status_new;
+      rejected = accept ? 0 : 1;
+      n_tiny = n_tiny_new;
+      caution = min(max(caution + (accept ? -1 : 4), 0), 60);
     }
-    dt = dt_next;
-    status = status_new;
-    rejected = accept ? 0 : 1;
-    n_tiny = n_tiny_new;
-    caution = min(max(caution + (accept ? -1 : 4), 0), 60);
   }
 
 #pragma unroll
@@ -1414,8 +1626,10 @@ void launch_stepper(int stepper, void** ptrs, long long B, int n_steps,
                     const StepParams& h, cudaStream_t stream) {
   if (stepper == BS3)
     launch<T, BS3, FRAME, MEDIUM, FIELD>(ptrs, B, n_steps, h, stream);
-  else
+  else if (stepper == DOPRI5)
     launch<T, DOPRI5, FRAME, MEDIUM, FIELD>(ptrs, B, n_steps, h, stream);
+  else
+    launch<T, RK4, FRAME, MEDIUM, FIELD>(ptrs, B, n_steps, h, stream);
 }
 
 template <int FRAME, int MEDIUM, int FIELD>
@@ -1429,49 +1643,105 @@ void launch_dtype(int dtype, int stepper, void** ptrs, long long B,
                                                  h, stream);
 }
 
-template <int FRAME>
-void launch_medium(int medium, int dtype, int stepper, void** ptrs,
-                   long long B, int n_steps, const StepParams& h,
-                   cudaStream_t stream) {
-  if (medium == FULL)
-    launch_dtype<FRAME, FULL, DIPOLE>(dtype, stepper, ptrs, B, n_steps, h,
-                                      stream);
-  else
-    launch_dtype<FRAME, AXI, DIPOLE>(dtype, stepper, ptrs, B, n_steps, h,
-                                     stream);
-}
-
 }  // namespace
 
+// One host entry per (frame, medium, field) combination. A build in parts
+// (ops/step_chunk.py::build) compiles this source once per part with
+// -DSC_PARTS=5 -DSC_PART=k, each part defining the entries of one frame or
+// non-axial field (and so instantiating only their kernels), and links the
+// parts into one library; without the macros one object holds them all.
+#ifndef SC_PARTS
+#define SC_PARTS 1
+#define SC_PART 0
+#endif
+#define SC_OWNS(PART) (SC_PARTS == 1 || SC_PART == (PART))
+#define SC_ENTRY(NAME)                                                   \
+  void NAME(int dtype, int stepper, void** ptrs, long long B, int n_steps, \
+            const StepParams& h, cudaStream_t s)
+#define SC_DEFINE(NAME, FRAME, MEDIUM, FIELD)                           \
+  SC_ENTRY(NAME) {                                                      \
+    launch_dtype<FRAME, MEDIUM, FIELD>(dtype, stepper, ptrs, B, n_steps, \
+                                       h, s);                           \
+  }
+
+SC_ENTRY(launch_lat_axi);
+SC_ENTRY(launch_lat_full);
+SC_ENTRY(launch_lat_ext);
+SC_ENTRY(launch_3d_axi);
+SC_ENTRY(launch_3d_full);
+SC_ENTRY(launch_3d_ext);
+SC_ENTRY(launch_colat_axi);
+SC_ENTRY(launch_colat_full);
+SC_ENTRY(launch_colat_ext);
+SC_ENTRY(launch_tilted_full);
+SC_ENTRY(launch_tilted_ext);
+SC_ENTRY(launch_igrf_full);
+SC_ENTRY(launch_igrf_ext);
+
+#if SC_OWNS(0)
+SC_DEFINE(launch_lat_axi, LAT2D, AXI, DIPOLE)
+SC_DEFINE(launch_lat_full, LAT2D, FULL, DIPOLE)
+SC_DEFINE(launch_lat_ext, LAT2D, EXT, DIPOLE)
+#endif
+#if SC_OWNS(1)
+SC_DEFINE(launch_3d_axi, KIM3D, AXI, DIPOLE)
+SC_DEFINE(launch_3d_full, KIM3D, FULL, DIPOLE)
+SC_DEFINE(launch_3d_ext, KIM3D, EXT, DIPOLE)
+#endif
+#if SC_OWNS(2)
+SC_DEFINE(launch_colat_axi, COLAT2D, AXI, DIPOLE)
+SC_DEFINE(launch_colat_full, COLAT2D, FULL, DIPOLE)
+SC_DEFINE(launch_colat_ext, COLAT2D, EXT, DIPOLE)
+#endif
+#if SC_OWNS(3)
+SC_DEFINE(launch_tilted_full, KIM3D, FULL, TILTED)
+SC_DEFINE(launch_tilted_ext, KIM3D, EXT, TILTED)
+#endif
+#if SC_OWNS(4)
+SC_DEFINE(launch_igrf_full, KIM3D, FULL, IGRF)
+SC_DEFINE(launch_igrf_ext, KIM3D, EXT, IGRF)
+#endif
+
+#if SC_OWNS(0)
 // ptrs: u, k1, u_prev, u_lo (n, B); t, dt, errold, dt_prev (B,) of T;
 // status, n_accept, n_reject, rejected, n_tiny, caution (B,) int32; f (B,).
-// dtype 0 = float, 1 = double; stepper 0 = bs3, 1 = dopri5; frame 0 = the
-// 2D latitude frame (n = 4), 1 = the 3D frame (n = 7); medium 0 = the
-// axisymmetric medium, 1 = the full density chain; field 0 = the centered
-// dipole, 1 = the tilted dipole, 2 = the IGRF truncation (the last two
-// only in the 3D frame over the full chain). Launches on `stream` without
-// synchronising; returns cudaGetLastError().
+// dtype 0 = float, 1 = double; stepper 0 = bs3, 1 = dopri5, 2 = rk4 (fixed
+// step); frame 0 = the 2D latitude frame (n = 4), 1 = the 3D frame (n =
+// 7), 2 = the 2D colatitude frame (n = 4); medium 0 = the axisymmetric
+// medium, 1 = the full density chain, 2 = the full chain with the ion
+// species and the local arc ceiling; field 0 = the centered dipole, 1 =
+// the tilted dipole, 2 = the IGRF truncation (the last two only in the 3D
+// frame over the full chain). Launches on `stream` without synchronising;
+// returns cudaGetLastError().
 extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
                                  int medium, int field, void** ptrs,
                                  long long B, int n_steps,
                                  const StepParams* h, void* stream) {
+  // [frame, or the non-axial field in rows 3 and 4][medium]
+  using Entry = void (*)(int, int, void**, long long, int, const StepParams&,
+                         cudaStream_t);
+  static const Entry kEntry[5][3] = {
+      {launch_lat_axi, launch_lat_full, launch_lat_ext},
+      {launch_3d_axi, launch_3d_full, launch_3d_ext},
+      {launch_colat_axi, launch_colat_full, launch_colat_ext},
+      {nullptr, launch_tilted_full, launch_tilted_ext},
+      {nullptr, launch_igrf_full, launch_igrf_ext},
+  };
   if (B <= 0) return 0;
-  if ((dtype != 0 && dtype != 1) || (stepper != BS3 && stepper != DOPRI5) ||
-      (frame != LAT2D && frame != KIM3D) ||
-      (medium != AXI && medium != FULL) ||
+  if ((dtype != 0 && dtype != 1) ||
+      (stepper != BS3 && stepper != DOPRI5 && stepper != RK4) ||
+      (frame != LAT2D && frame != KIM3D && frame != COLAT2D) ||
+      (medium != AXI && medium != FULL && medium != EXT) ||
       (field != DIPOLE && field != TILTED && field != IGRF) ||
-      (field != DIPOLE && (frame != KIM3D || medium != FULL)) ||
-      h->n_harm < 0.0 || h->n_harm > kMaxHarm)
+      (field != DIPOLE && (frame != KIM3D || medium == AXI)) ||
+      h->n_harm < 0.0 || h->n_harm > kMaxHarm || h->n_shells < 0.0 ||
+      h->n_shells > kMaxShells || h->n_ion < 1.0 || h->n_ion > kMaxIon ||
+      (medium != EXT && (h->n_ion != 1.0 || h->n_shells != 0.0)))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (field == TILTED)
-    launch_dtype<KIM3D, FULL, TILTED>(dtype, stepper, ptrs, B, n_steps, *h,
-                                      s);
-  else if (field == IGRF)
-    launch_dtype<KIM3D, FULL, IGRF>(dtype, stepper, ptrs, B, n_steps, *h, s);
-  else if (frame == KIM3D)
-    launch_medium<KIM3D>(medium, dtype, stepper, ptrs, B, n_steps, *h, s);
-  else
-    launch_medium<LAT2D>(medium, dtype, stepper, ptrs, B, n_steps, *h, s);
+  const int row = field == TILTED ? 3 : (field == IGRF ? 4 : frame);
+  kEntry[row][medium](dtype, stepper, ptrs, B, n_steps, *h,
+                      (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
+#endif
+

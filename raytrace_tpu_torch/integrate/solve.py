@@ -6,8 +6,9 @@ The carry is a `RayCarry` of tensors with the ray axis first: vectors are
 (B, n), per-ray scalars (B,), the JAX package's layouts.
 
 `trace` advances rays of a frame (`ops.rhs.frame_rhs`: the 2D latitude
-frame's `rhs_2d_lat` or the 3D frame's `rhs_3d`, over a medium `env`) in
-final-state mode. The explicit pairs (bs3, dopri5) step
+frame's `rhs_2d_lat`, the 2D colatitude frame's `rhs_2d_colat` or the 3D
+frame's `rhs_3d`, over a medium `env`) in final-state mode. The explicit
+pairs (bs3, dopri5) and fixed-step rk4 (adaptive=False) step
 through `ops.step_chunk.step_chunk`, one launch per call: the hand-written
 CUDA kernel on a CUDA tensor, its plain PyTorch loop of `_step_one` on a
 CPU tensor. The Rosenbrock stiff pool (ros3pr) steps as torch ops on the
@@ -23,7 +24,7 @@ from ..constants import RE
 from ..ops import rhs as rhs_mod
 from . import events
 from .events import StopSpec
-from .steppers import bs3_step, dopri5_step, ros3pr_step
+from .steppers import bs3_step, dopri5_step, rk4_step, ros3pr_step
 
 
 class SolverConfig(NamedTuple):
@@ -44,10 +45,10 @@ class SolverConfig(NamedTuple):
     stall_dt_factor: float = 1.0e3
     stall_count: float = 64.0
     ds_max: float = 0.0            # arc-length step ceiling (RE); 0 = off
-    ds_local_knee: float = 0.0     # local arc ceiling: not ported (A6)
-    ds_local_frac: float = 1.0
-    ds_local_w: float = 0.1
-    ds_local_shells: tuple = ()
+    ds_local_knee: float = 0.0     # > 0: the local arc ceiling, knee L-shell
+    ds_local_frac: float = 1.0     # local ceiling = frac * gradient length
+    ds_local_w: float = 0.1        # the knee's width (RE)
+    ds_local_shells: tuple = ()    # further ((L, width), ...) sharp shells
 
 
 class RayCarry(NamedTuple):
@@ -80,28 +81,21 @@ class TraceResult(NamedTuple):
     carry: Optional[Any] = None  # full RayCarry batch
 
 
-# steppers whose attempts run inside the step kernel (ops/step_chunk.py)
+# adaptive steppers whose attempts run inside the step kernel
+# (ops/step_chunk.py); fixed-step rk4 (adaptive=False) runs there too
 KERNEL_STEPPERS = ("bs3", "dopri5")
 _ORDER = {"bs3": 3.0, "dopri5": 5.0, "ros3pr": 3.0}
 
 
 def check_supported(cfg: SolverConfig, group_idx: int, adaptive: bool,
                     stepper: str):
-    """Raise on the _step_one options the port does not take yet."""
-    if not adaptive:
-        raise NotImplementedError(
-            "fixed-step rk4 (adaptive=False) is not ported yet (ROADMAP B1 "
-            "variants)"
-        )
-    if stepper not in _ORDER:
+    """Raise on the _step_one options the port does not take yet. With
+    adaptive=False every ray takes fixed rk4 steps, whatever `stepper`
+    names (as in the JAX package)."""
+    if adaptive and stepper not in _ORDER:
         raise NotImplementedError(
             f"stepper {stepper!r} is not ported yet (ROADMAP A10); the port "
             f"has {sorted(_ORDER)}"
-        )
-    if float(cfg.ds_local_knee) != 0.0:
-        raise NotImplementedError(
-            "the ds_local arc ceiling is not ported yet (ROADMAP A6 and B1 "
-            "variants)"
         )
     if group_idx not in (3, 6):
         raise NotImplementedError(
@@ -140,6 +134,24 @@ def _jacobian_fn(rhs_fn, f):
     return lambda u: jac(u, f)
 
 
+def _local_arc_ceiling(u, spec: StopSpec, cfg: SolverConfig):
+    """Arc-length ceiling from a local gradient-length estimate of the
+    medium: r/4.5 (the L^-4.5 plasmasphere and the r^-3 dipole), tightened
+    near each sharp shell -- the knee (ds_local_knee, ds_local_w) and the
+    ds_local_shells -- to w + |r - L cos^2(lat)|, the radial distance to
+    the shell at the ray's latitude (events.lat_of) floored by its width;
+    times ds_local_frac."""
+    r = u[..., 0]
+    g = r * (1.0 / 4.5)
+    c = torch.cos(events.lat_of(u, spec))
+    c2 = c * c
+    shells = ((cfg.ds_local_knee, cfg.ds_local_w),) + tuple(
+        cfg.ds_local_shells)
+    for shell_l, shell_w in shells:
+        g = torch.minimum(g, shell_w + torch.abs(r - shell_l * c2))
+    return cfg.ds_local_frac * g
+
+
 def _arc_rate(u, k1):
     """Spatial speed ds/dtau of each ray from the FSAL derivative carry:
     ds^2 = dr^2 + (r dlat)^2 in the 4-state frames, plus (r sin(theta)
@@ -157,26 +169,36 @@ def _step_one(rhs_fn, carry: RayCarry, f, cfg: SolverConfig, spec: StopSpec,
               stepper: str = "dopri5"):
     """One attempted step for every ray of the batch; a no-op on rays that
     are not ACTIVE. The plain PyTorch form of what the step kernel runs
-    per thread (csrc/step_chunk.cu)."""
+    per thread (csrc/step_chunk.cu). adaptive=False takes one fixed rk4
+    step of the carry's dt: no ceiling, always accepted, no stall flag,
+    dt, errold and n_tiny kept (as in the JAX package)."""
     check_supported(cfg, group_idx, adaptive, stepper)
     active = carry.status == events.ACTIVE
     rhs1 = lambda u: rhs_fn(u, f)  # noqa: E731
-    # step ceiling: the phase-path dt_max, tightened where ds_max > 0 by
-    # the arc-length ceiling ds_max / (ds/dtau) (SolverConfig.ds_max).
-    # dt_next is clamped to the same dt_cap. ds_max divides as a tensor:
-    # a Python-scalar numerator would become a reciprocal product, which
-    # rounds otherwise than the kernel's quotient
+    # step ceiling (adaptive only): the phase-path dt_max, tightened by the
+    # arc-length ceiling ds / (ds/dtau), where ds is the local ceiling
+    # (ds_local_knee > 0; clamped by ds_max where that is > 0 too) or
+    # ds_max > 0. dt_next is clamped to the same dt_cap. ds_max divides as
+    # a tensor: a Python-scalar numerator would become a reciprocal
+    # product, which rounds otherwise than the kernel's quotient
     dt_cap = cfg.dt_max
-    if cfg.ds_max > 0.0:
+    if adaptive and (cfg.ds_max > 0.0 or cfg.ds_local_knee > 0.0):
+        if cfg.ds_local_knee > 0.0:
+            ds = _local_arc_ceiling(carry.u, spec, cfg)
+            if cfg.ds_max > 0.0:
+                ds = torch.clamp_max(ds, cfg.ds_max)
+        else:
+            ds = torch.full_like(carry.t, cfg.ds_max)
         rate = torch.clamp_min(_arc_rate(carry.u, carry.k1), 1e-30)
-        arc_cap = torch.clamp_min(torch.full_like(rate, cfg.ds_max) / rate,
-                                  cfg.dt_min)
+        arc_cap = torch.clamp_min(ds / rate, cfg.dt_min)
         dt_cap = torch.clamp_max(arc_cap, cfg.dt_max)
-    dt_eff = torch.clamp_max(carry.dt, dt_cap)
+    dt_eff = torch.clamp_max(carry.dt, dt_cap) if adaptive else carry.dt
     # do not overshoot the phase-path budget (CVODE integrates to tstop)
     dt_eff = torch.minimum(
         dt_eff, torch.clamp_min(spec.t_max - carry.t, cfg.dt_min)
     )
+    if not adaptive:
+        return _step_fixed(rhs1, carry, dt_eff, spec, group_idx, active)
     order = _ORDER[stepper]
     if stepper == "bs3":
         out = bs3_step(rhs1, carry.u, carry.k1, dt_eff, cfg.rtol, cfg.atol)
@@ -281,6 +303,34 @@ def _step_one(rhs_fn, carry: RayCarry, f, cfg: SolverConfig, spec: StopSpec,
     )
 
 
+def _step_fixed(rhs1, carry: RayCarry, dt_eff, spec: StopSpec, group_idx,
+                active):
+    """_step_one's adaptive=False branch: one rk4 step, always accepted;
+    the controller's memory stays, caution still counts down."""
+    out = rk4_step(rhs1, carry.u, carry.k1, dt_eff)
+    t1 = carry.t + dt_eff
+    status1 = events.classify_step(carry.u, out.u_new, t1, spec, group_idx)
+    terminal = (status1 == events.HIT_EARTH) | (status1 == events.HIT_EQUATOR)
+    d = out.incr + carry.u_lo
+    u_comp = carry.u + d
+    u_lo_new = d - (u_comp - carry.u)
+    snap = active & terminal
+    act_c, snap_c = active[:, None], snap[:, None]
+    return carry._replace(
+        u=torch.where(act_c, u_comp, carry.u),
+        t=torch.where(active, t1, carry.t),
+        k1=torch.where(act_c, out.k_end, carry.k1),
+        status=torch.where(active, status1, carry.status).to(torch.int32),
+        n_accept=carry.n_accept + active.to(torch.int32),
+        u_prev=torch.where(snap_c, carry.u, carry.u_prev),
+        dt_prev=torch.where(snap, dt_eff, carry.dt_prev),
+        u_lo=torch.where(act_c, u_lo_new, carry.u_lo),
+        rejected=torch.where(active, 0, carry.rejected).to(torch.int32),
+        caution=torch.where(active, torch.clamp(carry.caution - 1, 0, 60),
+                            carry.caution).to(torch.int32),
+    )
+
+
 def refine_events(rhs_fn, carry: RayCarry, f, spec: StopSpec):
     """One-shot post-pass event localization for the batch.
 
@@ -350,8 +400,9 @@ def trace(
 
     Each ray gets exactly ceil(max_steps / chunk) * chunk attempts unless
     it stops first -- the count the JAX package's chunked while_loop runs
-    (integrate/solve.py:559-571) -- in ONE step-kernel launch for bs3 and
-    dopri5. carry0 resumes from a RayCarry batch (MAX_STEPS rays re-arm).
+    (integrate/solve.py:559-571) -- in ONE step-kernel launch for bs3,
+    dopri5 and (adaptive=False, whatever `stepper` says) rk4. carry0
+    resumes from a RayCarry batch (MAX_STEPS rays re-arm).
     """
     if save_every:
         raise NotImplementedError(
@@ -368,11 +419,12 @@ def trace(
         ).to(torch.int32))
 
     n_steps = -(-max_steps // chunk) * chunk
-    if stepper in KERNEL_STEPPERS:
+    if stepper in KERNEL_STEPPERS or not adaptive:
         from ..ops.step_chunk import step_chunk
 
         carry = step_chunk(carry0, f, env, cfg, spec, stepper=stepper,
-                           n_steps=n_steps, root=root, frame=frame)
+                           n_steps=n_steps, root=root, adaptive=adaptive,
+                           frame=frame)
     else:
         carry = step_loop(rhs_fn, carry0, f, cfg, spec, group_idx=group_idx,
                           adaptive=adaptive, stepper=stepper,

@@ -3,7 +3,8 @@
 Batched over rays: u, k1 are (B, n), dt is (B,), rhs_fn maps a (B, n)
 state to its (B, n) derivative. All are FSAL-structured: the derivative at
 the end of the step comes back as k_end. The explicit pairs (bs3, dopri5)
-are the plain PyTorch form of what the CUDA step kernel inlines; ros3pr is
+and fixed-step rk4 are the plain PyTorch form of what the CUDA step kernel
+inlines; ros3pr is
 the auto mode's stiff pool and runs as torch ops on the device, in the
 4-state and the 7-state frames.
 """
@@ -29,6 +30,20 @@ def _err_norm(err_vec, u, u_new, rtol, atol):
     for j in range(1, sq.shape[-1]):
         total = total + sq[..., j]
     return torch.sqrt(total / sq.shape[-1])
+
+
+def rk4_step(rhs_fn, u, k1, dt):
+    """Classic RK4 step (fixed step: err is 0). k1 = rhs(u) comes from the
+    carry; k_end = rhs(u_new) serves as the next step's k1. dt / 6 is a
+    quotient by a Python scalar, which on the card is a product with its
+    reciprocal; the kernel forms it so."""
+    dtc = dt[..., None]
+    k2 = rhs_fn(u + 0.5 * dtc * k1)
+    k3 = rhs_fn(u + 0.5 * dtc * k2)
+    k4 = rhs_fn(u + dtc * k3)
+    incr = (dtc / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+    u_new = u + incr
+    return StepOut(u_new, rhs_fn(u_new), torch.zeros_like(dt), incr)
 
 
 # Dormand-Prince 5(4) tableau (Hairer, Norsett & Wanner, table II.5.2)

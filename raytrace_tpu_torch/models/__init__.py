@@ -2,8 +2,8 @@
 
 from . import dipole, ionosphere, plasmasphere
 from .medium import (
-    EnvParams, b_mag, b_vec, make_env, make_env_lat, mlat_3d, mlon_3d,
-    mlt_gcpm_params, mlt_on, mlt_ps_params, ne_total_m3,
+    EnvParams, b_mag, b_vec, make_env, make_env_lat, make_env_raymain,
+    mlat_3d, mlon_3d, mlt_gcpm_params, mlt_on, mlt_ps_params, ne_total_m3,
 )
 
 __all__ = [
@@ -14,6 +14,7 @@ __all__ = [
     "ionosphere",
     "make_env",
     "make_env_lat",
+    "make_env_raymain",
     "mlat_3d",
     "mlon_3d",
     "mlt_gcpm_params",

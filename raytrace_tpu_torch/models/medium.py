@@ -10,10 +10,10 @@ plasmapause, optional trough refill) or the simplified GCPM, the
 field-aligned duct, the optional diffusive-equilibrium factor, and the
 MLT-resolved plasmasphere of the 3D frame (the plasmapause follows the
 drift-derived teardrop and the trough a day-night modulation in
-longitude). `EnvParams` keeps every field of the JAX package's NamedTuple
-(so a JAX `EnvParams._asdict()` converts field for field, see
-interop.py); the multi-ion composition (ROADMAP A10) raises
-NotImplementedError naming its ROADMAP item.
+longitude), and the ion composition (He+ and O+ fractions of the
+electron density, the protons carrying the rest). `EnvParams` keeps every
+field of the JAX package's NamedTuple (so a JAX `EnvParams._asdict()`
+converts field for field, see interop.py).
 
 The scalars are Python floats. A tensor op with a Python float operand
 computes in the tensor's dtype, which is what the JAX package's cast_env
@@ -71,23 +71,9 @@ class EnvParams(NamedTuple):
     ps_mlt_c3: float = 0.0           # log10 trough density at the base knee
 
 
-# (field, value that keeps the ported feature set, ROADMAP item that
-# ports the other values)
-_GATES = (
-    ("eta_he", 0.0, "A10 (multi-ion composition)"),
-    ("eta_o", 0.0, "A10 (multi-ion composition)"),
-)
-
-
 def check_env(env: EnvParams):
-    """Raise NotImplementedError if a static gate selects an unported
-    feature; also require the plasmasphere and DE weights to be 0 or 1."""
-    for name, ok, item in _GATES:
-        if getattr(env, name) != ok:
-            raise NotImplementedError(
-                f"{name}={getattr(env, name)!r} is not ported yet "
-                f"(ROADMAP {item}); the port takes {name}={ok!r}"
-            )
+    """Require the plasmasphere and DE weights to be 0 or 1, the values
+    make_env gives them (NotImplementedError otherwise)."""
     for name in ("ps_weight", "de_weight"):
         if getattr(env, name) not in (0.0, 1.0):
             raise NotImplementedError(
@@ -150,8 +136,10 @@ def make_env(
         nT, IGRF-13 epoch 2020 by default), whose degree-1 part replaces
         b0 and sets b_tilt and b_tilt_phi. Both are 3D-frame-only; the
         density models and the MLT axis ride the tilted frame's magnetic
-        latitude and longitude (mlat_3d, mlon_3d).
-    Nonzero eta_he/eta_o (A10) raise NotImplementedError."""
+        latitude and longitude (mlat_3d, mlon_3d);
+      - eta_he, eta_o are the He+ and O+ fractions of the electron
+        density (>= 0, their sum < 1; the protons carry the rest), which
+        the Stix sums of ops/dispersion.py and ops/fused.py take."""
     lppi = plasmasphere.lppi_from_kp(kp_max)
     lppo, ne_lppi = plasmasphere.initialize_plasmasphere(lppi, day, rbar, mlt)
     if iono_mlt:
@@ -272,6 +260,11 @@ def make_env(
     )
     check_env(env)
     return env
+
+
+def make_env_raymain():
+    """Medium of RayMain.jl: legacy B0, ionosphere only (RayMain.jl:150-154)."""
+    return make_env(b0=B0_2D, plasmasphere_on=False)
 
 
 def make_env_lat():

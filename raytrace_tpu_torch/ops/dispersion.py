@@ -1,22 +1,42 @@
-"""Cold-plasma (Stix) dispersion for whistler waves, 2D latitude and 3D frames.
+"""Cold-plasma (Stix) dispersion for whistler and EMIC waves, 2D and 3D
+frames.
 
-Port of raytrace_tpu/ops/dispersion.py (protons-only subset). Solves
-A mu^4 - B mu^2 + C = 0 in the ratio form X = f_p^2/f^2, Y = f_c/f, with
-R, L, P normalized by s = max(|R|, |L|, |P|) and the stable product root
-2C/(B - F) where the direct form cancels. mu = sqrt(|mu^2|), the
+Port of raytrace_tpu/ops/dispersion.py. Solves A mu^4 - B mu^2 + C = 0 in
+the ratio form X = f_p^2/f^2, Y = f_c/f over the electrons and the ion
+species present (protons, and He+ and O+ where their fractions are not
+0), with R, L, P normalized by s = max(|R|, |L|, |P|) and the stable
+product root 2C/(B -+ F) where the direct form cancels. root=+1 is the
+whistler branch, root=-1 the EMIC branch. mu = sqrt(|mu^2|), the
 reference's abs() guard (RayMain.jl:213). Elementwise over any batch
 shape.
 """
 
+import math
+
 import torch
 
-from ..constants import FCE_E, FCE_P, FPE2_E, FPE2_P
+from ..constants import (
+    FCE_E, FCE_HE, FCE_O, FCE_P, FPE2_E, FPE2_HE, FPE2_O, FPE2_P,
+)
 from ..models import medium
 
 
-def stix_rlp(ne_m3, bmag, f):
-    """Stix R, L, P for a quasi-neutral electron-proton plasma
-    (RayMain.jl:156-176 in ratio form)."""
+def ion_species(eta_he=0.0, eta_o=0.0):
+    """[(fpe2 coefficient * fraction, fce coefficient), ...] of the ion
+    species present under quasi-neutrality n_e = n_p + n_He + n_O: the
+    protons with the rest, then He+ and O+ unless their fraction is 0.0.
+    Python floats, formed in double (the step kernel casts them)."""
+    species = [(FPE2_P * (1.0 - eta_he - eta_o), FCE_P)]
+    if eta_he != 0.0:
+        species.append((FPE2_HE * eta_he, FCE_HE))
+    if eta_o != 0.0:
+        species.append((FPE2_O * eta_o, FCE_O))
+    return species
+
+
+def stix_rlp(ne_m3, bmag, f, eta_he=0.0, eta_o=0.0):
+    """Stix R, L, P for a quasi-neutral plasma of electrons and the ion
+    species of ion_species (RayMain.jl:156-176 in ratio form)."""
     n_cm3 = ne_m3 * 1.0e-6
     f2 = f * f
     xe = FPE2_E * n_cm3 / f2
@@ -24,11 +44,12 @@ def stix_rlp(ne_m3, bmag, f):
     r = 1.0 - xe / (1.0 - ye)
     l = 1.0 - xe / (1.0 + ye)  # noqa: E741
     p = 1.0 - xe
-    xi = FPE2_P * n_cm3 / f2
-    yi = FCE_P * bmag / f
-    r = r - xi / (1.0 + yi)
-    l = l - xi / (1.0 - yi)  # noqa: E741
-    p = p - xi
+    for fpe2_i, fce_i in ion_species(eta_he, eta_o):
+        xi = fpe2_i * n_cm3 / f2
+        yi = fce_i * bmag / f
+        r = r - xi / (1.0 + yi)
+        l = l - xi / (1.0 - yi)  # noqa: E741
+        p = p - xi
     return r, l, p
 
 
@@ -73,13 +94,19 @@ def psi_trig_lat(lat, chi):
 
 
 def mu_2d_lat(r, lat, chi, f, env: medium.EnvParams, root=1.0):
-    """Whistler phase refractive index at (r [RE], lat, chi, f [Hz])
+    """Phase refractive index at (r [RE], lat, chi, f [Hz])
     (phase_refractive_index, RayTrace_lat.jl:44-194)."""
     sinpsi, cospsi = psi_trig_lat(lat, chi)
     ne = medium.ne_total_m3(r, lat, env)
     b = medium.b_mag(r, lat, env)
-    rr, ll, pp = stix_rlp(ne, b, f)
+    rr, ll, pp = stix_rlp(ne, b, f, env.eta_he, env.eta_o)
     return mu_from_mu2(mu2_signed_trig(rr, ll, pp, sinpsi, cospsi, root))
+
+
+def mu_2d_colat(r, theta, chi, f, env: medium.EnvParams, root=1.0):
+    """The colatitude frame's (RayMain.jl:125-264): dip(theta) = dip(lat)
+    at lat = pi/2 - theta, so the latitude form serves."""
+    return mu_2d_lat(r, math.pi / 2.0 - theta, chi, f, env, root)
 
 
 def _psi_trig_bmag_3d(r, theta, phi, rho_r, rho_t, rho_p,
@@ -114,14 +141,14 @@ def psi_trig_3d(r, theta, phi, rho_r, rho_t, rho_p, env: medium.EnvParams):
 
 def mu_3d(r, theta, phi, rho_r, rho_t, rho_p, f, env: medium.EnvParams,
           root=1.0):
-    """3D whistler refractive index (RayTrace_3D.jl:93-219) at the state
+    """3D refractive index (RayTrace_3D.jl:93-219) at the state
     (r, theta, phi, rho) and frequency f."""
     sinpsi, cospsi, b = _psi_trig_bmag_3d(
         r, theta, phi, rho_r, rho_t, rho_p, env
     )
     ne = medium.ne_total_m3(r, medium.mlat_3d(r, theta, phi, env), env,
                             phi=medium.mlon_3d(r, theta, phi, env))
-    rr, ll, pp = stix_rlp(ne, b, f)
+    rr, ll, pp = stix_rlp(ne, b, f, env.eta_he, env.eta_o)
     return mu_from_mu2(mu2_signed_trig(rr, ll, pp, sinpsi, cospsi, root))
 
 

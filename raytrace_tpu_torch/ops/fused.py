@@ -1,6 +1,6 @@
 """Hand-fused analytic gradient chains of the dispersion relation.
 
-Port of raytrace_tpu/ops/fused.py (protons only): the density chain
+Port of raytrace_tpu/ops/fused.py: the density chain
 `_ne_and_grads` + `_compose_ne` over the whole medium (ionosphere with
 the day/night blend, CA1992 with hard or smoothed plasmapause and trough
 refill, GCPM, duct, diffusive equilibrium, and the MLT-resolved
@@ -10,7 +10,8 @@ chain (mu and its seven partials r, theta, phi, rho_r, rho_theta,
 rho_phi, f, in the cos(psi) form), and the general chain of the 3D frame
 over the tilted dipole and the IGRF truncation (mu_and_grads_3d_general:
 the field's hand-written tangents in front of the same density and Stix
-core). Each comes from one forward sweep:
+core); the Stix core sums over the ion species of the medium
+(dispersion.ion_species). Each comes from one forward sweep:
 every derivative is a rational expression in quantities the forward pass
 already computed. The same chains, line for line, are inlined in the
 CUDA step kernel (csrc/step_chunk.cu); these are their plain PyTorch
@@ -23,9 +24,10 @@ from typing import NamedTuple
 
 import torch
 
-from ..constants import FCE_E, FCE_P, FPE2_E, FPE2_P, RE
+from ..constants import FCE_E, FPE2_E, RE
 from ..models import dipole, medium
 from ..models.plasmasphere import DE_RBASE_M, DE_S, LN10
+from .dispersion import ion_species
 
 
 class MediumConsts(NamedTuple):
@@ -314,9 +316,11 @@ def _compose_ne(r, env, k, ni, ni_r, ne_p, dne_p, L_r, L_lat, L,
     return ne, ne_r, ne_lat
 
 
-def _stix_quartic_grads(ne, bm, f, sinpsi, cospsi, root, wrt_cos=False):
-    """mu plus d(mu)/d{ne, bm, f, geometry} at fixed geometry (protons
-    only). Returns (mu, dmu_dn, dmu_db, dmu_df, dmu_dgeom).
+def _stix_quartic_grads(ne, bm, f, sinpsi, cospsi, root, wrt_cos=False,
+                        eta_he=0.0, eta_o=0.0):
+    """mu plus d(mu)/d{ne, bm, f, geometry} at fixed geometry, over the
+    ion species of ion_species(eta_he, eta_o) (protons only by default).
+    Returns (mu, dmu_dn, dmu_db, dmu_df, dmu_dgeom).
 
     wrt_cos selects the geometry variable of dmu_dgeom: False (2D) gives
     dmu/dpsi, whose every term carries the factor sin(psi) cos(psi); True
@@ -331,18 +335,25 @@ def _stix_quartic_grads(ne, bm, f, sinpsi, cospsi, root, wrt_cos=False):
     inv_de = 1.0 / (1.0 - ye * ye)
     ae = (1.0 + ye) * inv_de
     be = (1.0 - ye) * inv_de
-    # the species sums of the JAX package, over its one proton species:
-    # Sa = x a, Say = x a^2 y (ditto b) with a = 1/(1 + y), b = 1/(1 - y)
-    xi = FPE2_P * ncm * inv_f * inv_f
-    yi = FCE_P * bm * inv_f
-    inv_di = 1.0 / (1.0 - yi * yi)
-    ai = (1.0 - yi) * inv_di
-    bi = (1.0 + yi) * inv_di
-    Sa = xi * ai
-    Sb = xi * bi
-    Say = xi * ai * ai * yi
-    Sby = xi * bi * bi * yi
-    Sx = xi
+    # species sums in species order: Sa = sum x a, Say = sum x a^2 y
+    # (ditto b) with a = 1/(1 + y), b = 1/(1 - y); the first species
+    # starts each sum (the JAX package adds it to 0, which is exact)
+    for k, (fpe2_i, fce_i) in enumerate(ion_species(eta_he, eta_o)):
+        xi = fpe2_i * ncm * inv_f * inv_f
+        yi = fce_i * bm * inv_f
+        inv_di = 1.0 / (1.0 - yi * yi)
+        ai = (1.0 - yi) * inv_di
+        bi = (1.0 + yi) * inv_di
+        if k == 0:
+            Sa, Sb = xi * ai, xi * bi
+            Say, Sby = xi * ai * ai * yi, xi * bi * bi * yi
+            Sx = xi
+        else:
+            Sa = Sa + xi * ai
+            Sb = Sb + xi * bi
+            Say = Say + xi * ai * ai * yi
+            Sby = Sby + xi * bi * bi * yi
+            Sx = Sx + xi
     R = 1.0 - xe * ae - Sa
     L = 1.0 - xe * be - Sb
     P = 1.0 - xe - Sx
@@ -454,7 +465,7 @@ def mu_and_grads_2d_lat(r, lat, chi, f, env: medium.EnvParams, root=1.0):
 
     ne, ne_r, ne_lat = _ne_and_grads(r, lat, env)
     mu, dmu_dn, dmu_db, dmu_df, dmu_dpsi = _stix_quartic_grads(
-        ne, bm, f, sinpsi, cospsi, root
+        ne, bm, f, sinpsi, cospsi, root, eta_he=env.eta_he, eta_o=env.eta_o
     )
     dmudr = dmu_dn * ne_r + dmu_db * bm_r
     dmudlat = dmu_dn * ne_lat + dmu_db * bm_lat + dmu_dpsi * dpsi_dlat
@@ -516,7 +527,8 @@ def mu_and_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
         ne, ne_r, ne_lat = _ne_and_grads(r, lat, env)
         ne_phi = None
     mu, dmu_dn, dmu_db, dmu_df, dmu_dc = _stix_quartic_grads(
-        ne, bm, f, sinpsi, cospsi, root, wrt_cos=True
+        ne, bm, f, sinpsi, cospsi, root, wrt_cos=True, eta_he=env.eta_he,
+        eta_o=env.eta_o
     )
     dmudr = dmu_dn * ne_r + dmu_db * bm_r
     dmudtheta = -(dmu_dn * ne_lat + dmu_db * bm_lat) + dmu_dc * dcos_dtheta
@@ -611,7 +623,8 @@ def mu_and_grads_3d_general(r, theta, phi, rho_r, rho_t, rho_p, f,
         dne_dp = ne_lat * mlat_p
 
     mu, dmu_dn, dmu_db, dmu_df, dmu_dc = _stix_quartic_grads(
-        ne, bm, f, sinpsi, cospsi, root, wrt_cos=True
+        ne, bm, f, sinpsi, cospsi, root, wrt_cos=True, eta_he=env.eta_he,
+        eta_o=env.eta_o
     )
     return mu, (
         dmu_dn * dne_dr + dmu_db * bm_r + dmu_dc * dcos_dr,

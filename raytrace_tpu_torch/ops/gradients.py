@@ -1,13 +1,17 @@
-"""Gradient layer: mu and its partials in the 2D latitude and 3D frames.
+"""Gradient layer: mu and its partials in the 2D latitude and colatitude
+frames and the 3D frame.
 
 Port of raytrace_tpu/ops/gradients.py (fused and autodiff modes).
   "fused"    -- the hand-derived chains of ops/fused.py (the default, and
                 the chains the CUDA step kernel inlines);
-  "autodiff" -- torch.func.grad of dispersion.mu_2d_lat / mu_3d: the
+  "autodiff" -- torch.func.grad of dispersion.mu_2d_lat / mu_2d_colat /
+                mu_3d: the
                 cross-check that the fused chains are the exact
                 derivatives of the traced mu = sqrt(|mu^2|).
 The reference's mixed gradient set (grad_mode="reference") is ROADMAP A10.
 """
+
+import math
 
 import torch
 
@@ -47,6 +51,32 @@ def mu_grads_2d_lat(r, lat, chi, f, env: medium.EnvParams, grad_mode=FUSED,
         _mu_sum, argnums=(0, 1, 2, 3), has_aux=True
     )(r, lat, chi, f, env, root)
     return mu, dmudr, dmudlat, dmudchi, dmudf
+
+
+def _mu_colat_sum(r, theta, chi, f, env, root):
+    mu = dispersion.mu_2d_colat(r, theta, chi, f, env, root)
+    return mu.sum(), mu
+
+
+def mu_grads_2d_colat(r, theta, chi, f, env: medium.EnvParams,
+                      grad_mode=FUSED, root=1.0):
+    """(mu, dmu/dr, dmu/dtheta, dmu/dpsi, dmu/df) at a colatitude-frame
+    state. dip(theta) = dip(lat = pi/2 - theta), so the fused latitude
+    chain serves, with dmu/dtheta = -dmu/dlat."""
+    medium.check_env(env)
+    medium.require_dipole_2d(env)
+    if grad_mode == FUSED:
+        from . import fused
+
+        mu, dmudr, dmudlat, dmudpsi, dmudf = fused.mu_and_grads_2d_lat(
+            r, math.pi / 2.0 - theta, chi, f, env, root)
+        return mu, dmudr, -dmudlat, dmudpsi, dmudf
+    if grad_mode != AUTODIFF:
+        raise _unported_mode(grad_mode)
+    (dmudr, dmudtheta, dmudchi, dmudf), mu = torch.func.grad(
+        _mu_colat_sum, argnums=(0, 1, 2, 3), has_aux=True
+    )(r, theta, chi, f, env, root)
+    return mu, dmudr, dmudtheta, dmudchi, dmudf
 
 
 def _mu3_sum(r, theta, phi, rho_r, rho_t, rho_p, f, env, root):

@@ -1,8 +1,8 @@
 """Haselgrove ray equations (port of raytrace_tpu/ops/rhs.py).
 
-Two frames, the state in the last dimension: the 2D latitude frame
-u = (r, lat, chi, T) and the 3D Kimura frame u = (r, theta, phi, rho_r,
-rho_theta, rho_phi, T). r is in RE, the independent variable t is phase
+Three frames, the state in the last dimension: the 2D latitude frame
+u = (r, lat, chi, T), the 2D colatitude frame u = (r, theta, chi, T) and
+the 3D Kimura frame u = (r, theta, phi, rho_r, rho_theta, rho_phi, T). r is in RE, the independent variable t is phase
 path in RE, T is group delay in seconds, f is a parameter (Hz). u is
 (..., n) and f is (...,), so a function serves a (B, n) batch and, under
 torch.func.vmap, a single (n,) ray.
@@ -30,6 +30,24 @@ def rhs_2d_lat(u, f, env: medium.EnvParams, grad_mode=gradients.FUSED,
     dchi = inv_mu2_r * (dmudlat * coschi - (r * dmudr + mu) * sinchi)
     dT = RE_OVER_C * (1.0 + (f * mu * inv_mu2) * dmudf)
     return torch.stack([dr, dlat, dchi, dT], dim=-1)
+
+
+def rhs_2d_colat(u, f, env: medium.EnvParams, grad_mode=gradients.FUSED,
+                 root=1.0):
+    """du/dt for the colatitude-frame 2D ray (RayMain.jl:341-344); the
+    sign flips against the latitude form follow lat = pi/2 - theta."""
+    r, theta, chi = u[..., 0], u[..., 1], u[..., 2]
+    mu, dmudr, dmudtheta, dmudpsi, dmudf = gradients.mu_grads_2d_colat(
+        r, theta, chi, f, env, grad_mode, root
+    )
+    sinchi, coschi = torch.sin(chi), torch.cos(chi)
+    inv_mu2 = 1.0 / (mu * mu)
+    inv_mu2_r = inv_mu2 * (1.0 / r)
+    dr = inv_mu2 * (mu * coschi - dmudpsi * sinchi)
+    dtheta = inv_mu2_r * (mu * sinchi + dmudpsi * coschi)
+    dchi = inv_mu2_r * (dmudtheta * coschi - (r * dmudr + mu) * sinchi)
+    dT = RE_OVER_C * (1.0 + (f * mu * inv_mu2) * dmudf)
+    return torch.stack([dr, dtheta, dchi, dT], dim=-1)
 
 
 def rhs_3d(u, f, env: medium.EnvParams, grad_mode=gradients.FUSED,
@@ -62,7 +80,8 @@ def rhs_3d(u, f, env: medium.EnvParams, grad_mode=gradients.FUSED,
 
 
 # frame name -> (right-hand side, index of the group delay in the state)
-FRAMES = {"2d_lat": (rhs_2d_lat, 3), "3d": (rhs_3d, 6)}
+FRAMES = {"2d_lat": (rhs_2d_lat, 3), "2d_colat": (rhs_2d_colat, 3),
+          "3d": (rhs_3d, 6)}
 
 
 def frame_rhs(frame, env: medium.EnvParams, root=1.0):
@@ -70,9 +89,7 @@ def frame_rhs(frame, env: medium.EnvParams, root=1.0):
     and the step kernel's plain version share (the JAX package's
     parallel/ensemble.py::_frame_rhs)."""
     if frame not in FRAMES:
-        raise NotImplementedError(
-            f"frame={frame!r} is not ported yet (ROADMAP A10); the port has "
-            f"{sorted(FRAMES)}"
-        )
+        raise ValueError(f"unknown frame {frame!r}; the frames are "
+                         f"{sorted(FRAMES)}")
     fn, group_idx = FRAMES[frame]
     return (lambda u, f: fn(u, f, env, root=root)), group_idx

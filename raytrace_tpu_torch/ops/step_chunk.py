@@ -4,19 +4,26 @@
 advances every ray by exactly `n_steps` attempted `_step_one` steps (a
 ray that stops earlier stays as it stopped, as in the JAX package) over
 the frame's right-hand side -- `rhs_2d_lat` (frame "2d_lat", 4-state
-carry) or `rhs_3d` (frame "3d", 7-state carry) -- with the ds_max arc
-ceiling when cfg.ds_max > 0, and returns the new RayCarry. The kernel
+carry), `rhs_2d_colat` (frame "2d_colat", 4-state) or `rhs_3d` (frame
+"3d", 7-state carry) -- with bs3 or dopri5 under the step controller
+(the ds_max arc ceiling when cfg.ds_max > 0, the local arc ceiling when
+cfg.ds_local_knee > 0) or, with adaptive=False, fixed rk4 steps, and
+returns the new RayCarry. The kernel
 takes the axisymmetric medium of the first slices in its own instances
 and every other medium (`medium_code`) through the full density chain;
 the tilted dipole and the IGRF truncation (`field_code`, 3D frame only)
 have instances of their own over the full chain, with the general
-geometry chain of ops/fused.py::mu_and_grads_3d_general inlined.
+geometry chain of ops/fused.py::mu_and_grads_3d_general called; a medium
+with He+ or O+, and a run with the local arc ceiling, take the EXT
+instances of the full chain, whose Stix sums run over the ion species and
+whose step ceiling takes the local one.
 
 - On CUDA tensors it launches the hand-written kernel of
   csrc/step_chunk.cu: one thread per ray, the whole carry in registers for
   all n_steps attempts. The kernel is built from the source at first use
   with nvcc for sm_90a into raytrace_tpu_torch/_build/ (rebuilt when the
-  source changes) and loaded with ctypes. There is no fallback: a CUDA
+  source changes; PARTS nvcc processes at once, linked into one library)
+  and loaded with ctypes. There is no fallback: a CUDA
   tensor launches the kernel or raises.
 - On CPU tensors it runs `step_chunk_reference`, the plain PyTorch loop of
   `integrate.solve._step_one`.
@@ -43,9 +50,10 @@ from ..integrate.solve import (
 from ..models import dipole, medium
 from . import fused
 from . import rhs as rhs_mod
+from .dispersion import ion_species
 
 # frame name -> (kernel frame code, state dimension)
-_FRAME_CODE = {"2d_lat": (0, 4), "3d": (1, 7)}
+_FRAME_CODE = {"2d_lat": (0, 4), "3d": (1, 7), "2d_colat": (2, 4)}
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "step_chunk.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -54,21 +62,32 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # rounded, as in the plain PyTorch version (see the note in the source)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# the source compiles as PARTS objects at once (-DSC_PARTS, -DSC_PART: one
+# per frame and one per non-axial field, csrc/step_chunk.cu), linked into
+# one library
+PARTS = 5
 
 # harmonics of the MLT plasmapause shape the kernel takes (kMaxHarm)
 MAX_HARM = 8
+# shells of the local arc ceiling the kernel takes: the knee and up to
+# three ds_local_shells (kMaxShells)
+MAX_SHELLS = 4
+# ion species: protons, He+, O+ (kMaxIon)
+MAX_ION = 3
 _VEC = ("u", "k1", "u_prev", "u_lo")
 _INT = ("status", "n_accept", "n_reject", "rejected", "n_tiny", "caution")
-_STEPPER_CODE = {"bs3": 0, "dopri5": 1}
+# kernel stepper codes; rk4 is what adaptive=False runs, whatever the
+# stepper argument names
+_STEPPER_CODE = {"bs3": 0, "dopri5": 1, "rk4": 2}
 _FIELD_CODE = {"dipole": 0, "tilted": 1, "igrf": 2}
 
 
 class StepParams(ctypes.Structure):
     """Scalars passed to the kernel by value (mirror of the C struct
-    StepParams in csrc/step_chunk.cu; every field a double: 101 of
-    them, 808 bytes)."""
+    StepParams in csrc/step_chunk.cu; every field a double: 118 of
+    them, 944 bytes)."""
 
     _fields_ = [(name, ctypes.c_double) for name in (
         # medium (make_env_lat feature set) and root
@@ -94,6 +113,14 @@ class StepParams(ctypes.Structure):
         # the 15 Schmidt coefficients
         ("b_mom", ctypes.c_double * 3), ("b_xm", ctypes.c_double * 3),
         ("b_ym", ctypes.c_double * 3), ("igrf", ctypes.c_double * 15),
+        # the local arc ceiling: frac, the shell count (0 = off), and each
+        # shell's L and width, the knee first
+        ("ds_local_frac", ctypes.c_double), ("n_shells", ctypes.c_double),
+        ("shell_l", ctypes.c_double * MAX_SHELLS),
+        ("shell_w", ctypes.c_double * MAX_SHELLS),
+        # the ion species (dispersion.ion_species): count and coefficients
+        ("n_ion", ctypes.c_double), ("ion_fpe2", ctypes.c_double * MAX_ION),
+        ("ion_fce", ctypes.c_double * MAX_ION),
     ]
 
 
@@ -115,33 +142,53 @@ def _nvcc():
 def library_path():
     """Path of the shared library for the current source and flags."""
     with open(SOURCE, "rb") as fh:
-        h = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode()
+                           + f" parts {PARTS}".encode())
     return os.path.join(BUILD_DIR, f"step_chunk_{h.hexdigest()[:16]}.so")
 
 
 def build():
     """Build (if needed) and load the kernel library; returns the ctypes
-    handle. The build writes to a temporary name and renames, so a cut
-    build never leaves a half-written library behind."""
+    handle. The PARTS objects compile in parallel nvcc processes into a
+    temporary directory and link into a temporary name that is then
+    renamed, so a cut build never leaves a half-written library behind."""
     global _LIB, BUILD_LOG, BUILD_SECONDS
     if _LIB is not None:
         return _LIB
     path = library_path()
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
+        work = tempfile.mkdtemp(dir=BUILD_DIR)
+        objs = [os.path.join(work, f"part{k}.o") for k in range(PARTS)]
+        tmp = os.path.join(work, "step_chunk.so")
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-            capture_output=True, text=True,
-        )
-        BUILD_SECONDS = time.perf_counter() - t0
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed building {SOURCE}:\n{BUILD_LOG}")
-        os.replace(tmp, path)
+        try:
+            procs = []
+            for k, obj in enumerate(objs):
+                # each part's output goes to a file: no pipe to fill
+                with open(obj + ".log", "w") as log:
+                    procs.append(subprocess.Popen(
+                        [_nvcc(), *NVCC_FLAGS, f"-DSC_PARTS={PARTS}",
+                         f"-DSC_PART={k}", "-c", "-o", obj, SOURCE],
+                        stdout=log, stderr=subprocess.STDOUT))
+            rcs = [proc.wait() for proc in procs]
+            BUILD_LOG = ""
+            for obj in objs:
+                with open(obj + ".log") as log:
+                    BUILD_LOG += log.read()
+            if not any(rcs):
+                link = subprocess.run(
+                    [_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs],
+                    capture_output=True, text=True)
+                BUILD_LOG += link.stdout + link.stderr
+                rcs.append(link.returncode)
+            BUILD_SECONDS = time.perf_counter() - t0
+            if any(rcs):
+                raise RuntimeError(
+                    f"nvcc failed building {SOURCE}:\n{BUILD_LOG}")
+            os.replace(tmp, path)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
     lib = ctypes.CDLL(path)
     lib.step_chunk_launch.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -167,9 +214,10 @@ def ptxas_usage(log):
         if m is None:
             return None
         words = [("float", "double")[m[1] == "d"],
-                 ("bs3", "dopri5")[int(m[2])], ("2d_lat", "3d")[int(m[3])]]
+                 ("bs3", "dopri5", "rk4")[int(m[2])],
+                 ("2d_lat", "3d", "2d_colat")[int(m[3])]]
         if m[4] is not None:
-            words.append(("axi", "full")[int(m[4])])
+            words.append(("axi", "full", "ext")[int(m[4])])
         if m[5] is not None and int(m[5]):
             words.append(("dipole", "tilted", "igrf")[int(m[5])])
         return " ".join(words)
@@ -189,11 +237,17 @@ def ptxas_usage(log):
             for k in sorted(set(regs) | set(spills))}
 
 
-def medium_code(env):
+def medium_code(env, cfg: SolverConfig = None):
     """0: the axisymmetric medium of the first slices (one ionosphere fit,
-    CA1992 with hard branches, optional DE factor), which the kernel runs
-    in its own instances; 1: any other medium, and every medium over a
-    non-axial field, through the full density chain."""
+    CA1992 with hard branches, optional DE factor, protons), which the
+    kernel runs in its own instances; 1: any other protons-only medium,
+    and every such medium over a non-axial field, through the full density
+    chain; 2: any medium with He+ or O+, or any run of `cfg` with the local
+    arc ceiling, through the full chain extended by the Stix sums over the
+    ion species and the local ceiling (the kernel's EXT instances)."""
+    if (len(ion_species(env.eta_he, env.eta_o)) > 1
+            or (cfg is not None and _shells(cfg))):
+        return 2
     full = (env.iono_mix != 1.0 or env.ps_model != "ca1992"
             or env.ps_smooth != 0.0 or env.ps_refill != 0.0
             or env.duct_amp != 0.0 or medium.mlt_on(env)
@@ -234,7 +288,20 @@ def _params(env, cfg: SolverConfig, spec: events.StopSpec, root):
     c = [float(x) for x in env.ps_mlt_c]
     xm, ym = dipole.mlon_axes(env.b_tilt, env.b_tilt_phi)
     vec3 = ctypes.c_double * 3
+    shells = _shells(cfg)
+    ions = ion_species(env.eta_he, env.eta_o)
+
+    def pad(xs, n):
+        return (ctypes.c_double * n)(*(list(xs) + [0.0] * (n - len(xs))))
+
     return StepParams(**{k: float(v) for k, v in vals.items()},
+                      ds_local_frac=float(cfg.ds_local_frac),
+                      n_shells=float(len(shells)),
+                      shell_l=pad([float(x) for x, _ in shells], MAX_SHELLS),
+                      shell_w=pad([float(w) for _, w in shells], MAX_SHELLS),
+                      n_ion=float(len(ions)),
+                      ion_fpe2=pad([x for x, _ in ions], MAX_ION),
+                      ion_fce=pad([y for _, y in ions], MAX_ION),
                       ps_mlt_c=(ctypes.c_double * (1 + 2 * MAX_HARM))(
                           *(c + [0.0] * (1 + 2 * MAX_HARM - len(c)))),
                       b_mom=vec3(*dipole.moment_unit(env.b_tilt,
@@ -244,16 +311,31 @@ def _params(env, cfg: SolverConfig, spec: events.StopSpec, root):
                           *(env.igrf_coeffs or (0.0,) * 15)))
 
 
+def _shells(cfg: SolverConfig):
+    """((L, width), ...) of the local arc ceiling, the knee first; () when
+    it is off (ds_local_knee == 0)."""
+    if cfg.ds_local_knee <= 0.0:
+        return ()
+    return ((cfg.ds_local_knee, cfg.ds_local_w),) + tuple(
+        cfg.ds_local_shells)
+
+
 def _check(carry: RayCarry, f, env, cfg, spec, stepper, n_steps, adaptive,
            frame):
-    if stepper not in KERNEL_STEPPERS:
+    if adaptive and stepper not in KERNEL_STEPPERS:
         raise ValueError(
-            f"step_chunk runs {KERNEL_STEPPERS}; got stepper={stepper!r}"
+            f"step_chunk runs {KERNEL_STEPPERS} (and rk4 with "
+            f"adaptive=False); got stepper={stepper!r}"
         )
     if frame not in _FRAME_CODE:
-        raise NotImplementedError(
-            f"frame={frame!r} is not ported to the step kernel yet (ROADMAP "
-            f"A10 and B1 variants); it has {sorted(_FRAME_CODE)}"
+        raise ValueError(
+            f"unknown frame {frame!r}; the step kernel has "
+            f"{sorted(_FRAME_CODE)}"
+        )
+    if len(_shells(cfg)) > MAX_SHELLS:
+        raise ValueError(
+            f"the local arc ceiling has {len(_shells(cfg))} shells (the knee "
+            f"and ds_local_shells); the kernel takes at most {MAX_SHELLS}"
         )
     n = _FRAME_CODE[frame][1]
     check_supported(cfg, n - 1, adaptive, stepper)
@@ -291,14 +373,15 @@ def _check(carry: RayCarry, f, env, cfg, spec, stepper, n_steps, adaptive,
 def step_chunk_reference(carry: RayCarry, f, env, cfg: SolverConfig,
                          spec: events.StopSpec, *, stepper: str,
                          n_steps: int, root: float = 1.0,
-                         frame: str = "2d_lat"):
+                         adaptive: bool = True, frame: str = "2d_lat"):
     """The plain PyTorch version: n_steps attempts of `_step_one` over the
     frame's right-hand side as torch ops on the tensors' device (leaving
     early once no ray is ACTIVE, which is exact)."""
     step_chunk_reference.calls += 1
     rhs_fn, group_idx = rhs_mod.frame_rhs(frame, env, root)
     return step_loop(rhs_fn, carry, f, cfg, spec, group_idx=group_idx,
-                     stepper=stepper, n_steps=int(n_steps), check_every=16)
+                     adaptive=adaptive, stepper=stepper,
+                     n_steps=int(n_steps), check_every=16)
 
 
 step_chunk_reference.calls = 0
@@ -311,18 +394,19 @@ def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
     """Advance every ray by n_steps attempted steps; returns a new carry.
 
     carry fields are (B, n) / (B,) tensors of f's dtype (int32 for the
-    counters), all on f's device, with n = 4 in the "2d_lat" frame and 7
-    in the "3d" frame. On CUDA the kernel works on field-major (n, B)
+    counters), all on f's device, with n = 4 in the 2D frames and 7 in
+    the "3d" frame. On CUDA the kernel works on field-major (n, B)
     copies of the vectors, updating them in place, and the result's
     vector fields are (B, n) views of those copies."""
     _check(carry, f, env, cfg, spec, stepper, n_steps, adaptive, frame)
     if f.device.type == "cpu":
         return step_chunk_reference(carry, f, env, cfg, spec,
                                     stepper=stepper, n_steps=n_steps,
-                                    root=root, frame=frame)
+                                    root=root, adaptive=adaptive,
+                                    frame=frame)
     if f.device.type != "cuda":
         raise ValueError(f"step_chunk runs on cuda or cpu, not {f.device}")
-    code, field = medium_code(env), field_code(env)
+    code, field = medium_code(env, cfg), field_code(env)
     lib = build()
     # always fresh buffers: carry fields may share storage (init_carry's
     # u/u_prev and zero counters), and the kernel writes in place
@@ -341,7 +425,8 @@ def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
         rc = lib.step_chunk_launch(
-            0 if f.dtype == torch.float32 else 1, _STEPPER_CODE[stepper],
+            0 if f.dtype == torch.float32 else 1,
+            _STEPPER_CODE[stepper if adaptive else "rk4"],
             _FRAME_CODE[frame][0], code, field, ptrs, f.shape[0],
             int(n_steps),
             ctypes.byref(params), ctypes.c_void_p(stream),

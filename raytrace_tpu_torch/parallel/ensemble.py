@@ -2,7 +2,8 @@
 raytrace_tpu/parallel/ensemble.py, single device).
 
 A LaunchSpec builds the 2D (latitude x wave-normal angle x frequency)
-grid, `build_launch_3d` the 3D (latitude x longitude x wave-normal angle x
+grid (run.py turns its latitudes into colatitudes for the colatitude
+frame), `build_launch_3d` the 3D (latitude x longitude x wave-normal angle x
 frequency) grid, the batch is padded to a multiple of 8, and
 `make_rounds_tracer` integrates
 it in rounds: after each round the still-active rays are gathered into the
@@ -20,8 +21,11 @@ import torch
 
 from ..constants import RE
 from ..integrate import events
-from ..integrate.solve import RayCarry, SolverConfig, TraceResult, trace
+from ..integrate.solve import (
+    _ORDER, RayCarry, SolverConfig, TraceResult, trace,
+)
 from ..integrate.events import StopSpec
+from ..ops.rhs import FRAMES
 
 # status code used for padding lanes (distinct from every events.* code)
 PAD_STATUS = 100
@@ -187,7 +191,9 @@ def make_rounds_tracer(
     floor) the rest of the budget runs as one merged-tail round. Each
     round is one `trace` call, i.e. one step-kernel launch per pool.
 
-    frame: "2d_lat" (4-state) or "3d" (7-state). device/dtype: where and
+    frame: "2d_lat" or "2d_colat" (4-state) or "3d" (7-state).
+    adaptive=False steps every pool with fixed rk4 at the carry's dt (which
+    then never rejects, so no ray turns stiff). device/dtype: where and
     in what precision the carry lives (the card unless the caller asks for
     the CPU); u0 and f are cast to them. The returned TraceResult holds numpy arrays (the
     final fetch); `run.last_rounds` and `run.last_stiff` record per-round
@@ -201,8 +207,10 @@ def make_rounds_tracer(
         "tail_stepper": bool(tail_stepper),
         "save_every > 0 (trajectory channel, ROADMAP A11)": save_every > 0,
         "legacy_freq_state (ROADMAP A10)": legacy_freq_state,
-        f"frame={frame!r} (ROADMAP A10)": frame not in ("2d_lat", "3d"),
-        f"grad_mode={grad_mode!r}": grad_mode != "fused",
+        f"grad_mode={grad_mode!r} (ROADMAP A10)": grad_mode != "fused",
+        **{f"stepper {st!r} (ROADMAP A10)": adaptive and st not in _ORDER
+           for st in ((stepper if stepper != "auto" else base_stepper),
+                      stiff_stepper)},
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -210,6 +218,9 @@ def make_rounds_tracer(
             f"not ported to the rounds tracer: {', '.join(bad)} (ROADMAP A5 "
             "unless named)"
         )
+    if frame not in FRAMES:
+        raise ValueError(f"unknown frame {frame!r}; the frames are "
+                         f"{sorted(FRAMES)}")
     if max_steps >= (1 << 24):
         raise ValueError(
             "max_steps must stay below 2^24 so the step counters ride the "

@@ -1,6 +1,7 @@
 """Where the time of one run goes on the card.
 
     python -m raytrace_tpu_torch.profile_run <preset> [--float64] [--runs N]
+        [--set field=value ...]
 
 Runs the preset once to warm up, then N times unprofiled (host clock
 around each `run.run`, which ends with the results on the host), then
@@ -8,11 +9,14 @@ once under `torch.profiler` with CUDA activity. Prints the unprofiled
 walls, the step kernel's device time per launch, the other device work
 (count of kernels and their time), the device's busy time (the union of
 all kernel intervals) and its idle share of the profiled wall, and the
-card's name and power limit. Needs a CUDA device; it never runs on the
-CPU.
+card's name and power limit. --set overrides a field of the preset with
+a Python literal or a bare word (e.g. --set frame=2d_colat, --set
+adaptive=False).
+Needs a CUDA device; it never runs on the CPU.
 """
 
 import argparse
+import ast
 import subprocess
 import sys
 import time
@@ -62,12 +66,23 @@ def profile_run(config, runs=5):
     )
 
 
+def _literal(text):
+    """A Python literal, or the text itself (a bare word is a string)."""
+    try:
+        return ast.literal_eval(text)
+    except (ValueError, SyntaxError):
+        return text
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(
         prog="python -m raytrace_tpu_torch.profile_run")
     p.add_argument("preset")
     p.add_argument("--float64", action="store_true")
     p.add_argument("--runs", type=int, default=5)
+    p.add_argument("--set", action="append", default=[],
+                   help="field=value: override a field of the preset (a "
+                        "Python literal, or a bare word for a string)")
     args = p.parse_args(argv)
 
     import torch
@@ -77,7 +92,8 @@ def main(argv=None):
         return 2
     from .config import preset
 
-    config = preset(args.preset)
+    config = preset(args.preset, **{
+        k: _literal(v) for k, v in (item.split("=", 1) for item in args.set)})
     if args.float64:
         config.dtype = "float64"
     smi = subprocess.run(
@@ -87,7 +103,7 @@ def main(argv=None):
     ).stdout.strip()
     r = profile_run(config, args.runs)
     step_ms = sum(r["step_us"]) / 1e3
-    print(f"{args.preset} {config.dtype} on {smi}")
+    print(f"{args.preset} {' '.join(args.set)} {config.dtype} on {smi}")
     print("  unprofiled walls (s): "
           + ", ".join(f"{w:.4f}" for w in r["walls"]))
     print(f"  profiled wall {r['profiled_wall']:.4f} s")

@@ -24,8 +24,6 @@ from .parallel.ensemble import (
 
 def _check_supported(config: RunConfig):
     unported = {
-        f"frame={config.frame!r} (ROADMAP A10)":
-            config.frame not in ("2d_lat", "3d"),
         "use_rounds=False (the single-program tracer)": not config.use_rounds,
         "save_every > 0 (ROADMAP A11)": config.save_every > 0,
         "continue_until_done (ROADMAP A10)": config.continue_until_done,
@@ -43,12 +41,17 @@ def _check_supported(config: RunConfig):
 def _build_u0(config: RunConfig, env, np_dtype, device):
     """Launch states (u0, f) of the configured frame, numpy in np_dtype.
 
-    In the 3D frame with rho_on_shell, rho0 is a direction and |rho| is
+    The launch grid gives latitudes in every frame: the colatitude frame's
+    state slot 1 is theta = pi/2 - lat, formed in np_dtype as the JAX
+    package forms it. In the 3D frame with rho_on_shell, rho0 is a direction and |rho| is
     solved as mu(psi) for every ray in one batched float64 call on
     `device`, from theta and f already rounded to the run dtype, then cast
     to it (what the JAX package computes)."""
-    if config.frame == "2d_lat":
-        return build_launch(config.launch(), np_dtype)
+    if config.frame in ("2d_lat", "2d_colat"):
+        u0, f = build_launch(config.launch(), np_dtype)
+        if config.frame == "2d_colat":
+            u0[:, 1] = np.pi / 2 - u0[:, 1]
+        return u0, f
     u0, f = build_launch_3d(config.r0, config.lats, config.phis,
                             config.chis, config.freqs, config.rho0, np_dtype)
     if config.rho_on_shell:

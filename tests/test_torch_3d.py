@@ -164,12 +164,19 @@ def test_rhs_3d_matches_jax(root):
 
 
 def test_unported_3d_media_raise():
+    """The multi-ion composition runs through the 3D chains
+    (tests/test_torch_variants.py holds them to the JAX package); what they
+    still refuse is a fractional plasmasphere weight (make_env gives 0 or
+    1), and the reference gradient mode (A10)."""
     x = torch.ones(2, dtype=torch.float64)
-    for kw, item in ((dict(ps_mlt=True, eta_he=0.1), "A10"),
-                     (dict(b_model="tilted", eta_o=0.1), "A10")):
+    for kw, chain in ((dict(ps_mlt=True, eta_he=0.1), fused.mu_and_grads_3d),
+                      (dict(b_model="tilted", eta_o=0.1),
+                       fused.mu_and_grads_3d_general)):
         env = env_from_numpy(j_make_env(**kw)._asdict())
-        with pytest.raises(NotImplementedError, match=item):
-            fused.mu_and_grads_3d(x, x, x, x, x, x, x * 1e3, env)
+        mu, grads = chain(x, x, x, x, x, x, x * 1e3, env)
+        assert bool(torch.isfinite(mu).all())
+        with pytest.raises(NotImplementedError, match="0 or 1"):
+            chain(x, x, x, x, x, x, x * 1e3, env._replace(ps_weight=0.5))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gradients.mu_grads_3d(x, x, x, x, x, x, x * 1e3, _envs()[1],
                               grad_mode="reference")
@@ -298,9 +305,10 @@ def test_step_one_with_arc_ceiling_matches_jax(frame, stepper, rtol):
     _assert_carries(carry_to_numpy(got), want, rtol)
     # the ceiling is on the path: some step of the 24 ran at dt_cap < dt_max
     assert (np.asarray(want.dt) < cfg.dt_max).any()
-    with pytest.raises(NotImplementedError, match="A6"):
-        _step_one(trf, carry, ft, tcfg._replace(ds_local_knee=4.0), tspec,
-                  gidx)
+    # the local ceiling is ported (test_torch_slice_variants.py); a stepper
+    # that is not is refused
+    with pytest.raises(NotImplementedError, match="A10"):
+        _step_one(trf, carry, ft, tcfg, tspec, gidx, stepper="ros2x")
 
 
 @pytest.mark.parametrize("stepper,rtol", [("dopri5", 1e-12), ("bs3", 1e-6)])

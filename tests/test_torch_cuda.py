@@ -218,3 +218,74 @@ def test_field_presets_run_through_the_kernel(cuda, name):
     assert np.isfinite(out["result"].u[out["valid"]]).all()
     assert int(out["stats"]["n_active"]) == 0
     assert int(out["stats"]["n_hit_earth"]) > 0
+
+
+# the last variants of the step: (preset, overrides, stepper, medium
+# overrides); rk4 runs at the reference ceiling dt0 = 1e6 m
+VARIANTS = {
+    "local": ("ensemble10k_local", {}, "bs3", {}),
+    "local_tilted": ("ensemble10k_tilted", dict(ds_local=True), "dopri5",
+                     {}),
+    "colat": ("ensemble10k", dict(frame="2d_colat"), "dopri5", {}),
+    "colat_full": ("ensemble10k", dict(frame="2d_colat"), "bs3",
+                   dict(ps_model="gcpm", iono_mlt=True, duct_amp=0.5)),
+    "emic": ("emic_heband", {}, "dopri5", {}),
+    "multi_ion_whistler": ("ensemble10k", {}, "dopri5",
+                           dict(eta_he=0.1, eta_o=0.02)),
+    "multi_ion_igrf": ("ensemble10k_igrf", {}, "bs3",
+                       dict(eta_he=0.1, eta_o=0.02)),
+    "rk4": ("ensemble10k", dict(adaptive=False, dt0=1.0e6 / RE), "bs3", {}),
+    "rk4_plume": ("ensemble10k_plume", dict(adaptive=False, dt0=1.0e-3),
+                  "bs3", {}),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("case", sorted(VARIANTS))
+def test_variant_kernel_matches_plain_version_bitwise(cuda, case, dtype):
+    """Every 40th ray of each launch (the emic_heband launch whole), 64
+    attempts through the kernel's instances of the local arc ceiling, the
+    colatitude frame, the multi-ion medium at either root and fixed-step
+    rk4: every field bit for bit with the plain version."""
+    name, over, stepper, med = VARIANTS[case]
+    conf = preset(name, dtype=dtype, **over)
+    for k, v in med.items():
+        setattr(conf.medium, k, v)
+    env = conf.medium.build()
+    cfg, spec = conf.solver(), conf.stop()
+    np_dt = np.float32 if dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, cuda)
+    every = 1 if name == "emic_heband" else 40
+    u0 = torch.as_tensor(u0[::every], device=cuda)
+    f = torch.as_tensor(f[::every], device=cuda)
+    carry = init_carry(rhs.frame_rhs(conf.frame, env, conf.root)[0], u0, f,
+                       cfg)
+    kw = dict(stepper=stepper, n_steps=64, root=conf.root,
+              adaptive=conf.adaptive, frame=conf.frame)
+    launches = sc.step_chunk.launches
+    got = sc.step_chunk(carry, f, env, cfg, spec, **kw)
+    assert sc.step_chunk.launches == launches + 1
+    ref = sc.step_chunk_reference(carry, f, env, cfg, spec, **kw)
+    torch.cuda.synchronize()
+    _assert_bitwise(got, ref)
+    assert int((got.n_accept + got.n_reject).sum()) > 0
+
+
+@pytest.mark.parametrize("name,over", [
+    ("raymain", {}), ("emic_heband", dict(max_steps=512)),
+    ("ensemble10k_local", dict(lats=(0.8, 0.9, 1.0, 1.1), chis=(0.3, 0.5),
+                               freqs=(2000.0, 3000.0))),
+])
+def test_variant_presets_run_through_the_kernel(cuda, name, over):
+    """run.run of each preset of the variants (cut where it is a fan) on
+    the card: every round a kernel launch, the plain version never
+    called, every ray finite."""
+    from raytrace_tpu_torch.run import run
+
+    sc.step_chunk.launches = 0
+    sc.step_chunk_reference.calls = 0
+    out = run(preset(name, **over), device="cuda")
+    assert sc.step_chunk.launches > 0
+    assert sc.step_chunk_reference.calls == 0
+    assert np.isfinite(out["result"].u[out["valid"]]).all()
+    assert int(out["stats"]["n_active"]) == 0

@@ -105,8 +105,10 @@ def test_plasmasphere_density_and_de_factor():
     )
 
 
-# what the port still refuses: the multi-ion composition (A10), alone
-# and under the media and the fields ported since
+# the multi-ion composition, alone and under the other media and the
+# fields: make_env builds it as the JAX package does; what the port still
+# refuses where a medium is used is a fractional plasmasphere weight
+# (make_env gives 0 or 1)
 @pytest.mark.parametrize("kw", [
     dict(eta_o=0.1), dict(b_model="igrf", eta_he=0.2),
     dict(ps_model="gcpm", eta_he=0.1),
@@ -117,9 +119,8 @@ def test_plasmasphere_density_and_de_factor():
     dict(eta_he=0.05, eta_o=0.05),
 ])
 def test_unported_medium_gates_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        medium.make_env(**kw)
-    # an env carried over from the JAX package is refused where it is used
-    env = env_from_numpy(j_medium.make_env(**kw)._asdict())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        medium.ne_total_m3(torch.ones(2), torch.zeros(2), env)
+    env = medium.make_env(**kw)
+    assert env == env_from_numpy(j_medium.make_env(**kw)._asdict())
+    with pytest.raises(NotImplementedError, match="0 or 1"):
+        medium.ne_total_m3(torch.ones(2), torch.zeros(2),
+                           env._replace(ps_weight=0.5))

@@ -187,7 +187,8 @@ def test_ensemble_stats_matches_jax():
 
 @pytest.mark.parametrize("kw", [
     dict(pipeline=2), dict(order_switch_dt=0.12), dict(tail_stepper="dopri5"),
-    dict(save_every=64), dict(frame="2d_colat"), dict(grad_mode="autodiff"),
+    dict(save_every=64), dict(stiff_stepper="ros2x"),
+    dict(grad_mode="autodiff"),
     dict(legacy_freq_state=True),
 ])
 def test_unported_knobs_raise(kw):

@@ -10,11 +10,14 @@ ensemble10k_production, ensemble10k_plume and, in one batch of 2,048,
 mr_fan_3d); --against a census of the same preset in the other dtype adds
 the float32-vs-float64 agreement (statuses, median landing L); --rays
 i,j,... instead traces each listed ray alone in both packages on the CPU
-(status and step counters):
+(status and step counters); --set field=value (repeatable) overrides a
+field of the preset (a Python literal, e.g. --set frame='"2d_colat"'
+--set adaptive=False --set dt0=0.15695630336514316). A batch of at most 64
+rays is traced in one full-budget round, as run() traces it:
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_slice3d.py \\
         ensemble10k_plume float64 [--out census.npz] [--against other.npz] \\
-        [--batch 1024] [--rays 1346,1410]
+        [--batch 1024] [--rays 1346,1410] [--set frame='"2d_colat"']
 """
 
 import json
@@ -173,12 +176,12 @@ def test_3d_refuses_a_phis_fan():
     """A phis fan runs in 3D over the MLT-resolved medium since the plume
     slice (test_torch_slice_mlt.py) and over the tilted and IGRF fields
     (test_torch_slice_fields.py); what is refused is a phis fan over a
-    medium the port does not have (the multi-ion composition, A10) and a
+    gradient mode the port does not have (the reference mix, A10) and a
     phis fan in a 2D frame, whose state carries no longitude (as the JAX
     package refuses it)."""
     cut = dict(lats=(0.8,), chis=(0.0,), freqs=(2000.0,), phis=(0.0, 1.0),
                max_steps=8)
-    cfg = t_config.preset("ensemble10k_3d", **cut)
+    cfg = t_config.preset("ensemble10k_3d", grad_mode="reference", **cut)
     cfg.medium.b_model = "tilted"
     cfg.medium.eta_he = 0.1
     with pytest.raises(NotImplementedError, match="A10"):
@@ -189,16 +192,18 @@ def test_3d_refuses_a_phis_fan():
         j_run._build_u0(j_config.preset("ensemble10k", **cut), np.float64)
 
 
-def _jax_census(name, dtype, batch=1024):
-    """The JAX package's run of preset `name` on the CPU, traced in
-    batches of `batch` rays through one rounds tracer (its run() path
-    without a mesh). Returns (per-ray numpy arrays, stats)."""
+def _jax_census(name, dtype, batch=1024, overrides=None):
+    """The JAX package's run of preset `name` (with `overrides`, a dict of
+    RunConfig fields) on the CPU, traced in batches of `batch` rays through
+    one rounds tracer (its run() path without a mesh; a batch of at most
+    64 rays in one full-budget round, as run() has it). Returns (per-ray
+    numpy arrays, stats)."""
     import raytrace_tpu.parallel.ensemble as j_ens
     from raytrace_tpu.integrate.solve import TraceResult
     from raytrace_tpu.models import cast_env
     from raytrace_tpu.parallel import ensemble_stats
 
-    cfg = j_config.preset(name, dtype=dtype)
+    cfg = j_config.preset(name, dtype=dtype, **(overrides or {}))
     np_dt = np.float32 if dtype == "float32" else np.float64
     u0, f = j_run._build_u0(cfg, np_dt)
     kw = dict(frame=cfg.frame, cfg=cfg.solver(), spec=cfg.stop(),
@@ -208,6 +213,8 @@ def _jax_census(name, dtype, batch=1024):
               base_stepper=cfg.base_stepper)
     if cfg.round_steps:
         kw["round_steps"] = tuple(cfg.round_steps)
+    if min(batch, u0.shape[0]) <= 64:
+        kw["round_steps"] = (cfg.max_steps,)
     tracer = j_ens.make_rounds_tracer(cast_env(cfg.medium.build(), np_dt),
                                       **kw)
     cols = {k: [] for k in ("u", "status", "n_accept", "n_reject")}
@@ -264,13 +271,20 @@ if __name__ == "__main__":
     p.add_argument("--rays", default="",
                    help="comma-separated ray indices: trace each alone in "
                         "both packages instead of the census")
+    p.add_argument("--set", action="append", default=[],
+                   help="field=value: override a RunConfig field (a Python "
+                        "literal)")
     args = p.parse_args()
+    import ast
+
+    over = {k: ast.literal_eval(v) for k, v in
+            (item.split("=", 1) for item in args.set)}
     if args.rays:
         rays = [int(x) for x in args.rays.split(",")]
         print(json.dumps(_rays_alone(args.preset, args.dtype, rays),
                          indent=1))
         raise SystemExit(0)
-    arrays, stats = _jax_census(args.preset, args.dtype, args.batch)
+    arrays, stats = _jax_census(args.preset, args.dtype, args.batch, over)
     if args.out:
         np.savez(args.out, **arrays)
     stats["attempted_steps"] = (stats["total_accepted_steps"]
@@ -279,12 +293,13 @@ if __name__ == "__main__":
         other = np.load(args.against)
         match = arrays["status"] == other["status"]
         hit = match & (arrays["status"] == events.HIT_EARTH)
-        frame = j_config.preset(args.preset).frame
-        trig = np.sin if frame == "3d" else np.cos
+        frame = j_config.preset(args.preset, **over).frame
+        # the 2D latitude frame carries the latitude, the others colatitude
+        trig = np.cos if frame == "2d_lat" else np.sin
         L = [u[hit, 0] / trig(u[hit, 1]) ** 2 for u in
              (arrays["u"].astype(np.float64), other["u"].astype(np.float64))]
         stats["status_match_vs_against"] = float(match.mean())
         stats["median_rel_landing_l_diff_vs_against"] = float(
             np.median(np.abs(L[0] - L[1]) / L[1]))
     print(json.dumps({"preset": args.preset, "dtype": args.dtype,
-                      "stats": stats}, indent=1))
+                      "overrides": over, "stats": stats}, indent=1))

@@ -125,11 +125,16 @@ def _small_carry(n=8, dtype=torch.float64):
     return carry, f, env, cfg, StopSpec(r_floor=1.0)
 
 
+# what the kernel does not take: the steppers that were never in it (an
+# adaptive ros3pr or heun2; with adaptive=False any stepper runs rk4), an
+# unknown frame, more local-ceiling shells than it holds, a medium the
+# port refuses (a fractional plasmasphere weight), more MLT harmonics than
+# it holds, and carries of the wrong type, shape or device
 @pytest.mark.parametrize("case,exc", [
     ("stepper", ValueError),
-    ("frame", NotImplementedError),
-    ("ds_local", NotImplementedError),
-    ("rk4", NotImplementedError),
+    ("frame", ValueError),
+    ("ds_local", ValueError),
+    ("heun2", ValueError),
     ("medium", NotImplementedError),
     ("harmonics", ValueError),
     ("dtype", ValueError),
@@ -143,13 +148,14 @@ def test_step_chunk_refuses_what_the_kernel_does_not_take(case, exc):
     if case == "stepper":
         kw["stepper"] = "ros3pr"
     elif case == "frame":
-        kw["frame"] = "2d_colat"
+        kw["frame"] = "2d_meridian"
     elif case == "ds_local":
-        cfg = cfg._replace(ds_local_knee=4.0)
-    elif case == "rk4":
-        kw["adaptive"] = False
+        cfg = cfg._replace(ds_local_knee=4.0,
+                           ds_local_shells=((3.0, 0.1),) * sc.MAX_SHELLS)
+    elif case == "heun2":
+        kw["stepper"] = "heun2"
     elif case == "medium":
-        env = env._replace(eta_he=0.1)
+        env = env._replace(ps_weight=0.5)
     elif case == "harmonics":   # the kernel takes at most MAX_HARM
         env = env._replace(ps_mlt=1.0, ps_mlt_c=(1.0,) + (0.0,) * 18)
     elif case == "dtype":
