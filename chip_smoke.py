@@ -31,9 +31,11 @@ Phases, each printed as it runs; any failed check exits non-zero:
      the TPU record (benchmarks/perf_r03h.json, arc2e6_ph8e6);
   8. the full-medium kernel instances against their plain versions, bit
      for bit: the ensemble10k_plume launch (3D, MLT-resolved CA1992) in
-     float32 and float64, the same fan over the MLT-resolved GCPM, and the
-     2D knee fan through two media that hold every other gate; then each
-     new path timed beside its plain version and its bound;
+     float32 and float64, the same fan over the MLT-resolved GCPM, the
+     2D knee fan through two media that hold every other gate, and the
+     plume fan through those and four more media (TEAM_MEDIA: every gate
+     of the team body's density pieces); then each new path timed beside
+     its plain version and its bound;
   9. the ensemble10k_plume slice through run.run: float32 against the TPU
      record (benchmarks/perf_r04_plume.json), float64 against the JAX
      package's float64 result on a CPU, float32 against float64;
@@ -67,7 +69,14 @@ Phases, each printed as it runs; any failed check exits non-zero:
  17. emic_heband (He+ and O+, the EMIC root) against the JAX package on a
      CPU, float64 ray by ray;
  18. the ensemble10k fan with fixed-step rk4 at dt0 = dt_max: float64
-     against the JAX package's census on a CPU, float32 reported.
+     against the JAX package's census on a CPU, float32 reported;
+ 19. the stop branches ESCAPED (a finite r_ceil) and EVANESCENT
+     (stop_retrograde) through two team instances (the 3D full chain) and
+     a one-thread instance, bit for bit with the plain version.
+Each run through run.run checks the body its launches took (the team
+body's launch count, ops/step_chunk.py) and replays its last launch, the
+merged tail where the run has one (kernel_ab.replay_tail), for the
+kernels' record.
 The plain version is timed at the full launch where its instance is on a
 main path (the kernels' JSON record); elsewhere over every 10th ray x 64
 attempts (its time is set by its ~2,000 small launches per attempt, not
@@ -243,6 +252,18 @@ FULL_2D = {
     "smooth+refill_q+iono_mlt+duct": dict(
         ps_smooth=0.05, ps_refill=0.5, ps_refill_q=4.0, iono_mlt=True,
         duct_amp=0.5, duct_l0=3.0, duct_w=0.1),
+}
+
+# the 3D media of phase 8 through the team body's density pieces (ne_head,
+# ne_lterms, ne_tail; the plume's medium is held apart): FULL_2D's two,
+# without and with the MLT-resolved plasmapause; a constant refill with the
+# DE factor; no plasmasphere, so that every branch of the pieces runs
+TEAM_MEDIA = {
+    **FULL_2D,
+    **{f"{label}+ps_mlt": dict(kw, ps_mlt=True)
+       for label, kw in FULL_2D.items()},
+    "refill+de+ps_mlt": dict(ps_refill=0.5, de_correction=True, ps_mlt=True),
+    "no plasmasphere+iono_mlt": dict(plasmasphere=False, iono_mlt=True),
 }
 
 # The pins of phases 15-18: the JAX package on a CPU, traced by
@@ -860,17 +881,27 @@ def general_field_kernels(dev, card):
 
 def drive(conf, what, card):
     """One run of the slice through run.run on the card with the launch
-    counts set to 0 just before; returns (out, wall, launches, calls)."""
+    counts set to 0 just before; returns (out, wall, launches, calls).
+    drive.team_launches is the run's launches through the team body and
+    drive.tail its last launch (kernel_ab.capture_tail's form)."""
+    from raytrace_tpu_torch.kernel_ab import recording_launches
     from raytrace_tpu_torch.ops import step_chunk as sc
     from raytrace_tpu_torch.run import run, summarize
 
     sc.step_chunk.launches = 0
+    sc.step_chunk.team_launches = 0
     sc.step_chunk_reference.calls = 0
-    t0 = time.perf_counter()
-    out = run(conf, device="cuda")
-    wall = time.perf_counter() - t0
+    with recording_launches() as seen:
+        t0 = time.perf_counter()
+        out = run(conf, device="cuda")
+        wall = time.perf_counter() - t0
     launches = sc.step_chunk.launches
+    drive.team_launches = sc.step_chunk.team_launches
     calls = sc.step_chunk_reference.calls
+    carry, f, env, cfg, spec, kw = seen[-1]
+    drive.tail = dict(name=conf.name, env=env, carry=carry._asdict(), f=f,
+                      kw=kw, cfg=cfg._asdict(), spec=spec._asdict(),
+                      round=dict(out["rounds"][-1]))
     stats, valid = out["stats"], out["valid"]
     steps = int(stats["total_accepted_steps"] + stats["total_rejected_steps"])
     n_stiff = int(np.asarray(out["stiff"])[valid].sum())
@@ -880,11 +911,81 @@ def drive(conf, what, card):
         print(f"   round: {r['stepper']:6s} active {r['active']:5d} bucket "
               f"{r['bucket']:5d} steps {r['steps']:5d} attempted "
               f"{r['attempted']:9d} wall {r['wall_s'] * 1e3:8.1f} ms")
-    print(f"  step kernel launches {launches}, plain-version calls {calls}, "
-          f"rays on the stiff pool {n_stiff}")
+    print(f"  step kernel launches {launches} ({drive.team_launches} through "
+          f"the team body), plain-version calls {calls}, rays on the stiff "
+          f"pool {n_stiff}")
     print(f"  {what}: wall {wall:.4f} s, {steps} attempted ray-steps, "
           f"{steps / wall / 1e6:.2f}M ray-steps/s on {card}", flush=True)
     return out, wall, launches, calls
+
+
+def tail_timing(what, card, reps=2):
+    """The last launch of the last drive (the merged tail of a run with
+    one) replayed on the card: {ms, rays, bucket, attempts, longest}."""
+    from raytrace_tpu_torch.kernel_ab import replay_tail
+
+    t = replay_tail(drive.tail, reps, env=drive.tail["env"])
+    t.pop("out")
+    print(f"  {what}: the last launch replayed, {t['rays']} rays in a "
+          f"bucket of {t['bucket']}, {t['attempts']:,} attempts made (the "
+          f"longest ray {t['longest']:,}): {t['ms']:.3f} ms, "
+          f"{t['ms'] * 1e3 / max(t['longest'], 1):.3f} us per attempt of "
+          f"the longest on {card}", flush=True)
+    return t
+
+
+def body(launches, what, team):
+    """Fails unless every launch of the last drive went through the team
+    body (team) or none did (the instances that keep the one-thread
+    body)."""
+    if team:
+        check(launches > 0 and drive.team_launches == launches,
+              f"{what}: all {launches} launches went through the team body")
+    else:
+        check(launches > 0 and drive.team_launches == 0,
+              f"{what}: all {launches} launches went through the one-thread "
+              "body (its instance keeps it)")
+
+
+def stop_branches(dev):
+    """Phase 19: EVANESCENT (stop_retrograde, a third of the rays started
+    at a negative group delay) and ESCAPED (r_ceil 2% above the launch
+    radius) through two team instances (the 3D full float bs3 and double
+    dopri5) and a one-thread instance (the 2D float bs3), every 10th ray x
+    128 attempts, bit for bit with the plain version; each stop must
+    occur."""
+    from raytrace_tpu_torch.integrate import events
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    for name, dt_name, stepper, team, what in (
+        ("ensemble10k_plume", "float32", "bs3", True,
+         "team body, 3D full medium"),
+        ("ensemble10k_plume", "float64", "dopri5", True,
+         "team body, 3D full medium"),
+        ("ensemble10k", "float32", "bs3", False,
+         "one-thread body, 2D axisymmetric"),
+    ):
+        carry, f, env, cfg, spec, kw = start(name, dt_name, dev, every=10)
+        spec = spec._replace(r_ceil=float(carry.u[:, 0].max()) * 1.02,
+                             stop_retrograde=1.0)
+        u = carry.u.clone()
+        u[::3, -1] = -1.0e-3
+        carry = carry._replace(u=u)
+        k = sc.team_warps(0 if dt_name == "float32" else 1,
+                          sc._STEPPER_CODE[stepper],
+                          sc._FRAME_CODE[kw["frame"]][0],
+                          sc.medium_code(env, cfg), sc.field_code(env))
+        check((k > 0) == team, f"{name} {dt_name} {stepper} takes the {what}")
+        got, ref, _ = both(carry, f, env, cfg, spec, stepper, 128, kw)
+        n_diff = n_differ(got, ref)
+        n_esc = int((got["status"] == events.ESCAPED).sum())
+        n_eva = int((got["status"] == events.EVANESCENT).sum())
+        print(f"  {name} {dt_name} {stepper} ({what}), {f.shape[0]:,} rays x "
+              f"128 steps: {n_esc} ESCAPED, {n_eva} EVANESCENT, {n_diff} "
+              "values differ", flush=True)
+        check(n_esc > 0 and n_eva > 0 and n_diff == 0,
+              f"{name} {dt_name} {stepper}: ESCAPED and EVANESCENT launched, "
+              "bit for bit with the plain version")
 
 
 def rays_alone(name, rays, out64):
@@ -1111,6 +1212,8 @@ def colat_slices(card):
     check(launches32 > 0 and calls == 0,
           "the colatitude fan stepped through the kernel, never the plain "
           "version")
+    body(launches32, "the colatitude fan float32", team=False)
+    tail = tail_timing("the colatitude fan float32", card)
     check(np.isfinite(out32["result"].u[out32["valid"]]).all(),
           "every final state is finite")
     print("  the colatitude fan, float64", flush=True)
@@ -1142,7 +1245,7 @@ def colat_slices(card):
                           f"JAX package's own: {pin['jax_match']:.2%})")
     check(med_rel < 1e-4, "median relative landing-L error < 1e-4 (the JAX "
                           "package's own: 3.58e-6)")
-    return launches32
+    return launches32, tail
 
 
 def emic_slice(card):
@@ -1189,6 +1292,7 @@ def rk4_slice(card):
     out32, _, launches, calls = drive(conf, "float32", card)
     check(launches > 0 and calls == 0,
           "the rk4 fan stepped through the kernel, never the plain version")
+    body(launches, "the rk4 fan float32", team=False)
     check(int(out32["stats"]["total_rejected_steps"]) == 0,
           "fixed steps: no rejection")
     print("  (float32 reported: the JAX package's on a CPU is HIT_EARTH "
@@ -1200,6 +1304,8 @@ def rk4_slice(card):
     med64 = float(st64["median_landing_l"])
     check(launches64 > 0 and calls == 0,
           "float64 stepped through the kernel, never the plain version")
+    body(launches64, "the rk4 fan float64", team=False)
+    tail = tail_timing("the rk4 fan float64", card)
     pin = RK4_F64
     n_hit = int(st64["n_hit_earth"])
     n_mpt = int(st64["n_max_phase_time"])
@@ -1220,7 +1326,7 @@ def rk4_slice(card):
     print(f"  float32 vs float64: {match * 100:.2f}% statuses match, median "
           f"relative landing-L error {med_rel:.3e} over {n_m} matched "
           "HIT_EARTH rays (the JAX package's own: 99.53%, 2.35e-6)")
-    return launches64
+    return launches64, tail
 
 
 def main():
@@ -1326,6 +1432,8 @@ def main():
           "perf_r03l.json)")
     check(launches_2d > 0, "the slice stepped through the kernel")
     check(ref_calls == 0, "the plain version was not called")
+    body(launches_2d, "ensemble10k float32", team=False)
+    tails = {"2d": tail_timing("ensemble10k float32", card)}
     check(abs(n_hit - REC_HIT_EARTH) <= 0.01 * REC_HIT_EARTH,
           f"HIT_EARTH {n_hit} within 1% of the TPU record {REC_HIT_EARTH}")
     check(abs(steps - REC_STEPS) <= 0.05 * REC_STEPS,
@@ -1480,6 +1588,8 @@ def main():
     med_l = float(stats["median_landing_l"])
     check(launches_prod > 0, "the slice stepped through the kernel")
     check(ref_calls == 0, "the plain version was not called")
+    body(launches_prod, "ensemble10k_production float32", team=False)
+    tails["prod"] = tail_timing("ensemble10k_production float32", card)
     check(abs(n_hit - RECP_HIT_EARTH) <= 0.01 * RECP_HIT_EARTH,
           f"HIT_EARTH {n_hit} within 1% of the TPU record {RECP_HIT_EARTH}")
     check(abs(steps - RECP_STEPS) <= 0.05 * RECP_STEPS,
@@ -1514,6 +1624,12 @@ def main():
         for dt_name, stepper in (("float32", "bs3"), ("float64", "dopri5")):
             bit_for_bit(f"2D knee fan over {label}", "knee", dt_name,
                         stepper, dev, 512, medium=med)
+    # the team body's density pieces over every other gate of the chain
+    for label, kw in TEAM_MEDIA.items():
+        med = MediumConfig(b0=B0_3D, **kw)
+        for dt_name, stepper in (("float32", "bs3"), ("float64", "dopri5")):
+            bit_for_bit(f"plume fan over {label}", "ensemble10k_plume",
+                        dt_name, stepper, dev, 128, every=10, medium=med)
 
     # the full chain with every feature flag off performs the axisymmetric
     # chain's operations in the same order, so it must agree with the
@@ -1572,6 +1688,8 @@ def main():
     n_hit = int(stats["n_hit_earth"])
     check(launches_plume > 0, "the plume slice stepped through the kernel")
     check(ref_calls == 0, "the plain version was not called")
+    body(launches_plume, "ensemble10k_plume float32", team=True)
+    tails["plume"] = tail_timing("ensemble10k_plume float32", card)
     check(abs(n_hit - RECM_HIT_EARTH) <= RECM_HIT_RTOL * RECM_HIT_EARTH,
           f"HIT_EARTH {n_hit} within {RECM_HIT_RTOL:.0%} of the TPU record "
           f"{RECM_HIT_EARTH}")
@@ -1624,6 +1742,8 @@ def main():
     n_hit = int(stats["n_hit_earth"])
     check(launches_mr > 0, "the mr_fan_3d slice stepped through the kernel")
     check(ref_calls == 0, "the plain version was not called")
+    body(launches_mr, "mr_fan_3d float32", team=True)
+    tails["mr"] = tail_timing("mr_fan_3d float32", card)
     check(abs(n_hit - CPU_F32_R_HIT_EARTH)
           <= CPU_F32_R_HIT_RTOL * CPU_F32_R_HIT_EARTH,
           f"HIT_EARTH {n_hit} within {CPU_F32_R_HIT_RTOL:.0%} of the JAX "
@@ -1679,13 +1799,23 @@ def main():
     launches_local = local_slice(card)
     print("[16] raymain and the ensemble10k fan in the colatitude frame",
           flush=True)
-    launches_colat = colat_slices(card)
+    launches_colat, tails["colat"] = colat_slices(card)
     print("[17] emic_heband", flush=True)
     launches_emic = emic_slice(card)
     print("[18] the ensemble10k fan with fixed-step rk4", flush=True)
-    launches_rk4 = rk4_slice(card)
+    launches_rk4, tails["rk4"] = rk4_slice(card)
+    print("[19] the stop branches ESCAPED and EVANESCENT vs plain PyTorch",
+          flush=True)
+    stop_branches(dev)
 
-    def entry(name, launches, err, t):
+    def entry(name, launches, err, t, tail=None, team=False):
+        # the body of the instance; with the time of the run's last
+        # launch, the merged tail where the run has one
+        more = {"body": "team4" if team else "one-thread"}
+        if tail is not None:
+            more.update(tail_ms=tail["ms"], tail_rays=tail["rays"],
+                        tail_bucket=tail["bucket"],
+                        tail_attempts=tail["attempts"])
         return {
             "name": name,
             "route": "cuda",
@@ -1699,18 +1829,22 @@ def main():
             "bound_by": t["bound_by"],
             # no single PyTorch call computes a multi-step adaptive chunk
             "library_ms": None,
+            **more,
         }
 
     print(json.dumps({"kernels": [
-        entry("step_chunk[2d_lat,float32,bs3]", launches_2d, err_2d, t_2d),
+        entry("step_chunk[2d_lat,float32,bs3]", launches_2d, err_2d, t_2d,
+              tails["2d"]),
         entry("step_chunk[3d,float32,bs3]", launches_3d, err_3d,
               timings["ensemble10k_3d", "float32", "bs3"]),
         entry("step_chunk[2d_lat+ds_max,float32,bs3]", launches_prod,
-              err_prod, timings["ensemble10k_production", "float32", "bs3"]),
+              err_prod, timings["ensemble10k_production", "float32", "bs3"],
+              tails["prod"]),
         entry("step_chunk[3d+full_medium(mlt),float32,bs3]", launches_plume,
-              err_plume, t_full["plume", "float32", "bs3"]),
+              err_plume, t_full["plume", "float32", "bs3"], tails["plume"],
+              team=True),
         entry("step_chunk[3d+full_medium(mlt),float32,bs3](mr_fan_3d)",
-              launches_mr, err_mr, t_mr),
+              launches_mr, err_mr, t_mr, tails["mr"], team=True),
         entry("step_chunk[3d+full_medium(mlt)+tilted_field,float32,bs3]",
               launches_tilted, *general["tilted"]),
         entry("step_chunk[3d+full_medium(mlt)+igrf_field,float32,bs3]",
@@ -1718,11 +1852,11 @@ def main():
         entry("step_chunk[2d_lat+ds_local,float32,bs3]", launches_local,
               *variants["local"]),
         entry("step_chunk[2d_colat,float32,bs3]", launches_colat,
-              *variants["colat"]),
+              *variants["colat"], tails["colat"]),
         entry("step_chunk[2d_lat+multi_ion,float32,dopri5]", launches_emic,
               *variants["multi_ion"]),
         entry("step_chunk[2d_lat,float64,rk4]", launches_rk4,
-              *variants["rk4"]),
+              *variants["rk4"], tails["rk4"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -74,15 +74,14 @@
 // parallel nvcc processes and linked into one library (SC_PART below).
 //
 // Design for the card, not block by block:
-//   - one thread per ray; the thread loads its ray's 14-field carry into
-//     registers, runs up to n_steps attempts and writes the carry back IN
-//     PLACE (the buffers are aliased in -> out, as the Pallas kernel's
-//     input_output_aliases were);
-//   - a thread leaves its loop as soon as its ray is no longer ACTIVE:
-//     exact, because _step_one is a no-op on a ray that is not ACTIVE;
+//   - the carry of a ray lives in registers for all n_steps attempts and
+//     is written back IN PLACE (the buffers are aliased in -> out, as the
+//     Pallas kernel's input_output_aliases were);
+//   - _step_one is a no-op on a ray that is not ACTIVE, so a ray that
+//     stops stays as it stopped;
 //   - field-major layout: vectors are (n, B), per-ray scalars (B,), so
-//     neighbouring threads read neighbouring addresses (the Pallas
-//     kernel's (n, B) layout, kept here for coalescing);
+//     neighbouring rays read neighbouring addresses (the Pallas kernel's
+//     (n, B) layout, kept here for coalescing);
 //   - every scalar of the medium, SolverConfig, StopSpec and the root is a
 //     kernel argument passed by value (Pallas closed over them as
 //     compile-time constants), so one build serves every medium.
@@ -97,19 +96,44 @@
 // ~2,960 and ~3,620; over the full medium ~1,620 in 2D and ~2,010 in 3D
 // with the MLT plasmapause), so 10,240 rays x 512 float32 bs3 attempts is
 // bound at ~0.07-0.11 ms by the card's 67 TFLOP/s, against ~1e-3 ms for
-// the bytes. Each thread is one long dependent chain, so the kernel runs
-// at the latency of that chain, 25-50x above the bound (2.7 ms in 2D,
-// 3.2 ms in 3D, 4.2 ms in 3D over the MLT medium, 5.3 ms over the tilted
-// field and 6.1 ms over IGRF, PERF.md), and a
-// 10,240-ray batch fills only part of the
-// 132 SMs (80 blocks of 128 threads). What the design does about it:
-// nothing leaves registers between attempts, the whole chain is inlined
-// so the compiler can interleave independent sub-chains (the Stix terms,
-// the state components), and a finished ray costs its warp nothing but
-// the loop exit. More rays per SM or splitting rays across threads is
-// later work. The 7-state dopri5 instances spill: double 64 bytes
-// (axisymmetric) and 56 (full medium), and float over the full medium 48
-// bytes at 128 registers (PERF.md lists -Xptxas -v).
+// the bytes. But one ray is one long dependent chain: its attempts come
+// one after another, its three right-hand sides too, and a 10,240-ray
+// batch is 320 warps for the card's 528 warp schedulers, so each
+// scheduler has at most one warp to issue from while that warp waits on
+// its chain (2.7 ms in 2D, 4.3 ms in 3D over the MLT medium, 25-50x above
+// the bound, PERF.md). The long-tailed runs end on a merged tail of 4-50
+// rays that runs thousands of attempts on one warp a ray.
+//
+// Two bodies, chosen per instance at compile time (team_warps below):
+//   - the one-thread body: one thread per ray, blocks of kThreads rays; a
+//     thread leaves its loop once its ray stops. The whole chain is
+//     inlined so that the compiler can interleave independent sub-chains
+//     within the thread.
+//   - the team body (team_warps below: every 3D full-chain instance over
+//     the dipole): one ray is served by a team, the same lane in each of
+//     the K = kTeamWarps = 4 warps of a block, so a block serves 32 rays.
+//     Warp 0 holds the carry and runs the attempt, the controller, the
+//     classification and the two-sum update; the other three warps are
+//     helpers that compute the pieces of each right-hand side (the geometry,
+//     the psi cosines and the Stix terms of the field; the ionosphere and
+//     the MLT-resolved plasmapause; the density's terms in L and the Kimura
+//     rows' trigonometry) while warp 0 waits. The exchange is shared memory
+//     laid out [slot][lane] with two barriers a right-hand side: warp 0
+//     posts the stage's state, the helpers post their pieces. Warps, never
+//     lanes, take the roles (lanes of one warp that run different code
+//     serialize), and the helpers skip the rays that are not live, so a ray
+//     that has stopped (its state may sit at a wedge, where divisions take
+//     their slow paths) costs nothing. Warp 0 leaves its loop once none of
+//     its rays is ACTIVE (__any_sync) and posts an exit that the helpers
+//     read at their next barrier; a lane with no ray rides along, never
+//     live.
+//     This design replaced a first one in which every warp ran the
+//     controller and the Stix core redundantly: that one ran 1.0-2.2x
+//     slower than the one-thread body, the four warps issuing four times
+//     the remainder of each right-hand side (PERF.md).
+// The 7-state axisymmetric double dopri5 instance spills 64 bytes, and the
+// team body's double instances, held to 168 registers (kTeamBlocks
+// below), spill too (PERF.md lists -Xptxas -v).
 //
 // The FULL medium's scalars that depend on the env alone (1/ps_smooth,
 // log(gcpm_ne0), cos(ps_mlt_a0), ...: ops/fused.py::MediumConsts) are
@@ -197,6 +221,29 @@ constexpr int kThreads = 128;
 constexpr int kMaxHarm = 8;  // harmonics of the MLT plasmapause shape
 constexpr int kMaxShells = 4;  // shells of the local arc ceiling
 constexpr int kMaxIon = 3;     // ion species: protons, He+, O+
+
+// Warps of a team in the team body (the design note above), and which
+// instances take it; 0: the one-thread body. dtype 0 = float, 1 = double.
+// A compile-time choice per instance, by the times measured against the
+// one-thread body at the full launch (10,240 rays x 512 attempts) and on
+// the merged tails (PERF.md): the 3D full chain over the dipole takes it in
+// every instance (faster at both shapes). Every other instance keeps the
+// one-thread body: the 2D axisymmetric chain ran 7-13% slower on the team
+// body in float bs3 and dopri5 and double bs3 and rk4, at the full launch
+// and on its runs' tails, and its double dopri5 instance, faster at the
+// full launch, ran raymain's one ray 8% slower.
+constexpr int kTeamWarps = 4;
+// blocks of the team body resident on an SM that its register allocation
+// must leave room for: 10,240 rays are 320 blocks over 132 SMs (unbounded,
+// the double instances took 216-255 registers, two blocks a SM, and ran
+// the launch in two waves)
+constexpr int kTeamBlocks = 3;
+
+constexpr int team_warps(int dtype, int stepper, int frame, int medium,
+                         int field) {
+  return frame == KIM3D && medium == FULL && field == DIPOLE ? kTeamWarps
+                                                             : 0;
+}
 
 // state dimension of a frame; the group delay is the last component
 template <int FRAME>
@@ -468,6 +515,42 @@ __device__ __forceinline__ void ne_and_grads(T r, T sl, T cl,
   ne_lat = (T(1.0e6) * de) * (dne_p * L_lat);
 }
 
+// The pieces of the team body (the design note above): the parts of a
+// right-hand side that depend on few inputs (the field geometry, the
+// ionosphere, the plasmasphere's terms in L, the Stix terms of the field
+// alone), each computed by one helper warp and handed to warp 0 whole
+// through shared memory (a piece is a struct of T), and the remainder that
+// combines them. The geometry and the Stix pieces serve both bodies. The
+// density pieces (ne_head, ne_lterms, ne_tail below) compute what
+// ne_and_grads_full computes, operation for operation, so that the bodies
+// agree bit for bit; the one-thread body keeps ne_and_grads_full whole,
+// since composed from the pieces (their flag checks repeated between
+// them) its instances ran 2-4% slower (PERF.md).
+
+// L = r / cos^2(lat) and dL/dr; 1/cos(lat) for dL/dlat = 2 L sin/cos
+template <typename T>
+struct LShell {
+  T L, L_r, inv_cl;
+};
+
+template <typename T>
+__device__ __forceinline__ LShell<T> l_shell(T r, T cl) {
+  LShell<T> s;
+  s.inv_cl = T(1) / cl;
+  const T inv_cl2 = s.inv_cl * s.inv_cl;
+  s.L = r * inv_cl2;
+  s.L_r = inv_cl2;
+  return s;
+}
+
+// the diffusive-equilibrium factor and its d/dr
+template <typename T>
+__device__ __forceinline__ void de_factor(T r, T& de, T& de_r) {
+  const T G = T(kDeRbase) * (T(1) - recip(r * T(kRE)) * T(kDeRbase));
+  de = d_sqrt(d_exp(-G * recip(T(kDeS))));
+  de_r = -de * T(kDeRbase) * T(kDeRbase) / (T(2.0 * kDeS) * r * r * T(kRE));
+}
+
 // models/medium.py::_mlt_shape: the Fourier plasmapause shape at a0 + phi
 // and its phi-slope by angle recursion (one sin, one cos), and the
 // day-night trough with its phi-slope. Unrolled to kMaxHarm so that every
@@ -684,63 +767,273 @@ __device__ __forceinline__ void ne_and_grads_full(T r, T sl, T cl, T phi,
   if (mlt) ne_phi = (T(1.0e6) * de) * ne_p_phi;
 }
 
-// ops/fused.py::_stix_quartic_grads: mu and its partials w.r.t. (ne, |B|,
-// f, geometry), over the protons alone or, with IONS, over the p.n_ion
-// species of p.ion_fpe2/p.ion_fce; the geometry variable is psi (2D) or,
-// with WRT_COS, cos(psi) (3D)
-template <typename T, bool WRT_COS, bool IONS>
-__device__ __forceinline__ void stix_quartic_grads(T ne, T bm, T f, T sinpsi,
-                                                   T cospsi,
-                                                   const KParams<T>& p, T& mu,
-                                                   T& dmu_dn, T& dmu_db,
-                                                   T& dmu_df, T& dmu_dpsi) {
-  const T root = p.root;
-  const T inv_f = T(1) / f;
-  const T ncm = ne * T(1.0e-6);
-  const T xe = T(kFPE2_E) * ncm * inv_f * inv_f;
-  const T ye = T(kFCE_E) * bm * inv_f;
-  const T inv_de = T(1) / (T(1) - ye * ye);
-  const T ae = (T(1) + ye) * inv_de;
-  const T be = (T(1) - ye) * inv_de;
-  // species sums in species order, Sa = sum x a, Say = sum x a^2 y (ditto
-  // b) with a = 1/(1 + y), b = 1/(1 - y); the protons start each sum
-  T Sa, Sb, Say, Sby, Sx;
-  if constexpr (!IONS) {
-    const T xi = T(kFPE2_P) * ncm * inv_f * inv_f;
-    const T yi = T(kFCE_P) * bm * inv_f;
-    const T inv_di = T(1) / (T(1) - yi * yi);
-    const T ai = (T(1) - yi) * inv_di;
-    const T bi = (T(1) + yi) * inv_di;
-    Sa = xi * ai;
-    Sb = xi * bi;
-    Say = xi * ai * ai * yi;
-    Sby = xi * bi * bi * yi;
-    Sx = xi;
+// ne_and_grads_full in three pieces: ne_head (the ionosphere and, with
+// `mlt`, the plasmapause's parameters at the longitude phi, models/
+// medium.py::mlt_ps_params and mlt_gcpm_params), ne_lterms (what depends on
+// r, lat and L alone), and ne_tail, which combines them into the total
+// density and its partials. They take no field geometry, so a team body of
+// the general-field chain can call them at (mlat, mlon) (ROADMAP B4).
+template <typename T>
+struct NeHead {
+  T ni, ni_r;
+  // the effective plasmapause (the env's own without `mlt`) and its
+  // phi-slopes; log of the effective ne at lppi for the smoothed blend
+  T lppi_e, lppo_e, ne_lppi_e, trough_e, dlppi, dlppo, dg1i, dtrough, ln_nl;
+};
+
+template <typename T>
+struct NeLTerms {
+  T L, L_r, L_lat;
+  T g1, ne1, dne1, Ls, inv_Ls, f45, e3;  // CA1992
+  T w_r, one_m_w, dw;                    // the trough refill's weight
+  T dln_m, ln_ps, Lsg, f45g, e3g;        // GCPM
+  T duct_g, duct_dg;                     // the duct and its d/dL
+  T de, de_r;                            // diffusive equilibrium
+};
+
+template <typename T>
+__device__ __forceinline__ NeHead<T> ne_head(T r, T phi, bool mlt,
+                                             const KParams<T>& p) {
+  NeHead<T> h;
+  const T dr0 = r - p.iono_r0;
+  h.ni = p.iono_n0 * d_exp(-p.iono_decay * dr0);
+  h.ni_r = -p.iono_decay * h.ni;
+  if (p.iono_mix_on) {  // day/night blend of two fits
+    const T nb = p.iono_n0_b * d_exp(-p.iono_decay_b * dr0);
+    h.ni = p.iono_mix * h.ni + p.one_m_mix * nb;
+    h.ni_r = p.iono_mix * h.ni_r + p.one_m_mix * (-p.iono_decay_b * nb);
+  }
+  h.lppi_e = p.lppi;
+  h.lppo_e = p.lppo;
+  h.ne_lppi_e = p.ne_lppi;
+  h.trough_e = p.ps_trough;
+  h.dlppi = h.dlppo = h.dg1i = h.dtrough = T(0);
+  h.ln_nl = p.ln_ne_lppi;
+  if (!p.ps_on || !mlt) return h;
+  // the knee and trough move with MLT
+  T shape, dshape;
+  mlt_shape(phi, p, shape, dshape, h.trough_e, h.dtrough);
+  if (p.gcpm_on) {
+    h.lppo_e = p.lppo * shape;
+    h.dlppo = p.lppo * dshape;
+  } else {  // CA1992 at the MLT-resolved parameters
+    h.lppi_e = p.lppi * shape;
+    h.dlppi = p.lppi * dshape;
+    const T e_i = d_exp((T(2) - h.lppi_e) * recip(T(1.5)));
+    const T g1i = (T(-0.3145) * h.lppi_e + T(3.9043)) + p.ps_season * e_i;
+    h.dg1i = (T(-0.3145) - p.ps_season * e_i * recip(T(1.5))) * h.dlppi;
+    h.ne_lppi_e = d_exp(T(kLN10) * g1i);
+    h.lppo_e = h.lppi_e + T(0.1) * (g1i - p.ps_mlt_c3);
+    h.dlppo = h.dlppi + T(0.1) * h.dg1i;
+    if (p.smooth_on) h.ln_nl = d_log(h.ne_lppi_e);
+  }
+  return h;
+}
+
+template <typename T>
+__device__ __forceinline__ NeLTerms<T> ne_lterms(T r, T sl, T cl,
+                                                 const KParams<T>& p) {
+  NeLTerms<T> b{};
+  if (!p.ps_on) return b;
+  const LShell<T> s = l_shell(r, cl);
+  const T L = s.L;
+  b.L = L;
+  b.L_r = s.L_r;
+  b.L_lat = T(2) * L * sl * s.inv_cl;
+  if (p.gcpm_on) {
+    // simplified GCPM: the log-space value's L part and the direct d/dlat
+    // at fixed L (the mirror ratio)
+    const T q2g = T(1) + T(3) * sl * sl;
+    const T ln_m = T(0.5) * d_log(q2g) - T(6) * d_log(cl);
+    b.dln_m = T(3) * sl * cl / q2g + T(6) * sl / cl;
+    b.ln_ps =
+        (p.ln_gcpm_ne0 - (L - T(2)) * p.inv_lscale) + p.gcpm_bpow * ln_m;
+    b.Lsg = jmax(L, T(1.0e-6));
+    b.f45g = d_exp(T(-4.5) * d_log(b.Lsg));
+    b.e3g = d_exp((T(2) - L) * recip(T(10)));
   } else {
-    Sa = Sb = Say = Sby = Sx = T(0);
-#pragma unroll
-    for (int k = 0; k < kMaxIon; ++k) {
-      if (k >= p.n_ion) break;
-      const T xi = p.ion_fpe2[k] * ncm * inv_f * inv_f;
-      const T yi = p.ion_fce[k] * bm * inv_f;
-      const T inv_di = T(1) / (T(1) - yi * yi);
-      const T ai = (T(1) - yi) * inv_di;
-      const T bi = (T(1) + yi) * inv_di;
-      if (k == 0) {
-        Sa = xi * ai;
-        Sb = xi * bi;
-        Say = xi * ai * ai * yi;
-        Sby = xi * bi * bi * yi;
-        Sx = xi;
-      } else {
-        Sa = Sa + xi * ai;
-        Sb = Sb + xi * bi;
-        Say = Say + xi * ai * ai * yi;
-        Sby = Sby + xi * bi * bi * yi;
-        Sx = Sx + xi;
+    const T e1 = d_exp((T(2) - L) * recip(T(1.5)));
+    b.g1 = (T(-0.3145) * L + T(3.9043)) + p.ps_season * e1;
+    b.ne1 = d_exp(T(kLN10) * b.g1);
+    b.dne1 =
+        T(kLN10) * b.ne1 * (T(-0.3145) - p.ps_season * e1 * recip(T(1.5)));
+    b.Ls = jmax(L, T(1.0e-6));
+    b.inv_Ls = T(1) / b.Ls;
+    const T inv_Ls2 = b.inv_Ls * b.inv_Ls;
+    b.f45 = (inv_Ls2 * inv_Ls2) * d_rsqrt(b.Ls);
+    b.e3 = d_exp((T(2) - L) * T(0.1));
+    if (p.refill_on) {
+      b.w_r = p.ps_refill;
+      b.one_m_w = p.one_m_refill;
+      b.dw = T(0);
+      if (p.refill_q_on) {  // per-L weight (plasmasphere.refill_weight)
+        const T e_r = d_exp(p.ps_refill_q * (p.ln_lref - d_log(b.Ls)));
+        const T keep = d_exp(e_r * p.ln_keep);
+        b.w_r = T(1) - keep;
+        b.one_m_w = T(1) - b.w_r;
+        b.dw = keep * p.ln_keep * p.ps_refill_q * e_r / b.Ls;
       }
     }
   }
+  if (p.duct_on) {  // Gaussian duct: value and d/dL together
+    const T x = (L - p.duct_l0) * p.inv_duct_w;
+    const T e = d_exp(T(-0.5) * x * x);
+    b.duct_g = T(1) + p.duct_amp * e;
+    b.duct_dg = p.duct_slope * x * e;
+  }
+  b.de = T(1);
+  b.de_r = T(0);
+  if (p.de_on) de_factor(r, b.de, b.de_r);
+  return b;
+}
+
+template <typename T>
+__device__ __forceinline__ void ne_tail(const NeHead<T>& h,
+                                        const NeLTerms<T>& b, bool mlt,
+                                        const KParams<T>& p, T& ne, T& ne_r,
+                                        T& ne_lat, T& ne_phi) {
+  ne_phi = T(0);
+  if (!p.ps_on) {
+    ne = T(1.0e6) * h.ni;
+    ne_r = T(1.0e6) * h.ni_r;
+    ne_lat = T(0);
+    return;
+  }
+  const T L = b.L;
+  T ne_p, dne_p, ne_p_phi = T(0), lat_direct = T(0);
+  if (p.gcpm_on) {
+    // simplified GCPM: log-space value, d/dL and the direct d/dlat
+    const T p3g = h.trough_e * b.f45g;
+    const T ne3g = p3g + (T(1) - b.e3g);
+    const T ln_tr = d_log(ne3g);
+    const T dln_tr = (T(-4.5) * p3g / b.Lsg + b.e3g * recip(T(10))) / ne3g;
+    const T wk = T(1) / (T(1) + d_exp(-(h.lppo_e - L) * p.inv_knee));
+    const T dwk = -wk * (T(1) - wk) * p.inv_knee;
+    ne_p = d_exp(wk * b.ln_ps + (T(1) - wk) * ln_tr);
+    dne_p = ne_p * (dwk * (b.ln_ps - ln_tr) - wk * p.inv_lscale +
+                    (T(1) - wk) * dln_tr);
+    lat_direct = ne_p * wk * p.gcpm_bpow * b.dln_m;
+    if (mlt) {
+      const T dwk_phi = wk * (T(1) - wk) * p.inv_knee * h.dlppo;
+      const T dln_tr_phi = h.dtrough * b.f45g / ne3g;
+      ne_p_phi =
+          ne_p * (dwk_phi * (b.ln_ps - ln_tr) + (T(1) - wk) * dln_tr_phi);
+    }
+  } else {
+    // CA1992 at the effective (MLT-resolved) or the env parameters
+    const T ne2 =
+        h.ne_lppi_e * d_exp(T(kLN10) * (h.lppi_e - L) * recip(T(0.1)));
+    const T dne2 = T(-(kLN10 / 0.1)) * ne2;
+    const T p3 = h.trough_e * b.f45;
+    T ne3 = p3 + (T(1) - b.e3);
+    T dne3 = T(-4.5) * p3 * b.inv_Ls + b.e3 * T(0.1);
+    T dln2_phi = T(0), dne2_phi = T(0), dne3_phi = T(0);
+    if (mlt) {
+      dln2_phi = T(kLN10) * (h.dg1i + h.dlppi * recip(T(0.1)));
+      dne2_phi = ne2 * dln2_phi;
+      dne3_phi = h.dtrough * b.f45;
+    }
+    if (p.refill_on) {  // log-space trough refill toward branch 1
+      const T ln3 = d_log(ne3);
+      const T ln1 = T(kLN10) * b.g1;
+      const T ln3_eff = b.one_m_w * ln3 + b.w_r * ln1;
+      T dln3_eff = b.one_m_w * (dne3 / ne3) + b.w_r * (b.dne1 / b.ne1);
+      if (p.refill_q_on) dln3_eff = dln3_eff + b.dw * (ln1 - ln3);
+      const T ne3_eff = d_exp(ln3_eff);
+      if (mlt) dne3_phi = ne3_eff * b.one_m_w * (dne3_phi / ne3);
+      ne3 = ne3_eff;
+      dne3 = ne3 * dln3_eff;
+    }
+    if (p.smooth_on) {
+      // log-space sigmoid blends; ln2 analytically (ne2 may underflow)
+      const T inv_w = p.inv_smooth;
+      const T s1 = T(1) / (T(1) + d_exp(-(h.lppi_e - L) * inv_w));
+      const T s2 = T(1) / (T(1) + d_exp(-(h.lppo_e - L) * inv_w));
+      const T ds1 = -s1 * (T(1) - s1) * inv_w;
+      const T ds2 = -s2 * (T(1) - s2) * inv_w;
+      const T ln1 = T(kLN10) * b.g1;
+      const T dln1 = b.dne1 / b.ne1;
+      const T ln2 = h.ln_nl + T(kLN10) * (h.lppi_e - L) * recip(T(0.1));
+      const T dln2 = T(-(kLN10 / 0.1));
+      const T ln3 = d_log(ne3);
+      const T dln3 = dne3 / ne3;
+      const T inner = s2 * ln2 + (T(1) - s2) * ln3;
+      const T dinner = ds2 * (ln2 - ln3) + s2 * dln2 + (T(1) - s2) * dln3;
+      const T lns = s1 * ln1 + (T(1) - s1) * inner;
+      ne_p = d_exp(lns);
+      dne_p = ne_p * (ds1 * (ln1 - inner) + s1 * dln1 + (T(1) - s1) * dinner);
+      if (mlt) {
+        const T ds1_phi = -ds1 * h.dlppi;
+        const T ds2_phi = -ds2 * h.dlppo;
+        const T dln3_phi = dne3_phi / ne3;
+        const T dinner_phi = ds2_phi * (ln2 - ln3) + s2 * dln2_phi +
+                             (T(1) - s2) * dln3_phi;
+        ne_p_phi = ne_p * (ds1_phi * (ln1 - inner) + (T(1) - s1) * dinner_phi);
+      }
+    } else {
+      // hard branches with <= at the effective boundaries; the d/dphi of
+      // branch 1 is exactly 0
+      const bool in1 = L <= h.lppi_e;
+      const bool in2 = L <= h.lppo_e;
+      ne_p = in1 ? b.ne1 : (in2 ? ne2 : ne3);
+      dne_p = in1 ? b.dne1 : (in2 ? dne2 : dne3);
+      if (mlt) ne_p_phi = in1 ? T(0) : (in2 ? dne2_phi : dne3_phi);
+    }
+  }
+
+  if (p.duct_on) {
+    dne_p = dne_p * b.duct_g + ne_p * b.duct_dg;
+    ne_p = ne_p * b.duct_g;
+    lat_direct = lat_direct * b.duct_g;
+    ne_p_phi = ne_p_phi * b.duct_g;
+  }
+  T lat_term = dne_p * b.L_lat;
+  if (p.gcpm_on) lat_term = lat_term + lat_direct;
+  ne = T(1.0e6) * (h.ni + ne_p * b.de);
+  ne_r = T(1.0e6) * (h.ni_r + (dne_p * b.L_r * b.de + ne_p * b.de_r));
+  ne_lat = (T(1.0e6) * b.de) * lat_term;
+  if (mlt) ne_phi = (T(1.0e6) * b.de) * ne_p_phi;
+}
+
+// ops/fused.py::_stix_quartic_grads: mu and its partials w.r.t. (ne, |B|,
+// f, geometry), over the protons alone (stix_field, then stix_protons) or,
+// with IONS, over the p.n_ion species of p.ion_fpe2/p.ion_fce; the
+// geometry variable is psi (2D) or, with WRT_COS, cos(psi) (3D).
+//
+// The terms of the field alone, electrons and protons: 1/f, y = fc/f,
+// a = 1/(1 +- y), b = 1/(1 -+ y), 1/|B|
+template <typename T>
+struct StixField {
+  T inv_f, ye, ae, be, yi, ai, bi, inv_bm;
+};
+
+template <typename T>
+__device__ __forceinline__ StixField<T> stix_field(T bm, T f) {
+  StixField<T> s;
+  s.inv_f = T(1) / f;
+  s.ye = T(kFCE_E) * bm * s.inv_f;
+  const T inv_de = T(1) / (T(1) - s.ye * s.ye);
+  s.ae = (T(1) + s.ye) * inv_de;
+  s.be = (T(1) - s.ye) * inv_de;
+  s.yi = T(kFCE_P) * bm * s.inv_f;
+  const T inv_di = T(1) / (T(1) - s.yi * s.yi);
+  s.ai = (T(1) - s.yi) * inv_di;
+  s.bi = (T(1) + s.yi) * inv_di;
+  s.inv_bm = T(1) / bm;
+  return s;
+}
+
+// the quartic from the electrons' terms and the species sums in species
+// order, Sa = sum x a, Say = sum x a^2 y (ditto b) with a = 1/(1 + y),
+// b = 1/(1 - y)
+template <typename T, bool WRT_COS>
+__device__ __forceinline__ void stix_quartic(T ne, T xe, T ye, T ae, T be,
+                                             T Sa, T Sb, T Say, T Sby, T Sx,
+                                             T inv_f, T inv_bm, T sinpsi,
+                                             T cospsi, const KParams<T>& p,
+                                             T& mu, T& dmu_dn, T& dmu_db,
+                                             T& dmu_df, T& dmu_dpsi) {
+  const T root = p.root;
   const T R = T(1) - xe * ae - Sa;
   const T L = T(1) - xe * be - Sb;
   const T P = T(1) - xe - Sx;
@@ -748,7 +1041,6 @@ __device__ __forceinline__ void stix_quartic_grads(T ne, T bm, T f, T sinpsi,
   const T R_n = -(xe * ae + Sa) * inv_ne;
   const T L_n = -(xe * be + Sb) * inv_ne;
   const T P_n = -(xe + Sx) * inv_ne;
-  const T inv_bm = T(1) / bm;
   const T R_b = (-xe * ae * ae * ye + Say) * inv_bm;
   const T L_b = (xe * be * be * ye - Sby) * inv_bm;
   const T R_f = (T(2) * (xe * ae + Sa) + (xe * ae * ae * ye - Say)) * inv_f;
@@ -822,6 +1114,146 @@ __device__ __forceinline__ void stix_quartic_grads(T ne, T bm, T f, T sinpsi,
   dmu_db = gscale * (m_R * R_b + m_L * L_b);
   dmu_df = gscale * (m_R * R_f + m_L * L_f + m_P * P_f);
   dmu_dpsi = gscale * s * m_psi;
+}
+
+// over the protons alone, from the field's terms
+template <typename T, bool WRT_COS>
+__device__ __forceinline__ void stix_protons(T ne, const StixField<T>& s,
+                                             T sinpsi, T cospsi,
+                                             const KParams<T>& p, T& mu,
+                                             T& dmu_dn, T& dmu_db, T& dmu_df,
+                                             T& dmu_dpsi) {
+  const T ncm = ne * T(1.0e-6);
+  const T xe = T(kFPE2_E) * ncm * s.inv_f * s.inv_f;
+  const T xi = T(kFPE2_P) * ncm * s.inv_f * s.inv_f;
+  stix_quartic<T, WRT_COS>(ne, xe, s.ye, s.ae, s.be, xi * s.ai, xi * s.bi,
+                           xi * s.ai * s.ai * s.yi, xi * s.bi * s.bi * s.yi,
+                           xi, s.inv_f, s.inv_bm, sinpsi, cospsi, p, mu,
+                           dmu_dn, dmu_db, dmu_df, dmu_dpsi);
+}
+
+template <typename T, bool WRT_COS, bool IONS>
+__device__ __forceinline__ void stix_quartic_grads(T ne, T bm, T f, T sinpsi,
+                                                   T cospsi,
+                                                   const KParams<T>& p, T& mu,
+                                                   T& dmu_dn, T& dmu_db,
+                                                   T& dmu_df, T& dmu_dpsi) {
+  if constexpr (!IONS) {
+    stix_protons<T, WRT_COS>(ne, stix_field(bm, f), sinpsi, cospsi, p, mu,
+                             dmu_dn, dmu_db, dmu_df, dmu_dpsi);
+  } else {
+    const T inv_f = T(1) / f;
+    const T ncm = ne * T(1.0e-6);
+    const T xe = T(kFPE2_E) * ncm * inv_f * inv_f;
+    const T ye = T(kFCE_E) * bm * inv_f;
+    const T inv_de = T(1) / (T(1) - ye * ye);
+    const T ae = (T(1) + ye) * inv_de;
+    const T be = (T(1) - ye) * inv_de;
+    // the protons start each sum
+    T Sa = T(0), Sb = T(0), Say = T(0), Sby = T(0), Sx = T(0);
+#pragma unroll
+    for (int k = 0; k < kMaxIon; ++k) {
+      if (k >= p.n_ion) break;
+      const T xi = p.ion_fpe2[k] * ncm * inv_f * inv_f;
+      const T yi = p.ion_fce[k] * bm * inv_f;
+      const T inv_di = T(1) / (T(1) - yi * yi);
+      const T ai = (T(1) - yi) * inv_di;
+      const T bi = (T(1) + yi) * inv_di;
+      if (k == 0) {
+        Sa = xi * ai;
+        Sb = xi * bi;
+        Say = xi * ai * ai * yi;
+        Sby = xi * bi * bi * yi;
+        Sx = xi;
+      } else {
+        Sa = Sa + xi * ai;
+        Sb = Sb + xi * bi;
+        Say = Say + xi * ai * ai * yi;
+        Sby = Sby + xi * bi * bi * yi;
+        Sx = Sx + xi;
+      }
+    }
+    stix_quartic<T, WRT_COS>(ne, xe, ye, ae, be, Sa, Sb, Say, Sby, Sx, inv_f,
+                             T(1) / bm, sinpsi, cospsi, p, mu, dmu_dn, dmu_db,
+                             dmu_df, dmu_dpsi);
+  }
+}
+
+// One ray's team in the team body: the same lane in each of the K warps
+// of a block. Warp 0 holds the ray's carry and runs the attempt; the other
+// K - 1 warps (the helpers) compute the pieces of each right-hand side.
+// For a right-hand side warp 0 writes its input (the stage's state and
+// whether the ray is live) to `xch`, the block's exchange in shared memory
+// laid out [slot][lane], and meets the helpers at a barrier; each helper
+// computes its pieces for the live rays, writes them, and meets warp 0 at
+// a second barrier; warp 0 reads them and runs the rest. The inputs and
+// the pieces have slots of their own, and every write of one is separated
+// from the reads of the last by a barrier, so one buffer serves.
+template <typename T>
+struct Team {
+  T* xch;
+  int warp, lane;
+  bool live;  // warp 0: its ray is ACTIVE in this attempt
+};
+
+template <typename S, typename T>
+__host__ __device__ constexpr int n_slots() {
+  static_assert(sizeof(S) % sizeof(T) == 0, "a piece is a struct of T");
+  return int(sizeof(S) / sizeof(T));
+}
+
+template <typename T, typename S>
+__device__ __forceinline__ void put(T* x, int lane, int slot, const S& s) {
+  const T* v = reinterpret_cast<const T*>(&s);
+#pragma unroll
+  for (int k = 0; k < n_slots<S, T>(); ++k) x[(slot + k) * 32 + lane] = v[k];
+}
+
+template <typename S, typename T>
+__device__ __forceinline__ S get(const T* x, int lane, int slot) {
+  S s;
+  T* v = reinterpret_cast<T*>(&s);
+#pragma unroll
+  for (int k = 0; k < n_slots<S, T>(); ++k) v[k] = x[(slot + k) * 32 + lane];
+  return s;
+}
+
+// the helper that computes piece `role` (roles 0-2 over the K - 1 helpers)
+template <int K, typename T>
+__device__ __forceinline__ bool serves(const Team<T>& tm, int role) {
+  return tm.warp == 1 + role % (K - 1);
+}
+
+// warp 0's side of an exchange: post the input (team_post), then, after
+// any piece of its own, wait for the helpers' pieces (team_wait)
+template <typename T, int N_IN>
+__device__ __forceinline__ void team_post(const Team<T>& tm,
+                                          const T (&in)[N_IN]) {
+#pragma unroll
+  for (int k = 0; k < N_IN; ++k) tm.xch[k * 32 + tm.lane] = in[k];
+  tm.xch[N_IN * 32 + tm.lane] = tm.live ? T(1) : T(0);
+  __syncthreads();  // the helpers take the input
+}
+
+__device__ __forceinline__ void team_wait() {
+  __syncthreads();  // the pieces are in
+}
+
+// |B| of the dipole at (r, sin lat), with sqrt(1 + 3 sin^2) and 1/r
+template <typename T>
+struct Bmag {
+  T q, inv_r, bm;
+};
+
+template <typename T>
+__device__ __forceinline__ Bmag<T> dipole_bm(T r, T sl, const KParams<T>& p) {
+  Bmag<T> b;
+  const T q2 = T(1) + T(3) * sl * sl;
+  b.q = d_sqrt(q2);
+  b.inv_r = T(1) / r;
+  const T inv_r3 = b.inv_r * b.inv_r * b.inv_r;
+  b.bm = p.b0 * b.q * inv_r3;
+  return b;
 }
 
 // ops/fused.py::mu_and_grads_2d_lat: mu and its partials r, lat, psi, f
@@ -905,20 +1337,36 @@ __device__ __forceinline__ void rhs_2d_colat(const T u[4], T f,
   out[3] = T(kREOverC) * (T(1) + (f * m.mu * inv_mu2) * m.dmu_df);
 }
 
+// the colatitude's sine and cosine, 1/r and 1/sin(theta) of the Kimura rows
+template <typename T>
+struct KimTrig {
+  T st, ct, inv_r, inv_st;
+};
+
+template <typename T>
+__device__ __forceinline__ KimTrig<T> kim_trig(const T u[7]) {
+  KimTrig<T> k;
+  k.st = d_sin(u[1]);
+  k.ct = d_cos(u[1]);
+  k.inv_r = T(1) / u[0];
+  k.inv_st = T(1) / k.st;
+  return k;
+}
+
 // ops/rhs.py::rhs_3d below its gradient layer: the seven Haselgrove rows
 // of the Kimura frame from mu and its seven partials
 template <typename T>
 __device__ __forceinline__ void kimura_rows(const T u[7], T f, T mu, T dmudr,
                                             T dmudtheta, T dmudphi, T dmudrr,
                                             T dmudrt, T dmudrp, T dmu_df,
-                                            T out[7]) {
-  const T r = u[0], theta = u[1];
+                                            const KimTrig<T>& k, T out[7]) {
+  const T r = u[0];
   const T rho_r = u[3], rho_t = u[4], rho_p = u[5];
-  const T sintheta = d_sin(theta), costheta = d_cos(theta);
+  const T sintheta = k.st, costheta = k.ct;
   const T inv_mu2 = T(1) / (mu * mu);
   const T inv_mu = mu * inv_mu2;
-  const T inv_r = T(1) / r;
-  const T inv_st = T(1) / sintheta;
+  const T inv_r = k.inv_r;
+  const T inv_st = k.inv_st;
   const T inv_mu2_r = inv_mu2 * inv_r;
   const T dr = inv_mu2 * (rho_r - mu * dmudrr);
   const T dtheta = inv_mu2_r * (rho_t - mu * dmudrt);
@@ -935,25 +1383,25 @@ __device__ __forceinline__ void kimura_rows(const T u[7], T f, T mu, T dmudr,
   out[6] = T(kREOverC) * (T(1) + (f * inv_mu) * dmu_df);
 }
 
-// ops/rhs.py::rhs_3d over ops/fused.py::mu_and_grads_3d (cos form); over
-// the MLT-resolved medium dmu/dphi = dmu_dn * d ne/dphi
-template <typename T, int MEDIUM>
-__device__ __forceinline__ void rhs_3d(const T u[7], T f, const KParams<T>& p,
-                                       T out[7]) {
-  const T r = u[0], theta = u[1];
-  const T rho_r = u[3], rho_t = u[4], rho_p = u[5];
-  const T lat = T(kPi / 2.0) - theta;
-  const T sl = d_sin(lat), cl = d_cos(lat);
-  const T q2 = T(1) + T(3) * sl * sl;
-  const T q = d_sqrt(q2);
-  const T inv_r = T(1) / r;
-  const T inv_r3 = inv_r * inv_r * inv_r;
-  const T inv_q = T(1) / q;
+// the 3D chain's dipole geometry and the psi cosines (cos form) at (r,
+// lat, rho)
+template <typename T>
+struct Geo3D {
+  T bm, bm_r, bm_lat, sinpsi, cospsi, dcos_dtheta, dcos_drho_r, dcos_drho_t,
+      dcos_drho_p;
+};
+
+template <typename T>
+__device__ __forceinline__ Geo3D<T> geo_3d(T r, T sl, T cl, T rho_r, T rho_t,
+                                           T rho_p, const KParams<T>& p) {
+  Geo3D<T> g;
+  const Bmag<T> b = dipole_bm(r, sl, p);
+  const T inv_q = T(1) / b.q;
   const T inv_q2 = inv_q * inv_q;
   const T inv_q3 = inv_q2 * inv_q;
-  const T bm = p.b0 * q * inv_r3;
-  const T bm_r = T(-3) * bm * inv_r;
-  const T bm_lat = T(3) * sl * cl * bm * inv_q2;
+  g.bm = b.bm;
+  g.bm_r = T(-3) * b.bm * b.inv_r;
+  g.bm_lat = T(3) * sl * cl * b.bm * inv_q2;
   const T bhat_r = T(-2) * sl * inv_q;
   const T bhat_t = -cl * inv_q;
   const T dbhat_r_dlat = T(-2) * cl * inv_q3;
@@ -963,15 +1411,48 @@ __device__ __forceinline__ void rhs_3d(const T u[7], T f, const KParams<T>& p,
   const T rhat_r = rho_r * inv_rmag;
   const T rhat_t = rho_t * inv_rmag;
   const T rhat_p = rho_p * inv_rmag;
-  const T cospsi = jmin(jmax(bhat_r * rhat_r + bhat_t * rhat_t, T(-1)), T(1));
+  g.cospsi = jmin(jmax(bhat_r * rhat_r + bhat_t * rhat_t, T(-1)), T(1));
   const T cr_m = bhat_r * rhat_t - bhat_t * rhat_r;
-  const T sinpsi = d_sqrt(rhat_p * rhat_p + cr_m * cr_m);
+  g.sinpsi = d_sqrt(rhat_p * rhat_p + cr_m * cr_m);
   const T dcos_dlat = rhat_r * dbhat_r_dlat + rhat_t * dbhat_t_dlat;
-  const T dcos_dtheta = -dcos_dlat;
-  const T dcos_drho_r = (bhat_r - cospsi * rhat_r) * inv_rmag;
-  const T dcos_drho_t = (bhat_t - cospsi * rhat_t) * inv_rmag;
-  const T dcos_drho_p = (T(0) - cospsi * rhat_p) * inv_rmag;
+  g.dcos_dtheta = -dcos_dlat;
+  g.dcos_drho_r = (bhat_r - g.cospsi * rhat_r) * inv_rmag;
+  g.dcos_drho_t = (bhat_t - g.cospsi * rhat_t) * inv_rmag;
+  g.dcos_drho_p = (T(0) - g.cospsi * rhat_p) * inv_rmag;
+  return g;
+}
 
+// the 3D chain's last link: the partials and the Kimura rows from mu and
+// its partials w.r.t. (ne, |B|, f, cos psi); over the MLT-resolved medium
+// dmu/dphi = dmu_dn * d ne/dphi
+template <typename T, int MEDIUM>
+__device__ __forceinline__ void rhs_3d_rows(const T u[7], T f,
+                                            const KParams<T>& p,
+                                            const Geo3D<T>& g,
+                                            const KimTrig<T>& k, T ne_r,
+                                            T ne_lat, T ne_phi, T mu,
+                                            T dmu_dn, T dmu_db, T dmu_df,
+                                            T dmu_dc, T out[7]) {
+  const T dmudr = dmu_dn * ne_r + dmu_db * g.bm_r;
+  const T dmudtheta =
+      -(dmu_dn * ne_lat + dmu_db * g.bm_lat) + dmu_dc * g.dcos_dtheta;
+  // exactly 0 over an axisymmetric medium
+  T dmudphi = T(0);
+  if constexpr (MEDIUM != AXI) {
+    if (p.mlt_on) dmudphi = dmu_dn * ne_phi;
+  }
+  kimura_rows(u, f, mu, dmudr, dmudtheta, dmudphi, dmu_dc * g.dcos_drho_r,
+              dmu_dc * g.dcos_drho_t, dmu_dc * g.dcos_drho_p, dmu_df, k, out);
+}
+
+// ops/rhs.py::rhs_3d over ops/fused.py::mu_and_grads_3d (cos form)
+template <typename T, int MEDIUM>
+__device__ __forceinline__ void rhs_3d(const T u[7], T f, const KParams<T>& p,
+                                       T out[7]) {
+  const T r = u[0];
+  const T lat = T(kPi / 2.0) - u[1];
+  const T sl = d_sin(lat), cl = d_cos(lat);
+  const Geo3D<T> g = geo_3d(r, sl, cl, u[3], u[4], u[5], p);
   T ne, ne_r, ne_lat, ne_phi = T(0);
   if constexpr (MEDIUM != AXI)
     ne_and_grads_full(r, sl, cl, u[2], p.mlt_on, p, ne, ne_r, ne_lat,
@@ -979,18 +1460,88 @@ __device__ __forceinline__ void rhs_3d(const T u[7], T f, const KParams<T>& p,
   else
     ne_and_grads(r, sl, cl, p, ne, ne_r, ne_lat);
   T mu, dmu_dn, dmu_db, dmu_df, dmu_dc;
-  stix_quartic_grads<T, true, MEDIUM == EXT>(
-      ne, bm, f, sinpsi, cospsi, p, mu, dmu_dn, dmu_db, dmu_df, dmu_dc);
-  const T dmudr = dmu_dn * ne_r + dmu_db * bm_r;
-  const T dmudtheta =
-      -(dmu_dn * ne_lat + dmu_db * bm_lat) + dmu_dc * dcos_dtheta;
-  // exactly 0 over an axisymmetric medium
-  T dmudphi = T(0);
-  if constexpr (MEDIUM != AXI) {
-    if (p.mlt_on) dmudphi = dmu_dn * ne_phi;
+  stix_quartic_grads<T, true, MEDIUM == EXT>(ne, g.bm, f, g.sinpsi, g.cospsi,
+                                             p, mu, dmu_dn, dmu_db, dmu_df,
+                                             dmu_dc);
+  rhs_3d_rows<T, MEDIUM>(u, f, p, g, kim_trig(u), ne_r, ne_lat, ne_phi, mu,
+                         dmu_dn, dmu_db, dmu_df, dmu_dc, out);
+}
+
+// the same over the full medium in the team body. Input: r, theta, phi
+// and rho; pieces, each helper forming sin and cos of lat: the geometry,
+// the psi cosines and the Stix terms of the field; the ionosphere and the
+// MLT-resolved plasmapause at phi; the density's terms in L and the Kimura
+// rows' trigonometry. Warp 0 then forms the density's tail, the quartic
+// and the rows.
+constexpr int kIn3D = 6;
+
+template <typename T>
+struct Slots3D {
+  static constexpr int G = kIn3D + 1, S = G + n_slots<Geo3D<T>, T>(),
+                       H = S + n_slots<StixField<T>, T>(),
+                       B = H + n_slots<NeHead<T>, T>(),
+                       K = B + n_slots<NeLTerms<T>, T>(),
+                       end = K + n_slots<KimTrig<T>, T>();
+};
+
+template <typename T, int K>
+__device__ __forceinline__ void pieces_3d(const T* x, T f,
+                                          const KParams<T>& p,
+                                          const Team<T>& tm, T* out) {
+  using S = Slots3D<T>;
+  T u[kIn3D];
+#pragma unroll
+  for (int k = 0; k < kIn3D; ++k) u[k] = x[k * 32 + tm.lane];
+  const T r = u[0];
+  const T lat = T(kPi / 2.0) - u[1];
+  const T sl = d_sin(lat), cl = d_cos(lat);
+  if (serves<K>(tm, 0)) {
+    const Geo3D<T> g = geo_3d(r, sl, cl, u[3], u[4], u[5], p);
+    put(out, tm.lane, S::G, g);
+    put(out, tm.lane, S::S, stix_field(g.bm, f));
   }
-  kimura_rows(u, f, mu, dmudr, dmudtheta, dmudphi, dmu_dc * dcos_drho_r,
-              dmu_dc * dcos_drho_t, dmu_dc * dcos_drho_p, dmu_df, out);
+  if (serves<K>(tm, 1))
+    put(out, tm.lane, S::H, ne_head(r, u[2], p.mlt_on, p));
+  if (serves<K>(tm, 2)) {
+    put(out, tm.lane, S::B, ne_lterms(r, sl, cl, p));
+    put(out, tm.lane, S::K, kim_trig(u));
+  }
+}
+
+template <typename T, int K>
+__device__ __forceinline__ void rhs_3d_team(const T u[7], T f,
+                                            const KParams<T>& p, T out[7],
+                                            const Team<T>& tm) {
+  using S = Slots3D<T>;
+  const T in[kIn3D] = {u[0], u[1], u[2], u[3], u[4], u[5]};
+  team_post(tm, in);
+  team_wait();
+  if (!tm.live) return;
+  const T* x = tm.xch;
+  T ne, ne_r, ne_lat, ne_phi;
+  ne_tail(get<NeHead<T>>(x, tm.lane, S::H), get<NeLTerms<T>>(x, tm.lane, S::B),
+          p.mlt_on, p, ne, ne_r, ne_lat, ne_phi);
+  const Geo3D<T> g = get<Geo3D<T>>(x, tm.lane, S::G);
+  T mu, dmu_dn, dmu_db, dmu_df, dmu_dc;
+  stix_protons<T, true>(ne, get<StixField<T>>(x, tm.lane, S::S), g.sinpsi,
+                        g.cospsi, p, mu, dmu_dn, dmu_db, dmu_df, dmu_dc);
+  rhs_3d_rows<T, FULL>(u, f, p, g, get<KimTrig<T>>(x, tm.lane, S::K), ne_r,
+                       ne_lat, ne_phi, mu, dmu_dn, dmu_db, dmu_df, dmu_dc,
+                       out);
+}
+
+// a helper warp of the team body: serves warp 0's right-hand sides until
+// warp 0 posts the exit (a live flag of -1 in every lane)
+template <typename T, int K>
+__device__ __forceinline__ void team_helper(T f, const KParams<T>& p,
+                                            const Team<T>& tm) {
+  for (;;) {
+    __syncthreads();  // warp 0 has posted the input
+    const T live = tm.xch[kIn3D * 32 + tm.lane];
+    if (live < T(0)) return;  // the same in every lane
+    if (live > T(0)) pieces_3d<T, K>(tm.xch, f, p, tm, tm.xch);
+    __syncthreads();  // the pieces are in
+  }
 }
 
 // The geometry of a non-axial field at one point and its tangents, every
@@ -1235,20 +1786,30 @@ __device__ __noinline__ void rhs_3d_general(const T u[7], T f,
               dmu_dn * dne_dt + dmu_db * bm_t + dmu_dc * dcos_dt,
               dmu_dn * dne_dp + dmu_db * bm_p + dmu_dc * dcos_dp,
               dmu_dc * dcos_drho_r, dmu_dc * dcos_drho_t,
-              dmu_dc * dcos_drho_p, dmu_df, out);
+              dmu_dc * dcos_drho_p, dmu_df, kim_trig(u), out);
 }
 
-template <typename T, int FRAME, int MEDIUM, int FIELD>
+// the frame's right-hand side; K > 0: the team body's (tm), else the
+// one-thread body's
+template <typename T, int FRAME, int MEDIUM, int FIELD, int K>
 __device__ __forceinline__ void rhs(const T* u, T f, const KParams<T>& p,
-                                    T* out) {
-  if constexpr (FIELD != DIPOLE)
+                                    T* out, Team<T>& tm) {
+  if constexpr (FIELD != DIPOLE) {
     rhs_3d_general<T, MEDIUM, FIELD>(u, f, p, out);
-  else if constexpr (FRAME == KIM3D)
-    rhs_3d<T, MEDIUM>(u, f, p, out);
-  else if constexpr (FRAME == COLAT2D)
+  } else if constexpr (FRAME == KIM3D) {
+    if constexpr (K > 0) {
+      static_assert(MEDIUM == FULL, "the 3D team body serves FULL");
+      rhs_3d_team<T, K>(u, f, p, out, tm);
+    } else {
+      rhs_3d<T, MEDIUM>(u, f, p, out);
+    }
+  } else if constexpr (FRAME == COLAT2D) {
+    static_assert(K == 0, "the team body serves the 3D frame");
     rhs_2d_colat<T, MEDIUM>(u, f, p, out);
-  else
+  } else {
+    static_assert(K == 0, "the team body serves the 3D frame");
     rhs_2d_lat<T, MEDIUM>(u, f, p, out);
+  }
 }
 
 // integrate/solve.py::_arc_rate: ds/dtau from the FSAL carry k1
@@ -1319,25 +1880,25 @@ __device__ __forceinline__ T err_norm(const T ev[N], const T u[N],
 }
 
 // integrate/steppers.py::bs3_step (Bogacki-Shampine 3(2), FSAL)
-template <typename T, int FRAME, int MEDIUM, int FIELD,
+template <typename T, int FRAME, int MEDIUM, int FIELD, int K,
           int N = FrameDim<FRAME>::N>
 __device__ __forceinline__ T bs3_step(const T u[N], const T k1[N], T h, T f,
                                       const KParams<T>& p, T u_new[N],
-                                      T k_end[N], T incr[N]) {
+                                      T k_end[N], T incr[N], Team<T>& tm) {
   T y[N], k2[N], k3[N], ev[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.5) * h) * k1[j];
-  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k2);
+  rhs<T, FRAME, MEDIUM, FIELD, K>(y, f, p, k2, tm);
 #pragma unroll
   for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.75) * h) * k2[j];
-  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k3);
+  rhs<T, FRAME, MEDIUM, FIELD, K>(y, f, p, k3, tm);
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     incr[j] = h * (T(2.0 / 9.0) * k1[j] + T(1.0 / 3.0) * k2[j] +
                    T(4.0 / 9.0) * k3[j]);
     u_new[j] = u[j] + incr[j];
   }
-  rhs<T, FRAME, MEDIUM, FIELD>(u_new, f, p, k_end);
+  rhs<T, FRAME, MEDIUM, FIELD, K>(u_new, f, p, k_end, tm);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     ev[j] = h * (T(2.0 / 9.0 - 7.0 / 24.0) * k1[j] +
@@ -1348,31 +1909,32 @@ __device__ __forceinline__ T bs3_step(const T u[N], const T k1[N], T h, T f,
 
 // integrate/steppers.py::dopri5_step (Dormand-Prince 5(4), FSAL); the
 // zero tableau entries stay in the sums, as they do in the JAX package
-template <typename T, int FRAME, int MEDIUM, int FIELD,
+template <typename T, int FRAME, int MEDIUM, int FIELD, int K,
           int N = FrameDim<FRAME>::N>
 __device__ __forceinline__ T dopri5_step(const T u[N], const T k1[N], T h,
                                          T f, const KParams<T>& p,
-                                         T u_new[N], T k_end[N], T incr[N]) {
+                                         T u_new[N], T k_end[N], T incr[N],
+                                         Team<T>& tm) {
   T y[N], k2[N], k3[N], k4[N], k5[N], k6[N], ev[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) y[j] = u[j] + h * (T(0.2) * k1[j]);
-  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k2);
+  rhs<T, FRAME, MEDIUM, FIELD, K>(y, f, p, k2, tm);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     y[j] = u[j] + h * (T(3.0 / 40.0) * k1[j] + T(9.0 / 40.0) * k2[j]);
-  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k3);
+  rhs<T, FRAME, MEDIUM, FIELD, K>(y, f, p, k3, tm);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     y[j] = u[j] + h * (T(44.0 / 45.0) * k1[j] + T(-56.0 / 15.0) * k2[j] +
                        T(32.0 / 9.0) * k3[j]);
-  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k4);
+  rhs<T, FRAME, MEDIUM, FIELD, K>(y, f, p, k4, tm);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     y[j] = u[j] + h * (T(19372.0 / 6561.0) * k1[j] +
                        T(-25360.0 / 2187.0) * k2[j] +
                        T(64448.0 / 6561.0) * k3[j] +
                        T(-212.0 / 729.0) * k4[j]);
-  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k5);
+  rhs<T, FRAME, MEDIUM, FIELD, K>(y, f, p, k5, tm);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     y[j] = u[j] + h * (T(9017.0 / 3168.0) * k1[j] +
@@ -1380,7 +1942,7 @@ __device__ __forceinline__ T dopri5_step(const T u[N], const T k1[N], T h,
                        T(46732.0 / 5247.0) * k3[j] +
                        T(49.0 / 176.0) * k4[j] +
                        T(-5103.0 / 18656.0) * k5[j]);
-  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k6);
+  rhs<T, FRAME, MEDIUM, FIELD, K>(y, f, p, k6, tm);
   // the 7th stage is evaluated at u + h * (b5 . k) == u_new (FSAL)
 #pragma unroll
   for (int j = 0; j < N; ++j) {
@@ -1389,7 +1951,7 @@ __device__ __forceinline__ T dopri5_step(const T u[N], const T k1[N], T h,
                    T(-2187.0 / 6784.0) * k5[j] + T(11.0 / 84.0) * k6[j]);
     u_new[j] = u[j] + incr[j];
   }
-  rhs<T, FRAME, MEDIUM, FIELD>(u_new, f, p, k_end);
+  rhs<T, FRAME, MEDIUM, FIELD, K>(u_new, f, p, k_end, tm);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     ev[j] = h * (T(35.0 / 384.0 - 5179.0 / 57600.0) * k1[j] +
@@ -1405,28 +1967,29 @@ __device__ __forceinline__ T dopri5_step(const T u[N], const T k1[N], T h,
 // integrate/steppers.py::rk4_step (classic RK4, FSAL: k_end = rhs(u_new)
 // is the next step's k1); h / 6 is a reciprocal product, as the plain
 // version's quotient by a Python scalar is on the card
-template <typename T, int FRAME, int MEDIUM, int FIELD,
+template <typename T, int FRAME, int MEDIUM, int FIELD, int K,
           int N = FrameDim<FRAME>::N>
 __device__ __forceinline__ void rk4_step(const T u[N], const T k1[N], T h,
                                          T f, const KParams<T>& p,
-                                         T u_new[N], T k_end[N], T incr[N]) {
+                                         T u_new[N], T k_end[N], T incr[N],
+                                         Team<T>& tm) {
   T y[N], k2[N], k3[N], k4[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.5) * h) * k1[j];
-  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k2);
+  rhs<T, FRAME, MEDIUM, FIELD, K>(y, f, p, k2, tm);
 #pragma unroll
   for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.5) * h) * k2[j];
-  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k3);
+  rhs<T, FRAME, MEDIUM, FIELD, K>(y, f, p, k3, tm);
 #pragma unroll
   for (int j = 0; j < N; ++j) y[j] = u[j] + h * k3[j];
-  rhs<T, FRAME, MEDIUM, FIELD>(y, f, p, k4);
+  rhs<T, FRAME, MEDIUM, FIELD, K>(y, f, p, k4, tm);
   const T h6 = h * recip(T(6));
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     incr[j] = h6 * (k1[j] + T(2) * k2[j] + T(2) * k3[j] + k4[j]);
     u_new[j] = u[j] + incr[j];
   }
-  rhs<T, FRAME, MEDIUM, FIELD>(u_new, f, p, k_end);
+  rhs<T, FRAME, MEDIUM, FIELD, K>(u_new, f, p, k_end, tm);
 }
 
 // integrate/events.py::classify_step, with its priority order
@@ -1454,8 +2017,12 @@ __device__ __forceinline__ int classify_step(const T u0[N], const T u1[N],
   return st;
 }
 
-template <typename T, int STEPPER, int FRAME, int MEDIUM, int FIELD>
-__global__ void __launch_bounds__(kThreads)
+// K = 0: the one-thread body (a block of kThreads rays, one thread each);
+// K > 0: the team body (a block of K warps serving 32 rays, lane l of every
+// warp serving ray l)
+template <typename T, int STEPPER, int FRAME, int MEDIUM, int FIELD, int K>
+__global__ void __launch_bounds__(K > 0 ? 32 * K : kThreads,
+                                  K > 0 ? kTeamBlocks : 1)
     step_chunk_kernel(T* __restrict__ u_g, T* __restrict__ k1_g,
                       T* __restrict__ u_prev_g, T* __restrict__ u_lo_g,
                       T* __restrict__ t_g, T* __restrict__ dt_g,
@@ -1466,11 +2033,39 @@ __global__ void __launch_bounds__(kThreads)
                       const T* __restrict__ f_g, long long B, int n_steps,
                       KParams<T> p) {
   constexpr int N = FrameDim<FRAME>::N;
-  const long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
-  if (i >= B) return;
+  Team<T> tm{nullptr, 0, 0, true};
+  long long i;
+  bool real = true;
+  if constexpr (K == 0) {
+    i = blockIdx.x * (long long)kThreads + threadIdx.x;
+    if (i >= B) return;
+  } else {
+    if (n_steps <= 0) return;  // the same for the whole block
+    // the exchange: dynamic shared memory, sized at the launch
+    extern __shared__ __align__(16) unsigned char team_xch[];
+    tm = Team<T>{reinterpret_cast<T*>(team_xch), int(threadIdx.x >> 5),
+                 int(threadIdx.x & 31), true};
+    // a lane with no ray (B not a multiple of 32) rides along on ray B - 1,
+    // never live and never written
+    i = blockIdx.x * 32LL + tm.lane;
+    real = i < B;
+    if (!real) i = B - 1;
+    if (tm.warp > 0) {
+      team_helper<T, K>(f_g[i], p, tm);
+      return;
+    }
+  }
   int status = status_g[i];
-  // a ray that is not ACTIVE stays as it is (_step_one is a no-op there)
-  if (status != ACTIVE || n_steps <= 0) return;
+  // a ray that is not ACTIVE stays as it is (_step_one is a no-op there):
+  // in the one-thread body its thread leaves; in the team body its lane of
+  // warp 0 rides along with its writes masked until the warp's last ray
+  // stops, and the helpers skip it
+  if constexpr (K == 0) {
+    if (status != ACTIVE || n_steps <= 0) return;
+  } else {
+    if (!real) status = -1;
+  }
+  const bool write_back = K == 0 || status == ACTIVE;
 
   T u[N], k1[N], u_prev[N], u_lo[N];
 #pragma unroll
@@ -1485,15 +2080,23 @@ __global__ void __launch_bounds__(kThreads)
   int n_tiny = n_tiny_g[i], caution = caution_g[i];
   const T f = f_g[i];
 
-  for (int s = 0; s < n_steps && status == ACTIVE; ++s) {
+  for (int s = 0; s < n_steps && (K > 0 || status == ACTIVE); ++s) {
+    if constexpr (K > 0) {
+      // warp 0 leaves together, once none of its rays is ACTIVE
+      if (!__any_sync(0xffffffffu, status == ACTIVE)) break;
+      tm.live = status == ACTIVE;
+    }
     if constexpr (STEPPER == RK4) {
       // adaptive=False: the carry's dt within the phase-path budget, no
       // ceiling; every step is accepted, with no stall flag; dt, errold
       // and n_tiny stay, caution counts down
       const T dt_eff = jmin(dt, jmax(p.t_max - t, p.dt_min));
       T u_new[N], k_end[N], incr[N];
-      rk4_step<T, FRAME, MEDIUM, FIELD>(u, k1, dt_eff, f, p, u_new, k_end,
-                                        incr);
+      rk4_step<T, FRAME, MEDIUM, FIELD, K>(u, k1, dt_eff, f, p, u_new, k_end,
+                                           incr, tm);
+      if constexpr (K > 0) {
+        if (status != ACTIVE) continue;  // a stopped ray's writes, masked
+      }
       const T t1 = t + dt_eff;
       status = classify_step<T, N>(u, u_new, t1, p);
       if (status == HIT_EARTH || status == HIT_EQUATOR) {
@@ -1522,11 +2125,14 @@ __global__ void __launch_bounds__(kThreads)
       T u_new[N], k_end[N], incr[N];
       T err_raw;
       if constexpr (STEPPER == BS3)
-        err_raw = bs3_step<T, FRAME, MEDIUM, FIELD>(u, k1, dt_eff, f, p,
-                                                    u_new, k_end, incr);
+        err_raw = bs3_step<T, FRAME, MEDIUM, FIELD, K>(u, k1, dt_eff, f, p,
+                                                       u_new, k_end, incr, tm);
       else
-        err_raw = dopri5_step<T, FRAME, MEDIUM, FIELD>(u, k1, dt_eff, f, p,
-                                                       u_new, k_end, incr);
+        err_raw = dopri5_step<T, FRAME, MEDIUM, FIELD, K>(
+            u, k1, dt_eff, f, p, u_new, k_end, incr, tm);
+      if constexpr (K > 0) {
+        if (status != ACTIVE) continue;  // a stopped ray's writes, masked
+      }
       const bool accept = err_raw <= p.accept_tol;
 
       const T t1 = t + dt_eff;
@@ -1589,6 +2195,11 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
+  if constexpr (K > 0) {
+    tm.xch[kIn3D * 32 + tm.lane] = T(-1);
+    __syncthreads();  // the helpers leave
+  }
+  if (!write_back) return;
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     u_g[j * B + i] = u[j];
@@ -1611,9 +2222,13 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int STEPPER, int FRAME, int MEDIUM, int FIELD>
 void launch(void** ptrs, long long B, int n_steps, const StepParams& h,
             cudaStream_t stream) {
-  const long long blocks = (B + kThreads - 1) / kThreads;
-  step_chunk_kernel<T, STEPPER, FRAME, MEDIUM, FIELD>
-      <<<(unsigned)blocks, kThreads, 0, stream>>>(
+  constexpr int K =
+      team_warps(sizeof(T) == 8 ? 1 : 0, STEPPER, FRAME, MEDIUM, FIELD);
+  const int rays = K > 0 ? 32 : kThreads;
+  const long long blocks = (B + rays - 1) / rays;
+  const size_t xch = K > 0 ? 32 * Slots3D<T>::end * sizeof(T) : 0;
+  step_chunk_kernel<T, STEPPER, FRAME, MEDIUM, FIELD, K>
+      <<<(unsigned)blocks, K > 0 ? 32 * K : kThreads, xch, stream>>>(
           (T*)ptrs[0], (T*)ptrs[1], (T*)ptrs[2], (T*)ptrs[3], (T*)ptrs[4],
           (T*)ptrs[5], (T*)ptrs[6], (T*)ptrs[7], (int*)ptrs[8],
           (int*)ptrs[9], (int*)ptrs[10], (int*)ptrs[11], (int*)ptrs[12],
@@ -1742,6 +2357,13 @@ extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
   kEntry[row][medium](dtype, stepper, ptrs, B, n_steps, *h,
                       (cudaStream_t)stream);
   return (int)cudaGetLastError();
+}
+
+// The warps of a team of the instance that step_chunk_launch runs for
+// these codes: 0 for the one-thread body.
+extern "C" int step_chunk_team_warps(int dtype, int stepper, int frame,
+                                     int medium, int field) {
+  return team_warps(dtype, stepper, frame, medium, field);
 }
 #endif
 

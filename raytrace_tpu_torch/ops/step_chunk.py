@@ -19,8 +19,12 @@ instances of the full chain, whose Stix sums run over the ion species and
 whose step ceiling takes the local one.
 
 - On CUDA tensors it launches the hand-written kernel of
-  csrc/step_chunk.cu: one thread per ray, the whole carry in registers for
-  all n_steps attempts. The kernel is built from the source at first use
+  csrc/step_chunk.cu, the whole carry in registers for all n_steps
+  attempts: one thread per ray, or (the 3D full chain over the dipole) a
+  team of four warps per 32 rays, one lane of each a ray: warp 0 steps
+  them, three helper warps compute the pieces of each right-hand side
+  (`team_warps`).
+  The kernel is built from the source at first use
   with nvcc for sm_90a into raytrace_tpu_torch/_build/ (rebuilt when the
   source changes; PARTS nvcc processes at once, linked into one library)
   and loaded with ctypes. There is no fallback: a CUDA
@@ -28,8 +32,9 @@ whose step ceiling takes the local one.
 - On CPU tensors it runs `step_chunk_reference`, the plain PyTorch loop of
   `integrate.solve._step_one`.
 
-`step_chunk.launches` counts kernel launches and
-`step_chunk_reference.calls` counts calls of the plain version.
+`step_chunk.launches` counts kernel launches (`step_chunk.team_launches`
+those through the team body) and `step_chunk_reference.calls` counts
+calls of the plain version.
 """
 
 import ctypes
@@ -197,20 +202,32 @@ def build():
         ctypes.c_void_p,
     ]
     lib.step_chunk_launch.restype = ctypes.c_int
+    lib.step_chunk_team_warps.argtypes = [ctypes.c_int] * 5
+    lib.step_chunk_team_warps.restype = ctypes.c_int
     _LIB = lib
     return lib
+
+
+def team_warps(dtype, stepper, frame, medium, field):
+    """Warps of a team of the kernel instance that these codes launch (the
+    codes step_chunk passes: dtype 0 float32 / 1 float64, _STEPPER_CODE,
+    the frame's code, medium_code, field_code); 0 for the one-thread
+    body. The choice is the kernel source's, made at compile time."""
+    return build().step_chunk_team_warps(dtype, stepper, frame, medium,
+                                         field)
 
 
 def ptxas_usage(log):
     """{instance: "N registers, <stack and spill line>"} from nvcc's
     -Xptxas -v output (BUILD_LOG), one entry per template instance
-    step_chunk_kernel<T, STEPPER, FRAME, MEDIUM, FIELD> (or with fewer
-    parameters, as builds before the full medium and before the non-axial
-    fields named them)."""
+    step_chunk_kernel<T, STEPPER, FRAME, MEDIUM, FIELD, K> (or with fewer
+    parameters, as builds before the full medium, the non-axial fields and
+    the team body named them). An instance of the team body (K > 0 warps
+    a team) ends in "team<K>", e.g. "float bs3 3d full team4"."""
 
     def key(name):
         m = re.search(r"step_chunk_kernelI([fd])Li(\d)ELi(\d)E"
-                      r"(?:Li(\d)E)?(?:Li(\d)E)?", name or "")
+                      r"(?:Li(\d)E)?(?:Li(\d)E)?(?:Li(\d+)E)?", name or "")
         if m is None:
             return None
         words = [("float", "double")[m[1] == "d"],
@@ -220,6 +237,8 @@ def ptxas_usage(log):
             words.append(("axi", "full", "ext")[int(m[4])])
         if m[5] is not None and int(m[5]):
             words.append(("dipole", "tilted", "igrf")[int(m[5])])
+        if m[6] is not None and int(m[6]):
+            words.append(f"team{int(m[6])}")
         return " ".join(words)
 
     regs, spills, fn, entry = {}, {}, None, None
@@ -422,18 +441,20 @@ def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
         *[fields[name].data_ptr() for name in order], ff.data_ptr()
     )
     params = _params(env, cfg, spec, root)
+    codes = (0 if f.dtype == torch.float32 else 1,
+             _STEPPER_CODE[stepper if adaptive else "rk4"],
+             _FRAME_CODE[frame][0], code, field)
     with torch.cuda.device(f.device):
         stream = torch.cuda.current_stream(f.device).cuda_stream
         rc = lib.step_chunk_launch(
-            0 if f.dtype == torch.float32 else 1,
-            _STEPPER_CODE[stepper if adaptive else "rk4"],
-            _FRAME_CODE[frame][0], code, field, ptrs, f.shape[0],
-            int(n_steps),
+            *codes, ptrs, f.shape[0], int(n_steps),
             ctypes.byref(params), ctypes.c_void_p(stream),
         )
     if rc != 0:
         raise RuntimeError(f"step_chunk kernel launch failed: CUDA error {rc}")
     step_chunk.launches += 1
+    if lib.step_chunk_team_warps(*codes):
+        step_chunk.team_launches += 1
     return RayCarry(**{
         name: (fields[name].t() if name in _VEC else fields[name])
         for name in RayCarry._fields
@@ -441,3 +462,4 @@ def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
 
 
 step_chunk.launches = 0
+step_chunk.team_launches = 0    # those of them through the team body

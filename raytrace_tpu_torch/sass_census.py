@@ -1,0 +1,214 @@
+"""SASS census of the step kernel's instances, from the built library.
+
+    python -m raytrace_tpu_torch.sass_census [--against DIR]
+        [--instances "float bs3 2d_lat axi,float bs3 3d full"]
+
+Builds this checkout's kernel (and, with --against, another checkout's,
+as kernel_ab does), disassembles the library with `cuobjdump -sass` and,
+for each named instance (the keys of ops/step_chunk.py::ptxas_usage,
+without the body's "team<K>" suffix), finds the attempt loop (the widest
+backward branch of the function) and reports over its body:
+
+- the instruction count by class (FP32, FP64, MUFU, conversions, branches
+  and control, barriers, shared and global memory, integer and other);
+- `chain_cycles`: the longest path through the body's register
+  dependencies, each instruction weighted by a latency of its class
+  (LATENCY below: Hopper's fixed-latency pipes, and a nominal figure for
+  the variable-latency ones), and
+- `inorder_cycles`: one warp issuing the body in address order, one
+  instruction a cycle, each waiting for its operands: the single-warp time
+  of the straight line.
+
+Both walk the code in address order, slow paths included (a division's
+or a sine's rarely taken branch), so they are estimates of the attempt's
+critical path, to set against the measured cycles per attempt (time /
+attempts x clocks.sm). Prints one line per instance and a JSON record as
+the last line. Needs the CUDA toolkit's cuobjdump (the machine with the
+card).
+"""
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+DEFAULT = "float bs3 2d_lat axi,float bs3 3d full"
+
+# cycles from issue to a dependent issue, by class (nominal)
+LATENCY = {"fp32": 4, "fp64": 8, "mufu": 18, "conv": 6, "int": 4,
+           "shared": 30, "global": 400, "barrier": 24, "control": 2,
+           "other": 4}
+_CLASS = (
+    ("mufu", r"MUFU"),
+    ("fp64", r"D(ADD|MUL|FMA|SETP|MNMX|SET)\b"),
+    ("fp32", r"F(ADD|MUL|FMA|SETP|MNMX|SEL|CHK|SET|SWZADD)|FADD32I|FMUL32I"
+             r"|FFMA32I"),
+    ("conv", r"(F2F|F2I|I2F|F2FP|I2FP|FRND)"),
+    ("barrier", r"BAR\b|BAR\."),
+    ("control", r"(BRA|BSSY|BSYNC|CALL|RET|EXIT|WARPSYNC|BMOV|JMP|BREAK|"
+                r"NOP|YIELD|VOTE)"),
+    ("shared", r"(LDS|STS)\b"),
+    ("global", r"(LDG|STG|LDL|STL|LD|ST)\b"),
+    ("int", r"(IMAD|IADD3|ISETP|LOP3|SHF|LEA|IABS|IMNMX|POPC|FLO|SEL|"
+            r"PRMT|P2R|R2P|PLOP3|MOV|S2R|CS2R|ULDC|LDC|UMOV|S2UR)"),
+)
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+                   r"\s*([^;]*);")
+
+
+def classify(op):
+    base = op.split(".")[0]
+    for cls, pat in _CLASS:
+        if re.match(pat + r"$", base) or re.match(pat, op):
+            return cls
+    return "other"
+
+
+def parse(sass):
+    """{function name: [(address, predicate, opcode, operands)]}."""
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m[1]
+            funcs[name] = []
+            continue
+        m = _INSN.search(line)
+        if m and name:
+            funcs[name].append((int(m[1], 16), (m[2] or "").strip(), m[3],
+                                m[4].strip()))
+    return funcs
+
+
+def _regs(text):
+    return re.findall(r"\b(U?R\d+|U?P\d)\b", text)
+
+
+def loop_body(insns):
+    """The instructions of the widest backward branch's span (the
+    attempt loop), or all of them where there is none."""
+    addr = {a: k for k, (a, *_rest) in enumerate(insns)}
+    best = None
+    for k, (a, _p, op, ops) in enumerate(insns):
+        if op.startswith("BRA"):
+            m = re.search(r"0x([0-9a-f]+)", ops)
+            if m and int(m[1], 16) < a and int(m[1], 16) in addr:
+                span = (addr[int(m[1], 16)], k)
+                if best is None or span[1] - span[0] > best[1] - best[0]:
+                    best = span
+    return insns[best[0]:best[1] + 1] if best else insns
+
+
+def census(body):
+    counts = {}
+    ready, chain, issue, t_chain = {}, 0, 0, 0
+    for _a, pred, op, ops in body:
+        cls = classify(op)
+        counts[cls] = counts.get(cls, 0) + 1
+        regs = _regs(ops)
+        wide = op.startswith("D") or ".64" in op
+        # the destination is the first operand of every class but stores,
+        # branches and barriers; a predicate guard is a source
+        has_dst = cls not in ("control", "barrier") and not re.match(
+            r"(STG|STS|STL|ST)\b", op)
+        dst = regs[:1] if has_dst else []
+        srcs = regs[1:] if has_dst else regs
+        if pred:
+            srcs = srcs + _regs(pred)
+        if wide:
+            srcs = srcs + [f"R{int(r[1:]) + 1}" for r in srcs
+                           if re.fullmatch(r"R\d+", r)]
+        dep = max((ready.get(r, 0) for r in srcs), default=0)
+        lat = LATENCY[cls]
+        # dependency-only chain
+        t_chain = dep + lat
+        chain = max(chain, t_chain)
+        # in-order issue: wait for the operands, one issue a cycle
+        issue = max(issue + 1, max((ready.get(("i", r), 0) for r in srcs),
+                                   default=0))
+        for r in dst + ([f"R{int(d[1:]) + 1}" for d in dst
+                         if wide and re.fullmatch(r"R\d+", d)]):
+            ready[r] = t_chain
+            ready[("i", r)] = issue + lat
+    return counts, chain, issue
+
+
+def instance_key(name):
+    # the checkout's own naming (a child has that checkout on its path)
+    from raytrace_tpu_torch.ops.step_chunk import ptxas_usage
+
+    key = ptxas_usage(f"ptxas info : Compiling entry function '{name}'\n"
+                      "ptxas info : Used 1 registers")
+    return next(iter(key), None)
+
+
+def run_census(lib_path, wanted):
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for name, insns in parse(sass).items():
+        key = instance_key(name)
+        if key is None:
+            continue
+        base = re.sub(r" team\d+$", "", key)
+        if base not in wanted:
+            continue
+        body = loop_body(insns)
+        counts, chain, inorder = census(body)
+        out[key] = dict(instructions=len(insns), loop=len(body),
+                        by_class=counts, chain_cycles=chain,
+                        inorder_cycles=inorder)
+    return out
+
+
+def _child(root, wanted):
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:] = [root] + [q for q in sys.path
+                            if os.path.abspath(q or ".") != here]
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    sc.build()
+    print(json.dumps(run_census(sc.library_path(), wanted)))
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--against", help="root of another checkout")
+    p.add_argument("--instances", default=DEFAULT)
+    p.add_argument("--child", help=argparse.SUPPRESS)
+    args = p.parse_args()
+    wanted = set(args.instances.split(","))
+    if args.child:
+        _child(os.path.abspath(args.child), wanted)
+        return 0
+    roots = {"this": os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))}
+    if args.against:
+        roots["other"] = os.path.abspath(args.against)
+    procs = {k: subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--child", r,
+         "--instances", args.instances], stdout=subprocess.PIPE, text=True)
+        for k, r in roots.items()}
+    record = {}
+    for k, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"census of {roots[k]} failed:\n{out}")
+        record[k] = json.loads(out.strip().splitlines()[-1])
+        for inst, c in sorted(record[k].items()):
+            print(f"{k} {inst}: {c['loop']} instructions in the attempt loop "
+                  f"({c['instructions']} in the kernel), "
+                  + ", ".join(f"{cls} {n}" for cls, n in
+                              sorted(c["by_class"].items()))
+                  + f"; chain {c['chain_cycles']} cycles, in-order issue "
+                    f"{c['inorder_cycles']} cycles", flush=True)
+    print(json.dumps(record))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -289,3 +289,156 @@ def test_variant_presets_run_through_the_kernel(cuda, name, over):
     assert sc.step_chunk_reference.calls == 0
     assert np.isfinite(out["result"].u[out["valid"]]).all()
     assert int(out["stats"]["n_active"]) == 0
+
+
+# the team body (one ray across four warps): the 3D full chain over the
+# dipole, in float and double, each stepper (every other instance keeps
+# the one-thread body)
+TEAM_INSTANCES = [("ensemble10k_plume", "float32", "bs3"),
+                  ("ensemble10k_plume", "float64", "bs3"),
+                  ("ensemble10k_plume", "float64", "dopri5"),
+                  ("ensemble10k_plume", "float32", "rk4")]
+
+
+def _team_launch(cuda, name, dtype, stepper, case):
+    """(carry, f, env, cfg, spec, kw, n_steps) of one edge case of the team
+    layout over the preset's launch: B = 1, 31, 33 or 10,240 rays; rays
+    that retire at different attempts (the ceiling r_ceil 3% above the
+    launch radius); rays stopped at entry; n_steps = 0; and a merged
+    tail's shape (5 rays padded to a 256-lane bucket with copies of the
+    first, as parallel/ensemble.py pads it). rk4 runs at dt0 = 1e6 m."""
+    over = dict(adaptive=False, dt0=1.0e6 / RE) if stepper == "rk4" else {}
+    conf = preset(name, dtype=dtype, **over)
+    env = conf.medium.build()
+    cfg, spec = conf.solver(), conf.stop()
+    np_dt = np.float32 if dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, cuda)
+    rows = {"b1": [4000], "b31": np.arange(31) * 300,
+            "b33": np.arange(33) * 300, "b10240": np.arange(u0.shape[0]),
+            "retire": np.arange(0, u0.shape[0], 40),
+            "inactive": np.arange(0, u0.shape[0], 40),
+            "zero": np.arange(0, u0.shape[0], 40),
+            "tail": np.concatenate([np.arange(5) * 1900,
+                                    np.zeros(251, np.int64)])}[case]
+    u0 = torch.as_tensor(u0[rows], device=cuda)
+    f = torch.as_tensor(f[rows], device=cuda)
+    carry = init_carry(rhs.frame_rhs(conf.frame, env)[0], u0, f, cfg)
+    if case == "retire":
+        spec = spec._replace(r_ceil=float(u0[:, 0].max()) * 1.03)
+    if case == "inactive":
+        status = carry.status.clone()
+        status[::3] = events.HIT_EARTH
+        status[1::5] = events.DT_UNDERFLOW
+        carry = carry._replace(status=status)
+    n_steps = {"zero": 0, "b10240": 32, "tail": 512}.get(case, 256)
+    kw = dict(stepper="bs3" if stepper == "rk4" else stepper,
+              adaptive=conf.adaptive, frame=conf.frame)
+    return carry, f, env, cfg, spec, kw, n_steps
+
+
+@pytest.mark.parametrize("case", ["b1", "b31", "b33", "b10240", "retire",
+                                  "inactive", "zero", "tail"])
+@pytest.mark.parametrize("name,dtype,stepper", TEAM_INSTANCES)
+def test_team_body_edges_match_plain_version_bitwise(cuda, name, dtype,
+                                                     stepper, case):
+    """The team body's instances at the edges of its layout (a block of
+    four warps serving 32 rays: warp 0 steps them, three helpers compute
+    the pieces of each right-hand side; a lane with no ray, a ray that is
+    done and a pad lane ride along and take every barrier): every field
+    bit for bit with the plain version."""
+    carry, f, env, cfg, spec, kw, n = _team_launch(cuda, name, dtype,
+                                                   stepper, case)
+    codes = (0 if dtype == "float32" else 1, sc._STEPPER_CODE[stepper],
+             sc._FRAME_CODE[kw["frame"]][0], sc.medium_code(env, cfg),
+             sc.field_code(env))
+    assert sc.team_warps(*codes) > 0
+    team = sc.step_chunk.team_launches
+    got = sc.step_chunk(carry, f, env, cfg, spec, n_steps=n, **kw)
+    assert sc.step_chunk.team_launches == team + 1
+    ref = sc.step_chunk_reference(carry, f, env, cfg, spec, n_steps=n, **kw)
+    torch.cuda.synchronize()
+    _assert_bitwise(got, ref)
+    made = (got.n_accept + got.n_reject) - (carry.n_accept + carry.n_reject)
+    live = carry.status == events.ACTIVE
+    if case == "zero":
+        assert int(made.abs().sum()) == 0
+    else:
+        assert int(made[live].min()) > 0
+        assert int(made[~live].abs().sum()) == 0
+    if case == "retire":   # the rays of a team stop at different attempts
+        stopped = made[got.status == events.ESCAPED]
+        assert stopped.numel() > 1 and int(stopped.min()) < int(stopped.max())
+    if case == "tail":     # every pad lane is its first ray, bit for bit
+        for field in RayCarry._fields:
+            x = getattr(got, field)[5:]
+            assert bool((x == getattr(got, field)[:1]).all()), field
+
+
+def test_team_body_takes_the_measured_instances(cuda):
+    """The body of each instance is the kernel source's compile-time
+    choice: the 3D full chain over the dipole in every instance, no other
+    frame, medium or field."""
+    for dtype in (0, 1):
+        for stepper in (0, 1, 2):
+            for frame in (0, 1, 2):
+                for medium in (0, 1, 2):
+                    for field in ((0, 1, 2) if frame == 1 and medium else
+                                  (0,)):
+                        team = sc.team_warps(dtype, stepper, frame, medium,
+                                             field)
+                        want = frame == 1 and medium == 1 and field == 0
+                        assert team == (4 if want else 0), (
+                            dtype, stepper, frame, medium, field)
+
+
+# the media of the team body's density pieces (ne_head, ne_lterms,
+# ne_tail) beside the plume's: GCPM and the smoothed plasmapause with the
+# per-L trough refill, each with the day/night ionosphere and the duct,
+# without and with the MLT-resolved plasmapause; a constant refill with the
+# DE factor; no plasmasphere
+_DUCT = dict(iono_mlt=True, duct_amp=0.5, duct_l0=3.0, duct_w=0.1)
+TEAM_MEDIA = {
+    "gcpm": dict(ps_model="gcpm", **_DUCT),
+    "gcpm_mlt": dict(ps_model="gcpm", ps_mlt=True, **_DUCT),
+    "smooth": dict(ps_smooth=0.05, ps_refill=0.5, ps_refill_q=4.0, **_DUCT),
+    "smooth_mlt": dict(ps_smooth=0.05, ps_refill=0.5, ps_refill_q=4.0,
+                       ps_mlt=True, **_DUCT),
+    "refill_de": dict(ps_refill=0.5, de_correction=True, ps_mlt=True),
+    "no_ps": dict(plasmasphere=False, iono_mlt=True),
+}
+
+
+@pytest.mark.parametrize("dtype,stepper", [("float32", "bs3"),
+                                           ("float64", "dopri5")])
+@pytest.mark.parametrize("medium", sorted(TEAM_MEDIA))
+def test_team_body_media_match_plain_version_bitwise(cuda, medium, dtype,
+                                                     stepper):
+    """Every 10th ray of the plume fan over each medium of TEAM_MEDIA
+    through the team body, 256 attempts: every branch of its density
+    pieces agrees with the plain version bit for bit."""
+    from raytrace_tpu_torch.config import MediumConfig
+    from raytrace_tpu_torch.constants import B0_3D
+
+    conf = preset("ensemble10k_plume", dtype=dtype,
+                  medium=MediumConfig(b0=B0_3D, **TEAM_MEDIA[medium]))
+    env = conf.medium.build()
+    cfg, spec = conf.solver(), conf.stop()
+    np_dt = np.float32 if dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, cuda)
+    u0 = torch.as_tensor(u0[::10], device=cuda)
+    f = torch.as_tensor(f[::10], device=cuda)
+    carry = init_carry(rhs.frame_rhs(conf.frame, env)[0], u0, f, cfg)
+    codes = (0 if dtype == "float32" else 1, sc._STEPPER_CODE[stepper],
+             sc._FRAME_CODE["3d"][0], sc.medium_code(env, cfg),
+             sc.field_code(env))
+    assert sc.team_warps(*codes) > 0
+    team = sc.step_chunk.team_launches
+    got = sc.step_chunk(carry, f, env, cfg, spec, stepper=stepper,
+                        n_steps=256, frame="3d")
+    assert sc.step_chunk.team_launches == team + 1
+    ref = sc.step_chunk_reference(carry, f, env, cfg, spec, stepper=stepper,
+                                  n_steps=256, frame="3d")
+    torch.cuda.synchronize()
+    _assert_bitwise(got, ref)
+    made = (got.n_accept + got.n_reject) - (carry.n_accept + carry.n_reject)
+    assert int(made.min()) > 0   # every ray stepped

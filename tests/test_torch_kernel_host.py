@@ -1,0 +1,295 @@
+"""The step kernel's two bodies against each other on the CPU.
+
+There is no CUDA compiler here, but csrc/step_chunk.cu compiles as C++
+with stand-ins for the CUDA keywords. This test builds it twice into one
+host program -- as it stands, and with every instance on the one-thread
+body (kTeamWarps = 0) -- and runs a launch through each: a block runs as
+one OS thread per CUDA thread, with a std::barrier for __syncthreads and
+a per-warp barrier for __any_sync, so the team body's warp roles, its
+shared-memory exchange and its barriers run as written. On the same
+carry, made by the port's plain path on the CPU, the two bodies must give
+every field bit for bit (the host's libm stands in for the card's math on
+both sides). Needs g++ with C++20.
+"""
+
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from raytrace_tpu_torch.config import MediumConfig, preset
+from raytrace_tpu_torch.constants import B0_3D, RE
+from raytrace_tpu_torch.integrate.solve import init_carry
+from raytrace_tpu_torch.ops import rhs as rhs_mod
+from raytrace_tpu_torch.ops import step_chunk as sc
+from raytrace_tpu_torch.run import _build_u0
+
+STUB = r"""
+#pragma once
+#include <algorithm>
+#include <atomic>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <functional>
+#include <memory>
+#include <thread>
+#include <vector>
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline
+#define __noinline__
+#define __restrict__
+#define __shared__
+#define __launch_bounds__(...)
+#define __align__(x) __attribute__((aligned(x)))
+struct dim3_ { unsigned x, y, z; };
+inline thread_local dim3_ threadIdx, blockIdx;
+namespace emu {
+inline std::barrier<>* bar = nullptr;
+inline std::barrier<>* wbar[8];
+inline std::atomic<int> wor[8];
+}
+inline void __syncthreads() { emu::bar->arrive_and_wait(); }
+inline int __any_sync(unsigned, int p) {
+  const int w = threadIdx.x / 32;
+  emu::wbar[w]->arrive_and_wait();
+  if (threadIdx.x % 32 == 0) emu::wor[w] = 0;
+  emu::wbar[w]->arrive_and_wait();
+  if (p) emu::wor[w] = 1;
+  emu::wbar[w]->arrive_and_wait();
+  return emu::wor[w].load();
+}
+typedef void* cudaStream_t;
+enum { cudaErrorInvalidValue = 1 };
+inline int cudaGetLastError() { return 0; }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
+using std::isfinite; using std::min; using std::max;
+inline void emu_launch(unsigned blocks, int threads,
+                       const std::function<void()>& body) {
+  for (unsigned b = 0; b < blocks; ++b) {
+    std::barrier<> br(threads);
+    emu::bar = &br;
+    std::vector<std::unique_ptr<std::barrier<>>> wb;
+    for (int w = 0; w < threads / 32; ++w) {
+      wb.emplace_back(new std::barrier<>(32));
+      emu::wbar[w] = wb.back().get();
+    }
+    std::vector<std::thread> ts;
+    for (int t = 0; t < threads; ++t)
+      ts.emplace_back([&, b, t] {
+        blockIdx = {b, 0, 0};
+        threadIdx = {(unsigned)t, 0, 0};
+        body();
+      });
+    for (auto& th : ts) th.join();
+  }
+}
+"""
+
+MAIN = r"""
+#include "stub.h"
+#include <cstdio>
+#include <cstdint>
+#include <cstring>
+#include <cstdlib>
+namespace team_ns {
+#include "team.inc"
+}
+namespace thread_ns {
+#include "thread.inc"
+}
+int main(int argc, char** argv) {
+  FILE* fh = fopen(argv[1], "rb");
+  int32_t dtype, n, codes[4], n_steps;
+  int64_t B;
+  fread(&dtype, 4, 1, fh); fread(&n, 4, 1, fh); fread(&B, 8, 1, fh);
+  fread(codes, 4, 4, fh); fread(&n_steps, 4, 1, fh);
+  const int it = dtype ? 8 : 4;
+  std::vector<std::vector<char>> in;
+  for (int k = 0; k < 15; ++k) {
+    size_t sz = k < 4 ? (size_t)n * B * it
+                      : (k < 8 || k == 14 ? (size_t)B * it : (size_t)B * 4);
+    in.emplace_back(sz);
+    fread(in.back().data(), 1, sz, fh);
+  }
+  char hp[sizeof(team_ns::StepParams)];
+  fread(hp, 1, sizeof hp, fh);
+  fclose(fh);
+  auto run = [&](bool team) {
+    auto bufs = in;
+    void* ptrs[15];
+    for (int k = 0; k < 15; ++k) ptrs[k] = bufs[k].data();
+    int rc = team
+      ? team_ns::step_chunk_launch_team(dtype, codes[0], codes[1], codes[2],
+            codes[3], ptrs, B, n_steps, (const team_ns::StepParams*)hp, 0)
+      : thread_ns::step_chunk_launch_thread(dtype, codes[0], codes[1],
+            codes[2], codes[3], ptrs, B, n_steps,
+            (const thread_ns::StepParams*)hp, 0);
+    if (rc) exit(2);
+    return bufs;
+  };
+  auto a = run(false), b = run(true);
+  long differ = 0;
+  for (int k = 0; k < 15; ++k) {
+    size_t w = (k < 8 || k == 14) ? it : 4;
+    for (size_t o = 0; o < a[k].size(); o += w)
+      differ += memcmp(&a[k][o], &b[k][o], w) != 0;
+  }
+  long stopped = 0, attempts = 0;
+  const int* st = (const int*)b[8].data();
+  for (long long i = 0; i < B; ++i) {
+    stopped += st[i] != 0;
+    attempts += ((const int*)b[9].data())[i] + ((const int*)b[10].data())[i]
+                - ((const int*)in[9].data())[i] - ((const int*)in[10].data())[i];
+  }
+  printf("team_warps %d thread_warps %d differ %ld stopped %ld attempts %ld\n",
+         team_ns::step_chunk_team_warps_team(dtype, codes[0], codes[1],
+                                             codes[2], codes[3]),
+         thread_ns::step_chunk_team_warps_thread(dtype, codes[0], codes[1],
+                                                 codes[2], codes[3]),
+         differ, stopped, attempts);
+  return 0;
+}
+"""
+
+
+def _host_source(src, tag, team):
+    s = src.replace("#include <cuda_runtime.h>", "")
+    s = s.replace("#include <math.h>", "")
+    s = s.replace(
+        "extern __shared__ __align__(16) unsigned char team_xch[];",
+        "static unsigned char team_xch[65536] "
+        "__attribute__((aligned(16)));")
+    s = re.sub(r"(step_chunk_kernel<[^>]*>)\s*<<<(.*?), (.*?), (?:[^,]*), "
+               r"stream>>>\((.*?)\);",
+               lambda m: f"emu_launch({m[2]}, {m[3]}, [&]{{ "
+                         f"{m[1]}({m[4]}); }});", s, flags=re.S)
+    s = s.replace('extern "C" int step_chunk_launch',
+                  f"int step_chunk_launch_{tag}")
+    s = s.replace('extern "C" int step_chunk_team_warps',
+                  f"int step_chunk_team_warps_{tag}")
+    if not team:
+        s, n = re.subn(r"constexpr int kTeamWarps = \d+;",
+                       "constexpr int kTeamWarps = 0;", s)
+        assert n == 1
+    return s
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    gxx = shutil.which("g++")
+    assert gxx is not None, "the host check of the kernel needs g++"
+    d = tmp_path_factory.mktemp("kernel_host")
+    src = open(sc.SOURCE).read()
+    (d / "stub.h").write_text(STUB)
+    (d / "team.inc").write_text(_host_source(src, "team", True))
+    (d / "thread.inc").write_text(_host_source(src, "thread", False))
+    (d / "main.cpp").write_text(MAIN)
+    proc = subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-w", "-o",
+                           str(d / "kernel_host"), str(d / "main.cpp")],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return d
+
+
+# the media of the team body's density pieces beside the plume's
+# (ne_head, ne_lterms, ne_tail against ne_and_grads_full): GCPM and the
+# smoothed plasmapause with the per-L trough refill, each with the day/night
+# ionosphere and the duct, without and with the MLT-resolved plasmapause;
+# a constant refill with the DE factor; no plasmasphere
+_DUCT = dict(iono_mlt=True, duct_amp=0.5, duct_l0=3.0, duct_w=0.1)
+MEDIA = {
+    "gcpm": dict(ps_model="gcpm", **_DUCT),
+    "gcpm_mlt": dict(ps_model="gcpm", ps_mlt=True, **_DUCT),
+    "smooth": dict(ps_smooth=0.05, ps_refill=0.5, ps_refill_q=4.0, **_DUCT),
+    "smooth_mlt": dict(ps_smooth=0.05, ps_refill=0.5, ps_refill_q=4.0,
+                       ps_mlt=True, **_DUCT),
+    "refill_de": dict(ps_refill=0.5, de_correction=True, ps_mlt=True),
+    "no_ps": dict(plasmasphere=False, iono_mlt=True),
+}
+
+# (preset, dtype, stepper, every, edge, medium): the team instances (the
+# 3D full chain over the dipole) against the one-thread body; edges as on
+# the card (B not a multiple of 32, rays stopped at entry, rays retiring by
+# ESCAPED and EVANESCENT, n_steps = 0); the medium is the preset's or one
+# of MEDIA
+CASES = {
+    "3d_full_f32_bs3_stops": ("ensemble10k_plume", "float32", "bs3", 100,
+                              "stops", None),
+    "3d_full_f64_dopri5_odd": ("ensemble10k_plume", "float64", "dopri5",
+                               200, "odd", None),
+    "3d_full_f64_dopri5_stopped": ("ensemble10k_plume", "float64", "dopri5",
+                                   200, "stopped", None),
+    "3d_full_f32_rk4": ("ensemble10k_plume", "float32", "rk4", 100, "",
+                        None),
+    "3d_full_f64_bs3_zero": ("ensemble10k_plume", "float64", "bs3", 100,
+                             "zero", None),
+    **{f"3d_{m}_f32_bs3": ("ensemble10k_plume", "float32", "bs3", 100, "",
+                           m) for m in MEDIA},
+    **{f"3d_{m}_f64_dopri5": ("ensemble10k_plume", "float64", "dopri5", 200,
+                              "", m) for m in MEDIA},
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_team_body_matches_one_thread_body_on_the_host(host_kernel, case):
+    name, dtype, stepper, every, edge, medium = CASES[case]
+    over = dict(adaptive=False, dt0=1.0e6 / RE) if stepper == "rk4" else {}
+    if medium is not None:
+        over["medium"] = MediumConfig(b0=B0_3D, **MEDIA[medium])
+    conf = preset(name, dtype=dtype, **over)
+    env = conf.medium.build()
+    np_dt = np.float32 if dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, torch.device("cpu"))
+    u0, f = torch.as_tensor(u0[::every]), torch.as_tensor(f[::every])
+    if edge == "odd":
+        u0, f = u0[:45], f[:45]
+    cfg, spec = conf.solver(), conf.stop()
+    carry = init_carry(rhs_mod.frame_rhs(conf.frame, env)[0], u0, f, cfg)
+    if edge == "stopped":
+        status = carry.status.clone()
+        status[::7] = 1
+        carry = carry._replace(status=status)
+    if edge == "stops":
+        spec = spec._replace(r_ceil=float(u0[:, 0].max()) * 1.02,
+                             stop_retrograde=1.0)
+        u = carry.u.clone()
+        u[::3, -1] = -1.0e-3
+        carry = carry._replace(u=u)
+    n_steps = {"zero": 0}.get(edge, 48)
+    codes = [sc._STEPPER_CODE[stepper if conf.adaptive else "rk4"],
+             sc._FRAME_CODE[conf.frame][0], sc.medium_code(env, cfg),
+             sc.field_code(env)]
+    path = host_kernel / f"{case}.bin"
+    with open(path, "wb") as fh:
+        fh.write(np.int32(0 if dtype == "float32" else 1).tobytes())
+        fh.write(np.int32(carry.u.shape[1]).tobytes())
+        fh.write(np.int64(f.shape[0]).tobytes())
+        fh.write(np.asarray(codes + [n_steps], np.int32).tobytes())
+        # the kernel's order (ops/step_chunk.py): the vectors field-major
+        for k in (*sc._VEC, "t", "dt", "errold", "dt_prev", *sc._INT):
+            x = getattr(carry, k).numpy()
+            fh.write(np.ascontiguousarray(x.T if x.ndim == 2 else x)
+                     .tobytes())
+        fh.write(np.ascontiguousarray(f.numpy()).tobytes())
+        fh.write(bytes(sc._params(env, cfg, spec, conf.root)))
+    proc = subprocess.run([str(host_kernel / "kernel_host"), str(path)],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    got = dict(zip(proc.stdout.split()[::2],
+                   map(int, proc.stdout.split()[1::2])))
+    assert got["team_warps"] == 4 and got["thread_warps"] == 0
+    assert got["differ"] == 0
+    live = int((carry.status == 0).sum())
+    if edge == "zero":
+        assert got["attempts"] == 0
+    else:   # every live ray made attempts, the stopped ones none
+        assert got["attempts"] >= live * 10
+    if edge == "stops":
+        assert got["stopped"] > 0

@@ -185,3 +185,76 @@ def test_kernel_library_path_follows_the_source():
     assert path.startswith(sc.BUILD_DIR) and path.endswith(".so")
     assert "--use_fast_math" not in sc.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in sc.NVCC_FLAGS
+
+
+# -Xptxas -v of a build with both bodies (nvcc for sm_90a): the team body
+# of the 3D full-medium float bs3 instance over the dipole (K = 4 warps a
+# team, the sixth template value) and the one-thread body of the 3D
+# axisymmetric float bs3 instance (K = 0), with a compile-time line between
+# them
+PTXAS_BOTH_BODIES = """\
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__1aa888d2_13_step_chunk_cu_54f9fbd617step_chunk_kernelIfLi0ELi1ELi1ELi0ELi4EEEvPT_S2_S2_S2_S2_S2_S2_S2_PiS3_S3_S3_S3_S3_PKS1_xiNS_7KParamsIS1_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__1aa888d2_13_step_chunk_cu_54f9fbd617step_chunk_kernelIfLi0ELi1ELi1ELi0ELi4EEEvPT_S2_S2_S2_S2_S2_S2_S2_PiS3_S3_S3_S3_S3_PKS1_xiNS_7KParamsIS1_EE
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 32 bytes cumulative stack size
+ptxas info    : Compile time = 585.993 ms
+ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__1aa888d2_13_step_chunk_cu_54f9fbd617step_chunk_kernelIfLi0ELi1ELi0ELi0ELi0EEEvPT_S2_S2_S2_S2_S2_S2_S2_PiS3_S3_S3_S3_S3_PKS1_xiNS_7KParamsIS1_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN46_GLOBAL__N__1aa888d2_13_step_chunk_cu_54f9fbd617step_chunk_kernelIfLi0ELi1ELi0ELi0ELi0EEEvPT_S2_S2_S2_S2_S2_S2_S2_PiS3_S3_S3_S3_S3_PKS1_xiNS_7KParamsIS1_EE
+    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 122 registers, used 0 barriers, 32 bytes cumulative stack size
+"""
+
+
+def test_ptxas_usage_names_both_bodies():
+    """Every instance keeps its registers in ptxas_usage, the team body's
+    with its warps a team as the last word."""
+    use = sc.ptxas_usage(PTXAS_BOTH_BODIES)
+    assert use == {
+        "float bs3 3d full team4": "168 registers, 32 bytes stack frame, "
+                                   "0 bytes spill stores, 0 bytes spill "
+                                   "loads",
+        "float bs3 3d axi": "122 registers, 32 bytes stack frame, 0 bytes "
+                            "spill stores, 0 bytes spill loads",
+    }
+
+
+def test_ptxas_usage_reads_builds_before_the_team_body():
+    """A build whose kernel has five template values (before the team
+    body) keeps its names."""
+    old = PTXAS_BOTH_BODIES.replace("ELi4EEEv", "EEEv")
+    old = old.replace("ELi0ELi0ELi0EEEv", "ELi0ELi0EEEv")
+    assert sorted(sc.ptxas_usage(old)) == ["float bs3 3d axi",
+                                           "float bs3 3d full"]
+
+
+def test_sass_census_counts_the_attempt_loop():
+    """The census takes the widest backward branch's span as the attempt
+    loop, classes its instructions and walks its dependencies."""
+    from raytrace_tpu_torch import sass_census as census
+
+    sass = """\
+        Function : _ZN12_GLOBAL__N_117step_chunk_kernelIfLi0ELi0ELi0ELi0ELi3EEEvPT_
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+        /*0020*/                   FADD R2, R0, R1 ;
+        /*0030*/                   MUFU.RCP R3, R2 ;
+        /*0040*/                   FFMA R4, R3, R2, R0 ;
+        /*0050*/                   STS [R0], R4 ;
+        /*0060*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0070*/                   LDS R5, [R0] ;
+        /*0080*/                   DADD R6, R4, R8 ;
+        /*0090*/               @P0 BRA 0x20 ;
+        /*00a0*/                   EXIT ;
+"""
+    funcs = census.parse(sass)
+    (name, insns), = funcs.items()
+    assert census.instance_key(name) == "float bs3 2d_lat axi team3"
+    body = census.loop_body(insns)
+    assert [op for _, _, op, _ in body][0] == "FADD" and len(body) == 8
+    counts, chain, inorder = census.census(body)
+    assert counts == {"fp32": 2, "mufu": 1, "shared": 2, "barrier": 1,
+                      "fp64": 1, "control": 1}
+    # FADD -> MUFU -> FFMA -> the exchange's store is the longest chain
+    lat = census.LATENCY
+    assert chain == lat["fp32"] + lat["mufu"] + lat["fp32"] + lat["shared"]
+    assert inorder >= lat["fp32"] + lat["mufu"] + lat["fp32"]
