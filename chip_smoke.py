@@ -9,7 +9,7 @@ Phases, each printed as it runs; any failed check exits non-zero:
   1. the card (nvidia-smi name and power limit), CUDA version, and the
      build of the step kernel (csrc/step_chunk.cu) from the checkout;
   2. the kernel against its plain PyTorch version on the same carries:
-     every 10th ray of the ensemble10k launch, float64 (1 and 256 steps)
+     every 10th ray of the ensemble10k launch, float64 (1 and 128 steps)
      and float32 (1 step, all 10,240 rays), bs3 and dopri5; then both
      timed at 10,240 rays x 512 steps (float32, bs3);
   3. the canonical RayTrace_lat ray in float64 through the kernel;
@@ -57,7 +57,7 @@ Phases, each printed as it runs; any failed check exits non-zero:
      colatitude frame (the ensemble10k launch in it), the multi-ion medium
      (the emic_heband launch at root -1 and the ensemble10k fan over He+
      and O+) and fixed-step rk4 (the ensemble10k launch at dt0 = dt_max),
-     float32 over all rays and float64 over every 10th ray for 256 steps,
+     float32 over all rays and float64 over every 10th ray for 128 steps,
      and each variant through a full-medium and a general-field instance;
      then every instance a path of phases 15-18 launches timed beside its
      plain version and its bound;
@@ -72,7 +72,22 @@ Phases, each printed as it runs; any failed check exits non-zero:
      against the JAX package's census on a CPU, float32 reported;
  19. the stop branches ESCAPED (a finite r_ceil) and EVANESCENT
      (stop_retrograde) through two team instances (the 3D full chain) and
-     a one-thread instance, bit for bit with the plain version.
+     a one-thread instance, bit for bit with the plain version;
+ 20. the instances of the reference scripts' modes (ALT: the closed-form
+     dmu/dpsi, dmu/dr = 0 and in 3D the Kimura rho partials; the 2D
+     frequency read as f + T), 3 frames x bs3, dopri5, rk4 x float32,
+     float64, bit for bit with their plain version (bs3 over the whole
+     launch x 512 attempts, dopri5 and rk4 over every 10th ray x 64), each
+     timed beside its bound and its plain version;
+ 21. ensemble10k and
+ 22. ensemble10k_3d with grad_mode="reference" through run.run, float32
+     and float64, against the JAX package's censuses on a CPU within its
+     own spread;
+ 23. the golden rays of tests/test_goldens.py in float64, reference +
+     legacy: RayMain's ray at t = 40 and RayTrace_lat's at the full budget
+     against the golden states, and RayMain's wedge;
+ 24. mr_fan_3d float64 with continue_until_done: the final MAX_STEPS
+     count against the JAX package's run() on a CPU.
 Each run through run.run checks the body its launches took (the team
 body's launch count, ops/step_chunk.py) and replays its last launch, the
 merged tail where the run has one (kernel_ab.replay_tail), for the
@@ -340,6 +355,87 @@ COLAT = dict(frame="2d_colat")
 # and O+ (the fractions of emic_heband)
 MULTI_ION = dict(eta_he=0.1, eta_o=0.02)
 
+# The reference scripts' modes (phases 20-24): grad_mode="reference" (the
+# closed-form dmu/dpsi, dmu/dr = 0, the Kimura rho partials in 3D) and, in
+# the 2D frames, legacy_freq_state (the frequency read as f + T); both take
+# the kernel's ALT instances
+REF = dict(grad_mode="reference")
+REF_LEGACY = dict(grad_mode="reference", legacy_freq_state=True)
+RK4_3D = dict(adaptive=False, dt0=1.0e-3)
+# The pins of phases 21-22: the JAX package on a CPU, tests/
+# test_torch_slice3d.py run as a script with --batch 10240 --set
+# grad_mode='"reference"' (one batch, as the port traces it), and as a
+# second witness the port's own plain version on a CPU (the same script
+# with --port: its run() on the CPU). The reference set wedges most rays,
+# so one float64 census is one draw of a chaotic process; the band each
+# float64 pin is held to is the JAX package's own spread under a one-ulp
+# perturbation, its run with every launch latitude one ulp up (--nudge):
+# it keeps HIT_EARTH and moves rays between MAX_PHASE_TIME, DT_UNDERFLOW
+# and MAX_STEPS, the gross flow through each status (the rays it moved
+# into or out of it) being ensemble10k 27 / 21 / 34 and ensemble10k_3d 2 /
+# 47 / 47. The port's CPU census (mu and the angle partials from the fused
+# chain where JAX takes autodiff) lies within that band of JAX's, with a
+# flow of the same size (ensemble10k 20 / 17 / 25, ensemble10k_3d 2 / 48
+# / 46): swapping the two equal derivatives moves the census as a one-ulp
+# nudge does. So float64 holds HIT_EARTH exactly and each other status
+# count within that flow of both censuses, the steps within 1% as every
+# float64 phase holds them, the median landing L within 1e-9. float32
+# is held to both censuses in float32 alike: HIT_EARTH within 2% (or 2
+# rays) and the steps within 5%, as the earlier float32 phases hold them
+# (the float32 census is platform-dependent), and each other status count
+# within the JAX package's own float32 one-ulp nudge's flow (ensemble10k
+# 18 / 28 / 10, ensemble10k_3d 28 / 63 / 35; the port's float32 CPU census
+# sits 2 / 6 / 4 and 6 / 1 / 7 rays from JAX's); the float32-vs-float64
+# agreement to the JAX package's own less 0.5 points.
+REF_PINS = {
+    "ensemble10k": dict(
+        f64=dict(hit=259, mpt=2864, dtu=7013, ms=104, steps=53_992_922,
+                 median_l=1.1511114711023525),
+        port_f64=dict(hit=259, mpt=2858, dtu=7016, ms=107,
+                      steps=53_950_098, median_l=1.1511114711021202),
+        f64_band=dict(hit=0, mpt=27, dtu=21, ms=34),
+        f32=dict(hit=258, mpt=2811, dtu=7164, ms=7, steps=47_439_447),
+        port_f32=dict(hit=258, mpt=2813, dtu=7158, ms=11,
+                      steps=47_543_031),
+        f32_band=dict(mpt=18, dtu=28, ms=10),
+        jax_match=0.984765625, jax_dl=1.41e-7),
+    "ensemble10k_3d": dict(
+        f64=dict(hit=245, mpt=253, dtu=9569, ms=173, steps=17_267_666,
+                 median_l=2.1897905137663636),
+        port_f64=dict(hit=245, mpt=253, dtu=9571, ms=171,
+                      steps=17_302_267, median_l=2.189790513763458),
+        f64_band=dict(hit=0, mpt=2, dtu=47, ms=47),
+        f32=dict(hit=245, mpt=246, dtu=9711, ms=38, steps=13_875_068),
+        port_f32=dict(hit=245, mpt=252, dtu=9712, ms=31,
+                      steps=13_733_671),
+        f32_band=dict(mpt=28, dtu=63, ms=35),
+        jax_match=0.98408203125, jax_dl=4.49e-7),
+}
+# Phase 23: the golden rays of tests/test_goldens.py (the reference + legacy
+# mode, rtol 1e-9 / atol 1e-14, dopri5 from the canonical launch), pinned
+# there from the JAX package on a CPU and the C++ oracle, which agree to
+# ~1e-8: RayMain's ray (colatitude frame, f = 5 kHz, ionosphere only) at
+# t_max = 40 RE, RayTrace_lat's ray (f = 1 kHz) at the full phase budget,
+# both MAX_PHASE_TIME, held at rtol 1e-6 in (r, angle, chi) and 1e-4 in
+# the frequency-drifted T (as the goldens hold them); and RayMain's ray on
+# to the full budget, which wedges: DT_UNDERFLOW at t = 40.362 +- 0.05
+GOLD_RAYMAIN_T40 = np.array([1.68357074, 1.79234569, 0.49686928,
+                             0.39099545])
+GOLD_LAT_BUDGET = np.array([2.22037210, 0.10556103, -0.20884739, 0.36037])
+GOLD_WEDGE_T = 40.362
+# Phase 24: mr_fan_3d float64 with continue_until_done (four more budgets
+# of 40,960 attempts, dopri5, for the MAX_STEPS rays), the JAX package's
+# run() on a CPU (tests/test_torch_slice3d.py mr_fan_3d float64 --run --set
+# continue_until_done=True): over the 2,045 rays besides the wedge rays of
+# phase 10, HIT_EARTH 1274 / MAX_PHASE_TIME 10 / DT_UNDERFLOW 82 /
+# MAX_STEPS 679 (the wedge rays end DT_UNDERFLOW, HIT_EARTH, HIT_EARTH
+# there, as in the run without continuations), 143,576,968 attempted steps
+# in all. The four counts are held exactly, as phase 10 holds the run
+# without continuations, the steps within 1%, and the wedge rays each
+# traced alone (with continuations) keep their status in the fan
+MR_CONT = dict(hit_rest=1274, mpt_rest=10, dtu_rest=82, ms_rest=679,
+               steps=143_576_968)
+
 # the 3D float32 bs3 kernel at 10,240 rays x 512 attempts of the
 # ensemble10k_3d launch when it held only the axisymmetric medium (NVIDIA
 # H100 80GB HBM3, 700.00 W; PERF.md)
@@ -349,6 +445,18 @@ AXI_3D_MS = 3.203
 # 34 TFLOP/s float64 outside the tensor cores, 3.35 TB/s of HBM
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}
 PEAK_BYTES = 3.35e12
+
+
+def phase(title, flush=True):
+    """Print a phase's title, after the time the previous phase took."""
+    now = time.perf_counter()
+    if phase.last is not None:
+        print(f"  ({phase.last[0]}: {now - phase.last[1]:.1f} s)")
+    print(title, flush=flush)
+    phase.last = (title.split("]")[0] + "]", now)
+
+
+phase.last = None
 
 
 def check(ok, what):
@@ -375,8 +483,9 @@ def start(name, dtype_name, dev, every=1, medium=None, **over):
     """(carry, f, env, cfg, spec, kw) of a preset's launch on `dev` (over
     `medium`, a MediumConfig, in place of the preset's; `over` overrides
     other fields of the preset): every `every`-th ray, init_carry applied;
-    kw holds the launch's frame, root and adaptive, the keywords of
-    step_chunk."""
+    kw holds the launch's frame, root, adaptive, grad_mode and
+    legacy_freq_state (an override here, not a preset field), the keywords
+    of step_chunk."""
     import torch
 
     from raytrace_tpu_torch.config import preset
@@ -384,6 +493,8 @@ def start(name, dtype_name, dev, every=1, medium=None, **over):
     from raytrace_tpu_torch.ops import rhs as rhs_mod
     from raytrace_tpu_torch.run import _build_u0
 
+    over = dict(over)
+    legacy = over.pop("legacy_freq_state", False)
     conf = preset(name, dtype=dtype_name, **over,
                   **({"medium": medium} if medium else {}))
     env = conf.medium.build()
@@ -391,10 +502,12 @@ def start(name, dtype_name, dev, every=1, medium=None, **over):
     u0, f = _build_u0(conf, env, np_dt, torch.device(dev))
     u0 = torch.as_tensor(u0[::every]).to(dev)
     f = torch.as_tensor(f[::every]).to(dev)
-    rhs_fn, _ = rhs_mod.frame_rhs(conf.frame, env, conf.root)
+    rhs_fn, _ = rhs_mod.frame_rhs(conf.frame, env, conf.root, conf.grad_mode,
+                                  legacy)
     cfg = conf.solver()
     return (init_carry(rhs_fn, u0, f, cfg), f, env, cfg, conf.stop(),
-            dict(frame=conf.frame, root=conf.root, adaptive=conf.adaptive))
+            dict(frame=conf.frame, root=conf.root, adaptive=conf.adaptive,
+                 grad_mode=conf.grad_mode, legacy_freq_state=legacy))
 
 
 def both(carry, f, env, cfg, spec, stepper, n, kw):
@@ -433,7 +546,7 @@ def max_abs(got, ref):
 
 def hold_to_plain(carry, f, env, cfg, spec, kw, what):
     """Phase 2's checks of one launch: float64, 1 step within rtol 1e-12
-    and 256 steps with >= 99% of rays identical, per stepper."""
+    and 128 steps with >= 99% of rays identical, per stepper."""
     from raytrace_tpu_torch.integrate.solve import RayCarry
 
     for stepper in ("bs3", "dopri5"):
@@ -463,19 +576,19 @@ def hold_to_plain(carry, f, env, cfg, spec, kw, what):
         # last-ulp differences (the cancelling error estimate feeds them
         # into dt), are counted, not failed, as the JAX package's own
         # on-chip Pallas check records (benchmarks/pallas_on_chip.py)
-        got, ref, _ = both(carry, f, env, cfg, spec, stepper, 256, kw)
+        got, ref, _ = both(carry, f, env, cfg, spec, stepper, 128, kw)
         same = np.ones(f.shape[0], bool)
         for name in ("status", "n_accept", "n_reject"):
             same &= got[name] == ref[name]
         err = np.max([rel_err(got[k], ref[k]) for k in ("u", "t", "dt")],
                      axis=0)
         agree = same & (err <= 1e-9)
-        print(f"  {what} float64 {stepper} 256 steps, {f.shape[0]} rays: "
+        print(f"  {what} float64 {stepper} 128 steps, {f.shape[0]} rays: "
               f"{int((~same).sum())} took another accept/reject path, "
               f"{int((same & ~agree).sum())} more differ by > 1e-9; median "
               f"rel err of the rest {float(np.median(err[agree])):.2e}")
         check(agree.mean() >= 0.99,
-              f"{what} float64 {stepper} 256 steps: >= 99% of rays "
+              f"{what} float64 {stepper} 128 steps: >= 99% of rays "
               "identical in status/n_accept/n_reject and within rtol 1e-9 "
               "in u, t, dt")
 
@@ -519,7 +632,9 @@ def ops_per_attempt(name, stepper, medium=None, **over):
                                if isinstance(o, torch.Tensor))
             return out
 
-    rhs_fn, gidx = rhs_mod.frame_rhs(kw["frame"], env, kw["root"])
+    rhs_fn, gidx = rhs_mod.frame_rhs(kw["frame"], env, kw["root"],
+                                     kw["grad_mode"],
+                                     kw["legacy_freq_state"])
     with Count():
         _step_one(rhs_fn, carry, f, cfg, spec, gidx, kw["adaptive"], stepper)
     return Count.n / f.shape[0]
@@ -580,7 +695,8 @@ def full_chain_off(name, dtype_name, stepper, dev, n=512, reps=5):
     check(own(env) == 0, f"{name} takes the axisymmetric instances")
     ms, outs = {"axi": [], "full": []}, {}
     for which in ("axi", "full", "full", "axi"):
-        sc.medium_code = own if which == "axi" else (lambda env, cfg: 1)
+        sc.medium_code = (own if which == "axi"
+                          else (lambda env, cfg, *modes: 1))
         try:
             t, out = time_kernel(carry, f, env, cfg, spec, stepper, n, kw,
                                  reps)
@@ -622,14 +738,16 @@ def plain_cut(name, dtype_name, stepper, dev, medium=None, every=10, n=64,
 
 
 def time_instance(name, dtype_name, stepper, dev, n=512, reps=5,
-                  medium=None, plain_full=True, plain_ms=None, **over):
+                  medium=None, plain_full=True, plain_ms=None, plain=None,
+                  every=1, **over):
     """The kernel over a preset's whole launch x n attempts (CUDA events,
     mean of reps after a warm-up launch) beside its bound and one
     plain-version run: of the same launch (plain_full, the instances of
     the kernels' JSON record; plain_ms where that run was timed already)
-    or of plain_cut's. `over` overrides fields of the preset. Returns a
-    dict."""
-    carry, f, env, cfg, spec, kw = start(name, dtype_name, dev,
+    or of plain_cut's (`plain`, its dict, where that run was timed
+    already). `over` overrides fields of the preset; every: every
+    `every`-th ray of the launch. Returns a dict."""
+    carry, f, env, cfg, spec, kw = start(name, dtype_name, dev, every=every,
                                          medium=medium, **over)
     kernel_ms, out = time_kernel(carry, f, env, cfg, spec, stepper, n, kw,
                                  reps)
@@ -639,7 +757,7 @@ def time_instance(name, dtype_name, stepper, dev, n=512, reps=5,
         if plain_ms is None:
             plain_ms = time_plain(carry, f, env, cfg, spec, stepper, n, kw)
         plain = dict(plain_ms=plain_ms, plain_rays=f.shape[0], plain_n=n)
-    else:
+    elif plain is None:
         plain = plain_cut(name, dtype_name, stepper, dev, medium, **over)
     bound_ms, by = bound(name, dtype_name, stepper, carry.u.shape[1],
                          attempts, f.shape[0], medium, **over)
@@ -664,7 +782,8 @@ def bit_for_bit(what, name, dtype_name, stepper, dev, n, every=1,
                 medium=None, **over):
     """One launch through the kernel and the plain version; fails unless
     every field agrees bit for bit. `over` overrides fields of the
-    preset. Returns (max abs err, plain ms)."""
+    preset. Returns (max abs err, plain ms); bit_for_bit.rays is the
+    launch's ray count."""
     carry, f, env, cfg, spec, kw = start(name, dtype_name, dev, every=every,
                                          medium=medium, **over)
     got, ref, plain_ms = both(carry, f, env, cfg, spec, stepper, n, kw)
@@ -676,6 +795,7 @@ def bit_for_bit(what, name, dtype_name, stepper, dev, n, every=1,
              f"{float(np.abs(got['k1'][:, 5]).max()):.3e}"
              if kw["frame"] == "3d" else ""), flush=True)
     check(n_diff == 0, f"{what} {dtype_name} {stepper}: bit for bit")
+    bit_for_bit.rays = f.shape[0]
     return max_abs(got, ref), plain_ms
 
 
@@ -794,15 +914,15 @@ def general_field_kernels(dev, card):
         errs[k], plain_ms[k] = bit_for_bit(k, name, "float32", "bs3", dev,
                                            512)
         for stepper in ("bs3", "dopri5"):
-            bit_for_bit(k, name, "float64", stepper, dev, 256, every=10)
+            bit_for_bit(k, name, "float64", stepper, dev, 128, every=10)
     # a tilted field with an axisymmetric density (ps_mlt off: the chain
     # rule through mlat alone), and IGRF over the MLT-resolved GCPM
     bit_for_bit("tilted field, axisymmetric density", "ensemble10k_plume",
-                "float32", "bs3", dev, 256, every=10,
+                "float32", "bs3", dev, 128, every=10,
                 medium=MediumConfig(b0=B0_3D, b_model="tilted", b_tilt=0.2,
                                     b_tilt_phi=0.5))
     bit_for_bit("IGRF x MLT GCPM", "ensemble10k_plume", "float64", "dopri5",
-                dev, 256, every=10,
+                dev, 128, every=10,
                 medium=MediumConfig(b0=B0_3D, ps_mlt=True, ps_model="gcpm",
                                     b_model="igrf"))
 
@@ -898,6 +1018,7 @@ def drive(conf, what, card):
     launches = sc.step_chunk.launches
     drive.team_launches = sc.step_chunk.team_launches
     calls = sc.step_chunk_reference.calls
+    drive.kws = [launch[-1] for launch in seen]
     carry, f, env, cfg, spec, kw = seen[-1]
     drive.tail = dict(name=conf.name, env=env, carry=carry._asdict(), f=f,
                       kw=kw, cfg=cfg._asdict(), spec=spec._asdict(),
@@ -988,9 +1109,10 @@ def stop_branches(dev):
               "bit for bit with the plain version")
 
 
-def rays_alone(name, rays, out64):
-    """Each named ray of a float64 run of preset `name`, traced alone on
-    the card (one ray, one full-budget round): it must keep the status it
+def rays_alone(name, rays, out64, **over):
+    """Each named ray of a float64 run of preset `name` (`over` overrides
+    other fields of the preset), traced alone on the card (one ray, one
+    full-budget round and what `over` adds): it must keep the status it
     has in the fan."""
     from raytrace_tpu_torch.config import preset
     from raytrace_tpu_torch.integrate import events
@@ -1000,7 +1122,7 @@ def rays_alone(name, rays, out64):
     axes = ("lats", "phis", "chis", "freqs")
     for i in rays:
         idx = np.unravel_index(i, [len(getattr(conf, k)) for k in axes])
-        one = run(preset(name, dtype="float64",
+        one = run(preset(name, dtype="float64", **over,
                          **{k: (getattr(conf, k)[j],)
                             for k, j in zip(axes, idx)}), device="cuda")
         res, res1 = out64["result"], one["result"]
@@ -1060,18 +1182,18 @@ def variant_kernels(dev, card):
     errs["rk4"], plain["rk4"] = bit_for_bit(
         "rk4, the ensemble10k launch at dt0 = dt_max", "ensemble10k",
         "float64", "bs3", dev, 512, **RK4)
-    # float64 over every 10th ray (emic_heband's 48 whole), 256 attempts
+    # float64 over every 10th ray (emic_heband's 48 whole), 128 attempts
     # (64 for the further full-medium and general-field instances)
     for label, name, steppers, every, med, over, n in (
         ("ensemble10k_local", "ensemble10k_local", ("bs3", "dopri5"), 10,
-         None, {}, 256),
+         None, {}, 128),
         ("colatitude frame", "ensemble10k", ("bs3", "dopri5"), 10, None,
-         COLAT, 256),
-        ("emic_heband", "emic_heband", ("bs3", "dopri5"), 1, None, {}, 256),
+         COLAT, 128),
+        ("emic_heband", "emic_heband", ("bs3", "dopri5"), 1, None, {}, 128),
         ("He+ and O+ fan", "ensemble10k", ("dopri5",), 10, ions_2d, {},
-         256),
+         128),
         ("rk4 in the colatitude frame", "ensemble10k", ("bs3",), 10, None,
-         dict(RK4, **COLAT), 256),
+         dict(RK4, **COLAT), 128),
         # each variant through the full density chain and a general field,
         # 64 attempts
         ("ds_local over GCPM, a duct (a second shell), day/night",
@@ -1329,6 +1451,283 @@ def rk4_slice(card):
     return launches64, tail
 
 
+def ref_kernels(dev, card):
+    """Phase 20: the 18 ALT instances (3 frames x bs3, dopri5, rk4 x
+    float32, float64) bit for bit with their plain version: bs3 over the
+    whole launch x 512 attempts (the reference + legacy mode in the 2D
+    frames, the reference set in 3D), dopri5 and rk4 over every 10th ray x
+    64; each timed at 10,240 rays x 512 beside its bound and the plain
+    version (the full launch for bs3, whose plain run the check timed;
+    else the cut). Returns {(frame, dtype): (max abs err, timing)} of the
+    bs3 instances."""
+    out = {}
+    for frame, name, over in (
+        ("2d_lat", "ensemble10k", REF_LEGACY),
+        ("2d_colat", "ensemble10k", dict(COLAT, **REF_LEGACY)),
+        ("3d", "ensemble10k_3d", REF),
+    ):
+        label = f"{frame} {'reference + legacy' if frame != '3d' else 'reference'}"
+        for dt_name in ("float32", "float64"):
+            err, plain_ms = bit_for_bit(label, name, dt_name, "bs3", dev, 512,
+                                        **over)
+            t = time_instance(name, dt_name, "bs3", dev, plain_ms=plain_ms,
+                              **over)
+            print_timing(f"{label} {dt_name} bs3", t, card)
+            out[frame, dt_name] = (err, t)
+        for st in ("dopri5", "rk4"):
+            more = {}
+            if st == "rk4":
+                more = RK4_3D if frame == "3d" else RK4
+            kst = "bs3" if st == "rk4" else st
+            for dt_name in ("float32", "float64"):
+                _, plain_ms = bit_for_bit(label, name, dt_name, kst, dev, 64,
+                                          every=10, **over, **more)
+                plain = dict(plain_ms=plain_ms, plain_rays=bit_for_bit.rays,
+                             plain_n=64)
+                t = time_instance(name, dt_name, kst, dev, plain_full=False,
+                                  plain=plain, **over, **more)
+                print_timing(f"{label} {dt_name} {st}", t, card)
+    return out
+
+
+def ref_slice(name, card):
+    """Phases 21-22: preset `name` with grad_mode="reference" through
+    run.run, float32 and float64, against the JAX package's censuses
+    (REF_PINS). Returns (the float32 run's launches, its tail)."""
+    from raytrace_tpu_torch.config import preset
+
+    pin = REF_PINS[name]
+    conf = preset(name, **REF)
+    drive(conf, "warm-up", card)
+    out32, _, launches32, calls = drive(conf, "float32", card)
+    check(launches32 > 0 and calls == 0,
+          f"{name} (reference) stepped through the kernel, never the plain "
+          "version")
+    body(launches32, f"{name} reference float32", team=False)
+    tail = tail_timing(f"{name} reference float32", card)
+    st = out32["stats"]
+    steps = int(st["total_accepted_steps"] + st["total_rejected_steps"])
+    got = {k: int(st[f"n_{v}"]) for k, v in (
+        ("hit", "hit_earth"), ("mpt", "max_phase_time"),
+        ("dtu", "dt_underflow"), ("ms", "max_steps"))}
+    band = pin["f32_band"]
+    for who, p32 in (("the JAX package's", pin["f32"]),
+                     ("the port's plain version's", pin["port_f32"])):
+        print(f"  float32: {got}, {steps} steps, against {who} on a CPU "
+              f"{p32}")
+        check(abs(got["hit"] - p32["hit"]) <= max(0.02 * p32["hit"], 2)
+              and all(abs(got[k] - p32[k]) <= band[k] for k in band),
+              f"float32 HIT_EARTH within 2% (or 2 rays) of {who}, and "
+              f"MAX_PHASE_TIME / DT_UNDERFLOW / MAX_STEPS within {band} "
+              "rays (the JAX package's own float32 one-ulp nudge's flow)")
+        check(abs(steps - p32["steps"]) <= 0.05 * p32["steps"],
+              f"float32 attempted steps {steps} within 5% of {who} "
+              f"{p32['steps']}")
+    check(np.isfinite(out32["result"].u[out32["valid"]]).all(),
+          "every final state is finite")
+
+    out64, _, launches64, calls = drive(preset(name, dtype="float64", **REF),
+                                        "float64", card)
+    check(launches64 > 0 and calls == 0,
+          "float64 stepped through the kernel, never the plain version")
+    st = out64["stats"]
+    steps64 = int(st["total_accepted_steps"] + st["total_rejected_steps"])
+    med64 = float(st["median_landing_l"])
+    got = {k: int(st[f"n_{v}"]) for k, v in (
+        ("hit", "hit_earth"), ("mpt", "max_phase_time"),
+        ("dtu", "dt_underflow"), ("ms", "max_steps"))}
+    band = pin["f64_band"]
+    for who, p64 in (("the JAX package's", pin["f64"]),
+                     ("the port's plain version's", pin["port_f64"])):
+        print(f"  float64: {got}, {steps64} steps, median landing L "
+              f"{med64!r} against {who} on a CPU {p64}")
+        check(all(abs(got[k] - p64[k]) <= band[k] for k in band),
+              f"float64 HIT_EARTH / MAX_PHASE_TIME / DT_UNDERFLOW / "
+              f"MAX_STEPS within {band} rays of {who} (the JAX package's "
+              "own one-ulp nudge's flow)")
+        check(abs(steps64 - p64["steps"]) <= 0.01 * p64["steps"],
+              f"float64 attempted steps {steps64} within 1% of {who} "
+              f"{p64['steps']}")
+        check(abs(med64 - p64["median_l"]) <= 1e-9 * p64["median_l"],
+              f"float64 median landing L within 1e-9 of {who}")
+    lat_to_l = ((lambda u: u[:, 0] / np.cos(u[:, 1]) ** 2)
+                if preset(name).frame == "2d_lat"
+                else (lambda u: u[:, 0] / np.sin(u[:, 1]) ** 2))
+    match, med_rel, n_m = landing_agreement(out32, out64, lat_to_l)
+    print(f"  float32 vs float64: {match * 100:.2f}% statuses match, median "
+          f"relative landing-L error {med_rel:.3e} over {n_m} matched "
+          f"HIT_EARTH rays (the JAX package's own: {pin['jax_match']:.2%}, "
+          f"{pin['jax_dl']:.3g})")
+    floor = pin["jax_match"] - 0.005
+    check(match >= floor, f"statuses match on >= {floor:.2%} of rays")
+    check(med_rel < 1e-4, "median relative landing-L error < 1e-4")
+    return launches32, tail
+
+
+def golden_rays(dev, card):
+    """Phase 23: the golden rays of tests/test_goldens.py through trace()
+    on the card, float64, reference + legacy. Returns the launches of the
+    two dopri5 instances, and each one's max abs error against its plain
+    version (bit for bit over 128 attempts from its golden launch) and
+    timing there."""
+    import torch
+
+    from raytrace_tpu_torch.constants import RE
+    from raytrace_tpu_torch.integrate import events
+    from raytrace_tpu_torch.integrate.events import StopSpec
+    from raytrace_tpu_torch.integrate.solve import (
+        SolverConfig, init_carry, trace,
+    )
+    from raytrace_tpu_torch.models.medium import (
+        make_env_lat, make_env_raymain,
+    )
+    from raytrace_tpu_torch.ops import rhs as rhs_mod
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    u0 = torch.tensor([[(RE + 1.0e6) / RE, np.pi / 4, 0.0, 0.0]],
+                      dtype=torch.float64, device=dev)
+    cfg = SolverConfig(dt0=1e-4, rtol=1e-9, atol=1e-14)
+    colat = dict(lat_sign=-1.0, lat_offset=np.pi / 2)
+    rays = {
+        "raymain_t40": ("2d_colat", make_env_raymain(), 5000.0,
+                        StopSpec(r_floor=1.0, t_max=40.0, **colat)),
+        "lat_budget": ("2d_lat", make_env_lat(), 1000.0,
+                       StopSpec(r_floor=1.0, t_max=5.0e9 / RE)),
+        "raymain_wedge": ("2d_colat", make_env_raymain(), 5000.0,
+                          StopSpec(r_floor=1.0, t_max=5.0e9 / RE, **colat)),
+    }
+    launches, res = {"2d_colat": 0, "2d_lat": 0}, {}
+    for key, (frame, env, fq, spec) in rays.items():
+        f = torch.tensor([fq], dtype=torch.float64, device=dev)
+        sc.step_chunk.launches = 0
+        sc.step_chunk_reference.calls = 0
+        t0 = time.perf_counter()
+        r = trace(env, u0, f, frame=frame, cfg=cfg, spec=spec,
+                  stepper="dopri5", max_steps=100000, chunk=256,
+                  grad_mode="reference", legacy_freq_state=True)
+        u = r.u[0].cpu().numpy()
+        wall = time.perf_counter() - t0
+        launches[frame] += sc.step_chunk.launches
+        check(sc.step_chunk.launches == 1
+              and sc.step_chunk_reference.calls == 0,
+              f"{key}: one kernel launch, never the plain version")
+        res[key] = r
+        print(f"  {key}: {events.STATUS_NAMES[int(r.status[0])]} at t = "
+              f"{float(r.t[0]):.6f} after {int(r.n_accept[0])} accepted + "
+              f"{int(r.n_reject[0])} rejected, u = {u.tolist()}, wall "
+              f"{wall:.3f} s on {card}", flush=True)
+    for key, gold in (("raymain_t40", GOLD_RAYMAIN_T40),
+                      ("lat_budget", GOLD_LAT_BUDGET)):
+        r = res[key]
+        u = r.u[0].cpu().numpy()
+        rel = np.abs(u - gold) / np.abs(gold)
+        print(f"  {key}: relative distance from the golden state "
+              + ", ".join(f"{x:.2e}" for x in rel))
+        check(int(r.status[0]) == events.MAX_PHASE_TIME
+              and (rel[:3] <= 1e-6).all() and rel[3] <= 1e-4,
+              f"{key}: MAX_PHASE_TIME, (r, angle, chi) within rtol 1e-6 and "
+              "T within 1e-4 of the golden state")
+    r = res["raymain_wedge"]
+    check(int(r.status[0]) == events.DT_UNDERFLOW
+          and abs(float(r.t[0]) - GOLD_WEDGE_T) <= 0.05,
+          f"raymain past t = 40: DT_UNDERFLOW at t = {GOLD_WEDGE_T} +- 0.05")
+
+    # each golden instance on its golden launch, 1 ray x 128 attempts:
+    # bit for bit with the plain version, then timed (kernel: mean of 5
+    # after a warm-up)
+    timing, errs = {}, {}
+    for key in ("raymain_t40", "lat_budget"):
+        frame, env, fq, spec = rays[key]
+        f = torch.tensor([fq], dtype=torch.float64, device=dev)
+        kw = dict(frame=frame, grad_mode="reference", legacy_freq_state=True,
+                  root=1.0, adaptive=True)
+        carry = init_carry(rhs_mod.frame_rhs(frame, env, 1.0, "reference",
+                                             True)[0], u0, f, cfg)
+        got, ref, plain_ms = both(carry, f, env, cfg, spec, "dopri5", 128,
+                                  kw)
+        n_diff = n_differ(got, ref)
+        errs[frame] = max_abs(got, ref)
+        print(f"  {key}: {frame} reference + legacy float64 dopri5, 1 ray x "
+              f"128 steps from the golden launch: {n_diff} values differ, "
+              f"max abs err {errs[frame]:.3e}")
+        check(n_diff == 0, f"{key}: the golden instance bit for bit with "
+                           "its plain version")
+        ms, out = time_kernel(carry, f, env, cfg, spec, "dopri5", 128, kw, 5)
+        attempts = int(((out.n_accept + out.n_reject)
+                        - (carry.n_accept + carry.n_reject)).sum())
+        ops = ops_per_attempt("raymain" if frame == "2d_colat"
+                              else "ensemble10k", "dopri5",
+                              **(dict(COLAT, **REF_LEGACY)
+                                 if frame == "2d_colat" else REF_LEGACY))
+        ops_ms = ops * attempts / PEAK_OPS["float64"] * 1e3
+        bytes_ms = carry_bytes(4, 8, 1) / PEAK_BYTES * 1e3
+        timing[frame] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            attempts=attempts, rays=1, n=128, plain_rays=1, plain_n=128)
+        print_timing(f"{key} ({frame} reference + legacy float64 dopri5)",
+                     timing[frame], card)
+    return launches, errs, timing
+
+
+def mr_continuation(dev, card):
+    """Phase 24: mr_fan_3d float64 with continue_until_done: its rounds
+    run, then dopri5 budgets for the MAX_STEPS rays. Returns the run's
+    launches of the continuation instance (3D full float64 dopri5, the
+    team body), the last continuation launch replayed, and that instance
+    bit for bit with its plain version over every 10th ray of the launch x
+    64 attempts: (max abs err, its timing there)."""
+    from raytrace_tpu_torch.config import preset
+    from raytrace_tpu_torch.integrate import events
+
+    out, _, launches, calls = drive(
+        preset("mr_fan_3d", dtype="float64", continue_until_done=True),
+        "float64 with continue_until_done", card)
+    check(launches > 0 and calls == 0,
+          "stepped through the kernel, never the plain version")
+    body(launches, "mr_fan_3d float64 with continuations", team=True)
+    kw = drive.tail["kw"]
+    n_cont = sum(k["stepper"] == "dopri5" for k in drive.kws)
+    check(kw["stepper"] == "dopri5" and n_cont > 0,
+          f"the last launch is a continuation on dopri5 (stepper auto): "
+          f"{n_cont} continuation launches of the {launches}")
+    carry = drive.tail["carry"]
+    drive.tail["round"] = dict(
+        active=int((carry["status"] == events.ACTIVE).sum()))
+    tail = tail_timing("mr_fan_3d float64, the last continuation", card)
+    res = out["result"]
+    status = np.asarray(res.status)[out["valid"]]
+    rest = np.ones(status.size, bool)
+    rest[list(F64_R_WEDGE_RAYS)] = False
+    got = {k: int((status[rest] == code).sum()) for k, code in (
+        ("hit_rest", events.HIT_EARTH), ("mpt_rest", events.MAX_PHASE_TIME),
+        ("dtu_rest", events.DT_UNDERFLOW), ("ms_rest", events.MAX_STEPS))}
+    steps = int(np.asarray(res.n_accept).sum()
+                + np.asarray(res.n_reject).sum())
+    print(f"  over the {int(rest.sum())} rays besides {F64_R_WEDGE_RAYS}: "
+          f"{got}, {steps} steps in all; the JAX package's: {MR_CONT}; the "
+          "wedge rays end "
+          + ", ".join(events.STATUS_NAMES[int(status[i])]
+                      for i in F64_R_WEDGE_RAYS))
+    check(all(got[k] == MR_CONT[k] for k in got),
+          "HIT_EARTH / MAX_PHASE_TIME / DT_UNDERFLOW / MAX_STEPS after the "
+          "continuations equal the JAX package's (the wedge rays aside)")
+    check(abs(steps - MR_CONT["steps"]) <= 0.01 * MR_CONT["steps"],
+          f"attempted steps {steps} within 1% of the JAX package's "
+          f"{MR_CONT['steps']}")
+    rays_alone("mr_fan_3d", F64_R_WEDGE_RAYS, out,
+               continue_until_done=True)
+    check(np.isfinite(np.asarray(res.u)[out["valid"]]).all(),
+          "every final state is finite")
+    err, plain_ms = bit_for_bit("the mr_fan_3d launch", "mr_fan_3d",
+                                "float64", "dopri5", dev, 64, every=10)
+    t = time_instance("mr_fan_3d", "float64", "dopri5", dev, n=64,
+                      plain_ms=plain_ms, every=10)
+    print_timing("3d full float64 dopri5 (the continuation instance)", t,
+                 card)
+    return n_cont, tail, (err, t)
+
+
 def main():
     import torch
 
@@ -1348,7 +1747,7 @@ def main():
     dev = torch.device("cuda")
 
     # ---- 1. card and build ------------------------------------------------
-    print("[1] card and build", flush=True)
+    phase("[1] card and build", flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -1369,7 +1768,7 @@ def main():
         print(f"    {inst}: {use}")
 
     # ---- 2. kernel vs plain PyTorch on the card ---------------------------
-    print("[2] step kernel vs plain PyTorch", flush=True)
+    phase("[2] step kernel vs plain PyTorch", flush=True)
     carry, f, env, cfg, spec, kw = start("ensemble10k", "float64", dev,
                                             every=10)
     hold_to_plain(carry, f, env, cfg, spec, kw, "2D")
@@ -1395,7 +1794,7 @@ def main():
     print_timing("float32 bs3", t_2d, card)
 
     # ---- 3. canonical ray through the kernel, float64 ---------------------
-    print("[3] canonical RayTrace_lat ray, float64, dopri5", flush=True)
+    phase("[3] canonical RayTrace_lat ray, float64, dopri5", flush=True)
     n0 = sc.step_chunk.launches
     u0 = torch.tensor([[(RE + 1.0e6) / RE, np.pi / 4, 0.0, 0.0]],
                       dtype=torch.float64, device=dev)
@@ -1419,7 +1818,7 @@ def main():
     check(abs(n_acc - 4135) <= 0.02 * 4135, "accepted steps 4135 +- 2%")
 
     # ---- 4. the ensemble10k slice ----------------------------------------
-    print("[4] ensemble10k through raytrace_tpu_torch.run.run, float32",
+    phase("[4] ensemble10k through raytrace_tpu_torch.run.run, float32",
           flush=True)
     ens = preset("ensemble10k")
     drive(ens, "warm-up", card)
@@ -1442,7 +1841,7 @@ def main():
           f"median landing L {med_l:.6f} within {REC_MEDIAN_L_RTOL:g} of the "
           f"TPU record {REC_MEDIAN_L}")
 
-    print("[4] ensemble10k, float64", flush=True)
+    phase("[4] ensemble10k, float64", flush=True)
     out64, _, _, _ = drive(preset("ensemble10k", dtype="float64"), "float64",
                            card)
     st64 = out64["stats"]
@@ -1470,7 +1869,7 @@ def main():
           "package's own: 2.18e-4)")
 
     # ---- 5. the 3D kernel and the arc ceiling vs plain PyTorch -----------
-    print("[5] 3D step kernel (rhs_3d, ds_max) vs plain PyTorch", flush=True)
+    phase("[5] 3D step kernel (rhs_3d, ds_max) vs plain PyTorch", flush=True)
     carry, f, env, cfg, spec, kw = start("ensemble10k_3d", "float64", dev,
                                             every=10)
     hold_to_plain(carry, f, env, cfg, spec, kw, "3D")
@@ -1526,7 +1925,7 @@ def main():
           f"{AXI_3D_MS} ms")
 
     # ---- 6. the ensemble10k_3d slice -------------------------------------
-    print("[6] ensemble10k_3d through raytrace_tpu_torch.run.run, float32",
+    phase("[6] ensemble10k_3d through raytrace_tpu_torch.run.run, float32",
           flush=True)
     e3 = preset("ensemble10k_3d")
     drive(e3, "warm-up", card)
@@ -1546,7 +1945,7 @@ def main():
           f"median landing L {med_l:.6f} within {REC3_MEDIAN_L_ATOL:g} of the "
           f"TPU record {REC3_MEDIAN_L}")
 
-    print("[6] ensemble10k_3d, float64", flush=True)
+    phase("[6] ensemble10k_3d, float64", flush=True)
     out3_64, _, launches, ref_calls = drive(
         preset("ensemble10k_3d", dtype="float64"), "float64", card)
     st64 = out3_64["stats"]
@@ -1578,7 +1977,7 @@ def main():
           "JAX package's own: 1.55e-6)")
 
     # ---- 7. the ensemble10k_production slice (2D, ds_max) ----------------
-    print("[7] ensemble10k_production through run.run, float32", flush=True)
+    phase("[7] ensemble10k_production through run.run, float32", flush=True)
     prod = preset("ensemble10k_production")
     drive(prod, "warm-up", card)
     outp, _, launches_prod, ref_calls = drive(prod, "float32", card)
@@ -1602,7 +2001,7 @@ def main():
     from raytrace_tpu_torch.config import MediumConfig
     from raytrace_tpu_torch.constants import B0_2D, B0_3D
 
-    print("[8] full density chain (MLT-resolved 3D, GCPM, every 2D gate) "
+    phase("[8] full density chain (MLT-resolved 3D, GCPM, every 2D gate) "
           "vs plain PyTorch", flush=True)
     # the plume path's first launch: 10,240 rays x 512 float32 bs3 attempts
     err_plume, _ = bit_for_bit("plume (the first round's launch)",
@@ -1610,20 +2009,20 @@ def main():
                                512)
     for stepper in ("bs3", "dopri5"):
         bit_for_bit("plume", "ensemble10k_plume", "float64", stepper, dev,
-                    256, every=10)
+                    128, every=10)
     # mr_fan_3d's launch: 2,048 low-altitude rays near f_LHR
     err_mr, _ = bit_for_bit("mr_fan_3d", "mr_fan_3d", "float32", "bs3", dev,
                             512)
     gcpm = MediumConfig(b0=B0_3D, ps_mlt=True, ps_model="gcpm")
-    for dt_name, stepper, every, n in (("float32", "bs3", 1, 512),
-                                       ("float64", "dopri5", 10, 256)):
+    for dt_name, stepper, every, n in (("float32", "bs3", 1, 128),
+                                       ("float64", "dopri5", 10, 128)):
         bit_for_bit("plume fan over the MLT GCPM", "ensemble10k_plume",
                     dt_name, stepper, dev, n, every=every, medium=gcpm)
     for label, kw in FULL_2D.items():
         med = MediumConfig(b0=B0_2D, **kw)
         for dt_name, stepper in (("float32", "bs3"), ("float64", "dopri5")):
             bit_for_bit(f"2D knee fan over {label}", "knee", dt_name,
-                        stepper, dev, 512, medium=med)
+                        stepper, dev, 256, medium=med)
     # the team body's density pieces over every other gate of the chain
     for label, kw in TEAM_MEDIA.items():
         med = MediumConfig(b0=B0_3D, **kw)
@@ -1678,7 +2077,7 @@ def main():
     print_timing("mr_fan_3d float32 bs3", t_mr, card)
 
     # ---- 9. the ensemble10k_plume slice ----------------------------------
-    print("[9] ensemble10k_plume through raytrace_tpu_torch.run.run, float32",
+    phase("[9] ensemble10k_plume through raytrace_tpu_torch.run.run, float32",
           flush=True)
     plume = preset("ensemble10k_plume")
     drive(plume, "warm-up", card)
@@ -1701,7 +2100,7 @@ def main():
     drift = float(np.abs(u_m[:, 2] - u0_m[:, 2]).max())
     print(f"  largest longitude drift of a ray: {drift:.3e} rad")
 
-    print("[9] ensemble10k_plume, float64", flush=True)
+    phase("[9] ensemble10k_plume, float64", flush=True)
     outm64, _, launches, ref_calls = drive(
         preset("ensemble10k_plume", dtype="float64"), "float64", card)
     st64 = outm64["stats"]
@@ -1732,7 +2131,7 @@ def main():
           "JAX package's own: 1.17e-6)")
 
     # ---- 10. the mr_fan_3d slice -----------------------------------------
-    print("[10] mr_fan_3d through raytrace_tpu_torch.run.run, float32",
+    phase("[10] mr_fan_3d through raytrace_tpu_torch.run.run, float32",
           flush=True)
     mr = preset("mr_fan_3d")
     drive(mr, "warm-up", card)
@@ -1753,7 +2152,7 @@ def main():
           f"{CPU_F32_R_HIT_EARTH / RECR_HIT_EARTH - 1:+.2%})")
     check(abs(steps - RECR_STEPS) <= 0.05 * RECR_STEPS,
           f"attempted steps {steps} within 5% of the TPU record {RECR_STEPS}")
-    print("[10] mr_fan_3d, float64", flush=True)
+    phase("[10] mr_fan_3d, float64", flush=True)
     outr64, _, launches, ref_calls = drive(
         preset("mr_fan_3d", dtype="float64"), "float64", card)
     st64 = outr64["stats"]
@@ -1780,33 +2179,48 @@ def main():
           f"{F64_R_STEPS}")
 
     # ---- 11. the general-field kernel vs plain PyTorch ------------------
-    print("[11] general-field instances (tilted dipole, IGRF) vs plain "
+    phase("[11] general-field instances (tilted dipole, IGRF) vs plain "
           "PyTorch", flush=True)
     general = general_field_kernels(dev, card)
 
     # ---- 12, 13. the non-axial-field slices ------------------------------
-    print("[12] ensemble10k_tilted", flush=True)
+    phase("[12] ensemble10k_tilted", flush=True)
     launches_tilted = field_slice("ensemble10k_tilted", card)
-    print("[13] ensemble10k_igrf", flush=True)
+    phase("[13] ensemble10k_igrf", flush=True)
     launches_igrf = field_slice("ensemble10k_igrf", card)
 
     # ---- 14-18. the last variants: ds_local, colatitude, multi-ion, rk4 --
-    print("[14] instances of the local arc ceiling, the colatitude frame, "
+    phase("[14] instances of the local arc ceiling, the colatitude frame, "
           "the multi-ion medium and rk4 vs plain PyTorch", flush=True)
     variants = variant_kernels(dev, card)
-    print("[15] ensemble10k_local through raytrace_tpu_torch.run.run, "
+    phase("[15] ensemble10k_local through raytrace_tpu_torch.run.run, "
           "float32", flush=True)
     launches_local = local_slice(card)
-    print("[16] raymain and the ensemble10k fan in the colatitude frame",
+    phase("[16] raymain and the ensemble10k fan in the colatitude frame",
           flush=True)
     launches_colat, tails["colat"] = colat_slices(card)
-    print("[17] emic_heband", flush=True)
+    phase("[17] emic_heband", flush=True)
     launches_emic = emic_slice(card)
-    print("[18] the ensemble10k fan with fixed-step rk4", flush=True)
+    phase("[18] the ensemble10k fan with fixed-step rk4", flush=True)
     launches_rk4, tails["rk4"] = rk4_slice(card)
-    print("[19] the stop branches ESCAPED and EVANESCENT vs plain PyTorch",
+    phase("[19] the stop branches ESCAPED and EVANESCENT vs plain PyTorch",
           flush=True)
     stop_branches(dev)
+
+    # ---- 20-24. the reference scripts' modes ----------------------------
+    phase("[20] the ALT instances (grad_mode=\"reference\", "
+          "legacy_freq_state) vs plain PyTorch")
+    ref = ref_kernels(dev, card)
+    phase("[21] ensemble10k with grad_mode=\"reference\" through run.run")
+    launches_ref2d, tails["ref2d"] = ref_slice("ensemble10k", card)
+    phase("[22] ensemble10k_3d with grad_mode=\"reference\" through "
+          "run.run")
+    launches_ref3d, tails["ref3d"] = ref_slice("ensemble10k_3d", card)
+    phase("[23] the golden rays, float64, reference + legacy")
+    launches_gold, err_gold, t_gold = golden_rays(dev, card)
+    phase("[24] mr_fan_3d float64 with continue_until_done")
+    launches_cont, tails["cont"], cont = mr_continuation(dev, card)
+    phase("[done]")
 
     def entry(name, launches, err, t, tail=None, team=False):
         # the body of the instance; with the time of the run's last
@@ -1857,6 +2271,19 @@ def main():
               *variants["multi_ion"]),
         entry("step_chunk[2d_lat,float64,rk4]", launches_rk4,
               *variants["rk4"], tails["rk4"]),
+        entry("step_chunk[2d_lat+reference+legacy,float32,bs3]",
+              launches_ref2d, *ref["2d_lat", "float32"], tails["ref2d"]),
+        entry("step_chunk[3d+reference,float32,bs3]", launches_ref3d,
+              *ref["3d", "float32"], tails["ref3d"]),
+        entry("step_chunk[2d_colat+reference+legacy,float64,dopri5](golden)",
+              launches_gold["2d_colat"], err_gold["2d_colat"],
+              t_gold["2d_colat"]),
+        entry("step_chunk[2d_lat+reference+legacy,float64,dopri5](golden)",
+              launches_gold["2d_lat"], err_gold["2d_lat"],
+              t_gold["2d_lat"]),
+        entry("step_chunk[3d+full_medium(mlt),float64,dopri5]"
+              "(mr_fan_3d continuation)", launches_cont, *cont,
+              tails["cont"], team=True),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

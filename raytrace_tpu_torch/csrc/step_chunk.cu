@@ -67,11 +67,20 @@
 // allocation fell to 128 with spills), and the local ceiling's code cost
 // the 3D full float64 bs3 one 5-7% wherever it sat (PERF.md), hence the
 // third medium value. The root (+1 whistler, -1 EMIC) rides by value.
+// The reference scripts' modes (ops/gradients.py grad_mode="reference":
+// the closed-form dmu/dpsi of ops/analytic.py, dmu/dr = 0, and in 3D the
+// Kimura rho partials; ops/rhs.py legacy_freq_state: the 2D frequency read
+// as f + T) take the fourth medium value, ALT: the axisymmetric medium with
+// both modes as run-time flags, so that they cost the other instances
+// nothing. The closed form takes the density, |B| and field direction the
+// fused chain has computed, as the plain version does, and sign(0) = 0 as
+// torch.sign has it.
 // Template instances: float and double x bs3, dopri5 and rk4 x the three
-// frames x the three media over the dipole (2 x 3 x 3 x 3 = 54), and x the
-// two non-axial fields in the 3D frame over FULL and EXT (24): 78,
-// compiled in five parts (one per frame, and one per non-axial field) by
-// parallel nvcc processes and linked into one library (SC_PART below).
+// frames x the four media over the dipole (2 x 3 x 3 x 4 = 72), and x the
+// two non-axial fields in the 3D frame over FULL and EXT (24): 96,
+// compiled in six parts (one per frame, one per non-axial field, one for
+// ALT) by parallel nvcc processes and linked into one library (SC_PART
+// below).
 //
 // Design for the card, not block by block:
 //   - the carry of a ray lives in registers for all n_steps attempts and
@@ -214,6 +223,7 @@ constexpr int COLAT2D = 2;  // the 2D colatitude frame, 4-state carry
 constexpr int AXI = 0;    // the axisymmetric medium of the first slices
 constexpr int FULL = 1;   // the full density chain
 constexpr int EXT = 2;    // the full chain with the ion species and ds_local
+constexpr int ALT = 3;    // AXI under the reference scripts' modes
 constexpr int DIPOLE = 0;  // the centered dipole
 constexpr int TILTED = 1;  // the tilted dipole (3D frame, full medium)
 constexpr int IGRF = 2;    // the degree-3 IGRF truncation (likewise)
@@ -245,6 +255,12 @@ constexpr int team_warps(int dtype, int stepper, int frame, int medium,
                                                              : 0;
 }
 
+// the media whose density is the full chain (AXI and ALT: the
+// axisymmetric one)
+__host__ __device__ constexpr bool full_density(int medium) {
+  return medium == FULL || medium == EXT;
+}
+
 // state dimension of a frame; the group delay is the last component
 template <int FRAME>
 struct FrameDim {
@@ -254,7 +270,7 @@ struct FrameDim {
 }  // namespace
 
 // host-side scalars, all double (mirror of ops/step_chunk.py::StepParams):
-// 118 doubles, 944 bytes; the kernel's own KParams<double> stays near
+// 120 doubles, 960 bytes; the kernel's own KParams<double> stays near
 // 1 KB, far below the 4 KB a kernel's parameters may take
 struct StepParams {
   double b0, iono_n0, iono_decay, iono_r0, lppi, lppo, ne_lppi, ps_season,
@@ -280,6 +296,9 @@ struct StepParams {
   // the ion species: count, then fpe2 coefficient x fraction and fce
   // coefficient of each (dispersion.ion_species)
   double n_ion, ion_fpe2[kMaxIon], ion_fce[kMaxIon];
+  // the reference scripts' modes, read by the ALT instances only (1.0 =
+  // on): the reference gradient set, and the 2D frequency read as f + T
+  double ref_grads, legacy_freq;
 };
 
 namespace {
@@ -314,6 +333,8 @@ struct KParams {
   int n_harm;
   bool iono_mix_on, gcpm_on, smooth_on, refill_on, refill_q_on, duct_on,
       mlt_on;
+  // the ALT instances' two modes
+  bool ref_grads, legacy_freq;
 };
 
 template <typename T>
@@ -410,6 +431,8 @@ KParams<T> make_params(const StepParams& h, int stepper) {
   p.refill_q_on = h.ps_refill_q != 0.0;
   p.duct_on = h.duct_amp != 0.0;
   p.mlt_on = h.ps_mlt != 0.0;
+  p.ref_grads = h.ref_grads != 0.0;
+  p.legacy_freq = h.legacy_freq != 0.0;
   return p;
 }
 
@@ -425,6 +448,12 @@ __device__ __forceinline__ float d_sqrt(float x) { return sqrtf(x); }
 __device__ __forceinline__ double d_sqrt(double x) { return sqrt(x); }
 __device__ __forceinline__ float d_rsqrt(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double d_rsqrt(double x) { return rsqrt(x); }
+__device__ __forceinline__ float d_tan(float x) { return tanf(x); }
+__device__ __forceinline__ double d_tan(double x) { return tan(x); }
+__device__ __forceinline__ float d_atan(float x) { return atanf(x); }
+__device__ __forceinline__ double d_atan(double x) { return atan(x); }
+__device__ __forceinline__ float d_acos(float x) { return acosf(x); }
+__device__ __forceinline__ double d_acos(double x) { return acos(x); }
 __device__ __forceinline__ float d_asin(float x) { return asinf(x); }
 __device__ __forceinline__ double d_asin(double x) { return asin(x); }
 __device__ __forceinline__ float d_atan2(float y, float x) {
@@ -459,6 +488,11 @@ __device__ __forceinline__ T jmax(T a, T b) {
 template <typename T>
 __device__ __forceinline__ T jsign(T x) {
   return x > T(0) ? T(1) : (x < T(0) ? T(-1) : x);
+}
+// torch.sign: (0 < x) - (x < 0), so +0 for 0, -0 and NaN
+template <typename T>
+__device__ __forceinline__ T tsign(T x) {
+  return T(T(0) < x ? 1 : 0) - T(x < T(0) ? 1 : 0);
 }
 
 // ops/fused.py::_ne_and_grads + _compose_ne (axisymmetric CA1992 with hard
@@ -1256,6 +1290,53 @@ __device__ __forceinline__ Bmag<T> dipole_bm(T r, T sl, const KParams<T>& p) {
   return b;
 }
 
+// The reference gradient set of the ALT instances (ops/gradients.py,
+// grad_mode="reference"; ops/analytic.py), operation for operation as the
+// plain version computes it on the card.
+
+// ops/analytic.py::mu_and_dmudpsi's dmu/dpsi (root 1, as the reference
+// calls it), the reference's formula as written (the extra factor 2 on
+// the dA term, no abs() guard), over dispersion.stix_rlp's protons
+template <typename T>
+__device__ __forceinline__ T ref_dmudpsi(T ne, T bm, T f, T psi) {
+  const T n_cm3 = ne * T(1.0e-6);
+  const T f2 = f * f;
+  const T xe = T(kFPE2_E) * n_cm3 / f2;
+  const T ye = T(kFCE_E) * bm / f;
+  T R = T(1) - xe / (T(1) - ye);
+  T L = T(1) - xe / (T(1) + ye);
+  T P = T(1) - xe;
+  const T xi = T(kFPE2_P) * n_cm3 / f2;
+  const T yi = T(kFCE_P) * bm / f;
+  R = R - xi / (T(1) + yi);
+  L = L - xi / (T(1) - yi);
+  P = P - xi;
+  const T s = jmax(jmax(d_abs(R), d_abs(L)), d_abs(P));
+  const T rn = R / s, ln = L / s, pn = P / s;
+  const T dn = T(0.5) * (rn - ln);
+  const T sn = T(0.5) * (rn + ln);
+  const T sinpsi = d_sin(psi), cospsi = d_cos(psi);
+  const T sin2 = sinpsi * sinpsi, cos2 = cospsi * cospsi;
+  const T a = sn * sin2 + pn * cos2;
+  const T b = rn * ln * sin2 + pn * sn * (T(1) + cos2);
+  const T rl_ps = rn * ln - pn * sn;
+  const T pdc = pn * dn * cospsi;
+  const T fd = d_sqrt(rl_ps * rl_ps * sin2 * sin2 + T(4) * (pdc * pdc));
+  const T mu2n = (b + fd) / (T(2) * a);
+  const T mun = d_sqrt(d_abs(mu2n));
+  const T dadpsi = T(2) * (sn - pn) * sinpsi * cospsi;
+  const T dbdpsi = T(2) * (rn * ln - pn * sn) * sinpsi * cospsi;
+  const T pd = pn * dn;
+  const T dfdpsi = T(1) / (T(2) * fd) *
+                   (rl_ps * rl_ps * T(4) * sin2 * sinpsi * cospsi -
+                    T(8) * (pd * pd) * sinpsi * cospsi);
+  const T dmudpsi_n =
+      T(1) / (T(2) * mun) *
+      ((dbdpsi + dfdpsi) / (T(2) * a) -
+       T(2) * dadpsi * (b + fd) / (T(2) * a * a));
+  return d_sqrt(s) * dmudpsi_n;
+}
+
 // ops/fused.py::mu_and_grads_2d_lat: mu and its partials r, lat, psi, f
 // at (r, lat, chi), with 1/r and the sine and cosine of chi that the rows
 // of the 2D frames reuse (the 2D frames trace the phi = 0 meridian: never
@@ -1286,7 +1367,7 @@ __device__ __forceinline__ Mu2D<T> mu_grads_2d(T r, T lat, T chi, T f,
   const T dpsi_dlat = T(2) * inv_q2;
 
   T ne, ne_r, ne_lat;
-  if constexpr (MEDIUM != AXI) {
+  if constexpr (full_density(MEDIUM)) {
     T ne_phi;
     ne_and_grads_full(r, sl, cl, T(0), false, p, ne, ne_r, ne_lat, ne_phi);
   } else {
@@ -1299,6 +1380,17 @@ __device__ __forceinline__ Mu2D<T> mu_grads_2d(T r, T lat, T chi, T f,
       m.dmu_dpsi);
   m.dmudr = dmu_dn * ne_r + dmu_db * bm_r;
   m.dmudlat = dmu_dn * ne_lat + dmu_db * bm_lat + m.dmu_dpsi * dpsi_dlat;
+  if constexpr (MEDIUM == ALT) {
+    // the reference set (ops/gradients.py): dmu/dlat keeps the fused
+    // chain's value; dmu/dpsi from the closed form over the fused chain's
+    // density and |B| at psi = pi/2 + atan(2 tan lat) + chi
+    // (dispersion.psi_lat), dmu/dr = 0
+    if (p.ref_grads) {
+      const T psi = (T(kPi / 2.0) + d_atan(T(2) * d_tan(lat))) + chi;
+      m.dmu_dpsi = ref_dmudpsi(ne, bm, f, psi);
+      m.dmudr = T(0);
+    }
+  }
   m.inv_r = inv_r;
   m.sc = sc;
   m.cc = cc;
@@ -1387,8 +1479,8 @@ __device__ __forceinline__ void kimura_rows(const T u[7], T f, T mu, T dmudr,
 // lat, rho)
 template <typename T>
 struct Geo3D {
-  T bm, bm_r, bm_lat, sinpsi, cospsi, dcos_dtheta, dcos_drho_r, dcos_drho_t,
-      dcos_drho_p;
+  T bm, bm_r, bm_lat, bhat_r, bhat_t, sinpsi, cospsi, dcos_dtheta,
+      dcos_drho_r, dcos_drho_t, dcos_drho_p;
 };
 
 template <typename T>
@@ -1404,6 +1496,8 @@ __device__ __forceinline__ Geo3D<T> geo_3d(T r, T sl, T cl, T rho_r, T rho_t,
   g.bm_lat = T(3) * sl * cl * b.bm * inv_q2;
   const T bhat_r = T(-2) * sl * inv_q;
   const T bhat_t = -cl * inv_q;
+  g.bhat_r = bhat_r;
+  g.bhat_t = bhat_t;
   const T dbhat_r_dlat = T(-2) * cl * inv_q3;
   const T dbhat_t_dlat = T(4) * sl * inv_q3;
 
@@ -1438,11 +1532,40 @@ __device__ __forceinline__ void rhs_3d_rows(const T u[7], T f,
       -(dmu_dn * ne_lat + dmu_db * g.bm_lat) + dmu_dc * g.dcos_dtheta;
   // exactly 0 over an axisymmetric medium
   T dmudphi = T(0);
-  if constexpr (MEDIUM != AXI) {
+  if constexpr (full_density(MEDIUM)) {
     if (p.mlt_on) dmudphi = dmu_dn * ne_phi;
   }
   kimura_rows(u, f, mu, dmudr, dmudtheta, dmudphi, dmu_dc * g.dcos_drho_r,
               dmu_dc * g.dcos_drho_t, dmu_dc * g.dcos_drho_p, dmu_df, k, out);
+}
+
+// ops/gradients.py::_mu_grads_3d_reference below the fused chain's mu and
+// its theta and f partials (dmu/dphi = 0 over the axisymmetric medium):
+// dmu/dr = 0, and the rho partials from ops/analytic.py::kimura_dmudrho
+// over the closed-form dmu/dpsi at psi = acos(cos psi), all over the fused
+// chain's density, |B|, cos psi and field direction (kimura_dmudrho takes
+// the unit vector; its cos(alpha_Bk) is scale-free)
+template <typename T>
+__device__ __forceinline__ void rhs_3d_ref(const T u[7], T f,
+                                           const Geo3D<T>& g, T ne, T ne_lat,
+                                           T mu, T dmu_dn, T dmu_db, T dmu_df,
+                                           T dmu_dc, T out[7]) {
+  const T rho[3] = {u[3], u[4], u[5]};
+  const T bv[3] = {g.bhat_r, g.bhat_t, T(0)};
+  const T bmag = d_sqrt(bv[0] * bv[0] + bv[1] * bv[1] + bv[2] * bv[2]);
+  const T psi = d_acos(g.cospsi);
+  const T dmudpsi = ref_dmudpsi(ne, g.bm, f, psi);
+  T kim[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const T cos_alpha = bv[k] * tsign(rho[k]) / bmag;
+    kim[k] = dmudpsi * (rho[k] * d_cos(psi) - mu * cos_alpha) /
+             (mu * mu * d_sin(psi));
+  }
+  const T dmudtheta =
+      -(dmu_dn * ne_lat + dmu_db * g.bm_lat) + dmu_dc * g.dcos_dtheta;
+  kimura_rows(u, f, mu, T(0), dmudtheta, T(0), kim[0], kim[1], kim[2],
+              dmu_df, kim_trig(u), out);
 }
 
 // ops/rhs.py::rhs_3d over ops/fused.py::mu_and_grads_3d (cos form)
@@ -1454,7 +1577,7 @@ __device__ __forceinline__ void rhs_3d(const T u[7], T f, const KParams<T>& p,
   const T sl = d_sin(lat), cl = d_cos(lat);
   const Geo3D<T> g = geo_3d(r, sl, cl, u[3], u[4], u[5], p);
   T ne, ne_r, ne_lat, ne_phi = T(0);
-  if constexpr (MEDIUM != AXI)
+  if constexpr (full_density(MEDIUM))
     ne_and_grads_full(r, sl, cl, u[2], p.mlt_on, p, ne, ne_r, ne_lat,
                       ne_phi);
   else
@@ -1463,6 +1586,13 @@ __device__ __forceinline__ void rhs_3d(const T u[7], T f, const KParams<T>& p,
   stix_quartic_grads<T, true, MEDIUM == EXT>(ne, g.bm, f, g.sinpsi, g.cospsi,
                                              p, mu, dmu_dn, dmu_db, dmu_df,
                                              dmu_dc);
+  if constexpr (MEDIUM == ALT) {
+    if (p.ref_grads) {
+      rhs_3d_ref(u, f, g, ne, ne_lat, mu, dmu_dn, dmu_db, dmu_df, dmu_dc,
+                 out);
+      return;
+    }
+  }
   rhs_3d_rows<T, MEDIUM>(u, f, p, g, kim_trig(u), ne_r, ne_lat, ne_phi, mu,
                          dmu_dn, dmu_db, dmu_df, dmu_dc, out);
 }
@@ -1803,12 +1933,17 @@ __device__ __forceinline__ void rhs(const T* u, T f, const KParams<T>& p,
     } else {
       rhs_3d<T, MEDIUM>(u, f, p, out);
     }
-  } else if constexpr (FRAME == COLAT2D) {
-    static_assert(K == 0, "the team body serves the 3D frame");
-    rhs_2d_colat<T, MEDIUM>(u, f, p, out);
   } else {
     static_assert(K == 0, "the team body serves the 3D frame");
-    rhs_2d_lat<T, MEDIUM>(u, f, p, out);
+    // legacy_freq_state (ops/rhs.py): the frequency read as f + T
+    T fr = f;
+    if constexpr (MEDIUM == ALT) {
+      if (p.legacy_freq) fr = f + u[3];
+    }
+    if constexpr (FRAME == COLAT2D)
+      rhs_2d_colat<T, MEDIUM>(u, fr, p, out);
+    else
+      rhs_2d_lat<T, MEDIUM>(u, fr, p, out);
   }
 }
 
@@ -2262,9 +2397,10 @@ void launch_dtype(int dtype, int stepper, void** ptrs, long long B,
 
 // One host entry per (frame, medium, field) combination. A build in parts
 // (ops/step_chunk.py::build) compiles this source once per part with
-// -DSC_PARTS=5 -DSC_PART=k, each part defining the entries of one frame or
-// non-axial field (and so instantiating only their kernels), and links the
-// parts into one library; without the macros one object holds them all.
+// -DSC_PARTS=6 -DSC_PART=k, each part defining the entries of one frame,
+// one non-axial field, or (part 5) the ALT medium in the three frames (and
+// so instantiating only their kernels), and links the parts into one
+// library; without the macros one object holds them all.
 #ifndef SC_PARTS
 #define SC_PARTS 1
 #define SC_PART 0
@@ -2292,6 +2428,9 @@ SC_ENTRY(launch_tilted_full);
 SC_ENTRY(launch_tilted_ext);
 SC_ENTRY(launch_igrf_full);
 SC_ENTRY(launch_igrf_ext);
+SC_ENTRY(launch_lat_alt);
+SC_ENTRY(launch_3d_alt);
+SC_ENTRY(launch_colat_alt);
 
 #if SC_OWNS(0)
 SC_DEFINE(launch_lat_axi, LAT2D, AXI, DIPOLE)
@@ -2316,6 +2455,11 @@ SC_DEFINE(launch_tilted_ext, KIM3D, EXT, TILTED)
 SC_DEFINE(launch_igrf_full, KIM3D, FULL, IGRF)
 SC_DEFINE(launch_igrf_ext, KIM3D, EXT, IGRF)
 #endif
+#if SC_OWNS(5)
+SC_DEFINE(launch_lat_alt, LAT2D, ALT, DIPOLE)
+SC_DEFINE(launch_3d_alt, KIM3D, ALT, DIPOLE)
+SC_DEFINE(launch_colat_alt, COLAT2D, ALT, DIPOLE)
+#endif
 
 #if SC_OWNS(0)
 // ptrs: u, k1, u_prev, u_lo (n, B); t, dt, errold, dt_prev (B,) of T;
@@ -2324,7 +2468,9 @@ SC_DEFINE(launch_igrf_ext, KIM3D, EXT, IGRF)
 // step); frame 0 = the 2D latitude frame (n = 4), 1 = the 3D frame (n =
 // 7), 2 = the 2D colatitude frame (n = 4); medium 0 = the axisymmetric
 // medium, 1 = the full density chain, 2 = the full chain with the ion
-// species and the local arc ceiling; field 0 = the centered dipole, 1 =
+// species and the local arc ceiling, 3 = the axisymmetric medium under the
+// reference scripts' modes (h->ref_grads, h->legacy_freq: the ALT
+// instances, which alone read them); field 0 = the centered dipole, 1 =
 // the tilted dipole, 2 = the IGRF truncation (the last two only in the 3D
 // frame over the full chain). Launches on `stream` without synchronising;
 // returns cudaGetLastError().
@@ -2335,20 +2481,24 @@ extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
   // [frame, or the non-axial field in rows 3 and 4][medium]
   using Entry = void (*)(int, int, void**, long long, int, const StepParams&,
                          cudaStream_t);
-  static const Entry kEntry[5][3] = {
-      {launch_lat_axi, launch_lat_full, launch_lat_ext},
-      {launch_3d_axi, launch_3d_full, launch_3d_ext},
-      {launch_colat_axi, launch_colat_full, launch_colat_ext},
-      {nullptr, launch_tilted_full, launch_tilted_ext},
-      {nullptr, launch_igrf_full, launch_igrf_ext},
+  static const Entry kEntry[5][4] = {
+      {launch_lat_axi, launch_lat_full, launch_lat_ext, launch_lat_alt},
+      {launch_3d_axi, launch_3d_full, launch_3d_ext, launch_3d_alt},
+      {launch_colat_axi, launch_colat_full, launch_colat_ext,
+       launch_colat_alt},
+      {nullptr, launch_tilted_full, launch_tilted_ext, nullptr},
+      {nullptr, launch_igrf_full, launch_igrf_ext, nullptr},
   };
   if (B <= 0) return 0;
   if ((dtype != 0 && dtype != 1) ||
       (stepper != BS3 && stepper != DOPRI5 && stepper != RK4) ||
       (frame != LAT2D && frame != KIM3D && frame != COLAT2D) ||
-      (medium != AXI && medium != FULL && medium != EXT) ||
+      (medium != AXI && medium != FULL && medium != EXT && medium != ALT) ||
       (field != DIPOLE && field != TILTED && field != IGRF) ||
-      (field != DIPOLE && (frame != KIM3D || medium == AXI)) ||
+      (field != DIPOLE &&
+       (frame != KIM3D || medium == AXI || medium == ALT)) ||
+      ((h->ref_grads != 0.0 || h->legacy_freq != 0.0) && medium != ALT) ||
+      (h->legacy_freq != 0.0 && frame == KIM3D) ||
       h->n_harm < 0.0 || h->n_harm > kMaxHarm || h->n_shells < 0.0 ||
       h->n_shells > kMaxShells || h->n_ion < 1.0 || h->n_ion > kMaxIon ||
       (medium != EXT && (h->n_ion != 1.0 || h->n_shells != 0.0)))

@@ -11,8 +11,10 @@ frame's `rhs_3d`, over a medium `env`) in final-state mode. The explicit
 pairs (bs3, dopri5) and fixed-step rk4 (adaptive=False) step
 through `ops.step_chunk.step_chunk`, one launch per call: the hand-written
 CUDA kernel on a CUDA tensor, its plain PyTorch loop of `_step_one` on a
-CPU tensor. The Rosenbrock stiff pool (ros3pr) steps as torch ops on the
-tensors' device. `init_carry` and `refine_events` are torch ops around the
+CPU tensor. heun2 and the Rosenbrock steppers (ros2, ros2x, ros3pr, ros4x;
+the auto mode's stiff pool) step as torch ops on the tensors' device, as
+the Pallas kernel never runs them. The right-hand side carries the
+gradient set (`grad_mode`) and, in the 2D frames, `legacy_freq_state`. `init_carry` and `refine_events` are torch ops around the
 kernel, as they sit around the Pallas kernel in the JAX package.
 """
 
@@ -24,7 +26,10 @@ from ..constants import RE
 from ..ops import rhs as rhs_mod
 from . import events
 from .events import StopSpec
-from .steppers import bs3_step, dopri5_step, rk4_step, ros3pr_step
+from .steppers import (
+    bs3_step, dopri5_step, heun21_step, rk4_step, ros2_step, ros2x_step,
+    ros3pr_step, ros4x_step,
+)
 
 
 class SolverConfig(NamedTuple):
@@ -84,7 +89,14 @@ class TraceResult(NamedTuple):
 # adaptive steppers whose attempts run inside the step kernel
 # (ops/step_chunk.py); fixed-step rk4 (adaptive=False) runs there too
 KERNEL_STEPPERS = ("bs3", "dopri5")
-_ORDER = {"bs3": 3.0, "dopri5": 5.0, "ros3pr": 3.0}
+_ORDER = {"bs3": 3.0, "dopri5": 5.0, "heun2": 2.0, "ros2": 2.0,
+          "ros2x": 3.0, "ros3pr": 3.0, "ros4x": 4.0}
+# the steppers run as torch ops: (step function, takes the Jacobian)
+_TORCH_STEPPERS = {
+    "heun2": (heun21_step, False), "ros2": (ros2_step, True),
+    "ros2x": (ros2x_step, True), "ros3pr": (ros3pr_step, True),
+    "ros4x": (ros4x_step, True),
+}
 
 
 def check_supported(cfg: SolverConfig, group_idx: int, adaptive: bool,
@@ -93,9 +105,9 @@ def check_supported(cfg: SolverConfig, group_idx: int, adaptive: bool,
     adaptive=False every ray takes fixed rk4 steps, whatever `stepper`
     names (as in the JAX package)."""
     if adaptive and stepper not in _ORDER:
-        raise NotImplementedError(
-            f"stepper {stepper!r} is not ported yet (ROADMAP A10); the port "
-            f"has {sorted(_ORDER)}"
+        raise ValueError(
+            f"unknown stepper {stepper!r}; the steppers are "
+            f"{sorted(_ORDER)}"
         )
     if group_idx not in (3, 6):
         raise NotImplementedError(
@@ -205,8 +217,10 @@ def _step_one(rhs_fn, carry: RayCarry, f, cfg: SolverConfig, spec: StopSpec,
     elif stepper == "dopri5":
         out = dopri5_step(rhs1, carry.u, carry.k1, dt_eff, cfg.rtol, cfg.atol)
     else:
-        out = ros3pr_step(rhs1, carry.u, carry.k1, dt_eff, cfg.rtol,
-                          cfg.atol, jac_fn=_jacobian_fn(rhs_fn, f))
+        step_fn, jac = _TORCH_STEPPERS[stepper]
+        kw = {"jac_fn": _jacobian_fn(rhs_fn, f)} if jac else {}
+        out = step_fn(rhs1, carry.u, carry.k1, dt_eff, cfg.rtol, cfg.atol,
+                      **kw)
     accept = out.err <= cfg.accept_tol
 
     t1 = carry.t + dt_eff
@@ -390,6 +404,8 @@ def trace(
     chunk: int = 64,
     carry0: Optional[RayCarry] = None,
     root: float = 1.0,
+    grad_mode: str = "fused",
+    legacy_freq_state: bool = False,
 ):
     """Integrate a batch of rays of `frame` through `env`.
 
@@ -402,14 +418,18 @@ def trace(
     it stops first -- the count the JAX package's chunked while_loop runs
     (integrate/solve.py:559-571) -- in ONE step-kernel launch for bs3,
     dopri5 and (adaptive=False, whatever `stepper` says) rk4. carry0
-    resumes from a RayCarry batch (MAX_STEPS rays re-arm).
+    resumes from a RayCarry batch (MAX_STEPS rays re-arm). grad_mode and
+    legacy_freq_state select the right-hand side (ops.rhs.frame_rhs) that
+    init_carry, the steps, the stiff steppers' Jacobian and refine_events
+    all see.
     """
     if save_every:
         raise NotImplementedError(
             "the trajectory channel (save_every > 0) is not ported yet "
             "(ROADMAP A11)"
         )
-    rhs_fn, group_idx = rhs_mod.frame_rhs(frame, env, root)
+    rhs_fn, group_idx = rhs_mod.frame_rhs(frame, env, root, grad_mode,
+                                          legacy_freq_state)
     check_supported(cfg, group_idx, adaptive, stepper)
     if carry0 is None:
         carry0 = init_carry(rhs_fn, u0, f, cfg)
@@ -424,7 +444,8 @@ def trace(
 
         carry = step_chunk(carry0, f, env, cfg, spec, stepper=stepper,
                            n_steps=n_steps, root=root, adaptive=adaptive,
-                           frame=frame)
+                           frame=frame, grad_mode=grad_mode,
+                           legacy_freq_state=legacy_freq_state)
     else:
         carry = step_loop(rhs_fn, carry0, f, cfg, spec, group_idx=group_idx,
                           adaptive=adaptive, stepper=stepper,

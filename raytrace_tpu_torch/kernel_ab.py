@@ -91,6 +91,11 @@ def capture_tail(name, path=None):
     with recording_launches() as seen:
         out = run(preset(base, dtype=dtype or "float32"), device="cuda")
     carry, f, _env, cfg, spec, kw = seen[-1]
+    # the keywords of the reference scripts' modes only where they are on,
+    # so that a checkout from before them replays the tail too
+    kw = {k: v for k, v in kw.items()
+          if (k, v) not in (("grad_mode", "fused"),
+                            ("legacy_freq_state", False))}
     tail = dict(name=base, carry=carry._asdict(), f=f, kw=kw,
                 cfg=cfg._asdict(), spec=spec._asdict(),
                 round=dict(out["rounds"][-1]))

@@ -27,3 +27,17 @@ def day_weight(mlt):
     """Smooth dayside weight in [0, 1] from magnetic local time (hours):
     1 at noon, 0 at midnight, cosine in between. A host-side scalar."""
     return 0.5 * (1.0 - math.cos(2.0 * math.pi * mlt / 24.0))
+
+
+def ne_iono_mlt_cm3(r, mlt, day_fit=IRI_DAYSIDE_FIT,
+                    night_fit=IRI_NIGHTSIDE_FIT):
+    """Day/night-interpolated ionosphere density (cm^-3) at radius r (RE)
+    and magnetic local time mlt (hours, a Python float or a tensor): the
+    day_weight blend of the dayside and nightside fits."""
+    if isinstance(mlt, torch.Tensor):
+        w = 0.5 * (1.0 - torch.cos(2.0 * math.pi * mlt / 24.0))
+    else:
+        w = day_weight(mlt)
+    return w * ne_iono_cm3(r, *day_fit) + (1.0 - w) * ne_iono_cm3(
+        r, *night_fit
+    )

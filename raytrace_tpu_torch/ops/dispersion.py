@@ -18,7 +18,7 @@ import torch
 from ..constants import (
     FCE_E, FCE_HE, FCE_O, FCE_P, FPE2_E, FPE2_HE, FPE2_O, FPE2_P,
 )
-from ..models import medium
+from ..models import dipole, medium
 
 
 def ion_species(eta_he=0.0, eta_o=0.0):
@@ -80,6 +80,13 @@ def mu_from_mu2(mu2):
     return torch.sqrt(torch.abs(mu2))
 
 
+def psi_lat(lat, chi):
+    """psi = pi/2 + dip + chi, dip = atan(2 tan lat)
+    (RayTrace_lat.jl:47-50): the angle itself, which the reference's
+    closed-form dmu/dpsi takes (ops/analytic.py)."""
+    return math.pi / 2.0 + dipole.dip_angle_lat(lat) + chi
+
+
 def psi_trig_lat(lat, chi):
     """(sin psi, cos psi) for psi = pi/2 + dip + chi without inverse trig
     (dip = atan(2 tan lat); RayTrace_lat.jl:47-50)."""
@@ -128,6 +135,15 @@ def _psi_trig_bmag_3d(r, theta, phi, rho_r, rho_t, rho_p,
     c_p = br * rho_t - bt * rho_r
     sinpsi = torch.sqrt(c_r * c_r + c_t * c_t + c_p * c_p) * inv_brm
     return sinpsi, cospsi, bmag
+
+
+def psi_3d(r, theta, phi, rho_r, rho_t, rho_p, env: medium.EnvParams):
+    """Wave-normal angle from the refractive-index vector rho and B:
+    arccos of psi_trig_3d's cosine (RayTrace_3D.jl:136-141): the angle of
+    the reference gradient set, which ops/gradients.py forms as arccos of
+    the fused chain's own cosine; the fused chains use the cosine itself."""
+    return torch.arccos(
+        psi_trig_3d(r, theta, phi, rho_r, rho_t, rho_p, env)[1])
 
 
 def psi_trig_3d(r, theta, phi, rho_r, rho_t, rho_p, env: medium.EnvParams):

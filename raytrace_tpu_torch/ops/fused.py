@@ -444,6 +444,14 @@ def mu_and_grads_2d_lat(r, lat, chi, f, env: medium.EnvParams, root=1.0):
     dispersion.mu_2d_lat; partials equal to its autodiff gradient. The
     2D frames trace the phi = 0 meridian, so an MLT-resolved medium is
     its axisymmetric parameters here."""
+    return mu_and_grads_2d_lat_medium(r, lat, chi, f, env, root)[0]
+
+
+def mu_and_grads_2d_lat_medium(r, lat, chi, f, env: medium.EnvParams,
+                               root=1.0):
+    """(mu_and_grads_2d_lat's tuple, (ne, |B|)): with the density and the
+    field magnitude the chain took, which the reference gradient set
+    (ops/gradients.py) feeds to its closed form."""
     sl, cl = torch.sin(lat), torch.cos(lat)
     q2 = 1.0 + 3.0 * sl * sl
     q = torch.sqrt(q2)
@@ -469,7 +477,7 @@ def mu_and_grads_2d_lat(r, lat, chi, f, env: medium.EnvParams, root=1.0):
     )
     dmudr = dmu_dn * ne_r + dmu_db * bm_r
     dmudlat = dmu_dn * ne_lat + dmu_db * bm_lat + dmu_dpsi * dpsi_dlat
-    return mu, dmudr, dmudlat, dmu_dpsi, dmu_df
+    return (mu, dmudr, dmudlat, dmu_dpsi, dmu_df), (ne, bm)
 
 
 def mu_and_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
@@ -484,6 +492,16 @@ def mu_and_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
     is axisymmetric, so with the MLT-resolved medium (env.ps_mlt) dmu/dphi
     flows entirely through the density, dmu_dn * dne/dphi; the
     axisymmetric medium keeps dmu/dphi == 0 exactly."""
+    return mu_and_grads_3d_medium(r, theta, phi, rho_r, rho_t, rho_p, f,
+                                  env, root)[0]
+
+
+def mu_and_grads_3d_medium(r, theta, phi, rho_r, rho_t, rho_p, f,
+                           env: medium.EnvParams, root=1.0):
+    """(mu_and_grads_3d's pair, (ne, |B|, cos psi, Bhat_r, Bhat_theta)):
+    with the density, field and wave-normal geometry the chain took, which
+    the reference gradient set (ops/gradients.py) feeds to its closed form
+    and Kimura chain (Bhat_phi = 0)."""
     medium.check_env(env)
     lat = math.pi / 2.0 - theta
     sl, cl = torch.sin(lat), torch.cos(lat)
@@ -533,11 +551,11 @@ def mu_and_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
     dmudr = dmu_dn * ne_r + dmu_db * bm_r
     dmudtheta = -(dmu_dn * ne_lat + dmu_db * bm_lat) + dmu_dc * dcos_dtheta
     dmudphi = torch.zeros_like(dmudr) if ne_phi is None else dmu_dn * ne_phi
-    return mu, (
+    return (mu, (
         dmudr, dmudtheta, dmudphi,
         dmu_dc * dcos_drho_r, dmu_dc * dcos_drho_t,
         dmu_dc * dcos_drho_p, dmu_df,
-    )
+    )), (ne, bm, cospsi, bhat_r, bhat_t)
 
 
 def field_geometry(r, theta, phi, env: medium.EnvParams):

@@ -1,14 +1,24 @@
 """Gradient layer: mu and its partials in the 2D latitude and colatitude
 frames and the 3D frame.
 
-Port of raytrace_tpu/ops/gradients.py (fused and autodiff modes).
-  "fused"    -- the hand-derived chains of ops/fused.py (the default, and
-                the chains the CUDA step kernel inlines);
-  "autodiff" -- torch.func.grad of dispersion.mu_2d_lat / mu_2d_colat /
-                mu_3d: the
-                cross-check that the fused chains are the exact
-                derivatives of the traced mu = sqrt(|mu^2|).
-The reference's mixed gradient set (grad_mode="reference") is ROADMAP A10.
+Port of raytrace_tpu/ops/gradients.py.
+  "fused"     -- the hand-derived chains of ops/fused.py (the default, and
+                 the chains the CUDA step kernel inlines);
+  "autodiff"  -- torch.func.grad of dispersion.mu_2d_lat / mu_2d_colat /
+                 mu_3d: the cross-check that the fused chains are the
+                 exact derivatives of the traced mu = sqrt(|mu^2|);
+  "reference" -- the gradient set the reference scripts integrate:
+                 dmu/dpsi from its closed form (ops/analytic.py), dmu/dr
+                 exactly 0 (their central difference steps r by 1e-11 m,
+                 below half an ulp of r ~ 7.4e6 m), and in 3D the rho
+                 partials from the Kimura chain over that dmu/dpsi. mu and
+                 the angle and frequency partials come from the fused chain
+                 here, where the JAX package takes them from autodiff: the
+                 two are equal to 1e-11 (its gradients.py:40-43), and the
+                 step kernel computes the fused values. The closed form
+                 takes the density, |B| and cos psi the fused chain took.
+                 Protons only, and in 3D the centered dipole only
+                 (ValueError otherwise, as in the JAX package).
 """
 
 import math
@@ -16,10 +26,44 @@ import math
 import torch
 
 from ..models import medium
-from . import dispersion
+from . import analytic, dispersion
 
 AUTODIFF = "autodiff"
+REFERENCE = "reference"
 FUSED = "fused"
+GRAD_MODES = (FUSED, AUTODIFF, REFERENCE)
+
+
+def _require_protons_only(env):
+    """grad_mode='reference' reproduces the reference's closed forms,
+    which are written for the 2-species e-p plasma (RayMain.jl:154)."""
+    if env.eta_he != 0.0 or env.eta_o != 0.0:
+        raise ValueError(
+            "grad_mode='reference' is protons-only (the reference has no "
+            "ion composition); use the default fused/autodiff gradients"
+        )
+
+
+def require_reference_env(env):
+    """The media the reference set takes, in every frame: protons only,
+    the centered dipole (its Kimura chain is the axial dipole's)."""
+    if env.b_model != "dipole":
+        raise ValueError(
+            "grad_mode='reference' reproduces the reference's centered-"
+            f"dipole chain; b_model={env.b_model!r} is unsupported there"
+        )
+    _require_protons_only(env)
+
+
+def _reference_2d(lat, chi, f, env, ne, bm, dmudr):
+    """The reference set's (dmu/dr, dmu/dpsi) in the 2D frames: 0, and the
+    closed form over the fused chain's density and |B| at the angle psi
+    itself (dispersion.psi_lat; the JAX package's
+    analytic.mu_dmudpsi_2d_lat)."""
+    _require_protons_only(env)
+    _, dmudpsi = analytic.mu_and_dmudpsi(ne, bm, f,
+                                         dispersion.psi_lat(lat, chi))
+    return torch.zeros_like(dmudr), dmudpsi
 
 
 def _mu_sum(r, lat, chi, f, env, root):
@@ -29,11 +73,10 @@ def _mu_sum(r, lat, chi, f, env, root):
     return mu.sum(), mu
 
 
-def _unported_mode(grad_mode):
-    return NotImplementedError(
-        f"grad_mode={grad_mode!r} is not ported yet (ROADMAP A10); "
-        "the port has 'fused' and 'autodiff'"
-    )
+def _check_mode(grad_mode):
+    if grad_mode not in GRAD_MODES:
+        raise ValueError(f"unknown grad_mode {grad_mode!r}; the modes are "
+                         f"{GRAD_MODES}")
 
 
 def mu_grads_2d_lat(r, lat, chi, f, env: medium.EnvParams, grad_mode=FUSED,
@@ -41,12 +84,15 @@ def mu_grads_2d_lat(r, lat, chi, f, env: medium.EnvParams, grad_mode=FUSED,
     """(mu, dmu/dr, dmu/dlat, dmu/dpsi, dmu/df) at a latitude-frame state."""
     medium.check_env(env)
     medium.require_dipole_2d(env)
-    if grad_mode == FUSED:
+    _check_mode(grad_mode)
+    if grad_mode != AUTODIFF:
         from . import fused
 
-        return fused.mu_and_grads_2d_lat(r, lat, chi, f, env, root)
-    if grad_mode != AUTODIFF:
-        raise _unported_mode(grad_mode)
+        (mu, dmudr, dmudlat, dmudpsi, dmudf), (ne, bm) = (
+            fused.mu_and_grads_2d_lat_medium(r, lat, chi, f, env, root))
+        if grad_mode == REFERENCE:
+            dmudr, dmudpsi = _reference_2d(lat, chi, f, env, ne, bm, dmudr)
+        return mu, dmudr, dmudlat, dmudpsi, dmudf
     (dmudr, dmudlat, dmudchi, dmudf), mu = torch.func.grad(
         _mu_sum, argnums=(0, 1, 2, 3), has_aux=True
     )(r, lat, chi, f, env, root)
@@ -65,14 +111,16 @@ def mu_grads_2d_colat(r, theta, chi, f, env: medium.EnvParams,
     chain serves, with dmu/dtheta = -dmu/dlat."""
     medium.check_env(env)
     medium.require_dipole_2d(env)
-    if grad_mode == FUSED:
+    _check_mode(grad_mode)
+    if grad_mode != AUTODIFF:
         from . import fused
 
-        mu, dmudr, dmudlat, dmudpsi, dmudf = fused.mu_and_grads_2d_lat(
-            r, math.pi / 2.0 - theta, chi, f, env, root)
+        lat = math.pi / 2.0 - theta
+        (mu, dmudr, dmudlat, dmudpsi, dmudf), (ne, bm) = (
+            fused.mu_and_grads_2d_lat_medium(r, lat, chi, f, env, root))
+        if grad_mode == REFERENCE:
+            dmudr, dmudpsi = _reference_2d(lat, chi, f, env, ne, bm, dmudr)
         return mu, dmudr, -dmudlat, dmudpsi, dmudf
-    if grad_mode != AUTODIFF:
-        raise _unported_mode(grad_mode)
     (dmudr, dmudtheta, dmudchi, dmudf), mu = torch.func.grad(
         _mu_colat_sum, argnums=(0, 1, 2, 3), has_aux=True
     )(r, theta, chi, f, env, root)
@@ -89,8 +137,13 @@ def mu_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
     """mu and its seven partials (r, theta, phi, rho_r, rho_t, rho_p, f)
     at a 3D state, as (mu, (partials...)). The fused chain of the centered
     dipole hand-codes its geometry; the tilted and IGRF fields go through
-    the general chain (fused.mu_and_grads_3d_general)."""
+    the general chain (fused.mu_and_grads_3d_general). The reference
+    set (built around the axial dipole's Kimura chain) refuses the
+    non-axial fields."""
     medium.check_env(env)
+    _check_mode(grad_mode)
+    if grad_mode == REFERENCE:
+        require_reference_env(env)
     if grad_mode == FUSED:
         from . import fused
 
@@ -99,9 +152,36 @@ def mu_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
                 r, theta, phi, rho_r, rho_t, rho_p, f, env, root)
         return fused.mu_and_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
                                      env, root)
-    if grad_mode != AUTODIFF:
-        raise _unported_mode(grad_mode)
+    if grad_mode == REFERENCE:
+        return _mu_grads_3d_reference(r, theta, phi, rho_r, rho_t, rho_p, f,
+                                      env, root)
     grads, mu = torch.func.grad(
         _mu3_sum, argnums=(0, 1, 2, 3, 4, 5, 6), has_aux=True
     )(r, theta, phi, rho_r, rho_t, rho_p, f, env, root)
     return mu, grads
+
+
+def _mu_grads_3d_reference(r, theta, phi, rho_r, rho_t, rho_p, f, env, root):
+    """The reference set in 3D (JAX gradients.py:161-174): the fused
+    chain's mu and its theta, phi and f partials; dmu/dr = 0; the rho
+    partials from the Kimura chain over the closed-form dmu/dpsi at psi =
+    arccos(cos psi) (dispersion.psi_3d's angle), over the fused chain's
+    density, |B|, cos psi and field direction (kimura_dmudrho's
+    cos(alpha_Bk) is scale-free, so the unit vector serves). The closed
+    form takes the density without longitude, as the reference has it:
+    over the MLT-resolved medium that is not the fused chain's."""
+    from . import fused
+
+    (mu, grads), (ne, bm, cospsi, bhat_r, bhat_t) = (
+        fused.mu_and_grads_3d_medium(r, theta, phi, rho_r, rho_t, rho_p, f,
+                                     env, root))
+    if medium.mlt_on(env):
+        ne = medium.ne_total_m3(r, math.pi / 2.0 - theta, env)
+    psi = torch.arccos(cospsi)
+    _, dmudpsi_ref = analytic.mu_and_dmudpsi(ne, bm, f, psi)
+    kim = analytic.kimura_dmudrho(mu, dmudpsi_ref, psi,
+                                  (bhat_r, bhat_t, torch.zeros_like(bhat_r)),
+                                  (rho_r, rho_t, rho_p))
+    # dmu/dr == 0 for the same sub-ulp central difference as in 2D
+    return mu, (torch.zeros_like(grads[0]), grads[1], grads[2], *kim,
+                grads[6])

@@ -16,7 +16,11 @@ have instances of their own over the full chain, with the general
 geometry chain of ops/fused.py::mu_and_grads_3d_general called; a medium
 with He+ or O+, and a run with the local arc ceiling, take the EXT
 instances of the full chain, whose Stix sums run over the ion species and
-whose step ceiling takes the local one.
+whose step ceiling takes the local one. The reference scripts' modes
+(grad_mode="reference": the closed-form dmu/dpsi, dmu/dr = 0 and in 3D the
+Kimura rho partials; legacy_freq_state: the 2D frequency read as f + T)
+take the ALT instances: the axisymmetric medium with both as run-time
+flags (other media refuse them: ROADMAP B7).
 
 - On CUDA tensors it launches the hand-written kernel of
   csrc/step_chunk.cu, the whole carry in registers for all n_steps
@@ -53,7 +57,7 @@ from ..integrate.solve import (
     KERNEL_STEPPERS, RayCarry, SolverConfig, check_supported, step_loop,
 )
 from ..models import dipole, medium
-from . import fused
+from . import fused, gradients
 from . import rhs as rhs_mod
 from .dispersion import ion_species
 
@@ -70,9 +74,9 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # the source compiles as PARTS objects at once (-DSC_PARTS, -DSC_PART: one
-# per frame and one per non-axial field, csrc/step_chunk.cu), linked into
-# one library
-PARTS = 5
+# per frame, one per non-axial field and one for the reference scripts'
+# modes, csrc/step_chunk.cu), linked into one library
+PARTS = 6
 
 # harmonics of the MLT plasmapause shape the kernel takes (kMaxHarm)
 MAX_HARM = 8
@@ -87,12 +91,15 @@ _INT = ("status", "n_accept", "n_reject", "rejected", "n_tiny", "caution")
 # stepper argument names
 _STEPPER_CODE = {"bs3": 0, "dopri5": 1, "rk4": 2}
 _FIELD_CODE = {"dipole": 0, "tilted": 1, "igrf": 2}
+# the kernel's medium codes (medium_code): AXI, FULL, EXT, and ALT, the
+# axisymmetric medium under the reference scripts' modes
+AXI, FULL, EXT, ALT = 0, 1, 2, 3
 
 
 class StepParams(ctypes.Structure):
     """Scalars passed to the kernel by value (mirror of the C struct
-    StepParams in csrc/step_chunk.cu; every field a double: 118 of
-    them, 944 bytes)."""
+    StepParams in csrc/step_chunk.cu; every field a double: 120 of
+    them, 960 bytes)."""
 
     _fields_ = [(name, ctypes.c_double) for name in (
         # medium (make_env_lat feature set) and root
@@ -126,6 +133,8 @@ class StepParams(ctypes.Structure):
         # the ion species (dispersion.ion_species): count and coefficients
         ("n_ion", ctypes.c_double), ("ion_fpe2", ctypes.c_double * MAX_ION),
         ("ion_fce", ctypes.c_double * MAX_ION),
+        # the reference scripts' modes (ALT instances only): 1.0 = on
+        ("ref_grads", ctypes.c_double), ("legacy_freq", ctypes.c_double),
     ]
 
 
@@ -234,7 +243,7 @@ def ptxas_usage(log):
                  ("bs3", "dopri5", "rk4")[int(m[2])],
                  ("2d_lat", "3d", "2d_colat")[int(m[3])]]
         if m[4] is not None:
-            words.append(("axi", "full", "ext")[int(m[4])])
+            words.append(("axi", "full", "ext", "alt")[int(m[4])])
         if m[5] is not None and int(m[5]):
             words.append(("dipole", "tilted", "igrf")[int(m[5])])
         if m[6] is not None and int(m[6]):
@@ -256,14 +265,38 @@ def ptxas_usage(log):
             for k in sorted(set(regs) | set(spills))}
 
 
-def medium_code(env, cfg: SolverConfig = None):
-    """0: the axisymmetric medium of the first slices (one ionosphere fit,
-    CA1992 with hard branches, optional DE factor, protons), which the
-    kernel runs in its own instances; 1: any other protons-only medium,
-    and every such medium over a non-axial field, through the full density
-    chain; 2: any medium with He+ or O+, or any run of `cfg` with the local
-    arc ceiling, through the full chain extended by the Stix sums over the
-    ion species and the local ceiling (the kernel's EXT instances)."""
+def medium_code(env, cfg: SolverConfig = None, grad_mode="fused",
+                legacy_freq_state=False):
+    """0 (AXI): the axisymmetric medium of the first slices (one ionosphere
+    fit, CA1992 with hard branches, optional DE factor, protons), which the
+    kernel runs in its own instances; 1 (FULL): any other protons-only
+    medium, and every such medium over a non-axial field, through the full
+    density chain; 2 (EXT): any medium with He+ or O+, or any run of `cfg`
+    with the local arc ceiling, through the full chain extended by the Stix
+    sums over the ion species and the local ceiling; 3 (ALT): the
+    axisymmetric medium under grad_mode="reference" or legacy_freq_state.
+    Raises every refusal of the modes: ValueError where the JAX package
+    raises (the reference set over a multi-ion medium or a non-axial
+    field), NotImplementedError naming ROADMAP B7 where the kernel has no
+    instance (the autodiff set; the modes over any other medium)."""
+    if grad_mode not in ("fused", "reference"):
+        raise NotImplementedError(
+            f"the step kernel computes the fused and the reference gradient "
+            f"sets; grad_mode={grad_mode!r} is not a kernel variant (ROADMAP "
+            "B7)"
+        )
+    if grad_mode == "reference":
+        gradients.require_reference_env(env)
+    if grad_mode == "reference" or legacy_freq_state:
+        base = medium_code(env, cfg)
+        if base != AXI:
+            raise NotImplementedError(
+                "the step kernel runs grad_mode='reference' and "
+                "legacy_freq_state over the axisymmetric medium only; this "
+                f"medium takes the {('FULL', 'EXT')[base - 1]} instances "
+                "(not ported: ROADMAP B7)"
+            )
+        return ALT
     if (len(ion_species(env.eta_he, env.eta_o)) > 1
             or (cfg is not None and _shells(cfg))):
         return 2
@@ -284,7 +317,8 @@ def _n_harm(env):
     return (len(env.ps_mlt_c) - 1) // 2 if env.ps_mlt_c else 0
 
 
-def _params(env, cfg: SolverConfig, spec: events.StopSpec, root):
+def _params(env, cfg: SolverConfig, spec: events.StopSpec, root,
+            grad_mode="fused", legacy_freq_state=False):
     vals = dict(
         b0=env.b0, iono_n0=env.iono_n0, iono_decay=env.iono_decay,
         iono_r0=env.iono_r0, lppi=env.lppi, lppo=env.lppo,
@@ -321,6 +355,8 @@ def _params(env, cfg: SolverConfig, spec: events.StopSpec, root):
                       n_ion=float(len(ions)),
                       ion_fpe2=pad([x for x, _ in ions], MAX_ION),
                       ion_fce=pad([y for _, y in ions], MAX_ION),
+                      ref_grads=1.0 if grad_mode == "reference" else 0.0,
+                      legacy_freq=1.0 if legacy_freq_state else 0.0,
                       ps_mlt_c=(ctypes.c_double * (1 + 2 * MAX_HARM))(
                           *(c + [0.0] * (1 + 2 * MAX_HARM - len(c)))),
                       b_mom=vec3(*dipole.moment_unit(env.b_tilt,
@@ -340,7 +376,12 @@ def _shells(cfg: SolverConfig):
 
 
 def _check(carry: RayCarry, f, env, cfg, spec, stepper, n_steps, adaptive,
-           frame):
+           frame, grad_mode, legacy_freq_state):
+    """Raises on anything the kernel does not take; returns the launch's
+    medium code."""
+    if frame == "3d" and legacy_freq_state:
+        raise ValueError(rhs_mod.LEGACY_3D)
+    code = medium_code(env, cfg, grad_mode, legacy_freq_state)
     if adaptive and stepper not in KERNEL_STEPPERS:
         raise ValueError(
             f"step_chunk runs {KERNEL_STEPPERS} (and rk4 with "
@@ -387,17 +428,21 @@ def _check(carry: RayCarry, f, env, cfg, spec, stepper, n_steps, adaptive,
                 raise ValueError(f"carry.{name} must be ({b},) int32")
         elif tuple(x.shape) != (b,) or x.dtype != f.dtype:
             raise ValueError(f"carry.{name} must be ({b},) {f.dtype}")
+    return code
 
 
 def step_chunk_reference(carry: RayCarry, f, env, cfg: SolverConfig,
                          spec: events.StopSpec, *, stepper: str,
                          n_steps: int, root: float = 1.0,
-                         adaptive: bool = True, frame: str = "2d_lat"):
+                         adaptive: bool = True, frame: str = "2d_lat",
+                         grad_mode: str = "fused",
+                         legacy_freq_state: bool = False):
     """The plain PyTorch version: n_steps attempts of `_step_one` over the
     frame's right-hand side as torch ops on the tensors' device (leaving
     early once no ray is ACTIVE, which is exact)."""
     step_chunk_reference.calls += 1
-    rhs_fn, group_idx = rhs_mod.frame_rhs(frame, env, root)
+    rhs_fn, group_idx = rhs_mod.frame_rhs(frame, env, root, grad_mode,
+                                          legacy_freq_state)
     return step_loop(rhs_fn, carry, f, cfg, spec, group_idx=group_idx,
                      adaptive=adaptive, stepper=stepper,
                      n_steps=int(n_steps), check_every=16)
@@ -409,23 +454,28 @@ step_chunk_reference.calls = 0
 def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
                spec: events.StopSpec, *, stepper: str, n_steps: int,
                root: float = 1.0, adaptive: bool = True,
-               frame: str = "2d_lat"):
+               frame: str = "2d_lat", grad_mode: str = "fused",
+               legacy_freq_state: bool = False):
     """Advance every ray by n_steps attempted steps; returns a new carry.
 
     carry fields are (B, n) / (B,) tensors of f's dtype (int32 for the
     counters), all on f's device, with n = 4 in the 2D frames and 7 in
-    the "3d" frame. On CUDA the kernel works on field-major (n, B)
-    copies of the vectors, updating them in place, and the result's
-    vector fields are (B, n) views of those copies."""
-    _check(carry, f, env, cfg, spec, stepper, n_steps, adaptive, frame)
+    the "3d" frame. grad_mode ("fused" or "reference") and
+    legacy_freq_state (2D) select the right-hand side. On CUDA the kernel
+    works on field-major (n, B) copies of the vectors, updating them in
+    place, and the result's vector fields are (B, n) views of those
+    copies."""
+    code = _check(carry, f, env, cfg, spec, stepper, n_steps, adaptive,
+                  frame, grad_mode, legacy_freq_state)
     if f.device.type == "cpu":
         return step_chunk_reference(carry, f, env, cfg, spec,
                                     stepper=stepper, n_steps=n_steps,
                                     root=root, adaptive=adaptive,
-                                    frame=frame)
+                                    frame=frame, grad_mode=grad_mode,
+                                    legacy_freq_state=legacy_freq_state)
     if f.device.type != "cuda":
         raise ValueError(f"step_chunk runs on cuda or cpu, not {f.device}")
-    code, field = medium_code(env, cfg), field_code(env)
+    field = field_code(env)
     lib = build()
     # always fresh buffers: carry fields may share storage (init_carry's
     # u/u_prev and zero counters), and the kernel writes in place
@@ -440,7 +490,7 @@ def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
     ptrs = (ctypes.c_void_p * (len(order) + 1))(
         *[fields[name].data_ptr() for name in order], ff.data_ptr()
     )
-    params = _params(env, cfg, spec, root)
+    params = _params(env, cfg, spec, root, grad_mode, legacy_freq_state)
     codes = (0 if f.dtype == torch.float32 else 1,
              _STEPPER_CODE[stepper if adaptive else "rk4"],
              _FRAME_CODE[frame][0], code, field)

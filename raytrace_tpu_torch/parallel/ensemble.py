@@ -25,7 +25,7 @@ from ..integrate.solve import (
     _ORDER, RayCarry, SolverConfig, TraceResult, trace,
 )
 from ..integrate.events import StopSpec
-from ..ops.rhs import FRAMES
+from ..ops.rhs import frame_rhs
 
 # status code used for padding lanes (distinct from every events.* code)
 PAD_STATUS = 100
@@ -199,6 +199,11 @@ def make_rounds_tracer(
     final fetch); `run.last_rounds` and `run.last_stiff` record per-round
     diagnostics and which rays ended on the stiff pool.
 
+    grad_mode ("fused" or "reference") and legacy_freq_state (2D only)
+    select the right-hand side of every pool (ops.rhs.frame_rhs); the
+    autodiff gradient set, which the step kernel does not compute, stays
+    refused here (ROADMAP B7).
+
     Knobs the JAX package measured and left off are not ported (ROADMAP
     A5): pipeline > 1, order_switch_dt > 0, tail_stepper, save_every."""
     unported = {
@@ -206,11 +211,7 @@ def make_rounds_tracer(
         "order_switch_dt > 0": order_switch_dt > 0.0,
         "tail_stepper": bool(tail_stepper),
         "save_every > 0 (trajectory channel, ROADMAP A11)": save_every > 0,
-        "legacy_freq_state (ROADMAP A10)": legacy_freq_state,
-        f"grad_mode={grad_mode!r} (ROADMAP A10)": grad_mode != "fused",
-        **{f"stepper {st!r} (ROADMAP A10)": adaptive and st not in _ORDER
-           for st in ((stepper if stepper != "auto" else base_stepper),
-                      stiff_stepper)},
+        "grad_mode='autodiff' (ROADMAP B7)": grad_mode == "autodiff",
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -218,9 +219,15 @@ def make_rounds_tracer(
             f"not ported to the rounds tracer: {', '.join(bad)} (ROADMAP A5 "
             "unless named)"
         )
-    if frame not in FRAMES:
-        raise ValueError(f"unknown frame {frame!r}; the frames are "
-                         f"{sorted(FRAMES)}")
+    if grad_mode not in ("fused", "reference"):
+        raise ValueError(f"unknown grad_mode {grad_mode!r}")
+    for st in ((stepper if stepper != "auto" else base_stepper),
+               stiff_stepper):
+        if adaptive and st not in _ORDER:
+            raise ValueError(f"unknown stepper {st!r}; the steppers are "
+                             f"{sorted(_ORDER)}")
+    # the 3D frame refuses legacy_freq_state (the JAX message)
+    frame_rhs(frame, env, root, grad_mode, legacy_freq_state)
     if max_steps >= (1 << 24):
         raise ValueError(
             "max_steps must stay below 2^24 so the step counters ride the "
@@ -240,7 +247,8 @@ def make_rounds_tracer(
 
     def make_kw(n, st):
         return dict(frame=frame, cfg=cfg, spec=spec, adaptive=adaptive,
-                    stepper=st, max_steps=n, chunk=min(chunk, n), root=root)
+                    stepper=st, max_steps=n, chunk=min(chunk, n), root=root,
+                    grad_mode=grad_mode, legacy_freq_state=legacy_freq_state)
 
     def stat_cols(sd):
         base = 4 * sd

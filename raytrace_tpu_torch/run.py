@@ -3,8 +3,9 @@ raytrace_tpu/run.py, the rounds path).
 
 Builds the medium and the launch grid (in the 3D frame optionally put on
 the dispersion surface), traces the batch on one device with the bucketed
-rounds tracer (each round one step-kernel launch per pool), and reduces
-the ensemble statistics on the host.
+rounds tracer (each round one step-kernel launch per pool) in the
+configured gradient set, with continue_until_done resumes the rays that
+ran out of steps, and reduces the ensemble statistics on the host.
 """
 
 import json
@@ -15,10 +16,11 @@ import torch
 
 from .config import RunConfig
 from .integrate import events
+from .integrate.solve import RayCarry, trace
 from .ops.dispersion import consistent_rho_3d
 from .parallel.ensemble import (
-    build_launch, build_launch_3d, ensemble_stats, make_rounds_tracer,
-    pad_batch,
+    _bucket_size, build_launch, build_launch_3d, ensemble_stats,
+    make_rounds_tracer, pad_batch,
 )
 
 
@@ -26,7 +28,6 @@ def _check_supported(config: RunConfig):
     unported = {
         "use_rounds=False (the single-program tracer)": not config.use_rounds,
         "save_every > 0 (ROADMAP A11)": config.save_every > 0,
-        "continue_until_done (ROADMAP A10)": config.continue_until_done,
         "sensitivity_rays > 0 (ROADMAP A13)": config.sensitivity_rays > 0,
         "explicit ray lists (ROADMAP A11)": bool(config.rays),
     }
@@ -93,8 +94,14 @@ def run(config: RunConfig, *, device="cuda", out_dir=None):
     # tiny batches cannot re-bucket profitably: one full-budget round
     if int(valid.sum()) <= 64:
         kw["round_steps"] = (config.max_steps,)
+    if config.continue_until_done:
+        # the full carry back, to resume from it
+        kw["want_carry"] = True
     tracer = make_rounds_tracer(env, device=device, dtype=dtype, **kw)
     result = tracer(u0, f, valid)
+    if config.continue_until_done:
+        result = _continue(config, env, result, u0, f, valid, cfg, spec,
+                           torch.device(device), dtype)
     stats = {
         k: np.asarray(v)
         for k, v in ensemble_stats(
@@ -123,6 +130,58 @@ def run(config: RunConfig, *, device="cuda", out_dir=None):
     return {"result": result, "stats": stats, "valid": valid,
             "paths": paths, "rounds": tracer.last_rounds,
             "stiff": tracer.last_stiff}
+
+
+def _continue(config: RunConfig, env, result, u0, f, valid, cfg, spec,
+              device, dtype):
+    """continue_until_done (the JAX package's run.py:195-261): up to
+    max_continuations more full budgets for the rays that ended at
+    MAX_STEPS. The stragglers are gathered into a bucket of
+    _bucket_size(n, B, 256) rays (the rounds tracer's re-bucketing: the
+    wall scales with the stragglers, not the batch), the padding lanes
+    copy the first straggler with status HIT_EARTH (a terminal status is
+    not re-armed, so they retire at once), `trace(carry0=...)` re-arms the
+    MAX_STEPS rays, and the rows are scattered back. Under stepper="auto"
+    a continuation runs dopri5, as the JAX package's single-program path
+    does."""
+    stepper = "dopri5" if config.stepper == "auto" else config.stepper
+    valid = np.asarray(valid)
+    for _ in range(config.max_continuations):
+        status = np.asarray(result.status)
+        idx = np.nonzero((status == events.MAX_STEPS) & valid)[0]
+        if len(idx) == 0:
+            break
+        b = _bucket_size(len(idx), len(status), 256)
+        sel = np.concatenate([idx, np.repeat(idx[:1], b - len(idx))])
+        as_t = lambda a: torch.as_tensor(  # noqa: E731
+            np.ascontiguousarray(np.asarray(a)[sel])).to(device)
+        carry = RayCarry(**{
+            k: as_t(v).to(dtype) if np.asarray(v).dtype.kind == "f"
+            else as_t(v) for k, v in result.carry._asdict().items()})
+        pad = torch.zeros(b, dtype=torch.bool, device=device)
+        pad[len(idx):] = True
+        carry = carry._replace(status=torch.where(
+            pad, events.HIT_EARTH, carry.status).to(torch.int32))
+        sub = trace(env, as_t(u0).to(dtype), as_t(f).to(dtype),
+                    frame=config.frame, cfg=cfg, spec=spec,
+                    adaptive=config.adaptive, stepper=stepper,
+                    max_steps=config.max_steps, carry0=carry,
+                    root=config.root, grad_mode=config.grad_mode)
+
+        def scatter(full, part, idx=idx):
+            out = np.asarray(full).copy()
+            out[idx] = part.cpu().numpy()[: len(idx)]
+            return out
+
+        result = result._replace(
+            u=scatter(result.u, sub.u), t=scatter(result.t, sub.t),
+            status=scatter(result.status, sub.status),
+            n_accept=scatter(result.n_accept, sub.n_accept),
+            n_reject=scatter(result.n_reject, sub.n_reject),
+            carry=RayCarry(*(scatter(a, b) for a, b in
+                             zip(result.carry, sub.carry))),
+        )
+    return result
 
 
 def summarize(result, valid):

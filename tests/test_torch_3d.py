@@ -167,7 +167,9 @@ def test_unported_3d_media_raise():
     """The multi-ion composition runs through the 3D chains
     (tests/test_torch_variants.py holds them to the JAX package); what they
     still refuse is a fractional plasmasphere weight (make_env gives 0 or
-    1), and the reference gradient mode (A10)."""
+    1); the reference gradient set (tests/test_torch_reference_mode.py)
+    refuses the multi-ion media and the non-axial fields, as the JAX
+    package does."""
     x = torch.ones(2, dtype=torch.float64)
     for kw, chain in ((dict(ps_mlt=True, eta_he=0.1), fused.mu_and_grads_3d),
                       (dict(b_model="tilted", eta_o=0.1),
@@ -177,9 +179,14 @@ def test_unported_3d_media_raise():
         assert bool(torch.isfinite(mu).all())
         with pytest.raises(NotImplementedError, match="0 or 1"):
             chain(x, x, x, x, x, x, x * 1e3, env._replace(ps_weight=0.5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gradients.mu_grads_3d(x, x, x, x, x, x, x * 1e3, _envs()[1],
-                              grad_mode="reference")
+    mu, grads = gradients.mu_grads_3d(x, x, x, x, x, x, x * 1e3, _envs()[1],
+                                      grad_mode="reference")
+    assert bool(torch.isfinite(mu).all()) and bool((grads[0] == 0).all())
+    for kw, match in ((dict(eta_he=0.1), "protons-only"),
+                      (dict(b_model="tilted", b_tilt=0.2), "centered-dipole")):
+        with pytest.raises(ValueError, match=match):
+            gradients.mu_grads_3d(x, x, x, x, x, x, x * 1e3, _envs(**kw)[1],
+                                  grad_mode="reference")
 
 
 def test_solve_nopivot_matches_jax():
@@ -305,10 +312,11 @@ def test_step_one_with_arc_ceiling_matches_jax(frame, stepper, rtol):
     _assert_carries(carry_to_numpy(got), want, rtol)
     # the ceiling is on the path: some step of the 24 ran at dt_cap < dt_max
     assert (np.asarray(want.dt) < cfg.dt_max).any()
-    # the local ceiling is ported (test_torch_slice_variants.py); a stepper
-    # that is not is refused
-    with pytest.raises(NotImplementedError, match="A10"):
-        _step_one(trf, carry, ft, tcfg, tspec, gidx, stepper="ros2x")
+    # the local ceiling is ported (test_torch_slice_variants.py), and every
+    # stepper of the JAX package (test_torch_modes.py); an unknown
+    # one is refused
+    with pytest.raises(ValueError, match="unknown stepper"):
+        _step_one(trf, carry, ft, tcfg, tspec, gidx, stepper="ros5")
 
 
 @pytest.mark.parametrize("stepper,rtol", [("dopri5", 1e-12), ("bs3", 1e-6)])

@@ -442,3 +442,81 @@ def test_team_body_media_match_plain_version_bitwise(cuda, medium, dtype,
     _assert_bitwise(got, ref)
     made = (got.n_accept + got.n_reject) - (carry.n_accept + carry.n_reject)
     assert int(made.min()) > 0   # every ray stepped
+
+
+# the ALT instances (the reference scripts' modes over the axisymmetric
+# medium): each frame with its modes, each stepper (rk4: adaptive=False)
+ALT_FRAMES = {
+    "2d_lat": ("ensemble10k", {}, dict(grad_mode="reference",
+                                       legacy_freq_state=True)),
+    "2d_colat": ("ensemble10k", dict(frame="2d_colat"),
+                 dict(grad_mode="reference", legacy_freq_state=True)),
+    "3d": ("ensemble10k_3d", {}, dict(grad_mode="reference")),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("stepper", ["bs3", "dopri5", "rk4"])
+@pytest.mark.parametrize("frame", sorted(ALT_FRAMES))
+def test_alt_kernel_matches_plain_version_bitwise(cuda, frame, stepper,
+                                                  dtype):
+    """Every 40th ray of the launch, 64 attempts through each of the 18
+    ALT instances (grad_mode="reference" with legacy_freq_state in the 2D
+    frames): every field bit for bit with the plain version; and the
+    2D frames' legacy alone and the reference set alone through the same
+    instances."""
+    name, over, modes = ALT_FRAMES[frame]
+    if stepper == "rk4":
+        over = dict(over, adaptive=False, dt0=1.0e6 / RE)
+    conf = preset(name, dtype=dtype, **over)
+    env = conf.medium.build()
+    cfg, spec = conf.solver(), conf.stop()
+    np_dt = np.float32 if dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, cuda)
+    u0 = torch.as_tensor(u0[::40], device=cuda)
+    f = torch.as_tensor(f[::40], device=cuda)
+    runs = [modes]
+    if frame != "3d":
+        runs += [dict(grad_mode="reference"), dict(legacy_freq_state=True)]
+    for m in runs:
+        assert sc.medium_code(env, cfg, **m) == sc.ALT
+        fn = rhs.frame_rhs(conf.frame, env, conf.root, **m)[0]
+        carry = init_carry(fn, u0, f, cfg)
+        kw = dict(stepper="bs3" if stepper == "rk4" else stepper,
+                  n_steps=64, root=conf.root, adaptive=conf.adaptive,
+                  frame=conf.frame, **m)
+        launches = sc.step_chunk.launches
+        got = sc.step_chunk(carry, f, env, cfg, spec, **kw)
+        assert sc.step_chunk.launches == launches + 1
+        ref = sc.step_chunk_reference(carry, f, env, cfg, spec, **kw)
+        torch.cuda.synchronize()
+        _assert_bitwise(got, ref)
+        assert int((got.n_accept + got.n_reject).sum()) > 0
+
+
+def test_reference_modes_run_through_the_kernel(cuda):
+    """run.run in reference mode (cut fans of ensemble10k and
+    ensemble10k_3d) and the canonical ray through trace() in reference +
+    legacy mode on the card: every launch through the kernel, the plain
+    version never called, every ray finite."""
+    from raytrace_tpu_torch.run import run
+
+    cut = dict(lats=(0.8, 0.9, 1.0, 1.1), chis=(0.3, 0.5),
+               freqs=(2000.0, 3000.0), grad_mode="reference")
+    for name in ("ensemble10k", "ensemble10k_3d"):
+        sc.step_chunk.launches = 0
+        sc.step_chunk_reference.calls = 0
+        out = run(preset(name, **cut), device="cuda")
+        assert sc.step_chunk.launches > 0
+        assert sc.step_chunk_reference.calls == 0
+        assert np.isfinite(out["result"].u[out["valid"]]).all()
+    u0 = torch.tensor([[(RE + 1e6) / RE, np.pi / 4, 0.0, 0.0]],
+                      dtype=torch.float64, device=cuda)
+    res = trace(make_env_lat(), u0,
+                torch.tensor([1000.0], dtype=torch.float64, device=cuda),
+                cfg=SolverConfig(rtol=1e-9, atol=1e-14, dt0=1e-4),
+                spec=StopSpec(r_floor=1.0, t_max=2e8 / RE), stepper="dopri5",
+                max_steps=100000, chunk=256, grad_mode="reference",
+                legacy_freq_state=True)
+    assert int(res.status[0]) == events.MAX_PHASE_TIME
+    assert int(res.n_accept[0]) == 205

@@ -101,8 +101,19 @@ def test_dispersion_matches_jax():
 
 
 def test_unported_grad_mode_raises():
+    """Every gradient set of the JAX package is ported (the reference set:
+    tests/test_torch_reference_mode.py); an unknown mode is refused, and
+    the reference set refuses a multi-ion medium, as the JAX package
+    does."""
     _, te = _envs("lat")
     x = torch.ones(2, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    out = gradients.mu_grads_2d_lat(x, x * 0.5, x * 0.1, x * 1000.0, te,
+                                    grad_mode="reference")
+    assert bool((out[1] == 0).all())
+    with pytest.raises(ValueError, match="unknown grad_mode"):
         gradients.mu_grads_2d_lat(x, x * 0.5, x * 0.1, x * 1000.0, te,
+                                  grad_mode="finite_difference")
+    with pytest.raises(ValueError, match="protons-only"):
+        gradients.mu_grads_2d_lat(x, x * 0.5, x * 0.1, x * 1000.0,
+                                  te._replace(eta_he=0.1),
                                   grad_mode="reference")

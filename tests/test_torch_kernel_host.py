@@ -1,4 +1,5 @@
-"""The step kernel's two bodies against each other on the CPU.
+"""The step kernel's two bodies against each other, and its instances of
+the reference scripts' modes against the plain version, on the CPU.
 
 There is no CUDA compiler here, but csrc/step_chunk.cu compiles as C++
 with stand-ins for the CUDA keywords. This test builds it twice into one
@@ -9,7 +10,10 @@ a per-warp barrier for __any_sync, so the team body's warp roles, its
 shared-memory exchange and its barriers run as written. On the same
 carry, made by the port's plain path on the CPU, the two bodies must give
 every field bit for bit (the host's libm stands in for the card's math on
-both sides). Needs g++ with C++20.
+both sides). The ALT instances (grad_mode="reference", legacy_freq_state)
+are held to the plain PyTorch version on the CPU instead: statuses and
+counters equal, states within the bands of two math libraries (the host's
+libm against torch's). Needs g++ with C++20.
 """
 
 import re
@@ -135,6 +139,11 @@ int main(int argc, char** argv) {
     return bufs;
   };
   auto a = run(false), b = run(true);
+  if (argc > 2) {  // the one-thread body's output, in the input's order
+    FILE* out = fopen(argv[2], "wb");
+    for (int k = 0; k < 15; ++k) fwrite(a[k].data(), 1, a[k].size(), out);
+    fclose(out);
+  }
   long differ = 0;
   for (int k = 0; k < 15; ++k) {
     size_t w = (k < 8 || k == 14) ? it : 4;
@@ -293,3 +302,120 @@ def test_team_body_matches_one_thread_body_on_the_host(host_kernel, case):
         assert got["attempts"] >= live * 10
     if edge == "stops":
         assert got["stopped"] > 0
+
+
+# (preset, dtype, stepper, every, grad_mode, legacy, overrides): the ALT
+# instances over the 2D frames with both modes or either, the 3D frame
+# with the reference set, the ionosphere-only medium (raymain) and the
+# DE factor
+ALT_CASES = {
+    "lat_ref_legacy_f64_bs3": ("ensemble10k", "bs3", 100, "reference",
+                               True, {}),
+    "lat_ref_f64_dopri5": ("ensemble10k", "dopri5", 100, "reference",
+                           False, {}),
+    "lat_legacy_f64_rk4": ("ensemble10k", "rk4", 100, "fused", True,
+                           dict(adaptive=False, dt0=1.0e6 / RE)),
+    "colat_ref_legacy_f64_dopri5": ("ensemble10k", "dopri5", 100,
+                                    "reference", True,
+                                    dict(frame="2d_colat")),
+    "de_ref_legacy_f64_bs3": ("ensemble10k", "bs3", 100, "reference", True,
+                              dict(medium=MediumConfig(
+                                  b0=3.0696381e-5, de_correction=True))),
+    "raymain_ref_legacy_f64_dopri5": ("raymain", "dopri5", 1, "reference",
+                                      True, {}),
+    "3d_ref_f64_bs3": ("ensemble10k_3d", "bs3", 100, "reference", False,
+                       {}),
+    "3d_ref_f64_dopri5": ("ensemble10k_3d", "dopri5", 100, "reference",
+                          False, {}),
+}
+
+
+def _host_launch(host_kernel, case, carry, f, codes, n_steps, params):
+    """One launch of the host build; returns the one-thread body's output
+    carry as {field: numpy array}."""
+    order = (*sc._VEC, "t", "dt", "errold", "dt_prev", *sc._INT)
+    path = host_kernel / f"{case}_{n_steps}.bin"
+    with open(path, "wb") as fh:
+        fh.write(np.int32(1 if f.dtype == torch.float64 else 0).tobytes())
+        fh.write(np.int32(carry.u.shape[1]).tobytes())
+        fh.write(np.int64(f.shape[0]).tobytes())
+        fh.write(np.asarray(codes + [n_steps], np.int32).tobytes())
+        for k in order:
+            x = getattr(carry, k).numpy()
+            fh.write(np.ascontiguousarray(x.T if x.ndim == 2 else x)
+                     .tobytes())
+        fh.write(np.ascontiguousarray(f.numpy()).tobytes())
+        fh.write(bytes(params))
+    out_path = host_kernel / f"{case}_{n_steps}.out"
+    proc = subprocess.run([str(host_kernel / "kernel_host"), str(path),
+                           str(out_path)],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    raw = out_path.read_bytes()
+    b, n = f.shape[0], carry.u.shape[1]
+    fdt = np.float64 if f.dtype == torch.float64 else np.float32
+    got, o = {}, 0
+    for k in order:
+        dt, cnt = (np.int32, b) if k in sc._INT else (
+            fdt, n * b if k in sc._VEC else b)
+        x = np.frombuffer(raw, dt, cnt, o)
+        got[k] = x.reshape(n, b).T if k in sc._VEC else x
+        o += x.nbytes
+    return got
+
+
+@pytest.mark.parametrize("case", sorted(ALT_CASES))
+def test_alt_instances_match_plain_version_on_the_host(host_kernel, case):
+    """An ALT instance (one-thread body) against step_chunk_reference on
+    the same float64 carry: after 1 attempt every field within rtol 1e-13
+    of its component's largest magnitude (the right-hand side with the
+    closed form and the Kimura chain, computed by the two math libraries,
+    the host's libm and torch's), after 8 attempts statuses and counters
+    equal and u, t, dt, k1 within 1e-6 (dt0 = 1e-4, ROADMAP C: the
+    axisymmetric instance shows 6e-7 in t at the 3D launch), or within the
+    plain version's own spread where that is larger: the plain version
+    from the same launch with every state component one ulp up, after the
+    same 8 attempts (the 3D dopri5 launch: 6e-5 in t, where the two math
+    libraries' launches differ by ~1e-6). Over more attempts the reference
+    set's wedges turn that noise into other accept/reject paths (48
+    attempts: ~5% of the rays), as bs3 does at any launch."""
+    name, stepper, every, grad_mode, legacy, over = ALT_CASES[case]
+    conf = preset(name, dtype="float64", **over)
+    env = conf.medium.build()
+    u0, f = _build_u0(conf, env, np.float64, torch.device("cpu"))
+    u0, f = torch.as_tensor(u0[::every]), torch.as_tensor(f[::every])
+    cfg, spec = conf.solver(), conf.stop()
+    kw = dict(frame=conf.frame, root=conf.root, adaptive=conf.adaptive,
+              grad_mode=grad_mode, legacy_freq_state=legacy)
+    rhs_fn = rhs_mod.frame_rhs(conf.frame, env, conf.root, grad_mode,
+                               legacy)[0]
+    carry = init_carry(rhs_fn, u0, f, cfg)
+    codes = [sc._STEPPER_CODE[stepper if conf.adaptive else "rk4"],
+             sc._FRAME_CODE[conf.frame][0],
+             sc.medium_code(env, cfg, grad_mode, legacy), sc.field_code(env)]
+    assert codes[2] == sc.ALT
+    params = sc._params(env, cfg, spec, conf.root, grad_mode, legacy)
+    nudged = sc.step_chunk_reference(
+        init_carry(rhs_fn, torch.nextafter(u0, torch.full_like(u0, np.inf)),
+                   f, cfg), f, env, cfg, spec, stepper=stepper, n_steps=8,
+        **kw)
+    for n_steps, rtol in ((1, 1e-13), (8, 1e-6)):
+        got = _host_launch(host_kernel, case, carry, f, codes, n_steps,
+                           params)
+        ref = sc.step_chunk_reference(carry, f, env, cfg, spec,
+                                      stepper=stepper, n_steps=n_steps,
+                                      **kw)
+        for k in ("status", "n_accept", "n_reject"):
+            np.testing.assert_array_equal(got[k], getattr(ref, k).numpy(),
+                                          err_msg=f"{k} after {n_steps}")
+        assert int((got["n_accept"] + got["n_reject"]).sum()) == (
+            n_steps * f.shape[0])
+        for k in ("u", "t", "dt", "k1"):
+            want = getattr(ref, k).numpy()
+            scale = np.maximum(np.abs(want).max(axis=0), 1e-300)
+            err = float(np.max(np.abs(got[k] - want) / scale))
+            band = rtol
+            if n_steps == 8:
+                spread = np.abs(getattr(nudged, k).numpy() - want) / scale
+                band = max(rtol, float(np.max(spread)))
+            assert err <= band, (k, n_steps, err, band)

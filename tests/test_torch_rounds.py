@@ -187,11 +187,14 @@ def test_ensemble_stats_matches_jax():
 
 @pytest.mark.parametrize("kw", [
     dict(pipeline=2), dict(order_switch_dt=0.12), dict(tail_stepper="dopri5"),
-    dict(save_every=64), dict(stiff_stepper="ros2x"),
+    dict(save_every=64), dict(grad_mode="autodiff", stiff_stepper="ros2x"),
     dict(grad_mode="autodiff"),
-    dict(legacy_freq_state=True),
+    dict(save_every=8, legacy_freq_state=True),
 ])
 def test_unported_knobs_raise(kw):
+    # the stiff steppers, the reference gradient set and legacy_freq_state
+    # run (tests/test_torch_reference_mode.py, test_torch_modes.py);
+    # the autodiff set stays refused (ROADMAP B7)
     with pytest.raises(NotImplementedError):
         ensemble.make_rounds_tracer(make_env_lat(), device="cpu",
                                     dtype=torch.float64, **kw)

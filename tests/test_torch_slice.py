@@ -110,14 +110,15 @@ def test_config_json_round_trips_across_packages():
 
 # every preset of the JAX package is served (no name is refused,
 # test_torch_slice_variants.py); what a preset still refuses is a feature
-# the port has not ported, switched on by an override: the reference
-# gradient mode, the trajectory channel, continuations, the ros2 stepper
-# and the sensitivity rays
+# the port has not ported, switched on by an override: the trajectory
+# channel, explicit ray lists, the autodiff gradient set in the rounds
+# tracer and the sensitivity rays (the reference gradient mode,
+# continuations and the ros2 stepper run since they were ported)
 @pytest.mark.parametrize("name,over", [
-    ("raymain", dict(grad_mode="reference")),
+    ("raymain", dict(save_every=8)),
     ("ensemble10k_local", dict(save_every=8)),
-    ("ensemble10k_local", dict(continue_until_done=True)),
-    ("emic_heband", dict(wave_mode="whistler", stepper="ros2")),
+    ("ensemble10k_local", dict(rays=((0.8, 0.3, 2000.0),))),
+    ("emic_heband", dict(grad_mode="autodiff")),
     ("emic_heband", dict(sensitivity_rays=4)),
 ])
 def test_unported_presets_raise(name, over):
@@ -127,8 +128,8 @@ def test_unported_presets_raise(name, over):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(grad_mode="reference"), dict(use_rounds=False), dict(save_every=8),
-    dict(continue_until_done=True), dict(stepper="ros2x"),
+    dict(grad_mode="autodiff"), dict(use_rounds=False), dict(save_every=8),
+    dict(sensitivity_rays=2), dict(rays=((0.8, 0.3, 2000.0),)),
 ])
 def test_run_refuses_unported_features(kw):
     cfg = t_config.preset("ensemble10k", lats=(0.8,), chis=(0.3,),

@@ -12,12 +12,17 @@ the float32-vs-float64 agreement (statuses, median landing L); --rays
 i,j,... instead traces each listed ray alone in both packages on the CPU
 (status and step counters); --set field=value (repeatable) overrides a
 field of the preset (a Python literal, e.g. --set frame='"2d_colat"'
---set adaptive=False --set dt0=0.15695630336514316). A batch of at most 64
-rays is traced in one full-budget round, as run() traces it:
+--set adaptive=False --set dt0=0.15695630336514316 --set
+grad_mode='"reference"'); --run traces the preset through the JAX
+package's run() instead, in one batch (the path of --set
+continue_until_done=True); --nudge moves every launch latitude up by one
+ulp (a run's own sensitivity to rounding). A batch of at most 64 rays is
+traced in one full-budget round, as run() traces it:
 
     PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_slice3d.py \\
         ensemble10k_plume float64 [--out census.npz] [--against other.npz] \\
-        [--batch 1024] [--rays 1346,1410] [--set frame='"2d_colat"']
+        [--batch 1024] [--rays 1346,1410] [--set frame='"2d_colat"'] \\
+        [--run] [--nudge]
 """
 
 import json
@@ -175,16 +180,16 @@ def test_3d_launch_matches_jax(dtype):
 def test_3d_refuses_a_phis_fan():
     """A phis fan runs in 3D over the MLT-resolved medium since the plume
     slice (test_torch_slice_mlt.py) and over the tilted and IGRF fields
-    (test_torch_slice_fields.py); what is refused is a phis fan over a
-    gradient mode the port does not have (the reference mix, A10) and a
-    phis fan in a 2D frame, whose state carries no longitude (as the JAX
-    package refuses it)."""
+    (test_torch_slice_fields.py); what is refused is a phis fan under the
+    reference gradient set over a field it does not take (tilted, with
+    He+: ValueError, as in the JAX package) and a phis fan in a 2D frame,
+    whose state carries no longitude (as the JAX package refuses it)."""
     cut = dict(lats=(0.8,), chis=(0.0,), freqs=(2000.0,), phis=(0.0, 1.0),
                max_steps=8)
     cfg = t_config.preset("ensemble10k_3d", grad_mode="reference", **cut)
     cfg.medium.b_model = "tilted"
     cfg.medium.eta_he = 0.1
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(ValueError, match="centered-dipole|protons-only"):
         t_run.run(cfg, device="cpu")
     with pytest.raises(ValueError, match="3D-only"):
         t_run.run(t_config.preset("ensemble10k", **cut), device="cpu")
@@ -192,12 +197,14 @@ def test_3d_refuses_a_phis_fan():
         j_run._build_u0(j_config.preset("ensemble10k", **cut), np.float64)
 
 
-def _jax_census(name, dtype, batch=1024, overrides=None):
+def _jax_census(name, dtype, batch=1024, overrides=None, nudge=False):
     """The JAX package's run of preset `name` (with `overrides`, a dict of
     RunConfig fields) on the CPU, traced in batches of `batch` rays through
     one rounds tracer (its run() path without a mesh; a batch of at most
     64 rays in one full-budget round, as run() has it). Returns (per-ray
-    numpy arrays, stats)."""
+    numpy arrays, stats). nudge moves every launch's state slot 1 (the
+    latitude or colatitude) up by one ulp: the run's own sensitivity to
+    rounding."""
     import raytrace_tpu.parallel.ensemble as j_ens
     from raytrace_tpu.integrate.solve import TraceResult
     from raytrace_tpu.models import cast_env
@@ -206,6 +213,8 @@ def _jax_census(name, dtype, batch=1024, overrides=None):
     cfg = j_config.preset(name, dtype=dtype, **(overrides or {}))
     np_dt = np.float32 if dtype == "float32" else np.float64
     u0, f = j_run._build_u0(cfg, np_dt)
+    if nudge:
+        u0[:, 1] = np.nextafter(u0[:, 1], np.inf)
     kw = dict(frame=cfg.frame, cfg=cfg.solver(), spec=cfg.stop(),
               adaptive=cfg.adaptive, stepper=cfg.stepper,
               max_steps=cfg.max_steps, grad_mode=cfg.grad_mode,
@@ -232,6 +241,29 @@ def _jax_census(name, dtype, batch=1024, overrides=None):
                            lat_sign=spec.lat_sign,
                            lat_offset=spec.lat_offset, xp=np)
     return arrays, {k: np.asarray(v).item() for k, v in stats.items()}
+
+
+def _jax_run_census(name, dtype, overrides=None):
+    """The JAX package's run() of preset `name` (with `overrides`) on the
+    CPU, in one batch: (per-ray numpy arrays, stats)."""
+    out = j_run.run(j_config.preset(name, dtype=dtype, **(overrides or {})))
+    valid = np.asarray(out["valid"])
+    arrays = {k: np.asarray(getattr(out["result"], k))[valid]
+              for k in ("u", "status", "n_accept", "n_reject")}
+    return arrays, {k: np.asarray(v).item() for k, v in out["stats"].items()
+                    if np.asarray(v).size == 1}
+
+
+def _port_run_census(name, dtype, overrides=None):
+    """The port's run() of preset `name` (with `overrides`) on the CPU, its
+    plain version, in one batch: (per-ray numpy arrays, stats)."""
+    out = t_run.run(t_config.preset(name, dtype=dtype, **(overrides or {})),
+                    device="cpu")
+    valid = np.asarray(out["valid"])
+    arrays = {k: np.asarray(getattr(out["result"], k))[valid]
+              for k in ("u", "status", "n_accept", "n_reject")}
+    return arrays, {k: np.asarray(v).item() for k, v in out["stats"].items()
+                    if np.asarray(v).size == 1}
 
 
 def _rays_alone(name, dtype, rays):
@@ -271,6 +303,14 @@ if __name__ == "__main__":
     p.add_argument("--rays", default="",
                    help="comma-separated ray indices: trace each alone in "
                         "both packages instead of the census")
+    p.add_argument("--nudge", action="store_true",
+                   help="move every launch latitude up by one ulp")
+    p.add_argument("--run", action="store_true",
+                   help="trace through the JAX package's run() in one "
+                        "batch")
+    p.add_argument("--port", action="store_true",
+                   help="trace through the port's run() on the CPU (its "
+                        "plain version) in one batch")
     p.add_argument("--set", action="append", default=[],
                    help="field=value: override a RunConfig field (a Python "
                         "literal)")
@@ -284,7 +324,13 @@ if __name__ == "__main__":
         print(json.dumps(_rays_alone(args.preset, args.dtype, rays),
                          indent=1))
         raise SystemExit(0)
-    arrays, stats = _jax_census(args.preset, args.dtype, args.batch, over)
+    if args.port:
+        arrays, stats = _port_run_census(args.preset, args.dtype, over)
+    elif args.run:
+        arrays, stats = _jax_run_census(args.preset, args.dtype, over)
+    else:
+        arrays, stats = _jax_census(args.preset, args.dtype, args.batch,
+                                    over, args.nudge)
     if args.out:
         np.savez(args.out, **arrays)
     stats["attempted_steps"] = (stats["total_accepted_steps"]
