@@ -59,8 +59,8 @@ Phases, each printed as it runs; any failed check exits non-zero:
      and O+) and fixed-step rk4 (the ensemble10k launch at dt0 = dt_max),
      float32 over all rays and float64 over every 10th ray for 128 steps,
      and each variant through a full-medium and a general-field instance;
-     then every instance a path of phases 15-18 launches timed beside its
-     plain version and its bound;
+     then every instance a path of phases 15-18 launches, and rk4 over the
+     3D full chain, timed beside its plain version and its bound;
  15. the ensemble10k_local slice: float32 against the TPU record
      (benchmarks/perf_r03k.json -> local), float64 against the JAX
      package's float64 census on a CPU;
@@ -87,7 +87,17 @@ Phases, each printed as it runs; any failed check exits non-zero:
      legacy: RayMain's ray at t = 40 and RayTrace_lat's at the full budget
      against the golden states, and RayMain's wedge;
  24. mr_fan_3d float64 with continue_until_done: the final MAX_STEPS
-     count against the JAX package's run() on a CPU.
+     count against the JAX package's run() on a CPU;
+ 25. the trajectory channel: trace(save_every=32, save_fn) through the
+     kernel (one launch per block on a resident carry) against the plain
+     version, bit for bit in every snapshot, the diagnostics and the final
+     carry (ensemble10k every 10th ray, 2D one-thread; the plume fan, 3D
+     team body); ensemble10k float32 at full width with save_every=32 and
+     the diagnostics through run.run: the (625, 10240, 4) trajectory, its
+     wall beside the final-state run's, its launches, host buffer and
+     bytes fetched; its final states against phase 4's; the
+     rounds-assembled trajectory against use_rounds=False (pinned bs3)
+     bit for bit; one block's launch (10,240 rays x 32 attempts) timed.
 Each run through run.run checks the body its launches took (the team
 body's launch count, ops/step_chunk.py) and replays its last launch, the
 merged tail where the run has one (kernel_ab.replay_tail), for the
@@ -1237,6 +1247,12 @@ def variant_kernels(dev, card):
         (None, "multi-ion", "ensemble10k", "float64", "dopri5", ions_2d, {}),
         (None, "rk4", "ensemble10k", "float32", "bs3", None, RK4),
         ("rk4", "rk4", "ensemble10k", "float64", "bs3", None, RK4),
+        # rk4 over the 3D full chain (the team body; no preset), at the
+        # plume's dt0
+        (None, "rk4 3D full", "ensemble10k_plume", "float32", "bs3", None,
+         dict(adaptive=False)),
+        (None, "rk4 3D full", "ensemble10k_plume", "float64", "bs3", None,
+         dict(adaptive=False)),
     ):
         t = time_instance(name, dt_name, st, dev, medium=med,
                           plain_full=k is not None,
@@ -1728,6 +1744,210 @@ def mr_continuation(dev, card):
     return n_cont, tail, (err, t)
 
 
+def plain_trajectory(carry, f, env, cfg, spec, stepper, kw, n_outer,
+                     save_every, save_fn):
+    """The trajectory channel through the plain version on the card, as
+    integrate.solve.trace records it: n_outer blocks of save_every
+    attempts (step_chunk_reference), a snapshot of u, t and status after
+    each, the extras over all snapshots in one call, and the final carry
+    relabelled (ACTIVE -> MAX_STEPS) and refined. Returns (traj, carry)."""
+    import torch
+
+    from raytrace_tpu_torch.integrate import events
+    from raytrace_tpu_torch.integrate.solve import refine_events
+    from raytrace_tpu_torch.ops import rhs as rhs_mod
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    rows = {"u": [], "t": [], "status": []}
+    for _ in range(n_outer):
+        carry = sc.step_chunk_reference(carry, f, env, cfg, spec,
+                                        stepper=stepper, n_steps=save_every,
+                                        **kw)
+        for k in rows:
+            rows[k].append(getattr(carry, k))
+    traj = {k: torch.stack(v) for k, v in rows.items()}
+    b, n = carry.u.shape
+    traj["extras"] = save_fn(traj["u"].reshape(n_outer * b, n),
+                             f.repeat(n_outer)).reshape(n_outer, b, -1)
+    carry = carry._replace(status=torch.where(
+        carry.status == events.ACTIVE, events.MAX_STEPS, carry.status
+    ).to(torch.int32))
+    rhs_fn, _ = rhs_mod.frame_rhs(kw["frame"], env, kw["root"],
+                                  kw["grad_mode"], kw["legacy_freq_state"])
+    return traj, refine_events(rhs_fn, carry, f, spec)
+
+
+def trajectory_kernel(what, name, dev, every, n_outer, team,
+                      save_every=32):
+    """trace(save_every, save_fn) through the kernel -- one launch per
+    block on the resident carry -- against plain_trajectory on the same
+    carry of a preset's float32 launch (every `every`-th ray), bit for bit
+    in every snapshot, the extras and the final carry. Returns (max abs
+    err, the launches made); team: the instance's body is the team one."""
+    import torch
+
+    from raytrace_tpu_torch.integrate.saving import save_fn_for
+    from raytrace_tpu_torch.integrate.solve import RayCarry, trace
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    carry, f, env, cfg, spec, kw = start(name, "float32", dev, every=every)
+    save_fn = save_fn_for(kw["frame"], env)
+    n0, calls0 = sc.step_chunk.launches, sc.step_chunk_reference.calls
+    team0 = sc.step_chunk.team_launches
+    res = trace(env, carry.u, f, carry0=carry, cfg=cfg, spec=spec,
+                stepper="bs3", max_steps=n_outer * save_every,
+                save_every=save_every, save_fn=save_fn, **kw)
+    torch.cuda.synchronize()
+    launches = sc.step_chunk.launches - n0
+    check(sc.step_chunk_reference.calls == calls0 and 0 < launches <= n_outer,
+          f"{what}: {launches} kernel launches for {n_outer} blocks, the "
+          "plain version not called")
+    check(sc.step_chunk.team_launches - team0 == (launches if team else 0),
+          f"{what}: the launches went through the "
+          f"{'team' if team else 'one-thread'} body")
+    ref_traj, ref_carry = plain_trajectory(carry, f, env, cfg, spec, "bs3",
+                                           kw, n_outer, save_every, save_fn)
+
+    def host(traj, c):
+        d = {k: v.cpu().numpy() for k, v in traj.items()}
+        d.update((f"carry.{k}", getattr(c, k).cpu().numpy())
+                 for k in RayCarry._fields)
+        return d
+
+    got, ref = host(res.traj, res.carry), host(ref_traj, ref_carry)
+    n_diff = n_differ(got, ref)
+    st = got["status"]
+    print(f"  {what} float32 bs3, {f.shape[0]:,} rays x {n_outer} blocks of "
+          f"{save_every}: {int((st[-1] != 0).sum())} rays stopped, "
+          f"traj u {got['u'].shape}, extras {got['extras'].shape}, "
+          f"{n_diff} values differ", flush=True)
+    check(n_diff == 0, f"{what}: every snapshot, the extras and the final "
+                       "carry bit for bit with the plain version")
+    return max_abs(got, ref), launches
+
+
+def trajectory_slice(dev, card, out32, wall32, launches32):
+    """Phase 25's full-width part: ensemble10k float32 with save_every=32
+    and the diagnostics through run.run (the rounds tracer's channel),
+    against the final-state run of phase 4 (out32, its wall and
+    launches), and the rounds-assembled
+    trajectory against use_rounds=False (pinned bs3, the rounds tracer's
+    stall retirement off) bit for bit. Returns the trajectory run's
+    launches."""
+    import torch
+
+    from raytrace_tpu_torch.config import preset
+    from raytrace_tpu_torch.integrate import events
+    from raytrace_tpu_torch.integrate.saving import save_fn_for
+    from raytrace_tpu_torch.ops import step_chunk as sc
+    from raytrace_tpu_torch.parallel.ensemble import (
+        make_rounds_tracer, pad_batch,
+    )
+    from raytrace_tpu_torch.run import _build_u0, run, summarize
+
+    conf = preset("ensemble10k", save_every=32, save_diagnostics=True)
+    walls = []
+    for _ in range(2):      # a warm-up, then the run measured
+        sc.step_chunk.launches = 0
+        sc.step_chunk_reference.calls = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(conf, device=dev)
+        walls.append(time.perf_counter() - t0)
+    launches, calls = sc.step_chunk.launches, sc.step_chunk_reference.calls
+    res, valid = out["result"], out["valid"]
+    traj = res.traj
+    n_rows = conf.max_steps // conf.save_every
+    host_bytes = sum(v.nbytes for v in traj.values())
+    row_bytes = sum(v[0, 0].nbytes for v in traj.values())
+    d2h = sum((r["steps"] // conf.save_every) * r["active"] * row_bytes
+              for r in out["rounds"])
+    print(f"  {summarize(res, valid)}; traj " + ", ".join(
+        f"{k} {v.shape} {v.dtype}" for k, v in traj.items()))
+    for r in out["rounds"]:
+        print(f"   round: {r['stepper']:6s} active {r['active']:5d} bucket "
+              f"{r['bucket']:5d} steps {r['steps']:5d} attempted "
+              f"{r['attempted']:9d} wall {r['wall_s'] * 1e3:8.1f} ms")
+    print(f"  trajectory run: walls {walls[0]:.4f} s (warm-up), "
+          f"{walls[1]:.4f} s; the final-state run of phase 4 {wall32:.4f} s "
+          f"({walls[1] / wall32:.1f}x); {launches} kernel launches (the "
+          f"final-state run: {launches32}), {len(out['rounds'])} "
+          f"rounds; host buffer {host_bytes / 2**20:.1f} MiB, "
+          f"{d2h / 2**20:.1f} MiB fetched from the card in the rounds' "
+          f"blocks, on {card}",
+          flush=True)
+    check(launches > 0 and calls == 0,
+          "stepped through the kernel, never the plain version")
+    width = len(out32["valid"])     # 10,240 rays
+    check(traj["u"].shape == traj["extras"].shape == (n_rows, width, 4)
+          and traj["t"].shape == traj["status"].shape == (n_rows, width),
+          f"traj u ({n_rows}, {width}, 4), t and status ({n_rows}, "
+          f"{width}), extras ({n_rows}, {width}, 4)")
+    v = np.asarray(valid)
+    check(np.isfinite(traj["u"][:, v]).all()
+          and np.isfinite(traj["t"][:, v]).all(),
+          "every snapshot's u and t finite")
+    bad = int((~np.isfinite(traj["extras"][:, v])).any(axis=(0, 2)).sum())
+    print(f"  rays with a non-finite diagnostic in some row: {bad}")
+
+    # the final states against the final-state run: the channel gives the
+    # merged tail exactly its rows' attempts (14,880), the final-state
+    # trace ceil(14,880 / 512) * 512 = 15,360, as the JAX package's scan
+    # and chunked while_loop do; only rays that ran the whole budget can
+    # differ
+    ref = out32["result"]
+    differ = np.zeros(v.size, bool)
+    for k in ("u", "t", "status", "n_accept", "n_reject"):
+        d = ~np.equal(getattr(res, k), getattr(ref, k))
+        differ |= d.reshape(v.size, -1).any(axis=1)
+    differ &= v
+    att = res.n_accept + res.n_reject
+    n_ms = int((res.status[v] == events.MAX_STEPS).sum())
+    print(f"  against the final-state run: {int(differ.sum())} rays differ "
+          f"(MAX_STEPS here {n_ms}, there "
+          f"{int((ref.status[v] == events.MAX_STEPS).sum())}); the other "
+          f"{int((v & ~differ).sum())} rays bit for bit")
+    check((att[differ] == conf.max_steps).all(),
+          f"every ray that differs ran the whole budget of "
+          f"{conf.max_steps} attempts here (the final-state run gives the "
+          f"merged tail up to 480 more)")
+
+    # rounds vs the single program, bit for bit, stall retirement off
+    pinned = dict(stepper="bs3", save_every=32, save_diagnostics=True)
+    env = conf.medium.build()
+    u0, f = _build_u0(conf, env, np.float32, dev)
+    u0, f, valid = pad_batch(u0, f)
+    t0 = time.perf_counter()
+    rounds = make_rounds_tracer(
+        env, device=dev, dtype=torch.float32, frame=conf.frame,
+        cfg=conf.solver(), spec=conf.stop(), adaptive=conf.adaptive,
+        max_steps=conf.max_steps, grad_mode=conf.grad_mode, root=conf.root,
+        want_carry=False, stall_progress=0.0, stepper="bs3",
+        save_every=32, save_fn=save_fn_for(conf.frame, env),
+    )(u0, f, valid)
+    t1 = time.perf_counter()
+    single = run(preset("ensemble10k", use_rounds=False, **pinned),
+                 device=dev)["result"]
+    t2 = time.perf_counter()
+    v = np.asarray(valid)
+    n_diff = sum(int((~np.equal(rounds.traj[k][:, v], single.traj[k][:, v])
+                      & ~(np.isnan(rounds.traj[k][:, v])
+                          & np.isnan(single.traj[k][:, v]))).sum())
+                 for k in ("u", "t", "extras")) + int(
+        (rounds.traj["status"][:, v] != single.traj["status"][:, v]).sum())
+    n_fin = sum(int((~np.equal(getattr(rounds, k)[v],
+                               getattr(single, k)[v])).sum())
+                for k in ("u", "t", "status", "n_accept", "n_reject"))
+    print(f"  pinned bs3, no stall retirement: rounds {t1 - t0:.3f} s, "
+          f"use_rounds=False {t2 - t1:.3f} s (its {n_rows} blocks over all "
+          f"{width:,} rays, the whole history on the card); {n_diff} snapshot "
+          f"values and {n_fin} final values differ", flush=True)
+    check(n_diff == 0 and n_fin == 0,
+          "the rounds-assembled trajectory equals use_rounds=False bit for "
+          "bit (every row, the extras, the final states)")
+    return launches
+
+
 def main():
     import torch
 
@@ -1823,6 +2043,7 @@ def main():
     ens = preset("ensemble10k")
     drive(ens, "warm-up", card)
     out, wall, launches_2d, ref_calls = drive(ens, "float32", card)
+    out4, wall4 = out, wall
     stats = out["stats"]
     steps = int(stats["total_accepted_steps"] + stats["total_rejected_steps"])
     n_hit = int(stats["n_hit_earth"])
@@ -2220,6 +2441,20 @@ def main():
     launches_gold, err_gold, t_gold = golden_rays(dev, card)
     phase("[24] mr_fan_3d float64 with continue_until_done")
     launches_cont, tails["cont"], cont = mr_continuation(dev, card)
+
+    # ---- 25. the trajectory channel -------------------------------------
+    phase("[25] the trajectory channel: trace(save_every) through the "
+          "kernel vs plain PyTorch, ensemble10k with save_every=32")
+    err_traj, _ = trajectory_kernel("ensemble10k (2D lat, one-thread)",
+                                    "ensemble10k", dev, every=10, n_outer=16,
+                                    team=False)
+    trajectory_kernel("ensemble10k_plume (3D full, team)",
+                      "ensemble10k_plume", dev, every=10, n_outer=8,
+                      team=True)
+    launches_traj = trajectory_slice(dev, card, out4, wall4, launches_2d)
+    t_blk = time_instance("ensemble10k", "float32", "bs3", dev, n=32,
+                          reps=20)
+    print_timing("float32 bs3, one trajectory block", t_blk, card)
     phase("[done]")
 
     def entry(name, launches, err, t, tail=None, team=False):
@@ -2284,6 +2519,8 @@ def main():
         entry("step_chunk[3d+full_medium(mlt),float64,dopri5]"
               "(mr_fan_3d continuation)", launches_cont, *cont,
               tails["cont"], team=True),
+        entry("step_chunk[2d_lat,float32,bs3](trajectory block, 32 "
+              "attempts)", launches_traj, err_traj, t_blk),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ frame); ensemble10k_plume, mr_fan_3d (3D, the MLT-resolved medium);
 ensemble10k_tilted, ensemble10k_igrf (3D, the tilted dipole and the IGRF
 truncation). A JSON file path loads a full RunConfig instead. The run goes to
 the CUDA card unless --device names another device; it never falls back
-to the CPU on its own.
+to the CPU on its own. --trajectory K records a snapshot every K attempts
+with the diagnostics; with --out it is written as <name>_traj.npz beside
+<name>_final.npz and <name>_record.json.
 """
 
 import argparse
@@ -27,9 +29,29 @@ def main(argv=None):
     p.add_argument("--float64", action="store_true",
                    help="run in float64 instead of the config's dtype")
     p.add_argument("--out", default="", help="output directory (optional)")
+    p.add_argument("--trajectory", type=int, default=0, metavar="K",
+                   help="record a snapshot every K steps, with the "
+                        "diagnostics (mu, dmu/dpsi, dip, psi)")
+    p.add_argument("--plots", action="store_true",
+                   help="render ray plots (not ported: ROADMAP A11)")
+    p.add_argument("--sensitivity", type=int, default=0, metavar="N",
+                   help="landing-sensitivity analysis for the first N rays "
+                        "(not ported: ROADMAP A13)")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-process run over several cards (not "
+                        "ported: ROADMAP A12)")
     p.add_argument("--dump-config", action="store_true",
                    help="print the resolved RunConfig JSON and exit")
     args = p.parse_args(argv)
+    if args.plots:
+        raise NotImplementedError(
+            "--plots is not ported: the plots need matplotlib, which the "
+            "card's machine lacks (ROADMAP A11); plot the _traj.npz that "
+            "--trajectory writes")
+    if args.multihost:
+        raise NotImplementedError(
+            "--multihost is not ported: the port runs on one card "
+            "(ROADMAP A12)")
 
     from .config import RunConfig, preset
 
@@ -37,6 +59,11 @@ def main(argv=None):
         config = RunConfig.from_json(args.config)
     else:
         config = preset(args.config)
+    if args.trajectory:
+        config.save_every = args.trajectory
+        config.save_diagnostics = True  # (mu, dmudpsi, dip, psi), any frame
+    if args.sensitivity:
+        config.sensitivity_rays = args.sensitivity
     if args.float64:
         config.dtype = "float64"
     if args.dump_config:

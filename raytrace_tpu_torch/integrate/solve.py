@@ -7,9 +7,10 @@ The carry is a `RayCarry` of tensors with the ray axis first: vectors are
 
 `trace` advances rays of a frame (`ops.rhs.frame_rhs`: the 2D latitude
 frame's `rhs_2d_lat`, the 2D colatitude frame's `rhs_2d_colat` or the 3D
-frame's `rhs_3d`, over a medium `env`) in final-state mode. The explicit
-pairs (bs3, dopri5) and fixed-step rk4 (adaptive=False) step
-through `ops.step_chunk.step_chunk`, one launch per call: the hand-written
+frame's `rhs_3d`, over a medium `env`), to final states or (save_every >
+0) with the trajectory channel. The explicit pairs (bs3, dopri5) and
+fixed-step rk4 (adaptive=False) step through `ops.step_chunk`, one launch
+per call or per snapshot block: the hand-written
 CUDA kernel on a CUDA tensor, its plain PyTorch loop of `_step_one` on a
 CPU tensor. heun2 and the Rosenbrock steppers (ros2, ros2x, ros3pr, ros4x;
 the auto mode's stiff pool) step as torch ops on the tensors' device, as
@@ -401,6 +402,7 @@ def trace(
     stepper: str = "dopri5",
     max_steps: int = 20000,
     save_every: int = 0,
+    save_fn=None,
     chunk: int = 64,
     carry0: Optional[RayCarry] = None,
     root: float = 1.0,
@@ -412,25 +414,36 @@ def trace(
     u0: (B, n) states -- (r, lat, chi, T) in the "2d_lat" frame, (r,
     theta, phi, rho_r, rho_theta, rho_phi, T) in the "3d" frame; f: (B,)
     frequencies in Hz; both on the device and in the dtype the run uses.
-    Final-state mode only.
 
-    Each ray gets exactly ceil(max_steps / chunk) * chunk attempts unless
-    it stops first -- the count the JAX package's chunked while_loop runs
-    (integrate/solve.py:559-571) -- in ONE step-kernel launch for bs3,
-    dopri5 and (adaptive=False, whatever `stepper` says) rk4. carry0
-    resumes from a RayCarry batch (MAX_STEPS rays re-arm). grad_mode and
-    legacy_freq_state select the right-hand side (ops.rhs.frame_rhs) that
-    init_carry, the steps, the stiff steppers' Jacobian and refine_events
-    all see.
+    save_every == 0: final states only. Each ray gets exactly
+    ceil(max_steps / chunk) * chunk attempts unless it stops first -- the
+    count the JAX package's chunked while_loop runs (integrate/solve.py:
+    559-571) -- in ONE step-kernel launch for bs3, dopri5 and
+    (adaptive=False, whatever `stepper` says) rk4.
+
+    save_every > 0: the trajectory channel (the reference's
+    SavingCallback, RayTrace_lat.jl:318-330). ceil(max_steps /
+    save_every) blocks of exactly save_every attempts each, one kernel
+    launch per block on a carry that stays in the kernel's layout
+    (ops.step_chunk.ResidentCarry); after each block the carry's u, t and
+    status are copied into a preallocated (n_outer, B, ...) buffer on the
+    device, and save_fn(u, f) -- batched over the snapshots, e.g.
+    saving.save_fn_for's (mu, dmu/dpsi, dip, psi) -- adds "extras",
+    computed once over all snapshots. traj holds the unrefined carry of
+    each block, as the JAX package's scan does; once no ray is ACTIVE
+    (checked every `chunk` attempts) the remaining rows are the frozen
+    state, which is what the scan records.
+
+    carry0 resumes from a RayCarry batch (MAX_STEPS rays re-arm).
+    grad_mode and legacy_freq_state select the right-hand side
+    (ops.rhs.frame_rhs) that init_carry, the steps, the stiff steppers'
+    Jacobian and refine_events all see.
     """
-    if save_every:
-        raise NotImplementedError(
-            "the trajectory channel (save_every > 0) is not ported yet "
-            "(ROADMAP A11)"
-        )
     rhs_fn, group_idx = rhs_mod.frame_rhs(frame, env, root, grad_mode,
                                           legacy_freq_state)
     check_supported(cfg, group_idx, adaptive, stepper)
+    if save_every < 0:
+        raise ValueError(f"save_every must be >= 0; got {save_every}")
     if carry0 is None:
         carry0 = init_carry(rhs_fn, u0, f, cfg)
     else:
@@ -438,18 +451,28 @@ def trace(
             carry0.status == events.MAX_STEPS, events.ACTIVE, carry0.status
         ).to(torch.int32))
 
-    n_steps = -(-max_steps // chunk) * chunk
-    if stepper in KERNEL_STEPPERS or not adaptive:
-        from ..ops.step_chunk import step_chunk
+    on_kernel = stepper in KERNEL_STEPPERS or not adaptive
+    kernel_kw = dict(stepper=stepper, root=root, adaptive=adaptive,
+                     frame=frame, grad_mode=grad_mode,
+                     legacy_freq_state=legacy_freq_state)
+    traj = None
+    if save_every == 0:
+        n_steps = -(-max_steps // chunk) * chunk
+        if on_kernel:
+            from ..ops.step_chunk import step_chunk
 
-        carry = step_chunk(carry0, f, env, cfg, spec, stepper=stepper,
-                           n_steps=n_steps, root=root, adaptive=adaptive,
-                           frame=frame, grad_mode=grad_mode,
-                           legacy_freq_state=legacy_freq_state)
+            carry = step_chunk(carry0, f, env, cfg, spec, n_steps=n_steps,
+                               **kernel_kw)
+        else:
+            carry = step_loop(rhs_fn, carry0, f, cfg, spec,
+                              group_idx=group_idx, adaptive=adaptive,
+                              stepper=stepper, n_steps=n_steps,
+                              check_every=chunk)
     else:
-        carry = step_loop(rhs_fn, carry0, f, cfg, spec, group_idx=group_idx,
-                          adaptive=adaptive, stepper=stepper,
-                          n_steps=n_steps, check_every=chunk)
+        carry, traj = _trace_blocks(rhs_fn, group_idx, carry0, f, env, cfg,
+                                    spec, -(-max_steps // save_every),
+                                    save_every, save_fn, chunk, on_kernel,
+                                    kernel_kw)
 
     # rays alive at budget exhaustion report MAX_STEPS, never ACTIVE
     carry = carry._replace(status=torch.where(
@@ -458,5 +481,50 @@ def trace(
     carry = refine_events(rhs_fn, carry, f, spec)
     return TraceResult(
         u=carry.u, t=carry.t, status=carry.status,
-        n_accept=carry.n_accept, n_reject=carry.n_reject, carry=carry,
+        n_accept=carry.n_accept, n_reject=carry.n_reject, traj=traj,
+        carry=carry,
     )
+
+
+def _trace_blocks(rhs_fn, group_idx, carry0, f, env, cfg, spec, n_outer,
+                  save_every, save_fn, chunk, on_kernel, kernel_kw):
+    """trace's trajectory channel: n_outer blocks of save_every attempts,
+    a snapshot after each. Returns (carry, traj)."""
+    b, n = carry0.u.shape
+    traj = {
+        "u": carry0.u.new_empty((n_outer, b, n)),
+        "t": carry0.t.new_empty((n_outer, b)),
+        "status": carry0.status.new_empty((n_outer, b)),
+    }
+    if on_kernel:
+        from ..ops.step_chunk import ResidentCarry
+
+        resident = ResidentCarry(carry0, f, env, cfg, spec, **kernel_kw)
+    carry = carry0
+    check = max(1, chunk // save_every)
+    k = 0
+    while k < n_outer:
+        if k % check == 0 and k > 0 and not bool(
+                (carry.status == events.ACTIVE).any()):
+            # every ray has stopped: the rows left are the frozen state
+            for name in traj:
+                traj[name][k:] = traj[name][k - 1]
+            break
+        if on_kernel:
+            resident.advance(save_every)
+            carry = resident.carry()
+        else:
+            carry = step_loop(rhs_fn, carry, f, cfg, spec,
+                              group_idx=group_idx,
+                              adaptive=kernel_kw["adaptive"],
+                              stepper=kernel_kw["stepper"],
+                              n_steps=save_every, check_every=chunk)
+        traj["u"][k] = carry.u
+        traj["t"][k] = carry.t
+        traj["status"][k] = carry.status
+        k += 1
+    if save_fn is not None:
+        flat = traj["u"].reshape(n_outer * b, n)
+        extras = save_fn(flat, f.repeat(n_outer))
+        traj["extras"] = extras.reshape(n_outer, b, extras.shape[-1])
+    return carry, traj

@@ -37,6 +37,11 @@ def dip_angle_lat(lat):
     return torch.atan(2.0 * torch.tan(lat))
 
 
+def dip_angle_colat(theta):
+    """Dip angle, colatitude form: atan(2 cot theta) (RayMain.jl:128)."""
+    return torch.atan(2.0 / torch.tan(theta))
+
+
 def l_shell(r, lat):
     """McIlwain L-shell of the dipole line through (r, lat): r / cos^2 lat."""
     c = torch.cos(lat)

@@ -87,6 +87,12 @@ def psi_lat(lat, chi):
     return math.pi / 2.0 + dipole.dip_angle_lat(lat) + chi
 
 
+def psi_colat(theta, chi):
+    """psi = pi/2 + dip + chi, dip = atan(2 cot theta) (RayMain.jl:128-131):
+    the colatitude frame's angle, which its diagnostics record."""
+    return math.pi / 2.0 + dipole.dip_angle_colat(theta) + chi
+
+
 def psi_trig_lat(lat, chi):
     """(sin psi, cos psi) for psi = pi/2 + dip + chi without inverse trig
     (dip = atan(2 tan lat); RayTrace_lat.jl:47-50)."""

@@ -375,8 +375,8 @@ def _shells(cfg: SolverConfig):
         cfg.ds_local_shells)
 
 
-def _check(carry: RayCarry, f, env, cfg, spec, stepper, n_steps, adaptive,
-           frame, grad_mode, legacy_freq_state):
+def _check(carry: RayCarry, f, env, cfg, spec, stepper, adaptive, frame,
+           grad_mode, legacy_freq_state):
     """Raises on anything the kernel does not take; returns the launch's
     medium code."""
     if frame == "3d" and legacy_freq_state:
@@ -408,8 +408,6 @@ def _check(carry: RayCarry, f, env, cfg, spec, stepper, n_steps, adaptive,
             f"the MLT plasmapause shape has {n_harm} harmonics; the kernel "
             f"takes at most {MAX_HARM} (ps_mlt_harmonics)"
         )
-    if int(n_steps) < 0 or int(n_steps) >= 2 ** 31:
-        raise ValueError(f"n_steps={n_steps} out of range")
     if f.dim() != 1 or f.dtype not in (torch.float32, torch.float64):
         raise ValueError("f must be a (B,) float32 or float64 tensor")
     b = f.shape[0]
@@ -451,6 +449,94 @@ def step_chunk_reference(carry: RayCarry, f, env, cfg: SolverConfig,
 step_chunk_reference.calls = 0
 
 
+class ResidentCarry:
+    """A carry kept in the kernel's layout across launches: the trajectory
+    channel steps one block of save_every attempts per launch and
+    snapshots between launches, so the carry stays field-major on the
+    card for all of a trace's blocks instead of being copied in and out
+    at every launch.
+
+    Takes step_chunk's arguments but n_steps; `advance(n)` runs n
+    attempted steps (one kernel launch on CUDA tensors, the plain version
+    on CPU tensors) and `carry()` returns the current RayCarry (on CUDA,
+    always the same one, whose fields are views of the buffers -- (B, n)
+    views of the field-major vectors -- which every advance updates in
+    place)."""
+
+    def __init__(self, carry: RayCarry, f, env, cfg: SolverConfig,
+                 spec: events.StopSpec, *, stepper: str, root: float = 1.0,
+                 adaptive: bool = True, frame: str = "2d_lat",
+                 grad_mode: str = "fused", legacy_freq_state: bool = False):
+        code = _check(carry, f, env, cfg, spec, stepper, adaptive, frame,
+                      grad_mode, legacy_freq_state)
+        self._args = (f, env, cfg, spec)
+        self._kw = dict(stepper=stepper, root=root, adaptive=adaptive,
+                        frame=frame, grad_mode=grad_mode,
+                        legacy_freq_state=legacy_freq_state)
+        self._fields = None
+        if f.device.type == "cpu":
+            self._carry = carry
+            return
+        if f.device.type != "cuda":
+            raise ValueError(f"step_chunk runs on cuda or cpu, not {f.device}")
+        # fresh buffers: carry fields may share storage (init_carry's
+        # u/u_prev and zero counters), and the kernel writes in place
+        self._fields = {
+            name: (x.t() if name in _VEC else x).clone(
+                memory_format=torch.contiguous_format)
+            for name, x in zip(RayCarry._fields, carry)
+        }
+        self._f = f.contiguous()
+        order = ("u", "k1", "u_prev", "u_lo", "t", "dt", "errold",
+                 "dt_prev", *_INT)
+        self._ptrs = (ctypes.c_void_p * (len(order) + 1))(
+            *[self._fields[name].data_ptr() for name in order],
+            self._f.data_ptr()
+        )
+        self._params = _params(env, cfg, spec, root, grad_mode,
+                               legacy_freq_state)
+        self._codes = (0 if f.dtype == torch.float32 else 1,
+                       _STEPPER_CODE[stepper if adaptive else "rk4"],
+                       _FRAME_CODE[frame][0], code, field_code(env))
+        # the RayCarry of (B, n) views that carry() returns
+        self._views = RayCarry(**{
+            name: (self._fields[name].t() if name in _VEC
+                   else self._fields[name])
+            for name in RayCarry._fields
+        })
+        self._lib = build()
+        self._team = bool(self._lib.step_chunk_team_warps(*self._codes))
+        # the stream current when the carry was made: every launch of the
+        # carry queues there, in order
+        self._stream = ctypes.c_void_p(
+            torch.cuda.current_stream(f.device).cuda_stream)
+
+    def advance(self, n_steps: int):
+        """n_steps more attempted steps for every ray, in place."""
+        if int(n_steps) < 0 or int(n_steps) >= 2 ** 31:
+            raise ValueError(f"n_steps={n_steps} out of range")
+        f, env, cfg, spec = self._args
+        if self._fields is None:
+            self._carry = step_chunk_reference(self._carry, f, env, cfg,
+                                               spec, n_steps=n_steps,
+                                               **self._kw)
+            return
+        with torch.cuda.device(f.device):
+            rc = self._lib.step_chunk_launch(
+                *self._codes, self._ptrs, f.shape[0], int(n_steps),
+                ctypes.byref(self._params), self._stream,
+            )
+        if rc != 0:
+            raise RuntimeError(
+                f"step_chunk kernel launch failed: CUDA error {rc}")
+        step_chunk.launches += 1
+        if self._team:
+            step_chunk.team_launches += 1
+
+    def carry(self) -> RayCarry:
+        return self._carry if self._fields is None else self._views
+
+
 def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
                spec: events.StopSpec, *, stepper: str, n_steps: int,
                root: float = 1.0, adaptive: bool = True,
@@ -465,50 +551,12 @@ def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
     works on field-major (n, B) copies of the vectors, updating them in
     place, and the result's vector fields are (B, n) views of those
     copies."""
-    code = _check(carry, f, env, cfg, spec, stepper, n_steps, adaptive,
-                  frame, grad_mode, legacy_freq_state)
-    if f.device.type == "cpu":
-        return step_chunk_reference(carry, f, env, cfg, spec,
-                                    stepper=stepper, n_steps=n_steps,
-                                    root=root, adaptive=adaptive,
-                                    frame=frame, grad_mode=grad_mode,
-                                    legacy_freq_state=legacy_freq_state)
-    if f.device.type != "cuda":
-        raise ValueError(f"step_chunk runs on cuda or cpu, not {f.device}")
-    field = field_code(env)
-    lib = build()
-    # always fresh buffers: carry fields may share storage (init_carry's
-    # u/u_prev and zero counters), and the kernel writes in place
-    fields = {
-        name: (x.t() if name in _VEC else x).clone(
-            memory_format=torch.contiguous_format)
-        for name, x in zip(RayCarry._fields, carry)
-    }
-    ff = f.contiguous()
-    order = ("u", "k1", "u_prev", "u_lo", "t", "dt", "errold", "dt_prev",
-             *_INT)
-    ptrs = (ctypes.c_void_p * (len(order) + 1))(
-        *[fields[name].data_ptr() for name in order], ff.data_ptr()
-    )
-    params = _params(env, cfg, spec, root, grad_mode, legacy_freq_state)
-    codes = (0 if f.dtype == torch.float32 else 1,
-             _STEPPER_CODE[stepper if adaptive else "rk4"],
-             _FRAME_CODE[frame][0], code, field)
-    with torch.cuda.device(f.device):
-        stream = torch.cuda.current_stream(f.device).cuda_stream
-        rc = lib.step_chunk_launch(
-            *codes, ptrs, f.shape[0], int(n_steps),
-            ctypes.byref(params), ctypes.c_void_p(stream),
-        )
-    if rc != 0:
-        raise RuntimeError(f"step_chunk kernel launch failed: CUDA error {rc}")
-    step_chunk.launches += 1
-    if lib.step_chunk_team_warps(*codes):
-        step_chunk.team_launches += 1
-    return RayCarry(**{
-        name: (fields[name].t() if name in _VEC else fields[name])
-        for name in RayCarry._fields
-    })
+    resident = ResidentCarry(carry, f, env, cfg, spec, stepper=stepper,
+                             root=root, adaptive=adaptive, frame=frame,
+                             grad_mode=grad_mode,
+                             legacy_freq_state=legacy_freq_state)
+    resident.advance(n_steps)
+    return resident.carry()
 
 
 step_chunk.launches = 0

@@ -1,16 +1,19 @@
-"""Launch grids and the bucketed rounds tracer (port of
-raytrace_tpu/parallel/ensemble.py, single device).
+"""Launch grids, the single-program tracer and the bucketed rounds tracer
+(port of raytrace_tpu/parallel/ensemble.py, single device).
 
 A LaunchSpec builds the 2D (latitude x wave-normal angle x frequency)
 grid (run.py turns its latitudes into colatitudes for the colatitude
-frame), `build_launch_3d` the 3D (latitude x longitude x wave-normal angle x
-frequency) grid, the batch is padded to a multiple of 8, and
-`make_rounds_tracer` integrates
-it in rounds: after each round the still-active rays are gathered into the
-next power-of-two bucket ON THE DEVICE and continue from their exact
-RayCarry. The whole carry rides one packed float tensor that stays on the
-device across rounds; per round the host reads only four bookkeeping
-columns (t, status, n_accept, n_reject) and sends back an index list.
+frame), `build_launch_list` a 2D launch from an explicit ray list,
+`build_launch_3d` the 3D (latitude x longitude x wave-normal angle x
+frequency) grid, and the batch is padded to a multiple of 8.
+`make_ensemble_tracer` traces it in one `trace` call; `make_rounds_tracer`
+integrates it in rounds: after each round the still-active rays are
+gathered into the next power-of-two bucket ON THE DEVICE and continue
+from their exact RayCarry. The whole carry rides one packed float tensor
+that stays on the device across rounds; per round the host reads only
+four bookkeeping columns (t, status, n_accept, n_reject) and sends back
+an index list (and, with the trajectory channel, the round's snapshot
+block).
 """
 
 from time import perf_counter as _clock
@@ -55,6 +58,27 @@ def build_launch(spec: LaunchSpec, dtype=np.float32):
     u0[:, 1] = lat.ravel()
     u0[:, 2] = chi.ravel()
     return u0, fr.ravel().astype(dtype)
+
+
+def build_launch_list(rays, r0=(RE + 1.0e6) / RE, dtype=np.float32):
+    """(u0 (N,4), f (N,)) numpy arrays from an explicit per-ray list of
+    (lat, chi, freq) triples, the `ray_start.dat` input style the
+    reference planned (README.md:11). Accepts any array-like of shape
+    (N, 3); an entry may carry a 4th column, its r0."""
+    rows = []
+    for r in rays:
+        r = list(map(float, r))
+        if len(r) == 3:
+            r.append(float(r0))
+        if len(r) != 4:
+            raise ValueError("each ray must be (lat, chi, freq[, r0])")
+        rows.append(r)
+    rays = np.asarray(rows, np.float64)
+    u0 = np.zeros((rays.shape[0], 4), dtype)
+    u0[:, 0] = rays[:, 3]
+    u0[:, 1] = rays[:, 0]
+    u0[:, 2] = rays[:, 1]
+    return u0, rays[:, 2].astype(dtype)
 
 
 def build_launch_3d(r0, lats, phis, chis, freqs, rho0, dtype=np.float32):
@@ -152,6 +176,51 @@ def packed_state_dim(fl):
     return (fl.shape[1] - 5 - len(_INT_FIELDS)) // 4
 
 
+def make_ensemble_tracer(
+    env,
+    *,
+    device="cuda",
+    dtype,
+    frame="2d_lat",
+    cfg: SolverConfig = SolverConfig(),
+    spec: StopSpec = StopSpec(),
+    adaptive: bool = True,
+    stepper: str = "dopri5",
+    max_steps: int = 20000,
+    chunk: int = 64,
+    grad_mode="fused",
+    root=1.0,
+    legacy_freq_state: bool = False,
+    save_every: int = 0,
+    save_fn=None,
+):
+    """The single-program tracer (the JAX package's make_ensemble_tracer,
+    parallel/ensemble.py:124-160): run(u0, f) -> TraceResult of one
+    `trace` call over the whole batch on `device` in `dtype` (u0 and f,
+    numpy arrays or tensors, are cast to them); the result's tensors stay
+    on the device. save_every > 0 turns on the trajectory channel, whose
+    whole history then lives on the device (integrate.solve.trace). The
+    JAX package's `mesh` (ray sharding over chips) has no meaning on one
+    card: ROADMAP A12."""
+    if grad_mode == "autodiff":
+        raise NotImplementedError(
+            "grad_mode='autodiff' is not a step-kernel variant (ROADMAP B7)")
+    frame_rhs(frame, env, root, grad_mode, legacy_freq_state)
+    device = torch.device(device)
+
+    def run(u0, f):
+        return trace(
+            env, torch.as_tensor(u0).to(device=device, dtype=dtype),
+            torch.as_tensor(f).to(device=device, dtype=dtype), frame=frame,
+            cfg=cfg, spec=spec, adaptive=adaptive, stepper=stepper,
+            max_steps=max_steps, chunk=chunk, save_every=save_every,
+            save_fn=save_fn, root=root, grad_mode=grad_mode,
+            legacy_freq_state=legacy_freq_state,
+        )
+
+    return run
+
+
 def make_rounds_tracer(
     env,
     *,
@@ -179,6 +248,7 @@ def make_rounds_tracer(
     pipeline: int = 1,
     legacy_freq_state: bool = False,
     save_every: int = 0,
+    save_fn=None,
 ):
     """Ensemble tracer with bucketed re-batching; returns run(u0, f, valid).
 
@@ -204,19 +274,31 @@ def make_rounds_tracer(
     autodiff gradient set, which the step kernel does not compute, stays
     refused here (ROADMAP B7).
 
+    save_every > 0 turns on the trajectory channel (the JAX package's,
+    parallel/ensemble.py:369-411): each round's `trace` records a snapshot
+    block (u, t, status [, save_fn extras]) every save_every attempts,
+    which comes back to the host once per round, so the device holds one
+    round's block, never the whole history. The host scatters each ray's
+    rows at its own cursor (the pools advance at their own budgets; pad
+    lanes are dropped) and fills the rows past a ray's cursor with its
+    last row, the frozen state the single-shot trace(save_every=...)
+    records for a stopped ray: with a pinned stepper the assembled
+    trajectory equals the single-shot one bit for bit. Every round length
+    and max_steps must be multiples of save_every (ValueError otherwise),
+    and the stiff pool's round cap is rounded down to the cadence.
+
     Knobs the JAX package measured and left off are not ported (ROADMAP
-    A5): pipeline > 1, order_switch_dt > 0, tail_stepper, save_every."""
+    A10): pipeline > 1, order_switch_dt > 0, tail_stepper."""
     unported = {
         "pipeline > 1": pipeline > 1,
         "order_switch_dt > 0": order_switch_dt > 0.0,
         "tail_stepper": bool(tail_stepper),
-        "save_every > 0 (trajectory channel, ROADMAP A11)": save_every > 0,
         "grad_mode='autodiff' (ROADMAP B7)": grad_mode == "autodiff",
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"not ported to the rounds tracer: {', '.join(bad)} (ROADMAP A5 "
+            f"not ported to the rounds tracer: {', '.join(bad)} (ROADMAP A10 "
             "unless named)"
         )
     if grad_mode not in ("fused", "reference"):
@@ -238,17 +320,35 @@ def make_rounds_tracer(
         tuple(round_steps) if isinstance(round_steps, (tuple, list))
         else (int(round_steps),)
     )
+    save_on = save_every > 0
+    if save_on:
+        bad = [n for n in schedule + (max_steps,) if n % save_every]
+        if bad:
+            raise ValueError(
+                "the trajectory channel needs every round length and "
+                f"max_steps to be multiples of save_every={save_every}; "
+                f"got {bad} (snapshot cadence must align across rounds)"
+            )
+        # the stiff pool's short-round cap, rounded to the cadence
+        stiff_cap = max(save_every, 1024 - 1024 % save_every)
+    else:
+        stiff_cap = 1024
     auto = stepper == "auto"
     if not auto:
         base_stepper = stepper
-    stiff_cap = 1024
     floor = max(8, bucket_floor)
     T_, ST_, ACC_, REJ_ = 0, 1, 2, 3  # columns of the host stats mirror
 
     def make_kw(n, st):
         return dict(frame=frame, cfg=cfg, spec=spec, adaptive=adaptive,
                     stepper=st, max_steps=n, chunk=min(chunk, n), root=root,
-                    grad_mode=grad_mode, legacy_freq_state=legacy_freq_state)
+                    grad_mode=grad_mode, legacy_freq_state=legacy_freq_state,
+                    save_every=save_every, save_fn=save_fn)
+
+    def host_block(traj, rows):
+        """A round's snapshot block on the host: its first `rows` lanes
+        (the real rays of the bucket), one transfer per field."""
+        return {k: v[:, :rows].cpu().numpy() for k, v in traj.items()}
 
     def stat_cols(sd):
         base = 4 * sd
@@ -269,6 +369,19 @@ def make_rounds_tracer(
         w0_start = _clock()
         res = trace(env, u0_t, f_t, **make_kw(first, base_stepper))
         fl_dev = pack_carry(res.carry, f_t)
+        if save_on:
+            # host snapshot buffers and each ray's cursor (its next row:
+            # the pools advance at their own budgets)
+            n_snaps = max_steps // save_every
+            s0 = first // save_every
+            tr0 = host_block(res.traj, n)
+            traj_buf = {
+                k: np.zeros((n_snaps,) + v.shape[1:], v.dtype)
+                for k, v in tr0.items()
+            }
+            for k, v in tr0.items():
+                traj_buf[k][:s0] = v
+            cursor = np.full(n, s0, np.int64)
         hs = fl_dev[:, cols].cpu().numpy()
         run.last_rounds.append(dict(
             stepper=base_stepper, active=n, bucket=n, steps=first,
@@ -342,6 +455,14 @@ def make_rounds_tracer(
                             **make_kw(nr_pool, st))
                 # the device-resident carry is updated in place
                 fl_dev[sel[:idx.size]] = pack_carry(res.carry, ff)[:idx.size]
+                if save_on:
+                    # the bucket's block at each ray's own cursor (pad
+                    # lanes beyond idx.size dropped)
+                    s_blk = nr_pool // save_every
+                    rows = cursor[idx][None, :] + np.arange(s_blk)[:, None]
+                    for k, v in host_block(res.traj, idx.size).items():
+                        traj_buf[k][rows, idx[None, :]] = v
+                    cursor[idx] += s_blk
                 hs = fl_dev[:, cols].cpu().numpy()
                 att = (hs[idx, ACC_] - acc0) + (hs[idx, REJ_] - rej0)
                 rf = (hs[idx, REJ_] - rej0) / np.maximum(att, 1)
@@ -355,6 +476,22 @@ def make_rounds_tracer(
             i += 1
 
         run.last_stiff = stiff
+        traj_out = None
+        if save_on:
+            # row min(k, cursor - 1) of each ray: rows past its cursor
+            # repeat its last row, the frozen state the single-shot trace
+            # records for a stopped ray (a stiff-pool ray, whose capped
+            # rounds took fewer rows, holds its last round-end state)
+            rows_ix = torch.minimum(
+                torch.arange(n_snaps)[:, None],
+                torch.from_numpy(np.maximum(cursor - 1, 0))[None, :])
+            traj_out = {}
+            for k, v in traj_buf.items():
+                # torch's gather runs on every core; a numpy fancy index on
+                # one (~5x longer at 625 x 10,240 rows)
+                v = torch.from_numpy(v)
+                ix = rows_ix.reshape(rows_ix.shape + (1,) * (v.dim() - 2))
+                traj_out[k] = torch.gather(v, 0, ix.expand(v.shape)).numpy()
         patch = override >= 0
         if not want_carry:
             base = 4 * sd
@@ -369,14 +506,16 @@ def make_rounds_tracer(
             return TraceResult(
                 u=out[:, :sd], t=out[:, sd], status=status,
                 n_accept=out[:, sd + 2].astype(np.int32),
-                n_reject=out[:, sd + 3].astype(np.int32), carry=None,
+                n_reject=out[:, sd + 3].astype(np.int32), traj=traj_out,
+                carry=None,
             )
         fl = fl_dev.cpu().numpy().copy()
         fl[patch, 4 * sd + I_OF["status"]] = override[patch]
         final, _ = unpack_carry(fl, sd)
         return TraceResult(
             u=final.u, t=final.t, status=final.status,
-            n_accept=final.n_accept, n_reject=final.n_reject, carry=final,
+            n_accept=final.n_accept, n_reject=final.n_reject, traj=traj_out,
+            carry=final,
         )
 
     run.last_stiff = None

@@ -1,14 +1,17 @@
-"""High-level runner: RunConfig in, traced ensemble out (port of
-raytrace_tpu/run.py, the rounds path).
+"""High-level runner: RunConfig in, traced ensemble and artifacts out
+(port of raytrace_tpu/run.py).
 
-Builds the medium and the launch grid (in the 3D frame optionally put on
-the dispersion surface), traces the batch on one device with the bucketed
-rounds tracer (each round one step-kernel launch per pool) in the
-configured gradient set, with continue_until_done resumes the rays that
-ran out of steps, and reduces the ensemble statistics on the host.
+Builds the medium and the launch grid (an explicit 2D ray list, or in the
+3D frame optionally put on the dispersion surface), traces the batch on
+one device in the configured gradient set -- with the bucketed rounds
+tracer (each round one step-kernel launch per pool; continue_until_done
+then resumes the rays that ran out of steps), or with use_rounds=False in
+one `trace` call -- optionally recording the trajectory channel
+(save_every > 0, with the diagnostics when save_diagnostics), reduces the
+ensemble statistics on the host, and writes the final states, the
+trajectory and the run record.
 """
 
-import json
 import os
 
 import numpy as np
@@ -16,24 +19,20 @@ import torch
 
 from .config import RunConfig
 from .integrate import events
+from .integrate.saving import save_fn_for
 from .integrate.solve import RayCarry, trace
 from .ops.dispersion import consistent_rho_3d
 from .parallel.ensemble import (
-    _bucket_size, build_launch, build_launch_3d, ensemble_stats,
-    make_rounds_tracer, pad_batch,
+    _bucket_size, build_launch, build_launch_3d, build_launch_list,
+    ensemble_stats, make_ensemble_tracer, make_rounds_tracer, pad_batch,
 )
+from .utils.runrecord import write_run_record
 
 
 def _check_supported(config: RunConfig):
-    unported = {
-        "use_rounds=False (the single-program tracer)": not config.use_rounds,
-        "save_every > 0 (ROADMAP A11)": config.save_every > 0,
-        "sensitivity_rays > 0 (ROADMAP A13)": config.sensitivity_rays > 0,
-        "explicit ray lists (ROADMAP A11)": bool(config.rays),
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    if config.sensitivity_rays > 0:
+        raise NotImplementedError(
+            "not ported yet: sensitivity_rays > 0 (ROADMAP A13)")
     if config.frame != "3d" and tuple(config.phis) != (0.0,):
         raise ValueError("phis launch fan is 3D-only (the 2D state "
                          "carries no longitude)")
@@ -42,17 +41,25 @@ def _check_supported(config: RunConfig):
 def _build_u0(config: RunConfig, env, np_dtype, device):
     """Launch states (u0, f) of the configured frame, numpy in np_dtype.
 
-    The launch grid gives latitudes in every frame: the colatitude frame's
-    state slot 1 is theta = pi/2 - lat, formed in np_dtype as the JAX
-    package forms it. In the 3D frame with rho_on_shell, rho0 is a direction and |rho| is
+    An explicit ray list (config.rays, 2D only) or the launch grid gives
+    latitudes in every frame: the colatitude frame's state slot 1 is
+    theta = pi/2 - lat, formed in np_dtype as the JAX package forms it. In
+    the 3D frame with rho_on_shell, rho0 is a direction and |rho| is
     solved as mu(psi) for every ray in one batched float64 call on
     `device`, from theta and f already rounded to the run dtype, then cast
     to it (what the JAX package computes)."""
     if config.frame in ("2d_lat", "2d_colat"):
-        u0, f = build_launch(config.launch(), np_dtype)
+        if config.rays:
+            u0, f = build_launch_list(config.rays, r0=config.r0,
+                                      dtype=np_dtype)
+        else:
+            u0, f = build_launch(config.launch(), np_dtype)
         if config.frame == "2d_colat":
             u0[:, 1] = np.pi / 2 - u0[:, 1]
         return u0, f
+    if config.rays:
+        raise ValueError("explicit ray lists are 2D-only (the 3D state "
+                         "needs rho0, which the grid builder supplies)")
     u0, f = build_launch_3d(config.r0, config.lats, config.phis,
                             config.chis, config.freqs, config.rho0, np_dtype)
     if config.rho_on_shell:
@@ -71,37 +78,65 @@ def _build_u0(config: RunConfig, env, np_dtype, device):
 def run(config: RunConfig, *, device="cuda", out_dir=None):
     """Execute a RunConfig on `device` (the card unless the caller asks
     for "cpu") in config.dtype. Returns dict(result, stats, valid, paths,
-    rounds, stiff): the TraceResult (host numpy arrays), the ensemble
-    statistics, the valid-ray mask, written file paths, the per-round
-    diagnostics and the per-ray stiff-pool flags."""
+    rounds, stiff): the TraceResult (host numpy arrays; `traj` the
+    trajectory channel's dict when save_every > 0), the ensemble
+    statistics, the valid-ray mask, written file paths (`final`, `traj`,
+    `record`), the per-round diagnostics and the per-ray stiff-pool flags
+    (both None on the single-program path)."""
     _check_supported(config)
     env = config.medium.build()
     np_dtype = np.float32 if config.dtype == "float32" else np.float64
     dtype = torch.float32 if config.dtype == "float32" else torch.float64
-    u0, f = _build_u0(config, env, np_dtype, torch.device(device))
+    device = torch.device(device)
+    u0, f = _build_u0(config, env, np_dtype, device)
     u0, f, valid = pad_batch(u0, f)
 
     cfg = config.solver()
     spec = config.stop()
-    kw = dict(
+    # "auto" is a rounds-tracer policy (per-ray switching to the stiff
+    # pool); the single-program path runs every ray on one method
+    fixed_stepper = "dopri5" if config.stepper == "auto" else config.stepper
+    common = dict(
         frame=config.frame, cfg=cfg, spec=spec, adaptive=config.adaptive,
-        stepper=config.stepper, max_steps=config.max_steps,
-        grad_mode=config.grad_mode, root=config.root, want_carry=False,
-        base_stepper=config.base_stepper,
+        max_steps=config.max_steps, grad_mode=config.grad_mode,
+        root=config.root, device=device, dtype=dtype,
     )
-    if config.round_steps:
-        kw["round_steps"] = tuple(config.round_steps)
-    # tiny batches cannot re-bucket profitably: one full-budget round
-    if int(valid.sum()) <= 64:
-        kw["round_steps"] = (config.max_steps,)
-    if config.continue_until_done:
-        # the full carry back, to resume from it
-        kw["want_carry"] = True
-    tracer = make_rounds_tracer(env, device=device, dtype=dtype, **kw)
-    result = tracer(u0, f, valid)
-    if config.continue_until_done:
-        result = _continue(config, env, result, u0, f, valid, cfg, spec,
-                           torch.device(device), dtype)
+    save_fn = (save_fn_for(config.frame, env)
+               if config.save_every > 0 and config.save_diagnostics
+               else None)
+    tracer = None
+    if config.use_rounds:
+        kw = dict(common, stepper=config.stepper, want_carry=False,
+                  base_stepper=config.base_stepper,
+                  save_every=config.save_every, save_fn=save_fn)
+        if config.round_steps:
+            kw["round_steps"] = tuple(config.round_steps)
+        # tiny batches cannot re-bucket profitably: one full-budget round
+        if int(valid.sum()) <= 64:
+            kw["round_steps"] = (config.max_steps,)
+        # continuations resume the final-state run only, as in the JAX
+        # package
+        cont = config.continue_until_done and config.save_every == 0
+        if cont:
+            # the full carry back, to resume from it
+            kw["want_carry"] = True
+        tracer = make_rounds_tracer(env, **kw)
+        result = tracer(u0, f, valid)
+        if cont:
+            result = _continue(config, env, result, u0, f, valid, cfg, spec,
+                               device, dtype)
+    else:
+        res = make_ensemble_tracer(
+            env, stepper=fixed_stepper, save_every=config.save_every,
+            save_fn=save_fn, **common,
+        )(u0, f)
+        result = res._replace(
+            **{k: getattr(res, k).cpu().numpy()
+               for k in ("u", "t", "status", "n_accept", "n_reject")},
+            traj=(None if res.traj is None else
+                  {k: v.cpu().numpy() for k, v in res.traj.items()}),
+            carry=None,
+        )
     stats = {
         k: np.asarray(v)
         for k, v in ensemble_stats(
@@ -119,17 +154,22 @@ def run(config: RunConfig, *, device="cuda", out_dir=None):
             f=f,
         )
         paths["final"] = fs_path
+        if result.traj is not None:
+            tr_path = os.path.join(out_dir, f"{config.name}_traj.npz")
+            np.savez(tr_path, **result.traj)
+            paths["traj"] = tr_path
         rec_path = os.path.join(out_dir, f"{config.name}_record.json")
-        with open(rec_path, "w") as fh:
-            json.dump({
-                "config": json.loads(config.to_json()),
-                "device": str(device),
-                "stats": {k: v.item() for k, v in stats.items()},
-            }, fh, indent=2)
+        write_run_record(
+            rec_path, env=env, cfg=cfg, spec=spec, launch=config.launch(),
+            result=result, stats=stats,
+            extra={"config": config.to_json(), "dtype": config.dtype},
+            device=device,
+        )
         paths["record"] = rec_path
     return {"result": result, "stats": stats, "valid": valid,
-            "paths": paths, "rounds": tracer.last_rounds,
-            "stiff": tracer.last_stiff}
+            "paths": paths,
+            "rounds": tracer.last_rounds if tracer else None,
+            "stiff": tracer.last_stiff if tracer else None}
 
 
 def _continue(config: RunConfig, env, result, u0, f, valid, cfg, spec,

@@ -520,3 +520,93 @@ def test_reference_modes_run_through_the_kernel(cuda):
                 legacy_freq_state=True)
     assert int(res.status[0]) == events.MAX_PHASE_TIME
     assert int(res.n_accept[0]) == 205
+
+
+def _plain_trajectory(carry, f, env, cfg, spec, kw, n_outer, save_every,
+                      save_fn):
+    """trace's trajectory channel through the plain version: a snapshot
+    after each block of save_every attempts, the extras over all
+    snapshots in one call, the final carry relabelled and refined."""
+    from raytrace_tpu_torch.integrate.solve import refine_events
+
+    rows = {"u": [], "t": [], "status": []}
+    for _ in range(n_outer):
+        carry = sc.step_chunk_reference(carry, f, env, cfg, spec,
+                                        n_steps=save_every, **kw)
+        for k in rows:
+            rows[k].append(getattr(carry, k))
+    traj = {k: torch.stack(v) for k, v in rows.items()}
+    b, n = carry.u.shape
+    traj["extras"] = save_fn(traj["u"].reshape(-1, n),
+                             f.repeat(n_outer)).reshape(n_outer, b, -1)
+    carry = carry._replace(status=torch.where(
+        carry.status == events.ACTIVE, events.MAX_STEPS, carry.status
+    ).to(torch.int32))
+    rhs_fn, _ = rhs.frame_rhs(kw["frame"], env)
+    return traj, refine_events(rhs_fn, carry, f, spec)
+
+
+@pytest.mark.parametrize("name,every,n_outer", [
+    ("ensemble10k", 40, 24), ("ensemble10k_plume", 40, 8),
+])
+def test_trajectory_through_the_kernel_matches_plain_version_bitwise(
+        cuda, name, every, n_outer):
+    """trace(save_every=32, save_fn) on the card -- one kernel launch per
+    block on the resident field-major carry -- against the plain version's
+    blocks: every snapshot, the extras and the final carry bit for bit
+    (the 2D one-thread instance and the 3D team instance, float32 bs3)."""
+    from raytrace_tpu_torch.integrate.saving import save_fn_for
+
+    conf = preset(name)
+    env = conf.medium.build()
+    cfg, spec = conf.solver(), conf.stop()
+    u0, f = _build_u0(conf, env, np.float32, cuda)
+    u0 = torch.as_tensor(u0[::every], device=cuda)
+    f = torch.as_tensor(f[::every], device=cuda)
+    rhs_fn, _ = rhs.frame_rhs(conf.frame, env)
+    carry = init_carry(rhs_fn, u0, f, cfg)
+    kw = dict(stepper="bs3", frame=conf.frame)
+    save_fn = save_fn_for(conf.frame, env)
+    launches = sc.step_chunk.launches
+    res = trace(env, u0, f, carry0=carry, cfg=cfg, spec=spec,
+                max_steps=32 * n_outer, save_every=32, save_fn=save_fn, **kw)
+    assert 0 < sc.step_chunk.launches - launches <= n_outer
+    traj, final = _plain_trajectory(carry, f, env, cfg, spec, kw, n_outer,
+                                    32, save_fn)
+    torch.cuda.synchronize()
+    for k, v in traj.items():
+        a, b = res.traj[k].cpu(), v.cpu()
+        assert a.shape == b.shape, k
+        assert bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all()), k
+    _assert_bitwise(res.carry, final)
+
+
+def test_rounds_trajectory_matches_single_program_on_the_card(cuda):
+    """The rounds tracer's assembled trajectory (buckets, the packed float
+    transport, the host scatter and forward fill) against the
+    single-program tracer's, every 40th ray of ensemble10k in float32
+    with a pinned bs3 and no stall retirement: bit for bit."""
+    from raytrace_tpu_torch.integrate.saving import save_fn_for
+    from raytrace_tpu_torch.parallel.ensemble import (
+        make_ensemble_tracer, make_rounds_tracer, pad_batch,
+    )
+
+    conf = preset("ensemble10k")
+    env = conf.medium.build()
+    u0, f = _build_u0(conf, env, np.float32, cuda)
+    u0, f, valid = pad_batch(u0[::40], f[::40])
+    kw = dict(device=cuda, dtype=torch.float32, cfg=conf.solver(),
+              spec=conf.stop(), stepper="bs3", max_steps=4096,
+              save_every=32, save_fn=save_fn_for("2d_lat", env))
+    tracer = make_rounds_tracer(env, round_steps=(512, 512, 256),
+                                bucket_floor=8, stall_progress=0.0,
+                                want_carry=False, **kw)
+    rounds = tracer(u0, f, valid)
+    single = make_ensemble_tracer(env, **kw)(u0, f)
+    assert len({r["bucket"] for r in tracer.last_rounds}) >= 2
+    for k, v in single.traj.items():
+        a, b = rounds.traj[k][:, valid], v.cpu().numpy()[:, valid]
+        assert a.shape == b.shape == (4096 // 32,) + b.shape[1:], k
+        assert ((a == b) | (np.isnan(a) & np.isnan(b))).all(), k
+    np.testing.assert_array_equal(rounds.u[valid],
+                                  single.u.cpu().numpy()[valid])

@@ -110,14 +110,16 @@ def test_config_json_round_trips_across_packages():
 
 # every preset of the JAX package is served (no name is refused,
 # test_torch_slice_variants.py); what a preset still refuses is a feature
-# the port has not ported, switched on by an override: the trajectory
-# channel, explicit ray lists, the autodiff gradient set in the rounds
-# tracer and the sensitivity rays (the reference gradient mode,
-# continuations and the ros2 stepper run since they were ported)
+# the port has not ported, switched on by an override: the autodiff
+# gradient set in the rounds tracer, the reference gradient set over the
+# EXT media (the local ceiling) and the sensitivity rays -- also with the
+# trajectory channel and explicit ray lists, which run since they were
+# ported (tests/test_torch_trajectory.py)
 @pytest.mark.parametrize("name,over", [
-    ("raymain", dict(save_every=8)),
-    ("ensemble10k_local", dict(save_every=8)),
-    ("ensemble10k_local", dict(rays=((0.8, 0.3, 2000.0),))),
+    ("raymain", dict(save_every=8, grad_mode="autodiff")),
+    ("ensemble10k_local", dict(save_every=8, grad_mode="reference")),
+    ("ensemble10k_local", dict(rays=((0.8, 0.3, 2000.0),),
+                               grad_mode="reference")),
     ("emic_heband", dict(grad_mode="autodiff")),
     ("emic_heband", dict(sensitivity_rays=4)),
 ])
@@ -127,9 +129,14 @@ def test_unported_presets_raise(name, over):
         t_run.run(conf, device="cpu")
 
 
+# the single-program path, the trajectory channel and ray lists run
+# (tests/test_torch_trajectory.py); each is held here to the features
+# that stay refused on it
 @pytest.mark.parametrize("kw", [
-    dict(grad_mode="autodiff"), dict(use_rounds=False), dict(save_every=8),
-    dict(sensitivity_rays=2), dict(rays=((0.8, 0.3, 2000.0),)),
+    dict(grad_mode="autodiff"), dict(use_rounds=False, grad_mode="autodiff"),
+    dict(save_every=8, ds_local=True, grad_mode="reference"),
+    dict(sensitivity_rays=2),
+    dict(rays=((0.8, 0.3, 2000.0),), sensitivity_rays=1),
 ])
 def test_run_refuses_unported_features(kw):
     cfg = t_config.preset("ensemble10k", lats=(0.8,), chis=(0.3,),
@@ -145,14 +152,17 @@ def _python(*args, cwd=REPO):
 
 
 def test_port_never_imports_jax():
-    # every module of the package (the 3D slice's included) and the smoke
+    # every module of the package (the 3D slice's and the trajectory
+    # channel's included) and the smoke
     proc = _python("-c", (
         "import importlib, pkgutil, sys\n"
         "import raytrace_tpu_torch, raytrace_tpu_torch.__main__, chip_smoke\n"
         "for m in pkgutil.walk_packages(raytrace_tpu_torch.__path__, "
         "'raytrace_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "assert 'raytrace_tpu_torch.ops.fused' in sys.modules\n"
+        "for m in ('ops.fused', 'integrate.saving', 'parallel.checkpoint',"
+        " 'utils.runrecord', 'utils.profiling', 'utils.debug'):\n"
+        "    assert 'raytrace_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'raytrace_tpu' or m.startswith('raytrace_tpu.')]\n"
         "print(bad)\n"
