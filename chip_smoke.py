@@ -97,7 +97,24 @@ Phases, each printed as it runs; any failed check exits non-zero:
      wall beside the final-state run's, its launches, host buffer and
      bytes fetched; its final states against phase 4's; the
      rounds-assembled trajectory against use_rounds=False (pinned bs3)
-     bit for bit; one block's launch (10,240 rays x 32 attempts) timed.
+     bit for bit; one block's launch (10,240 rays x 32 attempts) timed;
+ 26. the instances of the modes over the full and extended media (ALTX:
+     the extended chain under ref_grads and legacy_freq), 3 frames x bs3,
+     dopri5, rk4 x float32, float64, bit for bit with their plain version
+     over every 10th ray x 64 (the reference set over the MLT plume in 3D,
+     reference + legacy over GCPM with the duct and the day/night
+     ionosphere in the 2D frames; then the local arc ceiling, He+ and O+
+     under legacy, the MLT GCPM plume); the float32 instances of phase
+     27's paths timed at 10,240 rays x 512 beside their bound;
+ 27. ensemble10k_plume and ensemble10k_local with grad_mode="reference"
+     and emic_heband with legacy_freq_state through run.run's rounds path,
+     float32 and float64, every launch on an ALTX instance, against the
+     JAX package's censuses on a CPU within its own one-ulp spread;
+ 28. the landing sensitivity (sensitivity.py, the variational system as
+     torch ops, one attempt a CUDA graph): graph against eager bit for bit
+     and each one's cost per attempt, the canonical RayTrace_lat ray's
+     d(lat_land)/d(lat_0) against the JAX package's on a CPU, and
+     run(sensitivity_rays=4) on ensemble10k at a budget of 512 attempts.
 Each run through run.run checks the body its launches took (the team
 body's launch count, ops/step_chunk.py) and replays its last launch, the
 merged tail where the run has one (kernel_ab.replay_tail), for the
@@ -445,6 +462,71 @@ GOLD_WEDGE_T = 40.362
 # traced alone (with continuations) keep their status in the fan
 MR_CONT = dict(hit_rest=1274, mpt_rest=10, dtu_rest=82, ms_rest=679,
                steps=143_576_968)
+
+# Phases 26-27: the reference scripts' modes over the full and extended
+# media, the kernel's ALTX instances. The 2D medium of phase 26: GCPM with
+# the duct and the day/night ionosphere (FULL_2D's first)
+GCPM_2D = FULL_2D["gcpm+iono_mlt+duct"]
+# The pins of phase 27: the JAX package on a CPU, tests/
+# test_torch_slice3d.py run as a script with --batch 10240 (one batch, as
+# the port traces it; 48 rays for emic_heband) and --set
+# grad_mode='"reference"' or, for emic_heband, --legacy
+# (legacy_freq_state=True through its rounds tracer, the path run() takes;
+# legacy_freq_state is not a RunConfig field). Both modes make rays
+# chaotic (the reference set's wedges; legacy's drifting frequency), so a
+# float64 census is one draw: each status count is held within the JAX
+# package's own one-ulp-nudge flow (--nudge: every launch latitude one ulp
+# up; the rays it moved into or out of each status), as phases 21-22 hold
+# theirs, and the attempted steps within twice the nudge's own change (at
+# least 1%), the median landing L within 1e-9. The port's own plain
+# version on a CPU (the same script with --port: its run()) is the second
+# witness, printed beside (its float64 censuses lie within those flows of
+# JAX's). float32 is platform-dependent, and over the MLT plume the two
+# packages' float32 censuses part: JAX's float32 lands 352 rays where its
+# float64 lands 384, the port's float32 on a CPU 384 (and on the card), so
+# float32 is held to the port's own float32 census on a CPU: HIT_EARTH
+# within 2% (or 2 rays), each other status within the JAX package's own
+# float32 one-ulp nudge's flow, the steps within 5%; JAX's float32 census
+# printed beside. emic_heband's float32 run is held to every ray stopped
+# with a finite state (the JAX package's float32 and float64 censuses
+# there share 21% of their statuses).
+ALTX_PINS = {
+    "ensemble10k_plume": dict(
+        over=dict(grad_mode="reference"),
+        f64=dict(hit=384, mpt=303, dtu=9383, ms=170, steps=18_088_267,
+                 median_l=2.28610987545372),
+        f64_band=dict(hit=0, mpt=8, dtu=61, ms=53), steps_band=0.034,
+        port_f64=dict(hit=384, mpt=295, dtu=9389, ms=172, steps=18_302_291),
+        f32=dict(hit=352, mpt=268, dtu=9572, ms=48, steps=12_285_183),
+        port_f32=dict(hit=384, mpt=293, dtu=9511, ms=52, steps=14_328_426),
+        f32_band=dict(mpt=33, dtu=86, ms=53),
+        jax_match=0.977734375, jax_dl=2.59e-7),
+    "ensemble10k_local": dict(
+        over=dict(grad_mode="reference"),
+        f64=dict(hit=259, mpt=2866, dtu=7014, ms=101, steps=40_332_787,
+                 median_l=1.151107909964016),
+        f64_band=dict(hit=0, mpt=23, dtu=14, ms=25), steps_band=0.01,
+        port_f64=dict(hit=259, mpt=2864, dtu=7019, ms=98, steps=40_290_602),
+        f32=dict(hit=258, mpt=2813, dtu=7159, ms=10, steps=33_983_734),
+        port_f32=dict(hit=258, mpt=2816, dtu=7158, ms=8, steps=33_945_911),
+        f32_band=dict(mpt=19, dtu=27, ms=10),
+        jax_match=0.9853515625, jax_dl=1.22e-7),
+    "emic_heband": dict(
+        over=dict(legacy_freq_state=True),
+        f64=dict(hit=0, mpt=10, dtu=38, ms=0, steps=36_934, median_l=0.0),
+        f64_band=dict(hit=0, mpt=10, dtu=10, ms=0), steps_band=0.144,
+        f32=dict(hit=0, mpt=39, dtu=0, ms=9, steps=128_470),
+        jax_match=0.20833333333333334, jax_dl=None),
+}
+# Phase 28: the canonical RayTrace_lat ray's landing sensitivity (the
+# JAX package's landing_sensitivity on a CPU, float64, SolverConfig(rtol=
+# 1e-9, atol=1e-13), StopSpec(r_floor=1, t_max=5e9 m / RE)): HIT_EARTH
+# after 4664 accepted and 123 rejected attempts, d(lat_land)/d(lat_0) =
+# -7226.344438315766 (its docstring: -7226.4, rtol-converged to 6 digits)
+SENS_CANON = dict(amp=7226.344438315766, jac11=-7226.344438315766,
+                  n_accept=4664, n_reject=123,
+                  u_land=np.array([0.9999999999999855, 0.048412204694655604,
+                                   -3.058616452082853, 3.1251997444711974]))
 
 # the 3D float32 bs3 kernel at 10,240 rays x 512 attempts of the
 # ensemble10k_3d launch when it held only the axisymmetric medium (NVIDIA
@@ -1948,6 +2030,323 @@ def trajectory_slice(dev, card, out32, wall32, launches32):
     return launches
 
 
+def altx_kernels(dev, card):
+    """Phase 26: the 18 ALTX instances (3 frames x bs3, dopri5, rk4 x
+    float32, float64) bit for bit with their plain version over every 10th
+    ray x 64 attempts: the reference set over the MLT plume in 3D (its
+    closed form over the density at the base parameters), the reference +
+    legacy mode over GCPM with the duct and the day/night ionosphere in
+    the 2D frames; then the local arc ceiling under the reference set, the
+    He+ and O+ medium under legacy_freq_state (emic_heband's 48 rays and
+    the ensemble10k fan over its ions) and the MLT GCPM plume through the
+    same instances. The float32 instances that phase 27's paths launch are
+    timed at 10,240 rays x 512 beside their bound and the plain version's
+    cut. Returns {path: (max abs err, timing)}."""
+    from raytrace_tpu_torch.config import MediumConfig
+    from raytrace_tpu_torch.constants import B0_2D, B0_3D
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    gcpm_2d = MediumConfig(b0=B0_2D, **GCPM_2D)
+    ions_2d = MediumConfig(b0=B0_2D, **MULTI_ION)
+    errs, plain = {}, {}
+    for frame, name, med, over in (
+        ("3d", "ensemble10k_plume", None, REF),
+        ("2d_lat", "ensemble10k", gcpm_2d, REF_LEGACY),
+        ("2d_colat", "ensemble10k", gcpm_2d, dict(COLAT, **REF_LEGACY)),
+    ):
+        label = (f"{frame} {'reference' if frame == '3d' else 'ref + legacy'}"
+                 f" over {'the MLT plume' if frame == '3d' else 'GCPM'}")
+        carry, f, env, cfg, spec, kw = start(name, "float64", "cpu", every=640,
+                                             medium=med, **over)
+        check(sc.medium_code(env, cfg, kw["grad_mode"],
+                             kw["legacy_freq_state"]) == sc.ALTX,
+              f"{label}: the launch takes the ALTX instances")
+        for st in ("bs3", "dopri5", "rk4"):
+            more = {}
+            if st == "rk4":
+                more = RK4_3D if frame == "3d" else RK4
+            kst = "bs3" if st == "rk4" else st
+            for dt_name in ("float32", "float64"):
+                errs[frame, st, dt_name], ms = bit_for_bit(
+                    label, name, dt_name, kst, dev, 64, every=10, medium=med,
+                    **over, **more)
+                plain[frame, st, dt_name] = dict(
+                    plain_ms=ms, plain_rays=bit_for_bit.rays, plain_n=64)
+    for label, name, dt_name, st, every, med, over in (
+        ("ensemble10k_local, reference", "ensemble10k_local", "float32",
+         "bs3", 10, None, REF),
+        ("ensemble10k_local, reference", "ensemble10k_local", "float64",
+         "bs3", 10, None, REF),
+        ("emic_heband, legacy", "emic_heband", "float32", "dopri5", 1, None,
+         dict(legacy_freq_state=True)),
+        ("emic_heband, legacy", "emic_heband", "float64", "dopri5", 1, None,
+         dict(legacy_freq_state=True)),
+        ("the ensemble10k fan over He+ and O+, legacy", "ensemble10k",
+         "float32", "dopri5", 10, ions_2d, dict(legacy_freq_state=True)),
+        ("the MLT GCPM plume, reference", "ensemble10k_plume", "float64",
+         "dopri5", 10, MediumConfig(b0=B0_3D, ps_model="gcpm", ps_mlt=True,
+                                    **{k: v for k, v in GCPM_2D.items()
+                                       if k != "ps_model"}), REF),
+    ):
+        errs[label, dt_name], ms = bit_for_bit(
+            label, name, dt_name, st, dev, 64, every=every, medium=med,
+            **over)
+        plain[label, dt_name] = dict(plain_ms=ms, plain_rays=bit_for_bit.rays,
+                                     plain_n=64)
+    out = {}
+    for k, label, name, st, med, over, cut in (
+        ("plume", "3d reference, the plume", "ensemble10k_plume", "bs3",
+         None, REF, ("3d", "bs3", "float32")),
+        ("local", "2d_lat reference, ensemble10k_local", "ensemble10k_local",
+         "bs3", None, REF, ("ensemble10k_local, reference", "float32")),
+        ("colat", "2d_colat ref + legacy over GCPM", "ensemble10k", "bs3",
+         gcpm_2d, dict(COLAT, **REF_LEGACY), ("2d_colat", "bs3", "float32")),
+        ("emic", "2d_lat legacy over He+ and O+ (the ensemble10k fan)",
+         "ensemble10k", "dopri5", ions_2d, dict(legacy_freq_state=True),
+         ("the ensemble10k fan over He+ and O+, legacy", "float32")),
+    ):
+        t = time_instance(name, "float32", st, dev, medium=med,
+                          plain_full=False, plain=plain[cut], **over)
+        print_timing(f"{label} float32 {st}", t, card)
+        out[k] = (errs[cut], t)
+    return out
+
+
+def drive_legacy(conf, what, card):
+    """drive() for legacy_freq_state=True, which is not a RunConfig field:
+    run.run's rounds path (make_rounds_tracer with the run's keywords, one
+    full-budget round for a batch of at most 64 rays) with the mode on.
+    Returns (out, wall, launches, calls); out holds result, stats, valid;
+    drive.kws, drive.tail and drive.team_launches as drive() sets them."""
+    import torch
+
+    from raytrace_tpu_torch.kernel_ab import recording_launches
+    from raytrace_tpu_torch.ops import step_chunk as sc
+    from raytrace_tpu_torch.parallel.ensemble import (
+        ensemble_stats, make_rounds_tracer, pad_batch,
+    )
+    from raytrace_tpu_torch.run import _build_u0, summarize
+
+    dev = torch.device("cuda")
+    env = conf.medium.build()
+    np_dt = np.float32 if conf.dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, dev)
+    u0, f, valid = pad_batch(u0, f)
+    spec = conf.stop()
+    kw = dict(frame=conf.frame, cfg=conf.solver(), spec=spec,
+              adaptive=conf.adaptive, max_steps=conf.max_steps,
+              grad_mode=conf.grad_mode, root=conf.root, device=dev,
+              dtype=getattr(torch, conf.dtype), stepper=conf.stepper,
+              base_stepper=conf.base_stepper, want_carry=False,
+              legacy_freq_state=True)
+    if conf.round_steps:
+        kw["round_steps"] = tuple(conf.round_steps)
+    if int(valid.sum()) <= 64:
+        kw["round_steps"] = (conf.max_steps,)
+    tracer = make_rounds_tracer(env, **kw)
+    sc.step_chunk.launches = 0
+    sc.step_chunk.team_launches = 0
+    sc.step_chunk_reference.calls = 0
+    with recording_launches() as seen:
+        t0 = time.perf_counter()
+        result = tracer(u0, f, valid)
+        wall = time.perf_counter() - t0
+    launches, calls = sc.step_chunk.launches, sc.step_chunk_reference.calls
+    drive.team_launches = sc.step_chunk.team_launches
+    drive.kws = [launch[-1] for launch in seen]
+    carry, fl, env_l, cfg, spec_l, kw_l = seen[-1]
+    drive.tail = dict(name=conf.name, env=env_l, carry=carry._asdict(), f=fl,
+                      kw=kw_l, cfg=cfg._asdict(), spec=spec_l._asdict(),
+                      round=dict(tracer.last_rounds[-1]))
+    stats = {k: np.asarray(v) for k, v in ensemble_stats(
+        result, valid, lat_sign=spec.lat_sign,
+        lat_offset=spec.lat_offset).items()}
+    steps = int(stats["total_accepted_steps"] + stats["total_rejected_steps"])
+    print(f"  {summarize(result, valid)}; step kernel launches {launches}, "
+          f"plain-version calls {calls}")
+    print(f"  {what}: wall {wall:.4f} s, {steps} attempted ray-steps on "
+          f"{card}", flush=True)
+    return dict(result=result, stats=stats, valid=valid), wall, launches, calls
+
+
+def census(out):
+    st = out["stats"]
+    got = {k: int(st[f"n_{v}"]) for k, v in (
+        ("hit", "hit_earth"), ("mpt", "max_phase_time"),
+        ("dtu", "dt_underflow"), ("ms", "max_steps"))}
+    return got, int(st["total_accepted_steps"] + st["total_rejected_steps"])
+
+
+def altx_slice(name, card):
+    """Phase 27: preset `name` in the mode of ALTX_PINS through run.run
+    (emic_heband's legacy_freq_state through drive_legacy), float32 and
+    float64, every launch on an ALTX instance, against the JAX package's
+    censuses. Returns (the float32 run's launches, its last launch
+    replayed)."""
+    from raytrace_tpu_torch.config import preset
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    pin = ALTX_PINS[name]
+    legacy = pin["over"].get("legacy_freq_state", False)
+    over = {k: v for k, v in pin["over"].items() if k != "legacy_freq_state"}
+
+    def go(dtype, what):
+        conf = preset(name, dtype=dtype, **over)
+        res = (drive_legacy(conf, what, card) if legacy
+               else drive(conf, what, card))
+        env, cfg = drive.tail["env"], SolverConfig(**drive.tail["cfg"])
+        codes = {sc.medium_code(env, cfg, kw.get("grad_mode", "fused"),
+                                kw.get("legacy_freq_state", False))
+                 for kw in drive.kws}
+        check(res[2] > 0 and res[3] == 0 and codes == {sc.ALTX},
+              f"{name} {what}: {res[2]} launches, every one on an ALTX "
+              "instance; the plain version never called")
+        body(res[2], f"{name} {what}", team=False)
+        return res
+
+    from raytrace_tpu_torch.integrate.solve import SolverConfig
+
+    go("float32", "warm-up")
+    out32, _, launches32, _ = go("float32", "float32")
+    tail = tail_timing(f"{name} float32", card)
+    got, steps = census(out32)
+    res32 = out32["result"]
+    check(bool(np.isfinite(res32.u[out32["valid"]]).all()
+               and (res32.status[out32["valid"]] != 0).all()),
+          "float32: every ray stopped, every final state finite")
+    print(f"  float32: {got}, {steps} steps, against the JAX package's on a "
+          f"CPU {pin['f32']}")
+    if "port_f32" in pin:
+        p32, band = pin["port_f32"], pin["f32_band"]
+        print(f"  and the port's plain version's on a CPU {p32}")
+        check(abs(got["hit"] - p32["hit"]) <= max(0.02 * p32["hit"], 2)
+              and all(abs(got[k] - p32[k]) <= band[k] for k in band)
+              and abs(steps - p32["steps"]) <= 0.05 * p32["steps"],
+              "float32 HIT_EARTH within 2% (or 2 rays), MAX_PHASE_TIME / "
+              f"DT_UNDERFLOW / MAX_STEPS within {band} rays (the JAX "
+              "package's float32 one-ulp nudge's flow) and attempted steps "
+              "within 5% of the port's float32 census on a CPU")
+    out64, _, _, _ = go("float64", "float64")
+    got, steps64 = census(out64)
+    p64, band = pin["f64"], pin["f64_band"]
+    med64 = float(out64["stats"]["median_landing_l"])
+    print(f"  float64: {got}, {steps64} steps, median landing L {med64!r} "
+          f"against the JAX package's on a CPU {p64}; its one-ulp nudge's "
+          f"flow {band}"
+          + (f"; the port's plain version's on a CPU {pin['port_f64']}"
+             if "port_f64" in pin else ""))
+    check(all(abs(got[k] - p64[k]) <= band[k] for k in band),
+          f"float64 HIT_EARTH / MAX_PHASE_TIME / DT_UNDERFLOW / MAX_STEPS "
+          f"within {band} rays of the JAX package's census")
+    check(abs(steps64 - p64["steps"]) <= pin["steps_band"] * p64["steps"],
+          f"float64 attempted steps within {pin['steps_band']:.1%} of the "
+          "JAX package's (twice its one-ulp nudge's change, at least 1%)")
+    if p64["hit"]:
+        check(abs(med64 - p64["median_l"]) <= 1e-9 * p64["median_l"],
+              "float64 median landing L within 1e-9 of the JAX package's")
+    s32, s64 = np.asarray(res32.status), np.asarray(out64["result"].status)
+    v = np.asarray(out64["valid"])
+    match = float((s32[v] == s64[v]).mean())
+    print(f"  float32 vs float64: {match:.2%} statuses match (the JAX "
+          f"package's own {pin['jax_match']:.2%})")
+    check(match >= pin["jax_match"] - 0.005,
+          "statuses match to the JAX package's own less 0.5 points")
+    if pin["jax_dl"] is not None:
+        lat_to_l = ((lambda u: u[:, 0] / np.cos(u[:, 1]) ** 2)
+                    if preset(name).frame == "2d_lat"
+                    else (lambda u: u[:, 0] / np.sin(u[:, 1]) ** 2))
+        _, med_rel, n_m = landing_agreement(out32, out64, lat_to_l)
+        print(f"  median relative landing-L error {med_rel:.3e} over {n_m} "
+              f"matched HIT_EARTH rays (the JAX package's own "
+              f"{pin['jax_dl']:.3g})")
+        check(med_rel < 1e-4, "median relative landing-L error < 1e-4")
+    return launches32, tail
+
+
+def sensitivity_phase(dev, card):
+    """Phase 28: the landing sensitivity, the variational system as torch
+    ops on the card (one attempt captured as a CUDA graph and replayed):
+    graph and eager bit for bit over a short leg, each attempt's cost; the
+    canonical RayTrace_lat ray's event-projected Jacobian against the JAX
+    package's (SENS_CANON); run(sensitivity_rays=4) on ensemble10k at a
+    budget of 512 attempts. Returns the canonical ray's wall."""
+    import torch
+
+    from raytrace_tpu_torch.config import preset
+    from raytrace_tpu_torch.constants import RE
+    from raytrace_tpu_torch.integrate import events
+    from raytrace_tpu_torch.integrate.events import StopSpec
+    from raytrace_tpu_torch.integrate.solve import SolverConfig, trace_rhs
+    from raytrace_tpu_torch.models.medium import make_env_lat
+    from raytrace_tpu_torch.ops import rhs as rhs_mod
+    from raytrace_tpu_torch.ops import step_chunk as sc
+    from raytrace_tpu_torch.run import run
+    from raytrace_tpu_torch.sensitivity import (
+        landing_sensitivity, make_variational_rhs,
+    )
+
+    fn = rhs_mod.frame_rhs("2d_lat", make_env_lat())[0]
+    cfg = SolverConfig(rtol=1e-9, atol=1e-13)
+    spec = StopSpec(r_floor=1.0, t_max=5e9 / RE)
+    u0 = np.array([(RE + 1.0e6) / RE, np.pi / 4, 0.0, 0.0])
+    ua0 = torch.cat([torch.tensor(u0), torch.eye(4).reshape(16)]).to(
+        dev, torch.float64)[None]
+    f = torch.tensor([1000.0], dtype=torch.float64, device=dev)
+    aug = make_variational_rhs(fn, 4)
+    legs, walls = {}, {}
+    for graph in (False, True, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        legs[graph] = trace_rhs(aug, ua0, f, cfg=cfg, spec=spec,
+                                max_steps=64, chunk=64, graph=graph)
+        torch.cuda.synchronize()
+        walls[graph] = time.perf_counter() - t0
+    a, b = legs[False], legs[True]
+    same = all(torch.equal(x, y) for x, y in zip(a.carry, b.carry))
+    n_att = int(a.n_accept[0] + a.n_reject[0])
+    print(f"  a 64-attempt leg of the canonical ray's variational system "
+          f"(4 + 16 states, float64): eager {walls[False]:.3f} s "
+          f"({walls[False] / n_att * 1e3:.2f} ms an attempt), through the "
+          f"CUDA graph {walls[True]:.3f} s ({walls[True] / n_att * 1e3:.2f} "
+          f"ms an attempt, the capture included) on {card}")
+    check(same, "the CUDA graph's attempts equal the eager ones bit for bit")
+    sc.step_chunk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = landing_sensitivity(fn, u0, 1000.0, cfg=cfg, spec=spec,
+                              device=dev)
+    wall = time.perf_counter() - t0
+    rel = abs(out["amplification"] / SENS_CANON["amp"] - 1.0)
+    print(f"  the canonical ray: {events.STATUS_NAMES[out['status']]}, "
+          f"d(lat_land)/d(lat_0) = {out['jac'][1, 1]!r} (the JAX package "
+          f"on a CPU {SENS_CANON['jac11']!r}, relative difference "
+          f"{rel:.3e}), landing state {out['u_land'].tolist()}, wall "
+          f"{wall:.1f} s on {card}", flush=True)
+    check(out["status"] == events.HIT_EARTH, "the canonical ray lands")
+    check(rel <= 1e-3, "amplification within 1e-3 of the JAX package's")
+    check(float(np.max(np.abs(out["u_land"] - SENS_CANON["u_land"])))
+          <= 1e-6, "landing state within 1e-6 of the JAX package's")
+    check(sc.step_chunk.launches == 0,
+          "the variational system runs as torch ops (no step-kernel "
+          "launch)")
+    conf = preset("ensemble10k", max_steps=512, sensitivity_rays=4)
+    t0 = time.perf_counter()
+    res = run(conf, device="cuda")
+    wall_run = time.perf_counter() - t0
+    amp = np.asarray(res["stats"]["sensitivity_amplification"])
+    st = np.asarray(res["stats"]["sensitivity_status"])
+    print(f"  run(ensemble10k, max_steps=512, sensitivity_rays=4), "
+          f"float32: amplification {amp.tolist()}, status "
+          f"{[events.STATUS_NAMES[int(x)] for x in st]}, wall "
+          f"{wall_run:.1f} s on {card}", flush=True)
+    check(amp.shape == (4,) and np.isfinite(amp).all(),
+          "four finite amplifications in the stats")
+    check(bool(np.isin(st, [events.HIT_EARTH, events.MAX_PHASE_TIME,
+                            events.DT_UNDERFLOW, events.MAX_STEPS]).all()),
+          "each sensitivity ray ended on a stop or at the budget")
+    return wall
+
+
 def main():
     import torch
 
@@ -2455,6 +2854,21 @@ def main():
     t_blk = time_instance("ensemble10k", "float32", "bs3", dev, n=32,
                           reps=20)
     print_timing("float32 bs3, one trajectory block", t_blk, card)
+
+    # ---- 26-28. the modes over the full and extended media, sensitivity --
+    phase("[26] the ALTX instances (the modes over the full and extended "
+          "media) vs plain PyTorch")
+    altx = altx_kernels(dev, card)
+    phase("[27] the modes over the full and extended media through run.run:"
+          " ensemble10k_plume and ensemble10k_local with grad_mode="
+          "\"reference\", emic_heband with legacy_freq_state")
+    launches_altx, tails_altx = {}, {}
+    for k, name in (("plume", "ensemble10k_plume"),
+                    ("local", "ensemble10k_local"), ("emic", "emic_heband")):
+        launches_altx[k], tails_altx[k] = altx_slice(name, card)
+    phase("[28] landing sensitivity: the canonical ray and run("
+          "sensitivity_rays=4)")
+    sensitivity_phase(dev, card)
     phase("[done]")
 
     def entry(name, launches, err, t, tail=None, team=False):
@@ -2521,6 +2935,12 @@ def main():
               tails["cont"], team=True),
         entry("step_chunk[2d_lat,float32,bs3](trajectory block, 32 "
               "attempts)", launches_traj, err_traj, t_blk),
+        entry("step_chunk[3d+full_medium(mlt)+reference,float32,bs3]",
+              launches_altx["plume"], *altx["plume"], tails_altx["plume"]),
+        entry("step_chunk[2d_lat+ds_local+reference,float32,bs3]",
+              launches_altx["local"], *altx["local"], tails_altx["local"]),
+        entry("step_chunk[2d_lat+multi_ion+legacy,float32,dopri5]",
+              launches_altx["emic"], *altx["emic"], tails_altx["emic"]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ truncation). A JSON file path loads a full RunConfig instead. The run goes to
 the CUDA card unless --device names another device; it never falls back
 to the CPU on its own. --trajectory K records a snapshot every K attempts
 with the diagnostics; with --out it is written as <name>_traj.npz beside
-<name>_final.npz and <name>_record.json.
+<name>_final.npz and <name>_record.json. --sensitivity N adds the landing
+sensitivity of the first N rays to the stats and the record.
 """
 
 import argparse
@@ -36,7 +37,8 @@ def main(argv=None):
                    help="render ray plots (not ported: ROADMAP A11)")
     p.add_argument("--sensitivity", type=int, default=0, metavar="N",
                    help="landing-sensitivity analysis for the first N rays "
-                        "(not ported: ROADMAP A13)")
+                        "(the event-projected variational Jacobian; its "
+                        "amplification and status join the stats)")
     p.add_argument("--multihost", action="store_true",
                    help="multi-process run over several cards (not "
                         "ported: ROADMAP A12)")
@@ -78,6 +80,7 @@ def main(argv=None):
         return 2
     import numpy as np
 
+    from .integrate import events
     from .run import run, summarize
 
     t0 = time.perf_counter()
@@ -96,6 +99,12 @@ def main(argv=None):
         f"and, the first time, the kernel build) | "
         f"{summarize(out['result'], out['valid'])}"
     )
+    if config.sensitivity_rays > 0:
+        amp = np.asarray(out["stats"]["sensitivity_amplification"])
+        st = np.asarray(out["stats"]["sensitivity_status"])
+        print(f"  landing sensitivity of the first {amp.size} rays: "
+              f"|d lat_land / d lat_0| = {np.array2string(amp)}, status "
+              f"{[events.STATUS_NAMES[int(x)] for x in st]}")
     for k, v in out["paths"].items():
         print(f"  {k}: {v}")
     return 0

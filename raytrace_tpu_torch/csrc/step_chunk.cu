@@ -72,15 +72,20 @@
 // Kimura rho partials; ops/rhs.py legacy_freq_state: the 2D frequency read
 // as f + T) take the fourth medium value, ALT: the axisymmetric medium with
 // both modes as run-time flags, so that they cost the other instances
-// nothing. The closed form takes the density, |B| and field direction the
-// fused chain has computed, as the plain version does, and sign(0) = 0 as
-// torch.sign has it.
+// nothing; over any other medium over the dipole, the fifth, ALTX: the
+// extended chain (EXT: the full density chain, the Stix sums over the ion
+// species, the local arc ceiling) with the same two flags. The closed form
+// takes the density, |B| and field direction the fused chain has
+// computed, as the plain version does, and sign(0) = 0 as torch.sign has
+// it; in 3D over the MLT-resolved medium its density is the chain's at the
+// base parameters (the JAX package reads it without longitude), a second
+// evaluation of the chain.
 // Template instances: float and double x bs3, dopri5 and rk4 x the three
-// frames x the four media over the dipole (2 x 3 x 3 x 4 = 72), and x the
-// two non-axial fields in the 3D frame over FULL and EXT (24): 96,
-// compiled in six parts (one per frame, one per non-axial field, one for
-// ALT) by parallel nvcc processes and linked into one library (SC_PART
-// below).
+// frames x the five media over the dipole (2 x 3 x 3 x 5 = 90), and x the
+// two non-axial fields in the 3D frame over FULL and EXT (24): 114,
+// compiled in eight parts (one per frame, one per non-axial field, one for
+// ALT, two for ALTX) by parallel nvcc processes and linked into one
+// library (SC_PART below).
 //
 // Design for the card, not block by block:
 //   - the carry of a ray lives in registers for all n_steps attempts and
@@ -224,6 +229,7 @@ constexpr int AXI = 0;    // the axisymmetric medium of the first slices
 constexpr int FULL = 1;   // the full density chain
 constexpr int EXT = 2;    // the full chain with the ion species and ds_local
 constexpr int ALT = 3;    // AXI under the reference scripts' modes
+constexpr int ALTX = 4;   // EXT under the reference scripts' modes
 constexpr int DIPOLE = 0;  // the centered dipole
 constexpr int TILTED = 1;  // the tilted dipole (3D frame, full medium)
 constexpr int IGRF = 2;    // the degree-3 IGRF truncation (likewise)
@@ -258,7 +264,19 @@ constexpr int team_warps(int dtype, int stepper, int frame, int medium,
 // the media whose density is the full chain (AXI and ALT: the
 // axisymmetric one)
 __host__ __device__ constexpr bool full_density(int medium) {
-  return medium == FULL || medium == EXT;
+  return medium == FULL || medium == EXT || medium == ALTX;
+}
+
+// the media of the extended chain: the Stix sums over the ion species and
+// the local arc ceiling at run time
+__host__ __device__ constexpr bool extended(int medium) {
+  return medium == EXT || medium == ALTX;
+}
+
+// the media that read the reference scripts' modes (p.ref_grads,
+// p.legacy_freq)
+__host__ __device__ constexpr bool ref_modes(int medium) {
+  return medium == ALT || medium == ALTX;
 }
 
 // state dimension of a frame; the group delay is the last component
@@ -1375,16 +1393,18 @@ __device__ __forceinline__ Mu2D<T> mu_grads_2d(T r, T lat, T chi, T f,
   }
   Mu2D<T> m;
   T dmu_dn, dmu_db;
-  stix_quartic_grads<T, false, MEDIUM == EXT>(
+  stix_quartic_grads<T, false, extended(MEDIUM)>(
       ne, bm, f, sinpsi, cospsi, p, m.mu, dmu_dn, dmu_db, m.dmu_df,
       m.dmu_dpsi);
   m.dmudr = dmu_dn * ne_r + dmu_db * bm_r;
   m.dmudlat = dmu_dn * ne_lat + dmu_db * bm_lat + m.dmu_dpsi * dpsi_dlat;
-  if constexpr (MEDIUM == ALT) {
+  if constexpr (ref_modes(MEDIUM)) {
     // the reference set (ops/gradients.py): dmu/dlat keeps the fused
     // chain's value; dmu/dpsi from the closed form over the fused chain's
     // density and |B| at psi = pi/2 + atan(2 tan lat) + chi
-    // (dispersion.psi_lat), dmu/dr = 0
+    // (dispersion.psi_lat), dmu/dr = 0. The 2D chain's density is the
+    // phi = 0 meridian's, the medium's base parameters: what the JAX
+    // package's closed form reads (medium.ne_total_m3 without phi)
     if (p.ref_grads) {
       const T psi = (T(kPi / 2.0) + d_atan(T(2) * d_tan(lat))) + chi;
       m.dmu_dpsi = ref_dmudpsi(ne, bm, f, psi);
@@ -1540,16 +1560,18 @@ __device__ __forceinline__ void rhs_3d_rows(const T u[7], T f,
 }
 
 // ops/gradients.py::_mu_grads_3d_reference below the fused chain's mu and
-// its theta and f partials (dmu/dphi = 0 over the axisymmetric medium):
-// dmu/dr = 0, and the rho partials from ops/analytic.py::kimura_dmudrho
-// over the closed-form dmu/dpsi at psi = acos(cos psi), all over the fused
-// chain's density, |B|, cos psi and field direction (kimura_dmudrho takes
-// the unit vector; its cos(alpha_Bk) is scale-free)
+// its theta, phi and f partials (dmudphi: 0 over the axisymmetric medium,
+// dmu_dn * d ne/dphi over the MLT-resolved one): dmu/dr = 0, and the rho
+// partials from ops/analytic.py::kimura_dmudrho over the closed-form
+// dmu/dpsi at psi = acos(cos psi), all over the fused chain's |B|, cos psi
+// and field direction (kimura_dmudrho takes the unit vector; its
+// cos(alpha_Bk) is scale-free) and over ne, the density without longitude
+// (the fused chain's own but over the MLT-resolved medium: rhs_3d)
 template <typename T>
 __device__ __forceinline__ void rhs_3d_ref(const T u[7], T f,
                                            const Geo3D<T>& g, T ne, T ne_lat,
                                            T mu, T dmu_dn, T dmu_db, T dmu_df,
-                                           T dmu_dc, T out[7]) {
+                                           T dmu_dc, T dmudphi, T out[7]) {
   const T rho[3] = {u[3], u[4], u[5]};
   const T bv[3] = {g.bhat_r, g.bhat_t, T(0)};
   const T bmag = d_sqrt(bv[0] * bv[0] + bv[1] * bv[1] + bv[2] * bv[2]);
@@ -1564,7 +1586,7 @@ __device__ __forceinline__ void rhs_3d_ref(const T u[7], T f,
   }
   const T dmudtheta =
       -(dmu_dn * ne_lat + dmu_db * g.bm_lat) + dmu_dc * g.dcos_dtheta;
-  kimura_rows(u, f, mu, T(0), dmudtheta, T(0), kim[0], kim[1], kim[2],
+  kimura_rows(u, f, mu, T(0), dmudtheta, dmudphi, kim[0], kim[1], kim[2],
               dmu_df, kim_trig(u), out);
 }
 
@@ -1583,13 +1605,30 @@ __device__ __forceinline__ void rhs_3d(const T u[7], T f, const KParams<T>& p,
   else
     ne_and_grads(r, sl, cl, p, ne, ne_r, ne_lat);
   T mu, dmu_dn, dmu_db, dmu_df, dmu_dc;
-  stix_quartic_grads<T, true, MEDIUM == EXT>(ne, g.bm, f, g.sinpsi, g.cospsi,
-                                             p, mu, dmu_dn, dmu_db, dmu_df,
-                                             dmu_dc);
+  stix_quartic_grads<T, true, extended(MEDIUM)>(ne, g.bm, f, g.sinpsi,
+                                                g.cospsi, p, mu, dmu_dn,
+                                                dmu_db, dmu_df, dmu_dc);
   if constexpr (MEDIUM == ALT) {
     if (p.ref_grads) {
       rhs_3d_ref(u, f, g, ne, ne_lat, mu, dmu_dn, dmu_db, dmu_df, dmu_dc,
-                 out);
+                 T(0), out);
+      return;
+    }
+  } else if constexpr (MEDIUM == ALTX) {
+    if (p.ref_grads) {
+      // the closed form reads the density without longitude (the JAX
+      // package's gradients.py:161-169 calls medium.ne_total_m3 without
+      // phi): over the MLT-resolved medium the chain again at the base
+      // parameters; dmu/dphi keeps the fused chain's value
+      T ne_ref = ne, dmudphi = T(0);
+      if (p.mlt_on) {
+        T d_r, d_lat, d_phi;
+        ne_and_grads_full(r, sl, cl, u[2], false, p, ne_ref, d_r, d_lat,
+                          d_phi);
+        dmudphi = dmu_dn * ne_phi;
+      }
+      rhs_3d_ref(u, f, g, ne_ref, ne_lat, mu, dmu_dn, dmu_db, dmu_df, dmu_dc,
+                 dmudphi, out);
       return;
     }
   }
@@ -1910,7 +1949,7 @@ __device__ __noinline__ void rhs_3d_general(const T u[7], T f,
     dne_dp = dne_dp + ne_mlon * g.mlon_p;
   }
   T mu, dmu_dn, dmu_db, dmu_df, dmu_dc;
-  stix_quartic_grads<T, true, MEDIUM == EXT>(
+  stix_quartic_grads<T, true, extended(MEDIUM)>(
       ne, bm, f, sinpsi, cospsi, p, mu, dmu_dn, dmu_db, dmu_df, dmu_dc);
   kimura_rows(u, f, mu, dmu_dn * ne_r + dmu_db * bm_r + dmu_dc * dcos_dr,
               dmu_dn * dne_dt + dmu_db * bm_t + dmu_dc * dcos_dt,
@@ -1937,7 +1976,7 @@ __device__ __forceinline__ void rhs(const T* u, T f, const KParams<T>& p,
     static_assert(K == 0, "the team body serves the 3D frame");
     // legacy_freq_state (ops/rhs.py): the frequency read as f + T
     T fr = f;
-    if constexpr (MEDIUM == ALT) {
+    if constexpr (ref_modes(MEDIUM)) {
       if (p.legacy_freq) fr = f + u[3];
     }
     if constexpr (FRAME == COLAT2D)
@@ -1979,16 +2018,16 @@ __device__ __forceinline__ T local_arc_ceiling(const T* u,
 }
 
 // _step_one's step ceiling of the state (u, k1): dt_max, tightened by the
-// arc ceiling ds / (ds/dtau) where ds is ds_max or, in the EXT instances,
-// the local ceiling (clamped by ds_max where that is on too)
+// arc ceiling ds / (ds/dtau) where ds is ds_max or, in the EXT and ALTX
+// instances, the local ceiling (clamped by ds_max where that is on too)
 template <typename T, int N, int MEDIUM>
 __device__ __forceinline__ T step_ceiling(const T u[N], const T k1[N],
                                           const KParams<T>& p) {
   bool local = false;
-  if constexpr (MEDIUM == EXT) local = p.ds_local_on;
+  if constexpr (extended(MEDIUM)) local = p.ds_local_on;
   if (!local && !p.ds_on) return p.dt_max;
   T ds = p.ds_max;
-  if constexpr (MEDIUM == EXT) {
+  if constexpr (extended(MEDIUM)) {
     if (local) {
       ds = local_arc_ceiling<T>(u, p);
       if (p.ds_on) ds = jmin(ds, p.ds_max);
@@ -2397,9 +2436,10 @@ void launch_dtype(int dtype, int stepper, void** ptrs, long long B,
 
 // One host entry per (frame, medium, field) combination. A build in parts
 // (ops/step_chunk.py::build) compiles this source once per part with
-// -DSC_PARTS=6 -DSC_PART=k, each part defining the entries of one frame,
-// one non-axial field, or (part 5) the ALT medium in the three frames (and
-// so instantiating only their kernels), and links the parts into one
+// -DSC_PARTS=8 -DSC_PART=k, each part defining the entries of one frame,
+// one non-axial field, (part 5) the ALT medium in the three frames, or
+// the ALTX medium in the 2D frames (part 6) and the 3D frame (part 7)
+// (and so instantiating only their kernels), and links the parts into one
 // library; without the macros one object holds them all.
 #ifndef SC_PARTS
 #define SC_PARTS 1
@@ -2431,6 +2471,9 @@ SC_ENTRY(launch_igrf_ext);
 SC_ENTRY(launch_lat_alt);
 SC_ENTRY(launch_3d_alt);
 SC_ENTRY(launch_colat_alt);
+SC_ENTRY(launch_lat_altx);
+SC_ENTRY(launch_3d_altx);
+SC_ENTRY(launch_colat_altx);
 
 #if SC_OWNS(0)
 SC_DEFINE(launch_lat_axi, LAT2D, AXI, DIPOLE)
@@ -2460,6 +2503,13 @@ SC_DEFINE(launch_lat_alt, LAT2D, ALT, DIPOLE)
 SC_DEFINE(launch_3d_alt, KIM3D, ALT, DIPOLE)
 SC_DEFINE(launch_colat_alt, COLAT2D, ALT, DIPOLE)
 #endif
+#if SC_OWNS(6)
+SC_DEFINE(launch_lat_altx, LAT2D, ALTX, DIPOLE)
+SC_DEFINE(launch_colat_altx, COLAT2D, ALTX, DIPOLE)
+#endif
+#if SC_OWNS(7)
+SC_DEFINE(launch_3d_altx, KIM3D, ALTX, DIPOLE)
+#endif
 
 #if SC_OWNS(0)
 // ptrs: u, k1, u_prev, u_lo (n, B); t, dt, errold, dt_prev (B,) of T;
@@ -2470,7 +2520,8 @@ SC_DEFINE(launch_colat_alt, COLAT2D, ALT, DIPOLE)
 // medium, 1 = the full density chain, 2 = the full chain with the ion
 // species and the local arc ceiling, 3 = the axisymmetric medium under the
 // reference scripts' modes (h->ref_grads, h->legacy_freq: the ALT
-// instances, which alone read them); field 0 = the centered dipole, 1 =
+// instances), 4 = the extended chain (2) under those modes (the ALTX
+// instances; these two alone read them); field 0 = the centered dipole, 1 =
 // the tilted dipole, 2 = the IGRF truncation (the last two only in the 3D
 // frame over the full chain). Launches on `stream` without synchronising;
 // returns cudaGetLastError().
@@ -2481,27 +2532,31 @@ extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
   // [frame, or the non-axial field in rows 3 and 4][medium]
   using Entry = void (*)(int, int, void**, long long, int, const StepParams&,
                          cudaStream_t);
-  static const Entry kEntry[5][4] = {
-      {launch_lat_axi, launch_lat_full, launch_lat_ext, launch_lat_alt},
-      {launch_3d_axi, launch_3d_full, launch_3d_ext, launch_3d_alt},
+  static const Entry kEntry[5][5] = {
+      {launch_lat_axi, launch_lat_full, launch_lat_ext, launch_lat_alt,
+       launch_lat_altx},
+      {launch_3d_axi, launch_3d_full, launch_3d_ext, launch_3d_alt,
+       launch_3d_altx},
       {launch_colat_axi, launch_colat_full, launch_colat_ext,
-       launch_colat_alt},
-      {nullptr, launch_tilted_full, launch_tilted_ext, nullptr},
-      {nullptr, launch_igrf_full, launch_igrf_ext, nullptr},
+       launch_colat_alt, launch_colat_altx},
+      {nullptr, launch_tilted_full, launch_tilted_ext, nullptr, nullptr},
+      {nullptr, launch_igrf_full, launch_igrf_ext, nullptr, nullptr},
   };
   if (B <= 0) return 0;
   if ((dtype != 0 && dtype != 1) ||
       (stepper != BS3 && stepper != DOPRI5 && stepper != RK4) ||
       (frame != LAT2D && frame != KIM3D && frame != COLAT2D) ||
-      (medium != AXI && medium != FULL && medium != EXT && medium != ALT) ||
+      (medium != AXI && medium != FULL && medium != EXT && medium != ALT &&
+       medium != ALTX) ||
       (field != DIPOLE && field != TILTED && field != IGRF) ||
       (field != DIPOLE &&
-       (frame != KIM3D || medium == AXI || medium == ALT)) ||
-      ((h->ref_grads != 0.0 || h->legacy_freq != 0.0) && medium != ALT) ||
+       (frame != KIM3D || medium == AXI || ref_modes(medium))) ||
+      ((h->ref_grads != 0.0 || h->legacy_freq != 0.0) &&
+       !ref_modes(medium)) ||
       (h->legacy_freq != 0.0 && frame == KIM3D) ||
       h->n_harm < 0.0 || h->n_harm > kMaxHarm || h->n_shells < 0.0 ||
       h->n_shells > kMaxShells || h->n_ion < 1.0 || h->n_ion > kMaxIon ||
-      (medium != EXT && (h->n_ion != 1.0 || h->n_shells != 0.0)))
+      (!extended(medium) && (h->n_ion != 1.0 || h->n_shells != 0.0)))
     return (int)cudaErrorInvalidValue;
   const int row = field == TILTED ? 3 : (field == IGRF ? 4 : frame);
   kEntry[row][medium](dtype, stepper, ptrs, B, n_steps, *h,

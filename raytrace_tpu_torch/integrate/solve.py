@@ -474,7 +474,12 @@ def trace(
                                     save_every, save_fn, chunk, on_kernel,
                                     kernel_kw)
 
-    # rays alive at budget exhaustion report MAX_STEPS, never ACTIVE
+    return _finish(rhs_fn, carry, f, spec, traj)
+
+
+def _finish(rhs_fn, carry: RayCarry, f, spec: StopSpec, traj=None):
+    """A trace's end: rays alive at budget exhaustion report MAX_STEPS,
+    never ACTIVE, and the terminal events are refined."""
     carry = carry._replace(status=torch.where(
         carry.status == events.ACTIVE, events.MAX_STEPS, carry.status
     ).to(torch.int32))
@@ -484,6 +489,72 @@ def trace(
         n_accept=carry.n_accept, n_reject=carry.n_reject, traj=traj,
         carry=carry,
     )
+
+
+def trace_rhs(rhs_fn, u0, f, *, cfg: SolverConfig = SolverConfig(),
+              spec: StopSpec = StopSpec(), group_idx: int = 3,
+              adaptive: bool = True, stepper: str = "dopri5",
+              max_steps: int = 20000, chunk: int = 64, graph: bool = True):
+    """`trace` over a caller's right-hand side rhs_fn(u, f) (the JAX
+    package's trace(rhs_fn, u0, f, ...), final states only), as torch ops
+    on the tensors' device: init_carry, ceil(max_steps / chunk) * chunk
+    attempts of `_step_one` (leaving once no ray is ACTIVE, checked every
+    16 attempts: exact, since an attempt is a no-op on a ray that is not
+    ACTIVE), refine_events. The state may be wider than the
+    frame's (the variational system of sensitivity.py carries tangent
+    columns after it): the stop events read the frame's components
+    (group_idx names the group delay), while the error norm, the arc
+    ceiling's rate and the event refinement take the whole state, as in
+    the JAX package.
+
+    On CUDA tensors with `graph`, one attempt is captured once as a CUDA
+    graph over a copy of the carry and replayed for every attempt: the
+    same kernels in the same order as the eager loop (so the same
+    values), without the host's cost of launching thousands of small
+    kernels an attempt one by one."""
+    check_supported(cfg, group_idx, adaptive, stepper)
+    carry = init_carry(rhs_fn, u0, f, cfg)
+    n_steps = -(-max_steps // chunk) * chunk
+    if graph and u0.device.type == "cuda":
+        carry = _graph_loop(rhs_fn, carry, f, cfg, spec, group_idx,
+                            adaptive, stepper, n_steps, 16)
+    else:
+        carry = step_loop(rhs_fn, carry, f, cfg, spec, group_idx=group_idx,
+                          adaptive=adaptive, stepper=stepper,
+                          n_steps=n_steps, check_every=16)
+    return _finish(rhs_fn, carry, f, spec)
+
+
+def _graph_loop(rhs_fn, carry: RayCarry, f, cfg, spec, group_idx, adaptive,
+                stepper, n_steps, check_every):
+    """step_loop through a CUDA graph of one `_step_one` that updates a
+    static carry in place (fresh buffers: init_carry's fields share
+    storage), captured after one warm-up attempt on a side stream."""
+    static = RayCarry(*(x.clone() for x in carry))
+    fs = f.clone()
+
+    def attempt():
+        out = _step_one(rhs_fn, static, fs, cfg, spec, group_idx, adaptive,
+                        stepper)
+        for dst, src in zip(static, out):
+            if src is not dst:
+                dst.copy_(src)
+
+    side = torch.cuda.Stream(device=f.device)
+    side.wait_stream(torch.cuda.current_stream(f.device))
+    with torch.cuda.stream(side):
+        _step_one(rhs_fn, static, fs, cfg, spec, group_idx, adaptive,
+                  stepper)
+    torch.cuda.current_stream(f.device).wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        attempt()
+    for i in range(n_steps):
+        if i % check_every == 0 and not bool(
+                (static.status == events.ACTIVE).any()):
+            break
+        g.replay()
+    return static
 
 
 def _trace_blocks(rhs_fn, group_idx, carry0, f, env, cfg, spec, n_outer,

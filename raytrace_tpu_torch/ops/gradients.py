@@ -168,15 +168,18 @@ def _mu_grads_3d_reference(r, theta, phi, rho_r, rho_t, rho_p, f, env, root):
     arccos(cos psi) (dispersion.psi_3d's angle), over the fused chain's
     density, |B|, cos psi and field direction (kimura_dmudrho's
     cos(alpha_Bk) is scale-free, so the unit vector serves). The closed
-    form takes the density without longitude, as the reference has it:
-    over the MLT-resolved medium that is not the fused chain's."""
+    form takes the density without longitude, as the reference has it
+    (the JAX package's medium.ne_total_m3 without phi): over the
+    MLT-resolved medium that is not the fused chain's, so the chain runs
+    again at the medium's base parameters, as the step kernel's ALTX
+    instances run it."""
     from . import fused
 
     (mu, grads), (ne, bm, cospsi, bhat_r, bhat_t) = (
         fused.mu_and_grads_3d_medium(r, theta, phi, rho_r, rho_t, rho_p, f,
                                      env, root))
     if medium.mlt_on(env):
-        ne = medium.ne_total_m3(r, math.pi / 2.0 - theta, env)
+        ne = fused._ne_and_grads(r, math.pi / 2.0 - theta, env)[0]
     psi = torch.arccos(cospsi)
     _, dmudpsi_ref = analytic.mu_and_dmudpsi(ne, bm, f, psi)
     kim = analytic.kimura_dmudrho(mu, dmudpsi_ref, psi,

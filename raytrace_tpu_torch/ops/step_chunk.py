@@ -19,8 +19,10 @@ instances of the full chain, whose Stix sums run over the ion species and
 whose step ceiling takes the local one. The reference scripts' modes
 (grad_mode="reference": the closed-form dmu/dpsi, dmu/dr = 0 and in 3D the
 Kimura rho partials; legacy_freq_state: the 2D frequency read as f + T)
-take the ALT instances: the axisymmetric medium with both as run-time
-flags (other media refuse them: ROADMAP B7).
+take the ALT instances -- the axisymmetric medium with both as run-time
+flags -- and over every other medium of the centered dipole the ALTX
+instances: the extended chain of EXT (the full density chain, the Stix
+sums over the ion species, the local ceiling) with the same two flags.
 
 - On CUDA tensors it launches the hand-written kernel of
   csrc/step_chunk.cu, the whole carry in registers for all n_steps
@@ -74,9 +76,10 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # the source compiles as PARTS objects at once (-DSC_PARTS, -DSC_PART: one
-# per frame, one per non-axial field and one for the reference scripts'
-# modes, csrc/step_chunk.cu), linked into one library
-PARTS = 6
+# per frame, one per non-axial field, one for the reference scripts' modes
+# over the axisymmetric medium and two for them over the extended chain,
+# csrc/step_chunk.cu), linked into one library
+PARTS = 8
 
 # harmonics of the MLT plasmapause shape the kernel takes (kMaxHarm)
 MAX_HARM = 8
@@ -91,9 +94,10 @@ _INT = ("status", "n_accept", "n_reject", "rejected", "n_tiny", "caution")
 # stepper argument names
 _STEPPER_CODE = {"bs3": 0, "dopri5": 1, "rk4": 2}
 _FIELD_CODE = {"dipole": 0, "tilted": 1, "igrf": 2}
-# the kernel's medium codes (medium_code): AXI, FULL, EXT, and ALT, the
-# axisymmetric medium under the reference scripts' modes
-AXI, FULL, EXT, ALT = 0, 1, 2, 3
+# the kernel's medium codes (medium_code): AXI, FULL, EXT, and ALT and ALTX,
+# the axisymmetric medium and the extended chain under the reference
+# scripts' modes
+AXI, FULL, EXT, ALT, ALTX = 0, 1, 2, 3, 4
 
 
 class StepParams(ctypes.Structure):
@@ -133,7 +137,8 @@ class StepParams(ctypes.Structure):
         # the ion species (dispersion.ion_species): count and coefficients
         ("n_ion", ctypes.c_double), ("ion_fpe2", ctypes.c_double * MAX_ION),
         ("ion_fce", ctypes.c_double * MAX_ION),
-        # the reference scripts' modes (ALT instances only): 1.0 = on
+        # the reference scripts' modes (ALT and ALTX instances only): 1.0 =
+        # on
         ("ref_grads", ctypes.c_double), ("legacy_freq", ctypes.c_double),
     ]
 
@@ -243,7 +248,7 @@ def ptxas_usage(log):
                  ("bs3", "dopri5", "rk4")[int(m[2])],
                  ("2d_lat", "3d", "2d_colat")[int(m[3])]]
         if m[4] is not None:
-            words.append(("axi", "full", "ext", "alt")[int(m[4])])
+            words.append(("axi", "full", "ext", "alt", "altx")[int(m[4])])
         if m[5] is not None and int(m[5]):
             words.append(("dipole", "tilted", "igrf")[int(m[5])])
         if m[6] is not None and int(m[6]):
@@ -274,11 +279,13 @@ def medium_code(env, cfg: SolverConfig = None, grad_mode="fused",
     density chain; 2 (EXT): any medium with He+ or O+, or any run of `cfg`
     with the local arc ceiling, through the full chain extended by the Stix
     sums over the ion species and the local ceiling; 3 (ALT): the
-    axisymmetric medium under grad_mode="reference" or legacy_freq_state.
-    Raises every refusal of the modes: ValueError where the JAX package
-    raises (the reference set over a multi-ion medium or a non-axial
-    field), NotImplementedError naming ROADMAP B7 where the kernel has no
-    instance (the autodiff set; the modes over any other medium)."""
+    axisymmetric medium under grad_mode="reference" or legacy_freq_state;
+    4 (ALTX): any other medium (FULL or EXT) under either mode, through the
+    extended chain. Raises every refusal of the modes: ValueError where
+    the JAX package raises (the reference set over a multi-ion medium or a
+    non-axial field; legacy_freq_state in 3D is refused by the frame),
+    NotImplementedError naming ROADMAP B7 for the autodiff set, which the
+    kernel does not compute."""
     if grad_mode not in ("fused", "reference"):
         raise NotImplementedError(
             f"the step kernel computes the fused and the reference gradient "
@@ -288,15 +295,7 @@ def medium_code(env, cfg: SolverConfig = None, grad_mode="fused",
     if grad_mode == "reference":
         gradients.require_reference_env(env)
     if grad_mode == "reference" or legacy_freq_state:
-        base = medium_code(env, cfg)
-        if base != AXI:
-            raise NotImplementedError(
-                "the step kernel runs grad_mode='reference' and "
-                "legacy_freq_state over the axisymmetric medium only; this "
-                f"medium takes the {('FULL', 'EXT')[base - 1]} instances "
-                "(not ported: ROADMAP B7)"
-            )
-        return ALT
+        return ALT if medium_code(env, cfg) == AXI else ALTX
     if (len(ion_species(env.eta_he, env.eta_o)) > 1
             or (cfg is not None and _shells(cfg))):
         return 2

@@ -8,8 +8,9 @@ tracer (each round one step-kernel launch per pool; continue_until_done
 then resumes the rays that ran out of steps), or with use_rounds=False in
 one `trace` call -- optionally recording the trajectory channel
 (save_every > 0, with the diagnostics when save_diagnostics), reduces the
-ensemble statistics on the host, and writes the final states, the
-trajectory and the run record.
+ensemble statistics on the host, optionally takes the landing
+sensitivity of the first valid rays (sensitivity_rays > 0), and writes
+the final states, the trajectory and the run record.
 """
 
 import os
@@ -22,6 +23,7 @@ from .integrate import events
 from .integrate.saving import save_fn_for
 from .integrate.solve import RayCarry, trace
 from .ops.dispersion import consistent_rho_3d
+from .ops.rhs import frame_rhs
 from .parallel.ensemble import (
     _bucket_size, build_launch, build_launch_3d, build_launch_list,
     ensemble_stats, make_ensemble_tracer, make_rounds_tracer, pad_batch,
@@ -30,9 +32,6 @@ from .utils.runrecord import write_run_record
 
 
 def _check_supported(config: RunConfig):
-    if config.sensitivity_rays > 0:
-        raise NotImplementedError(
-            "not ported yet: sensitivity_rays > 0 (ROADMAP A13)")
     if config.frame != "3d" and tuple(config.phis) != (0.0,):
         raise ValueError("phis launch fan is 3D-only (the 2D state "
                          "carries no longitude)")
@@ -82,7 +81,9 @@ def run(config: RunConfig, *, device="cuda", out_dir=None):
     trajectory channel's dict when save_every > 0), the ensemble
     statistics, the valid-ray mask, written file paths (`final`, `traj`,
     `record`), the per-round diagnostics and the per-ray stiff-pool flags
-    (both None on the single-program path)."""
+    (both None on the single-program path). With sensitivity_rays = N >
+    0 the stats (and the record) gain sensitivity_amplification and
+    sensitivity_status of the first N valid rays (sensitivity.py)."""
     _check_supported(config)
     env = config.medium.build()
     np_dtype = np.float32 if config.dtype == "float32" else np.float64
@@ -143,6 +144,21 @@ def run(config: RunConfig, *, device="cuda", out_dir=None):
             result, valid, lat_sign=spec.lat_sign, lat_offset=spec.lat_offset
         ).items()
     }
+    if config.sensitivity_rays > 0:
+        # the landing-sensitivity channel (the JAX package's run.py:
+        # 279-293): the event-projected variational Jacobian of the first
+        # N valid rays in the run's dtype, on the run's device
+        from .sensitivity import landing_sensitivity_batch
+
+        rhs_fn, group_idx = frame_rhs(config.frame, env, config.root,
+                                      config.grad_mode)
+        idx = np.nonzero(np.asarray(valid))[0][: config.sensitivity_rays]
+        sens = landing_sensitivity_batch(
+            rhs_fn, u0[idx], f[idx], cfg=cfg, spec=spec,
+            group_idx=group_idx, max_steps=config.max_steps, device=device,
+            dtype=dtype)
+        stats["sensitivity_amplification"] = sens["amplification"]
+        stats["sensitivity_status"] = sens["status"]
 
     paths = {}
     if out_dir:

@@ -1,7 +1,7 @@
 """SASS census of the step kernel's instances, from the built library.
 
     python -m raytrace_tpu_torch.sass_census [--against DIR]
-        [--instances "float bs3 2d_lat axi,float bs3 3d full"]
+        [--instances "float bs3 2d_lat axi,float bs3 3d full" | all]
 
 Builds this checkout's kernel (and, with --against, another checkout's,
 as kernel_ab does), disassembles the library with `cuobjdump -sass` and,
@@ -22,12 +22,17 @@ backward branch of the function) and reports over its body:
 Both walk the code in address order, slow paths included (a division's
 or a sine's rarely taken branch), so they are estimates of the attempt's
 critical path, to set against the measured cycles per attempt (time /
-attempts x clocks.sm). Prints one line per instance and a JSON record as
-the last line. Needs the CUDA toolkit's cuobjdump (the machine with the
-card).
+attempts x clocks.sm). Each record also holds `sha`, a digest of the
+instance's whole SASS text (opcodes and operands), so that two checkouts'
+instances can be seen to be the same code. Prints one line per instance
+(`--instances all`: every instance of the library) and, with --against,
+the instances whose SASS is the same in both checkouts and those that
+differ, and a JSON record as the last line. Needs the CUDA toolkit's
+cuobjdump (the machine with the card).
 """
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -155,13 +160,15 @@ def run_census(lib_path, wanted):
         if key is None:
             continue
         base = re.sub(r" team\d+$", "", key)
-        if base not in wanted:
+        if wanted is not None and base not in wanted:
             continue
         body = loop_body(insns)
         counts, chain, inorder = census(body)
+        text = "\n".join(f"{p} {op} {ops}" for _a, p, op, ops in insns)
         out[key] = dict(instructions=len(insns), loop=len(body),
                         by_class=counts, chain_cycles=chain,
-                        inorder_cycles=inorder)
+                        inorder_cycles=inorder,
+                        sha=hashlib.sha256(text.encode()).hexdigest()[:16])
     return out
 
 
@@ -181,7 +188,8 @@ def main():
     p.add_argument("--instances", default=DEFAULT)
     p.add_argument("--child", help=argparse.SUPPRESS)
     args = p.parse_args()
-    wanted = set(args.instances.split(","))
+    wanted = (None if args.instances == "all"
+              else set(args.instances.split(",")))
     if args.child:
         _child(os.path.abspath(args.child), wanted)
         return 0
@@ -206,6 +214,15 @@ def main():
                               sorted(c["by_class"].items()))
                   + f"; chain {c['chain_cycles']} cycles, in-order issue "
                     f"{c['inorder_cycles']} cycles", flush=True)
+    if "other" in record:
+        both = sorted(set(record["this"]) & set(record["other"]))
+        same = [k for k in both
+                if record["this"][k]["sha"] == record["other"][k]["sha"]]
+        print(f"SASS the same in both checkouts: {len(same)} of {len(both)} "
+              f"common instances; differ: "
+              f"{sorted(set(both) - set(same)) or 'none'}; only here: "
+              f"{sorted(set(record['this']) - set(both)) or 'none'}",
+              flush=True)
     print(json.dumps(record))
     return 0
 

@@ -522,6 +522,120 @@ def test_reference_modes_run_through_the_kernel(cuda):
     assert int(res.n_accept[0]) == 205
 
 
+# the ALTX instances (the modes over the full and extended media): the
+# reference set over the MLT plume in 3D, the modes over GCPM with the duct
+# and the day/night ionosphere in the 2D frames
+_GCPM_2D = dict(ps_model="gcpm", iono_mlt=True, duct_amp=0.5, duct_l0=3.0,
+                duct_w=0.1)
+ALTX_FRAMES = {
+    "2d_lat": ("ensemble10k", dict(medium_kw=_GCPM_2D),
+               dict(grad_mode="reference", legacy_freq_state=True)),
+    "2d_colat": ("ensemble10k", dict(frame="2d_colat", medium_kw=_GCPM_2D),
+                 dict(grad_mode="reference", legacy_freq_state=True)),
+    "3d": ("ensemble10k_plume", {}, dict(grad_mode="reference")),
+}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("stepper", ["bs3", "dopri5", "rk4"])
+@pytest.mark.parametrize("frame", sorted(ALTX_FRAMES))
+def test_altx_kernel_matches_plain_version_bitwise(cuda, frame, stepper,
+                                                   dtype):
+    """Every 40th ray of the launch, 64 attempts through each of the 18
+    ALTX instances: every field bit for bit with the plain version; in
+    the 2D frames legacy alone and the reference set alone too, and the
+    local arc ceiling (ensemble10k_local) and He+ and O+ under legacy
+    through the 2D latitude instances."""
+    name, over, modes = ALTX_FRAMES[frame]
+    over = dict(over)
+    med = over.pop("medium_kw", None)
+    if stepper == "rk4":
+        over = dict(over, adaptive=False,
+                    dt0=1.0e-3 if frame == "3d" else 1.0e6 / RE)
+    conf = preset(name, dtype=dtype, **over)
+    for k, v in (med or {}).items():
+        setattr(conf.medium, k, v)
+    cases = [(conf, modes)]
+    if frame != "3d":
+        cases += [(conf, dict(grad_mode="reference")),
+                  (conf, dict(legacy_freq_state=True))]
+    if frame == "2d_lat" and stepper != "rk4":
+        ions = preset("ensemble10k", dtype=dtype)
+        ions.medium.eta_he, ions.medium.eta_o = 0.1, 0.02
+        cases += [(preset("ensemble10k_local", dtype=dtype),
+                   dict(grad_mode="reference")),
+                  (ions, dict(legacy_freq_state=True))]
+    np_dt = np.float32 if dtype == "float32" else np.float64
+    for c, m in cases:
+        env = c.medium.build()
+        cfg, spec = c.solver(), c.stop()
+        assert sc.medium_code(env, cfg, **m) == sc.ALTX
+        u0, f = _build_u0(c, env, np_dt, cuda)
+        u0 = torch.as_tensor(u0[::40], device=cuda)
+        f = torch.as_tensor(f[::40], device=cuda)
+        fn = rhs.frame_rhs(c.frame, env, c.root, **m)[0]
+        carry = init_carry(fn, u0, f, cfg)
+        kw = dict(stepper="bs3" if stepper == "rk4" else stepper,
+                  n_steps=64, root=c.root, adaptive=c.adaptive,
+                  frame=c.frame, **m)
+        launches = sc.step_chunk.launches
+        got = sc.step_chunk(carry, f, env, cfg, spec, **kw)
+        assert sc.step_chunk.launches == launches + 1
+        ref = sc.step_chunk_reference(carry, f, env, cfg, spec, **kw)
+        torch.cuda.synchronize()
+        _assert_bitwise(got, ref)
+        assert int((got.n_accept + got.n_reject).sum()) > 0
+
+
+def test_modes_over_full_media_run_through_the_kernel(cuda):
+    """run.run with grad_mode="reference" over cut fans of
+    ensemble10k_plume and ensemble10k_local: every launch through the
+    kernel, the plain version never called, every ray finite."""
+    from raytrace_tpu_torch.run import run
+
+    for name, cut in (
+        ("ensemble10k_plume", dict(lats=(0.8, 1.0), phis=(0.0, 2.0),
+                                   chis=(0.3,), freqs=(2000.0, 3000.0))),
+        ("ensemble10k_local", dict(lats=(0.8, 0.9, 1.0, 1.1),
+                                   chis=(0.3, 0.5), freqs=(2000.0,))),
+    ):
+        sc.step_chunk.launches = 0
+        sc.step_chunk_reference.calls = 0
+        out = run(preset(name, grad_mode="reference", **cut), device="cuda")
+        assert sc.step_chunk.launches > 0
+        assert sc.step_chunk_reference.calls == 0
+        assert np.isfinite(out["result"].u[out["valid"]]).all()
+
+
+def test_sensitivity_graph_matches_eager_on_the_card(cuda):
+    """trace_rhs over the variational system: the CUDA graph of one attempt
+    replayed gives the eager loop's carry bit for bit (16 attempts of the
+    canonical ray's 4 + 16-state system, float64), and
+    landing_sensitivity_batch runs on the card."""
+    from raytrace_tpu_torch.integrate.solve import trace_rhs
+    from raytrace_tpu_torch.sensitivity import (
+        landing_sensitivity_batch, make_variational_rhs,
+    )
+
+    fn = rhs.frame_rhs("2d_lat", make_env_lat())[0]
+    u0 = np.array([(RE + 1e6) / RE, np.pi / 4, 0.0, 0.0])
+    ua0 = torch.cat([torch.tensor(u0), torch.eye(4).reshape(16)]).to(
+        cuda, torch.float64)[None]
+    f = torch.tensor([1000.0], dtype=torch.float64, device=cuda)
+    kw = dict(cfg=SolverConfig(rtol=1e-9, atol=1e-13),
+              spec=StopSpec(r_floor=1.0, t_max=5e9 / RE), max_steps=16,
+              chunk=16)
+    aug = make_variational_rhs(fn, 4)
+    a = trace_rhs(aug, ua0, f, graph=False, **kw)
+    b = trace_rhs(aug, ua0, f, graph=True, **kw)
+    for x, y in zip(a.carry, b.carry):
+        assert torch.equal(x, y)
+    out = landing_sensitivity_batch(
+        fn, np.stack([u0, u0]), np.array([1000.0, 2000.0]),
+        spec=StopSpec(r_floor=1.0, t_max=3.0), device=cuda)
+    assert np.isfinite(out["jac"]).all()
+
+
 def _plain_trajectory(carry, f, env, cfg, spec, kw, n_outer, save_every,
                       save_fn):
     """trace's trajectory channel through the plain version: a snapshot

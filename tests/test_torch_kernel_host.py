@@ -25,7 +25,7 @@ import pytest
 import torch
 
 from raytrace_tpu_torch.config import MediumConfig, preset
-from raytrace_tpu_torch.constants import B0_3D, RE
+from raytrace_tpu_torch.constants import B0_2D, B0_3D, RE
 from raytrace_tpu_torch.integrate.solve import init_carry
 from raytrace_tpu_torch.ops import rhs as rhs_mod
 from raytrace_tpu_torch.ops import step_chunk as sc
@@ -364,22 +364,41 @@ def _host_launch(host_kernel, case, carry, f, codes, n_steps, params):
     return got
 
 
-@pytest.mark.parametrize("case", sorted(ALT_CASES))
-def test_alt_instances_match_plain_version_on_the_host(host_kernel, case):
-    """An ALT instance (one-thread body) against step_chunk_reference on
-    the same float64 carry: after 1 attempt every field within rtol 1e-13
-    of its component's largest magnitude (the right-hand side with the
-    closed form and the Kimura chain, computed by the two math libraries,
-    the host's libm and torch's), after 8 attempts statuses and counters
-    equal and u, t, dt, k1 within 1e-6 (dt0 = 1e-4, ROADMAP C: the
-    axisymmetric instance shows 6e-7 in t at the 3D launch), or within the
-    plain version's own spread where that is larger: the plain version
-    from the same launch with every state component one ulp up, after the
-    same 8 attempts (the 3D dopri5 launch: 6e-5 in t, where the two math
-    libraries' launches differ by ~1e-6). Over more attempts the reference
-    set's wedges turn that noise into other accept/reject paths (48
-    attempts: ~5% of the rays), as bs3 does at any launch."""
-    name, stepper, every, grad_mode, legacy, over = ALT_CASES[case]
+# the ALTX instances (the extended chain under the modes): the MLT plume
+# in 3D with the reference set (its closed form over the density without
+# longitude) at both steppers and fixed-step rk4, and over GCPM; the 2D
+# frames over GCPM with the duct and the day/night ionosphere, the
+# smoothed plasmapause with the trough refill, the local arc ceiling under
+# the reference set, and legacy_freq_state over He+ and O+ (emic_heband)
+_GCPM_2D = MediumConfig(b0=B0_2D, ps_model="gcpm", **_DUCT)
+ALTX_CASES = {
+    "plume_ref_f64_bs3": ("ensemble10k_plume", "bs3", 100, "reference",
+                          False, {}),
+    "plume_ref_f64_dopri5": ("ensemble10k_plume", "dopri5", 100,
+                             "reference", False, {}),
+    "plume_ref_f64_rk4": ("ensemble10k_plume", "rk4", 100, "reference",
+                          False, dict(adaptive=False, dt0=1.0e-3)),
+    "plume_gcpm_ref_f64_dopri5": ("ensemble10k_plume", "dopri5", 100,
+                                  "reference", False, dict(medium=MediumConfig(
+                                   b0=B0_3D, ps_model="gcpm", ps_mlt=True,
+                                   **_DUCT))),
+    "lat_gcpm_ref_legacy_f64_bs3": ("ensemble10k", "bs3", 100, "reference",
+                                    True, dict(medium=_GCPM_2D)),
+    "colat_smooth_ref_legacy_f64_dopri5": (
+        "ensemble10k", "dopri5", 100, "reference", True,
+        dict(frame="2d_colat", medium=MediumConfig(
+            b0=B0_2D, ps_smooth=0.05, ps_refill=0.5, ps_refill_q=4.0))),
+    "local_ref_f64_bs3": ("ensemble10k_local", "bs3", 100, "reference",
+                          False, {}),
+    "emic_legacy_f64_dopri5": ("emic_heband", "dopri5", 1, "fused", True,
+                               {}),
+}
+
+
+def _hold_to_plain(host_kernel, case, case_spec, code):
+    """One case of ALT_CASES or ALTX_CASES (case_spec) through the host build,
+    whose medium code must be `code`, against the plain version."""
+    name, stepper, every, grad_mode, legacy, over = case_spec
     conf = preset(name, dtype="float64", **over)
     env = conf.medium.build()
     u0, f = _build_u0(conf, env, np.float64, torch.device("cpu"))
@@ -393,7 +412,7 @@ def test_alt_instances_match_plain_version_on_the_host(host_kernel, case):
     codes = [sc._STEPPER_CODE[stepper if conf.adaptive else "rk4"],
              sc._FRAME_CODE[conf.frame][0],
              sc.medium_code(env, cfg, grad_mode, legacy), sc.field_code(env)]
-    assert codes[2] == sc.ALT
+    assert codes[2] == code
     params = sc._params(env, cfg, spec, conf.root, grad_mode, legacy)
     nudged = sc.step_chunk_reference(
         init_carry(rhs_fn, torch.nextafter(u0, torch.full_like(u0, np.inf)),
@@ -419,3 +438,32 @@ def test_alt_instances_match_plain_version_on_the_host(host_kernel, case):
                 spread = np.abs(getattr(nudged, k).numpy() - want) / scale
                 band = max(rtol, float(np.max(spread)))
             assert err <= band, (k, n_steps, err, band)
+
+
+@pytest.mark.parametrize("case", sorted(ALT_CASES))
+def test_alt_instances_match_plain_version_on_the_host(host_kernel, case):
+    """An ALT instance (one-thread body) against step_chunk_reference on
+    the same float64 carry: after 1 attempt every field within rtol 1e-13
+    of its component's largest magnitude (the right-hand side with the
+    closed form and the Kimura chain, computed by the two math libraries,
+    the host's libm and torch's), after 8 attempts statuses and counters
+    equal and u, t, dt, k1 within 1e-6 (dt0 = 1e-4, ROADMAP C: the
+    axisymmetric instance shows 6e-7 in t at the 3D launch), or within the
+    plain version's own spread where that is larger: the plain version
+    from the same launch with every state component one ulp up, after the
+    same 8 attempts (the 3D dopri5 launch: 6e-5 in t, where the two math
+    libraries' launches differ by ~1e-6). Over more attempts the reference
+    set's wedges turn that noise into other accept/reject paths (48
+    attempts: ~5% of the rays), as bs3 does at any launch."""
+    _hold_to_plain(host_kernel, case, ALT_CASES[case], sc.ALT)
+
+
+@pytest.mark.parametrize("case", sorted(ALTX_CASES))
+def test_altx_instances_match_plain_version_on_the_host(host_kernel, case):
+    """An ALTX instance against step_chunk_reference, as the ALT instances
+    are held: the modes over the full density chain, the ion species and
+    the local ceiling; in 3D over the MLT-resolved medium the closed form
+    over the chain's density at the base parameters (a negative control,
+    the chain's MLT density in the closed form, misses the plain version
+    by far more than this band: tests/test_torch_reference_full.py)."""
+    _hold_to_plain(host_kernel, case, ALTX_CASES[case], sc.ALTX)

@@ -257,9 +257,9 @@ def test_reference_modes_refusals():
     """ValueError where the JAX package raises (the multi-ion medium and
     the non-axial fields under the reference set, legacy_freq_state in
     3D); NotImplementedError naming ROADMAP B7 where the step kernel has
-    no instance (the modes over the full-chain media, the autodiff set in
-    the kernel and in the rounds tracer). Each holds on the CPU, where the
-    plain version would otherwise run."""
+    no instance (the autodiff set in the kernel and in the rounds tracer).
+    Each holds on the CPU, where the plain version would otherwise run.
+    The modes over the full-chain media take the ALTX instances and run."""
     x = torch.ones(2, dtype=torch.float64)
     ions = make_env_lat()._replace(eta_he=0.1)
     with pytest.raises(ValueError, match="protons-only"):
@@ -283,9 +283,10 @@ def test_reference_modes_refusals():
          dict(legacy_freq_state=True)),
     ):
         carry, f = _carry(env, frame)
-        with pytest.raises(NotImplementedError, match="B7"):
-            sc.step_chunk(carry, f, env, cfg, spec, stepper="bs3",
-                          n_steps=4, frame=frame, **kw)
+        assert sc.medium_code(env, cfg, **kw) == sc.ALTX
+        out = sc.step_chunk(carry, f, env, cfg, spec, stepper="bs3",
+                            n_steps=4, frame=frame, **kw)
+        assert (out.n_accept + out.n_reject == 4).all()
     carry, f = _carry(make_env_lat())
     with pytest.raises(NotImplementedError, match="B7"):
         sc.step_chunk(carry, f, make_env_lat(), cfg, spec, stepper="bs3",

@@ -111,10 +111,32 @@ def test_config_json_round_trips_across_packages():
 # every preset of the JAX package is served (no name is refused,
 # test_torch_slice_variants.py); what a preset still refuses is a feature
 # the port has not ported, switched on by an override: the autodiff
-# gradient set in the rounds tracer, the reference gradient set over the
-# EXT media (the local ceiling) and the sensitivity rays -- also with the
-# trajectory channel and explicit ray lists, which run since they were
-# ported (tests/test_torch_trajectory.py)
+# gradient set in the rounds tracer -- also with the trajectory channel
+# and explicit ray lists, which run since they were ported
+# (tests/test_torch_trajectory.py). The reference gradient set over the
+# EXT media (the local ceiling) and the sensitivity rays run since the
+# ALTX instances and sensitivity.py: those cases run a cut fan (one ray,
+# 16 attempts, and a phase budget short enough that the variational
+# system stops within its first check)
+_CUT = {"ensemble10k_local": dict(lats=(0.8,), chis=(0.3,),
+                                  freqs=(2000.0,), max_steps=16),
+        "emic_heband": dict(lats=(0.0,), chis=(0.0,), freqs=(1.0,),
+                            max_steps=16, t_max=0.5)}
+
+
+def _runs_cut(conf):
+    """A case ported since: the cut run ends with every ray stopped or at
+    its budget, finite, and with the sensitivity channel's stats when it
+    is on."""
+    out = t_run.run(conf, device="cpu")
+    assert np.isfinite(out["result"].u[out["valid"]]).all()
+    if conf.sensitivity_rays:
+        amp = out["stats"]["sensitivity_amplification"]
+        assert amp.size == min(conf.sensitivity_rays,
+                               int(np.sum(out["valid"])))
+        assert np.isfinite(amp).all()
+
+
 @pytest.mark.parametrize("name,over", [
     ("raymain", dict(save_every=8, grad_mode="autodiff")),
     ("ensemble10k_local", dict(save_every=8, grad_mode="reference")),
@@ -124,6 +146,9 @@ def test_config_json_round_trips_across_packages():
     ("emic_heband", dict(sensitivity_rays=4)),
 ])
 def test_unported_presets_raise(name, over):
+    if over.get("grad_mode") != "autodiff":
+        _runs_cut(t_config.preset(name, **{**_CUT[name], **over}))
+        return
     conf = t_config.preset(name, **over)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_run.run(conf, device="cpu")
@@ -131,7 +156,9 @@ def test_unported_presets_raise(name, over):
 
 # the single-program path, the trajectory channel and ray lists run
 # (tests/test_torch_trajectory.py); each is held here to the features
-# that stay refused on it
+# that stay refused on it (the autodiff set), and the features ported
+# since (the reference set over the local ceiling, the sensitivity rays)
+# run on it
 @pytest.mark.parametrize("kw", [
     dict(grad_mode="autodiff"), dict(use_rounds=False, grad_mode="autodiff"),
     dict(save_every=8, ds_local=True, grad_mode="reference"),
@@ -141,6 +168,10 @@ def test_unported_presets_raise(name, over):
 def test_run_refuses_unported_features(kw):
     cfg = t_config.preset("ensemble10k", lats=(0.8,), chis=(0.3,),
                           freqs=(2000.0,), max_steps=8, **kw)
+    if kw.get("grad_mode") != "autodiff":
+        cfg.t_max = 0.5
+        _runs_cut(cfg)
+        return
     with pytest.raises(NotImplementedError):
         t_run.run(cfg, device="cpu")
 

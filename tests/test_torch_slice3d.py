@@ -197,14 +197,16 @@ def test_3d_refuses_a_phis_fan():
         j_run._build_u0(j_config.preset("ensemble10k", **cut), np.float64)
 
 
-def _jax_census(name, dtype, batch=1024, overrides=None, nudge=False):
+def _jax_census(name, dtype, batch=1024, overrides=None, nudge=False,
+                legacy=False):
     """The JAX package's run of preset `name` (with `overrides`, a dict of
     RunConfig fields) on the CPU, traced in batches of `batch` rays through
     one rounds tracer (its run() path without a mesh; a batch of at most
     64 rays in one full-budget round, as run() has it). Returns (per-ray
     numpy arrays, stats). nudge moves every launch's state slot 1 (the
     latitude or colatitude) up by one ulp: the run's own sensitivity to
-    rounding."""
+    rounding. legacy passes legacy_freq_state=True to the rounds tracer
+    (the 2D frames; not a RunConfig field)."""
     import raytrace_tpu.parallel.ensemble as j_ens
     from raytrace_tpu.integrate.solve import TraceResult
     from raytrace_tpu.models import cast_env
@@ -219,7 +221,7 @@ def _jax_census(name, dtype, batch=1024, overrides=None, nudge=False):
               adaptive=cfg.adaptive, stepper=cfg.stepper,
               max_steps=cfg.max_steps, grad_mode=cfg.grad_mode,
               root=cfg.root, want_carry=False,
-              base_stepper=cfg.base_stepper)
+              base_stepper=cfg.base_stepper, legacy_freq_state=legacy)
     if cfg.round_steps:
         kw["round_steps"] = tuple(cfg.round_steps)
     if min(batch, u0.shape[0]) <= 64:
@@ -305,6 +307,8 @@ if __name__ == "__main__":
                         "both packages instead of the census")
     p.add_argument("--nudge", action="store_true",
                    help="move every launch latitude up by one ulp")
+    p.add_argument("--legacy", action="store_true",
+                   help="trace with legacy_freq_state=True (2D frames)")
     p.add_argument("--run", action="store_true",
                    help="trace through the JAX package's run() in one "
                         "batch")
@@ -330,7 +334,7 @@ if __name__ == "__main__":
         arrays, stats = _jax_run_census(args.preset, args.dtype, over)
     else:
         arrays, stats = _jax_census(args.preset, args.dtype, args.batch,
-                                    over, args.nudge)
+                                    over, args.nudge, args.legacy)
     if args.out:
         np.savez(args.out, **arrays)
     stats["attempted_steps"] = (stats["total_accepted_steps"]
