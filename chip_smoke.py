@@ -104,8 +104,9 @@ Phases, each printed as it runs; any failed check exits non-zero:
      over every 10th ray x 64 (the reference set over the MLT plume in 3D,
      reference + legacy over GCPM with the duct and the day/night
      ionosphere in the 2D frames; then the local arc ceiling, He+ and O+
-     under legacy, the MLT GCPM plume); the float32 instances of phase
-     27's paths timed at 10,240 rays x 512 beside their bound;
+     under legacy, the MLT GCPM plume); every instance timed at 10,240
+     rays x 512 beside its bound (the float32 ones of phase 27's paths
+     first);
  27. ensemble10k_plume and ensemble10k_local with grad_mode="reference"
      and emic_heband with legacy_freq_state through run.run's rounds path,
      float32 and float64, every launch on an ALTX instance, against the
@@ -114,7 +115,20 @@ Phases, each printed as it runs; any failed check exits non-zero:
      torch ops, one attempt a CUDA graph): graph against eager bit for bit
      and each one's cost per attempt, the canonical RayTrace_lat ray's
      d(lat_land)/d(lat_0) against the JAX package's on a CPU, and
-     run(sensitivity_rays=4) on ensemble10k at a budget of 512 attempts.
+     run(sensitivity_rays=4) on ensemble10k at a budget of 512 attempts;
+ 29. the wave-particle chain (growth, diffusion, fokker_planck, radial),
+     each stage's wall on the card after a warm-up beside the port's own
+     on the CPU: (a) examples/lightning_to_lifetimes.py as it runs (the
+     fan through trace's trajectory channel, float64 dopri5, then the
+     gain, the band, the bounce averages and the lifetimes) against the
+     JAX package's numbers on a CPU, and one block's launch bit for bit
+     and timed; (b) path_gain along phase 25's whole trajectory, every
+     10th ray against the CPU; (c) the diffusion map of
+     examples/diffusion_map.py in float64 against the CPU (with the peak
+     memory) and in float32 'mc' against float64; (d)
+     examples/two_belt_structure.py as it runs against the JAX package's
+     numbers, the refilling's CN steps and the inverse iteration eagerly
+     and as CUDA graphs, bit for bit, with their ms per step.
 Each run through run.run checks the body its launches took (the team
 body's launch count, ops/step_chunk.py) and replays its last launch, the
 merged tail where the run has one (kernel_ab.replay_tail), for the
@@ -128,6 +142,7 @@ and prints no result. It imports nothing of JAX.
 """
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -537,6 +552,204 @@ AXI_3D_MS = 3.203
 # 34 TFLOP/s float64 outside the tensor cores, 3.35 TB/s of HBM
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}
 PEAK_BYTES = 3.35e12
+
+
+# Phase 29: the wave-particle chain of examples/lightning_to_lifetimes.py
+# (LIGHTNING: its fan and chain) and examples/two_belt_structure.py
+# (TWO_BELT), in float64
+LIGHTNING = dict(lats=np.linspace(0.76, 0.92, 5),
+                 freqs=np.array([3000.0, 4000.0, 5000.0, 6000.0]),
+                 rtol=1e-6, atol=1e-10, dt0=1e-4, t_max_m=5.0e9,
+                 max_steps=20000, save_every=25, seed_pt=5.0,
+                 hot=dict(eta=1e-3, t_par_ev=25e3, anisotropy=1.0),
+                 e_three=np.array([1000.0, 2500.0, 5000.0]),
+                 e_scan=np.geomspace(500.0, 10000.0, 12), nc=96,
+                 ba=dict(n_lat=32, n_grid=256, n_bisect=24))
+TWO_BELT = dict(e_mev=1.0, spec=dict(bw_t=300e-12, f_m=700.0, df=500.0,
+                                     f_lc=100.0, f_uc=4000.0),
+                l_probe=np.linspace(1.6, 6.4, 33), nc=96, d0_ll=3.0e-8,
+                n_l=240, dt=1.0e4, n_steps=6000, save_every=1000,
+                ba=dict(n_lat=32, n_grid=192, n_bisect=24))
+# the bounce-averaged map of examples/diffusion_map.py (L = 4, its
+# hiss-like band 0.05-0.5 fce), at the root search's defaults
+DIFFUSION_MAP = dict(n_e=44, n_a=44, n_lat=48, n_grid=512, n_bisect=30,
+                     every=4)
+# the two-belt profiles are pinned at every TWO_BELT_EVERY-th radial cell
+TWO_BELT_EVERY = 24
+# The JAX package's float64 numbers of both chains on a CPU at the
+# examples' sizes (tests/test_torch_tiers_chain.py run as a script: the
+# fan through its trace, the lightning chain through its numpy oracle, the
+# two-belt tau(L) through bounce_averaged_jax, as the examples run them).
+# Held: the in-shell ray set exactly; l_star, f_m, df and bw_t to 1e-8; the
+# lifetimes to 1e-6; tau(L) to 1e-8; the profiles and snapshots to 1e-9
+LIGHTNING_PINS = dict(
+    in_shell=[0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 19],
+    crossed=20,
+    l_star=1.6020484172868321,
+    f_m=5226.480203780766,
+    df=1073.0954010186933,
+    bw_t=2.8712027031683655e-11,
+    has_wave=[True, True, True, True, True, True, True, True, True, True, True,
+              True],
+    tau_e=[461853870760.8806, 318681458597.4112, 236131058864.65118,
+           164529469992.63092, 127200476007.05708, 87900333815.8546,
+           63410619604.01742, 37350072110.97287, 25116152175.85993,
+           11094211548.381496, 5288713183.673192, 3464112060.706094],
+    tau_weak=[785595.9620202449, 1609037.8745105704, 3393648.9275951544,
+              7123119.351512599, 15444950.639549099, 34566719.99992487,
+              80226373.50666685, 192562514.23837504, 448868962.02013975,
+              1266769111.4152021, 3681713802.530818, 9570657080.798185])
+TWO_BELT_PINS = dict(
+    tau=[27136721215.9639, 10922571878.721968, 5353516466.322139,
+         2838760764.6677513, 1519211711.3065667, 819004399.7006423,
+         456562115.8608585, 228608889.7135412, 121699431.12150565,
+         75308831.50485988, 34042537.47747134, 17782931.054336634,
+         9180760.499155791, 7256823.187847399, 2742844.211638216,
+         2458939.744917727, 18726.672227678388, 10664.93868624359, math.inf,
+         math.inf, math.inf, math.inf, math.inf, math.inf, math.inf, math.inf,
+         math.inf, math.inf, math.inf, math.inf, math.inf, math.inf, math.inf],
+    s0=2.547520925564822e-10,
+    f_bnd=[2.6240512017489897e-11, 7.589102327232214e-10,
+           1.7629202632966808e-09, 4.368193466067883e-09,
+           1.5728295399041263e-08, 2.314265437720084e-06, 0.3514215426973469,
+           0.7115652946329835, 0.8768811397862746, 0.9582274060986331],
+    f_src_unit=[236669126.94952586, 909293077.5984045, 89621940.27133894,
+                8296860.814120336, 579631.7540485557, 139.11266480471718,
+                0.0070828112521684194, 0.003149855740176643,
+                0.0013445214509634547, 0.00045617826923742484],
+    f_free=[0.13409929926720743, 1.3643413012831713, 1.0906051228276383,
+            1.0272212305373518, 1.009687867314987, 1.0038784668627132,
+            1.0016741533258682, 1.0007445266118185, 1.0003178024909805,
+            1.0001078261638707],
+    f_eq=[0.06029195536014796, 0.23164431502422755, 0.022831378586015923,
+          0.0021136470222405004, 0.00014767813055145286,
+          2.3497046801801946e-06, 0.3514215426991512, 0.7115652946337859,
+          0.8768811397866171, 0.9582274060987493],
+    snaps=[[0.06029195536014796, 0.2316443150242027, 0.006652157903351413,
+            6.755259062596917e-08, 1.3349291647243408e-08,
+            2.3125992903751664e-06, 0.35121093354129757, 0.7113300821119891,
+            0.8767528443493221, 0.9581806385404056],
+           [0.06029195536014796, 0.23164431482583378, 0.010118138781606627,
+            1.2473173749480367e-05, 7.096152763221733e-08,
+            2.3142715927787772e-06, 0.3514214762985359, 0.7115652204774658,
+            0.8768810993385372, 0.9582273913542095],
+           [0.06029195536014796, 0.2316442950763094, 0.012178690951290247,
+            8.227724703509728e-05, 1.339107732319892e-06,
+            2.314498648356944e-06, 0.35142154267642656, 0.7115652946096156,
+            0.8768811397735301, 0.9582274060939859],
+           [0.06029195536014796, 0.23164402394533326, 0.013642121438482101,
+            0.00021569648201307315, 6.241277802120558e-06,
+            2.3155271978465323e-06, 0.3514215426974002, 0.7115652946330046,
+            0.8768811397862836, 0.9582274060986333],
+           [0.06029195536014796, 0.23164265093197275, 0.014772432430825879,
+            0.00038479191001258877, 1.5154184129271721e-05,
+            2.3175425457718866e-06, 0.3514215426975038, 0.711565294633052,
+            0.8768811397863043, 0.9582274060986404],
+           [0.06029195536014796, 0.23163869426560516, 0.01568752010385569,
+            0.00056345328946331, 2.6564424922488534e-05, 2.320219568247506e-06,
+            0.351421542697638, 0.7115652946331127, 0.8768811397863312,
+            0.9582274060986502]])
+
+
+def lightning_chain(k, traj, st_t, f_g, env, conf=LIGHTNING):
+    """examples/lightning_to_lifetimes.py after its trace, over `k` (a
+    namespace of one package's tier functions taking and returning
+    numpy): path_gain, the equator crossings, the shell the rays pick,
+    spectrum_from_rays, bounce_averaged at three and at len(e_scan)
+    energies, precipitation_lifetime and loss_cone_lifetime_s. traj
+    (S, B, 4) and st_t (S, B) of the fan's trajectory. Returns a dict of
+    the chain's numbers."""
+    import math
+
+    n = traj.shape[1]
+    g = k.path_gain(traj, f_g, env, k.HotElectrons(**conf["hot"]))
+    inflight = st_t <= 1
+    lat_abs = np.where(inflight, np.abs(traj[..., 1]), np.inf)
+    i_eq = lat_abs.argmin(axis=0)
+    r_eq = traj[i_eq, np.arange(n), 0]
+    lat_eq = traj[i_eq, np.arange(n), 1]
+    l_eq = r_eq / np.cos(lat_eq) ** 2
+    crossed = lat_abs.min(axis=0) < 0.05
+    gain_eq = g["gain_neper"][i_eq, np.arange(n)]
+    l_star = float(np.median(l_eq[crossed]))
+    in_shell = crossed & (np.abs(l_eq - l_star) < 0.15)
+    bw_ray = conf["seed_pt"] * 1e-12 * np.exp(np.clip(gain_eq, -20.0, 10.0))
+    spec = k.spectrum_from_rays(f_g[in_shell], bw_ray[in_shell])
+    rl = 1.0 / l_star
+    a_lc = math.asin(math.sqrt(rl**3 / math.sqrt(4.0 - 3.0 * rl)))
+    nc = conf["nc"]
+    centers = k.make_grid(a_lc, nc)[0]
+    daa3 = k.bounce_averaged(conf["e_three"][:, None], centers[None, :],
+                             l_star, env, spec, **conf["ba"])["daa"]
+    daa_e = k.bounce_averaged(conf["e_scan"][:, None], centers[None, :],
+                              l_star, env, spec, **conf["ba"])["daa"]
+    dmax = daa_e.max(axis=1, keepdims=True)
+    daa_e = np.maximum(daa_e, 1e-8 * np.where(dmax > 0, dmax, 1.0))
+    tau_e = k.precipitation_lifetime(daa_e, a_lc, n_cells=nc)
+    tau_weak = k.loss_cone_lifetime_s(conf["e_scan"], l_star, env, spec,
+                                      **conf["ba"])
+    return dict(gamma=g["gamma"], gain_neper=g["gain_neper"],
+                crossed=crossed, in_shell=in_shell, l_eq=l_eq,
+                l_star=l_star, f_m=spec.f_m, df=spec.df, bw_t=spec.bw_t,
+                f_lc=spec.f_lc, f_uc=spec.f_uc, daa3=daa3,
+                has_wave=dmax[:, 0] > 0.0, tau_e=tau_e, tau_weak=tau_weak)
+
+
+def two_belt_chain(k, env, bounce_averaged=None, conf=TWO_BELT):
+    """examples/two_belt_structure.py over `k` (numpy in and out): tau(L)
+    from bounce_averaged (the example's bounce_averaged_jax where `k` is
+    the JAX package) and precipitation_lifetime on each probe shell inside
+    the plasmapause, then the radial equilibria (boundary-fed, CRAND-fed,
+    no losses) and the storm-recovery refilling from evolve_radial.
+    Returns a dict of the chain's numbers, the refilling's inputs
+    (`radial`: evolve_radial's arguments) and its wall (`radial_s`: `k`
+    returns numpy, so the wall includes the device's work)."""
+    import math
+
+    bounce_averaged = bounce_averaged or k.bounce_averaged
+    spec = k.WaveSpectrum(**conf["spec"])
+    l_probe, nc = conf["l_probe"], conf["nc"]
+    tau = np.full(l_probe.size, np.inf)
+    for i, L in enumerate(l_probe):
+        if L >= float(env.lppi):        # hiss lives inside the plasmasphere
+            continue
+        rl = 1.0 / L
+        a_lc = math.asin(math.sqrt(rl**3 / math.sqrt(4.0 - 3.0 * rl)))
+        centers = k.make_grid(a_lc, nc)[0]
+        daa = np.asarray(bounce_averaged(
+            conf["e_mev"] * 1000.0, centers, float(L), env, spec,
+            **conf["ba"])["daa"], np.float64)
+        if daa.max() > 0.0:
+            tau[i] = float(k.precipitation_lifetime(
+                np.maximum(daa, 1e-8 * daa.max()), a_lc, n_cells=nc))
+    with np.errstate(divide="ignore"):
+        inv_tau_probe = np.where(np.isfinite(tau), 1.0 / tau, 0.0)
+
+    grid = k.make_l_grid(1.6, 6.4, conf["n_l"])
+    centers_l = grid[0]
+    d_faces = k.dll_power_law(grid[1], d0=conf["d0_ll"], l0=4.0, q=10.0)
+    inv_tau = np.interp(centers_l, l_probe, inv_tau_probe)
+    src_shape = np.exp(-(((centers_l - 1.9) / 0.25) ** 2))
+    f_bnd = k.steady_state(*grid, d_faces, f_out=1.0,
+                           inv_tau_centers=inv_tau)
+    f_src_unit = k.steady_state(*grid, d_faces, f_out=0.0,
+                                inv_tau_centers=inv_tau,
+                                source_centers=src_shape)
+    s0 = 0.5 / f_src_unit.max()
+    src = s0 * src_shape
+    f_eq = f_bnd + s0 * f_src_unit
+    f_free = k.steady_state(*grid, d_faces, f_out=1.0, source_centers=src)
+    radial = dict(args=(np.where(centers_l < 2.5, f_eq, 0.0), *grid,
+                        d_faces),
+                  kw=dict(dt=conf["dt"], n_steps=conf["n_steps"], f_out=1.0,
+                          inv_tau_centers=inv_tau, source_centers=src,
+                          save_every=conf["save_every"]))
+    t0 = time.perf_counter()
+    f_end, snaps = k.evolve_radial(*radial["args"], **radial["kw"])
+    radial_s = time.perf_counter() - t0
+    return dict(tau=tau, f_bnd=f_bnd, f_src_unit=f_src_unit, s0=s0,
+                f_eq=f_eq, f_free=f_free, snaps=snaps, f_end=f_end,
+                radial=radial, radial_s=radial_s)
 
 
 def phase(title, flush=True):
@@ -1915,7 +2128,8 @@ def trajectory_slice(dev, card, out32, wall32, launches32):
     launches), and the rounds-assembled
     trajectory against use_rounds=False (pinned bs3, the rounds tracer's
     stall retirement off) bit for bit. Returns the trajectory run's
-    launches."""
+    launches, its states (rows, rays, 4), the rays' frequencies and the
+    medium (phase 29 takes the growth along them)."""
     import torch
 
     from raytrace_tpu_torch.config import preset
@@ -2027,7 +2241,7 @@ def trajectory_slice(dev, card, out32, wall32, launches32):
     check(n_diff == 0 and n_fin == 0,
           "the rounds-assembled trajectory equals use_rounds=False bit for "
           "bit (every row, the extras, the final states)")
-    return launches
+    return launches, traj["u"], _build_u0(conf, env, np.float32, dev)[1], env
 
 
 def altx_kernels(dev, card):
@@ -2041,7 +2255,8 @@ def altx_kernels(dev, card):
     the ensemble10k fan over its ions) and the MLT GCPM plume through the
     same instances. The float32 instances that phase 27's paths launch are
     timed at 10,240 rays x 512 beside their bound and the plain version's
-    cut. Returns {path: (max abs err, timing)}."""
+    cut, then the other 14 on the three launches above. Returns {path:
+    (max abs err, timing)} of phase 27's four."""
     from raytrace_tpu_torch.config import MediumConfig
     from raytrace_tpu_torch.constants import B0_2D, B0_3D
     from raytrace_tpu_torch.ops import step_chunk as sc
@@ -2049,13 +2264,18 @@ def altx_kernels(dev, card):
     gcpm_2d = MediumConfig(b0=B0_2D, **GCPM_2D)
     ions_2d = MediumConfig(b0=B0_2D, **MULTI_ION)
     errs, plain = {}, {}
-    for frame, name, med, over in (
+    launches = (
         ("3d", "ensemble10k_plume", None, REF),
         ("2d_lat", "ensemble10k", gcpm_2d, REF_LEGACY),
         ("2d_colat", "ensemble10k", gcpm_2d, dict(COLAT, **REF_LEGACY)),
-    ):
-        label = (f"{frame} {'reference' if frame == '3d' else 'ref + legacy'}"
-                 f" over {'the MLT plume' if frame == '3d' else 'GCPM'}")
+    )
+
+    def label_of(frame):
+        return (f"{frame} {'reference' if frame == '3d' else 'ref + legacy'}"
+                f" over {'the MLT plume' if frame == '3d' else 'GCPM'}")
+
+    for frame, name, med, over in launches:
+        label = label_of(frame)
         carry, f, env, cfg, spec, kw = start(name, "float64", "cpu", every=640,
                                              medium=med, **over)
         check(sc.medium_code(env, cfg, kw["grad_mode"],
@@ -2109,6 +2329,22 @@ def altx_kernels(dev, card):
                           plain_full=False, plain=plain[cut], **over)
         print_timing(f"{label} float32 {st}", t, card)
         out[k] = (errs[cut], t)
+    # the other 14 instances on the launches above, each beside its bound
+    # and the plain version's cut of the bit-for-bit check
+    timed = {("3d", "bs3", "float32"), ("2d_lat", "bs3", "float32"),
+             ("2d_colat", "bs3", "float32"), ("2d_lat", "dopri5", "float32")}
+    for frame, name, med, over in launches:
+        for st in ("bs3", "dopri5", "rk4"):
+            more = (RK4_3D if frame == "3d" else RK4) if st == "rk4" else {}
+            for dt_name in ("float32", "float64"):
+                if (frame, st, dt_name) in timed:
+                    continue
+                t = time_instance(name, dt_name,
+                                  "bs3" if st == "rk4" else st, dev,
+                                  medium=med, plain_full=False,
+                                  plain=plain[frame, st, dt_name], **over,
+                                  **more)
+                print_timing(f"{label_of(frame)} {dt_name} {st}", t, card)
     return out
 
 
@@ -2345,6 +2581,423 @@ def sensitivity_phase(dev, card):
                             events.DT_UNDERFLOW, events.MAX_STEPS]).all()),
           "each sensitivity ray ended on a stop or at the budget")
     return wall
+
+
+def worst_rel(a, b):
+    """The largest relative difference of a against b over b's finite
+    entries."""
+    a, b = np.ravel(a), np.ravel(b)
+    fin = np.isfinite(b)
+    return float(rel_err(a[fin], b[fin]).max()) if fin.any() else 0.0
+
+
+def sync(dev):
+    """Wait for the card (a no-op on the CPU)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def tiers_for(dev, graph=True):
+    """The port's tier functions on `dev`, numpy in and out: the namespace
+    lightning_chain and two_belt_chain take. graph: precipitation_lifetime
+    and evolve_radial replay one iteration (one CN step) as a CUDA graph."""
+    import inspect
+    from types import SimpleNamespace
+
+    import torch
+
+    from raytrace_tpu_torch import diffusion, fokker_planck, growth, radial
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().numpy()
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(host(v) for v in x)
+        return x
+
+    def wrap(fn):
+        extra = ({"graph": graph}
+                 if "graph" in inspect.signature(fn).parameters else {})
+        return lambda *a, **kw: host(fn(*a, device=dev, **extra, **kw))
+
+    ns = SimpleNamespace(HotElectrons=growth.HotElectrons,
+                         WaveSpectrum=diffusion.WaveSpectrum)
+    for mod, names in (
+            (growth, ("path_gain",)),
+            (diffusion, ("spectrum_from_rays", "bounce_averaged",
+                         "loss_cone_lifetime_s")),
+            (fokker_planck, ("make_grid", "precipitation_lifetime")),
+            (radial, ("make_l_grid", "dll_power_law", "steady_state",
+                      "evolve_radial"))):
+        for name in names:
+            setattr(ns, name, wrap(getattr(mod, name)))
+    return ns
+
+
+def lightning_fan(conf=LIGHTNING):
+    """The fan of examples/lightning_to_lifetimes.py: launch states at
+    1000 km over lats x freqs (chi = 0), and the frequencies."""
+    from raytrace_tpu_torch.constants import RE
+
+    lat_g, f_g = np.meshgrid(conf["lats"], conf["freqs"], indexing="ij")
+    u0 = np.zeros((lat_g.size, 4))
+    u0[:, 0] = (RE + 1.0e6) / RE
+    u0[:, 1] = lat_g.ravel()
+    return u0, f_g.ravel()
+
+
+def lightning_setup(dev, conf=LIGHTNING):
+    """(u0, f, env, cfg, spec) of the lightning fan on `dev`, float64."""
+    import torch
+
+    from raytrace_tpu_torch.constants import RE
+    from raytrace_tpu_torch.integrate.events import StopSpec
+    from raytrace_tpu_torch.integrate.solve import SolverConfig
+    from raytrace_tpu_torch.models.medium import make_env_lat
+
+    u0, f_g = lightning_fan(conf)
+    return (torch.as_tensor(u0, device=dev), torch.as_tensor(f_g, device=dev),
+            make_env_lat(),
+            SolverConfig(rtol=conf["rtol"], atol=conf["atol"],
+                         dt0=conf["dt0"]),
+            StopSpec(r_floor=1.0, t_max=conf["t_max_m"] / RE))
+
+
+def lightning_stage(dev, card):
+    """Phase 29 (a): examples/lightning_to_lifetimes.py as it runs, on the
+    card after a warm-up and on the CPU: the fan through trace (float64
+    dopri5, save_every 25: one step-kernel launch per block), then
+    lightning_chain; the card's numbers against LIGHTNING_PINS. Then one
+    block's launch (20 rays x 25 attempts) bit for bit with the plain
+    version and timed beside its bound (lightning_block). Returns
+    (launches, max abs err, timing) for the kernels' record."""
+    import torch
+
+    from raytrace_tpu_torch.integrate.solve import trace
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    conf = LIGHTNING
+
+    def run(device):
+        u0, f, env, cfg, spec = lightning_setup(device)
+        sync(device)
+        t0 = time.perf_counter()
+        res = trace(env, u0, f, cfg=cfg, spec=spec, stepper="dopri5",
+                    max_steps=conf["max_steps"],
+                    save_every=conf["save_every"])
+        out = lightning_chain(tiers_for(device), res.traj["u"].cpu().numpy(),
+                              res.traj["status"].cpu().numpy(),
+                              f.cpu().numpy(), env)
+        sync(device)
+        return out, res, time.perf_counter() - t0
+
+    run(dev)                                       # warm-up
+    sc.step_chunk.launches = 0
+    sc.step_chunk_reference.calls = 0
+    out, res, wall = run(dev)
+    launches, calls = sc.step_chunk.launches, sc.step_chunk_reference.calls
+    cpu, _, wall_cpu = run(torch.device("cpu"))
+    att = (res.n_accept + res.n_reject).cpu().numpy()
+    print(f"  the fan: {att.size} rays, {int(att.sum()):,} attempts "
+          f"(longest {int(att.max())}), traj {tuple(res.traj['u'].shape)}, "
+          f"{launches} kernel launches; {int(out['crossed'].sum())} cross "
+          f"the equator, {int(out['in_shell'].sum())} within 0.15 of "
+          f"L* = {out['l_star']:.6f}; band f_m {out['f_m']:.3f} Hz, df "
+          f"{out['df']:.3f} Hz, Bw {out['bw_t'] * 1e12:.4f} pT")
+    print(f"  wall: card {wall:.3f} s, the port on the CPU {wall_cpu:.3f} s "
+          f"(the CPU traces through the plain version), on {card}",
+          flush=True)
+    check(launches > 0 and calls == 0,
+          "the fan stepped through the kernel, never the plain version")
+    pins = LIGHTNING_PINS
+    check(np.flatnonzero(out["in_shell"]).tolist() == pins["in_shell"]
+          and int(out["crossed"].sum()) == pins["crossed"],
+          f"the in-shell ray set {pins['in_shell']} exactly (the JAX "
+          "package's on a CPU)")
+    worst = max(abs(out[k] - pins[k]) / abs(pins[k])
+                for k in ("l_star", "f_m", "df", "bw_t"))
+    check(worst <= 1e-8, f"l_star, f_m, df, bw_t within 1e-8 of the JAX "
+                         f"package's ({worst:.2e})")
+    has = np.array(pins["has_wave"])
+    tau_w = np.array(pins["tau_weak"])
+    fin = np.isfinite(tau_w)
+    err_e = rel_err(out["tau_e"][has], np.array(pins["tau_e"])[has]).max()
+    err_w = rel_err(out["tau_weak"][fin], tau_w[fin]).max()
+    check(np.array_equal(out["has_wave"], has)
+          and np.array_equal(np.isfinite(out["tau_weak"]), fin)
+          and max(err_e, err_w) <= 1e-6,
+          f"the lifetimes within 1e-6 of the JAX package's (eigen "
+          f"{err_e:.2e}, weak-diffusion {err_w:.2e})")
+    print("  card against the port on the CPU: " + ", ".join(
+        f"{k} {worst_rel(out[k], cpu[k]):.2e}"
+        for k in ("l_star", "f_m", "bw_t", "tau_e", "tau_weak")))
+    return (launches, *lightning_block(dev, card))
+
+
+def lightning_block(dev, card):
+    """One block's launch of the lightning fan (20 rays x save_every
+    attempts, float64 dopri5, from the launch carry) bit for bit with the
+    plain version, timed beside its bound. Returns (max abs err,
+    timing)."""
+    from raytrace_tpu_torch.integrate.solve import init_carry
+    from raytrace_tpu_torch.ops import rhs as rhs_mod
+
+    u0, f, env, cfg, spec = lightning_setup(dev)
+    rhs_fn, _ = rhs_mod.frame_rhs("2d_lat", env, 1.0, "fused", False)
+    carry = init_carry(rhs_fn, u0, f, cfg)
+    kw = dict(frame="2d_lat", root=1.0, adaptive=True, grad_mode="fused",
+              legacy_freq_state=False)
+    n = LIGHTNING["save_every"]
+    got, ref, plain_ms = both(carry, f, env, cfg, spec, "dopri5", n, kw)
+    n_diff = n_differ(got, ref)
+    check(n_diff == 0, f"the fan's first block (20 rays x {n} attempts, "
+                       "float64 dopri5): kernel and plain version bit for "
+                       "bit")
+    ms, blk = time_kernel(carry, f, env, cfg, spec, "dopri5", n, kw, 50)
+    attempts = int(((blk.n_accept + blk.n_reject)
+                    - (carry.n_accept + carry.n_reject)).sum())
+    bound_ms, by = bound("ensemble10k", "float64", "dopri5", 4, attempts,
+                         f.shape[0])
+    t = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+             attempts=attempts, rays=f.shape[0], n=n,
+             plain_rays=f.shape[0], plain_n=n)
+    print_timing("float64 dopri5, one block of the lightning fan", t, card)
+    return max_abs(got, ref), t
+
+
+def trajectory_gain_stage(dev, card, traj_u, f, env):
+    """Phase 29 (b): path_gain along the whole ensemble10k trajectory of
+    phase 25 ((625, 10240, 4), float32 states taken as float64) on the
+    card, every 10th ray against the port on the CPU: gamma and the gain
+    each within 1e-10 of the ray's largest magnitude."""
+    import torch
+
+    from raytrace_tpu_torch.growth import HotElectrons, path_gain
+
+    hot = HotElectrons(**LIGHTNING["hot"])
+    u = traj_u.astype(np.float64)
+    f = np.asarray(f, np.float64)
+
+    def run(device, rays):
+        sync(device)
+        t0 = time.perf_counter()
+        g = path_gain(u[:, rays], f[rays], env, hot, device=device)
+        g = {k: v.cpu().numpy() for k, v in g.items()}
+        sync(device)
+        return g, time.perf_counter() - t0
+
+    run(dev, slice(None))                          # warm-up
+    g, wall = run(dev, slice(None))
+    ref, wall_cpu = run(torch.device("cpu"), slice(None, None, 10))
+    db = g["gain_db"][-1]
+    print(f"  path_gain over {u.shape[0]} rows x {u.shape[1]:,} rays: card "
+          f"{wall:.3f} s, the port on the CPU {wall_cpu:.3f} s for every "
+          f"10th ray, on {card}; final gain min {db.min():.3e} / median "
+          f"{np.median(db):.3e} / max {db.max():.3e} dB, "
+          f"{int((db > 0).sum())} rays with net growth", flush=True)
+    check(all(np.isfinite(v).all() for v in g.values()),
+          "gamma, gain and t finite for every ray and row")
+    errs = {}
+    for k in ("gamma", "gain_neper"):
+        got, want = g[k][:, ::10], ref[k]
+        scale = np.maximum(np.abs(want).max(axis=0), np.finfo(float).tiny)
+        errs[k] = float((np.abs(got - want) / scale).max())
+    check(max(errs.values()) <= 1e-10,
+          "every 10th ray's gamma and gain within 1e-10 of its largest "
+          "magnitude against the port on the CPU ("
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + ")")
+
+
+def diffusion_map_stage(dev, card, conf=DIFFUSION_MAP):
+    """Phase 29 (c): the bounce-averaged diffusion map of
+    examples/diffusion_map.py (44 energies x 44 pitch angles x n_lat 48 at
+    L = 4) at n_grid 512, n_bisect 30: float64 'si' on the card, every 4th
+    energy row against the port on the CPU (D within 1e-9 wherever it is
+    above 1e-6 of its row's maximum, root counts equal); float32 'mc'
+    against float64, reported."""
+    import torch
+
+    from raytrace_tpu_torch.constants import C_LIGHT, FCE_E, M_E
+    from raytrace_tpu_torch.diffusion import WaveSpectrum, bounce_averaged
+    from raytrace_tpu_torch.models import medium
+
+    env = medium.make_env_lat()
+    one = torch.ones((), dtype=torch.float64)
+    fce = FCE_E * float(medium.b_mag(4.0 * one, 0.0 * one, env))
+    spec = WaveSpectrum(bw_t=100e-12, f_m=0.15 * fce, df=0.10 * fce,
+                        f_lc=0.05 * fce, f_uc=0.50 * fce)
+    ee, aa = np.meshgrid(np.geomspace(10.0, 2000.0, conf["n_e"]),
+                         np.radians(np.linspace(3.0, 89.0, conf["n_a"])),
+                         indexing="ij")
+    every = conf["every"]
+
+    def run(device, rows, dtype, units):
+        e = torch.as_tensor(ee[rows], device=device).to(dtype)
+        a = torch.as_tensor(aa[rows], device=device).to(dtype)
+        sync(device)
+        t0 = time.perf_counter()
+        out = bounce_averaged(e, a, 4.0, env, spec, n_lat=conf["n_lat"],
+                              n_grid=conf["n_grid"],
+                              n_bisect=conf["n_bisect"], momentum_units=units)
+        out = {k: v.cpu().numpy().astype(np.float64) if v.is_floating_point()
+               else v.cpu().numpy() for k, v in out.items()}
+        sync(device)
+        return out, time.perf_counter() - t0
+
+    run(dev, slice(None, None, 11), torch.float64, "si")     # warm-up
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    m64, wall = run(dev, slice(None), torch.float64, "si")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    ref, wall_cpu = run(torch.device("cpu"), slice(None, None, every),
+                        torch.float64, "si")
+    m32, wall32 = run(dev, slice(None), torch.float32, "mc")
+    print(f"  {conf['n_e']} x {conf['n_a']} x n_lat {conf['n_lat']} x "
+          f"n_grid {conf['n_grid']}: card float64 {wall:.3f} s (peak "
+          f"{peak / 2**30:.2f} GiB allocated), float32 'mc' {wall32:.3f} s; "
+          f"the port on the CPU {wall_cpu:.3f} s for every {every}th energy "
+          f"row; on {card}; <D_aa> > 0 at "
+          f"{int((m64['daa'] > 0).sum())} of {m64['daa'].size} points, "
+          f"{int(m64['n_roots'].sum()):,} resonant roots", flush=True)
+
+    def row_errs(got, want):
+        """Relative errors where want is above 1e-6 of its row's maximum."""
+        big = np.abs(want) > 1e-6 * np.abs(want).max(axis=1, keepdims=True)
+        return (np.abs(got - want)
+                / np.maximum(np.abs(want), 1e-300))[big]
+
+    def row_err(got, want):
+        e = row_errs(got, want)
+        return float(e.max()) if e.size else 0.0
+
+    errs = {k: row_err(m64[k][::every], ref[k])
+            for k in ("daa", "dap", "dpp")}
+    check(max(errs.values()) <= 1e-9
+          and np.array_equal(m64["n_roots"][::every], ref["n_roots"]),
+          f"every {every}th energy row against the port on the CPU: D within "
+          "1e-9 where above 1e-6 of the row's maximum ("
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + "), root counts equal")
+    s = M_E * C_LIGHT
+    for k, unit in (("daa", 1.0), ("dap", s), ("dpp", s * s)):
+        e = row_errs(m32[k] * unit, m64[k])
+        print(f"  float32 'mc' against float64 (reported, not held), {k}: "
+              f"median {np.median(e):.2e}, 99th percentile "
+              f"{np.percentile(e, 99):.2e}, max {e.max():.2e}; "
+              f"{int((e > 1e-3).sum())} of {e.size} points beyond 1e-3")
+    print(f"  float32 root counts differ at "
+          f"{int((m32['n_roots'] != m64['n_roots']).sum())} points, float32 "
+          f"<D_aa> = 0 where float64's is not at "
+          f"{int(((m32['daa'] == 0) & (m64['daa'] != 0)).sum())}")
+    check(all(np.isfinite(v).all() for v in m32.values()),
+          "the float32 map finite")
+
+
+def two_belt_stage(dev, card):
+    """Phase 29 (d): examples/two_belt_structure.py as it runs, on the card
+    (precipitation_lifetime and evolve_radial through their CUDA graphs)
+    after a cut warm-up and on the CPU, against TWO_BELT_PINS; the
+    refilling's 6,000 CN steps again eagerly, bit for bit with the
+    chain's run through the graph, with the ms per step of each, and the
+    inverse iteration's ms per iteration both ways."""
+    import torch
+
+    from raytrace_tpu_torch import diffusion, fokker_planck
+    from raytrace_tpu_torch.models.medium import make_env_lat
+
+    env = make_env_lat()
+    warm = dict(TWO_BELT, l_probe=TWO_BELT["l_probe"][::8], n_steps=600,
+                save_every=200)
+    two_belt_chain(tiers_for(dev), env, conf=warm)
+    sync(dev)
+    t0 = time.perf_counter()
+    out = two_belt_chain(tiers_for(dev), env)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    # the port on the CPU, its refilling cut to a tenth of the steps (the
+    # eager CN step costs ~6 ms there)
+    t0 = time.perf_counter()
+    cpu = two_belt_chain(tiers_for(torch.device("cpu")), env,
+                         conf=dict(TWO_BELT, n_steps=600, save_every=100))
+    wall_cpu = time.perf_counter() - t0
+    fin = np.isfinite(out["tau"])
+    c = out["radial"]["args"][1]
+    print(f"  tau(L) on {int(fin.sum())} of {fin.size} probe shells "
+          f"(min {out['tau'][fin].min() / 86400:.3f} d), the slot's minimum "
+          f"f_eq {out['f_eq'][(c > 1.8) & (c < env.lppi)].min():.3e}; wall "
+          f"card {wall:.3f} s, the port on the CPU {wall_cpu:.3f} s with 600 "
+          f"of the 6,000 CN steps, on {card}", flush=True)
+    pins, every = TWO_BELT_PINS, TWO_BELT_EVERY
+    tau_p = np.array(pins["tau"])
+    check(np.array_equal(fin, np.isfinite(tau_p))
+          and rel_err(out["tau"][fin], tau_p[fin]).max() <= 1e-8,
+          f"tau(L) within 1e-8 of the JAX package's on a CPU "
+          f"({rel_err(out['tau'][fin], tau_p[fin]).max():.2e})")
+    errs = {k: float(rel_err(out[k][::every], np.array(pins[k])).max())
+            for k in ("f_bnd", "f_src_unit", "f_free", "f_eq")}
+    errs["s0"] = abs(out["s0"] - pins["s0"]) / pins["s0"]
+    errs["snaps"] = float(rel_err(out["snaps"][:, ::every].ravel(),
+                                  np.ravel(pins["snaps"])).max())
+    check(max(errs.values()) <= 1e-9,
+          "the equilibria and the snapshots within 1e-9 of the JAX "
+          "package's (" + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + ")")
+    print("  card against the port on the CPU: " + ", ".join(
+        f"{k} {worst_rel(out[k], cpu[k]):.2e}"
+        for k in ("tau", "f_bnd", "f_eq", "f_free")))
+
+    # the refilling again, eagerly, against the chain's run through the
+    # graph
+    args, kw = out["radial"]["args"], out["radial"]["kw"]
+    sync(dev)
+    t0 = time.perf_counter()
+    f_end, snaps = tiers_for(dev, graph=False).evolve_radial(*args, **kw)
+    sync(dev)
+    wall_eager, wall_graph = time.perf_counter() - t0, out["radial_s"]
+    same = (np.array_equal(f_end, out["f_end"])
+            and np.array_equal(snaps, out["snaps"]))
+    n_steps = kw["n_steps"]
+    print(f"  evolve_radial, {n_steps} CN steps of {len(args[1])} cells: "
+          f"eager {wall_eager:.3f} s ({wall_eager / n_steps * 1e3:.4f} "
+          f"ms a step), CUDA graph {wall_graph:.3f} s "
+          f"({wall_graph / n_steps * 1e3:.4f} ms a step, the capture "
+          f"included), on {card}", flush=True)
+    check(same, "evolve_radial through the CUDA graph equals the eager loop "
+                "bit for bit (every snapshot and the final state)")
+
+    # the inverse iteration both ways, on the shell L = 3
+    import math
+
+    l_shell = 3.0
+    rl = 1.0 / l_shell
+    a_lc = math.asin(math.sqrt(rl**3 / math.sqrt(4.0 - 3.0 * rl)))
+    centers = fokker_planck.make_grid(a_lc, TWO_BELT["nc"], dev)[0]
+    daa = diffusion.bounce_averaged(
+        1000.0 * TWO_BELT["e_mev"], centers, l_shell, env,
+        diffusion.WaveSpectrum(**TWO_BELT["spec"]), **TWO_BELT["ba"])["daa"]
+    daa = torch.clamp(daa, min=1e-8 * float(daa.max()))
+    per, taus = {}, {}
+    for graph in (False, True):
+        ts = []
+        for n_iter in (64, 1024):
+            sync(dev)
+            t0 = time.perf_counter()
+            taus[graph, n_iter] = float(fokker_planck.precipitation_lifetime(
+                daa, a_lc, n_cells=TWO_BELT["nc"], n_iter=n_iter,
+                graph=graph))
+            sync(dev)
+            ts.append(time.perf_counter() - t0)
+        per[graph] = (ts[1] - ts[0]) / (1024 - 64)
+    print(f"  precipitation_lifetime at L = 3 ({TWO_BELT['nc']} cells): "
+          f"eager {per[False] * 1e3:.4f} ms an iteration, CUDA graph "
+          f"{per[True] * 1e3:.4f} ms; tau {taus[True, 64]:.6e} s, on {card}")
+    check(all(taus[False, n] == taus[True, n] for n in (64, 1024)),
+          "precipitation_lifetime through the CUDA graph equals the eager "
+          "loop bit for bit")
 
 
 def main():
@@ -2850,7 +3503,8 @@ def main():
     trajectory_kernel("ensemble10k_plume (3D full, team)",
                       "ensemble10k_plume", dev, every=10, n_outer=8,
                       team=True)
-    launches_traj = trajectory_slice(dev, card, out4, wall4, launches_2d)
+    launches_traj, traj25, f25, env25 = trajectory_slice(
+        dev, card, out4, wall4, launches_2d)
     t_blk = time_instance("ensemble10k", "float32", "bs3", dev, n=32,
                           reps=20)
     print_timing("float32 bs3, one trajectory block", t_blk, card)
@@ -2869,6 +3523,20 @@ def main():
     phase("[28] landing sensitivity: the canonical ray and run("
           "sensitivity_rays=4)")
     sensitivity_phase(dev, card)
+
+    # ---- 29. the wave-particle chain -------------------------------------
+    phase("[29] the wave-particle chain: growth along rays, quasi-linear "
+          "diffusion, pitch-angle Fokker-Planck, radial transport")
+    print("  (a) examples/lightning_to_lifetimes.py", flush=True)
+    launches_fan, err_fan, t_fan = lightning_stage(dev, card)
+    print("  (b) growth along the ensemble10k trajectory of phase 25",
+          flush=True)
+    trajectory_gain_stage(dev, card, traj25, f25, env25)
+    del traj25
+    print("  (c) the diffusion map of examples/diffusion_map.py", flush=True)
+    diffusion_map_stage(dev, card)
+    print("  (d) examples/two_belt_structure.py", flush=True)
+    two_belt_stage(dev, card)
     phase("[done]")
 
     def entry(name, launches, err, t, tail=None, team=False):
@@ -2941,6 +3609,8 @@ def main():
               launches_altx["local"], *altx["local"], tails_altx["local"]),
         entry("step_chunk[2d_lat+multi_ion+legacy,float32,dopri5]",
               launches_altx["emic"], *altx["emic"], tails_altx["emic"]),
+        entry("step_chunk[2d_lat,float64,dopri5](trajectory block, 25 "
+              "attempts, the lightning fan)", launches_fan, err_fan, t_fan),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -27,6 +27,7 @@ from ..constants import RE
 from ..ops import rhs as rhs_mod
 from . import events
 from .events import StopSpec
+from .graph import GraphLoop
 from .steppers import (
     bs3_step, dopri5_step, heun21_step, rk4_step, ros2_step, ros2x_step,
     ros3pr_step, ros4x_step,
@@ -529,32 +530,13 @@ def _graph_loop(rhs_fn, carry: RayCarry, f, cfg, spec, group_idx, adaptive,
                 stepper, n_steps, check_every):
     """step_loop through a CUDA graph of one `_step_one` that updates a
     static carry in place (fresh buffers: init_carry's fields share
-    storage), captured after one warm-up attempt on a side stream."""
+    storage): graph.GraphLoop, leaving once no ray is ACTIVE."""
     static = RayCarry(*(x.clone() for x in carry))
     fs = f.clone()
-
-    def attempt():
-        out = _step_one(rhs_fn, static, fs, cfg, spec, group_idx, adaptive,
-                        stepper)
-        for dst, src in zip(static, out):
-            if src is not dst:
-                dst.copy_(src)
-
-    side = torch.cuda.Stream(device=f.device)
-    side.wait_stream(torch.cuda.current_stream(f.device))
-    with torch.cuda.stream(side):
-        _step_one(rhs_fn, static, fs, cfg, spec, group_idx, adaptive,
-                  stepper)
-    torch.cuda.current_stream(f.device).wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        attempt()
-    for i in range(n_steps):
-        if i % check_every == 0 and not bool(
-                (static.status == events.ACTIVE).any()):
-            break
-        g.replay()
-    return static
+    loop = GraphLoop(lambda c: _step_one(rhs_fn, c, fs, cfg, spec, group_idx,
+                                         adaptive, stepper), static)
+    return loop.run(n_steps, check_every=check_every,
+                    until=lambda c: ~(c.status == events.ACTIVE).any())
 
 
 def _trace_blocks(rhs_fn, group_idx, carry0, f, env, cfg, spec, n_outer,

@@ -4,18 +4,26 @@ Takes and returns numpy arrays and Python scalars and never imports jax,
 so the tests can step the very same state through both packages: a JAX
 NamedTuple converts through its `_asdict()`, and a dict returned here
 converts back with `JaxType(**d)`. Carries of either frame (4-state 2D,
-7-state 3D) convert alike: the state dimension is the arrays' own.
+7-state 3D) convert alike: the state dimension is the arrays' own. The
+physics tiers' dataclasses (WaveSpectrum, HotElectrons, HotProtons)
+convert from the JAX package's instances or their fields.
 """
+
+import dataclasses
 
 import numpy as np
 import torch
 
+from .diffusion import WaveSpectrum
+from .growth import HotElectrons, HotProtons
 from .integrate.events import StopSpec
 from .integrate.solve import RayCarry, SolverConfig
 from .models.medium import EnvParams
 
 
 def _fields(obj):
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.asdict(obj)
     return obj._asdict() if hasattr(obj, "_asdict") else dict(obj)
 
 
@@ -68,3 +76,19 @@ def stop_spec_from(spec):
     """The port's StopSpec from any NamedTuple with its fields."""
     d = _fields(spec)
     return StopSpec(**{k: float(d[k]) for k in StopSpec._fields})
+
+
+def spectrum_from_numpy(fields):
+    """The port's diffusion.WaveSpectrum from a JAX WaveSpectrum (or a
+    mapping of its fields)."""
+    d = _fields(fields)
+    return WaveSpectrum(**{k: (v if k == "directions" else float(v))
+                           for k, v in d.items()})
+
+
+def hot_from_numpy(fields):
+    """The port's growth.HotProtons from a JAX HotProtons, else
+    growth.HotElectrons, from the instance or a mapping of its fields."""
+    cls = HotProtons if type(fields).__name__ == "HotProtons" \
+        else HotElectrons
+    return cls(**{k: float(v) for k, v in _fields(fields).items()})

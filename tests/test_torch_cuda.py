@@ -636,6 +636,31 @@ def test_sensitivity_graph_matches_eager_on_the_card(cuda):
     assert np.isfinite(out["jac"]).all()
 
 
+def test_tier_loops_graph_matches_eager_on_the_card(cuda):
+    """evolve_cn and precipitation_lifetime through their CUDA graphs (one
+    CN step, one inverse iteration replayed by integrate.graph.GraphLoop)
+    give the eager loop's values bit for bit, float64, a batch of two."""
+    from raytrace_tpu_torch import fokker_planck as fp
+    from raytrace_tpu_torch import radial
+
+    grid = radial.make_l_grid(1.6, 6.4, 48, device=cuda)
+    dll = radial.dll_power_law(grid[1], d0=3e-8)
+    f0 = torch.stack([torch.zeros(48, dtype=torch.float64, device=cuda),
+                      torch.linspace(0.0, 1.0, 48, dtype=torch.float64,
+                                     device=cuda)])
+    runs = [radial.evolve_radial(f0, *grid[:3], dll, dt=1e4, n_steps=50,
+                                 save_every=20, graph=g) for g in (False, True)]
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
+    a_lc = 0.2
+    centers = fp.make_grid(a_lc, 32, cuda)[0]
+    daa = torch.stack([1e-4 * torch.cos(centers) ** 2, 1e-3 + 0 * centers])
+    taus = [fp.precipitation_lifetime(daa, a_lc, n_cells=32, n_iter=24,
+                                      graph=g) for g in (False, True)]
+    assert torch.equal(*taus)
+    assert torch.isfinite(taus[0]).all()
+
+
 def _plain_trajectory(carry, f, env, cfg, spec, kw, n_outer, save_every,
                       save_fn):
     """trace's trajectory channel through the plain version: a snapshot

@@ -183,8 +183,8 @@ def _python(*args, cwd=REPO):
 
 
 def test_port_never_imports_jax():
-    # every module of the package (the 3D slice's and the trajectory
-    # channel's included) and the smoke
+    # every module of the package (the 3D slice's, the trajectory
+    # channel's and the physics tiers' included) and the smoke
     proc = _python("-c", (
         "import importlib, pkgutil, sys\n"
         "import raytrace_tpu_torch, raytrace_tpu_torch.__main__, chip_smoke\n"
@@ -192,7 +192,8 @@ def test_port_never_imports_jax():
         "'raytrace_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "for m in ('ops.fused', 'integrate.saving', 'parallel.checkpoint',"
-        " 'utils.runrecord', 'utils.profiling', 'utils.debug'):\n"
+        " 'utils.runrecord', 'utils.profiling', 'utils.debug', 'growth',"
+        " 'diffusion', 'fokker_planck', 'radial', 'drift'):\n"
         "    assert 'raytrace_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'raytrace_tpu' or m.startswith('raytrace_tpu.')]\n"
