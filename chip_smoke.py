@@ -7,7 +7,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 Phases, each printed as it runs; any failed check exits non-zero:
   1. the card (nvidia-smi name and power limit), CUDA version, and the
-     build of the step kernel (csrc/step_chunk.cu) from the checkout;
+     builds of the step kernel (csrc/step_chunk.cu) and of the 2D
+     Fokker-Planck CN/CG kernel (csrc/cn_pcg_2d.cu) from the checkout, all
+     their nvcc processes started together;
   2. the kernel against its plain PyTorch version on the same carries:
      every 10th ray of the ensemble10k launch, float64 (1 and 128 steps)
      and float32 (1 step, all 10,240 rays), bs3 and dopri5; then both
@@ -95,7 +97,9 @@ Phases, each printed as it runs; any failed check exits non-zero:
      team body); ensemble10k float32 at full width with save_every=32 and
      the diagnostics through run.run: the (625, 10240, 4) trajectory, its
      wall beside the final-state run's, its launches, host buffer and
-     bytes fetched; its final states against phase 4's; the
+     bytes fetched; the rays with a non-finite diagnostic against the
+     reference's census (TRAJ_NONFINITE); its final states against phase
+     4's; the
      rounds-assembled trajectory against use_rounds=False (pinned bs3)
      bit for bit; one block's launch (10,240 rays x 32 attempts) timed;
  26. the instances of the modes over the full and extended media (ALTX:
@@ -128,7 +132,20 @@ Phases, each printed as it runs; any failed check exits non-zero:
      memory) and in float32 'mc' against float64; (d)
      examples/two_belt_structure.py as it runs against the JAX package's
      numbers, the refilling's CN steps and the inverse iteration eagerly
-     and as CUDA graphs, bit for bit, with their ms per step.
+     and as CUDA graphs, bit for bit, with their ms per step;
+ 30. the 2D pitch-angle x momentum Fokker-Planck solver
+     (fokker_planck_2d.py): (a) the CN/CG kernel (csrc/cn_pcg_2d.cu, one
+     launch an evolution) against its plain version through GraphLoop on
+     examples/chorus_acceleration.py's operator and seed, the first 180
+     CN steps in float64 and float32 (the snapshot and each step's CG
+     count), each timed per CN step beside the plain version's CUDA
+     graph and (4 steps) its eager loop, with the graph against the eager
+     loop bit for bit; (b) examples/chorus_acceleration.py and
+     examples/belt_competition.py as they run, through the kernel (the
+     tensors from the port's bounce_averaged on the card, 1,440 CN steps
+     with 8 snapshots), against the JAX package's float64 numbers on a
+     CPU (FP2D_PINS), float32 reported beside them; gamma_oblique at
+     harmonics -3..3 on the card against the CPU.
 Each run through run.run checks the body its launches took (the team
 body's launch count, ops/step_chunk.py) and replays its last launch, the
 merged tail where the run has one (kernel_ab.replay_tail), for the
@@ -548,6 +565,16 @@ SENS_CANON = dict(amp=7226.344438315766, jac11=-7226.344438315766,
 # H100 80GB HBM3, 700.00 W; PERF.md)
 AXI_3D_MS = 3.203
 
+# phase 25: ensemble10k's rays with a non-finite diagnostic in some
+# snapshot row (the reference's unguarded 1/mu and 1/F): in any column,
+# in mu, in dmu/dpsi. The JAX package's run() on a CPU (save_every=32,
+# save_diagnostics=True) gives the same 377 rays in float32 and in
+# float64, 374 of them in mu and 377 in dmu/dpsi (ROADMAP C). The card's
+# float32 run has the same 377 and 377 and 373 in mu: one ray's mu
+# column stays finite on the card (a float32 census, held as the others
+# are to the platforms' band: here one ray)
+TRAJ_NONFINITE = (377, 374, 377)
+
 # peaks of one H100 SXM (NVIDIA's data sheet): 67 TFLOP/s float32 and
 # 34 TFLOP/s float64 outside the tensor cores, 3.35 TB/s of HBM
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}
@@ -649,6 +676,445 @@ TWO_BELT_PINS = dict(
             0.00056345328946331, 2.6564424922488534e-05, 2.320219568247506e-06,
             0.351421542697638, 0.7115652946331127, 0.8768811397863312,
             0.9582274060986502]])
+
+# Phase 30: the 2D Fokker-Planck chain of examples/chorus_acceleration.py
+# and examples/belt_competition.py (L = 4.5, lower-band chorus of 100 pT,
+# H-band EMIC of 1 nT, a 48 x 56 (alpha_eq, p) grid from 30 keV to 6 MeV,
+# 1,440 CN steps of 120 s, 8 snapshots), in float64
+CHORUS = dict(l_shell=4.5, bw_chorus_pt=100.0, bw_emic_nt=1.0, dt=120.0,
+              n_steps=1440, n_snaps=8, n_a=48, n_p=56, e_min=30.0,
+              e_max=6000.0, e_fold=150.0, lat_cut=15.0, lat_cut_emic=20.0,
+              ba=dict(n_lat=32, n_grid=256, n_bisect=26,
+                      momentum_units="mc"))
+
+
+# The JAX package's float64 numbers of both examples on a CPU at their
+# sizes (tests/test_torch_fokker_planck_2d.py run as a script: the tensors
+# through its jitted bounce_averaged_jax, the evolutions through its
+# evolve_cn_2d, as the examples run them), 12 digits: chorus_acceleration's
+# run (its chorus-only run is belt_competition's too) and
+# belt_competition's combined run -- the 1 and 3 MeV PSD gains at 80 deg,
+# content_2d at the end, the trapped > 1 MeV content of every snapshot,
+# the last snapshot's 3 MeV pitch-angle profile and the 80 deg rows (every
+# snapshot's of the chorus run, the last one's of the combined run)
+FP2D_PINS = dict(
+    chorus=dict(
+        gain=[1.560799514696e+00, 5.561873494850e+05],
+        content=5.632265233820e-02,
+        trapped=[2.026730252879e-02, 3.076735976329e-02, 3.548061197058e-02,
+                 3.770371544644e-02, 3.878848161028e-02, 3.932253572126e-02,
+                 3.957899234028e-02, 3.969054196341e-02],
+        prof3=[1.447915045440e-09, 1.447915045440e-09, 1.447915045440e-09,
+               1.447915045440e-09, 1.447915045440e-09, 1.447915045440e-09,
+               1.447915045440e-09, 1.447915045440e-09, 1.447915045440e-09,
+               1.447915045440e-09, 1.447915045440e-09, 1.447915045440e-09,
+               1.447915045440e-09, 1.447915045440e-09, 1.447915045440e-09,
+               1.447915045440e-09, 1.447915045440e-09, 1.447915045440e-09,
+               1.447915045440e-09, 1.447915045440e-09, 1.447915045440e-09,
+               1.447915045440e-09, 1.447915045440e-09, 1.447915045440e-09,
+               1.447915045440e-09, 1.447915045440e-09, 1.447915045440e-09,
+               1.447915045440e-09, 1.447915045440e-09, 1.749546628138e-03,
+               1.655195510148e-03, 1.557268275993e-03, 1.461924176488e-03,
+               1.368696506998e-03, 1.279819486053e-03, 1.196143299741e-03,
+               1.119090331084e-03, 1.048629525357e-03, 9.854480291652e-04,
+               9.296286602643e-04, 8.812253505628e-04, 8.398925544210e-04,
+               8.053120314028e-04, 7.776942262341e-04, 7.560585868396e-04,
+               7.368788060203e-04, 7.196594299006e-04, 7.060338858288e-04],
+        rows80=[[8.080791431421e-01, 7.855686475327e-01,
+                 7.609326906368e-01, 7.340994003330e-01,
+                 7.050281270243e-01, 6.737179940985e-01,
+                 6.402167689873e-01, 6.046295211655e-01,
+                 5.671263577149e-01, 5.279483664645e-01,
+                 4.874107824616e-01, 4.459023633314e-01,
+                 4.038800519569e-01, 3.618582531268e-01,
+                 2.550916014819e-03, 5.066732588788e-03,
+                 8.392992105052e-03, 1.234593474162e-02,
+                 1.657804734330e-02, 2.067140767667e-02,
+                 2.421242412783e-02, 2.684871103680e-02,
+                 2.833976107059e-02, 2.858906109157e-02,
+                 2.765942148313e-02, 2.576452963247e-02,
+                 2.321413276689e-02, 2.034962285223e-02,
+                 1.747216989110e-02, 1.479546179635e-02,
+                 1.243638464218e-02, 1.044005088204e-02,
+                 8.793166909601e-03, 7.435751339709e-03,
+                 6.311481367657e-03, 5.361042224967e-03,
+                 4.540391465139e-03, 3.808908136863e-03,
+                 3.125423668544e-03, 2.477645249732e-03,
+                 1.875012159179e-03, 1.331245146649e-03,
+                 8.721386364492e-04, 5.137687037054e-04,
+                 2.606818832351e-04, 1.037318797061e-04,
+                 2.237526007172e-05, -8.311409976324e-06,
+                 -1.264498797043e-05, -7.646168559659e-06,
+                 -2.486993142890e-06, 5.409286592617e-08,
+                 5.579674451405e-07, 3.044808043287e-07,
+                 4.868845148694e-08, -4.626370333599e-08],
+                [8.080791431421e-01, 7.855686475327e-01,
+                 7.609326906368e-01, 7.340994003330e-01,
+                 7.050281270243e-01, 6.737179940985e-01,
+                 6.402167689873e-01, 6.046295211655e-01,
+                 5.671263577149e-01, 5.279483664645e-01,
+                 4.874107824616e-01, 4.459023633314e-01,
+                 4.038800519569e-01, 3.618582531268e-01,
+                 7.018681620785e-04, 1.482416751732e-03,
+                 2.554070271313e-03, 3.877248051177e-03,
+                 5.363059426999e-03, 6.890520995940e-03,
+                 8.329166255793e-03, 9.560412561416e-03,
+                 1.049386165897e-02, 1.106636640316e-02,
+                 1.124770701246e-02, 1.105396373644e-02,
+                 1.054771762108e-02, 9.824385301066e-03,
+                 8.987924538825e-03, 8.128073572184e-03,
+                 7.307901730546e-03, 6.565073732183e-03,
+                 5.912787679290e-03, 5.341919406516e-03,
+                 4.839876720589e-03, 4.388087005598e-03,
+                 3.970806546063e-03, 3.570622381504e-03,
+                 3.165167121943e-03, 2.743814073154e-03,
+                 2.307055543772e-03, 1.860390255669e-03,
+                 1.423481815215e-03, 1.018464888820e-03,
+                 6.675418318634e-04, 3.882396115782e-04,
+                 1.882250217542e-04, 6.443737761254e-05,
+                 1.762004527108e-06, -1.915149969799e-05,
+                 -1.789692452104e-05, -9.791398351547e-06,
+                 -2.921176698001e-06, 4.752152476576e-07,
+                 1.313119818647e-06, 1.236808187675e-06],
+                [8.080791431421e-01, 7.855686475327e-01,
+                 7.609326906368e-01, 7.340994003330e-01,
+                 7.050281270243e-01, 6.737179940985e-01,
+                 6.402167689873e-01, 6.046295211655e-01,
+                 5.671263577149e-01, 5.279483664645e-01,
+                 4.874107824616e-01, 4.459023633314e-01,
+                 4.038800519569e-01, 3.618582531268e-01,
+                 3.021606040496e-04, 6.592024534376e-04,
+                 1.158392687287e-03, 1.786096648149e-03,
+                 2.506117646730e-03, 3.267064711513e-03,
+                 4.010293405791e-03, 4.681020561614e-03,
+                 5.237099553114e-03, 5.646664223126e-03,
+                 5.887942345790e-03, 5.957020866721e-03,
+                 5.871490726454e-03, 5.666380757294e-03,
+                 5.384451638395e-03, 5.066072772345e-03,
+                 4.742677284074e-03, 4.435513147253e-03,
+                 4.154790425335e-03, 3.899851745321e-03,
+                 3.667095526782e-03, 3.448941592710e-03,
+                 3.237963147517e-03, 3.024871507869e-03,
+                 2.796088268381e-03, 2.542332411726e-03,
+                 2.259097210709e-03, 1.944743973164e-03,
+                 1.607852001531e-03, 1.262412571917e-03,
+                 9.274747502724e-04, 6.248912944691e-04,
+                 3.739207786208e-04, 1.873704310151e-04,
+                 6.572583540537e-05, 9.931517936937e-07,
+                 -2.211401970205e-05, -2.201348989173e-05,
+                 -1.329164699243e-05, -4.736314062164e-06,
+                 3.518656595183e-07, 2.262699224366e-06],
+                [8.080791431421e-01, 7.855686475327e-01,
+                 7.609326906368e-01, 7.340994003330e-01,
+                 7.050281270243e-01, 6.737179940985e-01,
+                 6.402167689873e-01, 6.046295211655e-01,
+                 5.671263577149e-01, 5.279483664645e-01,
+                 4.874107824616e-01, 4.459023633314e-01,
+                 4.038800519569e-01, 3.618582531268e-01,
+                 1.647128229452e-04, 3.680429464914e-04,
+                 6.558767617985e-04, 1.022376597688e-03,
+                 1.448793131258e-03, 1.907581058814e-03,
+                 2.366222701840e-03, 2.793588539778e-03,
+                 3.165422167117e-03, 3.463277982306e-03,
+                 3.673677850692e-03, 3.791881331102e-03,
+                 3.824152626876e-03, 3.785935476808e-03,
+                 3.697402414657e-03, 3.578703883647e-03,
+                 3.446687984310e-03, 3.313677327217e-03,
+                 3.186561579531e-03, 3.066563763760e-03,
+                 2.952779840210e-03, 2.841742851085e-03,
+                 2.729432675851e-03, 2.610278349996e-03,
+                 2.475382533625e-03, 2.317006263423e-03,
+                 2.129057869461e-03, 1.906618347881e-03,
+                 1.651434535911e-03, 1.370385700107e-03,
+                 1.076355514936e-03, 7.880790185388e-04,
+                 5.262783230452e-04, 3.098379429631e-04,
+                 1.487651304356e-04, 4.533810297597e-05,
+                 -7.622429855134e-06, -2.526759189627e-05,
+                 -2.324115629150e-05, -1.432778313943e-05,
+                 -6.458572598654e-06, -2.562629509823e-06],
+                [8.080791431421e-01, 7.855686475327e-01,
+                 7.609326906368e-01, 7.340994003330e-01,
+                 7.050281270243e-01, 6.737179940985e-01,
+                 6.402167689873e-01, 6.046295211655e-01,
+                 5.671263577149e-01, 5.279483664645e-01,
+                 4.874107824616e-01, 4.459023633314e-01,
+                 4.038800519569e-01, 3.618582531268e-01,
+                 1.058435278900e-04, 2.410192908334e-04,
+                 4.341556317273e-04, 6.823688115494e-04,
+                 9.741831146784e-04, 1.292170224689e-03,
+                 1.615297083515e-03, 1.923022446372e-03,
+                 2.199067008952e-03, 2.431222287900e-03,
+                 2.610691616223e-03, 2.733843290793e-03,
+                 2.803304760000e-03, 2.826883434073e-03,
+                 2.815303810640e-03, 2.779777258322e-03,
+                 2.730222706890e-03, 2.674310063178e-03,
+                 2.616809703388e-03, 2.559352782521e-03,
+                 2.502026407729e-03, 2.443199512242e-03,
+                 2.380518419194e-03, 2.310381800615e-03,
+                 2.226616735019e-03, 2.122865877723e-03,
+                 1.992922810698e-03, 1.830732917028e-03,
+                 1.634452491059e-03, 1.406353016853e-03,
+                 1.154179069765e-03, 8.921951379908e-04,
+                 6.388126798233e-04, 4.136945416315e-04,
+                 2.311531961579e-04, 1.000474777339e-04,
+                 2.032175201929e-05, -1.802568378994e-05,
+                 -2.848340839630e-05, -2.479742198169e-05,
+                 -1.781795114435e-05, -1.350053594757e-05],
+                [8.080791431421e-01, 7.855686475327e-01,
+                 7.609326906368e-01, 7.340994003330e-01,
+                 7.050281270243e-01, 6.737179940985e-01,
+                 6.402167689873e-01, 6.046295211655e-01,
+                 5.671263577149e-01, 5.279483664645e-01,
+                 4.874107824616e-01, 4.459023633314e-01,
+                 4.038800519569e-01, 3.618582531268e-01,
+                 7.687862019386e-05, 1.776575365218e-04,
+                 3.226437793122e-04, 5.102518747042e-04,
+                 7.324964481939e-04, 9.768861631901e-04,
+                 1.228106550067e-03, 1.470970905850e-03,
+                 1.693268695066e-03, 1.885983597874e-03,
+                 2.042816458949e-03, 2.160981781291e-03,
+                 2.241674993750e-03, 2.289329696457e-03,
+                 2.310354178067e-03, 2.311741072901e-03,
+                 2.299971283187e-03, 2.280260476605e-03,
+                 2.256135698640e-03, 2.229265045886e-03,
+                 2.200142500682e-03, 2.168042158544e-03,
+                 2.131512609541e-03, 2.088090313630e-03,
+                 2.033285122138e-03, 1.961866372265e-03,
+                 1.868060245746e-03, 1.745685426448e-03,
+                 1.591176731464e-03, 1.404070268155e-03,
+                 1.188454145699e-03, 9.545844488354e-04,
+                 7.176072293502e-04, 4.956517411891e-04,
+                 3.042018345852e-04, 1.556014867648e-04,
+                 5.487198302119e-05, -3.055297958924e-06,
+                 -2.826259831092e-05, -3.341614152845e-05,
+                 -3.041819580787e-05, -2.727346211022e-05],
+                [8.080791431421e-01, 7.855686475327e-01,
+                 7.609326906368e-01, 7.340994003330e-01,
+                 7.050281270243e-01, 6.737179940985e-01,
+                 6.402167689873e-01, 6.046295211655e-01,
+                 5.671263577149e-01, 5.279483664645e-01,
+                 4.874107824616e-01, 4.459023633314e-01,
+                 4.038800519569e-01, 3.618582531268e-01,
+                 6.110371042172e-05, 1.427351517572e-04,
+                 2.607491965112e-04, 4.141895274305e-04,
+                 5.969223457737e-04, 7.991236173614e-04,
+                 1.008611183199e-03, 1.213168842500e-03,
+                 1.402881848972e-03, 1.570517788592e-03,
+                 1.711146679083e-03, 1.822487320009e-03,
+                 1.905081509092e-03, 1.961733262537e-03,
+                 1.996730793711e-03, 2.014946452272e-03,
+                 2.021067245209e-03, 2.018972607932e-03,
+                 2.011461859722e-03, 2.000147650522e-03,
+                 1.985699492902e-03, 1.967867926495e-03,
+                 1.945725507422e-03, 1.917508736798e-03,
+                 1.879819009757e-03, 1.828314089668e-03,
+                 1.757807562510e-03, 1.662418900461e-03,
+                 1.537860634453e-03, 1.382116986120e-03,
+                 1.196812672554e-03, 9.890346256133e-04,
+                 7.707814026088e-04, 5.578629003483e-04,
+                 3.653072771936e-04, 2.068998784189e-04,
+                 9.091060711486e-05, 1.632000084670e-05,
+                 -2.338141489942e-05, -3.874494862786e-05,
+                 -4.139630935732e-05, -4.042239692280e-05],
+                [8.080791431421e-01, 7.855686475327e-01,
+                 7.609326906368e-01, 7.340994003330e-01,
+                 7.050281270243e-01, 6.737179940985e-01,
+                 6.402167689873e-01, 6.046295211655e-01,
+                 5.671263577149e-01, 5.279483664645e-01,
+                 4.874107824616e-01, 4.459023633314e-01,
+                 4.038800519569e-01, 3.618582531268e-01,
+                 5.172886657470e-05, 1.217405332288e-04,
+                 2.232896736983e-04, 3.557474251367e-04,
+                 5.140492348114e-04, 6.899426093264e-04,
+                 8.731126418956e-04, 1.053133609432e-03,
+                 1.221502473012e-03, 1.372071207273e-03,
+                 1.500708043066e-03, 1.605429334255e-03,
+                 1.686447126565e-03, 1.745718115943e-03,
+                 1.786414281356e-03, 1.812268954708e-03,
+                 1.826976005439e-03, 1.833651856255e-03,
+                 1.834655250956e-03, 1.831525938767e-03,
+                 1.825008443748e-03, 1.815117341779e-03,
+                 1.801247527046e-03, 1.782089934891e-03,
+                 1.754986374700e-03, 1.716289940031e-03,
+                 1.661399937184e-03, 1.584887776853e-03,
+                 1.482257129521e-03, 1.350647151599e-03,
+                 1.190055825231e-03, 1.005177168024e-03,
+                 8.053120314028e-04, 6.038661532231e-04,
+                 4.146830066509e-04, 2.517925047403e-04,
+                 1.253827429030e-04, 3.753837792203e-05,
+                 -1.500244798272e-05, -4.033354440774e-05,
+                 -4.905916638728e-05, -5.064392658595e-05]]),
+    sum=dict(
+        gain=[8.105347599729e-01, 2.341733401759e+04],
+        content=2.480048292365e-02,
+        trapped=[1.951895056511e-02, 2.564627244509e-02, 2.436183159220e-02,
+                 2.098154952952e-02, 1.741006422744e-02, 1.423484810908e-02,
+                 1.158606928122e-02, 9.438772868997e-03],
+        prof3=[1.244637842333e-07, 3.077712396801e-07, 4.553159639176e-07,
+               5.807931181432e-07, 6.916276327221e-07, 7.923311672377e-07,
+               8.858840353475e-07, 9.743868839119e-07, 1.059415624424e-06,
+               1.142205918868e-06, 1.217228252879e-06, 1.286226980111e-06,
+               1.355185619037e-06, 1.424775591430e-06, 1.495648573250e-06,
+               1.568461919593e-06, 1.643902042409e-06, 1.722707676227e-06,
+               1.805694708613e-06, 1.893784221047e-06, 1.988035561527e-06,
+               2.089686639550e-06, 2.200204240405e-06, 2.321348072443e-06,
+               2.469650176429e-06, 2.657850553645e-06, 2.870290334632e-06,
+               3.152925179864e-06, 3.673908967678e-06, 5.375248411513e-06,
+               2.469163535864e-04, 2.211877967896e-04, 1.858284956873e-04,
+               1.598449002935e-04, 1.381660723261e-04, 1.188154512394e-04,
+               1.011562469567e-04, 8.517094649126e-05, 7.114679362930e-05,
+               5.902726745571e-05, 4.887322027315e-05, 4.053904067518e-05,
+               3.390631024817e-05, 2.886242709810e-05, 2.509009363606e-05,
+               2.187064534680e-05, 1.914016730586e-05, 1.710970916230e-05],
+        rows80=[[8.080791431421e-01, 7.855686475327e-01,
+                 7.609326906368e-01, 7.340994003330e-01,
+                 7.050281270243e-01, 6.737179940985e-01,
+                 6.402167689873e-01, 6.046295211655e-01,
+                 5.671263577149e-01, 5.279483664645e-01,
+                 4.874107824616e-01, 4.459023633314e-01,
+                 4.038800519569e-01, 3.618582531268e-01,
+                 3.607020810653e-05, 8.282973456110e-05,
+                 1.498918146441e-04, 2.363902754445e-04,
+                 3.384768159347e-04, 4.502141013143e-04,
+                 5.643691914454e-04, 6.736982067886e-04,
+                 7.725030855648e-04, 8.567880925281e-04,
+                 9.238009187215e-04, 9.722579800365e-04,
+                 1.002615328901e-03, 1.016861229919e-03,
+                 1.017989311511e-03, 1.009329622639e-03,
+                 9.940099115244e-04, 9.745923637457e-04,
+                 9.527500742186e-04, 9.290338515362e-04,
+                 9.033276767490e-04, 8.746261489759e-04,
+                 8.413649585166e-04, 8.011718874513e-04,
+                 7.500652028091e-04, 6.841077058926e-04,
+                 6.005867731833e-04, 4.993319159125e-04,
+                 3.860217272775e-04, 2.710508526644e-04,
+                 1.674499988951e-04, 8.666853972162e-05,
+                 3.390631024817e-05, 6.857655265170e-06,
+                 -2.634003610736e-06, -3.414317100795e-06,
+                 -1.757093313110e-06, -4.576231926424e-07,
+                 1.943008466153e-08, 7.701849487347e-08,
+                 2.515640977901e-08, -1.455931185336e-09]]),
+)
+
+
+# the examples' float64 numbers through the kernel against FP2D_PINS: the
+# port's plain version on a CPU (its own tensors, which are 2e-11 of their
+# max from JAX's) lands 9e-15 of the snapshots' max from them, the 80 deg
+# rows' entries within 6e-11 relative
+FP2D_RTOL = 1e-8
+
+
+def fp2d_grid(k, conf=CHORUS):
+    """The examples' grid, seed and wave spectra over `k` (a package's
+    side of the chain: its fokker_planck_2d, WaveSpectrum and the
+    electron gyrofrequency k.fce at the equator of L): (grid, e_c keV,
+    f0, chorus, emic)."""
+    import math
+
+    rl = 1.0 / conf["l_shell"]
+    a_lc = math.asin(math.sqrt(rl**3 / math.sqrt(4.0 - 3.0 * rl)))
+    grid = k.make_grid_2d(a_lc, conf["n_a"], k.p_from_energy(conf["e_min"]),
+                          k.p_from_energy(conf["e_max"]), conf["n_p"])
+    e_c = k.energy_from_p(grid.p_c)
+    f0 = np.exp(-e_c[None, :] / conf["e_fold"]) * np.ones((conf["n_a"], 1))
+    fce = k.fce
+    fcp = fce / 1836.15267
+    chorus = k.WaveSpectrum(bw_t=conf["bw_chorus_pt"] * 1e-12, f_m=0.30 * fce,
+                            df=0.10 * fce, f_lc=0.10 * fce, f_uc=0.45 * fce)
+    emic = k.WaveSpectrum(bw_t=conf["bw_emic_nt"] * 1e-9, f_m=0.6 * fcp,
+                          df=0.25 * fcp, f_lc=0.3 * fcp, f_uc=0.95 * fcp)
+    return grid, e_c, f0, chorus, emic
+
+
+def fp2d_tensors(k, grid, e_c, chorus, emic, conf=CHORUS):
+    """The bounce-averaged tensors (daa, dap, dpp) on the grid over `k`
+    (k.bounce_averaged on k.env), 'mc' units, float64 numpy: chorus
+    (whistler mode, |lam| <= 15 deg) and EMIC (n = -1, |lam| <= 20
+    deg)."""
+    def one(spec, mode, cut):
+        ba = k.bounce_averaged(e_c[None, :], grid.alpha_c[:, None],
+                               conf["l_shell"], k.env, spec,
+                               lat_cut_deg=cut, mode=mode, **conf["ba"])
+        return tuple(np.asarray(ba[q], np.float64)
+                     for q in ("daa", "dap", "dpp"))
+
+    return (one(chorus, "whistler", conf["lat_cut"]),
+            one(emic, "emic", conf["lat_cut_emic"]))
+
+
+def fp2d_for(dev, dtype, conf=CHORUS):
+    """The port's side of the 2D chain on `dev`, numpy in and out: the
+    operator and the evolution in `dtype` (the tensors are computed in
+    float64 and cast), evolve_cn_2d through the kernel on the card and
+    the plain version on the CPU."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from raytrace_tpu_torch import diffusion, fokker_planck_2d as fp2
+    from raytrace_tpu_torch.constants import FCE_E
+    from raytrace_tpu_torch.models import medium
+    from raytrace_tpu_torch.models.medium import make_env_lat
+
+    env = make_env_lat()
+    one = torch.ones((), dtype=torch.float64)
+    fce = FCE_E * float(medium.b_mag(conf["l_shell"] * one, 0.0 * one, env))
+
+    def bounce_averaged(*a, **kw):
+        ba = diffusion.bounce_averaged(*a, device=dev, **kw)
+        return {q: v.cpu().numpy() for q, v in ba.items()
+                if isinstance(v, torch.Tensor)}
+
+    def make_operator_2d(grid, *ten):
+        return fp2.make_operator_2d(
+            grid, *(torch.tensor(t, device=dev).to(dtype) for t in ten))
+
+    def evolve(f0, op, dt, n, every):
+        x = torch.as_tensor(f0, device=dev).to(dtype)
+        f_end, snaps = fp2.evolve_cn_2d(x, op, dt, n, save_every=every)
+        return f_end.cpu().numpy(), snaps.cpu().numpy()
+
+    return SimpleNamespace(
+        env=env, fce=fce, dtype=dtype, WaveSpectrum=diffusion.WaveSpectrum,
+        bounce_averaged=bounce_averaged, make_grid_2d=fp2.make_grid_2d,
+        p_from_energy=fp2.p_from_energy, energy_from_p=fp2.energy_from_p,
+        make_operator_2d=make_operator_2d, evolve_cn_2d=evolve,
+        content_2d=lambda op, f: float(fp2.content_2d(op, f)),
+        mass=lambda op: op.mass.cpu().numpy().astype(np.float64))
+
+
+def fp2d_chain(k, grid, e_c, f0, t_ch, t_em, conf=CHORUS):
+    """examples/chorus_acceleration.py's evolution and
+    examples/belt_competition.py's two (chorus only, chorus + EMIC) over
+    `k`, whose make_operator_2d, evolve_cn_2d and content_2d take and
+    return numpy (`k.dtype` the evolution's). Returns the numbers the
+    examples print and plot: the snapshots' alpha_eq = 80 deg rows, the
+    1 and 3 MeV PSD gains there, content_2d at the end, the last
+    snapshots' 3 MeV pitch-angle profiles and the trapped > 1 MeV content
+    of every snapshot, and each evolution's wall (`walls`, host clock
+    around a call that returns numpy)."""
+    import math
+
+    n_steps, every = conf["n_steps"], conf["n_steps"] // conf["n_snaps"]
+    i80 = int(np.argmin(np.abs(grid.alpha_c - math.radians(80.0))))
+    j1, j3 = (int(np.argmin(np.abs(e_c - e))) for e in (1000.0, 3000.0))
+    sel = e_c >= 1000.0
+    out, walls = {}, {}
+    t_sum = tuple(a + b for a, b in zip(t_ch, t_em))
+    for name, ten in (("chorus", t_ch), ("sum", t_sum)):
+        op = k.make_operator_2d(grid, *ten)
+        t0 = time.perf_counter()
+        f_end, snaps = k.evolve_cn_2d(f0, op, conf["dt"], n_steps, every)
+        walls[name] = time.perf_counter() - t0
+        mass = k.mass(op)
+        out[name] = dict(
+            rows80=snaps[:, i80], f_end=f_end, snaps=snaps,
+            gain=[float(snaps[-1, i80, j] / f0[i80, j]) for j in (j1, j3)],
+            content=float(k.content_2d(op, f_end)),
+            prof3=snaps[-1, :, j3],
+            trapped=np.array([(s * mass)[:, sel].sum() for s in snaps]))
+    out["walls"] = walls
+    return out
 
 
 def lightning_chain(k, traj, st_t, f_g, env, conf=LIGHTNING):
@@ -2183,8 +2649,16 @@ def trajectory_slice(dev, card, out32, wall32, launches32):
     check(np.isfinite(traj["u"][:, v]).all()
           and np.isfinite(traj["t"][:, v]).all(),
           "every snapshot's u and t finite")
-    bad = int((~np.isfinite(traj["extras"][:, v])).any(axis=(0, 2)).sum())
-    print(f"  rays with a non-finite diagnostic in some row: {bad}")
+    nonfin = ~np.isfinite(traj["extras"][:, v])
+    bad = int(nonfin.any(axis=(0, 2)).sum())
+    cols = [int(nonfin[..., c].any(axis=0).sum()) for c in range(4)]
+    print(f"  rays with a non-finite diagnostic in some row: {bad} (mu "
+          f"{cols[0]}, dmu/dpsi {cols[1]}, dip {cols[2]}, psi {cols[3]})")
+    n_any, n_mu, n_dmu = TRAJ_NONFINITE
+    check(bad == n_any and cols[1] == n_dmu and abs(cols[0] - n_mu) <= 1,
+          f"the rays with a non-finite diagnostic are the reference's: "
+          f"{n_any} in some column and {n_dmu} in dmu/dpsi, and {n_mu} in "
+          f"mu within one ray (the float32 platform band)")
 
     # the final states against the final-state run: the channel gives the
     # merged tail exactly its rows' attempts (14,880), the final-state
@@ -3000,6 +3474,234 @@ def two_belt_stage(dev, card):
           "loop bit for bit")
 
 
+def cg_ops(op, half):
+    """Operations of the CG loop on `op`, counted from the plain version
+    (fokker_planck_2d._cg_bodies) on the CPU: every pointwise aten op adds
+    its output's element count and every sum its input's, the masks'
+    selects (torch.where) left out -- the kernel has none. Returns (ops of
+    a step's set-up, ops of one iteration)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from raytrace_tpu_torch import fokker_planck_2d as fp2
+
+    op = type(op)(**{f: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                     for f, v in vars(op).items()})
+    setup, iterate = fp2._cg_bodies(op, half, 1.0 / (op.mass + half * op.diag),
+                                    1e-10, 500, 1)
+    x = torch.ones_like(op.mass)
+    state = (x, x, x, x.sum(), x.sum(), torch.zeros((), dtype=torch.int64),
+             torch.zeros((), dtype=torch.bool))
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in (torch.ops.aten.sum.default,
+                        torch.ops.aten.sum.dim_IntList):
+                Count.n += args[0].numel()
+            elif (torch.Tag.pointwise in func.tags
+                  and func is not torch.ops.aten.where.self):
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                Count.n += sum(o.numel() for o in outs
+                               if isinstance(o, torch.Tensor))
+            return out
+
+    counts = []
+    for body in (setup, iterate):
+        Count.n = 0
+        with Count():
+            body(state)
+        counts.append(Count.n)
+    return counts
+
+
+def fp2d_stage(dev, card):
+    """Phase 30: the 2D Fokker-Planck solver on the card, float64 unless
+    it says otherwise. (a) The kernel of csrc/cn_pcg_2d.cu against its
+    plain version through GraphLoop on chorus_acceleration's operator and
+    seed, the first 180 CN steps (one snapshot interval), float64 and
+    float32: the snapshot and each step's CG count, each timed per CN
+    step beside the plain graph's and (4 steps) the plain eager loop's.
+    (b) examples/chorus_acceleration.py and examples/belt_competition.py
+    as they run, through the kernel: the tensors from the port's
+    bounce_averaged (momentum_units='mc') on the card, the 1,440 steps
+    with 8 snapshots of the chorus-only and the combined runs (the
+    chorus-only run is both examples'), against FP2D_PINS; the same in
+    float32 reported; gamma_oblique with harmonics -3..3 on the card
+    against the CPU. Returns {dtype: (launches, max abs err, timing)} for
+    the kernels' record."""
+    import torch
+
+    from raytrace_tpu_torch import fokker_planck_2d as fp2
+    from raytrace_tpu_torch import growth
+    from raytrace_tpu_torch.ops import cn_pcg_2d as cg
+
+    conf = CHORUS
+    t0 = time.perf_counter()
+    cg.build()
+    print(f"  cn_pcg_2d built and loaded in {time.perf_counter() - t0:.1f} s"
+          f" (nvcc {cg.BUILD_SECONDS:.1f} s)")
+    for line in cg.BUILD_LOG.splitlines():
+        if any(w in line for w in ("registers", "spill")):
+            print("   ", line.strip())
+    k64 = fp2d_for(dev, torch.float64)
+    grid, e_c, f0, chorus, emic = fp2d_grid(k64)
+    sync(dev)
+    t0 = time.perf_counter()
+    t_ch, t_em = fp2d_tensors(k64, grid, e_c, chorus, emic)
+    sync(dev)
+    print(f"  the tensors on the {conf['n_a']} x {conf['n_p']} grid "
+          f"(bounce_averaged, 'mc', chorus and EMIC): "
+          f"{time.perf_counter() - t0:.3f} s on {card}", flush=True)
+
+    # (a) the kernel against the plain version, the first snapshot interval
+    every = conf["n_steps"] // conf["n_snaps"]
+    dt = conf["dt"]
+    tol_snap = {torch.float64: 1e-8, torch.float32: 1e-4}
+    tol_count = {torch.float64: 1, torch.float32: 3}
+    record = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[1]
+        op = fp2.make_operator_2d(grid, *(torch.as_tensor(t, device=dev)
+                                          .to(dtype) for t in t_ch))
+        x0 = torch.as_tensor(f0, device=dev).to(dtype)
+        tol = fp2.default_cg_tol(dtype)
+        fp2.evolve_cn_2d(x0, op, dt, 2)                  # warm-up
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        got, snap_k, it_k = cg.cn_pcg_2d(x0, op, dt, every, every, tol, 500)
+        end.record()
+        sync(dev)
+        ms_k = start.elapsed_time(end)
+        t0 = time.perf_counter()
+        ref, snap_p = fp2.evolve_cn_2d_reference(x0, op, dt, every, every)
+        sync(dev)
+        ms_p = (time.perf_counter() - t0) * 1e3
+        it_p = fp2.evolve_cn_2d.cg_iterations.clone()
+        t0 = time.perf_counter()
+        eager = fp2.evolve_cn_2d_reference(x0, op, dt, 4, graph=False)
+        sync(dev)
+        ms_e = (time.perf_counter() - t0) * 1e3 / 4
+        it_e = fp2.evolve_cn_2d.cg_iterations.clone()
+        graph4 = fp2.evolve_cn_2d_reference(x0, op, dt, 4)
+        sync(dev)
+        same4 = (torch.equal(eager, graph4)
+                 and torch.equal(fp2.evolve_cn_2d.cg_iterations, it_e))
+        err = float((snap_k - snap_p).abs().max())
+        scale = float(snap_p.abs().max())
+        dcount = int((it_k.long() - it_p.long()).abs().max())
+        n_it = int(it_k.long().sum())
+        setup_ops, iter_ops = cg_ops(op, 0.5 * dt)
+        # the plain version takes the stop test (r.r) at both ends of an
+        # iteration; the kernel once
+        iter_ops -= 2 * conf["n_a"] * conf["n_p"]
+        ops = setup_ops * every + iter_ops * n_it
+        n = conf["n_a"] * conf["n_p"]
+        itemsize = 8 if dtype == torch.float64 else 4
+        # each input once (the kernel's five cell arrays ka, kp, r_x,
+        # mass, m_inv, its three p-axis arrays, f0), each output once (the
+        # state, the snapshot, the counts)
+        nbytes = (8 * n + 3 * conf["n_p"]) * itemsize + 4 * every
+        ops_ms = ops / PEAK_OPS[name] * 1e3
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        print(f"  (a) {name}: kernel {ms_k:.3f} ms for {every} CN steps "
+              f"({ms_k / every:.4f} ms a step, {n_it / every:.1f} CG "
+              f"iterations a step, {ms_k / n_it * 1e3:.3f} us an "
+              f"iteration); plain through GraphLoop {ms_p:.1f} ms "
+              f"({ms_p / every:.3f} ms a step, the captures included), "
+              f"eager {ms_e:.3f} ms a step (4 steps); bound "
+              f"{max(ops_ms, bytes_ms):.4f} ms ({ops / n_it:.0f} operations "
+              f"an iteration incl. set-ups, {nbytes} bytes), on {card}",
+              flush=True)
+        print(f"      snapshot: kernel against plain {err / scale:.2e} of "
+              f"its max; CG counts per step {int(it_k.min())}-"
+              f"{int(it_k.max())}, kernel against plain within {dcount} "
+              f"({int((it_k != it_p).sum())} of {every} steps differ)")
+        check(err <= tol_snap[dtype] * scale and dcount <= tol_count[dtype],
+              f"{name}: the kernel's snapshot within {tol_snap[dtype]:g} of "
+              f"the plain version's max and its CG counts within "
+              f"{tol_count[dtype]}")
+        check(same4, f"{name}: the plain version through the CUDA graph "
+                     "equals the eager loop bit for bit (4 steps)")
+        record[name] = dict(err=err, timing=dict(
+            ms=ms_k, plain_ms=ms_p, bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            ms_per_cn_step=ms_k / every,
+            cg_iterations_per_step=n_it / every,
+            us_per_iteration=ms_k / n_it * 1e3,
+            plain_graph_ms_per_step=ms_p / every,
+            plain_eager_ms_per_step=ms_e, steps=every))
+
+    # (b) the examples as they run, through the kernel
+    pins = FP2D_PINS
+    out = {}
+    launches = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[1]
+        k = fp2d_for(dev, dtype)
+        cg.cn_pcg_2d.launches = 0
+        out[name] = fp2d_chain(k, grid, e_c, f0, t_ch, t_em)
+        launches[name] = cg.cn_pcg_2d.launches
+        check(launches[name] == 2, f"{name}: the two evolutions took two "
+                                   f"kernel launches ({launches[name]})")
+    o64, o32 = out["float64"], out["float32"]
+    print(f"  (b) chorus_acceleration: {conf['n_steps']:,} CN steps of "
+          f"{dt:g} s, float64 {o64['walls']['chorus']:.3f} s, float32 "
+          f"{o32['walls']['chorus']:.3f} s; belt_competition's combined "
+          f"run {o64['walls']['sum']:.3f} / {o32['walls']['sum']:.3f} s "
+          f"(its chorus-only run is the one above), on {card}", flush=True)
+    for run in ("chorus", "sum"):
+        g64, g32 = o64[run]["gain"], o32[run]["gain"]
+        print(f"      {run}: PSD gain at 80 deg, 1 MeV {g64[0]:.6g}x "
+              f"(float32 {g32[0]:.6g}x), 3 MeV {g64[1]:.6g}x (float32 "
+              f"{g32[1]:.6g}x); trapped > 1 MeV at the end "
+              f"{o64[run]['trapped'][-1]:.6e} (float32 "
+              f"{o32[run]['trapped'][-1]:.6e})")
+    ratio = o64["chorus"]["trapped"][-1] / o64["sum"]["trapped"][-1]
+    print(f"      the EMIC loss channel cuts the trapped > 1 MeV content "
+          f"{ratio:.3f}x")
+    errs = {}
+    for run in ("chorus", "sum"):
+        o, p = o64[run], pins[run]
+        rows = o["rows80"] if run == "chorus" else o["rows80"][-1:]
+        errs[run + " gain"] = worst_rel(o["gain"], p["gain"])
+        errs[run + " content"] = worst_rel(o["content"], p["content"])
+        errs[run + " trapped"] = worst_rel(o["trapped"], p["trapped"])
+        # the rows and profiles to their largest value: the tail's smallest
+        # entries carry the CG's rounding relative to the row
+        for key, got, want in (("rows80", rows, np.array(p["rows80"])),
+                               ("prof3", o["prof3"], np.array(p["prof3"]))):
+            errs[f"{run} {key}"] = float(
+                (np.abs(got - want).max(axis=-1)
+                 / np.abs(want).max(axis=-1)).max())
+    check(max(errs.values()) <= FP2D_RTOL,
+          f"both examples within {FP2D_RTOL:g} of the JAX package's float64 "
+          f"numbers (" + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + ")")
+    f32err = max(worst_rel(o32[r]["gain"], o64[r]["gain"])
+                 for r in ("chorus", "sum"))
+    print(f"      float32 gains against float64: {f32err:.2e}")
+    check(f32err <= 1e-2, "float32 gains within 1e-2 of float64")
+
+    # gamma_oblique at any harmonic, card against CPU (an L = 4 equator,
+    # tests/test_growth.py's)
+    from raytrace_tpu_torch.constants import FCE_E
+
+    f = np.array([0.1, 0.22, 0.35]) * FCE_E * 3.12e-5 / 64.0
+    psi = np.radians([10.0, 35.0, 60.0])
+    hot = growth.HotElectrons(eta=1.0e-3, t_par_ev=50.0e3, anisotropy=1.0)
+    args = (f[:, None], 3.12e-5 / 64.0, 1.0e9, hot, psi[None, :])
+    got = growth.gamma_oblique(*args, harmonics=range(-3, 4), device=dev)
+    want = growth.gamma_oblique(*args, harmonics=range(-3, 4), device="cpu")
+    e = worst_rel(got.cpu().numpy(), want.numpy())
+    check(e <= 1e-10, f"gamma_oblique with harmonics -3..3 on the card "
+                      f"within 1e-10 of the CPU ({e:.2e})")
+    return {name: (launches[name], record[name]["err"],
+                   record[name]["timing"]) for name in record}
+
+
 def main():
     import torch
 
@@ -3011,7 +3713,9 @@ def main():
     from raytrace_tpu_torch.constants import RE
     from raytrace_tpu_torch.integrate import events
     from raytrace_tpu_torch.integrate.events import StopSpec
-    from raytrace_tpu_torch.integrate.solve import SolverConfig, trace
+    from raytrace_tpu_torch.integrate.solve import (
+        RayCarry, SolverConfig, trace,
+    )
     from raytrace_tpu_torch.models.medium import make_env_lat
     from raytrace_tpu_torch.ops import step_chunk as sc
     from raytrace_tpu_torch.run import _build_u0
@@ -3028,10 +3732,20 @@ def main():
     card = f"{smi} (nvidia-smi)"
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    # the two kernels' nvcc processes start together: the CN/CG kernel of
+    # phase 30 builds in a thread beside the step kernel's eight parts
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raytrace_tpu_torch.ops import cn_pcg_2d
+
     t0 = time.perf_counter()
-    sc.build()
+    with ThreadPoolExecutor(1) as pool:
+        cg_build = pool.submit(cn_pcg_2d.build)
+        sc.build()
+        cg_build.result()
     print(f"  step kernel built and loaded in {time.perf_counter() - t0:.1f} s"
-          f" (nvcc {sc.BUILD_SECONDS:.1f} s)")
+          f" (nvcc {sc.BUILD_SECONDS:.1f} s; the CN/CG kernel's beside it "
+          f"{cn_pcg_2d.BUILD_SECONDS:.1f} s)")
     for line in sc.BUILD_LOG.splitlines():
         if any(w in line for w in ("Compiling entry", "Function properties",
                                    "registers", "spill")):
@@ -3052,7 +3766,24 @@ def main():
     # contraction, quotients by constants as reciprocal products, the
     # error norm summed in component order), so every field must agree
     # bit for bit
-    got, ref, _ = both(carry, f, env, cfg, spec, "bs3", 2048, kw)
+    # The plain version runs it as 512 attempts, timed (the plain time of
+    # the timing below, at the main path's width), then 1,536 more from
+    # that carry: its step loop carries nothing else between attempts, so
+    # the two legs give the 2,048-attempt run's values
+    got = sc.step_chunk(carry, f, env, cfg, spec, stepper="bs3",
+                        n_steps=2048, **kw)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    ref = sc.step_chunk_reference(carry, f, env, cfg, spec, stepper="bs3",
+                                  n_steps=512, **kw)
+    e1.record()
+    ref = sc.step_chunk_reference(ref, f, env, cfg, spec, stepper="bs3",
+                                  n_steps=1536, **kw)
+    torch.cuda.synchronize()
+    plain_2d_ms = e0.elapsed_time(e1)
+    got, ref = ({k: getattr(c, k).cpu().numpy() for k in RayCarry._fields}
+                for c in (got, ref))
     n_diff = n_differ(got, ref)
     err_2d = max_abs(got, ref)
     print(f"  float32 bs3, 10,240 rays x 2,048 steps (the first round's "
@@ -3062,7 +3793,8 @@ def main():
                        "for bit in every field")
 
     # timing at the main path's width: 10,240 rays x 512 steps, f32, bs3
-    t_2d = time_instance("ensemble10k", "float32", "bs3", dev)
+    t_2d = time_instance("ensemble10k", "float32", "bs3", dev,
+                         plain_ms=plain_2d_ms)
     print_timing("float32 bs3", t_2d, card)
 
     # ---- 3. canonical ray through the kernel, float64 ---------------------
@@ -3164,7 +3896,7 @@ def main():
 
     carry, f, env, cfg, spec, kw = start("ensemble10k_production",
                                             "float32", dev)
-    got, ref, _ = both(carry, f, env, cfg, spec, "bs3", 512, kw)
+    got, ref, plain_prod_ms = both(carry, f, env, cfg, spec, "bs3", 512, kw)
     n_diff = n_differ(got, ref)
     err_prod = max_abs(got, ref)
     print(f"  2D ds_max float32 bs3, 10,240 rays x 512 steps: "
@@ -3174,7 +3906,11 @@ def main():
                        "and plain version agree bit for bit in every field")
 
     # every instance at 10,240 rays x 512 steps beside its plain version
+    # (the float32 bs3 launches' plain runs are the two just held bit for
+    # bit: their times are taken from there)
     timings = {}
+    plain_f32 = {"ensemble10k_3d": plain_3d_ms,
+                 "ensemble10k_production": plain_prod_ms}
     for name, dt_name, stepper in (
         ("ensemble10k_3d", "float32", "bs3"),
         ("ensemble10k_production", "float32", "bs3"),
@@ -3185,8 +3921,9 @@ def main():
         ("ensemble10k", "float64", "dopri5"),
         ("ensemble10k_3d", "float64", "dopri5"),
     ):
-        t = time_instance(name, dt_name, stepper, dev,
-                          plain_full=(dt_name, stepper) == ("float32", "bs3"))
+        f32_bs3 = (dt_name, stepper) == ("float32", "bs3")
+        t = time_instance(name, dt_name, stepper, dev, plain_full=f32_bs3,
+                          plain_ms=plain_f32[name] if f32_bs3 else None)
         timings[name, dt_name, stepper] = t
         print_timing(f"{name} {dt_name} {stepper}", t, card)
     # the axisymmetric medium runs through the whole density chain with
@@ -3277,15 +4014,15 @@ def main():
     phase("[8] full density chain (MLT-resolved 3D, GCPM, every 2D gate) "
           "vs plain PyTorch", flush=True)
     # the plume path's first launch: 10,240 rays x 512 float32 bs3 attempts
-    err_plume, _ = bit_for_bit("plume (the first round's launch)",
-                               "ensemble10k_plume", "float32", "bs3", dev,
-                               512)
+    err_plume, plain_plume_ms = bit_for_bit(
+        "plume (the first round's launch)", "ensemble10k_plume", "float32",
+        "bs3", dev, 512)
     for stepper in ("bs3", "dopri5"):
         bit_for_bit("plume", "ensemble10k_plume", "float64", stepper, dev,
                     128, every=10)
     # mr_fan_3d's launch: 2,048 low-altitude rays near f_LHR
-    err_mr, _ = bit_for_bit("mr_fan_3d", "mr_fan_3d", "float32", "bs3", dev,
-                            512)
+    err_mr, plain_mr_ms = bit_for_bit("mr_fan_3d", "mr_fan_3d", "float32",
+                                      "bs3", dev, 512)
     gcpm = MediumConfig(b0=B0_3D, ps_mlt=True, ps_model="gcpm")
     for dt_name, stepper, every, n in (("float32", "bs3", 1, 128),
                                        ("float64", "dopri5", 10, 128)):
@@ -3322,7 +4059,8 @@ def main():
                                "with its flags off agrees with the "
                                "axisymmetric instance bit for bit")
 
-    # the new paths at 10,240 rays x 512 steps
+    # the new paths at 10,240 rays x 512 steps (the plume's float32 bs3
+    # launch and mr_fan_3d's beside the plain runs held bit for bit above)
     full_2d = MediumConfig(b0=B0_2D, **FULL_2D["gcpm+iono_mlt+duct"])
     t_full = {}
     for label, name, med, dt_name, stepper in (
@@ -3340,13 +4078,15 @@ def main():
         ("2D full (ensemble10k fan, gcpm+iono_mlt+duct)", "ensemble10k",
          full_2d, "float64", "dopri5"),
     ):
+        first = (label, dt_name, stepper) == ("plume", "float32", "bs3")
         t = time_instance(name, dt_name, stepper, dev, medium=med,
-                          plain_full=(label, dt_name, stepper)
-                          == ("plume", "float32", "bs3"))
+                          plain_full=first,
+                          plain_ms=plain_plume_ms if first else None)
         t_full[label, dt_name, stepper] = t
         print_timing(f"{label} {dt_name} {stepper}", t, card)
     # mr_fan_3d's launch width: its 2,048 rays x 512 attempts
-    t_mr = time_instance("mr_fan_3d", "float32", "bs3", dev)
+    t_mr = time_instance("mr_fan_3d", "float32", "bs3", dev,
+                         plain_ms=plain_mr_ms)
     print_timing("mr_fan_3d float32 bs3", t_mr, card)
 
     # ---- 9. the ensemble10k_plume slice ----------------------------------
@@ -3537,6 +4277,12 @@ def main():
     diffusion_map_stage(dev, card)
     print("  (d) examples/two_belt_structure.py", flush=True)
     two_belt_stage(dev, card)
+
+    # ---- 30. the 2D Fokker-Planck solver ----------------------------------
+    phase("[30] the 2D pitch-angle x momentum Fokker-Planck solver: the "
+          "CN/CG kernel against its plain version, chorus_acceleration and "
+          "belt_competition")
+    fp2d = fp2d_stage(dev, card)
     phase("[done]")
 
     def entry(name, launches, err, t, tail=None, team=False):
@@ -3559,6 +4305,30 @@ def main():
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             # no single PyTorch call computes a multi-step adaptive chunk
+            "library_ms": None,
+            **more,
+        }
+
+    def cg_entry(name, launches, err, t):
+        # not the port of a TPU kernel: the JAX package runs this loop
+        # through XLA outside Pallas. ms, plain_ms and bound_ms: one launch
+        # of 180 CN steps (phase 30 (a)); launches: the examples' run
+        more = {k: v for k, v in t.items()
+                if k not in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        return {
+            "name": f"cn_pcg_2d[{name}]",
+            "route": "cuda",
+            "source": "raytrace_tpu_torch/csrc/cn_pcg_2d.cu",
+            "replaces": "raytrace_tpu/fokker_planck_2d.py:337",
+            "kind": "kernel for a non-Pallas loop (evolve_cn_2d's scan "
+                    "around the while_loop of _pcg, :304-332)",
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            # no single PyTorch call runs a preconditioned CG evolution
             "library_ms": None,
             **more,
         }
@@ -3611,6 +4381,7 @@ def main():
               launches_altx["emic"], *altx["emic"], tails_altx["emic"]),
         entry("step_chunk[2d_lat,float64,dopri5](trajectory block, 25 "
               "attempts, the lightning fan)", launches_fan, err_fan, t_fan),
+        *(cg_entry(name, *fp2d[name]) for name in ("float64", "float32")),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

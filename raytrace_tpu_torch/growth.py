@@ -240,7 +240,7 @@ def cold_mode_oblique(f, bmag, ne_m3, psi, eta_he=0.0, eta_o=0.0,
             "lam_p": lam_p, "S": s_, "D": d_, "P": p_}
 
 
-# Bessel J0, J1, J2 of gamma_oblique: the power series below |x| = 1 (12
+# Bessel J_0 ... J_n of gamma_oblique: the power series below |x| = 1 (12
 # terms: exact to rounding there), Miller's backward recurrence above,
 # normalized by J0 + 2 sum J_2k = 1 and rescaled by 2^-830 every 8 steps
 _SERIES_X = 1.0
@@ -259,46 +259,45 @@ def _bessel_series(x, n):
     return (0.5 * x) ** n * s
 
 
-def _bessel_j012(x):
-    """(J0, J1, J2) of a real tensor x, within ~1e-15 absolute of scipy's
-    jv for |x| up to hundreds (J_n(-x) = (-1)^n J_n(x))."""
+def _bessel_orders(x, n_max=2):
+    """[J_0, ..., J_n_max] of a real tensor x, within ~1e-15 absolute of
+    scipy's jv for |x| up to hundreds (J_n(-x) = (-1)^n J_n(x)): the
+    orders Miller's recurrence passes on its way down to J_0."""
     ax = torch.abs(x)
     small = ax < _SERIES_X
     xs = torch.where(small, ax, 0.0)
-    series = [_bessel_series(xs, n) for n in range(3)]
+    series = [_bessel_series(xs, n) for n in range(n_max + 1)]
 
     xm = torch.where(small, 1.0, ax)
     xmax = float(xm.max()) if xm.numel() else 1.0
     m = 2 * int((xmax + 30.0 + 6.0 * math.sqrt(xmax)) // 2 + 1)
+    m = max(m, 2 * ((n_max + 31) // 2))
     tox = 2.0 / xm
     bjp, bj = torch.zeros_like(xm), torch.ones_like(xm)
-    s, j1, j2 = torch.zeros_like(xm), bj, bj
+    s = torch.zeros_like(xm)
+    kept = [None] * (n_max + 1)
     for j in range(m, 0, -1):
         bjp, bj = bj, (j * tox) * bj - bjp       # bj = J_{j-1}, unscaled
         if j % 2 == 1:
             s = s + bj
-        if j == 3:
-            j2 = bj
-        elif j == 2:
-            j1 = bj
+        if j - 1 <= n_max:
+            kept[j - 1] = bj
         if j % 8 == 0:
             scale = torch.ones_like(bj).masked_fill_(
                 torch.abs(bj) > _MILLER_BIG, 1.0 / _MILLER_BIG)
             bj, bjp, s = bj * scale, bjp * scale, s * scale
+            kept = [k if k is None else k * scale for k in kept]
     norm = 2.0 * s - bj
-    miller = [bj / norm, j1 / norm, j2 / norm]
-    j0_, j1_, j2_ = (torch.where(small, a, b)
-                     for a, b in zip(series, miller))
     odd = torch.ones_like(x).masked_fill_(x < 0.0, -1.0)
-    return j0_, j1_ * odd, j2_
+    return [torch.where(small, a, b / norm) * (odd if n % 2 else 1.0)
+            for n, (a, b) in enumerate(zip(series, kept))]
 
 
 def _bessel_jn(js, n):
-    """J_n from (J0, J1, J2) for |n| <= 2: J_-n = (-1)^n J_n."""
-    if abs(n) > 2:
-        raise ValueError(
-            f"gamma_oblique here carries Bessel orders |n| <= 2 (harmonics "
-            f"|m| <= 1); order {n} asked")
+    """J_n from [J_0, ..., J_N] for |n| <= N: J_-n = (-1)^n J_n."""
+    if abs(n) >= len(js):
+        raise ValueError(f"Bessel order {n} asked of orders up to "
+                         f"{len(js) - 1}")
     out = js[abs(n)]
     return -out if n < 0 and n % 2 else out
 
@@ -315,9 +314,9 @@ def gamma_oblique(f, bmag, ne_m3, hot: HotElectrons, psi,
       e* A e = -(pi wph^2)/(w kpar) sum_m 2pi Int dvperp U_m |T_m . e|^2,
 
     the vperp integral Gauss-Legendre on vperp/aperp in [0, 8] (n_quad
-    nodes from numpy, moved to the device). harmonics: |m| <= 1 (Bessel
-    orders up to 2; ValueError beyond). Evanescent points and psi at or
-    beyond the resonance cone return 0."""
+    nodes from numpy, moved to the device). harmonics: which m to sum, any
+    integers (the Bessel orders up to max|m| + 1 from one recurrence).
+    Evanescent points and psi at or beyond the resonance cone return 0."""
     f, bmag, ne_m3, psi = torch.broadcast_tensors(
         *place(f, bmag, ne_m3, psi, device=device))
     dev, dt = f.device, f.dtype
@@ -347,7 +346,8 @@ def gamma_oblique(f, bmag, ne_m3, hot: HotElectrons, psi,
                          device=dev).to(dt)
     vperp = torch.as_tensor(aperp * xq, device=dev).to(dt)   # (nq,)
     a_arg = kperp[..., None] * vperp / omega_e[..., None]
-    js = _bessel_j012(a_arg)
+    js = _bessel_orders(
+        a_arg, max((abs(int(m)) for m in harmonics), default=0) + 1)
     e = cold["e"]
     er, ei = e.real, e.imag
     e0r, e1r, e2r = (er[..., i, None] for i in range(3))

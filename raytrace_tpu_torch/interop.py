@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .diffusion import WaveSpectrum
+from .fokker_planck_2d import _Op2D
 from .growth import HotElectrons, HotProtons
 from .integrate.events import StopSpec
 from .integrate.solve import RayCarry, SolverConfig
@@ -92,3 +93,22 @@ def hot_from_numpy(fields):
     cls = HotProtons if type(fields).__name__ == "HotProtons" \
         else HotElectrons
     return cls(**{k: float(v) for k, v in _fields(fields).items()})
+
+
+def op2d_from_numpy(fields, *, device, dtype=None):
+    """The port's fokker_planck_2d._Op2D from a JAX `_Op2D` (or a mapping
+    of its fields): the arrays as tensors on `device` in `dtype` (default:
+    the arrays' own), da, n_a and n_p as Python numbers."""
+    d = _fields(fields)
+    out = {}
+    for f in dataclasses.fields(_Op2D):
+        v = d[f.name]
+        if f.name == "da":
+            out[f.name] = float(v)
+        elif f.name in ("n_a", "n_p"):
+            out[f.name] = int(v)
+        else:
+            t = torch.from_numpy(np.array(v))
+            out[f.name] = t.to(device=device,
+                               dtype=t.dtype if dtype is None else dtype)
+    return _Op2D(**out)

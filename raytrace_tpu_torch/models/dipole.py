@@ -20,6 +20,12 @@ def b_mag_lat(r, lat, b0):
     return b0 * torch.sqrt(1.0 + 3.0 * s * s) / (r * r * r)
 
 
+def b_mag_colat(r, theta, b0):
+    """|B|(r, theta) with colatitude theta (rad). Reference: RayMain.jl:150."""
+    c = torch.cos(theta)
+    return b0 * torch.sqrt(1.0 + 3.0 * c * c) / (r * r * r)
+
+
 def b_vec_colat(r, theta, phi, b0):
     """Vector dipole field (B_r, B_theta, B_phi) at (r, theta, phi), theta
     the colatitude: B_r = -2 b0 sin(lat)/r^3, B_theta = -b0 cos(lat)/r^3,

@@ -53,9 +53,9 @@ def _histories(t_hours, kp_hours, kp_values, tau_erode, tau_refill,
     """(grid, lpp, w_refill) on the fine grid (shared integrator).
 
     lppi_fn maps a Kp array to plasmapause positions; default is the
-    empirical CA1992 fit. A drift-derived boundary (the JAX package's
-    convection.lppi_derived, not in the port yet: ROADMAP A14) drives the
-    relaxation target from drift physics instead."""
+    empirical CA1992 fit. A drift-derived boundary
+    (convection.lppi_derived) drives the relaxation target from drift
+    physics instead."""
     if lppi_fn is None:
         lppi_fn = plasmasphere.lppi_from_kp
     t_hours = np.atleast_1d(np.asarray(t_hours, np.float64))

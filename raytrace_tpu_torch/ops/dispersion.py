@@ -53,6 +53,14 @@ def stix_rlp(ne_m3, bmag, f, eta_he=0.0, eta_o=0.0):
     return r, l, p
 
 
+def mu2_signed(r, l, p, psi, root=1.0):  # noqa: E741
+    """Signed mu^2 of the selected root at wave-normal angle psi.
+
+    root=+1: whistler branch (B+F); root=-1: EMIC branch (B-F). A
+    negative value means the wave is evanescent there."""
+    return mu2_signed_trig(r, l, p, torch.sin(psi), torch.cos(psi), root)
+
+
 def mu2_signed_trig(r, l, p, sinpsi, cospsi, root=1.0):  # noqa: E741
     """Signed mu^2 of the selected root from (sin psi, cos psi).
 

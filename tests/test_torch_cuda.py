@@ -1,9 +1,13 @@
-"""The CUDA step kernel against its plain PyTorch version on the card.
+"""The CUDA kernels against their plain PyTorch versions on the card: the
+step kernel (csrc/step_chunk.cu) and the 2D Fokker-Planck CN/CG kernel
+(csrc/cn_pcg_2d.cu, `-k cn_pcg`).
 
 Marked `gpu`: on a machine without a CUDA device every test here skips.
 On the card: `python -m pytest tests/test_torch_cuda.py -m gpu -q
 --noconftest` (tests/conftest.py imports jax, which a machine with only
 the port need not have)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -749,3 +753,72 @@ def test_rounds_trajectory_matches_single_program_on_the_card(cuda):
         assert ((a == b) | (np.isnan(a) & np.isnan(b))).all(), k
     np.testing.assert_array_equal(rounds.u[valid],
                                   single.u.cpu().numpy()[valid])
+
+
+# ---- the 2D Fokker-Planck CN/CG kernel (csrc/cn_pcg_2d.cu) ---------------
+
+def _fp2d_case(cuda, dtype, na=20, npp=23, seed=31, loss_cone="absorbing"):
+    from raytrace_tpu_torch import fokker_planck_2d as fp2
+
+    rng = np.random.default_rng(seed)
+    a11 = rng.uniform(0.3, 3.0, (na, npp))
+    a22 = rng.uniform(0.3, 3.0, (na, npp))
+    a12 = rng.uniform(-0.95, 0.95, (na, npp)) * np.sqrt(a11 * a22)
+    g = fp2.make_grid_2d(np.radians(8.0), na, 0.5, 4.0, npp)
+    op = fp2.make_operator_2d(g, *(torch.tensor(a, device=cuda).to(dtype)
+                                   for a in (a11, a12, a22)),
+                              loss_cone=loss_cone)
+    f0 = torch.tensor(rng.uniform(0.5, 1.5, (na, npp)), device=cuda).to(dtype)
+    return fp2, op, f0
+
+
+@pytest.mark.parametrize("dtype,tol,dcount", [(torch.float64, 1e-12, 1),
+                                              (torch.float32, 1e-5, 3)],
+                         ids=["float64", "float32"])
+@pytest.mark.parametrize("loss_cone", ["absorbing", "reflecting"])
+def test_cn_pcg_kernel_matches_plain_version(cuda, dtype, tol, dcount,
+                                             loss_cone):
+    from raytrace_tpu_torch.ops import cn_pcg_2d as cg
+
+    fp2, op, f0 = _fp2d_case(cuda, dtype, loss_cone=loss_cone)
+    launches = cg.cn_pcg_2d.launches
+    got, snaps = fp2.evolve_cn_2d(f0, op, 0.05, 23, save_every=5)
+    assert cg.cn_pcg_2d.launches == launches + 1
+    it_k = fp2.evolve_cn_2d.cg_iterations.cpu()
+    want, ref = fp2.evolve_cn_2d_reference(f0, op, 0.05, 23, save_every=5)
+    it_p = fp2.evolve_cn_2d.cg_iterations.cpu()
+    torch.cuda.synchronize()
+    assert snaps.shape == (4,) + tuple(f0.shape)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol * scale
+    assert float((snaps - ref).abs().max()) <= tol * scale
+    assert int((it_k.long() - it_p.long()).abs().max()) <= dcount
+    assert int(it_k.min()) > 5
+
+
+def test_cn_pcg_kernel_edges(cuda):
+    from raytrace_tpu_torch.ops import cn_pcg_2d as cg
+
+    fp2, op, f0 = _fp2d_case(cuda, torch.float64, na=3, npp=2)
+    # no steps: the state as it came, no snapshot
+    out = fp2.evolve_cn_2d(f0, op, 0.05, 0)
+    assert torch.equal(out, f0)
+    # fewer steps than a snapshot interval, and maxiter cuts the solve
+    got, snaps = fp2.evolve_cn_2d(f0, op, 0.05, 3, save_every=4)
+    assert snaps.shape == (0, 3, 2)
+    fp2.evolve_cn_2d(f0, op, 0.05, 2, cg_maxiter=1)
+    assert fp2.evolve_cn_2d.cg_iterations.tolist() == [1, 1]
+    # one row and a grid near the limit
+    fp2, op, f0 = _fp2d_case(cuda, torch.float64, na=1, npp=7)
+    got = fp2.evolve_cn_2d(f0, op, 0.05, 4)
+    want = fp2.evolve_cn_2d_reference(f0, op, 0.05, 4)
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    fp2, op, f0 = _fp2d_case(cuda, torch.float64, na=90, npp=104)
+    assert 90 * 104 <= cg.max_cells(torch.float64)
+    got = fp2.evolve_cn_2d(f0, op, 0.05, 2)
+    want = fp2.evolve_cn_2d_reference(f0, op, 0.05, 2)
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    big = dataclasses.replace(op, n_a=200, n_p=200)
+    with pytest.raises(ValueError, match="9386 cells"):
+        cg.cn_pcg_2d(torch.ones(200, 200, device=cuda, dtype=torch.float64),
+                     big, 0.05, 1, 0, 1e-10, 10)

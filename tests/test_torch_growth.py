@@ -300,18 +300,45 @@ def test_multi_ion_medium_matches_jax():
 
 
 def test_bessel_weights_match_scipy():
-    # the series below |x| = 1, Miller's recurrence above, both signs
+    # the series below |x| = 1, Miller's recurrence above, both signs,
+    # orders up to 6 from one recurrence (measured within 1.06e-15 of
+    # scipy, J_0 itself 1.03e-15: held at the 2e-15 the first orders had)
     x = np.concatenate([-np.geomspace(1e-8, 300.0, 400), [0.0],
                         np.geomspace(1e-8, 300.0, 400)])
-    js = t_growth._bessel_j012(torch.as_tensor(x))
-    for n in range(-2, 3):
+    js = t_growth._bessel_orders(torch.as_tensor(x), 6)
+    assert len(js) == 7
+    for n in range(-6, 7):
         got = t_growth._bessel_jn(js, n).numpy()
         np.testing.assert_allclose(got, jv(n, x), rtol=0.0, atol=2e-15)
+    # the default keeps J_0 ... J_2, bit for bit the same values
+    for a, b in zip(t_growth._bessel_orders(torch.as_tensor(x)), js):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError):
-        t_growth._bessel_jn(js, 3)
-    with pytest.raises(ValueError):
-        t_growth.gamma_oblique(0.2 * FCE, BMAG, NE, t_growth.HotElectrons(),
-                               0.3, harmonics=(-2, 0), device="cpu")
+        t_growth._bessel_jn(js, 7)
+
+
+@pytest.mark.parametrize("harmonics", [(-2, 0), tuple(range(-3, 4)),
+                                       (2, -3)],
+                         ids=["m-2,0", "m-3..3", "m2,-3"])
+def test_oblique_higher_harmonics_match_jax(harmonics):
+    """gamma_oblique at any harmonic (Bessel orders up to max|m| + 1)
+    against the JAX package's scipy.special.jv sum, at 1e-10, with the
+    per-harmonic parts; at large k_perp rho the |m| >= 2 terms carry a
+    visible share."""
+    jax_side, port = _sides()
+    psi = np.radians([10.0, 35.0, 55.0, 70.0])
+
+    def case(s):
+        g, parts = s.g.gamma_oblique(0.22 * FCE, BMAG, NE,
+                                     s.hot(t_par_ev=50.0e3), psi,
+                                     harmonics=harmonics,
+                                     return_parts=True)
+        return g, parts["gamma_m"]
+
+    got, want = case(port), case(jax_side)
+    assert_same(got, want, 1e-10)
+    if 2 in harmonics:
+        assert np.abs(want[1][2]).max() > 1e-6 * np.abs(want[0]).max()
 
 
 def test_float32_tensors_stay_float32():

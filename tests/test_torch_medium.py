@@ -124,3 +124,46 @@ def test_unported_medium_gates_raise(kw):
     with pytest.raises(NotImplementedError, match="0 or 1"):
         medium.ne_total_m3(torch.ones(2), torch.zeros(2),
                            env._replace(ps_weight=0.5))
+
+
+# ---- the colatitude magnitude and the signed mu^2 (tests/test_models.py:
+# 28, 38 and raytrace_tpu/ops/dispersion.py::mu2_signed) -----------------
+
+def test_b_mag_colat_matches_jax_and_the_lat_form():
+    b0 = 3.0696381e-5
+    rng = np.random.default_rng(21)
+    r = rng.uniform(1.0, 6.0, 64)
+    theta = rng.uniform(0.05, np.pi - 0.05, 64)
+    got = dipole.b_mag_colat(torch.tensor(r), torch.tensor(theta), b0)
+    want = np.asarray(j_dipole.b_mag_colat(jnp.asarray(r), jnp.asarray(theta),
+                                           b0))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-15, atol=0.0)
+    # test_dipole_lat_colat_consistency and the vector's magnitude
+    lat = torch.tensor(np.pi / 2 - theta)
+    np.testing.assert_allclose(
+        got.numpy(), dipole.b_mag_lat(torch.tensor(r), lat, b0).numpy(),
+        rtol=1e-12)
+    br, bt, bp = dipole.b_vec_colat(torch.tensor(r), torch.tensor(theta),
+                                    torch.zeros(64), b0)
+    np.testing.assert_allclose(torch.sqrt(br**2 + bt**2 + bp**2).numpy(),
+                               got.numpy(), rtol=1e-12)
+
+
+@pytest.mark.parametrize("root", [1.0, -1.0], ids=["whistler", "emic"])
+def test_mu2_signed_matches_jax(root):
+    from raytrace_tpu.ops import dispersion as j_disp
+    from raytrace_tpu_torch.ops import dispersion
+
+    rng = np.random.default_rng(22 if root > 0 else 23)
+    f = rng.uniform(0.5, 8.0, 96) * (1e3 if root > 0 else 1e-1)
+    bmag = rng.uniform(2e-7, 2e-5, 96)
+    ne = rng.uniform(1e7, 5e9, 96)
+    psi = rng.uniform(-1.4, 1.4, 96)
+    kw = dict(eta_he=0.1, eta_o=0.05)
+    rlp = dispersion.stix_rlp(torch.tensor(ne), torch.tensor(bmag),
+                              torch.tensor(f), **kw)
+    got = dispersion.mu2_signed(*rlp, torch.tensor(psi), root)
+    jrlp = j_disp.stix_rlp(jnp.asarray(ne), jnp.asarray(bmag), jnp.asarray(f),
+                           **kw)
+    want = np.asarray(j_disp.mu2_signed(*jrlp, jnp.asarray(psi), root))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-15, atol=0.0)

@@ -184,7 +184,8 @@ def _python(*args, cwd=REPO):
 
 def test_port_never_imports_jax():
     # every module of the package (the 3D slice's, the trajectory
-    # channel's and the physics tiers' included) and the smoke
+    # channel's, the physics tiers' and the 2D solver's with its kernel
+    # wrapper included) and the smoke
     proc = _python("-c", (
         "import importlib, pkgutil, sys\n"
         "import raytrace_tpu_torch, raytrace_tpu_torch.__main__, chip_smoke\n"
@@ -193,7 +194,8 @@ def test_port_never_imports_jax():
         "    importlib.import_module(m.name)\n"
         "for m in ('ops.fused', 'integrate.saving', 'parallel.checkpoint',"
         " 'utils.runrecord', 'utils.profiling', 'utils.debug', 'growth',"
-        " 'diffusion', 'fokker_planck', 'radial', 'drift'):\n"
+        " 'diffusion', 'fokker_planck', 'radial', 'drift',"
+        " 'fokker_planck_2d', 'convection', 'ops.cn_pcg_2d'):\n"
         "    assert 'raytrace_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'raytrace_tpu' or m.startswith('raytrace_tpu.')]\n"
