@@ -145,7 +145,26 @@ Phases, each printed as it runs; any failed check exits non-zero:
      tensors from the port's bounce_averaged on the card, 1,440 CN steps
      with 8 snapshots), against the JAX package's float64 numbers on a
      CPU (FP2D_PINS), float32 reported beside them; gamma_oblique at
-     harmonics -3..3 on the card against the CPU.
+     harmonics -3..3 on the card against the CPU;
+ 31. two processes on the one card (chip_smoke.py --rank-worker, a gloo
+     group on a free localhost port, the parent's build loaded, never
+     rebuilt) trace the halves of ensemble10k in float32 through
+     parallel/distributed.trace_ensemble_multihost, in the preset's round
+     schedule and in one full-budget round, against one process on the
+     same path: the slices cover the grid, both ranks print the same
+     GLOBAL (combine_stat_rows of their LOCAL rows); in one round every
+     summed key equals one process's exactly and the means to 1e-12; the
+     medians lie between the ranks'; each rank's and one process's wall;
+ 32. the rounds tracer's knobs: ensemble10k float32 at pipeline 2 and 3
+     bit for bit with pipeline 1, the walls of each in turns; float64
+     with tail_stepper="dopri5" and with order_switch_dt=0.12 against
+     the JAX package's censuses under the same knob (KNOB_PINS), MAX_STEPS
+     beside the default run's; float32 with tail_stepper="dopri5" (its
+     merged tail on dopri5) reported;
+ 33. the plots' data (viz: the refractive surface at n_psi = 6,284, the
+     environment maps at n = 400, the density profile) on the card in
+     float64 against the CPU to 1e-12; without matplotlib --plots raises
+     its named ImportError, with it the five plots render.
 Each run through run.run checks the body its launches took (the team
 body's launch count, ops/step_chunk.py) and replays its last launch, the
 merged tail where the run has one (kernel_ab.replay_tail), for the
@@ -1002,6 +1021,33 @@ FP2D_PINS = dict(
 # max from JAX's) lands 9e-15 of the snapshots' max from them, the 80 deg
 # rows' entries within 6e-11 relative
 FP2D_RTOL = 1e-8
+
+# phase 32: the JAX package's censuses of ensemble10k in float64 on a CPU
+# under one knob of the rounds tracer each, in one batch of 10,240 rays as
+# run() traces it (tests/test_torch_rounds_knobs.py run as a script). In
+# float64 the active set never falls to the merged tail's 64 rays (130
+# rays are still active in the last round, 126 end at MAX_STEPS), so
+# tail_stepper="dopri5" changes nothing there: its census is the default
+# run's, held exactly. The order pools move rays to dopri5 from round 2 on
+# and leave 5 at MAX_STEPS. Their census is held as the chaotic ones of
+# phases 21-22 are, to the JAX package's own spread: its run with every
+# launch latitude one ulp up (--nudge) moves 7 rays (nudge_rays, here with
+# their statuses in the unnudged run: wedge rays and stragglers at the
+# budget; HIT_EARTH 9181, MAX_PHASE_TIME 983, DT_UNDERFLOW 72, MAX_STEPS 4).
+# Outside those 7 rays the card must give JAX's census exactly
+KNOB_PINS = {
+    "tail_stepper": dict(hit=9112, mpt=930, dtu=72, ms=126,
+                         steps=23_705_448, median_l=1.275001527237478),
+    "order_switch_dt": dict(hit=9179, mpt=983, dtu=73, ms=5,
+                            steps=22_862_126, median_l=1.2806352051147682,
+                            nudge_rays={2005: "MAX_STEPS",
+                                        8912: "DT_UNDERFLOW",
+                                        8944: "DT_UNDERFLOW",
+                                        9184: "HIT_EARTH",
+                                        9936: "DT_UNDERFLOW",
+                                        10176: "DT_UNDERFLOW",
+                                        10192: "HIT_EARTH"}),
+}
 
 
 def fp2d_grid(k, conf=CHORUS):
@@ -3702,6 +3748,397 @@ def fp2d_stage(dev, card):
                    record[name]["timing"]) for name in record}
 
 
+
+# ---- phases 31-33: processes, the rounds tracer's knobs, the plots ------
+
+def rounds_kw(conf):
+    """The rounds tracer's keywords for a preset, as run() and the
+    --multihost path build them (the statistics need no carry)."""
+    kw = dict(frame=conf.frame, cfg=conf.solver(), spec=conf.stop(),
+              adaptive=conf.adaptive, stepper=conf.stepper,
+              base_stepper=conf.base_stepper, max_steps=conf.max_steps,
+              grad_mode=conf.grad_mode, root=conf.root, want_carry=False)
+    if conf.round_steps:
+        kw["round_steps"] = tuple(conf.round_steps)
+    return kw
+
+
+def launch_of(conf, dev):
+    """(env, u0, f, valid) of a preset's launch, as run() builds it."""
+    import torch
+
+    from raytrace_tpu_torch.parallel.ensemble import pad_batch
+    from raytrace_tpu_torch.run import _build_u0
+
+    env = conf.medium.build()
+    np_dt = np.float32 if conf.dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, torch.device(dev))
+    return (env, *pad_batch(u0, f))
+
+
+def mp_modes(conf):
+    """Phase 31's two schedules: "default", the --multihost path as a user
+    runs it (the preset's round schedule), and "one-round", the whole
+    budget in one round (the schedule run() gives a batch of at most 64
+    rays), where no round boundary depends on the batch."""
+    return {"default": {}, "one-round": {"round_steps": (conf.max_steps,)}}
+
+
+def rank_worker(port, nproc, rank):
+    """One process of phase 31 (chip_smoke.py --rank-worker PORT N RANK):
+    opens the gloo group, loads the step kernel the parent built (it
+    never builds: a missing library is a failure), traces its slice of
+    ensemble10k in float32 on cuda:0 through trace_ensemble_multihost in
+    each MP_MODES mode, and prints per mode its slice, launches, wall,
+    LOCAL stats row and GLOBAL stats as JSON lines."""
+    import os
+
+    import torch
+
+    from raytrace_tpu_torch.config import preset
+    from raytrace_tpu_torch.ops import step_chunk as sc
+    from raytrace_tpu_torch.parallel import distributed as dist
+    from raytrace_tpu_torch.parallel.ensemble import ensemble_stats
+
+    if not torch.cuda.is_available():
+        print("rank worker: no CUDA device", file=sys.stderr)
+        return 1
+    if not os.path.exists(sc.library_path()):
+        print("rank worker: the step kernel is not built", file=sys.stderr)
+        return 3
+    sc.build()
+    nproc, rank = int(nproc), int(rank)
+    dist.ensure_initialized(f"localhost:{port}", nproc, rank)
+    conf = preset("ensemble10k")
+    env, u0, f, _ = launch_of(conf, "cuda:0")
+    dist.trace_ensemble_multihost(env, u0, f, tracer_kw=rounds_kw(conf),
+                                  device="cuda:0")        # warm-up
+    for mode, over in mp_modes(conf).items():
+        sc.step_chunk.launches = 0
+        sc.step_chunk_reference.calls = 0
+        t0 = time.perf_counter()
+        res, v_l, glob = dist.trace_ensemble_multihost(
+            env, u0, f, tracer_kw={**rounds_kw(conf), **over},
+            device="cuda:0")
+        wall = time.perf_counter() - t0
+        local = ensemble_stats(res._replace(u=res.u.astype(np.float64)),
+                               v_l)
+        print("RANK " + json.dumps(dict(
+            mode=mode, rank=rank, slice=dist.process_slice(u0.shape[0]),
+            launches=sc.step_chunk.launches,
+            plain_calls=sc.step_chunk_reference.calls, wall=wall,
+            local={k: float(v) for k, v in local.items()}, glob=glob)),
+            flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def multiprocess_phase(card):
+    """Phase 31: two processes with a gloo group trace the halves of
+    ensemble10k (float32) on the one card through
+    trace_ensemble_multihost, against the single-process run of the same
+    path: the slices cover the grid, both ranks print the same GLOBAL,
+    which is combine_stat_rows of their LOCAL rows; every summed key
+    equals the single-process run's exactly (each ray is one lane; in the
+    one-round mode no round boundary depends on the batch, in the default
+    mode each half's straggler tail merges at the round the whole batch's
+    does), the means to 1e-12, and each median lies between the ranks'
+    medians."""
+    import os
+    import socket
+
+    from raytrace_tpu_torch.config import preset
+    from raytrace_tpu_torch.ops import step_chunk as sc
+    from raytrace_tpu_torch.parallel import distributed as dist
+
+    conf = preset("ensemble10k")
+    env, u0, f, valid = launch_of(conf, "cuda")
+    check(bool(valid.all()), "ensemble10k needs no pad rays")
+    single = {}
+    for mode, over in mp_modes(conf).items():
+        dist.trace_ensemble_multihost(          # warm-up
+            env, u0, f, tracer_kw={**rounds_kw(conf), **over}, device="cuda")
+        sc.step_chunk.launches = 0
+        t0 = time.perf_counter()
+        _, _, single[mode] = dist.trace_ensemble_multihost(
+            env, u0, f, tracer_kw={**rounds_kw(conf), **over}, device="cuda")
+        wall = time.perf_counter() - t0
+        print(f"  one process, {mode}: wall {wall:.4f} s, "
+              f"{sc.step_chunk.launches} launches on {card}", flush=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env_w = dict(os.environ, PYTHONPATH=here + os.pathsep
+                 + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-worker",
+         str(port), "2", str(r)], cwd=here, env=env_w,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                out, err = p.communicate(timeout=120)
+            except subprocess.TimeoutExpired:
+                check(False, "a rank worker finished within 120 s")
+            outs.append(out)
+            if p.returncode != 0:
+                print(out[-4000:], err[-4000:], sep="\n")
+            check(p.returncode == 0, "the rank worker exited with 0")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"  two processes started, traced and gathered in "
+          f"{time.perf_counter() - t0:.1f} s (start-up included)")
+    # raw_decode: gloo's own lines may share a line with a record
+    dec = json.JSONDecoder()
+    recs = {}
+    for out in outs:
+        for line in out.splitlines():
+            if "RANK {" in line:
+                r = dec.raw_decode(line[line.index("RANK {") + 5:])[0]
+                recs[r["mode"], r["rank"]] = r
+    for mode in mp_modes(conf):
+        r0, r1 = recs[mode, 0], recs[mode, 1]
+        one = single[mode]
+        print(f"  {mode}: rank 0 rays [{r0['slice'][0]}, {r0['slice'][1]}) "
+              f"wall {r0['wall']:.4f} s, {r0['launches']} launches; rank 1 "
+              f"[{r1['slice'][0]}, {r1['slice'][1]}) wall {r1['wall']:.4f} s, "
+              f"{r1['launches']} launches (both on cuda:0 of {card})")
+        check(r0["slice"] == [0, u0.shape[0] // 2]
+              and r1["slice"] == [u0.shape[0] // 2, u0.shape[0]],
+              f"{mode}: the two slices are the global grid")
+        check(min(r0["launches"], r1["launches"]) > 0
+              and r0["plain_calls"] == r1["plain_calls"] == 0,
+              f"{mode}: each rank stepped through the kernel, never the "
+              "plain version")
+        check(r0["glob"] == r1["glob"], f"{mode}: both ranks print the same "
+                                        "GLOBAL")
+        check(r0["glob"] == dist.combine_stat_rows([r0["local"],
+                                                    r1["local"]]),
+              f"{mode}: GLOBAL is combine_stat_rows of the ranks' LOCAL rows")
+        glob = r0["glob"]
+        summed = [k for k in glob if not k.startswith(("mean_", "median_"))]
+        differ = {k: (glob[k], float(one[k])) for k in summed
+                  if glob[k] != float(one[k])}
+        print(f"  {mode}: GLOBAL HIT_EARTH {glob['n_hit_earth']:.0f} / "
+              f"MAX_PHASE_TIME {glob['n_max_phase_time']:.0f} / DT_UNDERFLOW "
+              f"{glob['n_dt_underflow']:.0f} / MAX_STEPS "
+              f"{glob['n_max_steps']:.0f}, {glob['total_accepted_steps']:.0f}"
+              f" + {glob['total_rejected_steps']:.0f} steps; summed keys "
+              f"that differ from one process: {differ or 'none'}")
+        means = max(abs(glob[k] - float(one[k])) / abs(float(one[k]))
+                    for k in glob if k.startswith("mean_"))
+        print(f"  {mode}: mean_* against one process: worst relative "
+              f"difference {means:.3e}; median landing L {glob['median_landing_l']:.9f}"
+              f" (ranks {r0['local']['median_landing_l']:.9f}, "
+              f"{r1['local']['median_landing_l']:.9f}; one process "
+              f"{float(one['median_landing_l']):.9f})", flush=True)
+        for k in glob:
+            if k.startswith("median_"):
+                lo, hi = sorted((r0["local"][k], r1["local"][k]))
+                check(lo <= glob[k] <= hi,
+                      f"{mode}: {k} lies between the ranks' medians")
+        check(not differ, f"{mode}: every summed key equals the "
+                          "single-process run's exactly")
+        check(means <= 1e-12, f"{mode}: the means equal the single-process "
+                              "run's to 1e-12")
+
+
+def knob_run(conf, dev, **knobs):
+    """One run of a preset's launch through make_rounds_tracer with
+    run()'s keywords and `knobs`, the launch counts set to 0 just before:
+    (result, tracer, wall, launches)."""
+    import torch
+
+    from raytrace_tpu_torch.ops import step_chunk as sc
+    from raytrace_tpu_torch.parallel.ensemble import make_rounds_tracer
+
+    env, u0, f, valid = launch_of(conf, dev)
+    dtype = torch.float32 if conf.dtype == "float32" else torch.float64
+    tracer = make_rounds_tracer(env, device=dev, dtype=dtype,
+                                **{**rounds_kw(conf), **knobs})
+    sc.step_chunk.launches = 0
+    sc.step_chunk_reference.calls = 0
+    t0 = time.perf_counter()
+    res = tracer(u0, f, valid)
+    wall = time.perf_counter() - t0
+    check(sc.step_chunk.launches > 0 and sc.step_chunk_reference.calls == 0,
+          f"{knobs or 'default'}: stepped through the kernel "
+          f"({sc.step_chunk.launches} launches), never the plain version")
+    return res, tracer, wall, sc.step_chunk.launches
+
+
+def knobs_phase(dev, card, out32, out64):
+    """Phase 32: ensemble10k float32 at pipeline 2 and 3 against pipeline
+    1, bit for bit, with the walls; ensemble10k float64 under
+    tail_stepper="dopri5" and under order_switch_dt=0.12 against the JAX
+    package's censuses on a CPU under the same knob (KNOB_PINS), with
+    MAX_STEPS beside the default run's (phase 4); and float32 under
+    tail_stepper="dopri5", whose tail merges."""
+    from raytrace_tpu_torch.config import preset
+    from raytrace_tpu_torch.integrate import events
+    from raytrace_tpu_torch.parallel.ensemble import ensemble_stats
+
+    conf = preset("ensemble10k")
+    knob_run(conf, dev)                             # warm-up
+    runs, walls = {}, {1: [], 2: [], 3: []}
+    for p in (1, 2, 3, 3, 2, 1):                    # turns, within one call
+        runs[p] = knob_run(conf, dev, pipeline=p)
+        walls[p].append(runs[p][2])
+    for p in (1, 2, 3):
+        res, tracer, wall, launches = runs[p]
+        parts = [r["active"] for r in tracer.last_rounds[1:]]
+        print(f"  float32 pipeline={p}: walls {walls[p][0]:.4f} and "
+              f"{walls[p][1]:.4f} s, {launches} launches (rays a launch "
+              f"after round 0: {parts}) on {card}")
+    one = runs[1][0]
+    for p in (2, 3):
+        res = runs[p][0]
+        same = all(np.array_equal(getattr(res, k), getattr(one, k))
+                   for k in ("u", "t", "status", "n_accept", "n_reject"))
+        check(same, f"pipeline={p}: every ray's u, t, status and counters "
+                    "equal pipeline=1's bit for bit")
+    census = {"default": out64["stats"]}
+    for name, knob in (("tail_stepper", {"tail_stepper": "dopri5"}),
+                       ("order_switch_dt", {"order_switch_dt": 0.12})):
+        c64 = preset("ensemble10k", dtype="float64")
+        res, tracer, wall, launches = knob_run(c64, dev, **knob)
+        valid = np.ones(res.status.shape[0], bool)
+        st = ensemble_stats(res, valid)
+        census[name] = st
+        pin = KNOB_PINS[name]
+        steps = int(st["total_accepted_steps"] + st["total_rejected_steps"])
+        used = sorted({r["stepper"] for r in tracer.last_rounds})
+        print(f"  float64 {knob}: wall {wall:.4f} s, {launches} launches "
+              f"(steppers {used}), HIT_EARTH {int(st['n_hit_earth'])} / MPT "
+              f"{int(st['n_max_phase_time'])} / DTU "
+              f"{int(st['n_dt_underflow'])} / MAX_STEPS "
+              f"{int(st['n_max_steps'])}, {steps} steps, median landing L "
+              f"{float(st['median_landing_l']):.12f} on {card}; JAX on a "
+              f"CPU {pin['hit']} / {pin['mpt']} / {pin['dtu']} / "
+              f"{pin['ms']}, {pin['steps']}, {pin['median_l']:.12f}",
+              flush=True)
+        # the census outside the rays the JAX package's own one-ulp nudge
+        # moves (none for tail_stepper): the card's against JAX's
+        nudge = pin.get("nudge_rays", {})
+        idx = np.asarray(sorted(nudge), int)
+        keys = (("hit", "HIT_EARTH"), ("mpt", "MAX_PHASE_TIME"),
+                ("dtu", "DT_UNDERFLOW"), ("ms", "MAX_STEPS"))
+        code = {k: events.STATUS_NAMES.index(v) for k, v in keys}
+        outside = {k: int((res.status == code[k]).sum())
+                   - int((res.status[idx] == code[k]).sum())
+                   for k, _ in keys}
+        outside_jax = {k: pin[k] - sum(v == name for v in nudge.values())
+                       for k, name in keys}
+        if nudge:
+            print("  the JAX package's one-ulp-nudge rays on the card: "
+                  + ", ".join(f"{i} {events.STATUS_NAMES[int(res.status[i])]}"
+                              f" (JAX {nudge[i]})" for i in idx))
+        check(outside == outside_jax,
+              f"{name}: the census equals the JAX package's outside its "
+              f"{len(idx)} one-ulp-nudge rays: {outside}")
+        check(abs(steps - pin["steps"]) <= 0.01 * pin["steps"],
+              f"{name}: attempted steps within 1% of the JAX package's")
+        check(abs(float(st["median_landing_l"]) - pin["median_l"])
+              <= 1e-9 * pin["median_l"],
+              f"{name}: median landing L within 1e-9 of the JAX package's")
+        if name == "order_switch_dt":
+            check(bool(tracer.last_slow.any())
+                  and "dopri5" in used, "rays took the dopri5 pool")
+        else:
+            check(used == ["bs3"], "no merged tail in float64: every launch "
+                                   "ran the bs3 base, as in the JAX package")
+    print("  MAX_STEPS, float64: " + ", ".join(
+        f"{k} {int(v['n_max_steps'])}" for k, v in census.items())
+        + f" on {card}")
+    # float32 merges its tail: the tail stepper at work (the platforms'
+    # float32 censuses differ by their rounding, so this one is reported)
+    res, tracer, wall, launches = knob_run(conf, dev, tail_stepper="dopri5")
+    tail = [r for r in tracer.last_rounds if r["stepper"] == "dopri5"]
+    st = ensemble_stats(res, np.ones(res.status.shape[0], bool))
+    print(f"  float32 tail_stepper='dopri5': wall {wall:.4f} s, {launches} "
+          f"launches, the merged tail {tail[0]['active'] if tail else 0} "
+          f"rays x {tail[0]['steps'] if tail else 0} attempts on dopri5; "
+          f"HIT_EARTH {int(st['n_hit_earth'])}, MAX_STEPS "
+          f"{int(st['n_max_steps'])} (default run, phase 4: "
+          f"{int(out32['stats']['n_max_steps'])}) on {card}", flush=True)
+    check(len(tail) == 1, "float32: the merged tail ran dopri5")
+
+
+def plots_phase(card):
+    """Phase 33: the plots' data on the card in float64 (the refractive
+    surface at n_psi = 6,284, the environment maps at n = 400, the
+    density profile) against the same helpers on the CPU to 1e-12; then,
+    without matplotlib, --plots raises the named ImportError, and with it
+    the five plots render."""
+    import importlib.util
+    import os
+    import tempfile
+
+    from raytrace_tpu_torch import viz
+    from raytrace_tpu_torch.config import preset
+
+    env = preset("ensemble10k").medium.build()
+    helpers = (
+        ("refractive surface", viz.refractive_surface_data,
+         (2.0, 0.24, 5000.0, env), dict(n_psi=6284)),
+        ("environment maps", viz.environment_data, (env,), dict(n=400)),
+        ("density profile", viz.density_profile_data, (env,), {}),
+    )
+    for what, fn, args, kw in helpers:
+        t0 = time.perf_counter()
+        got = fn(*args, device="cuda", **kw)
+        t_card = time.perf_counter() - t0
+        ref = fn(*args, device="cpu", **kw)
+        worst = 0.0
+        for k, v in ref.items():
+            a = np.asarray(got[k])
+            check(np.array_equal(np.isnan(a), np.isnan(v)),
+                  f"{what} {k}: NaN where the CPU's is")
+            m = ~np.isnan(v) & np.isfinite(v)
+            if m.any():
+                worst = max(worst, float(np.max(
+                    np.abs(a[m] - v[m]) / np.maximum(np.abs(v[m]), 1e-300))))
+        print(f"  {what}: {sum(np.asarray(v).size for v in got.values()):,}"
+              f" values, {t_card * 1e3:.1f} ms on the card, worst relative "
+              f"difference from the CPU {worst:.3e}", flush=True)
+        check(worst <= 1e-12, f"{what}: the card's data equal the CPU's to "
+                              "1e-12")
+    if importlib.util.find_spec("matplotlib") is None:
+        from raytrace_tpu_torch.__main__ import main as cli
+
+        try:
+            cli(["ensemble10k", "--plots"])
+            raised = ""
+        except ImportError as e:
+            raised = str(e)
+        print(f"  no matplotlib here: --plots raised ImportError({raised!r})")
+        check("matplotlib" in raised and "--plots" in raised,
+              "--plots raises an ImportError naming matplotlib and --plots")
+        return
+    u = np.linspace(0.0, 1.0, 40)[:, None, None] * np.ones((1, 3, 4))
+    u[..., 0] += 1.0
+    with tempfile.TemporaryDirectory() as out:
+        viz.plot_ray_paths(u, path=os.path.join(out, "rays.png"))
+        viz.plot_refractive_surface(2.0, 0.24, 5000.0, env,
+                                    path=os.path.join(out, "surface.png"))
+        viz.plot_environment(env, path=os.path.join(out, "envmap.png"))
+        viz.plot_density_profile(env, path=os.path.join(out, "profile.png"))
+        viz.plot_diagnostics(np.arange(40.0), np.ones((40, 4)),
+                             path=os.path.join(out, "diag.png"))
+        sizes = [os.path.getsize(os.path.join(out, p)) for p in
+                 ("rays.png", "surface.png", "envmap.png", "profile.png",
+                  "diag.png")]
+    print(f"  the five plots rendered: {sizes} bytes")
+    check(min(sizes) > 5000, "each plot is a PNG of more than 5,000 bytes")
+
+
 def main():
     import torch
 
@@ -4283,6 +4720,16 @@ def main():
           "CN/CG kernel against its plain version, chorus_acceleration and "
           "belt_competition")
     fp2d = fp2d_stage(dev, card)
+
+    # ---- 31-33. processes, the rounds tracer's knobs, the plots ----------
+    phase("[31] two processes on the card: ensemble10k float32 through "
+          "trace_ensemble_multihost over a gloo group")
+    multiprocess_phase(card)
+    phase("[32] the rounds tracer's knobs: pipeline, tail_stepper, "
+          "order_switch_dt")
+    knobs_phase(dev, card, out4, out64)
+    phase("[33] the plots' data on the card, and --plots")
+    plots_phase(card)
     phase("[done]")
 
     def entry(name, launches, err, t, tail=None, team=False):
@@ -4393,4 +4840,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(*sys.argv[2:5]))
     sys.exit(main())

@@ -9,8 +9,14 @@ truncation). A JSON file path loads a full RunConfig instead. The run goes to
 the CUDA card unless --device names another device; it never falls back
 to the CPU on its own. --trajectory K records a snapshot every K attempts
 with the diagnostics; with --out it is written as <name>_traj.npz beside
-<name>_final.npz and <name>_record.json. --sensitivity N adds the landing
+<name>_final.npz and <name>_record.json, and --plots (which needs
+matplotlib) draws it as <name>_rays.png. --sensitivity N adds the landing
 sensitivity of the first N rays to the stats and the record.
+--multihost runs one process per card: start K of them with `python -m
+torch.distributed.run --nproc-per-node K -m raytrace_tpu_torch <preset>
+--multihost`; each traces its slice of the launch grid on its card
+(LOCAL_RANK's), prints its local line, and rank 0 prints the statistics
+gathered over the processes as GLOBAL {json}.
 """
 
 import argparse
@@ -34,26 +40,21 @@ def main(argv=None):
                    help="record a snapshot every K steps, with the "
                         "diagnostics (mu, dmu/dpsi, dip, psi)")
     p.add_argument("--plots", action="store_true",
-                   help="render ray plots (not ported: ROADMAP A11)")
+                   help="render the ray paths of a --trajectory run to "
+                        "<out>/<name>_rays.png (needs matplotlib)")
     p.add_argument("--sensitivity", type=int, default=0, metavar="N",
                    help="landing-sensitivity analysis for the first N rays "
                         "(the event-projected variational Jacobian; its "
                         "amplification and status join the stats)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process run over several cards (not "
-                        "ported: ROADMAP A12)")
+                   help="multi-process SPMD run, one process a card: every "
+                        "process traces its slice of the (identical) launch "
+                        "grid and the statistics aggregate across processes "
+                        "(a gloo group from torchrun's environment; a "
+                        "single-process pass-through without it)")
     p.add_argument("--dump-config", action="store_true",
                    help="print the resolved RunConfig JSON and exit")
     args = p.parse_args(argv)
-    if args.plots:
-        raise NotImplementedError(
-            "--plots is not ported: the plots need matplotlib, which the "
-            "card's machine lacks (ROADMAP A11); plot the _traj.npz that "
-            "--trajectory writes")
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported: the port runs on one card "
-            "(ROADMAP A12)")
 
     from .config import RunConfig, preset
 
@@ -78,13 +79,17 @@ def main(argv=None):
         print("no CUDA device is available; pass --device cpu to run on the "
               "CPU", file=sys.stderr)
         return 2
+    if args.multihost:
+        return _run_multihost(
+            config, None if args.device == "cuda" else args.device)
     import numpy as np
 
     from .integrate import events
     from .run import run, summarize
 
     t0 = time.perf_counter()
-    out = run(config, device=args.device, out_dir=args.out or None)
+    out = run(config, device=args.device, out_dir=args.out or None,
+              plots=args.plots)
     wall = time.perf_counter() - t0
     steps = int(out["stats"]["total_accepted_steps"]) + int(
         out["stats"]["total_rejected_steps"]
@@ -107,6 +112,51 @@ def main(argv=None):
               f"{[events.STATUS_NAMES[int(x)] for x in st]}")
     for k, v in out["paths"].items():
         print(f"  {k}: {v}")
+    return 0
+
+
+def _run_multihost(config, device=None):
+    """The scale-out path (the JAX package's _run_multihost): SPMD over
+    processes, one a card. Every process builds the identical global
+    grid, traces its contiguous slice on its card (`device` where the
+    caller names one, else parallel.mesh.local_device's), and the
+    terminal statistics aggregate with one all_gather over gloo.
+    Single-process this is a pass-through."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from .parallel import distributed as dist
+    from .parallel.mesh import local_device
+    from .run import _build_u0, summarize
+
+    dist.ensure_initialized()
+    try:
+        device = local_device(device)
+        env = config.medium.build()
+        np_dtype = np.float32 if config.dtype == "float32" else np.float64
+        u0, f = _build_u0(config, env, np_dtype, device)
+        tracer_kw = dict(
+            frame=config.frame, cfg=config.solver(), spec=config.stop(),
+            adaptive=config.adaptive, stepper=config.stepper,
+            base_stepper=config.base_stepper, max_steps=config.max_steps,
+            grad_mode=config.grad_mode, root=config.root, want_carry=False,
+        )
+        t0 = time.perf_counter()
+        res, v_l, gstats = dist.trace_ensemble_multihost(
+            env, u0, f, tracer_kw=tracer_kw, device=device)
+        wall = time.perf_counter() - t0
+        pid, cnt = dist.rank(), dist.world_size()
+        print(f"{config.name}[{pid}/{cnt}] on {device}: "
+              f"{int(np.asarray(v_l).sum())} local rays, {wall:.3f}s | "
+              f"{summarize(res, v_l)}", flush=True)
+        if pid == 0:
+            print("GLOBAL " + json.dumps(
+                {k: float(v) for k, v in gstats.items()}), flush=True)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     return 0
 
 

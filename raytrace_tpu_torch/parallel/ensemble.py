@@ -1,5 +1,5 @@
 """Launch grids, the single-program tracer and the bucketed rounds tracer
-(port of raytrace_tpu/parallel/ensemble.py, single device).
+(port of raytrace_tpu/parallel/ensemble.py, one device a process).
 
 A LaunchSpec builds the 2D (latitude x wave-normal angle x frequency)
 grid (run.py turns its latitudes into colatitudes for the colatitude
@@ -176,6 +176,32 @@ def packed_state_dim(fl):
     return (fl.shape[1] - 5 - len(_INT_FIELDS)) // 4
 
 
+def _fetch_later(x):
+    """Start copying tensor x to the host; returns a function that waits
+    for the copy and gives it as a numpy array. On the card the copy goes
+    to pinned memory behind the work queued so far on x's stream, so the
+    host can queue more work before it waits; on the CPU x is read when
+    asked for (the caller passes a tensor nothing writes afterwards)."""
+    if x.device.type != "cuda":
+        return x.numpy
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(x.device))
+
+    def wait():
+        done.synchronize()
+        return host.numpy()
+
+    return wait
+
+
+def _fetch_block(traj, rows):
+    """[(field, _fetch_later of its first `rows` lanes)] of a snapshot
+    block (the real rays of a bucket)."""
+    return [(k, _fetch_later(v[:, :rows])) for k, v in traj.items()]
+
+
 def make_ensemble_tracer(
     env,
     *,
@@ -200,8 +226,9 @@ def make_ensemble_tracer(
     numpy arrays or tensors, are cast to them); the result's tensors stay
     on the device. save_every > 0 turns on the trajectory channel, whose
     whole history then lives on the device (integrate.solve.trace). The
-    JAX package's `mesh` (ray sharding over chips) has no meaning on one
-    card: ROADMAP A12."""
+    JAX package's `mesh` (ray sharding over chips) has no counterpart: a
+    process drives one card, and several cards take one process each
+    (parallel/distributed.py)."""
     if grad_mode == "autodiff":
         raise NotImplementedError(
             "grad_mode='autodiff' is not a step-kernel variant (ROADMAP B7)")
@@ -243,6 +270,7 @@ def make_rounds_tracer(
     stiff_stepper: str = "ros3pr",
     base_stepper: str = "dopri5",
     order_switch_dt: float = 0.0,
+    order_unswitch_dt: float = 0.5,
     tail_stepper: str = "",
     want_carry: bool = True,
     pipeline: int = 1,
@@ -287,24 +315,38 @@ def make_rounds_tracer(
     and max_steps must be multiples of save_every (ValueError otherwise),
     and the stiff pool's round cap is rounded down to the cadence.
 
-    Knobs the JAX package measured and left off are not ported (ROADMAP
-    A10): pipeline > 1, order_switch_dt > 0, tail_stepper."""
-    unported = {
-        "pipeline > 1": pipeline > 1,
-        "order_switch_dt > 0": order_switch_dt > 0.0,
-        "tail_stepper": bool(tail_stepper),
-        "grad_mode='autodiff' (ROADMAP B7)": grad_mode == "autodiff",
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
+    Three scheduling knobs (the JAX package's, parallel/ensemble.py:
+    281-367), all off by default:
+
+    - pipeline: the most parts a pool's index set of a round is split into
+      (power-of-two multiples of the bucket floor, `_split_parts`). Every
+      part of every pool of a round is launched before any bookkeeping
+      comes back to the host (each part's columns copy to pinned host
+      memory behind its own launch on the stream), so the host's work on
+      part k overlaps the card's on part k + 1. Per-ray results do not
+      depend on the split.
+    - order_switch_dt > 0 (auto mode with a base other than dopri5): a
+      third pool runs dopri5 for accuracy-limited rays, those whose mean
+      accepted dt over a round falls below order_switch_dt * dt_max at a
+      rejection fraction below stiff_switch; a ray returns to the base
+      once its mean dt exceeds order_unswitch_dt * dt_max. Refused with
+      cfg.ds_max (ValueError: the dt_max-relative thresholds do not hold
+      under an arc-length ceiling). `run.last_slow` records which rays
+      ended on that pool.
+    - tail_stepper (auto mode only): the non-stiff pool's method for the
+      merged-tail round ("" keeps base_stepper).
+
+    `run.last_rounds` records each launch's stepper, active rays, bucket,
+    attempts and wall."""
+    if grad_mode == "autodiff":
         raise NotImplementedError(
-            f"not ported to the rounds tracer: {', '.join(bad)} (ROADMAP A10 "
-            "unless named)"
-        )
+            "grad_mode='autodiff' is not ported to the rounds tracer: the "
+            "step kernel does not compute the autodiff gradient set "
+            "(ROADMAP B7)")
     if grad_mode not in ("fused", "reference"):
         raise ValueError(f"unknown grad_mode {grad_mode!r}")
     for st in ((stepper if stepper != "auto" else base_stepper),
-               stiff_stepper):
+               stiff_stepper, tail_stepper or base_stepper):
         if adaptive and st not in _ORDER:
             raise ValueError(f"unknown stepper {st!r}; the steppers are "
                              f"{sorted(_ORDER)}")
@@ -336,6 +378,21 @@ def make_rounds_tracer(
     auto = stepper == "auto"
     if not auto:
         base_stepper = stepper
+    # the third pool (order selection) exists only when the base is
+    # cheaper than dopri5
+    order_pools = (
+        auto and base_stepper != "dopri5" and order_switch_dt > 0.0
+    )
+    if order_pools and float(cfg.ds_max) > 0.0:
+        raise ValueError(
+            "order_switch_dt > 0 (three-pool order selection) is not "
+            "supported together with SolverConfig.ds_max: the dt_max-"
+            "relative switch thresholds do not apply under an arc-length "
+            "ceiling"
+        )
+    # a Python float: the comparisons below round it to the mirror's
+    # dtype as the JAX package's numpy comparisons do
+    _dtmax = float(cfg.dt_max)
     floor = max(8, bucket_floor)
     T_, ST_, ACC_, REJ_ = 0, 1, 2, 3  # columns of the host stats mirror
 
@@ -345,11 +402,6 @@ def make_rounds_tracer(
                     grad_mode=grad_mode, legacy_freq_state=legacy_freq_state,
                     save_every=save_every, save_fn=save_fn)
 
-    def host_block(traj, rows):
-        """A round's snapshot block on the host: its first `rows` lanes
-        (the real rays of the bucket), one transfer per field."""
-        return {k: v[:, :rows].cpu().numpy() for k, v in traj.items()}
-
     def stat_cols(sd):
         base = 4 * sd
         return [base + T_OF["t"], base + I_OF["status"],
@@ -357,6 +409,42 @@ def make_rounds_tracer(
 
     def round_len(i):
         return schedule[min(i, len(schedule) - 1)]
+
+    def _split_parts(idx_all, max_parts):
+        """Decompose an index set into <= max_parts contiguous parts whose
+        sizes are power-of-two multiples of the bucket floor (the last
+        part takes the remainder): less bucket padding than one
+        power-of-two bucket (3,370 rays -> 2,048 + 1,024 + 512 lanes
+        instead of 4,096), and parts that pipeline (the JAX package's
+        _split_parts, exactly)."""
+        units = -(-idx_all.size // floor)
+        if units < 2 or max_parts < 2:
+            return [idx_all]
+        sizes, u = [], units
+        bit = 1 << (units.bit_length() - 1)
+        while bit:
+            if u >= bit:
+                sizes.append(bit)
+                u -= bit
+            bit >>= 1
+        while len(sizes) > max_parts:      # merge the small tail
+            sizes.append(sizes.pop() + sizes.pop())
+        # halve the largest while the part budget lasts (keeps powers of
+        # two, so the bucket-size set stays small)
+        while len(sizes) < max_parts and max(sizes) >= 4:
+            m = max(sizes)
+            sizes.remove(m)
+            sizes += [m - m // 2, m // 2]
+        sizes.sort(reverse=True)
+        parts, startp = [], 0
+        for k, s in enumerate(sizes):
+            count = (
+                s * floor if k < len(sizes) - 1 else idx_all.size - startp
+            )
+            count = min(count, idx_all.size - startp)
+            parts.append(idx_all[startp:startp + count])
+            startp += count
+        return [p for p in parts if p.size]
 
     def run(u0, f, valid):
         run.last_rounds = []
@@ -374,7 +462,7 @@ def make_rounds_tracer(
             # the pools advance at their own budgets)
             n_snaps = max_steps // save_every
             s0 = first // save_every
-            tr0 = host_block(res.traj, n)
+            tr0 = {k: fetch() for k, fetch in _fetch_block(res.traj, n)}
             traj_buf = {
                 k: np.zeros((n_snaps,) + v.shape[1:], v.dtype)
                 for k, v in tr0.items()
@@ -391,13 +479,19 @@ def make_rounds_tracer(
 
         override = np.full(n, -1, np.int32)   # host-side stall retirement
         stiff = np.zeros(n, bool)
+        # accuracy-limited rays (order pools): the dopri5 pool
+        slow = np.zeros(n, bool)
 
         def _alive(status_col):
             return (status_col == events.ACTIVE) | (
                 status_col == events.MAX_STEPS
             )
 
-        def settle(idx, rf, prog, is_stiff_pool):
+        def settle(idx, rf, prog, is_stiff_pool, acc_delta):
+            """After a launch, for its rays: stall retirement, then the
+            stiff and order pools' membership. is_stiff_pool is the pool,
+            not the method: a tail_stepper equal to stiff_stepper does not
+            take the unswitch branch."""
             still = _alive(hs[idx, ST_]) & (override[idx] < 0)
             if stall_progress > 0.0:
                 stalled = still & (prog < stall_progress)
@@ -407,11 +501,20 @@ def make_rounds_tracer(
                 stiff[idx[still & (rf < stiff_unswitch)]] = False
             elif auto:
                 stiff[idx[still & (rf > stiff_switch)]] = True
+            if order_pools:
+                # mean accepted dt over the round against the ceiling
+                md = prog / np.maximum(acc_delta, 1)
+                ok = still & ~stiff[idx]
+                slow[idx[
+                    ok & (md < order_switch_dt * _dtmax)
+                    & (rf < stiff_switch)
+                ]] = True
+                slow[idx[ok & (md > order_unswitch_dt * _dtmax)]] = False
 
         idx0 = np.nonzero(np.asarray(valid))[0]
         att0 = hs[idx0, ACC_] + hs[idx0, REJ_]
         settle(idx0, hs[idx0, REJ_] / np.maximum(att0, 1), hs[idx0, T_],
-               False)
+               False, hs[idx0, ACC_])
 
         steps_done = first
         i = 1
@@ -422,60 +525,84 @@ def make_rounds_tracer(
             if not active.any():
                 break
             n_active = int(active.sum())
-            if n_active * 4 <= floor:      # merged straggler tail
+            merged_tail = n_active * 4 <= floor   # the straggler tail
+            if merged_tail:
                 nr = max_steps - steps_done
             else:
                 nr = min(round_len(i), max_steps - steps_done)
+            base_st = (
+                tail_stepper if (auto and merged_tail and tail_stepper)
+                else base_stepper
+            )
             # snapshot pool membership: rays marked stiff by this round's
             # settle wait for the next round
             pool_mask = stiff.copy()
-            if auto:
-                pools = ((~pool_mask, base_stepper, False),
+            if order_pools:
+                slow_mask = slow & ~pool_mask
+                pools = ((~pool_mask & ~slow_mask, base_st, False),
+                         (slow_mask, "dopri5", False),
+                         (pool_mask, stiff_stepper, True))
+            elif auto:
+                pools = ((~pool_mask, base_st, False),
                          (pool_mask, stiff_stepper, True))
             else:
-                pools = ((np.ones(n, bool), base_stepper, False),)
+                pools = ((np.ones(n, bool), base_st, False),)
+            # launch every pool's parts, then read their bookkeeping back
+            # in order (each ray is in one part: the split is exact)
+            jobs = []
             for mask, st, is_stiff_pool in pools:
-                idx = np.nonzero(active & mask)[0]
-                if idx.size == 0:
+                idx_all = np.nonzero(active & mask)[0]
+                if idx_all.size == 0:
                     continue
                 nr_pool = min(nr, stiff_cap) if is_stiff_pool else nr
-                w0 = _clock()
-                b = _bucket_size(idx.size, n, floor)
-                # pad lanes duplicate idx[0]; only the idx.size real rows
-                # are scattered back, so every write target is unique
-                sel = torch.as_tensor(
-                    np.concatenate([idx, np.repeat(idx[:1], b - idx.size)]),
-                    device=device,
-                )
-                acc0 = hs[idx, ACC_].copy()
-                rej0 = hs[idx, REJ_].copy()
-                t0 = hs[idx, T_].copy()
-                carry, ff = unpack_carry(fl_dev.index_select(0, sel), sd)
-                res = trace(env, carry.u, ff, carry0=carry,
-                            **make_kw(nr_pool, st))
-                # the device-resident carry is updated in place
-                fl_dev[sel[:idx.size]] = pack_carry(res.carry, ff)[:idx.size]
+                for idx in _split_parts(idx_all, pipeline):
+                    w0 = _clock()
+                    b = _bucket_size(idx.size, n, floor)
+                    # pad lanes duplicate idx[0]; only the idx.size real
+                    # rows are scattered back, so every target is unique
+                    sel = torch.as_tensor(
+                        np.concatenate(
+                            [idx, np.repeat(idx[:1], b - idx.size)]),
+                        device=device,
+                    )
+                    carry, ff = unpack_carry(fl_dev.index_select(0, sel), sd)
+                    res = trace(env, carry.u, ff, carry0=carry,
+                                **make_kw(nr_pool, st))
+                    # the device-resident carry is updated in place
+                    fl_dev[sel[:idx.size]] = (
+                        pack_carry(res.carry, ff)[:idx.size])
+                    jobs.append((idx, st, is_stiff_pool, nr_pool, b, w0,
+                                 _fetch_later(fl_dev[:, cols]),
+                                 _fetch_block(res.traj, idx.size)
+                                 if save_on else ()))
+            hs0 = hs
+            for (idx, st, is_stiff_pool, nr_pool, b, w0, fetch_hs,
+                 fetch_traj) in jobs:
+                hs = fetch_hs()
                 if save_on:
                     # the bucket's block at each ray's own cursor (pad
                     # lanes beyond idx.size dropped)
                     s_blk = nr_pool // save_every
                     rows = cursor[idx][None, :] + np.arange(s_blk)[:, None]
-                    for k, v in host_block(res.traj, idx.size).items():
-                        traj_buf[k][rows, idx[None, :]] = v
+                    for k, fetch in fetch_traj:
+                        traj_buf[k][rows, idx[None, :]] = fetch()
                     cursor[idx] += s_blk
-                hs = fl_dev[:, cols].cpu().numpy()
-                att = (hs[idx, ACC_] - acc0) + (hs[idx, REJ_] - rej0)
-                rf = (hs[idx, REJ_] - rej0) / np.maximum(att, 1)
+                acc = hs[idx, ACC_] - hs0[idx, ACC_]
+                rej = hs[idx, REJ_] - hs0[idx, REJ_]
+                att = acc + rej
+                rf = rej / np.maximum(att, 1)
                 run.last_rounds.append(dict(
                     stepper=st, active=int(idx.size), bucket=b,
                     steps=nr_pool, attempted=int(att.sum()),
                     wall_s=_clock() - w0,
                 ))
-                settle(idx, rf, hs[idx, T_] - t0, is_stiff_pool)
+                settle(idx, rf, hs[idx, T_] - hs0[idx, T_], is_stiff_pool,
+                       acc)
             steps_done += nr
             i += 1
 
         run.last_stiff = stiff
+        run.last_slow = slow
         traj_out = None
         if save_on:
             # row min(k, cursor - 1) of each ray: rows past its cursor
@@ -518,6 +645,7 @@ def make_rounds_tracer(
             carry=final,
         )
 
+    run.last_slow = None
     run.last_stiff = None
     run.last_rounds = []
     return run

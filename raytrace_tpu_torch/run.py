@@ -74,17 +74,24 @@ def _build_u0(config: RunConfig, env, np_dtype, device):
     return u0, f
 
 
-def run(config: RunConfig, *, device="cuda", out_dir=None):
+def run(config: RunConfig, *, device="cuda", out_dir=None, plots=False):
     """Execute a RunConfig on `device` (the card unless the caller asks
     for "cpu") in config.dtype. Returns dict(result, stats, valid, paths,
     rounds, stiff): the TraceResult (host numpy arrays; `traj` the
     trajectory channel's dict when save_every > 0), the ensemble
     statistics, the valid-ray mask, written file paths (`final`, `traj`,
-    `record`), the per-round diagnostics and the per-ray stiff-pool flags
-    (both None on the single-program path). With sensitivity_rays = N >
-    0 the stats (and the record) gain sensitivity_amplification and
-    sensitivity_status of the first N valid rays (sensitivity.py)."""
+    `record`, and with plots and a trajectory `rays_png`), the per-round
+    diagnostics and the per-ray stiff-pool flags (both None on the
+    single-program path). With sensitivity_rays = N > 0 the stats (and
+    the record) gain sensitivity_amplification and sensitivity_status of
+    the first N valid rays (sensitivity.py). plots (with out_dir and
+    save_every > 0) renders the ray paths to <name>_rays.png; it needs
+    matplotlib, and without it raises ImportError before tracing."""
     _check_supported(config)
+    if plots:
+        from .viz.plots import _pyplot
+
+        _pyplot()
     env = config.medium.build()
     np_dtype = np.float32 if config.dtype == "float32" else np.float64
     dtype = torch.float32 if config.dtype == "float32" else torch.float64
@@ -182,6 +189,12 @@ def run(config: RunConfig, *, device="cuda", out_dir=None):
             device=device,
         )
         paths["record"] = rec_path
+        if plots and result.traj is not None:
+            from .viz import plot_ray_paths
+
+            p = os.path.join(out_dir, f"{config.name}_rays.png")
+            plot_ray_paths(result.traj["u"], frame=config.frame, path=p)
+            paths["rays_png"] = p
     return {"result": result, "stats": stats, "valid": valid,
             "paths": paths,
             "rounds": tracer.last_rounds if tracer else None,

@@ -186,19 +186,17 @@ def test_ensemble_stats_matches_jax():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(pipeline=2), dict(order_switch_dt=0.12), dict(tail_stepper="dopri5"),
-    dict(save_every=64, pipeline=2),
     dict(grad_mode="autodiff", stiff_stepper="ros2x"),
     dict(grad_mode="autodiff"),
     dict(save_every=8, legacy_freq_state=True, grad_mode="autodiff"),
 ])
 def test_unported_knobs_raise(kw):
-    # the stiff steppers, the reference gradient set, legacy_freq_state
-    # and the trajectory channel run (tests/test_torch_reference_mode.py,
-    # test_torch_modes.py, test_torch_trajectory.py); the autodiff set
-    # (ROADMAP B7) and the knobs the JAX package left off (A10) stay
-    # refused, with the trajectory channel too
-    with pytest.raises(NotImplementedError):
+    # the stiff steppers, the reference gradient set, legacy_freq_state,
+    # the trajectory channel and the scheduling knobs run (tests/
+    # test_torch_reference_mode.py, test_torch_modes.py,
+    # test_torch_trajectory.py, test_torch_rounds_knobs.py); the autodiff
+    # set (ROADMAP B7) stays refused, with the trajectory channel too
+    with pytest.raises(NotImplementedError, match="B7"):
         ensemble.make_rounds_tracer(make_env_lat(), device="cpu",
                                     dtype=torch.float64, **kw)
 

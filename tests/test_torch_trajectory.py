@@ -282,15 +282,11 @@ def test_cli_trajectory_writes_the_channel(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--plots"], "A11"), (["--multihost"], "A12"),
     (["--sensitivity", "2"], "A13"),
 ])
 def test_cli_refuses_unported_flags(flag, item, capsys):
-    if item == "A13":
-        # ported: --sensitivity N sets sensitivity_rays (the channel's run
-        # is held in tests/test_torch_sensitivity.py)
-        assert t_main(["ensemble10k", *flag, "--dump-config"]) == 0
-        assert '"sensitivity_rays": 2' in capsys.readouterr().out
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        t_main(["ensemble10k", "--device", "cpu", *flag])
+    # ported: --sensitivity N sets sensitivity_rays (the channel's run is
+    # held in tests/test_torch_sensitivity.py); --plots and --multihost
+    # run (tests/test_torch_plots.py, test_torch_distributed.py)
+    assert t_main(["ensemble10k", *flag, "--dump-config"]) == 0
+    assert '"sensitivity_rays": 2' in capsys.readouterr().out
