@@ -164,7 +164,23 @@ Phases, each printed as it runs; any failed check exits non-zero:
  33. the plots' data (viz: the refractive surface at n_psi = 6,284, the
      environment maps at n = 400, the density profile) on the card in
      float64 against the CPU to 1e-12; without matplotlib --plots raises
-     its named ImportError, with it the five plots render.
+     its named ImportError, with it the five plots render;
+ 34. the autodiff gradient set (grad_mode="autodiff", the AD instances:
+     the value chain on dual numbers): (a) the 30 AD instances (the lat,
+     colat, 3D dipole, tilted and IGRF rows x bs3, dopri5, rk4 x float32,
+     float64) bit for bit with their plain version (ops/dual.py's rules)
+     over a cut of their launch, and the run-time flags of the same
+     instances (legacy_freq_state, He+ and O+ at the EMIC root, the local
+     ceiling); each instance timed at 10,240 rays x 512 attempts beside its
+     bound and the plain version's cut; (b) ensemble10k and
+     ensemble10k_3d through run.run in float32 and float64, the float64
+     censuses against the JAX package's autodiff censuses on a CPU outside
+     its own one-ulp spread (AD_PINS), float32 against float64 and
+     against the float32 census on a CPU (AD_F32), the fused set's
+     float32 run beside it; emic_heband, ensemble10k_tilted,
+     ensemble10k_local and raymain once in float32 against AD_F32; (c)
+     the CLI with grad_mode="autodiff" in a config file against run.run,
+     bit for bit.
 Each run through run.run checks the body its launches took (the team
 body's launch count, ops/step_chunk.py) and replays its last launch, the
 merged tail where the run has one (kernel_ab.replay_tail), for the
@@ -438,6 +454,7 @@ MULTI_ION = dict(eta_he=0.1, eta_o=0.02)
 # the 2D frames, legacy_freq_state (the frequency read as f + T); both take
 # the kernel's ALT instances
 REF = dict(grad_mode="reference")
+AD = dict(grad_mode="autodiff")
 REF_LEGACY = dict(grad_mode="reference", legacy_freq_state=True)
 RK4_3D = dict(adaptive=False, dt0=1.0e-3)
 # The pins of phases 21-22: the JAX package on a CPU, tests/
@@ -1022,6 +1039,44 @@ FP2D_PINS = dict(
 # rows' entries within 6e-11 relative
 FP2D_RTOL = 1e-8
 
+# phase 34: the JAX package's censuses under grad_mode="autodiff" on a CPU,
+# in one batch of the preset's rays as run() traces them (tests/
+# test_torch_slice3d.py <preset> <dtype> --batch 10240 --set
+# grad_mode='"autodiff"'; raymain and emic_heband with --run), 2026-10-18.
+# float64, and with --nudge (every launch latitude one ulp up: the
+# package's own spread, nudge_rays with their statuses in the unnudged
+# run): ensemble10k's census is the fused set's (9112 / 930 / 72 / 126),
+# its median landing L 5.5e-10 from the fused one's; the nudge moves one
+# ray (to HIT_EARTH, and the median of the hit set by 1.5e-4: median_l is
+# the median over the hits outside nudge_rays); ensemble10k_3d's nudge
+# moves none. jax_match, jax_dl: the package's own float32-vs-float64
+# agreement under autodiff (--against the float64 run). AD_F32: the float32
+# censuses, the JAX package's on a CPU; ensemble10k_tilted's the port's
+# plain version on a CPU (--port, the same date), since the JAX package's
+# float32 autodiff over the tilted field retires 1,780 rays as
+# DT_UNDERFLOW (HIT_EARTH 8455, 2,795,290 steps) where the port's plain
+# version retires 869 and its fused set 694 (ROADMAP C)
+AD_PINS = {
+    "ensemble10k": dict(hit=9112, mpt=930, dtu=72, ms=126,
+                        steps=23_706_773, median_l=1.275001526542184,
+                        nudge_rays={8386: "DT_UNDERFLOW"},
+                        jax_match=0.93603515625, jax_dl=2.242e-4,
+                        dl_max=2.5e-4),
+    "ensemble10k_3d": dict(hit=9984, mpt=0, dtu=255, ms=1,
+                           steps=2_777_437, median_l=3.164676627998958,
+                           nudge_rays={}, jax_match=0.9375,
+                           jax_dl=1.528e-6, dl_max=1e-4),
+}
+AD_F32 = {
+    "ensemble10k": dict(hit=8599, steps=21_007_601),
+    "ensemble10k_3d": dict(hit=9345, steps=2_689_908),
+    "ensemble10k_tilted": dict(hit=9366, steps=2_967_407,
+                               by="the port's plain version"),
+    "ensemble10k_local": dict(hit=8614, steps=5_154_453),
+    "emic_heband": dict(hit=0, steps=62_086),
+    "raymain": dict(hit=1, steps=2_744),
+}
+
 # phase 32: the JAX package's censuses of ensemble10k in float64 on a CPU
 # under one knob of the rounds tracer each, in one batch of 10,240 rays as
 # run() traces it (tests/test_torch_rounds_knobs.py run as a script). In
@@ -1435,6 +1490,9 @@ def ops_per_attempt(name, stepper, medium=None, **over):
     from raytrace_tpu_torch.integrate.solve import _step_one
     from raytrace_tpu_torch.ops import rhs as rhs_mod
 
+    key = (name, stepper, repr(medium), repr(sorted(over.items())))
+    if key in ops_per_attempt.cache:
+        return ops_per_attempt.cache[key]
     carry, f, env, cfg, spec, kw = start(name, "float64", "cpu", every=640,
                                          medium=medium, **over)
 
@@ -1454,7 +1512,11 @@ def ops_per_attempt(name, stepper, medium=None, **over):
                                      kw["legacy_freq_state"])
     with Count():
         _step_one(rhs_fn, carry, f, cfg, spec, gidx, kw["adaptive"], stepper)
-    return Count.n / f.shape[0]
+    ops_per_attempt.cache[key] = Count.n / f.shape[0]
+    return ops_per_attempt.cache[key]
+
+
+ops_per_attempt.cache = {}
 
 
 def carry_bytes(n_state, itemsize, rays):
@@ -2868,6 +2930,228 @@ def altx_kernels(dev, card):
     return out
 
 
+def ad_kernels(dev, card):
+    """Phase 34 (a): the 30 AD instances (the lat, colat, 3D dipole, tilted
+    and IGRF rows x bs3, dopri5, rk4 x float32, float64) bit for bit with
+    their plain version: bs3 over every 10th ray of the launch x 64
+    attempts, dopri5 and rk4 over every 20th x 16 (the launches: ensemble10k,
+    the ensemble10k fan in the colatitude frame over GCPM with the duct and
+    the day/night ionosphere, the MLT plume, the tilted and IGRF fans); then
+    the run-time flags of the same instances (legacy_freq_state, He+ and
+    O+ at the EMIC root, the local ceiling). Each instance is timed at the
+    launch's 10,240 rays x 512 attempts beside its bound and the plain
+    version's cut. Returns {(row, stepper, dtype): (max abs err,
+    timing)}."""
+    from raytrace_tpu_torch.config import MediumConfig
+    from raytrace_tpu_torch.constants import B0_2D
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    gcpm_2d = MediumConfig(b0=B0_2D, **GCPM_2D)
+    out = {}
+    for row, name, med, over in (
+        ("2d_lat", "ensemble10k", None, {}),
+        ("2d_colat over GCPM", "ensemble10k", gcpm_2d, COLAT),
+        ("3d over the MLT plume", "ensemble10k_plume", None, {}),
+        ("3d tilted", "ensemble10k_tilted", None, {}),
+        ("3d IGRF", "ensemble10k_igrf", None, {}),
+    ):
+        _, _, env, cfg, _, kw = start(name, "float64", "cpu", every=640,
+                                      medium=med, **AD, **over)
+        check(sc.medium_code(env, cfg, kw["grad_mode"]) == sc.AD
+              and sc.team_warps(0, 0, sc._FRAME_CODE[kw["frame"]][0], sc.AD,
+                                sc.field_code(env)) == 0,
+              f"AD {row}: the launch takes the AD instances, one-thread "
+              "body")
+        for st in ("bs3", "dopri5", "rk4"):
+            more = {}
+            if st == "rk4":
+                more = RK4_3D if row.startswith("3d") else RK4
+            kst = "bs3" if st == "rk4" else st
+            every, n = (10, 64) if st == "bs3" else (20, 16)
+            for dt_name in ("float32", "float64"):
+                err, ms = bit_for_bit(
+                    f"AD {row}" + (" (fixed-step rk4)" if more else ""),
+                    name, dt_name, kst, dev, n, every=every, medium=med,
+                    **AD, **over, **more)
+                plain = dict(plain_ms=ms, plain_rays=bit_for_bit.rays,
+                             plain_n=n)
+                t = time_instance(name, dt_name, kst, dev, reps=3,
+                                  medium=med, plain_full=False, plain=plain,
+                                  **AD, **over, **more)
+                print_timing(f"AD {row} {dt_name} {st}", t, card)
+                out[row, st, dt_name] = (err, t)
+    for what, name, dt_name, st, every, over in (
+        ("2d_lat legacy_freq_state", "ensemble10k", "float64", "bs3", 10,
+         dict(legacy_freq_state=True)),
+        ("emic_heband (He+, O+, root -1)", "emic_heband", "float32",
+         "dopri5", 1, {}),
+        ("emic_heband (He+, O+, root -1)", "emic_heband", "float64",
+         "dopri5", 1, {}),
+        ("ensemble10k_local (the local ceiling)", "ensemble10k_local",
+         "float32", "bs3", 10, {}),
+    ):
+        bit_for_bit(f"AD {what}", name, dt_name, st, dev, 64, every=every,
+                    **AD, **over)
+    return out
+
+
+def ad_pinned(out64, pin, what, lat_to_l):
+    """Phase 34's float64 gate: outside the rays that the JAX package's own
+    one-ulp nudge moves, the census equals the JAX package's and so does
+    the median landing L of the hit rays (the statistic's lower median,
+    within 1e-9); the attempted steps within 1%. A ray the nudge moves
+    may land or not, and where it lands is chaotic: counted in the
+    median it can be the median itself."""
+    from raytrace_tpu_torch.integrate import events
+
+    st = out64["stats"]
+    status = np.asarray(out64["result"].status)[out64["valid"]]
+    steps = int(st["total_accepted_steps"] + st["total_rejected_steps"])
+    nudge = pin["nudge_rays"]
+    idx = np.asarray(sorted(nudge), int)
+    keys = (("hit", "HIT_EARTH"), ("mpt", "MAX_PHASE_TIME"),
+            ("dtu", "DT_UNDERFLOW"), ("ms", "MAX_STEPS"))
+    code = {k: events.STATUS_NAMES.index(v) for k, v in keys}
+    got = {k: int((status == code[k]).sum()) for k, _ in keys}
+    print(f"  {what}: {got}, {steps} steps, median landing L "
+          f"{float(st['median_landing_l'])!r}; JAX on a CPU "
+          f"{ {k: pin[k] for k, _ in keys} }, {pin['steps']}, "
+          f"{pin['median_l']!r}")
+    if len(idx):
+        print("  the JAX package's one-ulp-nudge rays on the card: "
+              + ", ".join(f"{i} {events.STATUS_NAMES[int(status[i])]} (JAX "
+                          f"{nudge[i]})" for i in idx))
+    outside = {k: got[k] - int((status[idx] == code[k]).sum())
+               for k, _ in keys}
+    outside_jax = {k: pin[k] - sum(v == name for v in nudge.values())
+                   for k, name in keys}
+    check(outside == outside_jax,
+          f"{what}: the census equals the JAX package's outside its "
+          f"{len(idx)} one-ulp-nudge rays: {outside}")
+    check(abs(steps - pin["steps"]) <= 0.01 * pin["steps"],
+          f"{what}: attempted steps within 1% of the JAX package's")
+    hit = status == events.HIT_EARTH
+    hit[idx] = False
+    lands = np.sort(lat_to_l(np.asarray(out64["result"].u)[out64["valid"]]
+                             [hit].astype(np.float64)))
+    med = float(lands[(lands.size - 1) // 2])
+    print(f"  median landing L of the hits outside those rays {med!r} "
+          f"(JAX {pin['median_l']!r})")
+    check(abs(med - pin["median_l"]) <= 1e-9 * pin["median_l"],
+          f"{what}: that median within 1e-9 of the JAX package's")
+
+
+def ad_slices(card, fused):
+    """Phase 34 (b): the slice's paths with grad_mode="autodiff" through
+    run.run, every launch on an AD instance: ensemble10k and
+    ensemble10k_3d in float32 (after a warm-up) and float64, the float64
+    censuses against the JAX package's (AD_PINS), float32 against float64
+    and against the JAX package's float32 census (AD_F32), the fused set's
+    float32 run of phases 4 and 6 (`fused`: {preset: out}) beside it;
+    then emic_heband, ensemble10k_tilted, ensemble10k_local and raymain
+    once in float32 against the JAX package's float32 census. Returns
+    {preset: (the float32 run's launches, its last launch replayed)}."""
+    from raytrace_tpu_torch.config import preset
+
+    runs = {}
+    for name in ("ensemble10k", "ensemble10k_3d", "emic_heband",
+                 "ensemble10k_tilted", "ensemble10k_local", "raymain"):
+        conf = preset(name, **AD)
+        if name in ("ensemble10k", "ensemble10k_3d", "ensemble10k_tilted"):
+            drive(conf, f"{name} autodiff warm-up", card)
+        out32, _, launches, calls = drive(conf, f"{name} autodiff float32",
+                                          card)
+        check(launches > 0 and calls == 0 and all(
+                  kw.get("grad_mode") == "autodiff" for kw in drive.kws),
+              f"{name} (autodiff) stepped through the AD instances, never "
+              "the plain version")
+        body(launches, f"{name} autodiff float32", team=False)
+        check(np.isfinite(out32["result"].u[out32["valid"]]).all(),
+              "every final state is finite")
+        runs[name] = (launches, tail_timing(f"{name} autodiff float32",
+                                            card))
+        got, steps = census(out32)
+        pin32 = AD_F32[name]
+        who = pin32.get("by", "the JAX package's")
+        print(f"  float32 {got}, {steps} steps; {who} float32 autodiff "
+              f"census on a CPU: HIT_EARTH {pin32['hit']}, {pin32['steps']} "
+              "steps")
+        check(abs(got["hit"] - pin32["hit"]) <= max(0.02 * pin32["hit"], 2)
+              and abs(steps - pin32["steps"]) <= 0.05 * pin32["steps"],
+              f"float32: HIT_EARTH within 2% (or 2 rays) and attempted "
+              f"steps within 5% of {who} (float32 censuses differ by the "
+              "platforms' rounding)")
+        if name in fused:
+            want, steps_f = census(fused[name])
+            valid = out32["valid"]
+            match = float(np.mean(out32["result"].status[valid]
+                                  == fused[name]["result"].status[valid]))
+            print(f"  the fused set's float32 run (same card): {want}, "
+                  f"{steps_f} steps; {match:.2%} of statuses match")
+        if name not in AD_PINS:
+            continue
+        pin = AD_PINS[name]
+        out64, _, launches64, calls = drive(
+            preset(name, dtype="float64", **AD), f"{name} autodiff float64",
+            card)
+        check(launches64 > 0 and calls == 0,
+              "float64 stepped through the kernel, never the plain version")
+        lat_to_l = ((lambda u: u[:, 0] / np.cos(u[:, 1]) ** 2)
+                    if name == "ensemble10k"
+                    else (lambda u: u[:, 0] / np.sin(u[:, 1]) ** 2))
+        ad_pinned(out64, pin, f"{name} autodiff float64", lat_to_l)
+        match, med_rel, n_m = landing_agreement(out32, out64, lat_to_l)
+        print(f"  float32 vs float64: {match * 100:.2f}% statuses match, "
+              f"median relative landing-L error {med_rel:.3e} over {n_m} "
+              f"matched HIT_EARTH rays (the JAX package's own under "
+              f"autodiff: {pin['jax_match']:.2%}, {pin['jax_dl']:.3g})")
+        floor = pin["jax_match"] - 0.005
+        check(match >= floor, f"statuses match on >= {floor:.2%} of rays")
+        check(med_rel < pin["dl_max"],
+              f"median relative landing-L error < {pin['dl_max']:g}")
+    return runs
+
+
+def ad_cli(card):
+    """Phase 34 (c): the CLI with grad_mode="autodiff" in a config file,
+    `python -m raytrace_tpu_torch cut.json --out DIR` on the card (a cut of
+    ensemble10k, in a process of its own that loads the library built
+    above): its final states equal this process's run.run of the same
+    config through the AD instances bit for bit."""
+    import os
+    import tempfile
+
+    from raytrace_tpu_torch.config import preset
+    from raytrace_tpu_torch.ops import step_chunk as sc
+    from raytrace_tpu_torch.run import run
+
+    conf = preset("ensemble10k", lats=(0.5, 0.7, 0.9), chis=(-0.2, 0.3),
+                  freqs=(1000.0, 4000.0), grad_mode="autodiff")
+    sc.step_chunk.launches = 0
+    want = run(conf, device="cuda")
+    check(sc.step_chunk.launches > 0, "the cut stepped through the kernel")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "cut.json")
+        with open(path, "w") as fh:
+            fh.write(conf.to_json())
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "raytrace_tpu_torch", path, "--out",
+             os.path.join(d, "out")], capture_output=True, text=True,
+            timeout=600)
+        wall = time.perf_counter() - t0
+        print("  " + proc.stdout.strip().splitlines()[0] if proc.stdout
+              else proc.stderr[-2000:])
+        check(proc.returncode == 0, f"the CLI ran ({wall:.1f} s with its "
+                                    f"start-up) on {card}")
+        got = np.load(os.path.join(d, "out", "ensemble10k_final.npz"))
+        same = all(np.array_equal(got[k], np.asarray(
+            getattr(want["result"], k)), equal_nan=k == "u")
+            for k in ("u", "status"))
+    check(same, "the CLI's final states and statuses equal run.run's bit "
+                "for bit")
+
+
 def drive_legacy(conf, what, card):
     """drive() for legacy_freq_state=True, which is not a RunConfig field:
     run.run's rounds path (make_rounds_tracer with the run's keywords, one
@@ -4183,6 +4467,9 @@ def main():
     print(f"  step kernel built and loaded in {time.perf_counter() - t0:.1f} s"
           f" (nvcc {sc.BUILD_SECONDS:.1f} s; the CN/CG kernel's beside it "
           f"{cn_pcg_2d.BUILD_SECONDS:.1f} s)")
+    print("  nvcc wall of each part (seconds from the build's start): "
+          + ", ".join(f"{k} {t:.1f}"
+                      for k, t in enumerate(sc.BUILD_PART_SECONDS)))
     for line in sc.BUILD_LOG.splitlines():
         if any(w in line for w in ("Compiling entry", "Function properties",
                                    "registers", "spill")):
@@ -4730,6 +5017,13 @@ def main():
     knobs_phase(dev, card, out4, out64)
     phase("[33] the plots' data on the card, and --plots")
     plots_phase(card)
+
+    # ---- 34. the autodiff gradient set ----------------------------------
+    phase("[34] the AD instances (grad_mode=\"autodiff\") vs plain PyTorch, "
+          "and the slice's paths through run.run")
+    ad = ad_kernels(dev, card)
+    ad_runs = ad_slices(card, {"ensemble10k": out4, "ensemble10k_3d": out3})
+    ad_cli(card)
     phase("[done]")
 
     def entry(name, launches, err, t, tail=None, team=False):
@@ -4829,6 +5123,17 @@ def main():
         entry("step_chunk[2d_lat,float64,dopri5](trajectory block, 25 "
               "attempts, the lightning fan)", launches_fan, err_fan, t_fan),
         *(cg_entry(name, *fp2d[name]) for name in ("float64", "float32")),
+        entry("step_chunk[2d_lat+autodiff,float32,bs3]",
+              ad_runs["ensemble10k"][0], *ad["2d_lat", "bs3", "float32"],
+              ad_runs["ensemble10k"][1]),
+        entry("step_chunk[3d+autodiff,float32,bs3]",
+              ad_runs["ensemble10k_3d"][0],
+              *ad["3d over the MLT plume", "bs3", "float32"],
+              ad_runs["ensemble10k_3d"][1]),
+        entry("step_chunk[3d+autodiff+tilted_field,float32,bs3]",
+              ad_runs["ensemble10k_tilted"][0],
+              *ad["3d tilted", "bs3", "float32"],
+              ad_runs["ensemble10k_tilted"][1]),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

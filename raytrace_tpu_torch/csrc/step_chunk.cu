@@ -80,12 +80,17 @@
 // it; in 3D over the MLT-resolved medium its density is the chain's at the
 // base parameters (the JAX package reads it without longitude), a second
 // evaluation of the chain.
+// The autodiff gradient set (ops/gradients.py grad_mode="autodiff") takes
+// the sixth medium value, AD: the value chain of ops/dispersion.py over
+// the whole medium on dual numbers (forward mode, the tangents by torch's
+// formulas; the section "the autodiff gradient set" below), in every frame
+// and, in 3D, over every field.
 // Template instances: float and double x bs3, dopri5 and rk4 x the three
-// frames x the five media over the dipole (2 x 3 x 3 x 5 = 90), and x the
-// two non-axial fields in the 3D frame over FULL and EXT (24): 114,
-// compiled in eight parts (one per frame, one per non-axial field, one for
-// ALT, two for ALTX) by parallel nvcc processes and linked into one
-// library (SC_PART below).
+// frames x the six media over the dipole (2 x 3 x 3 x 6 = 108), and x the
+// two non-axial fields in the 3D frame over FULL, EXT and AD (36): 144,
+// compiled in eleven parts (one per frame, one per non-axial field, one
+// for ALT, two for ALTX, three for AD) by parallel nvcc processes and
+// linked into one library (SC_PART below).
 //
 // Design for the card, not block by block:
 //   - the carry of a ray lives in registers for all n_steps attempts and
@@ -230,6 +235,7 @@ constexpr int FULL = 1;   // the full density chain
 constexpr int EXT = 2;    // the full chain with the ion species and ds_local
 constexpr int ALT = 3;    // AXI under the reference scripts' modes
 constexpr int ALTX = 4;   // EXT under the reference scripts' modes
+constexpr int AD = 5;     // the autodiff set over any medium and field
 constexpr int DIPOLE = 0;  // the centered dipole
 constexpr int TILTED = 1;  // the tilted dipole (3D frame, full medium)
 constexpr int IGRF = 2;    // the degree-3 IGRF truncation (likewise)
@@ -268,9 +274,9 @@ __host__ __device__ constexpr bool full_density(int medium) {
 }
 
 // the media of the extended chain: the Stix sums over the ion species and
-// the local arc ceiling at run time
+// the local arc ceiling at run time (AD: its own chain, with both)
 __host__ __device__ constexpr bool extended(int medium) {
-  return medium == EXT || medium == ALTX;
+  return medium == EXT || medium == ALTX || medium == AD;
 }
 
 // the media that read the reference scripts' modes (p.ref_grads,
@@ -288,8 +294,8 @@ struct FrameDim {
 }  // namespace
 
 // host-side scalars, all double (mirror of ops/step_chunk.py::StepParams):
-// 120 doubles, 960 bytes; the kernel's own KParams<double> stays near
-// 1 KB, far below the 4 KB a kernel's parameters may take
+// 123 doubles, 984 bytes; the kernel's own KParams<double> stays near
+// 1.2 KB, far below the 4 KB a kernel's parameters may take
 struct StepParams {
   double b0, iono_n0, iono_decay, iono_r0, lppi, lppo, ne_lppi, ps_season,
       ps_trough, ps_weight, de_weight, root;
@@ -317,6 +323,10 @@ struct StepParams {
   // the reference scripts' modes, read by the ALT instances only (1.0 =
   // on): the reference gradient set, and the 2D frequency read as f + T
   double ref_grads, legacy_freq;
+  // the divisors the AD instances' value chain divides by as the plain
+  // version does (1 / x formed in T): the GCPM scale and knee, the duct's
+  // width
+  double gcpm_lscale, gcpm_knee, duct_w;
 };
 
 namespace {
@@ -351,8 +361,15 @@ struct KParams {
   int n_harm;
   bool iono_mix_on, gcpm_on, smooth_on, refill_on, refill_q_on, duct_on,
       mlt_on;
-  // the ALT instances' two modes
+  // the ALT instances' two modes (AD reads legacy_freq)
   bool ref_grads, legacy_freq;
+  // the AD instances' value chain (ops/dispersion.py over models/): the
+  // env scalars as the plain version's Python floats are cast to T
+  // (products and negations of them formed in double), and the Python
+  // scalar divisors as reciprocals formed in T, as torch forms them for a
+  // quotient by a Python scalar on the card
+  T neg_decay, neg_decay_b, de_w, one_m_de_w, ps_w, neg2b0, negb0;
+  T inv_smooth_t, inv_lscale_t, inv_knee_t, inv_duct_w_t;
 };
 
 template <typename T>
@@ -451,6 +468,18 @@ KParams<T> make_params(const StepParams& h, int stepper) {
   p.mlt_on = h.ps_mlt != 0.0;
   p.ref_grads = h.ref_grads != 0.0;
   p.legacy_freq = h.legacy_freq != 0.0;
+  p.neg_decay = T(-h.iono_decay);
+  p.neg_decay_b = T(-h.iono_decay_b);
+  p.de_w = T(h.de_weight);
+  p.one_m_de_w = T(1.0 - h.de_weight);
+  p.ps_w = T(h.ps_weight);
+  p.neg2b0 = T(-2.0 * h.b0);
+  p.negb0 = T(-h.b0);
+  const auto inv_t = [](double x) { return x != 0.0 ? T(1) / T(x) : T(0); };
+  p.inv_smooth_t = inv_t(h.ps_smooth);
+  p.inv_lscale_t = inv_t(h.gcpm_lscale);
+  p.inv_knee_t = inv_t(h.gcpm_knee);
+  p.inv_duct_w_t = inv_t(h.duct_w);
   return p;
 }
 
@@ -1958,12 +1987,679 @@ __device__ __noinline__ void rhs_3d_general(const T u[7], T f,
               dmu_dc * dcos_drho_p, dmu_df, kim_trig(u), out);
 }
 
+// ---- the autodiff gradient set (MEDIUM = AD) -----------------------------
+//
+// ops/gradients.py grad_mode="autodiff": mu and its partials, the exact
+// derivatives of the traced mu = sqrt(|mu^2|), in forward mode. The value
+// chain of ops/dispersion.py (mu_2d_lat, mu_2d_colat, mu_3d) over
+// models/medium.py, plasmasphere.py, ionosphere.py and dipole.py is
+// written here once, templated on its scalar, with the same branches and
+// the same operations in the same order as those torch functions, and
+// runs on dual numbers: Dual<T, W> carries a value and W tangents, one per
+// seeded input. Each tangent rule is torch's forward-mode formula for the
+// op (PyTorch's derivatives.yaml; ops/dual.py, the plain version, applies
+// the same rules to (N, B) tangent tensors), so that the kernel rounds as
+// the plain version does on the card, tangent row by tangent row:
+//   a * b: b.t * a.v + a.t * b.v; a / b: (a.t - b.t * res) / b.v;
+//   c / x: x.reciprocal() * c (torch's __rtruediv__), whose tangent is
+//   ((-x.t) * (rr * rr)) * c; x / c for a Python scalar c: a product with
+//   1 / c formed in T (recip; KParams' inv_*_t); sqrt: t / (2 res); exp:
+//   t * res; log: t / x; sin: t * cos x; cos: t * (-sin x); asin: t *
+//   rsqrt(-x * x + 1); atan2: (-y * x.t + x * y.t) / (y^2 + x^2); abs: t *
+//   sign x (sign 0 = 0); clamp: the tangent where lo <= x <= hi, else 0;
+//   maximum(a, b): b.t + w (a.t - b.t), w = 0.5 at a tie, else 1 or 0;
+//   where: the selected operand's tangent; x**2: t * (2 x).
+// A Python float or the dipole's B_phi (torch.zeros_like) is a constant:
+// the operators taking a T leave its tangent out, as torch does for an
+// operand with no tangent. Every tangent row is computed alone from the
+// values and its own row, so W = N (one pass) and N passes of W = 1 give
+// the same bits; kAdWidth2D and kAdWidth3D choose (PERF.md). The medium's
+// features are run-time flags of KParams (as in FULL and EXT), the ion
+// species and the local ceiling too (as in EXT), legacy_freq_state in 2D
+// (as in ALTX). The right-hand side is a __noinline__ call, one body per
+// (T, frame, field) that the steppers' stages call, so that the dual chain
+// is compiled once per instance family.
+
+constexpr int kAdWidth2D = 4;  // tangents a pass in the 2D frames (N = 4)
+constexpr int kAdWidth3D = 7;  // and in the 3D frame (N = 7)
+
+template <typename T, int W>
+struct Dual {
+  T v;
+  T t[W];
+};
+
+#define AD_LOOP _Pragma("unroll") for (int k = 0; k < W; ++k)
+
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> operator+(const Dual<T, W>& a,
+                                                const Dual<T, W>& b) {
+  Dual<T, W> r;
+  r.v = a.v + b.v;
+  AD_LOOP r.t[k] = a.t[k] + b.t[k];
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> operator+(const Dual<T, W>& a, T c) {
+  Dual<T, W> r = a;
+  r.v = a.v + c;
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> operator+(T c, const Dual<T, W>& a) {
+  Dual<T, W> r = a;
+  r.v = c + a.v;
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> operator-(const Dual<T, W>& a,
+                                                const Dual<T, W>& b) {
+  Dual<T, W> r;
+  r.v = a.v - b.v;
+  AD_LOOP r.t[k] = a.t[k] - b.t[k];
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> operator-(const Dual<T, W>& a, T c) {
+  Dual<T, W> r = a;
+  r.v = a.v - c;
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> operator-(T c, const Dual<T, W>& a) {
+  Dual<T, W> r;
+  r.v = c - a.v;
+  AD_LOOP r.t[k] = -a.t[k];
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> operator-(const Dual<T, W>& a) {
+  Dual<T, W> r;
+  r.v = -a.v;
+  AD_LOOP r.t[k] = -a.t[k];
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> operator*(const Dual<T, W>& a,
+                                                const Dual<T, W>& b) {
+  Dual<T, W> r;
+  r.v = a.v * b.v;
+  AD_LOOP r.t[k] = b.t[k] * a.v + a.t[k] * b.v;
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> operator*(const Dual<T, W>& a, T c) {
+  Dual<T, W> r;
+  r.v = a.v * c;
+  AD_LOOP r.t[k] = a.t[k] * c;
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> operator*(T c, const Dual<T, W>& a) {
+  Dual<T, W> r;
+  r.v = c * a.v;
+  AD_LOOP r.t[k] = a.t[k] * c;
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> operator/(const Dual<T, W>& a,
+                                                const Dual<T, W>& b) {
+  Dual<T, W> r;
+  r.v = a.v / b.v;
+  AD_LOOP r.t[k] = (a.t[k] - b.t[k] * r.v) / b.v;
+  return r;
+}
+// c / x for a Python scalar c: x.reciprocal() * c
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> rdiv(T c, const Dual<T, W>& x) {
+  const T rr = T(1) / x.v;
+  const T rr2 = rr * rr;
+  Dual<T, W> r;
+  r.v = rr * c;
+  AD_LOOP r.t[k] = (-x.t[k] * rr2) * c;
+  return r;
+}
+// x ** 2
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> sq(const Dual<T, W>& x) {
+  const T two_x = T(2) * x.v;
+  Dual<T, W> r;
+  r.v = x.v * x.v;
+  AD_LOOP r.t[k] = x.t[k] * two_x;
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> d_sin(const Dual<T, W>& x) {
+  const T c = d_cos(x.v);
+  Dual<T, W> r;
+  r.v = d_sin(x.v);
+  AD_LOOP r.t[k] = x.t[k] * c;
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> d_cos(const Dual<T, W>& x) {
+  const T ms = -d_sin(x.v);
+  Dual<T, W> r;
+  r.v = d_cos(x.v);
+  AD_LOOP r.t[k] = x.t[k] * ms;
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> d_exp(const Dual<T, W>& x) {
+  Dual<T, W> r;
+  r.v = d_exp(x.v);
+  AD_LOOP r.t[k] = x.t[k] * r.v;
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> d_log(const Dual<T, W>& x) {
+  Dual<T, W> r;
+  r.v = d_log(x.v);
+  AD_LOOP r.t[k] = x.t[k] / x.v;
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> d_sqrt(const Dual<T, W>& x) {
+  Dual<T, W> r;
+  r.v = d_sqrt(x.v);
+  const T two_r = T(2) * r.v;
+  AD_LOOP r.t[k] = x.t[k] / two_r;
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> d_asin(const Dual<T, W>& x) {
+  const T g = d_rsqrt(-x.v * x.v + T(1));
+  Dual<T, W> r;
+  r.v = d_asin(x.v);
+  AD_LOOP r.t[k] = x.t[k] * g;
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> d_atan2(const Dual<T, W>& y,
+                                              const Dual<T, W>& x) {
+  const T my = -y.v;
+  const T den = y.v * y.v + x.v * x.v;
+  Dual<T, W> r;
+  r.v = d_atan2(y.v, x.v);
+  AD_LOOP r.t[k] = (my * x.t[k] + x.v * y.t[k]) / den;
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> d_abs(const Dual<T, W>& x) {
+  const T sg = tsign(x.v);
+  Dual<T, W> r;
+  r.v = d_abs(x.v);
+  AD_LOOP r.t[k] = x.t[k] * sg;
+  return r;
+}
+// torch.clamp(x, lo, hi): NaN propagates; the tangent passes on [lo, hi]
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> d_clamp(const Dual<T, W>& x, T lo,
+                                              T hi) {
+  const bool in = x.v >= lo && x.v <= hi;
+  Dual<T, W> r;
+  r.v = jmin(jmax(x.v, lo), hi);
+  AD_LOOP r.t[k] = in ? x.t[k] : T(0);
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> d_clamp_min(const Dual<T, W>& x,
+                                                  T lo) {
+  const bool in = x.v >= lo;
+  Dual<T, W> r;
+  r.v = jmax(x.v, lo);
+  AD_LOOP r.t[k] = in ? x.t[k] : T(0);
+  return r;
+}
+// torch.maximum, its tangent weighted 0.5 at a tie
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> d_max(const Dual<T, W>& a,
+                                            const Dual<T, W>& b) {
+  const T w = a.v == b.v ? T(0.5) : (a.v > b.v ? T(1) : T(0));
+  Dual<T, W> r;
+  r.v = jmax(a.v, b.v);
+  AD_LOOP r.t[k] = b.t[k] + w * (a.t[k] - b.t[k]);
+  return r;
+}
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> d_select(bool c, const Dual<T, W>& a,
+                                               const Dual<T, W>& b) {
+  return c ? a : b;
+}
+
+// the value of a parameter that is a constant (T) or a Dual (the
+// MLT-resolved medium's effective parameters)
+template <typename T>
+__device__ __forceinline__ T val(T x) {
+  return x;
+}
+template <typename T, int W>
+__device__ __forceinline__ T val(const Dual<T, W>& x) {
+  return x.v;
+}
+
+// plasmasphere.sigmoid: 1 / (1 + exp(-x))
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> ad_sigmoid(const Dual<T, W>& x) {
+  return rdiv(T(1), T(1) + d_exp(-x));
+}
+
+// plasmasphere.ne_plasma_cm3 (CA1992, hard or smoothed plasmapause, the
+// trough refill): P is T at the env's parameters or Dual at the
+// MLT-resolved medium's; ln_nl is log(ne_lppi) (math.log of the env's
+// float, or the tensor's log)
+template <typename T, int W, typename P>
+__device__ __forceinline__ Dual<T, W> ad_ca1992(const Dual<T, W>& L,
+                                                const P& lppi, const P& lppo,
+                                                const P& ne_lppi,
+                                                const P& trough,
+                                                const P& ln_nl,
+                                                const KParams<T>& p) {
+  using D = Dual<T, W>;
+  const D log_ne1 = (T(-0.3145) * L + T(3.9043)) +
+                    p.ps_season * d_exp((T(2) - L) * recip(T(1.5)));
+  const D ne1 = d_exp(T(kLN10) * log_ne1);
+  const D ne2 =
+      ne_lppi * d_exp((T(kLN10) * (lppi - L)) * recip(T(0.1)));
+  const D Ls = d_clamp_min(L, T(1.0e-6));
+  D ne3 = trough * d_exp(T(-4.5) * d_log(Ls)) +
+          (T(1) - d_exp((T(2) - L) * recip(T(10))));
+  if (p.refill_on) {  // log-space refill toward branch 1
+    if (p.refill_q_on) {  // plasmasphere.refill_weight per L
+      const D e = d_exp(p.ps_refill_q * (p.ln_lref - d_log(Ls)));
+      const D w = T(1) - d_exp(e * p.ln_keep);
+      ne3 = d_exp((T(1) - w) * d_log(ne3) + w * (T(kLN10) * log_ne1));
+    } else {
+      ne3 = d_exp(p.one_m_refill * d_log(ne3) +
+                  p.ps_refill * (T(kLN10) * log_ne1));
+    }
+  }
+  const D hard = d_select(L.v <= val(lppi), ne1,
+                          d_select(L.v <= val(lppo), ne2, ne3));
+  if (!p.smooth_on) return hard;
+  const D w1 = ad_sigmoid((lppi - L) * p.inv_smooth_t);
+  const D w2 = ad_sigmoid((lppo - L) * p.inv_smooth_t);
+  const D ln1 = T(kLN10) * log_ne1;
+  const D ln2 = ln_nl + (T(kLN10) * (lppi - L)) * recip(T(0.1));
+  const D ln3 = d_log(ne3);
+  return d_exp(w1 * ln1 + (T(1) - w1) * (w2 * ln2 + (T(1) - w2) * ln3));
+}
+
+// plasmasphere.ne_gcpm_cm3 at (L, sin lat, cos lat)
+template <typename T, int W, typename P>
+__device__ __forceinline__ Dual<T, W> ad_gcpm(const Dual<T, W>& L,
+                                              const Dual<T, W>& sl,
+                                              const Dual<T, W>& cl,
+                                              const P& lppo, const P& trough,
+                                              const KParams<T>& p) {
+  using D = Dual<T, W>;
+  const D q2 = T(1) + T(3) * (sl * sl);
+  const D ln_m = T(0.5) * d_log(q2) - T(6) * d_log(cl);
+  const D ln_ps =
+      (p.ln_gcpm_ne0 - (L - T(2)) * p.inv_lscale_t) + p.gcpm_bpow * ln_m;
+  const D Ls = d_clamp_min(L, T(1.0e-6));
+  const D ln_tr = d_log(trough * d_exp(T(-4.5) * d_log(Ls)) +
+                        (T(1) - d_exp((T(2) - L) * recip(T(10)))));
+  const D w = ad_sigmoid((lppo - L) * p.inv_knee_t);
+  return d_exp(w * ln_ps + (T(1) - w) * ln_tr);
+}
+
+// medium.ne_total_m3 at (r, sin lat, cos lat) and, with `mlt` (the 3D
+// frame over the MLT-resolved medium), the longitude phi
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> ad_ne_total(const Dual<T, W>& r,
+                                                  const Dual<T, W>& sl,
+                                                  const Dual<T, W>& cl,
+                                                  const Dual<T, W>& phi,
+                                                  bool mlt,
+                                                  const KParams<T>& p) {
+  using D = Dual<T, W>;
+  const D dr0 = r - p.iono_r0;
+  D ne_i = p.iono_n0 * d_exp(p.neg_decay * dr0);
+  if (p.iono_mix_on)  // the day/night blend of two fits
+    ne_i = p.iono_mix * ne_i +
+           p.one_m_mix * (p.iono_n0_b * d_exp(p.neg_decay_b * dr0));
+  const D L = r / (cl * cl);  // dipole.l_shell
+  D ne_p;
+  if (mlt) {
+    // medium._mlt_shape: the Fourier shape by angle recursion (its phi
+    // slope is not needed here) and the day-night trough
+    const D ang = p.ps_mlt_a0 + phi;
+    const D s1a = d_sin(ang), c1a = d_cos(ang);
+    D sk = s1a, ck = c1a;
+    D shape = (p.mlt_c[0] + p.mlt_c[1] * ck) + p.mlt_c[2] * sk;
+#pragma unroll
+    for (int h = 2; h <= kMaxHarm; ++h) {
+      if (h > p.n_harm) break;
+      const D sn = sk * c1a + ck * s1a;
+      const D cn = ck * c1a - sk * s1a;
+      sk = sn;
+      ck = cn;
+      shape = (shape + p.mlt_c[2 * h - 1] * ck) + p.mlt_c[2 * h] * sk;
+    }
+    const D trough = p.ps_trough + p.ps_mlt_tamp * (c1a - p.cos_a0);
+    if (p.gcpm_on) {  // medium.mlt_gcpm_params
+      ne_p = ad_gcpm<T, W, D>(L, sl, cl, p.lppo * shape, trough, p);
+    } else {  // medium.mlt_ps_params
+      const D lppi_e = p.lppi * shape;
+      const D e_i = d_exp((T(2) - lppi_e) * recip(T(1.5)));
+      const D g1i = (T(-0.3145) * lppi_e + T(3.9043)) + p.ps_season * e_i;
+      const D ne_lppi_e = d_exp(T(kLN10) * g1i);
+      const D lppo_e = lppi_e + T(0.1) * (g1i - p.ps_mlt_c3);
+      const D ln_nl = p.smooth_on ? d_log(ne_lppi_e) : ne_lppi_e;
+      ne_p = ad_ca1992<T, W, D>(L, lppi_e, lppo_e, ne_lppi_e, trough, ln_nl,
+                                p);
+    }
+  } else if (p.gcpm_on) {
+    ne_p = ad_gcpm<T, W, T>(L, sl, cl, p.lppo, p.ps_trough, p);
+  } else {
+    ne_p = ad_ca1992<T, W, T>(L, p.lppi, p.lppo, p.ne_lppi, p.ps_trough,
+                              p.ln_ne_lppi, p);
+  }
+  if (p.duct_on) {  // plasmasphere.duct_factor
+    const D x = (L - p.duct_l0) * p.inv_duct_w_t;
+    ne_p = ne_p * (T(1) + p.duct_amp * d_exp((T(-0.5) * x) * x));
+  }
+  // plasmasphere.diffusive_equilibrium_factor, weighted by de_weight
+  const D G =
+      T(kDeRbase) * (T(1) - rdiv(T(kDeRbase), r * T(kRE)));
+  const D de = d_sqrt(d_exp((-G) * recip(T(kDeS))));
+  ne_p = ne_p * (p.de_w * de + p.one_m_de_w);
+  return (ne_i + p.ps_w * ne_p) * T(1.0e6);
+}
+
+// dispersion.stix_rlp over the p.n_ion species, mu2_signed_trig and
+// mu_from_mu2
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> ad_mu_stix(
+    const Dual<T, W>& ne, const Dual<T, W>& bm, const Dual<T, W>& f,
+    const Dual<T, W>& sinpsi, const Dual<T, W>& cospsi,
+    const KParams<T>& p) {
+  using D = Dual<T, W>;
+  const D n_cm3 = ne * T(1.0e-6);
+  const D f2 = f * f;
+  const D xe = (T(kFPE2_E) * n_cm3) / f2;
+  const D ye = (T(kFCE_E) * bm) / f;
+  D R = T(1) - xe / (T(1) - ye);
+  D L = T(1) - xe / (T(1) + ye);
+  D P = T(1) - xe;
+#pragma unroll
+  for (int k = 0; k < kMaxIon; ++k) {
+    if (k >= p.n_ion) break;
+    const D xi = (p.ion_fpe2[k] * n_cm3) / f2;
+    const D yi = (p.ion_fce[k] * bm) / f;
+    R = R - xi / (T(1) + yi);
+    L = L - xi / (T(1) - yi);
+    P = P - xi;
+  }
+  const D s = d_max(d_max(d_abs(R), d_abs(L)), d_abs(P));
+  const D rn = R / s, ln = L / s, pn = P / s;
+  const D dn = T(0.5) * (rn - ln);
+  const D sn = T(0.5) * (rn + ln);
+  const D sin2 = sinpsi * sinpsi;
+  const D cos2 = cospsi * cospsi;
+  const D a = sn * sin2 + pn * cos2;
+  const D rl = rn * ln;
+  const D ps = pn * sn;
+  const D b = rl * sin2 + ps * (T(1) + cos2);
+  const D c = (pn * rn) * ln;
+  const D rl_ps = rl - ps;
+  const D fd = d_sqrt(((rl_ps * rl_ps) * sin2) * sin2 +
+                      T(4) * sq((pn * dn) * cospsi));
+  const D direct = (b + p.root * fd) / (T(2) * a);
+  const D product = (T(2) * c) / (b - p.root * fd);
+  const D mu2n = d_select(p.root * b.v >= T(0), direct, product);
+  return d_sqrt(d_abs(s * mu2n));
+}
+
+// dispersion.mu_2d_lat (psi_trig_lat, ne_total_m3, b_mag_lat; the square
+// root of 1 + 3 sin^2 lat serves both)
+template <typename T, int W>
+__device__ __forceinline__ Dual<T, W> ad_mu_2d(const Dual<T, W>& r,
+                                               const Dual<T, W>& lat,
+                                               const Dual<T, W>& chi,
+                                               const Dual<T, W>& f,
+                                               const KParams<T>& p) {
+  using D = Dual<T, W>;
+  const D sl = d_sin(lat), cl = d_cos(lat);
+  const D q = d_sqrt(T(1) + (T(3) * sl) * sl);
+  const D sindip = (T(2) * sl) / q;
+  const D cosdip = cl / q;
+  const D sc = d_sin(chi), cc = d_cos(chi);
+  const D sinpsi = cosdip * cc - sindip * sc;
+  const D cospsi = -(sindip * cc + cosdip * sc);
+  const D ne = ad_ne_total(r, sl, cl, chi, false, p);
+  const D bm = (p.b0 * q) / ((r * r) * r);
+  return ad_mu_stix(ne, bm, f, sinpsi, cospsi, p);
+}
+
+// dispersion._psi_trig_bmag_3d and the rest of mu_3d from the field
+// (br, bt, bp; bp a constant 0 for the centered dipole) and the density
+template <typename T, int W, typename BP>
+__device__ __forceinline__ Dual<T, W> ad_mu_3d_tail(
+    const Dual<T, W>& br, const Dual<T, W>& bt, const BP& bp,
+    const Dual<T, W>& rr, const Dual<T, W>& rt, const Dual<T, W>& rp,
+    const Dual<T, W>& ne, const Dual<T, W>& f, const KParams<T>& p) {
+  using D = Dual<T, W>;
+  const D bmag = d_sqrt((br * br + bt * bt) + bp * bp);
+  const D rmag = d_sqrt((rr * rr + rt * rt) + rp * rp);
+  const D inv_brm = rdiv(T(1), bmag * rmag);
+  const D cospsi =
+      d_clamp(((br * rr + bt * rt) + bp * rp) * inv_brm, T(-1), T(1));
+  const D c_r = bt * rp - bp * rt;
+  const D c_t = bp * rr - br * rp;
+  const D c_p = br * rt - bt * rr;
+  const D sinpsi = d_sqrt((c_r * c_r + c_t * c_t) + c_p * c_p) * inv_brm;
+  return ad_mu_stix(ne, bmag, f, sinpsi, cospsi, p);
+}
+
+// dipole._moment_components and magnetic_coords (mlat, mlon of the tilted
+// frame) from the sines and cosines of theta and phi
+template <typename T, int W>
+__device__ __forceinline__ void ad_moment(const Dual<T, W>& st,
+                                          const Dual<T, W>& ct,
+                                          const Dual<T, W>& sp,
+                                          const Dual<T, W>& cp,
+                                          const KParams<T>& p,
+                                          Dual<T, W>& m_r, Dual<T, W>& m_t,
+                                          Dual<T, W>& m_p) {
+  m_r = ((p.mom[0] * st) * cp + (p.mom[1] * st) * sp) + p.mom[2] * ct;
+  m_t = ((p.mom[0] * ct) * cp + (p.mom[1] * ct) * sp) - p.mom[2] * st;
+  m_p = (-p.mom[0]) * sp + p.mom[1] * cp;
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void ad_magnetic_coords(
+    const Dual<T, W>& st, const Dual<T, W>& ct, const Dual<T, W>& sp,
+    const Dual<T, W>& cp, const Dual<T, W>& m_r, const KParams<T>& p,
+    Dual<T, W>& mlat, Dual<T, W>& mlon) {
+  using D = Dual<T, W>;
+  mlat = d_asin(d_clamp(-m_r, T(-1), T(1)));
+  const D rx = st * cp, ry = st * sp;
+  const D y = (p.ym[0] * rx + p.ym[1] * ry) + p.ym[2] * ct;
+  const D x = (p.xm[0] * rx + p.xm[1] * ry) + p.xm[2] * ct;
+  mlon = d_atan2(y, x);
+}
+
+// dipole.igrf_field's value (closed-form Schmidt P_nm, n <= 3)
+template <typename T, int W>
+__device__ __forceinline__ void ad_igrf(const Dual<T, W>& r,
+                                        const Dual<T, W>& s,
+                                        const Dual<T, W>& c,
+                                        const Dual<T, W>& sp,
+                                        const Dual<T, W>& cp,
+                                        const KParams<T>& p, Dual<T, W>& br,
+                                        Dual<T, W>& bt, Dual<T, W>& bp) {
+  using D = Dual<T, W>;
+  const T g10 = p.igrf[0], g11 = p.igrf[1], h11 = p.igrf[2],
+          g20 = p.igrf[3], g21 = p.igrf[4], h21 = p.igrf[5],
+          g22 = p.igrf[6], h22 = p.igrf[7], g30 = p.igrf[8],
+          g31 = p.igrf[9], h31 = p.igrf[10], g32 = p.igrf[11],
+          h32 = p.igrf[12], g33 = p.igrf[13], h33 = p.igrf[14];
+  const D s2p = (T(2) * sp) * cp;
+  const D c2p = cp * cp - sp * sp;
+  const D s3p = s2p * cp + c2p * sp;
+  const D c3p = c2p * cp - s2p * sp;
+  const D d10 = -s;
+  const D p20 = (T(1.5) * c) * c - T(0.5), d20 = (T(-3) * s) * c;
+  const D p21 = (T(kRt3) * s) * c, d21 = T(kRt3) * (c * c - s * s);
+  const D p22 = (T(0.5 * kRt3) * s) * s, d22 = (T(kRt3) * s) * c;
+  const D c5 = (T(5) * c) * c - T(1);
+  const D p30 = ((T(2.5) * c) * c) * c - T(1.5) * c;
+  const D d30 = (T(-1.5) * s) * c5;
+  const D p31 = (T(0.25 * kRt6) * s) * c5;
+  const D d31 = T(0.25 * kRt6) * (c * c5 - ((T(10) * c) * s) * s);
+  const D p32 = ((T(0.5 * kRt15) * s) * s) * c;
+  const D d32 = T(0.5 * kRt15) * (((T(2) * s) * c) * c - (s * s) * s);
+  const D p33 = ((T(0.25 * kRt10) * s) * s) * s;
+  const D d33 = ((T(0.75 * kRt10) * s) * s) * c;
+  const D inv_r = rdiv(T(1), r);
+  const D f1 = (inv_r * inv_r) * inv_r;
+  const D f2 = f1 * inv_r;
+  const D f3 = f2 * inv_r;
+  const D a11 = g11 * cp + h11 * sp, q11 = g11 * sp - h11 * cp;
+  const D a21 = g21 * cp + h21 * sp, q21 = g21 * sp - h21 * cp;
+  const D a22 = g22 * c2p + h22 * s2p;
+  const D q22 = T(2) * (g22 * s2p - h22 * c2p);
+  const D a31 = g31 * cp + h31 * sp, q31 = g31 * sp - h31 * cp;
+  const D a32 = g32 * c2p + h32 * s2p;
+  const D q32 = T(2) * (g32 * s2p - h32 * c2p);
+  const D a33 = g33 * c3p + h33 * s3p;
+  const D q33 = T(3) * (g33 * s3p - h33 * c3p);
+  const D t1 = g10 * c + a11 * s;
+  const D dt1 = g10 * d10 + a11 * c;
+  const D pt1 = q11 * s;
+  const D t2 = (g20 * p20 + a21 * p21) + a22 * p22;
+  const D dt2 = (g20 * d20 + a21 * d21) + a22 * d22;
+  const D pt2 = q21 * p21 + q22 * p22;
+  const D t3 = ((g30 * p30 + a31 * p31) + a32 * p32) + a33 * p33;
+  const D dt3 = ((g30 * d30 + a31 * d31) + a32 * d32) + a33 * d33;
+  const D pt3 = (q31 * p31 + q32 * p32) + q33 * p33;
+  const T nt = T(1.0e-9);
+  const D inv_s = rdiv(T(1), d_clamp_min(s, T(1.0e-12)));
+  const D sum_p = (f1 * pt1 + f2 * pt2) + f3 * pt3;
+  br = nt * (((T(2) * f1) * t1 + (T(3) * f2) * t2) + (T(4) * f3) * t3);
+  bt = (-nt) * ((f1 * dt1 + f2 * dt2) + f3 * dt3);
+  bp = (nt * inv_s) * sum_p;
+}
+
+// dispersion.mu_3d over the field FIELD
+template <typename T, int W, int FIELD>
+__device__ __forceinline__ Dual<T, W> ad_mu_3d(const Dual<T, W> (&x)[7],
+                                               const KParams<T>& p) {
+  using D = Dual<T, W>;
+  const D &r = x[0], &theta = x[1], &phi = x[2], &f = x[6];
+  if constexpr (FIELD == DIPOLE) {
+    // dipole.b_vec_colat; medium.mlat_3d is the same pi/2 - theta, and
+    // mlon_3d is phi
+    const D lat = T(kPi / 2.0) - theta;
+    const D inv_r3 = rdiv(T(1), (r * r) * r);
+    const D sl = d_sin(lat), cl = d_cos(lat);
+    const D br = (p.neg2b0 * inv_r3) * sl;
+    const D bt = (p.negb0 * inv_r3) * cl;
+    const D ne = ad_ne_total(r, sl, cl, phi, p.mlt_on, p);
+    return ad_mu_3d_tail<T, W, T>(br, bt, T(0), x[3], x[4], x[5], ne, f, p);
+  } else {
+    const D st = d_sin(theta), ct = d_cos(theta);
+    const D sp = d_sin(phi), cp = d_cos(phi);
+    D m_r, m_t, m_p, br, bt, bp;
+    ad_moment(st, ct, sp, cp, p, m_r, m_t, m_p);
+    if constexpr (FIELD == TILTED) {  // dipole.tilted_field
+      const D inv_r = rdiv(T(1), r);
+      const D k = p.b0 * ((inv_r * inv_r) * inv_r);
+      const D k2 = T(2) * k;
+      br = k2 * m_r;
+      bt = (-k) * m_t;
+      bp = (-k) * m_p;
+    } else {
+      ad_igrf(r, st, ct, sp, cp, p, br, bt, bp);
+    }
+    D mlat, mlon;
+    ad_magnetic_coords(st, ct, sp, cp, m_r, p, mlat, mlon);
+    const D ne = ad_ne_total(r, d_sin(mlat), d_cos(mlat), mlon, p.mlt_on, p);
+    return ad_mu_3d_tail<T, W, D>(br, bt, bp, x[3], x[4], x[5], ne, f, p);
+  }
+}
+
+// mu and its N partials at the inputs x: passes of W tangents each, input
+// i seeded with the unit tangent of its own index
+template <typename T, int FRAME, int FIELD, int N>
+__device__ __forceinline__ T ad_mu_grads(const T (&x)[N],
+                                         const KParams<T>& p, T (&g)[N]) {
+  constexpr int W = N == 7 ? kAdWidth3D : kAdWidth2D;
+  using D = Dual<T, W>;
+  T mu = T(0);
+#pragma unroll
+  for (int q = 0; q < N; q += W) {
+    D d[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      d[i].v = x[i];
+#pragma unroll
+      for (int k = 0; k < W; ++k) d[i].t[k] = i == q + k ? T(1) : T(0);
+    }
+    D m;
+    if constexpr (FRAME == KIM3D) {
+      m = ad_mu_3d<T, W, FIELD>(d, p);
+    } else if constexpr (FRAME == COLAT2D) {
+      // dispersion.mu_2d_colat: lat = pi/2 - theta, formed in T
+      m = ad_mu_2d(d[0], T(kPi / 2.0) - d[1], d[2], d[3], p);
+    } else {
+      m = ad_mu_2d(d[0], d[1], d[2], d[3], p);
+    }
+    mu = m.v;
+#pragma unroll
+    for (int k = 0; k < W; ++k)
+      if (q + k < N) g[q + k] = m.t[k];
+  }
+  return mu;
+}
+
+// ops/rhs.py's right-hand sides over the autodiff set (gradients.py): the
+// 2D rows of rhs_2d_lat and rhs_2d_colat (legacy_freq_state: the frequency
+// read as f + T), or rhs_3d's Kimura rows
+template <typename T, int FRAME, int FIELD>
+__device__ __noinline__ void rhs_ad(const T* u, T f, const KParams<T>& p,
+                                    T* out) {
+  if constexpr (FRAME == KIM3D) {
+    const T x[7] = {u[0], u[1], u[2], u[3], u[4], u[5], f};
+    T g[7];
+    const T mu = ad_mu_grads<T, FRAME, FIELD, 7>(x, p, g);
+    kimura_rows(u, f, mu, g[0], g[1], g[2], g[3], g[4], g[5], g[6],
+                kim_trig(u), out);
+  } else {
+    const T r = u[0], chi = u[2];
+    const T fr = p.legacy_freq ? f + u[3] : f;
+    const T x[4] = {r, u[1], chi, fr};
+    T g[4];
+    const T mu = ad_mu_grads<T, FRAME, FIELD, 4>(x, p, g);
+    const T sc = d_sin(chi), cc = d_cos(chi);
+    const T inv_mu2 = T(1) / (mu * mu);
+    const T inv_mu2_r = inv_mu2 * (T(1) / r);
+    // g: dmu/dr, dmu/dlat (colat: dmu/dtheta), dmu/dpsi, dmu/df
+    if constexpr (FRAME == COLAT2D) {
+      out[0] = inv_mu2 * (mu * cc - g[2] * sc);
+      out[1] = inv_mu2_r * (mu * sc + g[2] * cc);
+    } else {
+      out[0] = inv_mu2 * (mu * cc + g[2] * sc);
+      out[1] = inv_mu2_r * (mu * sc - g[2] * cc);
+    }
+    out[2] = inv_mu2_r * (g[1] * cc - (r * g[0] + mu) * sc);
+    out[3] = T(kREOverC) * (T(1) + ((fr * mu) * inv_mu2) * g[3]);
+  }
+}
+
+#undef AD_LOOP
+
 // the frame's right-hand side; K > 0: the team body's (tm), else the
 // one-thread body's
 template <typename T, int FRAME, int MEDIUM, int FIELD, int K>
 __device__ __forceinline__ void rhs(const T* u, T f, const KParams<T>& p,
                                     T* out, Team<T>& tm) {
-  if constexpr (FIELD != DIPOLE) {
+  if constexpr (MEDIUM == AD) {
+    static_assert(K == 0, "the AD instances take the one-thread body");
+    rhs_ad<T, FRAME, FIELD>(u, f, p, out);
+  } else if constexpr (FIELD != DIPOLE) {
     rhs_3d_general<T, MEDIUM, FIELD>(u, f, p, out);
   } else if constexpr (FRAME == KIM3D) {
     if constexpr (K > 0) {
@@ -2436,11 +3132,13 @@ void launch_dtype(int dtype, int stepper, void** ptrs, long long B,
 
 // One host entry per (frame, medium, field) combination. A build in parts
 // (ops/step_chunk.py::build) compiles this source once per part with
-// -DSC_PARTS=8 -DSC_PART=k, each part defining the entries of one frame,
-// one non-axial field, (part 5) the ALT medium in the three frames, or
-// the ALTX medium in the 2D frames (part 6) and the 3D frame (part 7)
-// (and so instantiating only their kernels), and links the parts into one
-// library; without the macros one object holds them all.
+// -DSC_PARTS=11 -DSC_PART=k, each part defining the entries of one frame,
+// one non-axial field, (part 5) the ALT medium in the three frames, the
+// ALTX medium in the 2D frames (part 6) and the 3D frame (part 7), or the
+// AD medium in the 2D frames (part 8), the 3D frame over the dipole and
+// the tilted dipole (part 9) and over IGRF (part 10) (and so instantiating
+// only their kernels), and links the parts into one library; without the
+// macros one object holds them all.
 #ifndef SC_PARTS
 #define SC_PARTS 1
 #define SC_PART 0
@@ -2474,6 +3172,11 @@ SC_ENTRY(launch_colat_alt);
 SC_ENTRY(launch_lat_altx);
 SC_ENTRY(launch_3d_altx);
 SC_ENTRY(launch_colat_altx);
+SC_ENTRY(launch_lat_ad);
+SC_ENTRY(launch_colat_ad);
+SC_ENTRY(launch_3d_ad);
+SC_ENTRY(launch_tilted_ad);
+SC_ENTRY(launch_igrf_ad);
 
 #if SC_OWNS(0)
 SC_DEFINE(launch_lat_axi, LAT2D, AXI, DIPOLE)
@@ -2510,6 +3213,17 @@ SC_DEFINE(launch_colat_altx, COLAT2D, ALTX, DIPOLE)
 #if SC_OWNS(7)
 SC_DEFINE(launch_3d_altx, KIM3D, ALTX, DIPOLE)
 #endif
+#if SC_OWNS(8)
+SC_DEFINE(launch_lat_ad, LAT2D, AD, DIPOLE)
+SC_DEFINE(launch_colat_ad, COLAT2D, AD, DIPOLE)
+#endif
+#if SC_OWNS(9)
+SC_DEFINE(launch_3d_ad, KIM3D, AD, DIPOLE)
+SC_DEFINE(launch_tilted_ad, KIM3D, AD, TILTED)
+#endif
+#if SC_OWNS(10)
+SC_DEFINE(launch_igrf_ad, KIM3D, AD, IGRF)
+#endif
 
 #if SC_OWNS(0)
 // ptrs: u, k1, u_prev, u_lo (n, B); t, dt, errold, dt_prev (B,) of T;
@@ -2521,10 +3235,11 @@ SC_DEFINE(launch_3d_altx, KIM3D, ALTX, DIPOLE)
 // species and the local arc ceiling, 3 = the axisymmetric medium under the
 // reference scripts' modes (h->ref_grads, h->legacy_freq: the ALT
 // instances), 4 = the extended chain (2) under those modes (the ALTX
-// instances; these two alone read them); field 0 = the centered dipole, 1 =
-// the tilted dipole, 2 = the IGRF truncation (the last two only in the 3D
-// frame over the full chain). Launches on `stream` without synchronising;
-// returns cudaGetLastError().
+// instances), 5 = the autodiff set over any medium (the AD instances,
+// which read h->legacy_freq in 2D, never h->ref_grads); field 0 = the
+// centered dipole, 1 = the tilted dipole, 2 = the IGRF truncation (the
+// last two only in the 3D frame over FULL, EXT and AD). Launches on
+// `stream` without synchronising; returns cudaGetLastError().
 extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
                                  int medium, int field, void** ptrs,
                                  long long B, int n_steps,
@@ -2532,28 +3247,32 @@ extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
   // [frame, or the non-axial field in rows 3 and 4][medium]
   using Entry = void (*)(int, int, void**, long long, int, const StepParams&,
                          cudaStream_t);
-  static const Entry kEntry[5][5] = {
+  static const Entry kEntry[5][6] = {
       {launch_lat_axi, launch_lat_full, launch_lat_ext, launch_lat_alt,
-       launch_lat_altx},
+       launch_lat_altx, launch_lat_ad},
       {launch_3d_axi, launch_3d_full, launch_3d_ext, launch_3d_alt,
-       launch_3d_altx},
+       launch_3d_altx, launch_3d_ad},
       {launch_colat_axi, launch_colat_full, launch_colat_ext,
-       launch_colat_alt, launch_colat_altx},
-      {nullptr, launch_tilted_full, launch_tilted_ext, nullptr, nullptr},
-      {nullptr, launch_igrf_full, launch_igrf_ext, nullptr, nullptr},
+       launch_colat_alt, launch_colat_altx, launch_colat_ad},
+      {nullptr, launch_tilted_full, launch_tilted_ext, nullptr, nullptr,
+       launch_tilted_ad},
+      {nullptr, launch_igrf_full, launch_igrf_ext, nullptr, nullptr,
+       launch_igrf_ad},
   };
   if (B <= 0) return 0;
   if ((dtype != 0 && dtype != 1) ||
       (stepper != BS3 && stepper != DOPRI5 && stepper != RK4) ||
       (frame != LAT2D && frame != KIM3D && frame != COLAT2D) ||
       (medium != AXI && medium != FULL && medium != EXT && medium != ALT &&
-       medium != ALTX) ||
+       medium != ALTX && medium != AD) ||
       (field != DIPOLE && field != TILTED && field != IGRF) ||
       (field != DIPOLE &&
        (frame != KIM3D || medium == AXI || ref_modes(medium))) ||
-      ((h->ref_grads != 0.0 || h->legacy_freq != 0.0) &&
-       !ref_modes(medium)) ||
+      (h->ref_grads != 0.0 && !ref_modes(medium)) ||
+      (h->legacy_freq != 0.0 && !ref_modes(medium) && medium != AD) ||
       (h->legacy_freq != 0.0 && frame == KIM3D) ||
+      (medium == AD && frame == KIM3D && h->ps_mlt != 0.0 &&
+       h->n_harm < 1.0) ||
       h->n_harm < 0.0 || h->n_harm > kMaxHarm || h->n_shells < 0.0 ||
       h->n_shells > kMaxShells || h->n_ion < 1.0 || h->n_ion > kMaxIon ||
       (!extended(medium) && (h->n_ion != 1.0 || h->n_shells != 0.0)))

@@ -3,6 +3,7 @@
     python -m raytrace_tpu_torch.kernel_ab --against DIR [--n 512] [--reps 20]
         [--presets ensemble10k,ensemble10k_3d]
         [--tails mr_fan_3d,ensemble10k_plume:float64,...]
+        [--grad-mode autodiff]
 
 DIR is the root of another checkout of the repository (for example an
 earlier commit unpacked with `git archive` into a directory that
@@ -15,7 +16,9 @@ checkout of the port serves, ensemble10k (2D) and ensemble10k_3d (3D):
 the twelve instances that serve the axisymmetric medium; any preset that
 both checkouts serve can be named (ensemble10k_plume, ensemble10k_tilted,
 ...; "none" names none). A time is the mean of `reps` launches between
-two CUDA events after a warm-up launch.
+two CUDA events after a warm-up launch. `--grad-mode` ("fused" by
+default, "reference" or "autodiff") is the gradient set of every launch,
+the presets' and the tails': "autodiff" times the AD instances.
 
 Tail mode (`--tails`): each named preset's merged-tail launch, the carry
 that the rounds tracer hands its last round (a few rays padded to the
@@ -75,7 +78,7 @@ def recording_launches():
         orig.team_launches = record.team_launches
 
 
-def capture_tail(name, path=None):
+def capture_tail(name, path=None, grad_mode="fused"):
     """Run preset `name` ("preset" or "preset:float64"; float32 by
     default) through run.run on the card and return its last launch, the
     merged tail, as a dict: the carry's fields and f (on the card), the
@@ -89,7 +92,8 @@ def capture_tail(name, path=None):
 
     base, _, dtype = name.partition(":")
     with recording_launches() as seen:
-        out = run(preset(base, dtype=dtype or "float32"), device="cuda")
+        out = run(preset(base, dtype=dtype or "float32",
+                         grad_mode=grad_mode), device="cuda")
     carry, f, _env, cfg, spec, kw = seen[-1]
     # the keywords of the reference scripts' modes only where they are on,
     # so that a checkout from before them replays the tail too
@@ -137,7 +141,8 @@ def replay_tail(tail, reps, env=None):
                 longest=int(made.max()), out=out)
 
 
-def _child(root, mode, n, reps, presets, tails=None, tail_reps=3):
+def _child(root, mode, n, reps, presets, tails=None, tail_reps=3,
+           grad_mode="fused"):
     """Runs in a process of its own with `root`'s package on the path (and
     not this file's directory, which Python put first)."""
     here = os.path.dirname(_HERE)
@@ -162,7 +167,7 @@ def _child(root, mode, n, reps, presets, tails=None, tail_reps=3):
     if mode == "capture":
         meta = {}
         for name, path in tails.items():
-            tail = capture_tail(name, path)
+            tail = capture_tail(name, path, grad_mode)
             meta[name] = dict(tail["round"], kw=tail["kw"])
         print(json.dumps(meta))
         return
@@ -182,7 +187,10 @@ def _child(root, mode, n, reps, presets, tails=None, tail_reps=3):
         np_dt = np.float32 if dt == "float32" else np.float64
         u0, f = _build_u0(conf, env, np_dt, dev)
         u0, f = torch.as_tensor(u0).to(dev), torch.as_tensor(f).to(dev)
-        rhs_fn, _ = rhs_mod.frame_rhs(conf.frame, env)
+        # the gradient set only where it is not the default, so that a
+        # checkout from before it times the presets too
+        modes = {} if grad_mode == "fused" else {"grad_mode": grad_mode}
+        rhs_fn, _ = rhs_mod.frame_rhs(conf.frame, env, conf.root, **modes)
         cfg, spec = conf.solver(), conf.stop()
         carry = init_carry(rhs_fn, u0, f, cfg)
 
@@ -190,7 +198,8 @@ def _child(root, mode, n, reps, presets, tails=None, tail_reps=3):
             return sc.step_chunk(carry, f, env, cfg, spec,
                                  stepper="bs3" if st == "rk4" else st,
                                  n_steps=n, frame=conf.frame,
-                                 adaptive=conf.adaptive)
+                                 adaptive=conf.adaptive, root=conf.root,
+                                 **modes)
 
         launch()
         torch.cuda.synchronize()
@@ -210,7 +219,8 @@ def _run(root, mode, args, wait=True):
         [sys.executable, _HERE, "--child", root, "--mode", mode,
          "--n", str(args.n), "--reps", str(args.reps),
          "--presets", args.presets, "--tail-reps", str(args.tail_reps),
-         "--tail-dir", args.tail_dir, "--tails", args.tails],
+         "--tail-dir", args.tail_dir, "--tails", args.tails,
+         "--grad-mode", args.grad_mode],
         stdout=subprocess.PIPE, text=True)
     if not wait:
         return proc
@@ -236,6 +246,9 @@ def main():
                    help="comma-separated presets whose merged tail is "
                         "replayed")
     p.add_argument("--tail-reps", type=int, default=3)
+    p.add_argument("--grad-mode", default="fused",
+                   choices=("fused", "reference", "autodiff"),
+                   help="the gradient set of every launch")
     p.add_argument("--child", help=argparse.SUPPRESS)
     p.add_argument("--mode", default="time", help=argparse.SUPPRESS)
     p.add_argument("--tail-dir", default="", help=argparse.SUPPRESS)
@@ -245,7 +258,7 @@ def main():
         _child(os.path.abspath(args.child), args.mode, args.n, args.reps,
                args.presets,
                {t: os.path.join(args.tail_dir, f"{t}.pt") for t in tails},
-               args.tail_reps)
+               args.tail_reps, args.grad_mode)
         return 0
     if not args.against:
         p.error("--against DIR is required")
@@ -281,7 +294,8 @@ def main():
               flush=True)
     record = {}
     print(f"{args.n} attempts over each preset's rays, mean of {args.reps} "
-          f"launches; turns in order other, this, this, other; {smi}")
+          f"launches, grad_mode {args.grad_mode}; turns in order other, "
+          f"this, this, other; {smi}")
     for inst in ([f"{t} tail" for t in tails]
                  + [" ".join(i) for i in _instances(args.presets)]):
         a = [t[inst] for t in turns["this"]]
@@ -292,6 +306,7 @@ def main():
               f"{b[0]:8.3f} {b[1]:8.3f}  this/other {ratio:.4f}")
     shutil.rmtree(args.tail_dir, ignore_errors=True)
     print(json.dumps({"card": smi, "n": args.n, "reps": args.reps,
+                      "grad_mode": args.grad_mode,
                       "registers": {k: b["registers"]
                                     for k, b in builds.items()},
                       "tails": {t: dict(tail_meta[t], replay=turns["this"][0][

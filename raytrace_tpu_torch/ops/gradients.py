@@ -4,9 +4,13 @@ frames and the 3D frame.
 Port of raytrace_tpu/ops/gradients.py.
   "fused"     -- the hand-derived chains of ops/fused.py (the default, and
                  the chains the CUDA step kernel inlines);
-  "autodiff"  -- torch.func.grad of dispersion.mu_2d_lat / mu_2d_colat /
-                 mu_3d: the cross-check that the fused chains are the
-                 exact derivatives of the traced mu = sqrt(|mu^2|);
+  "autodiff"  -- the exact derivatives of the traced mu = sqrt(|mu^2|)
+                 in forward mode: dispersion.mu_2d_lat / mu_2d_colat /
+                 mu_3d evaluated once on dual numbers (ops/dual.py), one
+                 tangent row per input (4 in 2D, 7 in 3D), each op's
+                 tangent by torch's forward-mode formula, as the step
+                 kernel's AD instances compute it; the set the fused
+                 chains are held to. In 2D dmu/dchi is dmu/dpsi.
   "reference" -- the gradient set the reference scripts integrate:
                  dmu/dpsi from its closed form (ops/analytic.py), dmu/dr
                  exactly 0 (their central difference steps r by 1e-11 m,
@@ -26,7 +30,7 @@ import math
 import torch
 
 from ..models import medium
-from . import analytic, dispersion
+from . import analytic, dispersion, dual
 
 AUTODIFF = "autodiff"
 REFERENCE = "reference"
@@ -66,13 +70,6 @@ def _reference_2d(lat, chi, f, env, ne, bm, dmudr):
     return torch.zeros_like(dmudr), dmudpsi
 
 
-def _mu_sum(r, lat, chi, f, env, root):
-    # each ray's mu depends on its own inputs only, so the gradient of the
-    # batch sum is the per-ray gradient
-    mu = dispersion.mu_2d_lat(r, lat, chi, f, env, root)
-    return mu.sum(), mu
-
-
 def _check_mode(grad_mode):
     if grad_mode not in GRAD_MODES:
         raise ValueError(f"unknown grad_mode {grad_mode!r}; the modes are "
@@ -93,15 +90,9 @@ def mu_grads_2d_lat(r, lat, chi, f, env: medium.EnvParams, grad_mode=FUSED,
         if grad_mode == REFERENCE:
             dmudr, dmudpsi = _reference_2d(lat, chi, f, env, ne, bm, dmudr)
         return mu, dmudr, dmudlat, dmudpsi, dmudf
-    (dmudr, dmudlat, dmudchi, dmudf), mu = torch.func.grad(
-        _mu_sum, argnums=(0, 1, 2, 3), has_aux=True
-    )(r, lat, chi, f, env, root)
+    mu, (dmudr, dmudlat, dmudchi, dmudf) = dual.value_and_grads(
+        dispersion.mu_2d_lat, (r, lat, chi, f), env, root)
     return mu, dmudr, dmudlat, dmudchi, dmudf
-
-
-def _mu_colat_sum(r, theta, chi, f, env, root):
-    mu = dispersion.mu_2d_colat(r, theta, chi, f, env, root)
-    return mu.sum(), mu
 
 
 def mu_grads_2d_colat(r, theta, chi, f, env: medium.EnvParams,
@@ -121,15 +112,9 @@ def mu_grads_2d_colat(r, theta, chi, f, env: medium.EnvParams,
         if grad_mode == REFERENCE:
             dmudr, dmudpsi = _reference_2d(lat, chi, f, env, ne, bm, dmudr)
         return mu, dmudr, -dmudlat, dmudpsi, dmudf
-    (dmudr, dmudtheta, dmudchi, dmudf), mu = torch.func.grad(
-        _mu_colat_sum, argnums=(0, 1, 2, 3), has_aux=True
-    )(r, theta, chi, f, env, root)
+    mu, (dmudr, dmudtheta, dmudchi, dmudf) = dual.value_and_grads(
+        dispersion.mu_2d_colat, (r, theta, chi, f), env, root)
     return mu, dmudr, dmudtheta, dmudchi, dmudf
-
-
-def _mu3_sum(r, theta, phi, rho_r, rho_t, rho_p, f, env, root):
-    mu = dispersion.mu_3d(r, theta, phi, rho_r, rho_t, rho_p, f, env, root)
-    return mu.sum(), mu
 
 
 def mu_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
@@ -155,10 +140,9 @@ def mu_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
     if grad_mode == REFERENCE:
         return _mu_grads_3d_reference(r, theta, phi, rho_r, rho_t, rho_p, f,
                                       env, root)
-    grads, mu = torch.func.grad(
-        _mu3_sum, argnums=(0, 1, 2, 3, 4, 5, 6), has_aux=True
-    )(r, theta, phi, rho_r, rho_t, rho_p, f, env, root)
-    return mu, grads
+    return dual.value_and_grads(
+        dispersion.mu_3d, (r, theta, phi, rho_r, rho_t, rho_p, f), env,
+        root)
 
 
 def _mu_grads_3d_reference(r, theta, phi, rho_r, rho_t, rho_p, f, env, root):

@@ -23,6 +23,12 @@ take the ALT instances -- the axisymmetric medium with both as run-time
 flags -- and over every other medium of the centered dipole the ALTX
 instances: the extended chain of EXT (the full density chain, the Stix
 sums over the ion species, the local ceiling) with the same two flags.
+The autodiff gradient set (grad_mode="autodiff": the exact derivatives
+of the traced mu in forward mode, ops/dual.py) takes the AD instances in
+every frame and field: the value chain of ops/dispersion.py over the
+whole medium, evaluated once on dual numbers whose tangents follow
+torch's forward-mode formulas, every medium feature, the species, the
+local ceiling and (2D) legacy_freq_state at run time.
 
 - On CUDA tensors it launches the hand-written kernel of
   csrc/step_chunk.cu, the whole carry in registers for all n_steps
@@ -77,9 +83,9 @@ NVCC_FLAGS = (
 )
 # the source compiles as PARTS objects at once (-DSC_PARTS, -DSC_PART: one
 # per frame, one per non-axial field, one for the reference scripts' modes
-# over the axisymmetric medium and two for them over the extended chain,
-# csrc/step_chunk.cu), linked into one library
-PARTS = 8
+# over the axisymmetric medium, two for them over the extended chain and
+# three for the autodiff set, csrc/step_chunk.cu), linked into one library
+PARTS = 11
 
 # harmonics of the MLT plasmapause shape the kernel takes (kMaxHarm)
 MAX_HARM = 8
@@ -96,14 +102,15 @@ _STEPPER_CODE = {"bs3": 0, "dopri5": 1, "rk4": 2}
 _FIELD_CODE = {"dipole": 0, "tilted": 1, "igrf": 2}
 # the kernel's medium codes (medium_code): AXI, FULL, EXT, and ALT and ALTX,
 # the axisymmetric medium and the extended chain under the reference
-# scripts' modes
-AXI, FULL, EXT, ALT, ALTX = 0, 1, 2, 3, 4
+# scripts' modes, and AD, any medium and field under the autodiff set
+AXI, FULL, EXT, ALT, ALTX, AD = 0, 1, 2, 3, 4, 5
 
 
 class StepParams(ctypes.Structure):
     """Scalars passed to the kernel by value (mirror of the C struct
-    StepParams in csrc/step_chunk.cu; every field a double: 120 of
-    them, 960 bytes)."""
+    StepParams in csrc/step_chunk.cu; every field a double: 123 of
+    them, 984 bytes). The medium codes: AXI (0), FULL (1), EXT (2), ALT
+    (3), ALTX (4) and AD (5, the autodiff set; medium_code)."""
 
     _fields_ = [(name, ctypes.c_double) for name in (
         # medium (make_env_lat feature set) and root
@@ -137,15 +144,21 @@ class StepParams(ctypes.Structure):
         # the ion species (dispersion.ion_species): count and coefficients
         ("n_ion", ctypes.c_double), ("ion_fpe2", ctypes.c_double * MAX_ION),
         ("ion_fce", ctypes.c_double * MAX_ION),
-        # the reference scripts' modes (ALT and ALTX instances only): 1.0 =
-        # on
+        # the reference scripts' modes (ALT and ALTX instances only; AD
+        # reads legacy_freq): 1.0 = on
         ("ref_grads", ctypes.c_double), ("legacy_freq", ctypes.c_double),
+        # the divisors of the density chain that the AD instances' value
+        # chain divides by as the plain version does (1 / x formed in the
+        # run dtype): the GCPM scale and knee, the duct's width
+        ("gcpm_lscale", ctypes.c_double), ("gcpm_knee", ctypes.c_double),
+        ("duct_w", ctypes.c_double),
     ]
 
 
 _LIB = None
 BUILD_LOG = ""      # nvcc's output of the last build (-Xptxas -v)
 BUILD_SECONDS = 0.0
+BUILD_PART_SECONDS = []     # each part's nvcc wall in the last build
 
 
 def _nvcc():
@@ -171,7 +184,7 @@ def build():
     handle. The PARTS objects compile in parallel nvcc processes into a
     temporary directory and link into a temporary name that is then
     renamed, so a cut build never leaves a half-written library behind."""
-    global _LIB, BUILD_LOG, BUILD_SECONDS
+    global _LIB, BUILD_LOG, BUILD_SECONDS, BUILD_PART_SECONDS
     if _LIB is not None:
         return _LIB
     path = library_path()
@@ -190,7 +203,14 @@ def build():
                         [_nvcc(), *NVCC_FLAGS, f"-DSC_PARTS={PARTS}",
                          f"-DSC_PART={k}", "-c", "-o", obj, SOURCE],
                         stdout=log, stderr=subprocess.STDOUT))
-            rcs = [proc.wait() for proc in procs]
+            done = {}
+            while len(done) < len(procs):
+                for k, proc in enumerate(procs):
+                    if k not in done and proc.poll() is not None:
+                        done[k] = time.perf_counter() - t0
+                time.sleep(0.05)
+            BUILD_PART_SECONDS = [done[k] for k in range(len(procs))]
+            rcs = [proc.returncode for proc in procs]
             BUILD_LOG = ""
             for obj in objs:
                 with open(obj + ".log") as log:
@@ -248,7 +268,8 @@ def ptxas_usage(log):
                  ("bs3", "dopri5", "rk4")[int(m[2])],
                  ("2d_lat", "3d", "2d_colat")[int(m[3])]]
         if m[4] is not None:
-            words.append(("axi", "full", "ext", "alt", "altx")[int(m[4])])
+            words.append(("axi", "full", "ext", "alt", "altx",
+                          "ad")[int(m[4])])
         if m[5] is not None and int(m[5]):
             words.append(("dipole", "tilted", "igrf")[int(m[5])])
         if m[6] is not None and int(m[6]):
@@ -281,29 +302,26 @@ def medium_code(env, cfg: SolverConfig = None, grad_mode="fused",
     sums over the ion species and the local ceiling; 3 (ALT): the
     axisymmetric medium under grad_mode="reference" or legacy_freq_state;
     4 (ALTX): any other medium (FULL or EXT) under either mode, through the
-    extended chain. Raises every refusal of the modes: ValueError where
-    the JAX package raises (the reference set over a multi-ion medium or a
-    non-axial field; legacy_freq_state in 3D is refused by the frame),
-    NotImplementedError naming ROADMAP B7 for the autodiff set, which the
-    kernel does not compute."""
-    if grad_mode not in ("fused", "reference"):
-        raise NotImplementedError(
-            f"the step kernel computes the fused and the reference gradient "
-            f"sets; grad_mode={grad_mode!r} is not a kernel variant (ROADMAP "
-            "B7)"
-        )
+    extended chain; 5 (AD): any medium and field under grad_mode="autodiff"
+    (with or without legacy_freq_state), through the value chain on dual
+    numbers. Raises ValueError where the JAX package raises (the reference
+    set over a multi-ion medium or a non-axial field; legacy_freq_state in
+    3D is refused by the frame) and on an unknown grad_mode."""
+    gradients._check_mode(grad_mode)
+    if grad_mode == "autodiff":
+        return AD
     if grad_mode == "reference":
         gradients.require_reference_env(env)
     if grad_mode == "reference" or legacy_freq_state:
         return ALT if medium_code(env, cfg) == AXI else ALTX
     if (len(ion_species(env.eta_he, env.eta_o)) > 1
             or (cfg is not None and _shells(cfg))):
-        return 2
+        return EXT
     full = (env.iono_mix != 1.0 or env.ps_model != "ca1992"
             or env.ps_smooth != 0.0 or env.ps_refill != 0.0
             or env.duct_amp != 0.0 or medium.mlt_on(env)
             or env.b_model != "dipole")
-    return 1 if full else 0
+    return FULL if full else AXI
 
 
 def field_code(env):
@@ -356,6 +374,9 @@ def _params(env, cfg: SolverConfig, spec: events.StopSpec, root,
                       ion_fce=pad([y for _, y in ions], MAX_ION),
                       ref_grads=1.0 if grad_mode == "reference" else 0.0,
                       legacy_freq=1.0 if legacy_freq_state else 0.0,
+                      gcpm_lscale=float(env.gcpm_lscale),
+                      gcpm_knee=float(env.gcpm_knee),
+                      duct_w=float(env.duct_w),
                       ps_mlt_c=(ctypes.c_double * (1 + 2 * MAX_HARM))(
                           *(c + [0.0] * (1 + 2 * MAX_HARM - len(c)))),
                       b_mom=vec3(*dipole.moment_unit(env.b_tilt,
@@ -402,6 +423,11 @@ def _check(carry: RayCarry, f, env, cfg, spec, stepper, adaptive, frame,
     if frame != "3d":
         medium.require_dipole_2d(env)
     n_harm = _n_harm(env)
+    if (code == AD and frame == "3d" and medium.mlt_on(env)
+            and n_harm < 1):
+        raise ValueError(
+            "the AD instances take the MLT plasmapause shape with at least "
+            "one harmonic (ps_mlt_harmonics >= 1)")
     if n_harm > MAX_HARM:
         raise ValueError(
             f"the MLT plasmapause shape has {n_harm} harmonics; the kernel "
@@ -545,7 +571,7 @@ def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
 
     carry fields are (B, n) / (B,) tensors of f's dtype (int32 for the
     counters), all on f's device, with n = 4 in the 2D frames and 7 in
-    the "3d" frame. grad_mode ("fused" or "reference") and
+    the "3d" frame. grad_mode ("fused", "reference" or "autodiff") and
     legacy_freq_state (2D) select the right-hand side. On CUDA the kernel
     works on field-major (n, B) copies of the vectors, updating them in
     place, and the result's vector fields are (B, n) views of those

@@ -229,9 +229,6 @@ def make_ensemble_tracer(
     JAX package's `mesh` (ray sharding over chips) has no counterpart: a
     process drives one card, and several cards take one process each
     (parallel/distributed.py)."""
-    if grad_mode == "autodiff":
-        raise NotImplementedError(
-            "grad_mode='autodiff' is not a step-kernel variant (ROADMAP B7)")
     frame_rhs(frame, env, root, grad_mode, legacy_freq_state)
     device = torch.device(device)
 
@@ -297,10 +294,9 @@ def make_rounds_tracer(
     final fetch); `run.last_rounds` and `run.last_stiff` record per-round
     diagnostics and which rays ended on the stiff pool.
 
-    grad_mode ("fused" or "reference") and legacy_freq_state (2D only)
-    select the right-hand side of every pool (ops.rhs.frame_rhs); the
-    autodiff gradient set, which the step kernel does not compute, stays
-    refused here (ROADMAP B7).
+    grad_mode ("fused", "reference" or "autodiff") and legacy_freq_state
+    (2D only) select the right-hand side of every pool (ops.rhs.frame_rhs)
+    and the kernel instances that step it (ops.step_chunk.medium_code).
 
     save_every > 0 turns on the trajectory channel (the JAX package's,
     parallel/ensemble.py:369-411): each round's `trace` records a snapshot
@@ -338,12 +334,7 @@ def make_rounds_tracer(
 
     `run.last_rounds` records each launch's stepper, active rays, bucket,
     attempts and wall."""
-    if grad_mode == "autodiff":
-        raise NotImplementedError(
-            "grad_mode='autodiff' is not ported to the rounds tracer: the "
-            "step kernel does not compute the autodiff gradient set "
-            "(ROADMAP B7)")
-    if grad_mode not in ("fused", "reference"):
+    if grad_mode not in ("fused", "reference", "autodiff"):
         raise ValueError(f"unknown grad_mode {grad_mode!r}")
     for st in ((stepper if stepper != "auto" else base_stepper),
                stiff_stepper, tail_stepper or base_stepper):

@@ -10,10 +10,11 @@ a per-warp barrier for __any_sync, so the team body's warp roles, its
 shared-memory exchange and its barriers run as written. On the same
 carry, made by the port's plain path on the CPU, the two bodies must give
 every field bit for bit (the host's libm stands in for the card's math on
-both sides). The ALT instances (grad_mode="reference", legacy_freq_state)
-are held to the plain PyTorch version on the CPU instead: statuses and
-counters equal, states within the bands of two math libraries (the host's
-libm against torch's). Needs g++ with C++20.
+both sides). The ALT and ALTX instances (grad_mode="reference",
+legacy_freq_state) and the AD instances (grad_mode="autodiff") are held to
+the plain PyTorch version on the CPU instead: statuses and counters equal,
+states within the bands of two math libraries (the host's libm against
+torch's). Needs g++ with C++20.
 """
 
 import re
@@ -440,6 +441,37 @@ def _hold_to_plain(host_kernel, case, case_spec, code):
             assert err <= band, (k, n_steps, err, band)
 
 
+# the AD instances (the autodiff set, the value chain on dual numbers):
+# the 2D latitude frame (with legacy_freq_state), the colatitude frame over
+# GCPM with the duct and the day/night ionosphere, the smoothed
+# plasmapause with the trough refill under the local ceiling, the 3D frame
+# over the MLT plume (and fixed-step rk4 over the MLT GCPM), the tilted
+# dipole and IGRF, and He+ and O+ at the EMIC root (emic_heband)
+AD_CASES = {
+    "lat_f64_bs3": ("ensemble10k", "bs3", 100, "autodiff", False, {}),
+    "lat_legacy_f64_dopri5": ("ensemble10k", "dopri5", 100, "autodiff",
+                              True, {}),
+    "colat_gcpm_f64_dopri5": ("ensemble10k", "dopri5", 100, "autodiff",
+                              False, dict(frame="2d_colat",
+                                          medium=_GCPM_2D)),
+    "local_smooth_f64_bs3": ("ensemble10k_local", "bs3", 100, "autodiff",
+                             False, dict(medium=MediumConfig(
+                                 b0=B0_2D, ps_smooth=0.05, ps_refill=0.5,
+                                 ps_refill_q=4.0, **_DUCT))),
+    "plume_f64_bs3": ("ensemble10k_plume", "bs3", 100, "autodiff", False,
+                      {}),
+    "plume_gcpm_f64_rk4": ("ensemble10k_plume", "rk4", 100, "autodiff",
+                           False, dict(adaptive=False, dt0=1.0e-3,
+                                       medium=MediumConfig(
+                                           b0=B0_3D, ps_model="gcpm",
+                                           ps_mlt=True, **_DUCT))),
+    "tilted_f64_dopri5": ("ensemble10k_tilted", "dopri5", 100, "autodiff",
+                          False, {}),
+    "igrf_f64_bs3": ("ensemble10k_igrf", "bs3", 100, "autodiff", False, {}),
+    "emic_f64_dopri5": ("emic_heband", "dopri5", 1, "autodiff", False, {}),
+}
+
+
 @pytest.mark.parametrize("case", sorted(ALT_CASES))
 def test_alt_instances_match_plain_version_on_the_host(host_kernel, case):
     """An ALT instance (one-thread body) against step_chunk_reference on
@@ -467,3 +499,16 @@ def test_altx_instances_match_plain_version_on_the_host(host_kernel, case):
     the chain's MLT density in the closed form, misses the plain version
     by far more than this band: tests/test_torch_reference_full.py)."""
     _hold_to_plain(host_kernel, case, ALTX_CASES[case], sc.ALTX)
+
+
+@pytest.mark.parametrize("case", sorted(AD_CASES))
+def test_ad_instances_match_plain_version_on_the_host(host_kernel, case):
+    """An AD instance (the autodiff set: the value chain on dual numbers,
+    every tangent by torch's forward-mode rule) against step_chunk_reference
+    (ops/dual.py's rules on tensors), as the ALTX instances are held: after
+    1 attempt every field within 1e-13 of its component's scale (the two
+    math libraries, the host's libm and torch's), after 8 statuses and
+    counters equal, states within 1e-6 or the plain version's own one-ulp
+    spread. A mutated tangent rule or a wrong constant of the chain misses
+    by orders of magnitude more (a wrong IGRF coefficient: 1.0)."""
+    _hold_to_plain(host_kernel, case, AD_CASES[case], sc.AD)

@@ -315,7 +315,7 @@ def test_medium_codes_and_refusals():
     legacy_freq_state, multi-ion included; the JAX package's ValueErrors
     stay: the reference set over He+/O+ or a non-axial field, legacy in
     3D (in the kernel's checks too, on the CPU, where the plain version
-    would otherwise run)."""
+    would otherwise run). The autodiff set takes the AD instances."""
     cfg = SolverConfig()
     local = preset("ensemble10k_local").solver()
     for kw in list(MEDIA_2D.values()) + list(MEDIA_3D.values()):
@@ -333,8 +333,7 @@ def test_medium_codes_and_refusals():
     tilted = make_env(b0=B0_3D, b_model="tilted", b_tilt=0.2, ps_mlt=True)
     with pytest.raises(ValueError, match="centered-dipole"):
         sc.medium_code(tilted, cfg, "reference")
-    with pytest.raises(NotImplementedError, match="B7"):
-        sc.medium_code(axi, cfg, "autodiff")
+    assert sc.medium_code(axi, cfg, "autodiff") == sc.AD
     plume = make_env(b0=B0_3D, ps_mlt=True)
     u0 = torch.tensor([[R0, 0.8, 0.3, 30.0, 30.0, 0.0, 0.0]] * 2,
                       dtype=torch.float64)

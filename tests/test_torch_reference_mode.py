@@ -256,10 +256,10 @@ def _carry(env, frame="2d_lat", n=4):
 def test_reference_modes_refusals():
     """ValueError where the JAX package raises (the multi-ion medium and
     the non-axial fields under the reference set, legacy_freq_state in
-    3D); NotImplementedError naming ROADMAP B7 where the step kernel has
-    no instance (the autodiff set in the kernel and in the rounds tracer).
-    Each holds on the CPU, where the plain version would otherwise run.
-    The modes over the full-chain media take the ALTX instances and run."""
+    3D), each on the CPU, where the plain version would otherwise run.
+    The modes over the full-chain media take the ALTX instances and run;
+    the autodiff set, refused in the kernel and the rounds tracer until
+    the AD instances (ROADMAP B7), takes them and runs."""
     x = torch.ones(2, dtype=torch.float64)
     ions = make_env_lat()._replace(eta_he=0.1)
     with pytest.raises(ValueError, match="protons-only"):
@@ -288,16 +288,15 @@ def test_reference_modes_refusals():
                             n_steps=4, frame=frame, **kw)
         assert (out.n_accept + out.n_reject == 4).all()
     carry, f = _carry(make_env_lat())
-    with pytest.raises(NotImplementedError, match="B7"):
-        sc.step_chunk(carry, f, make_env_lat(), cfg, spec, stepper="bs3",
-                      n_steps=4, grad_mode="autodiff")
+    assert sc.medium_code(make_env_lat(), cfg, "autodiff") == sc.AD
+    out = sc.step_chunk(carry, f, make_env_lat(), cfg, spec, stepper="bs3",
+                        n_steps=4, grad_mode="autodiff")
+    assert (out.n_accept + out.n_reject == 4).all()
     with pytest.raises(ValueError, match="protons-only"):
         sc.step_chunk(carry, f, ions, cfg, spec, stepper="bs3", n_steps=4,
                       grad_mode="reference")
-    with pytest.raises(NotImplementedError, match="B7"):
-        ensemble.make_rounds_tracer(make_env_lat(), device="cpu",
-                                    dtype=torch.float64,
-                                    grad_mode="autodiff")
+    ensemble.make_rounds_tracer(make_env_lat(), device="cpu",
+                                dtype=torch.float64, grad_mode="autodiff")
     # the axisymmetric medium takes the ALT instances, whatever the frame
     for frame in ("2d_lat", "2d_colat"):
         assert sc.medium_code(make_env_lat(), cfg, "fused", True) == sc.ALT

@@ -191,14 +191,35 @@ def test_ensemble_stats_matches_jax():
     dict(save_every=8, legacy_freq_state=True, grad_mode="autodiff"),
 ])
 def test_unported_knobs_raise(kw):
-    # the stiff steppers, the reference gradient set, legacy_freq_state,
-    # the trajectory channel and the scheduling knobs run (tests/
-    # test_torch_reference_mode.py, test_torch_modes.py,
-    # test_torch_trajectory.py, test_torch_rounds_knobs.py); the autodiff
-    # set (ROADMAP B7) stays refused, with the trajectory channel too
-    with pytest.raises(NotImplementedError, match="B7"):
-        ensemble.make_rounds_tracer(make_env_lat(), device="cpu",
-                                    dtype=torch.float64, **kw)
+    """Refused until the step kernel had the autodiff set (ROADMAP B7);
+    now each case runs a cut fan through the rounds tracer on the AD
+    instances' plain version: the stiff pool (every ray forced onto ros2x
+    after its first round, its Jacobian a forward-mode jacfwd over the
+    forward-mode right-hand side), the default schedule, and the
+    trajectory channel with legacy_freq_state."""
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    env = make_env_lat()
+    legacy = kw.get("legacy_freq_state", False)
+    assert sc.medium_code(env, SolverConfig(), "autodiff", legacy) == sc.AD
+    stiff = "stiff_stepper" in kw
+    tracer = ensemble.make_rounds_tracer(
+        env, device="cpu", dtype=torch.float64, max_steps=32,
+        round_steps=(16,), bucket_floor=8,
+        stiff_switch=-1.0 if stiff else 0.5, **kw)
+    r0 = (RE + 1.0e6) / RE
+    u0, f, valid = ensemble.pad_batch(
+        np.array([[r0, 0.8, 0.3, 0.0], [r0, 0.6, -0.2, 0.0]]),
+        np.array([2000.0, 1000.0]))
+    calls = sc.step_chunk_reference.calls
+    res = tracer(u0, f, valid)
+    assert sc.step_chunk_reference.calls > calls
+    u = np.asarray(res.u)[valid]
+    assert np.isfinite(u).all()
+    steps = np.asarray(res.n_accept) + np.asarray(res.n_reject)
+    assert (steps[valid] > 0).all()
+    if stiff:
+        assert np.asarray(tracer.last_stiff)[valid].any()
 
 
 def test_step_counters_must_fit_the_float_transport():

@@ -227,6 +227,29 @@ def test_ptxas_usage_reads_builds_before_the_team_body():
                                            "float bs3 3d full"]
 
 
+def test_ptxas_usage_names_the_ad_instances():
+    """The AD instances (medium 5, the autodiff set) are named "ad", with
+    their field where it is not the dipole; sass_census reads the same
+    names."""
+    from raytrace_tpu_torch import sass_census as census
+
+    log = (
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117step_"
+        "chunk_kernelIdLi1ELi1ELi5ELi2ELi0EEEvPT_'\n"
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_117step_"
+        "chunk_kernelIdLi1ELi1ELi5ELi2ELi0EEEvPT_\n"
+        "    1640 bytes stack frame, 430 bytes spill stores, 316 bytes "
+        "spill loads\n"
+        "ptxas info    : Used 255 registers\n")
+    assert sc.ptxas_usage(log) == {
+        "double dopri5 3d ad igrf": "255 registers, 1640 bytes stack "
+                                    "frame, 430 bytes spill stores, 316 "
+                                    "bytes spill loads"}
+    assert census.instance_key("_ZN12_GLOBAL__N_117step_chunk_kernelIfLi0"
+                               "ELi2ELi5ELi0ELi0EEEvPT_") == (
+        "float bs3 2d_colat ad")
+
+
 def test_sass_census_counts_the_attempt_loop():
     """The census takes the widest backward branch's span as the attempt
     loop, classes its instructions and walks its dependencies."""
