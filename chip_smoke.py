@@ -12,14 +12,21 @@ Phases, each printed as it runs; any failed check exits non-zero:
      their nvcc processes started together;
   2. the kernel against its plain PyTorch version on the same carries:
      every 10th ray of the ensemble10k launch, float64 (1 and 128 steps)
-     and float32 (1 step, all 10,240 rays), bs3 and dopri5; then both
-     timed at 10,240 rays x 512 steps (float32, bs3);
+     and float32 (1 step, all 10,240 rays), bs3 and dopri5; a launch with
+     finish and fresh (a trace's end and first right-hand side inside the
+     launch) bit for bit with init_carry's right-hand side, the plain
+     version and refine_events, float32 and float64, also at the equator
+     stop (phases 5, 8 and 11 add the same for the 3D, team-body and
+     general-field instances); then both timed at 10,240 rays x 512 steps
+     (float32, bs3), the kernel also with the two flags;
   3. the canonical RayTrace_lat ray in float64 through the kernel;
   4. the ensemble10k slice through raytrace_tpu_torch.run.run on the
      card, float32, checked against the float32 physics record of the JAX
-     package (benchmarks/perf_r03b.json, auto_bs3_1x, measured on a TPU);
-     then in float64, checked against the JAX package's float64 result on
-     a CPU, and float32 against float64;
+     package (benchmarks/perf_r03b.json, auto_bs3_1x, measured on a TPU),
+     every round's launch with finish and nothing refined or started on
+     the host, and one run under torch.profiler for the small kernels
+     left (phase 6 likewise); then in float64, checked against the JAX
+     package's float64 result on a CPU, and float32 against float64;
   5. the 3D kernel (7-state frame, rhs_3d, the ds_max arc ceiling)
      against its plain version on the ensemble10k_3d launch as phase 2
      holds the 2D one, its first round's launch bit for bit, one
@@ -59,7 +66,7 @@ Phases, each printed as it runs; any failed check exits non-zero:
      colatitude frame (the ensemble10k launch in it), the multi-ion medium
      (the emic_heband launch at root -1 and the ensemble10k fan over He+
      and O+) and fixed-step rk4 (the ensemble10k launch at dt0 = dt_max),
-     float32 over all rays and float64 over every 10th ray for 128 steps,
+     float32 over all rays and float64 over every 10th ray (CUT_N steps),
      and each variant through a full-medium and a general-field instance;
      then every instance a path of phases 15-18 launches, and rk4 over the
      3D full chain, timed beside its plain version and its bound;
@@ -79,7 +86,8 @@ Phases, each printed as it runs; any failed check exits non-zero:
      dmu/dpsi, dmu/dr = 0 and in 3D the Kimura rho partials; the 2D
      frequency read as f + T), 3 frames x bs3, dopri5, rk4 x float32,
      float64, bit for bit with their plain version (bs3 over the whole
-     launch x 512 attempts, dopri5 and rk4 over every 10th ray x 64), each
+     launch x SIDE_N attempts, dopri5 and rk4 over every 10th ray x
+     CUT_N), each
      timed beside its bound and its plain version;
  21. ensemble10k and
  22. ensemble10k_3d with grad_mode="reference" through run.run, float32
@@ -105,8 +113,8 @@ Phases, each printed as it runs; any failed check exits non-zero:
  26. the instances of the modes over the full and extended media (ALTX:
      the extended chain under ref_grads and legacy_freq), 3 frames x bs3,
      dopri5, rk4 x float32, float64, bit for bit with their plain version
-     over every 10th ray x 64 (the reference set over the MLT plume in 3D,
-     reference + legacy over GCPM with the duct and the day/night
+     over every 10th ray x CUT_N (the reference set over the MLT plume
+     in 3D, reference + legacy over GCPM with the duct and the day/night
      ionosphere in the 2D frames; then the local arc ceiling, He+ and O+
      under legacy, the MLT GCPM plume); every instance timed at 10,240
      rays x 512 beside its bound (the float32 ones of phase 27's paths
@@ -185,12 +193,16 @@ Each run through run.run checks the body its launches took (the team
 body's launch count, ops/step_chunk.py) and replays its last launch, the
 merged tail where the run has one (kernel_ab.replay_tail), for the
 kernels' record.
-The plain version is timed at the full launch where its instance is on a
-main path (the kernels' JSON record); elsewhere over every 10th ray x 64
-attempts (its time is set by its ~2,000 small launches per attempt, not
-by the rays). The line before the last is the kernels' JSON record, the
-last line {"ok": true, "device": {...}}. Without a CUDA device it exits 1
-and prints no result. It imports nothing of JAX.
+The plain version costs ~20 ms an attempt whatever the rays (its time is
+set by its ~2,000 small launches per attempt), so the attempts it runs set
+the script's wall. The main path's first launch (phase 2) runs at its own
+10,240 rays x 2,048 attempts; every other instance's launch at its whole
+width runs SIDE_N attempts, a cut over every 10th ray CUT_N; each plain
+time is printed, and recorded in the kernels' JSON record (plain_rays,
+plain_steps), with the rays and attempts it ran. The line before the
+last is the kernels' JSON record, the last line {"ok": true, "device":
+{...}}. Without a CUDA device it exits 1 and prints no result. It imports
+nothing of JAX.
 """
 
 import json
@@ -200,6 +212,11 @@ import sys
 import time
 
 import numpy as np
+
+# attempts of a check against the plain version outside the main path's
+# first launch: over an instance's whole launch, and over every 10th ray
+SIDE_N = 128
+CUT_N = 32
 
 # the TPU float32 record of ensemble10k (benchmarks/perf_r03b.json ->
 # auto_bs3_1x): physics, not speed
@@ -1603,12 +1620,12 @@ def time_plain(carry, f, env, cfg, spec, stepper, n, kw):
     return e0.elapsed_time(e1)
 
 
-def plain_cut(name, dtype_name, stepper, dev, medium=None, every=10, n=64,
-              **over):
+def plain_cut(name, dtype_name, stepper, dev, medium=None, every=10,
+              n=CUT_N, **over):
     """The plain version over every `every`-th ray of a preset's launch x
     n attempts: {plain_ms, plain_rays, plain_n}. Its time is set by the
     small launches of each attempt, not by the rays, so this says what an
-    attempt costs it at a sixteenth of the full timing's wait."""
+    attempt costs it at a fraction of the full timing's wait."""
     carry, f, env, cfg, spec, kw = start(name, dtype_name, dev, every=every,
                                          medium=medium, **over)
     return dict(plain_ms=time_plain(carry, f, env, cfg, spec, stepper, n,
@@ -1617,15 +1634,16 @@ def plain_cut(name, dtype_name, stepper, dev, medium=None, every=10, n=64,
 
 
 def time_instance(name, dtype_name, stepper, dev, n=512, reps=5,
-                  medium=None, plain_full=True, plain_ms=None, plain=None,
-                  every=1, **over):
+                  medium=None, plain_full=True, plain_ms=None, plain_n=None,
+                  plain=None, every=1, **over):
     """The kernel over a preset's whole launch x n attempts (CUDA events,
     mean of reps after a warm-up launch) beside its bound and one
     plain-version run: of the same launch (plain_full, the instances of
-    the kernels' JSON record; plain_ms where that run was timed already)
-    or of plain_cut's (`plain`, its dict, where that run was timed
-    already). `over` overrides fields of the preset; every: every
-    `every`-th ray of the launch. Returns a dict."""
+    the kernels' JSON record; plain_ms where that run was timed already,
+    over plain_n attempts, n by default) or of plain_cut's (`plain`, its
+    dict, where that run was timed already). `over` overrides fields of
+    the preset; every: every `every`-th ray of the launch. Returns a
+    dict."""
     carry, f, env, cfg, spec, kw = start(name, dtype_name, dev, every=every,
                                          medium=medium, **over)
     kernel_ms, out = time_kernel(carry, f, env, cfg, spec, stepper, n, kw,
@@ -1635,7 +1653,8 @@ def time_instance(name, dtype_name, stepper, dev, n=512, reps=5,
     if plain_full:
         if plain_ms is None:
             plain_ms = time_plain(carry, f, env, cfg, spec, stepper, n, kw)
-        plain = dict(plain_ms=plain_ms, plain_rays=f.shape[0], plain_n=n)
+        plain = dict(plain_ms=plain_ms, plain_rays=f.shape[0],
+                     plain_n=plain_n or n)
     elif plain is None:
         plain = plain_cut(name, dtype_name, stepper, dev, medium, **over)
     bound_ms, by = bound(name, dtype_name, stepper, carry.u.shape[1],
@@ -1676,6 +1695,86 @@ def bit_for_bit(what, name, dtype_name, stepper, dev, n, every=1,
     check(n_diff == 0, f"{what} {dtype_name} {stepper}: bit for bit")
     bit_for_bit.rays = f.shape[0]
     return max_abs(got, ref), plain_ms
+
+
+def flags_cost(what, name, dev, card, n=512, reps=5):
+    """A preset's float32 bs3 launch (all rays x n attempts, from the
+    launch carry) without and with finish and fresh, timed in turns
+    (without, with, with, without; time_kernel). Returns (ms without, ms
+    with), each the mean of its two turns."""
+    carry, f, env, cfg, spec, kw = start(name, "float32", dev)
+    ms = {False: [], True: []}
+    for on in (False, True, True, False):
+        k = dict(kw, finish=True, fresh=True) if on else kw
+        ms[on].append(time_kernel(carry, f, env, cfg, spec, "bs3", n, k,
+                                  reps)[0])
+    off, on = (sum(ms[x]) / 2 for x in (False, True))
+    print(f"  {what} float32 bs3, {f.shape[0]:,} rays x {n} steps: "
+          f"{ms[False][0]:.3f} / {ms[False][1]:.3f} ms without the flags, "
+          f"{ms[True][0]:.3f} / {ms[True][1]:.3f} ms with finish and fresh "
+          f"({on / off:.4f}x) on {card}", flush=True)
+    return off, on
+
+
+def finish_fresh(what, name, dtype_name, stepper, dev, m, n, every=1,
+                 medium=None, stop=None, team=False, **over):
+    """One launch with finish and fresh (a trace's end and start inside
+    the launch) against the plain path that they replace on the same
+    carry: k1 = rhs(u) (init_carry's right-hand side), step_chunk_reference,
+    refine_events. The carry is the preset's launch (every `every`-th ray;
+    `stop` overrides fields of its StopSpec) stepped m attempts by the
+    kernel, with k1 set to NaN (fresh must not read it); the launch runs n
+    more, so that it refines rays that retired before it and rays that
+    land inside it. Fails unless every field agrees bit for bit and the
+    launch went through the body it should (`team`)."""
+    import torch
+
+    from raytrace_tpu_torch.integrate import events
+    from raytrace_tpu_torch.integrate.solve import RayCarry, refine_events
+    from raytrace_tpu_torch.ops import rhs as rhs_mod
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    carry, f, env, cfg, spec, kw = start(name, dtype_name, dev, every=every,
+                                         medium=medium, **over)
+    spec = spec._replace(**(stop or {}))
+    # fresh tensors: the result's fields are views of the kernel's buffers
+    mid = RayCarry(*(x.clone() for x in sc.step_chunk(
+        carry, f, env, cfg, spec, stepper=stepper, n_steps=m, **kw)))
+    counts = (sc.step_chunk.finish_launches, sc.step_chunk.fresh_launches,
+              sc.step_chunk.team_launches)
+    got = sc.step_chunk(mid._replace(k1=torch.full_like(mid.k1, np.nan)), f,
+                        env, cfg, spec, stepper=stepper, n_steps=n,
+                        finish=True, fresh=True, **kw)
+    check((sc.step_chunk.finish_launches, sc.step_chunk.fresh_launches,
+           sc.step_chunk.team_launches) == (
+              counts[0] + 1, counts[1] + 1, counts[2] + int(team)),
+          f"{what}: one launch with finish and fresh, through the "
+          f"{'team' if team else 'one-thread'} body")
+    rhs_fn = rhs_mod.frame_rhs(kw["frame"], env, kw["root"], kw["grad_mode"],
+                               kw["legacy_freq_state"])[0]
+    ref = sc.step_chunk_reference(mid._replace(k1=rhs_fn(mid.u, f)), f, env,
+                                  cfg, spec, stepper=stepper, n_steps=n, **kw)
+    ref = refine_events(rhs_fn, ref, f, spec)
+    host = lambda c: {k: getattr(c, k).cpu().numpy()  # noqa: E731
+                      for k in RayCarry._fields}
+    got, ref = host(got), host(ref)
+    n_diff = n_differ(got, ref)
+    ev = lambda st: (st == events.HIT_EARTH) | (  # noqa: E731
+        (st == events.HIT_EQUATOR) & (spec.stop_at_equator > 0.5))
+    before = ev(mid.status.cpu().numpy())
+    inside = ev(got["status"]) & ~before
+    print(f"  {what} {dtype_name} {stepper}, {f.shape[0]:,} rays, {m} "
+          f"attempts then a launch of {n} with finish and fresh: "
+          f"{int(before.sum())} rays refined that retired before it, "
+          f"{int(inside.sum())} that landed in it "
+          f"({int((got['status'] == events.HIT_EQUATOR).sum())} at the "
+          f"equator), {n_diff} values differ", flush=True)
+    check(before.any() and inside.any(),
+          f"{what}: the launch refined rays of both kinds")
+    check(n_diff == 0, f"{what} {dtype_name} {stepper}: finish and fresh bit "
+                       "for bit with init_carry's right-hand side, the plain "
+                       "version and refine_events")
+    return max_abs(got, ref)
 
 
 def field_cost(dtype_name, stepper, dev, card, n=512, reps=5):
@@ -1789,19 +1888,23 @@ def general_field_kernels(dev, card):
     fields = {"tilted": "ensemble10k_tilted", "igrf": "ensemble10k_igrf"}
     errs, plain_ms = {}, {}
     for k, name in fields.items():
-        # the slice's first launch: 10,240 rays x 512 float32 bs3 attempts
+        # the slice's first launch: 10,240 rays, float32 bs3
         errs[k], plain_ms[k] = bit_for_bit(k, name, "float32", "bs3", dev,
-                                           512)
+                                           SIDE_N)
         for stepper in ("bs3", "dopri5"):
-            bit_for_bit(k, name, "float64", stepper, dev, 128, every=10)
+            bit_for_bit(k, name, "float64", stepper, dev, CUT_N, every=10)
+    finish_fresh("tilted", "ensemble10k_tilted", "float32", "bs3", dev, 192,
+                 64)
+    finish_fresh("IGRF", "ensemble10k_igrf", "float64", "dopri5", dev, 160,
+                 32, every=10)
     # a tilted field with an axisymmetric density (ps_mlt off: the chain
     # rule through mlat alone), and IGRF over the MLT-resolved GCPM
     bit_for_bit("tilted field, axisymmetric density", "ensemble10k_plume",
-                "float32", "bs3", dev, 128, every=10,
+                "float32", "bs3", dev, CUT_N, every=10,
                 medium=MediumConfig(b0=B0_3D, b_model="tilted", b_tilt=0.2,
                                     b_tilt_phi=0.5))
     bit_for_bit("IGRF x MLT GCPM", "ensemble10k_plume", "float64", "dopri5",
-                dev, 128, every=10,
+                dev, CUT_N, every=10,
                 medium=MediumConfig(b0=B0_3D, ps_mlt=True, ps_model="gcpm",
                                     b_model="igrf"))
 
@@ -1869,7 +1972,7 @@ def general_field_kernels(dev, card):
             t = res[k]
             if (dt_name, stepper) == ("float32", "bs3"):
                 t.update(plain_ms=plain_ms[k], plain_rays=t["rays"],
-                         plain_n=t["n"])
+                         plain_n=SIDE_N)
                 out[k] = (errs[k], t)
             else:
                 t.update(plain_cut(name, dt_name, stepper, dev))
@@ -1881,21 +1984,42 @@ def general_field_kernels(dev, card):
 def drive(conf, what, card):
     """One run of the slice through run.run on the card with the launch
     counts set to 0 just before; returns (out, wall, launches, calls).
-    drive.team_launches is the run's launches through the team body and
-    drive.tail its last launch (kernel_ab.capture_tail's form)."""
+    drive.team_launches is the run's launches through the team body,
+    drive.finish_launches and drive.fresh_launches those with each flag,
+    drive.traces the trace calls on kernel pools (one launch each, or one
+    a block of the trajectory channel), drive.post_refines the calls of
+    refine_events in trace's _finish (the torch-op pools' and the
+    trajectory channel's post-pass) and drive.init_rhs the right-hand
+    sides init_carry formed on the host, and drive.tail its last launch
+    (kernel_ab.capture_tail's form)."""
+    from raytrace_tpu_torch.integrate import solve
     from raytrace_tpu_torch.kernel_ab import recording_launches
     from raytrace_tpu_torch.ops import step_chunk as sc
     from raytrace_tpu_torch.run import run, summarize
 
     sc.step_chunk.launches = 0
     sc.step_chunk.team_launches = 0
+    sc.step_chunk.finish_launches = 0
+    sc.step_chunk.fresh_launches = 0
     sc.step_chunk_reference.calls = 0
-    with recording_launches() as seen:
-        t0 = time.perf_counter()
-        out = run(conf, device="cuda")
-        wall = time.perf_counter() - t0
+    refine, init = solve.refine_events, solve.init_carry
+    post, rhs_inits = [], []
+    solve.refine_events = lambda *a, **k: post.append(1) or refine(*a, **k)
+    solve.init_carry = (lambda rhs_fn, *a, **k: rhs_inits.append(
+        rhs_fn is not None) or init(rhs_fn, *a, **k))
+    try:
+        with recording_launches() as seen:
+            t0 = time.perf_counter()
+            out = run(conf, device="cuda")
+            wall = time.perf_counter() - t0
+    finally:
+        solve.refine_events, solve.init_carry = refine, init
     launches = sc.step_chunk.launches
     drive.team_launches = sc.step_chunk.team_launches
+    drive.finish_launches = sc.step_chunk.finish_launches
+    drive.fresh_launches = sc.step_chunk.fresh_launches
+    drive.post_refines, drive.init_rhs = len(post), sum(rhs_inits)
+    drive.traces = len(seen)
     calls = sc.step_chunk_reference.calls
     drive.kws = [launch[-1] for launch in seen]
     carry, f, env, cfg, spec, kw = seen[-1]
@@ -1912,11 +2036,41 @@ def drive(conf, what, card):
               f"{r['bucket']:5d} steps {r['steps']:5d} attempted "
               f"{r['attempted']:9d} wall {r['wall_s'] * 1e3:8.1f} ms")
     print(f"  step kernel launches {launches} ({drive.team_launches} through "
-          f"the team body), plain-version calls {calls}, rays on the stiff "
-          f"pool {n_stiff}")
+          f"the team body, {drive.finish_launches} with finish, "
+          f"{drive.fresh_launches} with fresh), plain-version calls {calls}, "
+          f"rays on the stiff pool {n_stiff}; refine_events after a launch "
+          f"{drive.post_refines}, right-hand sides of init_carry on the host "
+          f"{drive.init_rhs}")
     print(f"  {what}: wall {wall:.4f} s, {steps} attempted ray-steps, "
           f"{steps / wall / 1e6:.2f}M ray-steps/s on {card}", flush=True)
     return out, wall, launches, calls
+
+
+def finished_on_card(conf, what, card):
+    """Phases 4 and 6: in the last drive every trace call on a kernel pool
+    (a round's launch) made one launch with finish, the first also with
+    fresh, and the host refined no event and formed no first right-hand
+    side (the stiff pool is empty in these runs); then one more run under
+    torch.profiler counts the small kernels that remain around the step
+    kernel (profile_run.profiled)."""
+    from raytrace_tpu_torch.profile_run import profiled
+
+    check(drive.traces > 0 and drive.finish_launches == drive.traces
+          and drive.fresh_launches == 1,
+          f"{what}: {drive.finish_launches} launches with finish for "
+          f"{drive.traces} trace calls on kernel pools, one with fresh")
+    check(drive.post_refines == 0 and drive.init_rhs == 0,
+          f"{what}: refine_events never ran after a launch, init_carry formed "
+          "no right-hand side on the host")
+    r = profiled(conf)
+    busy = r["busy_us"] / 1e6
+    print(f"  {what}, one run under torch.profiler: step kernel "
+          f"{len(r['step_us'])} launches, {sum(r['step_us']) / 1e3:.2f} ms; "
+          f"small kernels {r['other_n']}, {r['other_us'] / 1e3:.2f} ms; "
+          f"device busy {busy * 1e3:.2f} ms, idle "
+          f"{1 - busy / r['profiled_wall']:.1%} of {r['profiled_wall']:.4f} s "
+          f"on {card}", flush=True)
+    return r
 
 
 def tail_timing(what, card, reps=2):
@@ -2040,15 +2194,15 @@ def variant_kernels(dev, card):
     ions_2d = MediumConfig(b0=B0_2D, **MULTI_ION)
     errs, plain = {}, {}
     # float32 over all rays: the main paths' first launches (10,240 rays x
-    # 512 attempts) where an instance is in the kernels' record, else 1
+    # SIDE_N attempts) where an instance is in the kernels' record, else 1
     # attempt
     for k, label, name, st, n, med, over in (
         ("local", "ensemble10k_local (the first round's launch)",
-         "ensemble10k_local", "bs3", 512, None, {}),
+         "ensemble10k_local", "bs3", SIDE_N, None, {}),
         ("colat", "the ensemble10k launch in the colatitude frame",
-         "ensemble10k", "bs3", 512, None, COLAT),
+         "ensemble10k", "bs3", SIDE_N, None, COLAT),
         ("multi_ion", "the ensemble10k fan over He+ and O+", "ensemble10k",
-         "dopri5", 512, ions_2d, {}),
+         "dopri5", SIDE_N, ions_2d, {}),
         ("emic", "emic_heband (root -1)", "emic_heband", "dopri5", 1, None,
          {}),
         ("rk4_f32", "rk4, the ensemble10k launch at dt0 = dt_max",
@@ -2060,48 +2214,45 @@ def variant_kernels(dev, card):
     # the rk4 instance of the record is float64: the whole launch
     errs["rk4"], plain["rk4"] = bit_for_bit(
         "rk4, the ensemble10k launch at dt0 = dt_max", "ensemble10k",
-        "float64", "bs3", dev, 512, **RK4)
-    # float64 over every 10th ray (emic_heband's 48 whole), 128 attempts
-    # (64 for the further full-medium and general-field instances)
-    for label, name, steppers, every, med, over, n in (
+        "float64", "bs3", dev, SIDE_N, **RK4)
+    # float64 over every 10th ray (emic_heband's 48 whole), CUT_N attempts;
+    # then each variant through the full density chain and a general field
+    for label, name, steppers, every, med, over in (
         ("ensemble10k_local", "ensemble10k_local", ("bs3", "dopri5"), 10,
-         None, {}, 128),
+         None, {}),
         ("colatitude frame", "ensemble10k", ("bs3", "dopri5"), 10, None,
-         COLAT, 128),
-        ("emic_heband", "emic_heband", ("bs3", "dopri5"), 1, None, {}, 128),
-        ("He+ and O+ fan", "ensemble10k", ("dopri5",), 10, ions_2d, {},
-         128),
+         COLAT),
+        ("emic_heband", "emic_heband", ("bs3", "dopri5"), 1, None, {}),
+        ("He+ and O+ fan", "ensemble10k", ("dopri5",), 10, ions_2d, {}),
         ("rk4 in the colatitude frame", "ensemble10k", ("bs3",), 10, None,
-         dict(RK4, **COLAT), 128),
-        # each variant through the full density chain and a general field,
-        # 64 attempts
+         dict(RK4, **COLAT)),
         ("ds_local over GCPM, a duct (a second shell), day/night",
          "ensemble10k_local", ("bs3",), 10,
-         MediumConfig(b0=B0_2D, **FULL_2D["gcpm+iono_mlt+duct"]), {}, 64),
+         MediumConfig(b0=B0_2D, **FULL_2D["gcpm+iono_mlt+duct"]), {}),
         ("ds_local over the tilted field", "ensemble10k_tilted",
-         ("dopri5",), 10, None, dict(ds_local=True), 64),
+         ("dopri5",), 10, None, dict(ds_local=True)),
         ("colatitude frame over the smoothed, refilled medium",
          "ensemble10k", ("dopri5",), 10,
          MediumConfig(b0=B0_2D, **FULL_2D["smooth+refill_q+iono_mlt+duct"]),
-         COLAT, 64),
+         COLAT),
         ("He+ and O+ over the MLT medium (3D)", "ensemble10k_plume",
-         ("bs3",), 10, MediumConfig(b0=B0_3D, ps_mlt=True, **MULTI_ION), {},
-         64),
+         ("bs3",), 10, MediumConfig(b0=B0_3D, ps_mlt=True, **MULTI_ION), {}),
         ("He+ and O+ over IGRF", "ensemble10k_igrf", ("dopri5",), 10,
          MediumConfig(b0=B0_3D, ps_mlt=True, b_model="igrf", **MULTI_ION),
-         {}, 64),
+         {}),
         ("rk4 over the MLT medium (3D)", "ensemble10k_plume", ("bs3",), 10,
-         None, dict(adaptive=False, dt0=1.0e-3), 64),
+         None, dict(adaptive=False, dt0=1.0e-3)),
         ("rk4 over the tilted field", "ensemble10k_tilted", ("bs3",), 10,
-         None, dict(adaptive=False, dt0=1.0e-3), 64),
+         None, dict(adaptive=False, dt0=1.0e-3)),
     ):
         for st in steppers:
-            bit_for_bit(label, name, "float64", st, dev, n, every=every,
+            bit_for_bit(label, name, "float64", st, dev, CUT_N, every=every,
                         medium=med, **over)
 
     # every instance that a path of phases 15-18 launches, at 10,240 rays
     # (the multi-ion ones on the He+ and O+ fan) x 512 attempts; the plain
-    # version at full size where the instance is in the kernels' record
+    # version over the whole launch (its check's SIDE_N attempts) where
+    # the instance is in the kernels' record
     out = {}
     for k, label, name, dt_name, st, med, over in (
         ("local", "ds_local", "ensemble10k_local", "float32", "bs3", None,
@@ -2125,7 +2276,7 @@ def variant_kernels(dev, card):
     ):
         t = time_instance(name, dt_name, st, dev, medium=med,
                           plain_full=k is not None,
-                          plain_ms=plain.get(k), **over)
+                          plain_ms=plain.get(k), plain_n=SIDE_N, **over)
         stepper = "rk4" if over.get("adaptive") is False else st
         print_timing(f"{label} {dt_name} {stepper}", t, card)
         if k is not None:
@@ -2339,10 +2490,10 @@ def rk4_slice(card):
 def ref_kernels(dev, card):
     """Phase 20: the 18 ALT instances (3 frames x bs3, dopri5, rk4 x
     float32, float64) bit for bit with their plain version: bs3 over the
-    whole launch x 512 attempts (the reference + legacy mode in the 2D
+    whole launch x SIDE_N attempts (the reference + legacy mode in the 2D
     frames, the reference set in 3D), dopri5 and rk4 over every 10th ray x
-    64; each timed at 10,240 rays x 512 beside its bound and the plain
-    version (the full launch for bs3, whose plain run the check timed;
+    CUT_N; each timed at 10,240 rays x 512 beside its bound and the plain
+    version (the whole launch for bs3, whose plain run the check timed;
     else the cut). Returns {(frame, dtype): (max abs err, timing)} of the
     bs3 instances."""
     out = {}
@@ -2353,10 +2504,10 @@ def ref_kernels(dev, card):
     ):
         label = f"{frame} {'reference + legacy' if frame != '3d' else 'reference'}"
         for dt_name in ("float32", "float64"):
-            err, plain_ms = bit_for_bit(label, name, dt_name, "bs3", dev, 512,
-                                        **over)
+            err, plain_ms = bit_for_bit(label, name, dt_name, "bs3", dev,
+                                        SIDE_N, **over)
             t = time_instance(name, dt_name, "bs3", dev, plain_ms=plain_ms,
-                              **over)
+                              plain_n=SIDE_N, **over)
             print_timing(f"{label} {dt_name} bs3", t, card)
             out[frame, dt_name] = (err, t)
         for st in ("dopri5", "rk4"):
@@ -2365,10 +2516,10 @@ def ref_kernels(dev, card):
                 more = RK4_3D if frame == "3d" else RK4
             kst = "bs3" if st == "rk4" else st
             for dt_name in ("float32", "float64"):
-                _, plain_ms = bit_for_bit(label, name, dt_name, kst, dev, 64,
-                                          every=10, **over, **more)
+                _, plain_ms = bit_for_bit(label, name, dt_name, kst, dev,
+                                          CUT_N, every=10, **over, **more)
                 plain = dict(plain_ms=plain_ms, plain_rays=bit_for_bit.rays,
-                             plain_n=64)
+                             plain_n=CUT_N)
                 t = time_instance(name, dt_name, kst, dev, plain_full=False,
                                   plain=plain, **over, **more)
                 print_timing(f"{label} {dt_name} {st}", t, card)
@@ -2829,7 +2980,7 @@ def trajectory_slice(dev, card, out32, wall32, launches32):
 def altx_kernels(dev, card):
     """Phase 26: the 18 ALTX instances (3 frames x bs3, dopri5, rk4 x
     float32, float64) bit for bit with their plain version over every 10th
-    ray x 64 attempts: the reference set over the MLT plume in 3D (its
+    ray x CUT_N attempts: the reference set over the MLT plume in 3D (its
     closed form over the density at the base parameters), the reference +
     legacy mode over GCPM with the duct and the day/night ionosphere in
     the 2D frames; then the local arc ceiling under the reference set, the
@@ -2870,10 +3021,10 @@ def altx_kernels(dev, card):
             kst = "bs3" if st == "rk4" else st
             for dt_name in ("float32", "float64"):
                 errs[frame, st, dt_name], ms = bit_for_bit(
-                    label, name, dt_name, kst, dev, 64, every=10, medium=med,
-                    **over, **more)
+                    label, name, dt_name, kst, dev, CUT_N, every=10,
+                    medium=med, **over, **more)
                 plain[frame, st, dt_name] = dict(
-                    plain_ms=ms, plain_rays=bit_for_bit.rays, plain_n=64)
+                    plain_ms=ms, plain_rays=bit_for_bit.rays, plain_n=CUT_N)
     for label, name, dt_name, st, every, med, over in (
         ("ensemble10k_local, reference", "ensemble10k_local", "float32",
          "bs3", 10, None, REF),
@@ -2891,10 +3042,10 @@ def altx_kernels(dev, card):
                                        if k != "ps_model"}), REF),
     ):
         errs[label, dt_name], ms = bit_for_bit(
-            label, name, dt_name, st, dev, 64, every=every, medium=med,
+            label, name, dt_name, st, dev, CUT_N, every=every, medium=med,
             **over)
         plain[label, dt_name] = dict(plain_ms=ms, plain_rays=bit_for_bit.rays,
-                                     plain_n=64)
+                                     plain_n=CUT_N)
     out = {}
     for k, label, name, st, med, over, cut in (
         ("plume", "3d reference, the plume", "ensemble10k_plume", "bs3",
@@ -2933,7 +3084,7 @@ def altx_kernels(dev, card):
 def ad_kernels(dev, card):
     """Phase 34 (a): the 30 AD instances (the lat, colat, 3D dipole, tilted
     and IGRF rows x bs3, dopri5, rk4 x float32, float64) bit for bit with
-    their plain version: bs3 over every 10th ray of the launch x 64
+    their plain version: bs3 over every 10th ray of the launch x CUT_N
     attempts, dopri5 and rk4 over every 20th x 16 (the launches: ensemble10k,
     the ensemble10k fan in the colatitude frame over GCPM with the duct and
     the day/night ionosphere, the MLT plume, the tilted and IGRF fans); then
@@ -2967,7 +3118,7 @@ def ad_kernels(dev, card):
             if st == "rk4":
                 more = RK4_3D if row.startswith("3d") else RK4
             kst = "bs3" if st == "rk4" else st
-            every, n = (10, 64) if st == "bs3" else (20, 16)
+            every, n = (10, CUT_N) if st == "bs3" else (20, 16)
             for dt_name in ("float32", "float64"):
                 err, ms = bit_for_bit(
                     f"AD {row}" + (" (fixed-step rk4)" if more else ""),
@@ -2990,8 +3141,8 @@ def ad_kernels(dev, card):
         ("ensemble10k_local (the local ceiling)", "ensemble10k_local",
          "float32", "bs3", 10, {}),
     ):
-        bit_for_bit(f"AD {what}", name, dt_name, st, dev, 64, every=every,
-                    **AD, **over)
+        bit_for_bit(f"AD {what}", name, dt_name, st, dev, CUT_N,
+                    every=every, **AD, **over)
     return out
 
 
@@ -3338,13 +3489,13 @@ def sensitivity_phase(dev, card):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         legs[graph] = trace_rhs(aug, ua0, f, cfg=cfg, spec=spec,
-                                max_steps=64, chunk=64, graph=graph)
+                                max_steps=16, chunk=16, graph=graph)
         torch.cuda.synchronize()
         walls[graph] = time.perf_counter() - t0
     a, b = legs[False], legs[True]
     same = all(torch.equal(x, y) for x, y in zip(a.carry, b.carry))
     n_att = int(a.n_accept[0] + a.n_reject[0])
-    print(f"  a 64-attempt leg of the canonical ray's variational system "
+    print(f"  a 16-attempt leg of the canonical ray's variational system "
           f"(4 + 16 states, float64): eager {walls[False]:.3f} s "
           f"({walls[False] / n_att * 1e3:.2f} ms an attempt), through the "
           f"CUDA graph {walls[True]:.3f} s ({walls[True] / n_att * 1e3:.2f} "
@@ -3705,9 +3856,10 @@ def two_belt_stage(dev, card):
     """Phase 29 (d): examples/two_belt_structure.py as it runs, on the card
     (precipitation_lifetime and evolve_radial through their CUDA graphs)
     after a cut warm-up and on the CPU, against TWO_BELT_PINS; the
-    refilling's 6,000 CN steps again eagerly, bit for bit with the
-    chain's run through the graph, with the ms per step of each, and the
-    inverse iteration's ms per iteration both ways."""
+    refilling's first 600 CN steps eagerly and through the graph, bit for
+    bit, with the ms per step of the eager loop and of the chain's 6,000
+    through the graph, and the inverse iteration's ms per iteration both
+    ways."""
     import torch
 
     from raytrace_tpu_torch import diffusion, fokker_planck
@@ -3754,24 +3906,29 @@ def two_belt_stage(dev, card):
         f"{k} {worst_rel(out[k], cpu[k]):.2e}"
         for k in ("tau", "f_bnd", "f_eq", "f_free")))
 
-    # the refilling again, eagerly, against the chain's run through the
-    # graph
+    # the refilling's first 600 steps (the eager step costs ~10 ms),
+    # eagerly and through the graph; the graph's cost per step is the
+    # chain's whole run's
     args, kw = out["radial"]["args"], out["radial"]["kw"]
+    cut = dict(kw, n_steps=600, save_every=100)
     sync(dev)
     t0 = time.perf_counter()
-    f_end, snaps = tiers_for(dev, graph=False).evolve_radial(*args, **kw)
+    f_end, snaps = tiers_for(dev, graph=False).evolve_radial(*args, **cut)
     sync(dev)
     wall_eager, wall_graph = time.perf_counter() - t0, out["radial_s"]
-    same = (np.array_equal(f_end, out["f_end"])
-            and np.array_equal(snaps, out["snaps"]))
+    f_end_g, snaps_g = tiers_for(dev).evolve_radial(*args, **cut)
+    same = (np.array_equal(f_end, f_end_g)
+            and np.array_equal(snaps, snaps_g))
     n_steps = kw["n_steps"]
-    print(f"  evolve_radial, {n_steps} CN steps of {len(args[1])} cells: "
-          f"eager {wall_eager:.3f} s ({wall_eager / n_steps * 1e3:.4f} "
-          f"ms a step), CUDA graph {wall_graph:.3f} s "
+    print(f"  evolve_radial, CN steps of {len(args[1])} cells: eager "
+          f"{wall_eager:.3f} s for {cut['n_steps']} "
+          f"({wall_eager / cut['n_steps'] * 1e3:.4f} ms a step), CUDA graph "
+          f"{wall_graph:.3f} s for {n_steps} "
           f"({wall_graph / n_steps * 1e3:.4f} ms a step, the capture "
           f"included), on {card}", flush=True)
     check(same, "evolve_radial through the CUDA graph equals the eager loop "
-                "bit for bit (every snapshot and the final state)")
+                "bit for bit over 600 steps (every snapshot and the final "
+                "state)")
 
     # the inverse iteration both ways, on the shell L = 3
     import math
@@ -4515,11 +4672,20 @@ def main():
           f"{n_diff} values differ, max abs err {err_2d:.3e}")
     check(n_diff == 0, "main-path launch: kernel and plain version agree bit "
                        "for bit in every field")
+    # a trace's end and start inside the launch (finish, fresh), where the
+    # fan's rays land: the whole fan in float32, every 10th ray in float64,
+    # and with the equator stop on (HIT_EQUATOR)
+    finish_fresh("2D", "ensemble10k", "float32", "bs3", dev, 1984, 64)
+    finish_fresh("2D", "ensemble10k", "float64", "bs3", dev, 1248, 64,
+                 every=10)
+    finish_fresh("2D, equator stop", "ensemble10k", "float64", "dopri5", dev,
+                 560, 64, every=10, stop=dict(stop_at_equator=1.0))
 
     # timing at the main path's width: 10,240 rays x 512 steps, f32, bs3
     t_2d = time_instance("ensemble10k", "float32", "bs3", dev,
                          plain_ms=plain_2d_ms)
     print_timing("float32 bs3", t_2d, card)
+    flags_cost("2D", "ensemble10k", dev, card)
 
     # ---- 3. canonical ray through the kernel, float64 ---------------------
     phase("[3] canonical RayTrace_lat ray, float64, dopri5", flush=True)
@@ -4561,6 +4727,7 @@ def main():
     check(launches_2d > 0, "the slice stepped through the kernel")
     check(ref_calls == 0, "the plain version was not called")
     body(launches_2d, "ensemble10k float32", team=False)
+    finished_on_card(ens, "ensemble10k float32", card)
     tails = {"2d": tail_timing("ensemble10k float32", card)}
     check(abs(n_hit - REC_HIT_EARTH) <= 0.01 * REC_HIT_EARTH,
           f"HIT_EARTH {n_hit} within 1% of the TPU record {REC_HIT_EARTH}")
@@ -4605,25 +4772,30 @@ def main():
     carry, f, env, cfg, spec, kw = start("ensemble10k_3d", "float32", dev)
     hold_to_plain_f32(carry, f, env, cfg, spec, kw, "3D")
 
-    # the 3D path's first launch: 10,240 rays x 512 float32 bs3 attempts
-    # (schedule (512, 1024, 2048)); rsqrt is the card's own in both (the
-    # note in csrc/step_chunk.cu), so every field must agree bit for bit
-    got, ref, plain_3d_ms = both(carry, f, env, cfg, spec, "bs3", 512, kw)
+    # the 3D path's first launch: 10,240 rays, float32 bs3 (schedule
+    # (512, 1024, 2048)); rsqrt is the card's own in both (the note in
+    # csrc/step_chunk.cu), so every field must agree bit for bit
+    got, ref, plain_3d_ms = both(carry, f, env, cfg, spec, "bs3", SIDE_N,
+                                 kw)
     n_diff = n_differ(got, ref)
     err_3d = max_abs(got, ref)
-    print(f"  3D float32 bs3, 10,240 rays x 512 steps (the first round's "
-          f"launch): {int((got['status'] != 0).sum())} rays stopped, "
+    print(f"  3D float32 bs3, 10,240 rays x {SIDE_N} steps (the first "
+          f"round's launch): {int((got['status'] != 0).sum())} rays stopped, "
           f"{n_diff} values differ, max abs err {err_3d:.3e} (plain version "
           f"{plain_3d_ms:.1f} ms)")
     check(n_diff == 0, "3D first launch: kernel and plain version agree bit "
                        "for bit in every field")
+    finish_fresh("3D", "ensemble10k_3d", "float32", "bs3", dev, 192, 64)
+    finish_fresh("3D", "ensemble10k_3d", "float64", "bs3", dev, 160, 64,
+                 every=10)
 
     carry, f, env, cfg, spec, kw = start("ensemble10k_production",
                                             "float32", dev)
-    got, ref, plain_prod_ms = both(carry, f, env, cfg, spec, "bs3", 512, kw)
+    got, ref, plain_prod_ms = both(carry, f, env, cfg, spec, "bs3", SIDE_N,
+                                   kw)
     n_diff = n_differ(got, ref)
     err_prod = max_abs(got, ref)
-    print(f"  2D ds_max float32 bs3, 10,240 rays x 512 steps: "
+    print(f"  2D ds_max float32 bs3, 10,240 rays x {SIDE_N} steps: "
           f"{int((got['status'] != 0).sum())} rays stopped, {n_diff} values "
           f"differ, max abs err {err_prod:.3e}")
     check(n_diff == 0, "ensemble10k_production launch (ds_max on): kernel "
@@ -4631,7 +4803,7 @@ def main():
 
     # every instance at 10,240 rays x 512 steps beside its plain version
     # (the float32 bs3 launches' plain runs are the two just held bit for
-    # bit: their times are taken from there)
+    # bit, SIDE_N attempts: their times are taken from there)
     timings = {}
     plain_f32 = {"ensemble10k_3d": plain_3d_ms,
                  "ensemble10k_production": plain_prod_ms}
@@ -4647,7 +4819,8 @@ def main():
     ):
         f32_bs3 = (dt_name, stepper) == ("float32", "bs3")
         t = time_instance(name, dt_name, stepper, dev, plain_full=f32_bs3,
-                          plain_ms=plain_f32[name] if f32_bs3 else None)
+                          plain_ms=plain_f32[name] if f32_bs3 else None,
+                          plain_n=SIDE_N)
         timings[name, dt_name, stepper] = t
         print_timing(f"{name} {dt_name} {stepper}", t, card)
     # the axisymmetric medium runs through the whole density chain with
@@ -4657,6 +4830,7 @@ def main():
     check(abs(t3 - AXI_3D_MS) <= 0.1 * AXI_3D_MS,
           f"ensemble10k_3d float32 bs3 {t3:.3f} ms within 10% of "
           f"{AXI_3D_MS} ms")
+    flags_cost("3D", "ensemble10k_3d", dev, card)
 
     # ---- 6. the ensemble10k_3d slice -------------------------------------
     phase("[6] ensemble10k_3d through raytrace_tpu_torch.run.run, float32",
@@ -4670,6 +4844,7 @@ def main():
     med_l = float(stats["median_landing_l"])
     check(launches_3d > 0, "the 3D slice stepped through the kernel")
     check(ref_calls == 0, "the plain version was not called")
+    finished_on_card(e3, "ensemble10k_3d float32", card)
     check(abs(n_hit - REC3_HIT_EARTH) <= REC3_HIT_RTOL * REC3_HIT_EARTH,
           f"HIT_EARTH {n_hit} within {REC3_HIT_RTOL:.0%} of the TPU record "
           f"{REC3_HIT_EARTH}")
@@ -4737,32 +4912,38 @@ def main():
 
     phase("[8] full density chain (MLT-resolved 3D, GCPM, every 2D gate) "
           "vs plain PyTorch", flush=True)
-    # the plume path's first launch: 10,240 rays x 512 float32 bs3 attempts
+    # the plume path's first launch: 10,240 rays, float32 bs3
     err_plume, plain_plume_ms = bit_for_bit(
         "plume (the first round's launch)", "ensemble10k_plume", "float32",
-        "bs3", dev, 512)
+        "bs3", dev, SIDE_N)
     for stepper in ("bs3", "dopri5"):
         bit_for_bit("plume", "ensemble10k_plume", "float64", stepper, dev,
-                    128, every=10)
+                    CUT_N, every=10)
+    # the team body's epilogue and prologue: warp 0 posts u_prev (and u)
+    # to the helpers as for any stage
+    finish_fresh("plume (team body)", "ensemble10k_plume", "float32", "bs3",
+                 dev, 192, 64, team=True)
+    finish_fresh("plume (team body)", "ensemble10k_plume", "float64",
+                 "dopri5", dev, 160, 32, every=10, team=True)
     # mr_fan_3d's launch: 2,048 low-altitude rays near f_LHR
     err_mr, plain_mr_ms = bit_for_bit("mr_fan_3d", "mr_fan_3d", "float32",
-                                      "bs3", dev, 512)
+                                      "bs3", dev, SIDE_N)
     gcpm = MediumConfig(b0=B0_3D, ps_mlt=True, ps_model="gcpm")
-    for dt_name, stepper, every, n in (("float32", "bs3", 1, 128),
-                                       ("float64", "dopri5", 10, 128)):
+    for dt_name, stepper, every, n in (("float32", "bs3", 1, SIDE_N),
+                                       ("float64", "dopri5", 10, CUT_N)):
         bit_for_bit("plume fan over the MLT GCPM", "ensemble10k_plume",
                     dt_name, stepper, dev, n, every=every, medium=gcpm)
     for label, kw in FULL_2D.items():
         med = MediumConfig(b0=B0_2D, **kw)
         for dt_name, stepper in (("float32", "bs3"), ("float64", "dopri5")):
             bit_for_bit(f"2D knee fan over {label}", "knee", dt_name,
-                        stepper, dev, 256, medium=med)
+                        stepper, dev, SIDE_N, medium=med)
     # the team body's density pieces over every other gate of the chain
     for label, kw in TEAM_MEDIA.items():
         med = MediumConfig(b0=B0_3D, **kw)
         for dt_name, stepper in (("float32", "bs3"), ("float64", "dopri5")):
             bit_for_bit(f"plume fan over {label}", "ensemble10k_plume",
-                        dt_name, stepper, dev, 128, every=10, medium=med)
+                        dt_name, stepper, dev, CUT_N, every=10, medium=med)
 
     # the full chain with every feature flag off performs the axisymmetric
     # chain's operations in the same order, so it must agree with the
@@ -4805,12 +4986,13 @@ def main():
         first = (label, dt_name, stepper) == ("plume", "float32", "bs3")
         t = time_instance(name, dt_name, stepper, dev, medium=med,
                           plain_full=first,
-                          plain_ms=plain_plume_ms if first else None)
+                          plain_ms=plain_plume_ms if first else None,
+                          plain_n=SIDE_N)
         t_full[label, dt_name, stepper] = t
         print_timing(f"{label} {dt_name} {stepper}", t, card)
     # mr_fan_3d's launch width: its 2,048 rays x 512 attempts
     t_mr = time_instance("mr_fan_3d", "float32", "bs3", dev,
-                         plain_ms=plain_mr_ms)
+                         plain_ms=plain_mr_ms, plain_n=SIDE_N)
     print_timing("mr_fan_3d float32 bs3", t_mr, card)
 
     # ---- 9. the ensemble10k_plume slice ----------------------------------
@@ -5047,6 +5229,9 @@ def main():
             "bound_by": t["bound_by"],
             # no single PyTorch call computes a multi-step adaptive chunk
             "library_ms": None,
+            # ms: t["rays"] rays x t["n"] attempts; plain_ms: these
+            "plain_rays": t["plain_rays"],
+            "plain_steps": t["plain_n"],
             **more,
         }
 

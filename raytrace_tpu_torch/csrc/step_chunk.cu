@@ -103,7 +103,16 @@
 //     (n, B) layout, kept here for coalescing);
 //   - every scalar of the medium, SolverConfig, StopSpec and the root is a
 //     kernel argument passed by value (Pallas closed over them as
-//     compile-time constants), so one build serves every medium.
+//     compile-time constants), so one build serves every medium;
+//   - a trace's launch ends its rays itself: with `finish`, after the loop,
+//     it refines every ray that ends on HIT_EARTH or HIT_EQUATOR
+//     (integrate/solve.py::refine_events: one more right-hand side at
+//     u_prev, 32 bisections of the Hermite interpolant), and with `fresh`,
+//     before the loop, it forms k1 = rhs(u) (init_carry's right-hand side),
+//     so the ~1,600 torch ops of the post-pass each trace call and the
+//     ~400-700 of the first right-hand side leave the host (JAX runs both
+//     as XLA ops around the Pallas call). Both are run-time flags of every
+//     instance.
 //
 // What bounds it: operations, not bytes. A launch moves ~210 bytes a
 // ray (float, 2D) or ~310 (float, 3D), the carry read and written once,
@@ -2887,6 +2896,74 @@ __device__ __forceinline__ int classify_step(const T u0[N], const T u1[N],
   return st;
 }
 
+// the rays that refine_events refines: HIT_EARTH, and HIT_EQUATOR where
+// the equator stop is on (with it off the plain version leaves such a ray
+// of a resumed carry as it is)
+template <typename T>
+__device__ __forceinline__ bool refines(int status, const KParams<T>& p) {
+  return status == HIT_EARTH || (status == HIT_EQUATOR && p.equator_on);
+}
+
+// integrate/events.py::hermite_interp's weights at tau over a step of dt
+// (h10 and h11 times dt), in the plain version's operation order
+template <typename T>
+struct Hermite {
+  T h00, h10dt, h01, h11dt;
+};
+
+template <typename T>
+__device__ __forceinline__ Hermite<T> hermite(T tau, T dt) {
+  const T t2 = tau * tau;
+  const T t3 = t2 * tau;
+  return {(T(2) * t3 - T(3) * t2) + T(1), ((t3 - T(2) * t2) + tau) * dt,
+          T(-2) * t3 + T(3) * t2, (t3 - t2) * dt};
+}
+
+template <typename T>
+__device__ __forceinline__ T hermite_at(const Hermite<T>& h, T u0, T du0,
+                                        T u1, T du1) {
+  return ((h.h00 * u0 + h.h10dt * du0) + h.h01 * u1) + h.h11dt * du1;
+}
+
+// integrate/solve.py::refine_events for one ray that refines: 32
+// bisections (events.refine_crossing) of the cubic Hermite interpolant of
+// the terminating step (u_prev, k0 = rhs(u_prev)) -> (u, k1) for the zero
+// of r - r_floor (HIT_EARTH) or of the latitude (HIT_EQUATOR, events.
+// lat_of), then u at the crossing and t = t - (1 - tau) dt_prev. The value
+// functions read one component, and the interpolant is componentwise, so
+// the bisection forms only that component's, selected by constant indices
+// (an index known only at run time would put the carry's arrays in local
+// memory); torch.sign's sign(NaN) = 0
+template <typename T, int N>
+__device__ __forceinline__ void refine_event(int status, const T u_prev[N],
+                                             const T k0[N], const T k1[N],
+                                             T dt_prev, const KParams<T>& p,
+                                             T u[N], T& t) {
+  const bool eq = status == HIT_EQUATOR;
+  const T x0 = eq ? u_prev[1] : u_prev[0], dx0 = eq ? k0[1] : k0[0];
+  const T x1 = eq ? u[1] : u[0], dx1 = eq ? k1[1] : k1[0];
+  const auto value = [&](T x) {
+    return eq ? p.lat_sign * x + p.lat_offset : x - p.r_floor;
+  };
+  const T sign0 = tsign(value(x0));
+  T lo = T(0), hi = T(1);
+#pragma unroll 1
+  for (int it = 0; it < 32; ++it) {
+    const T mid = T(0.5) * (lo + hi);
+    const T vm = value(hermite_at(hermite(mid, dt_prev), x0, dx0, x1, dx1));
+    if (tsign(vm) == sign0)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  const T tau = T(0.5) * (lo + hi);
+  const Hermite<T> h = hermite(tau, dt_prev);
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    u[j] = hermite_at(h, u_prev[j], k0[j], u[j], k1[j]);
+  t = t - (T(1) - tau) * dt_prev;
+}
+
 // K = 0: the one-thread body (a block of kThreads rays, one thread each);
 // K > 0: the team body (a block of K warps serving 32 rays, lane l of every
 // warp serving ray l)
@@ -2901,7 +2978,7 @@ __global__ void __launch_bounds__(K > 0 ? 32 * K : kThreads,
                       int* __restrict__ n_rej_g, int* __restrict__ rejected_g,
                       int* __restrict__ n_tiny_g, int* __restrict__ caution_g,
                       const T* __restrict__ f_g, long long B, int n_steps,
-                      KParams<T> p) {
+                      bool finish, bool fresh, KParams<T> p) {
   constexpr int N = FrameDim<FRAME>::N;
   Team<T> tm{nullptr, 0, 0, true};
   long long i;
@@ -2910,7 +2987,8 @@ __global__ void __launch_bounds__(K > 0 ? 32 * K : kThreads,
     i = blockIdx.x * (long long)kThreads + threadIdx.x;
     if (i >= B) return;
   } else {
-    if (n_steps <= 0) return;  // the same for the whole block
+    // the same for the whole block
+    if (n_steps <= 0 && !finish && !fresh) return;
     // the exchange: dynamic shared memory, sized at the launch
     extern __shared__ __align__(16) unsigned char team_xch[];
     tm = Team<T>{reinterpret_cast<T*>(team_xch), int(threadIdx.x >> 5),
@@ -2926,16 +3004,18 @@ __global__ void __launch_bounds__(K > 0 ? 32 * K : kThreads,
     }
   }
   int status = status_g[i];
-  // a ray that is not ACTIVE stays as it is (_step_one is a no-op there):
-  // in the one-thread body its thread leaves; in the team body its lane of
-  // warp 0 rides along with its writes masked until the warp's last ray
-  // stops, and the helpers skip it
+  // a ray that is not ACTIVE stays as it is (_step_one is a no-op there),
+  // unless the launch computes its first right-hand side (fresh) or refines
+  // its event (finish): in the one-thread body its thread leaves; in the
+  // team body its lane of warp 0 rides along with its writes masked until
+  // the warp's last ray stops, and the helpers skip it
+  const bool touched = fresh || (finish && refines(status, p));
   if constexpr (K == 0) {
-    if (status != ACTIVE || n_steps <= 0) return;
+    if (!touched && (status != ACTIVE || n_steps <= 0)) return;
   } else {
     if (!real) status = -1;
   }
-  const bool write_back = K == 0 || status == ACTIVE;
+  const bool write_back = K == 0 || status == ACTIVE || (real && touched);
 
   T u[N], k1[N], u_prev[N], u_lo[N];
 #pragma unroll
@@ -2950,118 +3030,155 @@ __global__ void __launch_bounds__(K > 0 ? 32 * K : kThreads,
   int n_tiny = n_tiny_g[i], caution = caution_g[i];
   const T f = f_g[i];
 
-  for (int s = 0; s < n_steps && (K > 0 || status == ACTIVE); ++s) {
-    if constexpr (K > 0) {
-      // warp 0 leaves together, once none of its rays is ACTIVE
-      if (!__any_sync(0xffffffffu, status == ACTIVE)) break;
-      tm.live = status == ACTIVE;
+  // The right-hand sides outside the attempts -- fresh's k1 = rhs(u)
+  // (init_carry's, every ray) before them, finish's k0 = rhs(u_prev) after
+  // them -- share one inlined evaluation: pass 0 (fresh), pass 1 the
+  // attempts, pass 2 (finish). A copy of the right-hand side inlined at
+  // each place slowed the attempts of some instances by up to 10% (PERF.md)
+  bool ev = false;  // finish: the ray refines
+#pragma unroll 1
+  for (int pass = fresh ? 0 : 1; pass < 3; ++pass) {
+    if (pass == 1) {
+      for (int s = 0; s < n_steps && (K > 0 || status == ACTIVE); ++s) {
+        if constexpr (K > 0) {
+          // warp 0 leaves together, once none of its rays is ACTIVE
+          if (!__any_sync(0xffffffffu, status == ACTIVE)) break;
+          tm.live = status == ACTIVE;
+        }
+        if constexpr (STEPPER == RK4) {
+          // adaptive=False: the carry's dt within the phase-path budget, no
+          // ceiling; every step is accepted, with no stall flag; dt, errold
+          // and n_tiny stay, caution counts down
+          const T dt_eff = jmin(dt, jmax(p.t_max - t, p.dt_min));
+          T u_new[N], k_end[N], incr[N];
+          rk4_step<T, FRAME, MEDIUM, FIELD, K>(u, k1, dt_eff, f, p, u_new,
+                                               k_end, incr, tm);
+          if constexpr (K > 0) {
+            if (status != ACTIVE) continue;  // a stopped ray's writes, masked
+          }
+          const T t1 = t + dt_eff;
+          status = classify_step<T, N>(u, u_new, t1, p);
+          if (status == HIT_EARTH || status == HIT_EQUATOR) {
+#pragma unroll
+            for (int j = 0; j < N; ++j) u_prev[j] = u[j];
+            dt_prev = dt_eff;
+          }
+#pragma unroll
+          for (int j = 0; j < N; ++j) {
+            const T d = incr[j] + u_lo[j];
+            const T uc = u[j] + d;
+            u_lo[j] = d - (uc - u[j]);
+            u[j] = uc;
+            k1[j] = k_end[j];
+          }
+          t = t1;
+          n_acc += 1;
+          rejected = 0;
+          caution = min(max(caution - 1, 0), 60);
+        } else {
+          // the step ceiling, then no overshoot of the phase-path budget
+          const T dt_cap = step_ceiling<T, N, MEDIUM>(u, k1, p);
+          T dt_eff = jmin(dt, dt_cap);
+          dt_eff = jmin(dt_eff, jmax(p.t_max - t, p.dt_min));
+
+          T u_new[N], k_end[N], incr[N];
+          T err_raw;
+          if constexpr (STEPPER == BS3)
+            err_raw = bs3_step<T, FRAME, MEDIUM, FIELD, K>(
+                u, k1, dt_eff, f, p, u_new, k_end, incr, tm);
+          else
+            err_raw = dopri5_step<T, FRAME, MEDIUM, FIELD, K>(
+                u, k1, dt_eff, f, p, u_new, k_end, incr, tm);
+          if constexpr (K > 0) {
+            if (status != ACTIVE) continue;  // a stopped ray's writes, masked
+          }
+          const bool accept = err_raw <= p.accept_tol;
+
+          const T t1 = t + dt_eff;
+          int status1 = classify_step<T, N>(u, u_new, t1, p);
+          if (status1 == ACTIVE && dt_eff <= p.dt_min2) status1 = DT_UNDERFLOW;
+          const bool terminal = status1 == HIT_EARTH || status1 == HIT_EQUATOR;
+
+          // PI controller; a non-finite error estimate is a hard rejection
+          const T err =
+              isfinite(err_raw) ? jmax(err_raw, T(1.0e-10)) : T(1.0e10);
+          const T log_err = d_log(err);
+          const T fac_cap =
+              rejected > 0 ? T(1) : (caution > 8 ? T(1.3) : p.fac_max);
+          const T fac_acc = jmin(
+              jmax(p.safety * d_exp(p.scale5 * (p.neg_pi_alpha * log_err +
+                                                p.pi_beta * d_log(errold))),
+                   p.fac_min),
+              fac_cap);
+          const T fac_rej =
+              jmin(jmax(p.safety * d_exp(-log_err * recip(p.order)), T(0.05)),
+                   T(1));
+          const T dt_next = jmin(
+              jmax(dt_eff * (accept ? fac_acc : fac_rej), p.dt_min), dt_cap);
+          const bool underflow = !accept && dt_eff <= p.dt_min_uf;
+
+          int status_new =
+              accept ? status1 : (underflow ? DT_UNDERFLOW : ACTIVE);
+          // device-side wedge retirement (SolverConfig.stall_dt_factor)
+          const bool tiny = p.tiny_on && dt_eff < p.tiny_thr;
+          const int n_tiny_new = accept ? (tiny ? n_tiny + 1 : 0) : n_tiny;
+          if (accept && double(n_tiny_new) >= p.stall_count &&
+              status_new == ACTIVE)
+            status_new = DT_UNDERFLOW;
+
+          if (accept) {
+            if (terminal) {  // snapshot the terminating step for refine_events
+#pragma unroll
+              for (int j = 0; j < N; ++j) u_prev[j] = u[j];
+              dt_prev = dt_eff;
+            }
+            // compensated state update (fast two-sum)
+#pragma unroll
+            for (int j = 0; j < N; ++j) {
+              const T d = incr[j] + u_lo[j];
+              const T uc = u[j] + d;
+              u_lo[j] = d - (uc - u[j]);
+              u[j] = uc;
+              k1[j] = k_end[j];
+            }
+            t = t1;
+            errold = jmax(err, T(1.0e-4));
+            n_acc += 1;
+          } else {
+            n_rej += 1;
+          }
+          dt = dt_next;
+          status = status_new;
+          rejected = accept ? 0 : 1;
+          n_tiny = n_tiny_new;
+          caution = min(max(caution + (accept ? -1 : 4), 0), 60);
+        }
+      }
+      // finish: refine_events after the loop, for every ray that ends on
+      // an event, whichever launch retired it. k0 is the instance's own
+      // right-hand side at u_prev (the FSAL k1 of the terminating step's
+      // start is not bitwise rhs(u_prev) after the two-sum update). Here,
+      // once the warp has converged, it costs about one attempt per warp
+      // and adds no live registers to the loop; in the team body warp 0
+      // posts u_prev to the helpers as for any stage, for the lanes that
+      // refine
+      if (!finish) break;
+      ev = refines(status, p);
+      bool any = ev;
+      if constexpr (K > 0) any = __any_sync(0xffffffffu, ev);
+      if (!any) break;
+      continue;
     }
-    if constexpr (STEPPER == RK4) {
-      // adaptive=False: the carry's dt within the phase-path budget, no
-      // ceiling; every step is accepted, with no stall flag; dt, errold
-      // and n_tiny stay, caution counts down
-      const T dt_eff = jmin(dt, jmax(p.t_max - t, p.dt_min));
-      T u_new[N], k_end[N], incr[N];
-      rk4_step<T, FRAME, MEDIUM, FIELD, K>(u, k1, dt_eff, f, p, u_new, k_end,
-                                           incr, tm);
-      if constexpr (K > 0) {
-        if (status != ACTIVE) continue;  // a stopped ray's writes, masked
-      }
-      const T t1 = t + dt_eff;
-      status = classify_step<T, N>(u, u_new, t1, p);
-      if (status == HIT_EARTH || status == HIT_EQUATOR) {
+    T x[N], out[N];
 #pragma unroll
-        for (int j = 0; j < N; ++j) u_prev[j] = u[j];
-        dt_prev = dt_eff;
-      }
+    for (int j = 0; j < N; ++j) x[j] = pass == 0 ? u[j] : u_prev[j];
+    if constexpr (K > 0) tm.live = pass == 0 ? real : ev;
+    rhs<T, FRAME, MEDIUM, FIELD, K>(x, f, p, out, tm);
+    if (pass == 0) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const T d = incr[j] + u_lo[j];
-        const T uc = u[j] + d;
-        u_lo[j] = d - (uc - u[j]);
-        u[j] = uc;
-        k1[j] = k_end[j];
-      }
-      t = t1;
-      n_acc += 1;
-      rejected = 0;
-      caution = min(max(caution - 1, 0), 60);
-    } else {
-      // the step ceiling, then no overshoot of the phase-path budget
-      const T dt_cap = step_ceiling<T, N, MEDIUM>(u, k1, p);
-      T dt_eff = jmin(dt, dt_cap);
-      dt_eff = jmin(dt_eff, jmax(p.t_max - t, p.dt_min));
-
-      T u_new[N], k_end[N], incr[N];
-      T err_raw;
-      if constexpr (STEPPER == BS3)
-        err_raw = bs3_step<T, FRAME, MEDIUM, FIELD, K>(u, k1, dt_eff, f, p,
-                                                       u_new, k_end, incr, tm);
-      else
-        err_raw = dopri5_step<T, FRAME, MEDIUM, FIELD, K>(
-            u, k1, dt_eff, f, p, u_new, k_end, incr, tm);
-      if constexpr (K > 0) {
-        if (status != ACTIVE) continue;  // a stopped ray's writes, masked
-      }
-      const bool accept = err_raw <= p.accept_tol;
-
-      const T t1 = t + dt_eff;
-      int status1 = classify_step<T, N>(u, u_new, t1, p);
-      if (status1 == ACTIVE && dt_eff <= p.dt_min2) status1 = DT_UNDERFLOW;
-      const bool terminal = status1 == HIT_EARTH || status1 == HIT_EQUATOR;
-
-      // PI controller; a non-finite error estimate is a hard rejection
-      const T err =
-          isfinite(err_raw) ? jmax(err_raw, T(1.0e-10)) : T(1.0e10);
-      const T log_err = d_log(err);
-      const T fac_cap =
-          rejected > 0 ? T(1) : (caution > 8 ? T(1.3) : p.fac_max);
-      const T fac_acc = jmin(
-          jmax(p.safety * d_exp(p.scale5 * (p.neg_pi_alpha * log_err +
-                                            p.pi_beta * d_log(errold))),
-               p.fac_min),
-          fac_cap);
-      const T fac_rej =
-          jmin(jmax(p.safety * d_exp(-log_err * recip(p.order)), T(0.05)),
-               T(1));
-      const T dt_next =
-          jmin(jmax(dt_eff * (accept ? fac_acc : fac_rej), p.dt_min), dt_cap);
-      const bool underflow = !accept && dt_eff <= p.dt_min_uf;
-
-      int status_new = accept ? status1 : (underflow ? DT_UNDERFLOW : ACTIVE);
-      // device-side wedge retirement (SolverConfig.stall_dt_factor)
-      const bool tiny = p.tiny_on && dt_eff < p.tiny_thr;
-      const int n_tiny_new = accept ? (tiny ? n_tiny + 1 : 0) : n_tiny;
-      if (accept && double(n_tiny_new) >= p.stall_count &&
-          status_new == ACTIVE)
-        status_new = DT_UNDERFLOW;
-
-      if (accept) {
-        if (terminal) {  // snapshot the terminating step for refine_events
-#pragma unroll
-          for (int j = 0; j < N; ++j) u_prev[j] = u[j];
-          dt_prev = dt_eff;
-        }
-        // compensated state update (fast two-sum)
-#pragma unroll
-        for (int j = 0; j < N; ++j) {
-          const T d = incr[j] + u_lo[j];
-          const T uc = u[j] + d;
-          u_lo[j] = d - (uc - u[j]);
-          u[j] = uc;
-          k1[j] = k_end[j];
-        }
-        t = t1;
-        errold = jmax(err, T(1.0e-4));
-        n_acc += 1;
-      } else {
-        n_rej += 1;
-      }
-      dt = dt_next;
-      status = status_new;
-      rejected = accept ? 0 : 1;
-      n_tiny = n_tiny_new;
-      caution = min(max(caution + (accept ? -1 : 4), 0), 60);
+      for (int j = 0; j < N; ++j) k1[j] = out[j];
+    } else if (ev) {
+      refine_event<T, N>(status, u_prev, out, k1, dt_prev, p, u, t);
     }
   }
 
@@ -3090,8 +3207,8 @@ __global__ void __launch_bounds__(K > 0 ? 32 * K : kThreads,
 }
 
 template <typename T, int STEPPER, int FRAME, int MEDIUM, int FIELD>
-void launch(void** ptrs, long long B, int n_steps, const StepParams& h,
-            cudaStream_t stream) {
+void launch(void** ptrs, long long B, int n_steps, int flags,
+            const StepParams& h, cudaStream_t stream) {
   constexpr int K =
       team_warps(sizeof(T) == 8 ? 1 : 0, STEPPER, FRAME, MEDIUM, FIELD);
   const int rays = K > 0 ? 32 : kThreads;
@@ -3102,30 +3219,32 @@ void launch(void** ptrs, long long B, int n_steps, const StepParams& h,
           (T*)ptrs[0], (T*)ptrs[1], (T*)ptrs[2], (T*)ptrs[3], (T*)ptrs[4],
           (T*)ptrs[5], (T*)ptrs[6], (T*)ptrs[7], (int*)ptrs[8],
           (int*)ptrs[9], (int*)ptrs[10], (int*)ptrs[11], (int*)ptrs[12],
-          (int*)ptrs[13], (const T*)ptrs[14], B, n_steps,
-          make_params<T>(h, STEPPER));
+          (int*)ptrs[13], (const T*)ptrs[14], B, n_steps, (flags & 1) != 0,
+          (flags & 2) != 0, make_params<T>(h, STEPPER));
 }
 
 template <typename T, int FRAME, int MEDIUM, int FIELD>
 void launch_stepper(int stepper, void** ptrs, long long B, int n_steps,
-                    const StepParams& h, cudaStream_t stream) {
+                    int flags, const StepParams& h, cudaStream_t stream) {
   if (stepper == BS3)
-    launch<T, BS3, FRAME, MEDIUM, FIELD>(ptrs, B, n_steps, h, stream);
+    launch<T, BS3, FRAME, MEDIUM, FIELD>(ptrs, B, n_steps, flags, h, stream);
   else if (stepper == DOPRI5)
-    launch<T, DOPRI5, FRAME, MEDIUM, FIELD>(ptrs, B, n_steps, h, stream);
+    launch<T, DOPRI5, FRAME, MEDIUM, FIELD>(ptrs, B, n_steps, flags, h,
+                                            stream);
   else
-    launch<T, RK4, FRAME, MEDIUM, FIELD>(ptrs, B, n_steps, h, stream);
+    launch<T, RK4, FRAME, MEDIUM, FIELD>(ptrs, B, n_steps, flags, h, stream);
 }
 
 template <int FRAME, int MEDIUM, int FIELD>
 void launch_dtype(int dtype, int stepper, void** ptrs, long long B,
-                  int n_steps, const StepParams& h, cudaStream_t stream) {
+                  int n_steps, int flags, const StepParams& h,
+                  cudaStream_t stream) {
   if (dtype == 0)
-    launch_stepper<float, FRAME, MEDIUM, FIELD>(stepper, ptrs, B, n_steps, h,
-                                                stream);
+    launch_stepper<float, FRAME, MEDIUM, FIELD>(stepper, ptrs, B, n_steps,
+                                                flags, h, stream);
   else
     launch_stepper<double, FRAME, MEDIUM, FIELD>(stepper, ptrs, B, n_steps,
-                                                 h, stream);
+                                                 flags, h, stream);
 }
 
 }  // namespace
@@ -3146,11 +3265,11 @@ void launch_dtype(int dtype, int stepper, void** ptrs, long long B,
 #define SC_OWNS(PART) (SC_PARTS == 1 || SC_PART == (PART))
 #define SC_ENTRY(NAME)                                                   \
   void NAME(int dtype, int stepper, void** ptrs, long long B, int n_steps, \
-            const StepParams& h, cudaStream_t s)
+            int flags, const StepParams& h, cudaStream_t s)
 #define SC_DEFINE(NAME, FRAME, MEDIUM, FIELD)                           \
   SC_ENTRY(NAME) {                                                      \
     launch_dtype<FRAME, MEDIUM, FIELD>(dtype, stepper, ptrs, B, n_steps, \
-                                       h, s);                           \
+                                       flags, h, s);                    \
   }
 
 SC_ENTRY(launch_lat_axi);
@@ -3238,15 +3357,19 @@ SC_DEFINE(launch_igrf_ad, KIM3D, AD, IGRF)
 // instances), 5 = the autodiff set over any medium (the AD instances,
 // which read h->legacy_freq in 2D, never h->ref_grads); field 0 = the
 // centered dipole, 1 = the tilted dipole, 2 = the IGRF truncation (the
-// last two only in the 3D frame over FULL, EXT and AD). Launches on
-// `stream` without synchronising; returns cudaGetLastError().
+// last two only in the 3D frame over FULL, EXT and AD). finish != 0: after
+// the loop, refine the rays that end on HIT_EARTH / HIT_EQUATOR in place
+// (integrate/solve.py::refine_events); fresh != 0: before it, k1 = rhs(u)
+// for every ray (init_carry's right-hand side). Launches on `stream`
+// without synchronising; returns cudaGetLastError().
 extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
                                  int medium, int field, void** ptrs,
-                                 long long B, int n_steps,
-                                 const StepParams* h, void* stream) {
+                                 long long B, int n_steps, int finish,
+                                 int fresh, const StepParams* h,
+                                 void* stream) {
   // [frame, or the non-axial field in rows 3 and 4][medium]
-  using Entry = void (*)(int, int, void**, long long, int, const StepParams&,
-                         cudaStream_t);
+  using Entry = void (*)(int, int, void**, long long, int, int,
+                         const StepParams&, cudaStream_t);
   static const Entry kEntry[5][6] = {
       {launch_lat_axi, launch_lat_full, launch_lat_ext, launch_lat_alt,
        launch_lat_altx, launch_lat_ad},
@@ -3278,7 +3401,8 @@ extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
       (!extended(medium) && (h->n_ion != 1.0 || h->n_shells != 0.0)))
     return (int)cudaErrorInvalidValue;
   const int row = field == TILTED ? 3 : (field == IGRF ? 4 : frame);
-  kEntry[row][medium](dtype, stepper, ptrs, B, n_steps, *h,
+  kEntry[row][medium](dtype, stepper, ptrs, B, n_steps,
+                      (finish ? 1 : 0) | (fresh ? 2 : 0), *h,
                       (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

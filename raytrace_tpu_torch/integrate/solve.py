@@ -15,8 +15,12 @@ CUDA kernel on a CUDA tensor, its plain PyTorch loop of `_step_one` on a
 CPU tensor. heun2 and the Rosenbrock steppers (ros2, ros2x, ros3pr, ros4x;
 the auto mode's stiff pool) step as torch ops on the tensors' device, as
 the Pallas kernel never runs them. The right-hand side carries the
-gradient set (`grad_mode`) and, in the 2D frames, `legacy_freq_state`. `init_carry` and `refine_events` are torch ops around the
-kernel, as they sit around the Pallas kernel in the JAX package.
+gradient set (`grad_mode`) and, in the 2D frames, `legacy_freq_state`.
+The first right-hand side (`init_carry`) and the event refinement
+(`refine_events`), torch ops around the Pallas kernel in the JAX package,
+run inside the step kernel's launch of a final-states trace (its `fresh`
+and `finish` flags); the trajectory channel, `trace_rhs` and the
+torch-op steppers keep `refine_events` as a post-pass.
 """
 
 from typing import Any, NamedTuple, Optional
@@ -119,7 +123,9 @@ def check_supported(cfg: SolverConfig, group_idx: int, adaptive: bool,
 
 
 def init_carry(rhs_fn, u0, f, cfg: SolverConfig):
-    """Initial carry for a batch; u0 (B, n), f (B,). One RHS per ray."""
+    """Initial carry for a batch; u0 (B, n), f (B,). One RHS per ray;
+    rhs_fn None leaves k1 zero, for a step-kernel launch with `fresh` to
+    form (ops.step_chunk.step_chunk)."""
     b = u0.shape[0]
     kw = dict(dtype=u0.dtype, device=u0.device)
     izero = torch.zeros(b, dtype=torch.int32, device=u0.device)
@@ -127,7 +133,7 @@ def init_carry(rhs_fn, u0, f, cfg: SolverConfig):
         u=u0,
         t=torch.zeros(b, **kw),
         dt=torch.full((b,), cfg.dt0, **kw),
-        k1=rhs_fn(u0, f),
+        k1=torch.zeros_like(u0) if rhs_fn is None else rhs_fn(u0, f),
         errold=torch.full((b,), 1.0e-4, **kw),
         status=izero,
         n_accept=izero,
@@ -354,7 +360,9 @@ def refine_events(rhs_fn, carry: RayCarry, f, spec: StopSpec):
     Hermite interpolant of the snapshotted terminating step (k0 =
     rhs(u_prev), one extra eval per ray; k1 is the FSAL carry). With the
     equator stop off no ray can end on HIT_EQUATOR, so its bisection is
-    skipped (the JAX package computes and discards it)."""
+    skipped (the JAX package computes and discards it). The step kernel
+    runs the same for a launch with `finish` (csrc/step_chunk.cu:
+    refine_event)."""
     is_surf = carry.status == events.HIT_EARTH
     is_eq = carry.status == events.HIT_EQUATOR
     k0 = rhs_fn(carry.u_prev, f)
@@ -420,7 +428,9 @@ def trace(
     ceil(max_steps / chunk) * chunk attempts unless it stops first -- the
     count the JAX package's chunked while_loop runs (integrate/solve.py:
     559-571) -- in ONE step-kernel launch for bs3, dopri5 and
-    (adaptive=False, whatever `stepper` says) rk4.
+    (adaptive=False, whatever `stepper` says) rk4, which also forms the
+    first k1 (without carry0) and refines the events (step_chunk's
+    `fresh` and `finish`): the trace's end is that launch.
 
     save_every > 0: the trajectory channel (the reference's
     SavingCallback, RayTrace_lat.jl:318-330). ceil(max_steps /
@@ -445,25 +455,31 @@ def trace(
     check_supported(cfg, group_idx, adaptive, stepper)
     if save_every < 0:
         raise ValueError(f"save_every must be >= 0; got {save_every}")
+    on_kernel = stepper in KERNEL_STEPPERS or not adaptive
+    # the step kernel's first launch forms the first k1 itself (the
+    # trajectory channel has none where max_steps is 0)
+    fresh = carry0 is None and on_kernel and (save_every == 0
+                                              or max_steps > 0)
     if carry0 is None:
-        carry0 = init_carry(rhs_fn, u0, f, cfg)
+        carry0 = init_carry(None if fresh else rhs_fn, u0, f, cfg)
     else:
         carry0 = carry0._replace(status=torch.where(
             carry0.status == events.MAX_STEPS, events.ACTIVE, carry0.status
         ).to(torch.int32))
 
-    on_kernel = stepper in KERNEL_STEPPERS or not adaptive
     kernel_kw = dict(stepper=stepper, root=root, adaptive=adaptive,
                      frame=frame, grad_mode=grad_mode,
                      legacy_freq_state=legacy_freq_state)
     traj = None
+    refined = False
     if save_every == 0:
         n_steps = -(-max_steps // chunk) * chunk
         if on_kernel:
             from ..ops.step_chunk import step_chunk
 
             carry = step_chunk(carry0, f, env, cfg, spec, n_steps=n_steps,
-                               **kernel_kw)
+                               finish=True, fresh=fresh, **kernel_kw)
+            refined = True
         else:
             carry = step_loop(rhs_fn, carry0, f, cfg, spec,
                               group_idx=group_idx, adaptive=adaptive,
@@ -473,18 +489,22 @@ def trace(
         carry, traj = _trace_blocks(rhs_fn, group_idx, carry0, f, env, cfg,
                                     spec, -(-max_steps // save_every),
                                     save_every, save_fn, chunk, on_kernel,
-                                    kernel_kw)
+                                    kernel_kw, fresh)
 
-    return _finish(rhs_fn, carry, f, spec, traj)
+    return _finish(rhs_fn, carry, f, spec, traj, refined)
 
 
-def _finish(rhs_fn, carry: RayCarry, f, spec: StopSpec, traj=None):
+def _finish(rhs_fn, carry: RayCarry, f, spec: StopSpec, traj=None,
+            refined=False):
     """A trace's end: rays alive at budget exhaustion report MAX_STEPS,
-    never ACTIVE, and the terminal events are refined."""
+    never ACTIVE, and the terminal events are refined, here unless the
+    step kernel's last launch has refined them (`refined`; the mapping
+    and the refinement touch disjoint rays, so their order is free)."""
     carry = carry._replace(status=torch.where(
         carry.status == events.ACTIVE, events.MAX_STEPS, carry.status
     ).to(torch.int32))
-    carry = refine_events(rhs_fn, carry, f, spec)
+    if not refined:
+        carry = refine_events(rhs_fn, carry, f, spec)
     return TraceResult(
         u=carry.u, t=carry.t, status=carry.status,
         n_accept=carry.n_accept, n_reject=carry.n_reject, traj=traj,
@@ -540,9 +560,12 @@ def _graph_loop(rhs_fn, carry: RayCarry, f, cfg, spec, group_idx, adaptive,
 
 
 def _trace_blocks(rhs_fn, group_idx, carry0, f, env, cfg, spec, n_outer,
-                  save_every, save_fn, chunk, on_kernel, kernel_kw):
+                  save_every, save_fn, chunk, on_kernel, kernel_kw,
+                  fresh=False):
     """trace's trajectory channel: n_outer blocks of save_every attempts,
-    a snapshot after each. Returns (carry, traj)."""
+    a snapshot after each (the first launch forms k1 where `fresh`; the
+    snapshots hold the unrefined carry, so the refinement stays a
+    post-pass). Returns (carry, traj)."""
     b, n = carry0.u.shape
     traj = {
         "u": carry0.u.new_empty((n_outer, b, n)),
@@ -564,7 +587,7 @@ def _trace_blocks(rhs_fn, group_idx, carry0, f, env, cfg, spec, n_outer,
                 traj[name][k:] = traj[name][k - 1]
             break
         if on_kernel:
-            resident.advance(save_every)
+            resident.advance(save_every, fresh=fresh and k == 0)
             carry = resident.carry()
         else:
             carry = step_loop(rhs_fn, carry, f, cfg, spec,

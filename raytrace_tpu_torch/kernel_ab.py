@@ -67,15 +67,17 @@ def recording_launches():
 
     # orig counts its launches on the module's `step_chunk`: this wrapper
     # while it stands in
-    record.launches = orig.launches
-    record.team_launches = orig.team_launches
+    counts = ("launches", "team_launches", "finish_launches",
+              "fresh_launches")
+    for name in counts:
+        setattr(record, name, getattr(orig, name))
     sc.step_chunk = record
     try:
         yield seen
     finally:
         sc.step_chunk = orig
-        orig.launches = record.launches
-        orig.team_launches = record.team_launches
+        for name in counts:
+            setattr(orig, name, getattr(record, name))
 
 
 def capture_tail(name, path=None, grad_mode="fused"):
@@ -96,10 +98,13 @@ def capture_tail(name, path=None, grad_mode="fused"):
                          grad_mode=grad_mode), device="cuda")
     carry, f, _env, cfg, spec, kw = seen[-1]
     # the keywords of the reference scripts' modes only where they are on,
-    # so that a checkout from before them replays the tail too
+    # so that a checkout from before them replays the tail too; the
+    # launch's own end (finish, fresh) is left out, so that both replay
+    # the same attempts and nothing else
     kw = {k: v for k, v in kw.items()
           if (k, v) not in (("grad_mode", "fused"),
-                            ("legacy_freq_state", False))}
+                            ("legacy_freq_state", False))
+          and k not in ("finish", "fresh")}
     tail = dict(name=base, carry=carry._asdict(), f=f, kw=kw,
                 cfg=cfg._asdict(), spec=spec._asdict(),
                 round=dict(out["rounds"][-1]))

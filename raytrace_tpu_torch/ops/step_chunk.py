@@ -30,6 +30,11 @@ whole medium, evaluated once on dual numbers whose tangents follow
 torch's forward-mode formulas, every medium feature, the species, the
 local ceiling and (2D) legacy_freq_state at run time.
 
+Two flags end or start a trace inside the launch: `finish` refines, after
+the attempts, every ray that ends on HIT_EARTH or HIT_EQUATOR
+(integrate.solve.refine_events), and `fresh` first sets k1 = rhs(u) for
+every ray (init_carry's right-hand side; the incoming k1 is not read).
+
 - On CUDA tensors it launches the hand-written kernel of
   csrc/step_chunk.cu, the whole carry in registers for all n_steps
   attempts: one thread per ray, or (the 3D full chain over the dipole) a
@@ -42,11 +47,13 @@ local ceiling and (2D) legacy_freq_state at run time.
   and loaded with ctypes. There is no fallback: a CUDA
   tensor launches the kernel or raises.
 - On CPU tensors it runs `step_chunk_reference`, the plain PyTorch loop of
-  `integrate.solve._step_one`.
+  `integrate.solve._step_one`, after the frame's right-hand side (fresh)
+  and before `refine_events` (finish).
 
 `step_chunk.launches` counts kernel launches (`step_chunk.team_launches`
-those through the team body) and `step_chunk_reference.calls` counts
-calls of the plain version.
+those through the team body, `step_chunk.finish_launches` and
+`step_chunk.fresh_launches` those with each flag) and
+`step_chunk_reference.calls` counts calls of the plain version.
 """
 
 import ctypes
@@ -62,7 +69,8 @@ import torch
 
 from ..integrate import events
 from ..integrate.solve import (
-    KERNEL_STEPPERS, RayCarry, SolverConfig, check_supported, step_loop,
+    KERNEL_STEPPERS, RayCarry, SolverConfig, check_supported, refine_events,
+    step_loop,
 )
 from ..models import dipole, medium
 from . import fused, gradients
@@ -232,8 +240,8 @@ def build():
     lib.step_chunk_launch.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_void_p),
-        ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(StepParams),
-        ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(StepParams), ctypes.c_void_p,
     ]
     lib.step_chunk_launch.restype = ctypes.c_int
     lib.step_chunk_team_warps.argtypes = [ctypes.c_int] * 5
@@ -481,9 +489,10 @@ class ResidentCarry:
     card for all of a trace's blocks instead of being copied in and out
     at every launch.
 
-    Takes step_chunk's arguments but n_steps; `advance(n)` runs n
-    attempted steps (one kernel launch on CUDA tensors, the plain version
-    on CPU tensors) and `carry()` returns the current RayCarry (on CUDA,
+    Takes step_chunk's arguments but n_steps; `advance(n, finish=...,
+    fresh=...)` runs n attempted steps (one kernel launch on CUDA tensors,
+    the plain version on CPU tensors), with step_chunk's two flags, and
+    `carry()` returns the current RayCarry (on CUDA,
     always the same one, whose fields are views of the buffers -- (B, n)
     views of the field-major vectors -- which every advance updates in
     place)."""
@@ -536,19 +545,31 @@ class ResidentCarry:
         self._stream = ctypes.c_void_p(
             torch.cuda.current_stream(f.device).cuda_stream)
 
-    def advance(self, n_steps: int):
-        """n_steps more attempted steps for every ray, in place."""
+    def advance(self, n_steps: int, *, finish: bool = False,
+                fresh: bool = False):
+        """n_steps more attempted steps for every ray, in place; fresh:
+        k1 = rhs(u) first, finish: refine_events after (step_chunk)."""
         if int(n_steps) < 0 or int(n_steps) >= 2 ** 31:
             raise ValueError(f"n_steps={n_steps} out of range")
         f, env, cfg, spec = self._args
         if self._fields is None:
-            self._carry = step_chunk_reference(self._carry, f, env, cfg,
-                                               spec, n_steps=n_steps,
-                                               **self._kw)
+            kw = self._kw
+            rhs_fn = rhs_mod.frame_rhs(kw["frame"], env, kw["root"],
+                                       kw["grad_mode"],
+                                       kw["legacy_freq_state"])[0]
+            carry = self._carry
+            if fresh:
+                carry = carry._replace(k1=rhs_fn(carry.u, f))
+            carry = step_chunk_reference(carry, f, env, cfg, spec,
+                                         n_steps=n_steps, **kw)
+            if finish:
+                carry = refine_events(rhs_fn, carry, f, spec)
+            self._carry = carry
             return
         with torch.cuda.device(f.device):
             rc = self._lib.step_chunk_launch(
                 *self._codes, self._ptrs, f.shape[0], int(n_steps),
+                int(bool(finish)), int(bool(fresh)),
                 ctypes.byref(self._params), self._stream,
             )
         if rc != 0:
@@ -557,6 +578,10 @@ class ResidentCarry:
         step_chunk.launches += 1
         if self._team:
             step_chunk.team_launches += 1
+        if finish:
+            step_chunk.finish_launches += 1
+        if fresh:
+            step_chunk.fresh_launches += 1
 
     def carry(self) -> RayCarry:
         return self._carry if self._fields is None else self._views
@@ -566,13 +591,18 @@ def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
                spec: events.StopSpec, *, stepper: str, n_steps: int,
                root: float = 1.0, adaptive: bool = True,
                frame: str = "2d_lat", grad_mode: str = "fused",
-               legacy_freq_state: bool = False):
+               legacy_freq_state: bool = False, finish: bool = False,
+               fresh: bool = False):
     """Advance every ray by n_steps attempted steps; returns a new carry.
 
     carry fields are (B, n) / (B,) tensors of f's dtype (int32 for the
     counters), all on f's device, with n = 4 in the 2D frames and 7 in
     the "3d" frame. grad_mode ("fused", "reference" or "autodiff") and
-    legacy_freq_state (2D) select the right-hand side. On CUDA the kernel
+    legacy_freq_state (2D) select the right-hand side. fresh: k1 =
+    rhs(u) for every ray before the attempts (init_carry's; the carry's
+    k1 is not read). finish: after them, the rays that end on HIT_EARTH or
+    HIT_EQUATOR are refined (refine_events: u and t, nothing else), in
+    the kernel on CUDA. On CUDA the kernel
     works on field-major (n, B) copies of the vectors, updating them in
     place, and the result's vector fields are (B, n) views of those
     copies."""
@@ -580,9 +610,11 @@ def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
                              root=root, adaptive=adaptive, frame=frame,
                              grad_mode=grad_mode,
                              legacy_freq_state=legacy_freq_state)
-    resident.advance(n_steps)
+    resident.advance(n_steps, finish=finish, fresh=fresh)
     return resident.carry()
 
 
 step_chunk.launches = 0
 step_chunk.team_launches = 0    # those of them through the team body
+step_chunk.finish_launches = 0  # ... with finish (the trace's end inside)
+step_chunk.fresh_launches = 0   # ... with fresh (its first k1 inside)

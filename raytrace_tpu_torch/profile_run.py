@@ -1,7 +1,7 @@
 """Where the time of one run goes on the card.
 
     python -m raytrace_tpu_torch.profile_run <preset> [--float64] [--runs N]
-        [--set field=value ...]
+        [--set field=value ...] [--against DIR]
 
 Runs the preset once to warm up, then N times unprofiled (host clock
 around each `run.run`, which ends with the results on the host), then
@@ -11,15 +11,22 @@ walls, the step kernel's device time per launch, the other device work
 all kernel intervals) and its idle share of the profiled wall, and the
 card's name and power limit. --set overrides a field of the preset with
 a Python literal or a bare word (e.g. --set frame=2d_colat, --set
-adaptive=False).
+adaptive=False). --against DIR (the root of another checkout, e.g. a
+parent commit unpacked with `git archive` into a directory that
+.gitignore lists) runs the same profile in turns, other / this / this /
+other, one process each with that checkout's package on the path (each
+builds its own kernel library into its own _build/ at first use).
 Needs a CUDA device; it never runs on the CPU.
 """
 
 import argparse
 import ast
+import os
 import subprocess
 import sys
 import time
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def busy_us(intervals):
@@ -35,10 +42,6 @@ def busy_us(intervals):
 def profile_run(config, runs=5):
     """Returns dict(walls, profiled_wall, kernels, ...) of `config` run on
     the card (times in seconds and microseconds)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from .run import run
 
     run(config, device="cuda")
@@ -47,6 +50,20 @@ def profile_run(config, runs=5):
         t0 = time.perf_counter()
         run(config, device="cuda")
         walls.append(time.perf_counter() - t0)
+    return dict(walls=walls, **profiled(config))
+
+
+def profiled(config):
+    """One run of `config` on the card under torch.profiler with CUDA
+    activity: dict(profiled_wall (s), step_us (each step-kernel launch),
+    other_n and other_us (the other kernels), busy_us (the union of all
+    kernel intervals))."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from .run import run
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -58,7 +75,7 @@ def profile_run(config, runs=5):
     other = [e for e in kernels if "step_chunk_kernel" not in e.name]
     span = lambda e: (e.time_range.start, e.time_range.end)  # noqa: E731
     return dict(
-        walls=walls, profiled_wall=wall,
+        profiled_wall=wall,
         step_us=[e.time_range.elapsed_us() for e in step],
         other_n=len(other),
         other_us=sum(e.time_range.elapsed_us() for e in other),
@@ -83,7 +100,11 @@ def main(argv=None):
     p.add_argument("--set", action="append", default=[],
                    help="field=value: override a field of the preset (a "
                         "Python literal, or a bare word for a string)")
+    p.add_argument("--against", help="root of another checkout: profile "
+                                     "both in turns")
     args = p.parse_args(argv)
+    if args.against:
+        return _turns(args)
 
     import torch
 
@@ -115,6 +136,25 @@ def main(argv=None):
     print(f"  device busy {busy * 1e3:.2f} ms, idle "
           f"{1 - busy / r['profiled_wall']:.1%} of the profiled wall")
     return 0
+
+
+def _turns(args):
+    """The profile of this checkout and of args.against in turns, other /
+    this / this / other, each a process of its own from its root."""
+    rest = [args.preset, "--runs", str(args.runs)]
+    rest += ["--float64"] if args.float64 else []
+    for item in args.set:
+        rest += ["--set", item]
+    roots = {"this": _ROOT, "other": os.path.abspath(args.against)}
+    rc = 0
+    for k in ("other", "this", "this", "other"):
+        env = dict(os.environ, PYTHONPATH=roots[k])
+        print(f"[{k}: {roots[k]}]", flush=True)
+        rc |= subprocess.run(
+            [sys.executable, "-m", "raytrace_tpu_torch.profile_run", *rest],
+            cwd=roots[k], env=env).returncode
+        sys.stdout.flush()
+    return rc
 
 
 if __name__ == "__main__":

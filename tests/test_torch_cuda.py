@@ -724,6 +724,85 @@ def test_trajectory_through_the_kernel_matches_plain_version_bitwise(
     _assert_bitwise(res.carry, final)
 
 
+# (preset, dtype, stepper, every, m, n, B): a launch with finish and fresh
+# after m attempts of the kernel, where some of the fan's rays land; the
+# team body also at 33 rays (a lane with no ray and a ray alone in its
+# team)
+FINISH = [
+    ("ensemble10k", "float32", "bs3", 10, 1984, 64, None),
+    ("ensemble10k_3d", "float64", "bs3", 10, 160, 64, None),
+    ("ensemble10k_plume", "float32", "bs3", 10, 192, 64, None),
+    ("ensemble10k_plume", "float64", "dopri5", 10, 160, 32, 33),
+]
+
+
+@pytest.mark.parametrize("name,dtype,stepper,every,m,n,b", FINISH)
+def test_finish_and_fresh_match_plain_version_bitwise(cuda, name, dtype,
+                                                      stepper, every, m, n,
+                                                      b):
+    """A launch with finish (refine_events after the loop) and fresh
+    (init_carry's right-hand side before it), on a carry with NaN in k1,
+    against the plain path on the same carry: k1 = rhs(u),
+    step_chunk_reference, refine_events; every field bit for bit, with
+    rays refined that retired before the launch and rays that landed in
+    it."""
+    from raytrace_tpu_torch.integrate.solve import refine_events
+
+    conf = preset(name, dtype=dtype)
+    env = conf.medium.build()
+    cfg, spec = conf.solver(), conf.stop()
+    np_dt = np.float32 if dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, cuda)
+    u0 = torch.as_tensor(u0[::every][:b], device=cuda)
+    f = torch.as_tensor(f[::every][:b], device=cuda)
+    rhs_fn, _ = rhs.frame_rhs(conf.frame, env)
+    kw = dict(stepper=stepper, frame=conf.frame)
+    mid = sc.step_chunk(init_carry(rhs_fn, u0, f, cfg), f, env, cfg, spec,
+                        n_steps=m, **kw)
+    mid = RayCarry(*(x.clone() for x in mid))
+    finish = sc.step_chunk.finish_launches
+    got = sc.step_chunk(mid._replace(k1=torch.full_like(mid.k1, np.nan)), f,
+                        env, cfg, spec, n_steps=n, finish=True, fresh=True,
+                        **kw)
+    assert sc.step_chunk.finish_launches == finish + 1
+    ref = sc.step_chunk_reference(mid._replace(k1=rhs_fn(mid.u, f)), f, env,
+                                  cfg, spec, n_steps=n, **kw)
+    ref = refine_events(rhs_fn, ref, f, spec)
+    torch.cuda.synchronize()
+    _assert_bitwise(got, ref)
+    before = mid.status == events.HIT_EARTH
+    assert bool(before.any())
+    assert bool(((got.status == events.HIT_EARTH) & ~before).any())
+
+
+def test_trace_refines_in_the_launch_on_the_card(cuda, monkeypatch):
+    """A final-states trace on a kernel pool neither forms init_carry's
+    right-hand side nor runs refine_events on the host: one launch with
+    finish and fresh, and the canonical ray lands at r = 1."""
+    from raytrace_tpu_torch.integrate import solve
+
+    def refuse(*args, **kw):
+        raise AssertionError("refine_events ran on the host")
+
+    monkeypatch.setattr(solve, "refine_events", refuse)
+    init = solve.init_carry
+    monkeypatch.setattr(solve, "init_carry", lambda rhs_fn, *a: (
+        init(rhs_fn, *a) if rhs_fn is None else refuse()))
+    counts = (sc.step_chunk.launches, sc.step_chunk.finish_launches,
+              sc.step_chunk.fresh_launches)
+    u0 = torch.tensor([[(RE + 1.0e6) / RE, np.pi / 4, 0.0, 0.0]],
+                      dtype=torch.float64, device=cuda)
+    res = trace(make_env_lat(), u0,
+                torch.tensor([1000.0], dtype=torch.float64, device=cuda),
+                cfg=SolverConfig(rtol=1e-7, atol=1e-12, dt0=1e-4),
+                spec=StopSpec(r_floor=1.0, t_max=5e9 / RE),
+                stepper="dopri5", max_steps=40000)
+    assert (sc.step_chunk.launches, sc.step_chunk.finish_launches,
+            sc.step_chunk.fresh_launches) == tuple(c + 1 for c in counts)
+    assert int(res.status[0]) == events.HIT_EARTH
+    assert abs(float(res.u[0, 0]) - 1.0) <= 1e-12
+
+
 def test_rounds_trajectory_matches_single_program_on_the_card(cuda):
     """The rounds tracer's assembled trajectory (buckets, the packed float
     transport, the host scatter and forward fill) against the

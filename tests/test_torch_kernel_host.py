@@ -27,7 +27,10 @@ import torch
 
 from raytrace_tpu_torch.config import MediumConfig, preset
 from raytrace_tpu_torch.constants import B0_2D, B0_3D, RE
-from raytrace_tpu_torch.integrate.solve import init_carry
+from raytrace_tpu_torch.integrate import events
+from raytrace_tpu_torch.integrate.solve import (
+    RayCarry, init_carry, refine_events,
+)
 from raytrace_tpu_torch.ops import rhs as rhs_mod
 from raytrace_tpu_torch.ops import step_chunk as sc
 from raytrace_tpu_torch.run import _build_u0
@@ -111,10 +114,11 @@ namespace thread_ns {
 }
 int main(int argc, char** argv) {
   FILE* fh = fopen(argv[1], "rb");
-  int32_t dtype, n, codes[4], n_steps;
+  int32_t dtype, n, codes[4], n_steps, flags;
   int64_t B;
   fread(&dtype, 4, 1, fh); fread(&n, 4, 1, fh); fread(&B, 8, 1, fh);
   fread(codes, 4, 4, fh); fread(&n_steps, 4, 1, fh);
+  fread(&flags, 4, 1, fh);
   const int it = dtype ? 8 : 4;
   std::vector<std::vector<char>> in;
   for (int k = 0; k < 15; ++k) {
@@ -132,9 +136,10 @@ int main(int argc, char** argv) {
     for (int k = 0; k < 15; ++k) ptrs[k] = bufs[k].data();
     int rc = team
       ? team_ns::step_chunk_launch_team(dtype, codes[0], codes[1], codes[2],
-            codes[3], ptrs, B, n_steps, (const team_ns::StepParams*)hp, 0)
+            codes[3], ptrs, B, n_steps, flags & 1, flags & 2,
+            (const team_ns::StepParams*)hp, 0)
       : thread_ns::step_chunk_launch_thread(dtype, codes[0], codes[1],
-            codes[2], codes[3], ptrs, B, n_steps,
+            codes[2], codes[3], ptrs, B, n_steps, flags & 1, flags & 2,
             (const thread_ns::StepParams*)hp, 0);
     if (rc) exit(2);
     return bufs;
@@ -276,24 +281,8 @@ def test_team_body_matches_one_thread_body_on_the_host(host_kernel, case):
     codes = [sc._STEPPER_CODE[stepper if conf.adaptive else "rk4"],
              sc._FRAME_CODE[conf.frame][0], sc.medium_code(env, cfg),
              sc.field_code(env)]
-    path = host_kernel / f"{case}.bin"
-    with open(path, "wb") as fh:
-        fh.write(np.int32(0 if dtype == "float32" else 1).tobytes())
-        fh.write(np.int32(carry.u.shape[1]).tobytes())
-        fh.write(np.int64(f.shape[0]).tobytes())
-        fh.write(np.asarray(codes + [n_steps], np.int32).tobytes())
-        # the kernel's order (ops/step_chunk.py): the vectors field-major
-        for k in (*sc._VEC, "t", "dt", "errold", "dt_prev", *sc._INT):
-            x = getattr(carry, k).numpy()
-            fh.write(np.ascontiguousarray(x.T if x.ndim == 2 else x)
-                     .tobytes())
-        fh.write(np.ascontiguousarray(f.numpy()).tobytes())
-        fh.write(bytes(sc._params(env, cfg, spec, conf.root)))
-    proc = subprocess.run([str(host_kernel / "kernel_host"), str(path)],
-                          capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr
-    got = dict(zip(proc.stdout.split()[::2],
-                   map(int, proc.stdout.split()[1::2])))
+    _, got = _host_run(host_kernel, case, carry, f, codes, n_steps,
+                       sc._params(env, cfg, spec, conf.root), out=False)
     assert got["team_warps"] == 4 and got["thread_warps"] == 0
     assert got["differ"] == 0
     live = int((carry.status == 0).sum())
@@ -331,38 +320,56 @@ ALT_CASES = {
 }
 
 
-def _host_launch(host_kernel, case, carry, f, codes, n_steps, params):
-    """One launch of the host build; returns the one-thread body's output
-    carry as {field: numpy array}."""
-    order = (*sc._VEC, "t", "dt", "errold", "dt_prev", *sc._INT)
-    path = host_kernel / f"{case}_{n_steps}.bin"
+# the kernel's order of the carry's fields (ops/step_chunk.py)
+_ORDER = (*sc._VEC, "t", "dt", "errold", "dt_prev", *sc._INT)
+
+
+def _host_run(host_kernel, case, carry, f, codes, n_steps, params, flags=0,
+              out=True):
+    """One launch of the host build, through both bodies: flags 1 =
+    finish, 2 = fresh. Returns (the one-thread body's output carry as
+    {field: numpy array}, or None without `out`; the program's counts:
+    team_warps, thread_warps, differ (values the two bodies' outputs
+    differ in), stopped, attempts)."""
+    path = host_kernel / f"{case}_{n_steps}_{flags}.bin"
     with open(path, "wb") as fh:
         fh.write(np.int32(1 if f.dtype == torch.float64 else 0).tobytes())
         fh.write(np.int32(carry.u.shape[1]).tobytes())
         fh.write(np.int64(f.shape[0]).tobytes())
-        fh.write(np.asarray(codes + [n_steps], np.int32).tobytes())
-        for k in order:
+        fh.write(np.asarray(codes + [n_steps, flags], np.int32).tobytes())
+        # the vectors field-major
+        for k in _ORDER:
             x = getattr(carry, k).numpy()
             fh.write(np.ascontiguousarray(x.T if x.ndim == 2 else x)
                      .tobytes())
         fh.write(np.ascontiguousarray(f.numpy()).tobytes())
         fh.write(bytes(params))
-    out_path = host_kernel / f"{case}_{n_steps}.out"
-    proc = subprocess.run([str(host_kernel / "kernel_host"), str(path),
-                           str(out_path)],
+    out_path = host_kernel / f"{case}_{n_steps}_{flags}.out"
+    proc = subprocess.run([str(host_kernel / "kernel_host"), str(path)]
+                          + ([str(out_path)] if out else []),
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr
+    stats = dict(zip(proc.stdout.split()[::2],
+                     map(int, proc.stdout.split()[1::2])))
+    if not out:
+        return None, stats
     raw = out_path.read_bytes()
     b, n = f.shape[0], carry.u.shape[1]
     fdt = np.float64 if f.dtype == torch.float64 else np.float32
     got, o = {}, 0
-    for k in order:
+    for k in _ORDER:
         dt, cnt = (np.int32, b) if k in sc._INT else (
             fdt, n * b if k in sc._VEC else b)
         x = np.frombuffer(raw, dt, cnt, o)
         got[k] = x.reshape(n, b).T if k in sc._VEC else x
         o += x.nbytes
-    return got
+    return got, stats
+
+
+def _host_launch(host_kernel, case, carry, f, codes, n_steps, params):
+    """One launch of the host build; returns the one-thread body's output
+    carry as {field: numpy array}."""
+    return _host_run(host_kernel, case, carry, f, codes, n_steps, params)[0]
 
 
 # the ALTX instances (the extended chain under the modes): the MLT plume
@@ -512,3 +519,173 @@ def test_ad_instances_match_plain_version_on_the_host(host_kernel, case):
     spread. A mutated tangent rule or a wrong constant of the chain misses
     by orders of magnitude more (a wrong IGRF coefficient: 1.0)."""
     _hold_to_plain(host_kernel, case, AD_CASES[case], sc.AD)
+
+
+# The trace's end inside the launch (finish: refine_events after the loop;
+# fresh: init_carry's right-hand side before it). (preset, stepper, every,
+# m, n, grad_mode, legacy, overrides, stop overrides): the host build steps
+# the launch's carry m attempts (flags off), then a launch of n attempts
+# with both flags on, whose rays include ones that retired before it (and
+# are refined all the same) and ones that land inside it. The 2D latitude
+# frame with HIT_EARTH and with the equator stop (HIT_EQUATOR), the
+# colatitude and 3D frames, the team body (the plume), an AD instance and
+# an ALTX one (the reference set over the MLT plume, 8 attempts: its wedges
+# make longer launches chaotic, as the ALTX cases above are held); m and n
+# put the launch where some of every 100th ray of the fan land (the host
+# build's census of each fan: 2D lat 13 rays in [1248, 1312), the equator
+# stop 12 at the equator in [560, 624), colat 4 in [1080, 1160), 3D and
+# the plume ~10 in [160, 192), the reference plume 1 in [40, 48) after 2)
+FINISH_CASES = {
+    "lat_f64_bs3": ("ensemble10k", "bs3", 100, 1248, 64, "fused", False,
+                    {}, {}),
+    "lat_equator_f64_dopri5": ("ensemble10k", "dopri5", 100, 560, 64,
+                               "fused", False, {},
+                               dict(stop_at_equator=1.0)),
+    "colat_f64_bs3": ("ensemble10k", "bs3", 100, 1080, 80, "fused", False,
+                      dict(frame="2d_colat"), {}),
+    "3d_f64_bs3": ("ensemble10k_3d", "bs3", 100, 160, 32, "fused", False,
+                   {}, {}),
+    "plume_team_f64_dopri5": ("ensemble10k_plume", "dopri5", 100, 160, 32,
+                              "fused", False, {}, {}),
+    "ad_lat_f64_bs3": ("ensemble10k", "bs3", 100, 1248, 64, "autodiff",
+                       False, {}, {}),
+    "altx_plume_ref_f64_bs3": ("ensemble10k_plume", "bs3", 100, 40, 8,
+                               "reference", False, {}, {}),
+}
+
+
+def _carry_of(got):
+    """A RayCarry of the host build's output fields."""
+    return RayCarry(**{k: torch.from_numpy(np.array(got[k]))
+                       for k in RayCarry._fields})
+
+
+@pytest.mark.parametrize("case", sorted(FINISH_CASES))
+def test_finish_and_fresh_match_plain_version_on_the_host(host_kernel,
+                                                          case):
+    """A launch with finish and fresh (the one-thread body, and for the
+    plume the team body against it bit for bit) on a carry that the host
+    build stepped m attempts, checked twice:
+
+    - the epilogue alone: against the same launch with fresh only, every
+      field but u and t of the refined rays bit for bit, and u and t equal
+      to refine_events on that launch's carry within 1e-9 of their
+      components' scale (the two math libraries, the host's libm and
+      torch's, reach ~1e-13 in k0 = rhs(u_prev), and a refined state may
+      take the last of its 32 bisections the other way: 2^-32 of its
+      step), r = r_floor (or the latitude 0) to 1e-9 at the crossing;
+    - the whole launch against the plain path that trace ran before
+      (k1 = rhs(u), init_carry's; step_chunk_reference; refine_events):
+      statuses and counters equal, and the refined rays' u and t, as the
+      ALT cases above hold states after 8 attempts, within 1e-6 or the
+      plain version's own spread from the same carry with every state
+      component one ulp up (the rays that go on stepping are the step
+      loop's, held above: over n attempts the two math libraries alone
+      move a colatitude ray 1e-5 and its dt 4e-3, flags or none).
+
+    Every fan has rays refined at entry and rays that land inside the
+    launch."""
+    (name, stepper, every, m, n, grad_mode, legacy, over,
+     stop) = FINISH_CASES[case]
+    conf = preset(name, dtype="float64", **over)
+    env = conf.medium.build()
+    u0, f = _build_u0(conf, env, np.float64, torch.device("cpu"))
+    u0, f = torch.as_tensor(u0[::every]), torch.as_tensor(f[::every])
+    cfg, spec = conf.solver(), conf.stop()._replace(**stop)
+    kw = dict(frame=conf.frame, root=conf.root, adaptive=conf.adaptive,
+              grad_mode=grad_mode, legacy_freq_state=legacy)
+    rhs_fn = rhs_mod.frame_rhs(conf.frame, env, conf.root, grad_mode,
+                               legacy)[0]
+    codes = [sc._STEPPER_CODE[stepper], sc._FRAME_CODE[conf.frame][0],
+             sc.medium_code(env, cfg, grad_mode, legacy), sc.field_code(env)]
+    params = sc._params(env, cfg, spec, conf.root, grad_mode, legacy)
+    mid, _ = _host_run(host_kernel, case, init_carry(rhs_fn, u0, f, cfg), f,
+                       codes, m, params)
+    mid = _carry_of(mid)
+    blank = mid._replace(k1=torch.full_like(mid.k1, np.nan))
+    got, stats = _host_run(host_kernel, case, blank, f, codes, n, params,
+                           flags=3)
+    assert stats["differ"] == 0
+    assert stats["team_warps"] == (4 if "team" in case else 0)
+    event = events.HIT_EQUATOR if stop else events.HIT_EARTH
+    before = mid.status.numpy() == event
+    assert before.any() and ((got["status"] == event) & ~before).any()
+    # the rays the epilogue refines (HIT_EARTH also under the equator stop)
+    after = (got["status"] == events.HIT_EARTH) | (
+        (got["status"] == events.HIT_EQUATOR) & bool(stop))
+
+    # the epilogue against refine_events on the launch's own carry
+    unref, stats = _host_run(host_kernel, case, blank, f, codes, n, params,
+                             flags=2)
+    assert stats["differ"] == 0
+    for k in _ORDER:
+        if k not in ("u", "t"):
+            np.testing.assert_array_equal(got[k], unref[k], err_msg=k)
+    np.testing.assert_array_equal(got["u"][~after], unref["u"][~after])
+    np.testing.assert_array_equal(got["t"][~after], unref["t"][~after])
+    want = refine_events(rhs_fn, _carry_of(unref), f, spec)
+    for k in ("u", "t"):
+        w = getattr(want, k).numpy()
+        scale = np.maximum(np.abs(w).max(axis=0), 1e-300)
+        assert float(np.max(np.abs(got[k] - w) / scale)) <= 1e-9, k
+    hit = got["status"] == events.HIT_EARTH
+    np.testing.assert_allclose(got["u"][hit, 0], spec.r_floor, atol=1e-9)
+    eq = got["status"] == events.HIT_EQUATOR
+    lat = spec.lat_sign * got["u"][eq, 1] + spec.lat_offset
+    np.testing.assert_allclose(lat, 0.0, atol=1e-9)
+
+    # the whole launch against the plain path
+    def plain(carry):
+        carry = sc.step_chunk_reference(carry._replace(
+            k1=rhs_fn(carry.u, f)), f, env, cfg, spec, stepper=stepper,
+            n_steps=n, **kw)
+        return refine_events(rhs_fn, carry, f, spec)
+
+    ref = plain(mid)
+    nudged = plain(mid._replace(
+        u=torch.nextafter(mid.u, torch.full_like(mid.u, np.inf))))
+    for k in ("status", "n_accept", "n_reject"):
+        np.testing.assert_array_equal(got[k], getattr(ref, k).numpy(),
+                                      err_msg=k)
+    for k in ("u", "t"):
+        w = getattr(ref, k).numpy()
+        scale = np.maximum(np.abs(w).max(axis=0), 1e-300)
+        spread = np.abs(getattr(nudged, k).numpy() - w)[after] / scale
+        err = float(np.max(np.abs(got[k] - w)[after] / scale))
+        assert err <= max(1e-6, float(np.max(spread))), (k, err)
+
+
+@pytest.mark.parametrize("case", ["lat_f64", "3d_f64", "plume_team_f64",
+                                  "plume_team_f32"])
+def test_fresh_forms_init_carry_k1_on_the_host(host_kernel, case):
+    """A launch of 0 attempts with fresh: k1 = rhs(u) for every ray, the
+    team body bit for bit with the one-thread body, and every field within
+    1e-13 of init_carry's carry (float64: the two math libraries in one
+    right-hand side) or 1e-5 (float32)."""
+    name = {"lat": "ensemble10k", "3d": "ensemble10k_3d",
+            "plume": "ensemble10k_plume"}[case.split("_")[0]]
+    dtype = "float32" if case.endswith("f32") else "float64"
+    conf = preset(name, dtype=dtype)
+    env = conf.medium.build()
+    np_dt = np.float32 if dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, torch.device("cpu"))
+    u0, f = torch.as_tensor(u0[::97]), torch.as_tensor(f[::97])
+    cfg, spec = conf.solver(), conf.stop()
+    rhs_fn = rhs_mod.frame_rhs(conf.frame, env, conf.root)[0]
+    codes = [sc._STEPPER_CODE["bs3"], sc._FRAME_CODE[conf.frame][0],
+             sc.medium_code(env, cfg), sc.field_code(env)]
+    want = init_carry(rhs_fn, u0, f, cfg)
+    got, stats = _host_run(host_kernel, case, init_carry(None, u0, f, cfg),
+                           f, codes, 0, sc._params(env, cfg, spec, conf.root),
+                           flags=2)
+    assert stats["differ"] == 0 and stats["attempts"] == 0
+    assert stats["team_warps"] == (4 if case.startswith("plume") else 0)
+    tol = 1e-5 if dtype == "float32" else 1e-13
+    for k in RayCarry._fields:
+        w = getattr(want, k).numpy()
+        if k != "k1":
+            np.testing.assert_array_equal(got[k], w, err_msg=k)
+        else:
+            w = w.astype(np.float64)
+            scale = np.maximum(np.abs(w).max(axis=0), 1e-300)
+            assert float(np.max(np.abs(got[k] - w) / scale)) <= tol
