@@ -18,15 +18,25 @@ Phases, each printed as it runs; any failed check exits non-zero:
      version and refine_events, float32 and float64, also at the equator
      stop (phases 5, 8 and 11 add the same for the 3D, team-body and
      general-field instances); then both timed at 10,240 rays x 512 steps
-     (float32, bs3), the kernel also with the two flags;
+     (float32, bs3), the kernel also with the two flags; the main path's
+     redesigned instance (the stage loop and the tail layout) bit for bit
+     with its plain version at B = 1, 31, 33, 41, 256, the tail layout's
+     threshold and one past it, each launch's layout printed, and the
+     SASS census of the redesigned instances' attempt loops
+     (sass_census);
   3. the canonical RayTrace_lat ray in float64 through the kernel;
   4. the ensemble10k slice through raytrace_tpu_torch.run.run on the
      card, float32, checked against the float32 physics record of the JAX
      package (benchmarks/perf_r03b.json, auto_bs3_1x, measured on a TPU),
      every round's launch with finish and nothing refined or started on
      the host, and one run under torch.profiler for the small kernels
-     left (phase 6 likewise); then in float64, checked against the JAX
-     package's float64 result on a CPU, and float32 against float64;
+     left (phase 6 likewise); its merged tail replayed in the tail layout
+     and the dense one, bit for bit, and against the plain version over
+     its first attempts, then (latency_floor.measure_cell) the launch, the
+     tail dense, its longest ray alone and one ray a warp timed with
+     clocks.sm, in cycles an attempt beside the attempt loop's SASS size;
+     then in float64, checked against the JAX package's float64 result
+     on a CPU, and float32 against float64;
   5. the 3D kernel (7-state frame, rhs_3d, the ds_max arc ceiling)
      against its plain version on the ensemble10k_3d launch as phase 2
      holds the 2D one, its first round's launch bit for bit, one
@@ -74,7 +84,10 @@ Phases, each printed as it runs; any failed check exits non-zero:
      (benchmarks/perf_r03k.json -> local), float64 against the JAX
      package's float64 census on a CPU;
  16. raymain (the colatitude frame's single ray) and the ensemble10k fan
-     in the colatitude frame, each against the JAX package on a CPU;
+     in the colatitude frame, each against the JAX package on a CPU; its
+     redesigned instance in both layouts as phases 2 and 4 hold the
+     latitude frame's, and the whole fan in the dense layout with finish
+     and fresh off and on, bit for bit;
  17. emic_heband (He+ and O+, the EMIC root) against the JAX package on a
      CPU, float64 ray by ray;
  18. the ensemble10k fan with fixed-step rk4 at dt0 = dt_max: float64
@@ -1999,6 +2012,7 @@ def drive(conf, what, card):
 
     sc.step_chunk.launches = 0
     sc.step_chunk.team_launches = 0
+    sc.step_chunk.sparse_launches = 0
     sc.step_chunk.finish_launches = 0
     sc.step_chunk.fresh_launches = 0
     sc.step_chunk_reference.calls = 0
@@ -2016,6 +2030,7 @@ def drive(conf, what, card):
         solve.refine_events, solve.init_carry = refine, init
     launches = sc.step_chunk.launches
     drive.team_launches = sc.step_chunk.team_launches
+    drive.sparse_launches = sc.step_chunk.sparse_launches
     drive.finish_launches = sc.step_chunk.finish_launches
     drive.fresh_launches = sc.step_chunk.fresh_launches
     drive.post_refines, drive.init_rhs = len(post), sum(rhs_inits)
@@ -2036,7 +2051,8 @@ def drive(conf, what, card):
               f"{r['bucket']:5d} steps {r['steps']:5d} attempted "
               f"{r['attempted']:9d} wall {r['wall_s'] * 1e3:8.1f} ms")
     print(f"  step kernel launches {launches} ({drive.team_launches} through "
-          f"the team body, {drive.finish_launches} with finish, "
+          f"the team body, {drive.sparse_launches} in the tail layout, "
+          f"{drive.finish_launches} with finish, "
           f"{drive.fresh_launches} with fresh), plain-version calls {calls}, "
           f"rays on the stiff pool {n_stiff}; refine_events after a launch "
           f"{drive.post_refines}, right-hand sides of init_carry on the host "
@@ -2086,6 +2102,139 @@ def tail_timing(what, card, reps=2):
           f"{t['ms'] * 1e3 / max(t['longest'], 1):.3f} us per attempt of "
           f"the longest on {card}", flush=True)
     return t
+
+
+def layout_of(b, flags_before):
+    """The layout of the launch just made of b rays, by the tail layout's
+    counter (step_chunk.sparse_launches, its value before the launch)."""
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    return ("tail (one ray a warp)"
+            if sc.step_chunk.sparse_launches > flags_before
+            else "dense (32 rays a warp)")
+
+
+def chain_layouts(frame, dev, card, n=CUT_N):
+    """Phases 2 and 16: the main path's redesigned instance of `frame`
+    (float32 bs3 over the axisymmetric medium: the stage loop, the short
+    chain, the tail layout) bit for bit with its plain version, B rays of
+    the fan x n attempts with finish and fresh, at B = 1, 31, 33, 41, 256,
+    the tail layout's threshold and one past it, each launch's layout
+    printed and checked against the rule; in the colatitude frame also
+    the whole fan in the dense layout with the flags off and on (phase 2
+    holds the latitude frame's there)."""
+    import torch
+
+    from raytrace_tpu_torch.integrate.solve import RayCarry, refine_events
+    from raytrace_tpu_torch.ops import rhs as rhs_mod
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    full = start("ensemble10k", "float32", dev, frame=frame)
+    carry, f, env, cfg, spec, kw = full
+    limit = sc.TAIL_LAYOUT_MAX_RAYS
+    rhs_fn = rhs_mod.frame_rhs(frame, env)[0]
+    cases = [(b, True) for b in (1, 31, 33, 41, 256, limit, limit + 1)]
+    if frame == "2d_colat":
+        cases += [(f.shape[0], False), (f.shape[0], True)]
+    for b, flags in cases:
+        rows = torch.arange(b, device=dev) * (f.shape[0] // b)
+        c = RayCarry(*(x.index_select(0, rows) for x in carry))
+        fb = f.index_select(0, rows)
+        before = sc.step_chunk.sparse_launches
+        got = sc.step_chunk(c, fb, env, cfg, spec, stepper="bs3", n_steps=n,
+                            finish=flags, fresh=flags, **kw)
+        layout = layout_of(b, before)
+        ref = sc.step_chunk_reference(c, fb, env, cfg, spec, stepper="bs3",
+                                      n_steps=n, **kw)
+        if flags:
+            ref = refine_events(rhs_fn, ref, fb, spec)
+        host = lambda x: {k: getattr(x, k).cpu().numpy()  # noqa: E731
+                          for k in RayCarry._fields}
+        n_diff = n_differ(host(got), host(ref))
+        print(f"  {frame} float32 bs3, {b:,} rays x {n} attempts"
+              f"{' with finish and fresh' if flags else ''}: layout "
+              f"{layout}, {n_diff} values differ", flush=True)
+        check(layout.startswith("tail") == (b <= limit),
+              f"{frame} {b} rays: the tail layout exactly at <= {limit} rays")
+        check(n_diff == 0, f"{frame} {b} rays, layout {layout.split()[0]}: "
+                           "bit for bit with the plain version")
+
+
+def tail_layouts(what, conf, card, census, n=CUT_N):
+    """After a drive of conf (phases 4 and 16): its merged tail replayed in
+    the tail layout and in the dense one, the whole launch, bit for bit;
+    the tail layout against the plain version over the tail's first n
+    attempts; then (a)-(d) of latency_floor.measure_cell (the launch, the
+    tail dense, its longest ray alone, one ray a warp, and the tail as the
+    wrapper launches it) with clocks.sm, in cycles an attempt, beside the
+    attempt loop's size (census, sass_census.run_census; its chain is not
+    walkable through the stage loop, so the latency floor is PERF.md's,
+    from the unrolled parent). Returns measure_cell's record."""
+    from raytrace_tpu_torch.integrate.events import StopSpec
+    from raytrace_tpu_torch.integrate.solve import (
+        RayCarry, SolverConfig, refine_events,
+    )
+    from raytrace_tpu_torch.latency_floor import measure_cell
+    from raytrace_tpu_torch.ops import rhs as rhs_mod
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    tail = drive.tail
+    env = tail["env"]
+    carry = RayCarry(**tail["carry"])
+    f, kw = tail["f"], tail["kw"]
+    cfg, spec = SolverConfig(**tail["cfg"]), StopSpec(**tail["spec"])
+    host = lambda x: {k: getattr(x, k).cpu().numpy()  # noqa: E731
+                      for k in RayCarry._fields}
+    outs = {}
+    for limit in (sc.TAIL_LAYOUT_MAX_RAYS, 0):
+        own, sc.TAIL_LAYOUT_MAX_RAYS = sc.TAIL_LAYOUT_MAX_RAYS, limit
+        try:
+            before = sc.step_chunk.sparse_launches
+            outs[limit] = host(sc.step_chunk(carry, f, env, cfg, spec, **kw))
+            outs[limit, "layout"] = layout_of(f.shape[0], before)
+        finally:
+            sc.TAIL_LAYOUT_MAX_RAYS = own
+    lay, dense = outs[sc.TAIL_LAYOUT_MAX_RAYS], outs[0]
+    n_diff = n_differ(lay, dense)
+    print(f"  {what}: the merged tail ({tail['round']['active']} rays in a "
+          f"bucket of {f.shape[0]}) replayed whole in the layouts "
+          f"{outs[sc.TAIL_LAYOUT_MAX_RAYS, 'layout']} and "
+          f"{outs[0, 'layout']}: {n_diff} values differ", flush=True)
+    check(outs[sc.TAIL_LAYOUT_MAX_RAYS, "layout"].startswith("tail"),
+          f"{what}: the merged tail runs in the tail layout")
+    check(n_diff == 0, f"{what}: the merged tail bit for bit in both layouts")
+    cut = {k: v for k, v in kw.items() if k not in ("finish", "fresh")}
+    got = host(sc.step_chunk(carry, f, env, cfg, spec,
+                             **dict(cut, n_steps=n)))
+    ref = sc.step_chunk_reference(carry, f, env, cfg, spec,
+                                  **dict(cut, n_steps=n))
+    n_diff = n_differ(got, host(ref))
+    print(f"  {what}: the merged tail's first {n} attempts in the tail layout "
+          f"against the plain version: {n_diff} values differ", flush=True)
+    check(n_diff == 0, f"{what}: the merged tail in the tail layout bit for "
+                       "bit with the plain version")
+    tail = dict(tail, kw=cut)
+    rec = measure_cell(conf, tail, crossover=False)
+    inst = census[f"float bs3 {conf.frame} axi"]
+    print(f"  {what}: attempt loop {inst['loop']:,} SASS instructions, "
+          f"{inst['loop_bytes']:,} bytes, {inst['inner_loop']:,} of them its "
+          "stage loop (sass_census)")
+    names = {"a": "(a) the launch, 10,240 rays x 512",
+             "b": "(b) the merged tail, dense layout",
+             "c": "(c) its longest ray alone, B = 1",
+             "d": "(d) the tail one ray a warp (spaced lanes)",
+             "e": "(e) the tail as launched (tail layout)"}
+    for key, name in names.items():
+        r = rec[key]
+        print(f"  {what} {name}: {r['ms']:.3f} ms at clocks.sm "
+              f"{r['mhz']:.0f} MHz, {r['cycles_per_attempt']:,.0f} cycles an "
+              f"attempt of the longest ray ({r['longest']:,} attempts) on "
+              f"{card}", flush=True)
+    check(rec["tail"]["spread_same"] and rec["tail"]["alone_attempts"]
+          == rec["tail"]["longest"],
+          f"{what}: the spaced lanes and the longest ray alone step as in "
+          "the tail")
+    return rec
 
 
 def body(launches, what, team):
@@ -2334,9 +2483,10 @@ def local_slice(card):
     return launches32
 
 
-def colat_slices(card):
+def colat_slices(dev, card, census):
     """Phase 16. Returns the kernel launches of the float32 colatitude
-    fan."""
+    fan, its merged tail's replay (tail_timing) and tail_layouts'
+    record."""
     from raytrace_tpu_torch.config import preset
     from raytrace_tpu_torch.integrate import events
 
@@ -2372,6 +2522,8 @@ def colat_slices(card):
           "version")
     body(launches32, "the colatitude fan float32", team=False)
     tail = tail_timing("the colatitude fan float32", card)
+    latency = tail_layouts("the colatitude fan float32", conf, card, census)
+    chain_layouts("2d_colat", dev, card)
     check(np.isfinite(out32["result"].u[out32["valid"]]).all(),
           "every final state is finite")
     print("  the colatitude fan, float64", flush=True)
@@ -2403,7 +2555,7 @@ def colat_slices(card):
                           f"JAX package's own: {pin['jax_match']:.2%})")
     check(med_rel < 1e-4, "median relative landing-L error < 1e-4 (the JAX "
                           "package's own: 3.58e-6)")
-    return launches32, tail
+    return launches32, tail, latency
 
 
 def emic_slice(card):
@@ -4672,6 +4824,13 @@ def main():
           f"{n_diff} values differ, max abs err {err_2d:.3e}")
     check(n_diff == 0, "main-path launch: kernel and plain version agree bit "
                        "for bit in every field")
+    # the redesigned instances at the edges of the tail layout, and
+    # the SASS census of their attempt loops (their sizes)
+    chain_layouts("2d_lat", dev, card)
+    from raytrace_tpu_torch import sass_census
+
+    census = sass_census.run_census(
+        sc.library_path(), {"float bs3 2d_lat axi", "float bs3 2d_colat axi"})
     # a trace's end and start inside the launch (finish, fresh), where the
     # fan's rays land: the whole fan in float32, every 10th ray in float64,
     # and with the equator stop on (HIT_EQUATOR)
@@ -4729,6 +4888,7 @@ def main():
     body(launches_2d, "ensemble10k float32", team=False)
     finished_on_card(ens, "ensemble10k float32", card)
     tails = {"2d": tail_timing("ensemble10k float32", card)}
+    floors = {"2d": tail_layouts("ensemble10k float32", ens, card, census)}
     check(abs(n_hit - REC_HIT_EARTH) <= 0.01 * REC_HIT_EARTH,
           f"HIT_EARTH {n_hit} within 1% of the TPU record {REC_HIT_EARTH}")
     check(abs(steps - REC_STEPS) <= 0.05 * REC_STEPS,
@@ -5117,7 +5277,8 @@ def main():
     launches_local = local_slice(card)
     phase("[16] raymain and the ensemble10k fan in the colatitude frame",
           flush=True)
-    launches_colat, tails["colat"] = colat_slices(card)
+    launches_colat, tails["colat"], floors["colat"] = colat_slices(
+        dev, card, census)
     phase("[17] emic_heband", flush=True)
     launches_emic = emic_slice(card)
     phase("[18] the ensemble10k fan with fixed-step rk4", flush=True)
@@ -5208,14 +5369,20 @@ def main():
     ad_cli(card)
     phase("[done]")
 
-    def entry(name, launches, err, t, tail=None, team=False):
+    def entry(name, launches, err, t, tail=None, team=False, floor=None):
         # the body of the instance; with the time of the run's last
-        # launch, the merged tail where the run has one
+        # launch, the merged tail where the run has one; with floor,
+        # tail_layouts' times in cycles an attempt
         more = {"body": "team4" if team else "one-thread"}
         if tail is not None:
             more.update(tail_ms=tail["ms"], tail_rays=tail["rays"],
                         tail_bucket=tail["bucket"],
                         tail_attempts=tail["attempts"])
+        if floor is not None:
+            more["latency"] = {
+                k: {x: floor[k][x] for x in ("ms", "mhz", "longest",
+                                             "cycles_per_attempt")}
+                for k in "abcde"}
         return {
             "name": name,
             "route": "cuda",
@@ -5261,7 +5428,7 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("step_chunk[2d_lat,float32,bs3]", launches_2d, err_2d, t_2d,
-              tails["2d"]),
+              tails["2d"], floor=floors["2d"]),
         entry("step_chunk[3d,float32,bs3]", launches_3d, err_3d,
               timings["ensemble10k_3d", "float32", "bs3"]),
         entry("step_chunk[2d_lat+ds_max,float32,bs3]", launches_prod,
@@ -5279,7 +5446,7 @@ def main():
         entry("step_chunk[2d_lat+ds_local,float32,bs3]", launches_local,
               *variants["local"]),
         entry("step_chunk[2d_colat,float32,bs3]", launches_colat,
-              *variants["colat"], tails["colat"]),
+              *variants["colat"], tails["colat"], floor=floors["colat"]),
         entry("step_chunk[2d_lat+multi_ion,float32,dopri5]", launches_emic,
               *variants["multi_ion"]),
         entry("step_chunk[2d_lat,float64,rk4]", launches_rk4,

@@ -132,6 +132,34 @@
 // the bound, PERF.md). The long-tailed runs end on a merged tail of 4-50
 // rays that runs thousands of attempts on one warp a ray.
 //
+// One ray's chain (measured on an H100, PERF.md): the float bs3 2D
+// attempt's SASS chain -- its register dependencies at nominal latencies,
+// sass_census -- is ~4,000 cycles; one ray alone in a launch took ~8,430
+// cycles an attempt, a merged tail 2-5% more (the divergence of 32 rays a
+// warp is small), the full launch ~10,050. The chain binds: its latency
+// floor (chain cycles x the longest ray's attempts) is 9x the throughput
+// bound of a 10,240 x 512 launch. What lies above it is mostly
+// instruction fetch: the attempt loop was 57 KB of code, three inlined
+// right-hand sides, and the tail launched one ray a warp (four rays on
+// different paths through the loop on each SM) ran 6-10% slower than 32
+// rays a warp. The main path's instances (chain_instance below) take
+//   - the stage loop: bs3's three right-hand sides through one inlined
+//     copy (bs3_step), a 25 KB attempt loop: 14% off the full launch,
+//     1-10% off the tails, 7-8% off one ray alone;
+//   - the tail layout: a launch of at most ops/step_chunk.py::
+//     TAIL_LAYOUT_MAX_RAYS rays runs one ray a warp in blocks of four
+//     warps, so no two rays share a warp's branches: with the stage
+//     loop's code 2-6% off the tails (6-7% off 528 rays, 7-9% slower
+//     at 1,056).
+// Measured and dropped: 1/f and log(errold) formed once a ray and the
+// Stix terms of the field formed ahead of the density. They shortened the
+// SASS chain by a fifth but moved no time by more than 1%, and cost 7
+// registers: the nominal chain is not what the card waits on. Not tried
+// again: the 2D team body (7-13% slower: a helper warp adds a
+// barrier pair to a chain it cannot shorten), a __noinline__ right-hand
+// side (B3: slower on the tails, where the call is paid on every stage),
+// FMA contraction (~3%, and not bit for bit).
+//
 // Two bodies, chosen per instance at compile time (team_warps below):
 //   - the one-thread body: one thread per ray, blocks of kThreads rays; a
 //     thread leaves its loop once its ray stops. The whole chain is
@@ -274,6 +302,32 @@ constexpr int team_warps(int dtype, int stepper, int frame, int medium,
                          int field) {
   return frame == KIM3D && medium == FULL && field == DIPOLE ? kTeamWarps
                                                              : 0;
+}
+
+// The one-thread body's redesign for one ray's chain (the note "one ray's
+// chain" above), and the instances that take each of its two elements:
+// the float bs3 instances of the 2D frames over the axisymmetric medium,
+// the main path's (ensemble10k and its colatitude fan; the production fan
+// with ds_max and the trajectory channel's blocks launch them too). Their
+// double siblings share the template and keep the code they had.
+__host__ __device__ constexpr bool chain_instance(int dtype, int stepper,
+                                                  int frame, int medium,
+                                                  int field) {
+  return dtype == 0 && stepper == BS3 && (frame == LAT2D || frame == COLAT2D)
+         && medium == AXI && field == DIPOLE;
+}
+// the tail layout: a launch of few rays (the wrapper's threshold) runs one
+// ray a warp
+__host__ __device__ constexpr bool tail_layout(int dtype, int stepper,
+                                               int frame, int medium,
+                                               int field) {
+  return chain_instance(dtype, stepper, frame, medium, field);
+}
+// one inlined right-hand side for bs3's three stages
+__host__ __device__ constexpr bool stage_loop(int dtype, int stepper,
+                                              int frame, int medium,
+                                              int field) {
+  return chain_instance(dtype, stepper, frame, medium, field);
 }
 
 // the media whose density is the full chain (AXI and ALT: the
@@ -2758,26 +2812,64 @@ __device__ __forceinline__ T err_norm(const T ev[N], const T u[N],
   return d_sqrt(acc * recip(T(N)));
 }
 
-// integrate/steppers.py::bs3_step (Bogacki-Shampine 3(2), FSAL)
+// integrate/steppers.py::bs3_step (Bogacki-Shampine 3(2), FSAL). The
+// instances of stage_loop run the three right-hand sides through one
+// inlined copy, a loop over the stages: the stage's input and its k slot
+// by constant indices (selects over named registers; an index known only
+// at run time would put them in local memory), every expression as in the
+// unrolled form, so the two agree bit for bit
 template <typename T, int FRAME, int MEDIUM, int FIELD, int K,
           int N = FrameDim<FRAME>::N>
 __device__ __forceinline__ T bs3_step(const T u[N], const T k1[N], T h, T f,
                                       const KParams<T>& p, T u_new[N],
                                       T k_end[N], T incr[N], Team<T>& tm) {
   T y[N], k2[N], k3[N], ev[N];
+  if constexpr (stage_loop(sizeof(T) == 8 ? 1 : 0, BS3, FRAME, MEDIUM,
+                           FIELD)) {
+#pragma unroll 1
+    for (int s = 0; s < 3; ++s) {
+      if (s == 0) {
 #pragma unroll
-  for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.5) * h) * k1[j];
-  rhs<T, FRAME, MEDIUM, FIELD, K>(y, f, p, k2, tm);
+        for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.5) * h) * k1[j];
+      } else if (s == 1) {
 #pragma unroll
-  for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.75) * h) * k2[j];
-  rhs<T, FRAME, MEDIUM, FIELD, K>(y, f, p, k3, tm);
+        for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.75) * h) * k2[j];
+      } else {
 #pragma unroll
-  for (int j = 0; j < N; ++j) {
-    incr[j] = h * (T(2.0 / 9.0) * k1[j] + T(1.0 / 3.0) * k2[j] +
-                   T(4.0 / 9.0) * k3[j]);
-    u_new[j] = u[j] + incr[j];
+        for (int j = 0; j < N; ++j) {
+          incr[j] = h * (T(2.0 / 9.0) * k1[j] + T(1.0 / 3.0) * k2[j] +
+                         T(4.0 / 9.0) * k3[j]);
+          u_new[j] = u[j] + incr[j];
+          y[j] = u_new[j];
+        }
+      }
+      T k[N];
+      rhs<T, FRAME, MEDIUM, FIELD, K>(y, f, p, k, tm);
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        if (s == 0)
+          k2[j] = k[j];
+        else if (s == 1)
+          k3[j] = k[j];
+        else
+          k_end[j] = k[j];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.5) * h) * k1[j];
+    rhs<T, FRAME, MEDIUM, FIELD, K>(y, f, p, k2, tm);
+#pragma unroll
+    for (int j = 0; j < N; ++j) y[j] = u[j] + (T(0.75) * h) * k2[j];
+    rhs<T, FRAME, MEDIUM, FIELD, K>(y, f, p, k3, tm);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      incr[j] = h * (T(2.0 / 9.0) * k1[j] + T(1.0 / 3.0) * k2[j] +
+                     T(4.0 / 9.0) * k3[j]);
+      u_new[j] = u[j] + incr[j];
+    }
+    rhs<T, FRAME, MEDIUM, FIELD, K>(u_new, f, p, k_end, tm);
   }
-  rhs<T, FRAME, MEDIUM, FIELD, K>(u_new, f, p, k_end, tm);
 #pragma unroll
   for (int j = 0; j < N; ++j)
     ev[j] = h * (T(2.0 / 9.0 - 7.0 / 24.0) * k1[j] +
@@ -2978,13 +3070,22 @@ __global__ void __launch_bounds__(K > 0 ? 32 * K : kThreads,
                       int* __restrict__ n_rej_g, int* __restrict__ rejected_g,
                       int* __restrict__ n_tiny_g, int* __restrict__ caution_g,
                       const T* __restrict__ f_g, long long B, int n_steps,
-                      bool finish, bool fresh, KParams<T> p) {
+                      bool finish, bool fresh, bool sparse, KParams<T> p) {
   constexpr int N = FrameDim<FRAME>::N;
+  constexpr int DT = sizeof(T) == 8 ? 1 : 0;
   Team<T> tm{nullptr, 0, 0, true};
   long long i;
   bool real = true;
   if constexpr (K == 0) {
     i = blockIdx.x * (long long)kThreads + threadIdx.x;
+    if constexpr (tail_layout(DT, STEPPER, FRAME, MEDIUM, FIELD)) {
+      // the tail layout: ray i on lane 0 of warp i of the launch, the
+      // other lanes leave
+      if (sparse) {
+        if ((threadIdx.x & 31) != 0) return;
+        i = blockIdx.x * (long long)(kThreads / 32) + (threadIdx.x >> 5);
+      }
+    }
     if (i >= B) return;
   } else {
     // the same for the whole block
@@ -3211,7 +3312,11 @@ void launch(void** ptrs, long long B, int n_steps, int flags,
             const StepParams& h, cudaStream_t stream) {
   constexpr int K =
       team_warps(sizeof(T) == 8 ? 1 : 0, STEPPER, FRAME, MEDIUM, FIELD);
-  const int rays = K > 0 ? 32 : kThreads;
+  // flag bit 2: the tail layout, one ray a warp (its instances only)
+  const bool sparse =
+      (flags & 4) != 0 && tail_layout(sizeof(T) == 8 ? 1 : 0, STEPPER, FRAME,
+                                      MEDIUM, FIELD);
+  const int rays = K > 0 ? 32 : (sparse ? kThreads / 32 : kThreads);
   const long long blocks = (B + rays - 1) / rays;
   const size_t xch = K > 0 ? 32 * Slots3D<T>::end * sizeof(T) : 0;
   step_chunk_kernel<T, STEPPER, FRAME, MEDIUM, FIELD, K>
@@ -3220,7 +3325,7 @@ void launch(void** ptrs, long long B, int n_steps, int flags,
           (T*)ptrs[5], (T*)ptrs[6], (T*)ptrs[7], (int*)ptrs[8],
           (int*)ptrs[9], (int*)ptrs[10], (int*)ptrs[11], (int*)ptrs[12],
           (int*)ptrs[13], (const T*)ptrs[14], B, n_steps, (flags & 1) != 0,
-          (flags & 2) != 0, make_params<T>(h, STEPPER));
+          (flags & 2) != 0, sparse, make_params<T>(h, STEPPER));
 }
 
 template <typename T, int FRAME, int MEDIUM, int FIELD>
@@ -3357,16 +3462,17 @@ SC_DEFINE(launch_igrf_ad, KIM3D, AD, IGRF)
 // instances), 5 = the autodiff set over any medium (the AD instances,
 // which read h->legacy_freq in 2D, never h->ref_grads); field 0 = the
 // centered dipole, 1 = the tilted dipole, 2 = the IGRF truncation (the
-// last two only in the 3D frame over FULL, EXT and AD). finish != 0: after
-// the loop, refine the rays that end on HIT_EARTH / HIT_EQUATOR in place
-// (integrate/solve.py::refine_events); fresh != 0: before it, k1 = rhs(u)
-// for every ray (init_carry's right-hand side). Launches on `stream`
-// without synchronising; returns cudaGetLastError().
+// last two only in the 3D frame over FULL, EXT and AD). flags: bit 0
+// (finish), after the loop, refine the rays that end on HIT_EARTH /
+// HIT_EQUATOR in place (integrate/solve.py::refine_events); bit 1 (fresh),
+// before it, k1 = rhs(u) for every ray (init_carry's right-hand side);
+// bit 2, the tail layout, one ray a warp (ignored by the instances that
+// step_chunk_tail_layout does not name). Launches on `stream` without
+// synchronising; returns cudaGetLastError().
 extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
                                  int medium, int field, void** ptrs,
-                                 long long B, int n_steps, int finish,
-                                 int fresh, const StepParams* h,
-                                 void* stream) {
+                                 long long B, int n_steps, int flags,
+                                 const StepParams* h, void* stream) {
   // [frame, or the non-axial field in rows 3 and 4][medium]
   using Entry = void (*)(int, int, void**, long long, int, int,
                          const StepParams&, cudaStream_t);
@@ -3401,8 +3507,7 @@ extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
       (!extended(medium) && (h->n_ion != 1.0 || h->n_shells != 0.0)))
     return (int)cudaErrorInvalidValue;
   const int row = field == TILTED ? 3 : (field == IGRF ? 4 : frame);
-  kEntry[row][medium](dtype, stepper, ptrs, B, n_steps,
-                      (finish ? 1 : 0) | (fresh ? 2 : 0), *h,
+  kEntry[row][medium](dtype, stepper, ptrs, B, n_steps, flags & 7, *h,
                       (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
@@ -3412,6 +3517,13 @@ extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
 extern "C" int step_chunk_team_warps(int dtype, int stepper, int frame,
                                      int medium, int field) {
   return team_warps(dtype, stepper, frame, medium, field);
+}
+
+// 1 where the instance that step_chunk_launch runs for these codes takes
+// the tail layout (flag bit 2), else 0.
+extern "C" int step_chunk_tail_layout(int dtype, int stepper, int frame,
+                                      int medium, int field) {
+  return tail_layout(dtype, stepper, frame, medium, field);
 }
 #endif
 

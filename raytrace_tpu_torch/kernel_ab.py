@@ -2,7 +2,8 @@
 
     python -m raytrace_tpu_torch.kernel_ab --against DIR [--n 512] [--reps 20]
         [--presets ensemble10k,ensemble10k_3d]
-        [--tails mr_fan_3d,ensemble10k_plume:float64,...]
+        [--tails mr_fan_3d,ensemble10k_plume:float64,
+                 ensemble10k:frame=2d_colat,...]
         [--grad-mode autodiff]
 
 DIR is the root of another checkout of the repository (for example an
@@ -24,7 +25,11 @@ Tail mode (`--tails`): each named preset's merged-tail launch, the carry
 that the rounds tracer hands its last round (a few rays padded to the
 bucket it runs at, most of a long-tailed run's wall), is captured once on
 the card by this checkout's run.run and replayed by both checkouts in the
-same turns, `--tail-reps` launches each. Prints each checkout's registers
+same turns, `--tail-reps` launches each. A tail is named
+"preset[:dtype][:field=value...]": the preset in float32 (or the dtype
+named), with each field=value an override of the preset, as
+profile_run's --set takes it (ensemble10k:frame=2d_colat is the
+colatitude fan). Prints each checkout's registers
 and spills (-Xptxas -v), one line per launch with the two turns of each
 side and the ratio of the means, and a JSON record as the last line.
 """
@@ -67,8 +72,9 @@ def recording_launches():
 
     # orig counts its launches on the module's `step_chunk`: this wrapper
     # while it stands in
-    counts = ("launches", "team_launches", "finish_launches",
-              "fresh_launches")
+    counts = [name for name in ("launches", "team_launches",
+                                "sparse_launches", "finish_launches",
+                                "fresh_launches") if hasattr(orig, name)]
     for name in counts:
         setattr(record, name, getattr(orig, name))
     sc.step_chunk = record
@@ -80,11 +86,28 @@ def recording_launches():
             setattr(orig, name, getattr(record, name))
 
 
+def tail_spec(name):
+    """(preset, dtype, overrides) of a tail's name,
+    "preset[:dtype][:field=value...]" (float32 unless a dtype is named;
+    a value is a Python literal or a bare word, a string)."""
+    from raytrace_tpu_torch.profile_run import _literal
+
+    base, *parts = name.split(":")
+    dtype, over = "float32", {}
+    for part in parts:
+        if "=" in part:
+            k, v = part.split("=", 1)
+            over[k] = _literal(v)
+        else:
+            dtype = part
+    return base, dtype, over
+
+
 def capture_tail(name, path=None, grad_mode="fused"):
-    """Run preset `name` ("preset" or "preset:float64"; float32 by
-    default) through run.run on the card and return its last launch, the
-    merged tail, as a dict: the carry's fields and f (on the card), the
-    launch's keywords, cfg and spec as dicts, and the last round's record
+    """Run the preset of tail `name` (tail_spec) through run.run on the
+    card and return its last launch, the merged tail, as a dict: the
+    carry's fields and f (on the card), the launch's keywords, cfg and
+    spec as dicts, the preset's overrides, and the last round's record
     (active rays, bucket, attempts); saved with torch.save to `path` when
     given."""
     import torch
@@ -92,10 +115,10 @@ def capture_tail(name, path=None, grad_mode="fused"):
     from raytrace_tpu_torch.config import preset
     from raytrace_tpu_torch.run import run
 
-    base, _, dtype = name.partition(":")
+    base, dtype, over = tail_spec(name)
     with recording_launches() as seen:
-        out = run(preset(base, dtype=dtype or "float32",
-                         grad_mode=grad_mode), device="cuda")
+        out = run(preset(base, dtype=dtype, grad_mode=grad_mode, **over),
+                  device="cuda")
     carry, f, _env, cfg, spec, kw = seen[-1]
     # the keywords of the reference scripts' modes only where they are on,
     # so that a checkout from before them replays the tail too; the
@@ -105,7 +128,7 @@ def capture_tail(name, path=None, grad_mode="fused"):
           if (k, v) not in (("grad_mode", "fused"),
                             ("legacy_freq_state", False))
           and k not in ("finish", "fresh")}
-    tail = dict(name=base, carry=carry._asdict(), f=f, kw=kw,
+    tail = dict(name=base, over=over, carry=carry._asdict(), f=f, kw=kw,
                 cfg=cfg._asdict(), spec=spec._asdict(),
                 round=dict(out["rounds"][-1]))
     if path:
@@ -125,7 +148,7 @@ def replay_tail(tail, reps, env=None):
     from raytrace_tpu_torch.ops import step_chunk as sc
 
     if env is None:
-        env = preset(tail["name"]).medium.build()
+        env = preset(tail["name"], **tail.get("over", {})).medium.build()
     carry = RayCarry(**tail["carry"])
     cfg, spec = SolverConfig(**tail["cfg"]), StopSpec(**tail["spec"])
     f, kw = tail["f"], tail["kw"]

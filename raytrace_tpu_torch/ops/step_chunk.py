@@ -40,7 +40,9 @@ every ray (init_carry's right-hand side; the incoming k1 is not read).
   attempts: one thread per ray, or (the 3D full chain over the dipole) a
   team of four warps per 32 rays, one lane of each a ray: warp 0 steps
   them, three helper warps compute the pieces of each right-hand side
-  (`team_warps`).
+  (`team_warps`). A launch of at most TAIL_LAYOUT_MAX_RAYS rays on an
+  instance that takes the tail layout (`tail_layout`: the main path's 2D
+  float bs3 instances) runs one ray a warp (`launch_flags`).
   The kernel is built from the source at first use
   with nvcc for sm_90a into raytrace_tpu_torch/_build/ (rebuilt when the
   source changes; PARTS nvcc processes at once, linked into one library)
@@ -51,7 +53,8 @@ every ray (init_carry's right-hand side; the incoming k1 is not read).
   and before `refine_events` (finish).
 
 `step_chunk.launches` counts kernel launches (`step_chunk.team_launches`
-those through the team body, `step_chunk.finish_launches` and
+those through the team body, `step_chunk.sparse_launches` those in the
+tail layout, `step_chunk.finish_launches` and
 `step_chunk.fresh_launches` those with each flag) and
 `step_chunk_reference.calls` counts calls of the plain version.
 """
@@ -102,6 +105,18 @@ MAX_HARM = 8
 MAX_SHELLS = 4
 # ion species: protons, He+, O+ (kMaxIon)
 MAX_ION = 3
+# The tail layout (csrc/step_chunk.cu, tail_layout): a launch of at most
+# this many rays, on an instance that takes the layout, runs one ray a warp
+# in blocks of four warps. 528 = 132 SMs x 4 warp schedulers of an H100:
+# up to it no two rays share a warp (whose lanes would run each
+# data-dependent branch of the other's chain in turn) and each ray's warp
+# can have a scheduler to itself; beyond it one-ray warps queue for the
+# schedulers. Measured on an H100 (python -m
+# raytrace_tpu_torch.latency_floor, PERF.md): 528 rays of ensemble10k x 512
+# attempts took 2.07-2.09 ms one ray a warp against 2.21-2.23 ms 32 a
+# warp, 1,056 rays 2.40-2.42 against 2.21-2.26 ms, and its merged tail (41
+# rays padded to 256) 57.5 against 61.4 ms.
+TAIL_LAYOUT_MAX_RAYS = 528
 _VEC = ("u", "k1", "u_prev", "u_lo")
 _INT = ("status", "n_accept", "n_reject", "rejected", "n_tiny", "caution")
 # kernel stepper codes; rk4 is what adaptive=False runs, whatever the
@@ -240,12 +255,13 @@ def build():
     lib.step_chunk_launch.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_void_p),
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(StepParams), ctypes.c_void_p,
     ]
     lib.step_chunk_launch.restype = ctypes.c_int
-    lib.step_chunk_team_warps.argtypes = [ctypes.c_int] * 5
-    lib.step_chunk_team_warps.restype = ctypes.c_int
+    for fn in (lib.step_chunk_team_warps, lib.step_chunk_tail_layout):
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_int
     _LIB = lib
     return lib
 
@@ -257,6 +273,31 @@ def team_warps(dtype, stepper, frame, medium, field):
     body. The choice is the kernel source's, made at compile time."""
     return build().step_chunk_team_warps(dtype, stepper, frame, medium,
                                          field)
+
+
+def tail_layout(dtype, stepper, frame, medium, field):
+    """Whether the kernel instance of these codes (team_warps') takes the
+    tail layout, one ray a warp; the source's compile-time choice."""
+    return bool(build().step_chunk_tail_layout(dtype, stepper, frame,
+                                               medium, field))
+
+
+def launch_flags(b, finish=False, fresh=False, layout=False):
+    """The kernel's flag bits for a launch of b rays: 1 finish, 2 fresh,
+    4 the tail layout, where the instance takes it (`layout`, tail_layout)
+    and b <= TAIL_LAYOUT_MAX_RAYS."""
+    sparse = bool(layout) and 0 < b <= TAIL_LAYOUT_MAX_RAYS
+    return int(bool(finish)) | 2 * bool(fresh) | 4 * sparse
+
+
+def count_launch(flags, team=False):
+    """Counts one kernel launch with these flag bits on step_chunk's
+    counters."""
+    step_chunk.launches += 1
+    step_chunk.team_launches += bool(team)
+    step_chunk.finish_launches += bool(flags & 1)
+    step_chunk.fresh_launches += bool(flags & 2)
+    step_chunk.sparse_launches += bool(flags & 4)
 
 
 def ptxas_usage(log):
@@ -540,6 +581,7 @@ class ResidentCarry:
         })
         self._lib = build()
         self._team = bool(self._lib.step_chunk_team_warps(*self._codes))
+        self._layout = bool(self._lib.step_chunk_tail_layout(*self._codes))
         # the stream current when the carry was made: every launch of the
         # carry queues there, in order
         self._stream = ctypes.c_void_p(
@@ -566,22 +608,16 @@ class ResidentCarry:
                 carry = refine_events(rhs_fn, carry, f, spec)
             self._carry = carry
             return
+        flags = launch_flags(f.shape[0], finish, fresh, self._layout)
         with torch.cuda.device(f.device):
             rc = self._lib.step_chunk_launch(
-                *self._codes, self._ptrs, f.shape[0], int(n_steps),
-                int(bool(finish)), int(bool(fresh)),
+                *self._codes, self._ptrs, f.shape[0], int(n_steps), flags,
                 ctypes.byref(self._params), self._stream,
             )
         if rc != 0:
             raise RuntimeError(
                 f"step_chunk kernel launch failed: CUDA error {rc}")
-        step_chunk.launches += 1
-        if self._team:
-            step_chunk.team_launches += 1
-        if finish:
-            step_chunk.finish_launches += 1
-        if fresh:
-            step_chunk.fresh_launches += 1
+        count_launch(flags, self._team)
 
     def carry(self) -> RayCarry:
         return self._carry if self._fields is None else self._views
@@ -616,5 +652,6 @@ def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
 
 step_chunk.launches = 0
 step_chunk.team_launches = 0    # those of them through the team body
+step_chunk.sparse_launches = 0  # ... in the tail layout, one ray a warp
 step_chunk.finish_launches = 0  # ... with finish (the trace's end inside)
 step_chunk.fresh_launches = 0   # ... with fresh (its first k1 inside)

@@ -7,7 +7,8 @@ Builds this checkout's kernel (and, with --against, another checkout's,
 as kernel_ab does), disassembles the library with `cuobjdump -sass` and,
 for each named instance (the keys of ops/step_chunk.py::ptxas_usage,
 without the body's "team<K>" suffix), finds the attempt loop (the widest
-backward branch of the function) and reports over its body:
+backward branch inside the function's widest one, the pass loop around
+the attempts) and reports over its body:
 
 - the instruction count by class (FP32, FP64, MUFU, conversions, branches
   and control, barriers, shared and global memory, integer and other);
@@ -17,7 +18,17 @@ backward branch of the function) and reports over its body:
   the variable-latency ones), and
 - `inorder_cycles`: one warp issuing the body in address order, one
   instruction a cycle, each waiting for its operands: the single-warp time
-  of the straight line.
+  of the straight line;
+- `loop_bytes`: the body's size in bytes (its first instruction's address
+  to its last one's end), what one pass of the loop asks of the
+  instruction caches, and `bytes_by_class`, the same by class;
+- `inner_loop`: the instructions of the widest backward branch inside the
+  body (0 where it has none). Where that is bs3's stage loop (its three
+  right-hand sides through one copy), the walk is not the attempt's
+  chain: the loop runs three times, and its stage selection branches to
+  code outside its span. Take an attempt's chain from a build with the
+  stages unrolled (the same operations), e.g. the parent's with
+  --against.
 
 Both walk the code in address order, slow paths included (a division's
 or a sine's rarely taken branch), so they are estimates of the attempt's
@@ -72,17 +83,19 @@ def classify(op):
     return "other"
 
 
-def parse(sass):
-    """{function name: [(address, predicate, opcode, operands)]}."""
+def parse(sass, keep=None):
+    """{function name: [(address, predicate, opcode, operands)]}, over the
+    functions whose name `keep` accepts (all without it)."""
     funcs, name = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m[1]
-            funcs[name] = []
+            name = m[1] if keep is None or keep(m[1]) else None
+            if name:
+                funcs[name] = []
             continue
-        m = _INSN.search(line)
-        if m and name:
+        m = name and _INSN.search(line)
+        if m:
             funcs[name].append((int(m[1], 16), (m[2] or "").strip(), m[3],
                                 m[4].strip()))
     return funcs
@@ -92,9 +105,9 @@ def _regs(text):
     return re.findall(r"\b(U?R\d+|U?P\d)\b", text)
 
 
-def loop_body(insns):
-    """The instructions of the widest backward branch's span (the
-    attempt loop), or all of them where there is none."""
+def widest_loop(insns):
+    """(first, last) index of the widest backward branch's span, or
+    None."""
     addr = {a: k for k, (a, *_rest) in enumerate(insns)}
     best = None
     for k, (a, _p, op, ops) in enumerate(insns):
@@ -104,7 +117,27 @@ def loop_body(insns):
                 span = (addr[int(m[1], 16)], k)
                 if best is None or span[1] - span[0] > best[1] - best[0]:
                     best = span
-    return insns[best[0]:best[1] + 1] if best else insns
+    return best
+
+
+def loop_body(insns):
+    """The attempt loop's instructions: the widest backward branch's span
+    inside the widest one (the pass loop around fresh's right-hand side,
+    the attempts and finish's), or the widest span where it holds
+    none, or all of them where there is no backward branch."""
+    outer = widest_loop(insns)
+    if outer is None:
+        return insns
+    body = insns[outer[0]:outer[1] + 1]
+    inner = widest_loop(body[:-1])
+    return body[inner[0]:inner[1] + 1] if inner else body
+
+
+def inner_loop(body):
+    """Instructions of the widest loop inside the body (its own closing
+    branch aside), 0 where there is none."""
+    inner = widest_loop(body[:-1])
+    return inner[1] - inner[0] + 1 if inner else 0
 
 
 def census(body):
@@ -141,6 +174,21 @@ def census(body):
     return counts, chain, issue
 
 
+def code_bytes(body):
+    """(bytes from the body's first instruction to its last one's end,
+    {class: bytes}); an instruction is as wide as the address step
+    between neighbours (16 bytes on Hopper)."""
+    if not body:
+        return 0, {}
+    width = ((body[-1][0] - body[0][0]) // (len(body) - 1)
+             if len(body) > 1 else 16)
+    by_class = {}
+    for _a, _p, op, _o in body:
+        cls = classify(op)
+        by_class[cls] = by_class.get(cls, 0) + width
+    return body[-1][0] - body[0][0] + width, by_class
+
+
 def instance_key(name):
     # the checkout's own naming (a child has that checkout on its path)
     from raytrace_tpu_torch.ops.step_chunk import ptxas_usage
@@ -154,20 +202,24 @@ def run_census(lib_path, wanted):
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
-    out = {}
-    for name, insns in parse(sass).items():
+
+    def wants(name):
         key = instance_key(name)
-        if key is None:
-            continue
-        base = re.sub(r" team\d+$", "", key)
-        if wanted is not None and base not in wanted:
-            continue
+        return key is not None and (
+            wanted is None or re.sub(r" team\d+$", "", key) in wanted)
+
+    out = {}
+    for name, insns in parse(sass, wants).items():
+        key = instance_key(name)
         body = loop_body(insns)
         counts, chain, inorder = census(body)
+        size, size_by_class = code_bytes(body)
         text = "\n".join(f"{p} {op} {ops}" for _a, p, op, ops in insns)
         out[key] = dict(instructions=len(insns), loop=len(body),
                         by_class=counts, chain_cycles=chain,
-                        inorder_cycles=inorder,
+                        inorder_cycles=inorder, loop_bytes=size,
+                        bytes_by_class=size_by_class,
+                        inner_loop=inner_loop(body),
                         sha=hashlib.sha256(text.encode()).hexdigest()[:16])
     return out
 
@@ -209,10 +261,12 @@ def main():
         record[k] = json.loads(out.strip().splitlines()[-1])
         for inst, c in sorted(record[k].items()):
             print(f"{k} {inst}: {c['loop']} instructions in the attempt loop "
-                  f"({c['instructions']} in the kernel), "
+                  f"({c['instructions']} in the kernel; the loop "
+                  f"{c['loop_bytes']:,} bytes), "
                   + ", ".join(f"{cls} {n}" for cls, n in
                               sorted(c["by_class"].items()))
-                  + f"; chain {c['chain_cycles']} cycles, in-order issue "
+                  + f"; inner loop {c['inner_loop']} instructions; chain "
+                    f"{c['chain_cycles']} cycles, in-order issue "
                     f"{c['inorder_cycles']} cycles", flush=True)
     if "other" in record:
         both = sorted(set(record["this"]) & set(record["other"]))

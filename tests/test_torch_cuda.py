@@ -901,3 +901,78 @@ def test_cn_pcg_kernel_edges(cuda):
     with pytest.raises(ValueError, match="9386 cells"):
         cg.cn_pcg_2d(torch.ones(200, 200, device=cuda, dtype=torch.float64),
                      big, 0.05, 1, 0, 1e-10, 10)
+
+
+# The main path's redesigned instances (the 2D float32 bs3 ones over the
+# axisymmetric medium: the stage loop and, at most TAIL_LAYOUT_MAX_RAYS
+# rays, the tail layout, one ray a warp), at the edges
+# of the layout: B rays of the fan (every 10,240 // B-th), the threshold and
+# one past it, and a merged tail's shape (41 rays padded to a 256-lane
+# bucket with copies of the first)
+CHAIN_B = [1, 31, 33, 41, 256, 528, 529, "tail"]
+
+
+@pytest.mark.parametrize("b", CHAIN_B)
+@pytest.mark.parametrize("frame", ["2d_lat", "2d_colat"])
+def test_tail_layout_matches_plain_version_bitwise(cuda, frame, b):
+    """Every field bit for bit with the plain version over 64 attempts
+    with fresh and finish, each launch in the layout that launch_flags
+    gives it (counted on step_chunk.sparse_launches)."""
+    from raytrace_tpu_torch.integrate.solve import refine_events
+
+    conf = preset("ensemble10k", frame=frame)
+    env = conf.medium.build()
+    cfg, spec = conf.solver(), conf.stop()
+    u0, f = _build_u0(conf, env, np.float32, cuda)
+    if b == "tail":
+        rows = np.concatenate([np.arange(41) * 240, np.zeros(215, np.int64)])
+    else:
+        rows = np.arange(b) * (u0.shape[0] // b)
+    u0 = torch.as_tensor(u0[rows], device=cuda)
+    f = torch.as_tensor(f[rows], device=cuda)
+    rhs_fn, _ = rhs.frame_rhs(conf.frame, env)
+    kw = dict(stepper="bs3", frame=conf.frame)
+    codes = (0, 0, sc._FRAME_CODE[frame][0], sc.medium_code(env, cfg),
+             sc.field_code(env))
+    assert sc.tail_layout(*codes)
+    carry = init_carry(rhs_fn, u0, f, cfg)
+    sparse = sc.step_chunk.sparse_launches
+    got = sc.step_chunk(carry._replace(k1=torch.full_like(carry.k1, np.nan)),
+                        f, env, cfg, spec, n_steps=64, finish=True,
+                        fresh=True, **kw)
+    assert sc.step_chunk.sparse_launches == sparse + (
+        len(rows) <= sc.TAIL_LAYOUT_MAX_RAYS)
+    ref = sc.step_chunk_reference(carry, f, env, cfg, spec, n_steps=64,
+                                  **kw)
+    ref = refine_events(rhs_fn, ref, f, spec)
+    torch.cuda.synchronize()
+    _assert_bitwise(got, ref)
+
+
+@pytest.mark.parametrize("flags", ["none", "finish_fresh"])
+@pytest.mark.parametrize("frame", ["2d_lat", "2d_colat"])
+def test_redesigned_chain_dense_matches_plain_version_bitwise(cuda, frame,
+                                                              flags):
+    """The whole fan, 10,240 rays in the dense layout, 32 attempts with and
+    without finish and fresh: every field bit for bit."""
+    conf = preset("ensemble10k", frame=frame)
+    env = conf.medium.build()
+    cfg, spec = conf.solver(), conf.stop()
+    u0, f = _build_u0(conf, env, np.float32, cuda)
+    u0, f = torch.as_tensor(u0, device=cuda), torch.as_tensor(f, device=cuda)
+    rhs_fn, _ = rhs.frame_rhs(conf.frame, env)
+    kw = dict(stepper="bs3", frame=conf.frame)
+    carry = init_carry(rhs_fn, u0, f, cfg)
+    on = flags == "finish_fresh"
+    sparse = sc.step_chunk.sparse_launches
+    got = sc.step_chunk(carry, f, env, cfg, spec, n_steps=32, finish=on,
+                        fresh=on, **kw)
+    assert sc.step_chunk.sparse_launches == sparse
+    ref = sc.step_chunk_reference(carry, f, env, cfg, spec, n_steps=32,
+                                  **kw)
+    if on:
+        from raytrace_tpu_torch.integrate.solve import refine_events
+
+        ref = refine_events(rhs_fn, ref, f, spec)
+    torch.cuda.synchronize()
+    _assert_bitwise(got, ref)

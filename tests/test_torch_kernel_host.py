@@ -4,7 +4,9 @@ the reference scripts' modes against the plain version, on the CPU.
 There is no CUDA compiler here, but csrc/step_chunk.cu compiles as C++
 with stand-ins for the CUDA keywords. This test builds it twice into one
 host program -- as it stands, and with every instance on the one-thread
-body (kTeamWarps = 0) -- and runs a launch through each: a block runs as
+body (kTeamWarps = 0) with its stages unrolled in the dense layout (no
+stage loop, no tail layout: chain_instance false) -- and runs a launch
+through each: a block runs as
 one OS thread per CUDA thread, with a std::barrier for __syncthreads and
 a per-warp barrier for __any_sync, so the team body's warp roles, its
 shared-memory exchange and its barriers run as written. On the same
@@ -136,10 +138,10 @@ int main(int argc, char** argv) {
     for (int k = 0; k < 15; ++k) ptrs[k] = bufs[k].data();
     int rc = team
       ? team_ns::step_chunk_launch_team(dtype, codes[0], codes[1], codes[2],
-            codes[3], ptrs, B, n_steps, flags & 1, flags & 2,
+            codes[3], ptrs, B, n_steps, flags,
             (const team_ns::StepParams*)hp, 0)
       : thread_ns::step_chunk_launch_thread(dtype, codes[0], codes[1],
-            codes[2], codes[3], ptrs, B, n_steps, flags & 1, flags & 2,
+            codes[2], codes[3], ptrs, B, n_steps, flags,
             (const thread_ns::StepParams*)hp, 0);
     if (rc) exit(2);
     return bufs;
@@ -163,18 +165,21 @@ int main(int argc, char** argv) {
     attempts += ((const int*)b[9].data())[i] + ((const int*)b[10].data())[i]
                 - ((const int*)in[9].data())[i] - ((const int*)in[10].data())[i];
   }
-  printf("team_warps %d thread_warps %d differ %ld stopped %ld attempts %ld\n",
+  printf("team_warps %d thread_warps %d tail_layout %d differ %ld "
+         "stopped %ld attempts %ld\n",
          team_ns::step_chunk_team_warps_team(dtype, codes[0], codes[1],
                                              codes[2], codes[3]),
          thread_ns::step_chunk_team_warps_thread(dtype, codes[0], codes[1],
                                                  codes[2], codes[3]),
+         team_ns::step_chunk_tail_layout_team(dtype, codes[0], codes[1],
+                                              codes[2], codes[3]),
          differ, stopped, attempts);
   return 0;
 }
 """
 
 
-def _host_source(src, tag, team):
+def _host_source(src, tag, as_is):
     s = src.replace("#include <cuda_runtime.h>", "")
     s = s.replace("#include <math.h>", "")
     s = s.replace(
@@ -189,9 +194,16 @@ def _host_source(src, tag, team):
                   f"int step_chunk_launch_{tag}")
     s = s.replace('extern "C" int step_chunk_team_warps',
                   f"int step_chunk_team_warps_{tag}")
-    if not team:
+    s = s.replace('extern "C" int step_chunk_tail_layout',
+                  f"int step_chunk_tail_layout_{tag}")
+    if not as_is:
+        # every instance on the one-thread body, its stages unrolled, in
+        # the dense layout
         s, n = re.subn(r"constexpr int kTeamWarps = \d+;",
                        "constexpr int kTeamWarps = 0;", s)
+        assert n == 1
+        s, n = re.subn(r"(constexpr bool chain_instance\([^)]*\) \{\n)"
+                       r"  return [^;]*;", r"\1  return false;", s)
         assert n == 1
     return s
 
@@ -689,3 +701,58 @@ def test_fresh_forms_init_carry_k1_on_the_host(host_kernel, case):
             w = w.astype(np.float64)
             scale = np.maximum(np.abs(w).max(axis=0), 1e-300)
             assert float(np.max(np.abs(got[k] - w) / scale)) <= tol
+
+
+# The main path's float32 bs3 instances of the 2D frames (the kernel's
+# chain_instance: the stage loop and the tail layout) against the
+# reference build, where every instance runs the unrolled stages in the
+# dense layout: (preset overrides, every k-th ray, m, n) --
+# m attempts from the launch carry with fresh, then n with finish and
+# fresh, where some of the rays land (the host build's census of every
+# 40th ray of the float32 fans: lat 11 land in [840, 904) after 13
+# before, colat 3 in [1344, 1408) after 8)
+CHAIN_CASES = {
+    "lat": ({}, 40, 840, 64),
+    "colat": (dict(frame="2d_colat"), 40, 1344, 64),
+}
+
+
+@pytest.mark.parametrize("layout", ["dense", "tail"])
+@pytest.mark.parametrize("case", sorted(CHAIN_CASES))
+def test_redesigned_chain_matches_the_unrolled_body_on_the_host(host_kernel,
+                                                               case, layout):
+    """bs3's three stages through one inlined right-hand side (the stage
+    loop) and the tail layout (one ray a warp, flag bit 4) give every
+    field bit for bit what the unrolled stages give in the dense layout, on float32 carries of the
+    port's CPU path in the latitude and colatitude frames: a launch of m
+    attempts with fresh, then one of n with finish and fresh, in which
+    rays land and are refined. The double sibling keeps the dense layout."""
+    over, every, m, n = CHAIN_CASES[case]
+    conf = preset("ensemble10k", **over)
+    env = conf.medium.build()
+    u0, f = _build_u0(conf, env, np.float32, torch.device("cpu"))
+    u0, f = torch.as_tensor(u0[::every]), torch.as_tensor(f[::every])
+    cfg, spec = conf.solver(), conf.stop()
+    codes = [sc._STEPPER_CODE["bs3"], sc._FRAME_CODE[conf.frame][0],
+             sc.medium_code(env, cfg), sc.field_code(env)]
+    params = sc._params(env, cfg, spec, conf.root)
+    tail = sc.launch_flags(f.shape[0], layout=layout == "tail")
+    assert tail == (4 if layout == "tail" else 0)
+    mid, stats = _host_run(host_kernel, f"chain_{case}_{layout}",
+                           init_carry(None, u0, f, cfg), f, codes, m, params,
+                           flags=2 | tail)
+    assert stats["differ"] == 0 and stats["tail_layout"] == 1
+    assert stats["attempts"] > m * f.shape[0] // 2
+    mid = _carry_of(mid)
+    got, stats = _host_run(host_kernel, f"chain_{case}_{layout}", mid, f,
+                           codes, n, params, flags=3 | tail)
+    assert stats["differ"] == 0
+    landed = (got["status"] == events.HIT_EARTH) & (
+        mid.status.numpy() == events.ACTIVE)
+    assert landed.any()
+    np.testing.assert_allclose(got["u"][landed, 0], spec.r_floor, atol=1e-5)
+    _, stats = _host_run(host_kernel, f"chain_{case}_{layout}_f64",
+                         init_carry(None, u0.double(), f.double(), cfg),
+                         f.double(), codes, 8, params, flags=2 | tail,
+                         out=False)
+    assert stats["differ"] == 0 and stats["tail_layout"] == 0

@@ -281,3 +281,100 @@ def test_sass_census_counts_the_attempt_loop():
     lat = census.LATENCY
     assert chain == lat["fp32"] + lat["mufu"] + lat["fp32"] + lat["shared"]
     assert inorder >= lat["fp32"] + lat["mufu"] + lat["fp32"]
+
+
+def test_sass_census_sizes_the_attempt_loop():
+    """The loop's size in bytes runs from its first instruction to the end
+    of its backward branch, each instruction as wide as the address step
+    (16 bytes on Hopper), and the bytes by class add up to it; the
+    encoding lines of cuobjdump's listing are not instructions."""
+    from raytrace_tpu_torch import sass_census as census
+
+    sass = """\
+        Function : _ZN12_GLOBAL__N_117step_chunk_kernelIfLi0ELi2ELi0ELi0ELi0EEEvPT_
+        /*0100*/                   MOV R2, c[0x0][0x210] ;     /* 0x0000840000027a02 */
+                                                               /* 0x000fe20000000f00 */
+        /*0110*/                   FMUL R4, R2, 0.5 ;          /* 0x3f00000002047820 */
+                                                               /* 0x000fc80000400000 */
+        /*0120*/                   MUFU.RCP R5, R4 ;           /* 0x0000000400057308 */
+                                                               /* 0x000e240000001000 */
+        /*0130*/                   FCHK P0, R2, R4 ;           /* 0x0000000402007302 */
+                                                               /* 0x000e620000000000 */
+        /*0140*/               @P0 CALL.REL.NOINC 0x400 ;      /* 0x0000000000007944 */
+                                                               /* 0x000fea0003c00000 */
+        /*0150*/                   FADD R6, R5, R2 ;           /* 0x0000000205067221 */
+                                                               /* 0x001fca0000000000 */
+        /*0160*/                   ISETP.GE.AND P1, PT, R6, RZ, PT ;
+        /*0170*/               @P1 BRA 0x110 ;                 /* 0xffffff9000001947 */
+        /*0180*/                   EXIT ;                      /* 0x000000000000794d */
+"""
+    (name, insns), = census.parse(sass).items()
+    assert census.instance_key(name) == "float bs3 2d_colat axi"
+    assert len(insns) == 9
+    assert census.parse(sass, keep=lambda n: False) == {}
+    body = census.loop_body(insns)
+    assert [op for _, _, op, _ in body] == [
+        "FMUL", "MUFU.RCP", "FCHK", "CALL.REL.NOINC", "FADD", "ISETP.GE.AND",
+        "BRA"]
+    size, by_class = census.code_bytes(body)
+    assert size == 0x170 - 0x110 + 16 == 7 * 16
+    assert by_class == {"fp32": 48, "mufu": 16, "control": 32, "int": 16}
+    assert sum(by_class.values()) == size
+    assert census.code_bytes([]) == (0, {})
+
+
+@pytest.mark.parametrize("b,layout,want", [
+    (1, True, 4), (31, True, 4), (527, True, 4), (528, True, 4),
+    (529, True, 0), (10240, True, 0), (0, True, 0), (528, False, 0),
+    (1, False, 0)])
+def test_tail_layout_rule(b, layout, want):
+    """A launch takes the tail layout (flag bit 4, one ray a warp) where
+    its instance has it and it has at most TAIL_LAYOUT_MAX_RAYS = 528 rays
+    (132 SMs x 4 warp schedulers); finish and fresh keep bits 1 and 2."""
+    assert sc.TAIL_LAYOUT_MAX_RAYS == 528
+    assert sc.launch_flags(b, layout=layout) == want
+    assert sc.launch_flags(b, finish=True, fresh=True,
+                           layout=layout) == 3 | want
+    assert sc.launch_flags(b, fresh=True, layout=layout) == 2 | want
+
+
+def test_launch_counters_read_the_flag_bits(monkeypatch):
+    """Each launch counts once, and once more on the counter of each of
+    its flags: the team body, finish, fresh and the tail layout
+    (step_chunk.sparse_launches)."""
+    names = ("launches", "team_launches", "finish_launches",
+             "fresh_launches", "sparse_launches")
+    for name in names:
+        monkeypatch.setattr(sc.step_chunk, name, 0)
+    sc.count_launch(sc.launch_flags(41, fresh=True, layout=True))
+    sc.count_launch(sc.launch_flags(10240, finish=True, layout=True))
+    sc.count_launch(sc.launch_flags(32, finish=True), team=True)
+    assert [getattr(sc.step_chunk, n) for n in names] == [3, 1, 2, 1, 1]
+
+
+def test_sass_census_finds_the_attempt_loop_inside_the_pass_loop():
+    """The pass loop (fresh's right-hand side, the attempts, finish's) is
+    the function's widest loop; the attempt loop is the widest one inside
+    it (the bisection of finish is narrower), and bs3's stage loop inside
+    that is its inner loop."""
+    from raytrace_tpu_torch import sass_census as census
+
+    ops = {0x10: "FADD R1, R1, R2", 0x20: "FMUL R1, R1, R2",
+           0x30: "MUFU.RCP R4, R1", 0x40: "FMUL R1, R4, R1",
+           0x50: "@P0 BRA 0x30", 0x60: "FSETP.GT.AND P1, PT, R1, R2, PT",
+           0x70: "@P1 BRA 0x20", 0x80: "FADD R5, R5, R1",
+           0x90: "FADD R5, R5, R2", 0xa0: "@P2 BRA 0x80",
+           0xb0: "@P3 BRA 0x10", 0xc0: "EXIT"}
+    sass = ("Function : _ZN12_GLOBAL__N_117step_chunk_kernelIfLi0ELi0ELi0E"
+            "Li0ELi0EEEvPT_\n" + "".join(
+                f"        /*{a:04x}*/  {op} ;\n" for a, op in ops.items()))
+    (_name, insns), = census.parse(sass).items()
+    body = census.loop_body(insns)
+    assert (body[0][0], body[-1][0]) == (0x20, 0x70)
+    assert census.inner_loop(body) == 3
+    assert census.inner_loop(body[1:3]) == 0
+    lat = census.LATENCY
+    # FMUL, MUFU, FMUL, the compare and its branch: one pass
+    assert census.census(body)[1] == (
+        lat["fp32"] + lat["mufu"] + lat["fp32"] + lat["fp32"]
+        + lat["control"])
