@@ -202,6 +202,20 @@ Phases, each printed as it runs; any failed check exits non-zero:
      ensemble10k_local and raymain once in float32 against AD_F32; (c)
      the CLI with grad_mode="autodiff" in a config file against run.run,
      bit for bit.
+35.  The media and step ceilings the kernel once refused: (a) the ANY
+     instances in 2D and in 3D (the plume, the tilted dipole) at
+     ps_weight = de_weight = 0.5, with six local-ceiling shells, under the
+     reference set at ps_weight = 0.5 and over the plume at 12 MLT
+     harmonics, AD_ANY at 12 harmonics and with six shells, and AD at 0
+     harmonics, each launch bit for bit with its plain version and timed
+     beside its bound; (b) ensemble10k_plume at 12 harmonics
+     through run.run, ensemble10k at ps_weight = 0.5 and every 4th ray of
+     it at de_weight = 0.5 through make_rounds_tracer, float32 and float64
+     (float64 against the JAX package's censuses on a CPU, ANY_PINS), and
+     in float32 the plume and the tilted fan at both weights 0.5, the local
+     fan with six shells, ensemble10k under the reference set at ps_weight
+     = 0.5, the plume under the autodiff set at 12 and 0 harmonics and
+     the local fan under it with six shells.
 Each run through run.run checks the body its launches took (the team
 body's launch count, ops/step_chunk.py) and replays its last launch, the
 merged tail where the run has one (kernel_ab.replay_tail), for the
@@ -1135,6 +1149,53 @@ KNOB_PINS = {
 }
 
 
+# phase 35: the media and step ceilings the kernel once refused. Five
+# shells past the knee (the kernel's parameters hold four, the rest ride in
+# a buffer on the card), both weights at 0.5
+SIX_SHELLS = ((2.5, 0.05), (3.0, 0.1), (3.5, 0.1), (5.0, 0.2), (6.0, 0.3))
+HALF = dict(ps_weight=0.5, de_weight=0.5)
+# The JAX package's censuses on a CPU of the phase's full-width paths
+# (tests/test_torch_any_medium.py run as a script: the rounds tracer with
+# run()'s keywords over the launch in one batch, as run() traces it;
+# float64, float32 and the two against each other): ensemble10k_plume at
+# 12 harmonics, ensemble10k at ps_weight = 0.5, every 4th ray of
+# ensemble10k with the DE factor at de_weight = 0.5. float64 is held as
+# phase 9 holds the plume: HIT_EARTH and MAX_PHASE_TIME exactly, the
+# attempted steps within 1%, the median landing L within l_rtol, with
+# DT_UNDERFLOW and MAX_STEPS printed beside the JAX package's (the stall
+# check of a straggler at the budget moves it between the two where the
+# rounds differ: in 10 batches of 1,024 rays JAX's ps_half census is 50 /
+# 96, in one batch 57 / 89, the card's). The JAX package's own one-ulp
+# nudge of every launch latitude moves no ray's status in any of the three
+# (--nudge). l_rtol is 1e-9, and 1e-8 for the de fan, as phase 15 holds
+# the local fan: there the port's plain version on a CPU lands the median
+# 2.95e-9 from JAX's (the same 2,193 rays land, each 6.2e-10 from JAX's at
+# the median ray and up to 0.8% on a few grazing ones: the DE factor's exp
+# and sqrt differ in the last bit between torch's and XLA's math on a CPU,
+# and bs3's error estimate carries those bits into the steps, 7,094,455
+# attempts against 7,095,785; with the dopri5 base the same fan's rays
+# agree at 5.8e-13 at the median ray), and JAX's own nudge moves its median
+# 6.1e-10 (the others' 3e-13 and 8e-14). The card is held to that plain
+# run of the port too, at 1e-9 (port_median_l: float64 on a CPU).
+# float32 against float64 to the JAX package's own agreement
+# less 0.5 points and to dl_max in landing L (1e-4 and 2.5e-4 as phases 9
+# and 4 hold their fans; the de fan, a quarter of the rays, at 1.5x the
+# JAX package's own 2.3e-4). JAX's float32 censuses (HIT_EARTH, steps):
+# 9576, 3,002,361; 8785, 20,460,730; 1982, 5,477,611
+ANY_PINS = {
+    "plume12": dict(hit=9978, mpt=4, dtu=248, ms=10, steps=3_198_924,
+                    median_l=3.149087661473458, l_rtol=1e-9,
+                    jax_match=0.959765625, jax_dl=1.186e-6, dl_max=1e-4),
+    "ps_half": dict(hit=9203, mpt=891, dtu=57, ms=89, steps=22_279_228,
+                    median_l=1.2507818757529943, l_rtol=1e-9,
+                    jax_match=0.949609375, jax_dl=1.377e-4, dl_max=2.5e-4),
+    "de_half": dict(hit=2193, mpt=240, dtu=55, ms=72, steps=7_095_785,
+                    median_l=1.3105999267509558, l_rtol=1e-8,
+                    port_median_l=1.3105999306229832,
+                    jax_match=0.889453125, jax_dl=2.307e-4, dl_max=3.5e-4),
+}
+
+
 def fp2d_grid(k, conf=CHORUS):
     """The examples' grid, seed and wave spectra over `k` (a package's
     side of the chain: its fokker_planck_2d, WaveSpectrum and the
@@ -1387,7 +1448,10 @@ def start(name, dtype_name, dev, every=1, medium=None, **over):
     other fields of the preset): every `every`-th ray, init_carry applied;
     kw holds the launch's frame, root, adaptive, grad_mode and
     legacy_freq_state (an override here, not a preset field), the keywords
-    of step_chunk."""
+    of step_chunk. `over` may also hold env_over and cfg_over, dicts of
+    fields of the built env and of the SolverConfig to replace (a
+    fractional ps_weight, more ds_local_shells: no preset field reaches
+    them); the launch states are the preset's, built over its own env."""
     import torch
 
     from raytrace_tpu_torch.config import preset
@@ -1397,16 +1461,19 @@ def start(name, dtype_name, dev, every=1, medium=None, **over):
 
     over = dict(over)
     legacy = over.pop("legacy_freq_state", False)
+    env_over = dict(over.pop("env_over", ()))
+    cfg_over = dict(over.pop("cfg_over", ()))
     conf = preset(name, dtype=dtype_name, **over,
                   **({"medium": medium} if medium else {}))
     env = conf.medium.build()
     np_dt = np.float32 if dtype_name == "float32" else np.float64
     u0, f = _build_u0(conf, env, np_dt, torch.device(dev))
+    env = env._replace(**env_over)
     u0 = torch.as_tensor(u0[::every]).to(dev)
     f = torch.as_tensor(f[::every]).to(dev)
     rhs_fn, _ = rhs_mod.frame_rhs(conf.frame, env, conf.root, conf.grad_mode,
                                   legacy)
-    cfg = conf.solver()
+    cfg = conf.solver()._replace(**cfg_over)
     return (init_carry(rhs_fn, u0, f, cfg), f, env, cfg, conf.stop(),
             dict(frame=conf.frame, root=conf.root, adaptive=conf.adaptive,
                  grad_mode=conf.grad_mode, legacy_freq_state=legacy))
@@ -3415,6 +3482,256 @@ def ad_slices(card, fused):
     return runs
 
 
+def override_run(conf, what, card, env_over=None, cfg_over=None, every=1):
+    """One run of a preset's launch (every `every`-th ray) through
+    make_rounds_tracer with run()'s keywords, over the preset's env with
+    the fields of env_over replaced and its SolverConfig with those of
+    cfg_over (what no RunConfig field reaches: a fractional weight, more
+    ds_local_shells), the launch counts set to 0 just before; the launch
+    states are run()'s, over the preset's own env. Returns (out, wall,
+    launches) with out run()'s {result, valid, stats}; out["team"] holds
+    the launches through the team body."""
+    import torch
+
+    from raytrace_tpu_torch.ops import step_chunk as sc
+    from raytrace_tpu_torch.parallel.ensemble import (
+        ensemble_stats, make_rounds_tracer, pad_batch,
+    )
+    from raytrace_tpu_torch.run import _build_u0
+
+    env = conf.medium.build()
+    np_dt = np.float32 if conf.dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, torch.device("cuda"))
+    u0, f, valid = pad_batch(u0[::every], f[::every])
+    kw = rounds_kw(conf)
+    kw["cfg"] = kw["cfg"]._replace(**(cfg_over or {}))
+    tracer = make_rounds_tracer(
+        env._replace(**(env_over or {})), device="cuda",
+        dtype=torch.float32 if conf.dtype == "float32" else torch.float64,
+        **kw)
+    sc.step_chunk.launches = 0
+    sc.step_chunk.team_launches = 0
+    sc.step_chunk_reference.calls = 0
+    t0 = time.perf_counter()
+    res = tracer(u0, f, valid)
+    wall = time.perf_counter() - t0
+    launches = sc.step_chunk.launches
+    spec = conf.stop()
+    stats = ensemble_stats(res, valid, lat_sign=spec.lat_sign,
+                           lat_offset=spec.lat_offset)
+    got, steps = census({"stats": stats})
+    print(f"  {what}: {got}, {steps} attempted steps, median landing L "
+          f"{float(stats['median_landing_l'])!r}; {launches} launches "
+          f"({sc.step_chunk.team_launches} through the team body), "
+          f"plain-version calls {sc.step_chunk_reference.calls}; wall "
+          f"{wall:.4f} s on {card}", flush=True)
+    check(launches > 0 and sc.step_chunk_reference.calls == 0,
+          f"{what}: stepped through the kernel, never the plain version")
+    check(np.isfinite(np.asarray(res.u)[valid]).all(),
+          f"{what}: every final state is finite")
+    return dict(result=res, valid=valid, stats=stats,
+                team=sc.step_chunk.team_launches), wall, launches
+
+
+def any_medium_kernels(dev, card):
+    """Phase 35 (a): the media and ceilings the kernel once refused, each
+    launch bit for bit with its plain version (the whole launch x SIDE_N
+    attempts, or every 10th ray x CUT_N): the ANY instances in 2D, in 3D
+    over the plume and over the tilted dipole at ps_weight = de_weight =
+    0.5 with the DE factor on, with six local-ceiling shells, under the
+    reference set at ps_weight = 0.5 and over the plume at 12 MLT harmonics
+    (the coefficients past eight from their buffer); AD_ANY over the plume
+    at 12 harmonics and with six shells in 2D; AD over the plume at 0
+    harmonics (c0 with a tangent of zeros). The float32 bs3 launch of each
+    is timed at 10,240 rays x 512 attempts beside its bound and the plain
+    version's cut. Returns {key: (max abs err, timing)}."""
+    import dataclasses
+
+    from raytrace_tpu_torch.config import MediumConfig, preset
+    from raytrace_tpu_torch.constants import B0_2D, B0_3D
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    de_2d = MediumConfig(b0=B0_2D, de_correction=True)
+    de_mlt = MediumConfig(b0=B0_3D, ps_mlt=True, de_correction=True)
+    de_tilted = dataclasses.replace(preset("ensemble10k_tilted").medium,
+                                    de_correction=True)
+    h12 = MediumConfig(b0=B0_3D, ps_mlt=True, ps_mlt_harmonics=12)
+    h0 = MediumConfig(b0=B0_3D, ps_mlt=True, ps_mlt_harmonics=0)
+    half = dict(env_over=HALF)
+    six = dict(cfg_over=dict(ds_local_shells=SIX_SHELLS))
+    ps_half = dict(env_over=dict(ps_weight=0.5))
+    out = {}
+    # (key, preset, medium, overrides, medium code, f64 stepper); every
+    # one of them on the one-thread body
+    for key, name, med, over, code, st64 in (
+        ("2d weights", "ensemble10k", de_2d, half, sc.ANY, "bs3"),
+        ("3d weights", "ensemble10k_plume", de_mlt, half, sc.ANY, "dopri5"),
+        ("3d weights tilted", "ensemble10k_tilted", de_tilted, half, sc.ANY,
+         "bs3"),
+        ("2d six shells", "ensemble10k_local", None, six, sc.ANY, "bs3"),
+        ("2d reference ps_weight", "ensemble10k", None, dict(ps_half, **REF),
+         sc.ANY, "bs3"),
+        ("3d 12 harmonics", "ensemble10k_plume", h12, {}, sc.ANY, "dopri5"),
+        ("3d autodiff 12 harmonics", "ensemble10k_plume", h12, AD, sc.AD_ANY,
+         "bs3"),
+        ("2d autodiff six shells", "ensemble10k_local", None,
+         dict(six, **AD), sc.AD_ANY, "bs3"),
+        ("3d autodiff 0 harmonics", "ensemble10k_plume", h0, AD, sc.AD,
+         "bs3"),
+    ):
+        _, _, env, cfg, _, kw = start(name, "float64", "cpu", every=640,
+                                      medium=med, **over)
+        codes = (0, 0, sc._FRAME_CODE[kw["frame"]][0],
+                 sc.medium_code(env, cfg, kw["grad_mode"]),
+                 sc.field_code(env))
+        check(codes[3] == code and not sc.team_warps(*codes),
+              f"{key}: the launch takes medium code {code}, the one-thread "
+              "body")
+        # float32 bs3: the whole launch where the plain version's attempts
+        # are fused ops, every 10th ray for the AD chain, the reference
+        # set and the general field
+        whole = (kw["grad_mode"] == "fused"
+                 and not name.endswith("tilted"))
+        every, n = (1, SIDE_N) if whole else (10, CUT_N)
+        err, ms = bit_for_bit(f"[35] {key}", name, "float32", "bs3", dev, n,
+                              every=every, medium=med, **over)
+        plain = dict(plain_ms=ms, plain_rays=bit_for_bit.rays, plain_n=n)
+        t = time_instance(name, "float32", "bs3", dev, reps=3, medium=med,
+                          plain_full=False, plain=plain, **over)
+        print_timing(f"[35] {key} float32 bs3", t, card)
+        out[key] = (err, t)
+        bit_for_bit(f"[35] {key}", name, "float64", st64, dev, CUT_N,
+                    every=10, medium=med, **over)
+    return out
+
+
+def any_medium_paths(card):
+    """Phase 35 (b): the full-width paths over those media, every launch on
+    the kernel (its ANY instances) and none of the plain version:
+    ensemble10k_plume at 12 MLT harmonics through run.run, ensemble10k at ps_weight = 0.5 and every 4th
+    ray of it with the DE factor at de_weight = 0.5 through
+    make_rounds_tracer, each in float32 and float64 (float64 against the
+    JAX package's census, ANY_PINS; float32 against float64); then, in
+    float32, the plume and the tilted fan at both weights 0.5, the local
+    fan with six shells, ensemble10k under the reference set at ps_weight
+    = 0.5, the plume under the autodiff set at 12 and at 0 harmonics, and
+    the local fan under it with six shells.
+    Returns {any_medium_kernels' key: (the float32 runs' launches of that
+    instance, the last launch replayed where the run went through
+    run.run, else None)}."""
+    import dataclasses
+
+    from raytrace_tpu_torch.config import MediumConfig, preset
+    from raytrace_tpu_torch.constants import B0_2D, B0_3D
+
+    h12 = MediumConfig(b0=B0_3D, ps_mlt=True, ps_mlt_harmonics=12)
+    runs = {}
+
+    def plume12(dt):
+        out, _, launches, calls = drive(
+            preset("ensemble10k_plume", dtype=dt, medium=h12),
+            f"ensemble10k_plume, 12 harmonics, {dt}", card)
+        check(launches > 0 and calls == 0 and drive.team_launches == 0,
+              f"ensemble10k_plume at 12 harmonics {dt}: every launch through "
+              "the one-thread body of ANY, never the plain version")
+        return out, launches
+
+    lat_l = lambda u: u[:, 0] / np.cos(u[:, 1]) ** 2  # noqa: E731
+    colat_l = lambda u: u[:, 0] / np.sin(u[:, 1]) ** 2  # noqa: E731
+    # (pin, how to run it in a dtype, landing L of a state)
+    for pin_name, go, to_l in (
+        ("plume12", plume12, colat_l),
+        ("ps_half", lambda dt: override_run(
+            preset("ensemble10k", dtype=dt), f"ensemble10k, ps_weight 0.5, "
+            f"{dt}", card, env_over=dict(ps_weight=0.5))[::2], lat_l),
+        ("de_half", lambda dt: override_run(
+            preset("ensemble10k", dtype=dt,
+                   medium=MediumConfig(b0=B0_2D, de_correction=True)),
+            f"every 4th ray of ensemble10k, de_weight 0.5, {dt}", card,
+            env_over=dict(de_weight=0.5), every=4)[::2], lat_l),
+    ):
+        out32, launches = go("float32")
+        runs[pin_name] = (launches, tail_timing(f"[35] {pin_name} float32",
+                                                card)
+                          if pin_name == "plume12" else None)
+        out64, launches64 = go("float64")
+        check(launches64 > 0, f"{pin_name} float64 stepped through the "
+                              "kernel")
+        pin = ANY_PINS[pin_name]
+        got, steps = census(out64)
+        med = float(out64["stats"]["median_landing_l"])
+        print(f"  {pin_name} float64: {got}, {steps} steps, median landing L "
+              f"{med!r}; JAX on a CPU "
+              f"{ {k: pin[k] for k in ('hit', 'mpt', 'dtu', 'ms')} }, "
+              f"{pin['steps']}, {pin['median_l']!r}")
+        check(got["hit"] == pin["hit"] and got["mpt"] == pin["mpt"],
+              f"{pin_name} float64: HIT_EARTH and MAX_PHASE_TIME equal the "
+              "JAX package's")
+        check(abs(steps - pin["steps"]) <= 0.01 * pin["steps"],
+              f"{pin_name} float64: attempted steps within 1% of the JAX "
+              "package's")
+        check(abs(med - pin["median_l"]) <= pin["l_rtol"] * pin["median_l"],
+              f"{pin_name} float64: median landing L within "
+              f"{pin['l_rtol']:g} of the JAX package's")
+        if "port_median_l" in pin:
+            port = pin["port_median_l"]
+            print(f"  {pin_name} float64: the port's plain version on a CPU "
+                  f"{port!r}, {abs(med - port) / port:.3e} apart")
+            check(abs(med - port) <= 1e-9 * port,
+                  f"{pin_name} float64: median landing L within 1e-9 of the "
+                  "port's plain version on a CPU")
+        match, med_rel, n_m = landing_agreement(out32, out64, to_l)
+        print(f"  {pin_name} float32 vs float64: {match * 100:.2f}% statuses "
+              f"match, median relative landing-L error {med_rel:.3e} over "
+              f"{n_m} matched HIT_EARTH rays (the JAX package's own: "
+              f"{pin['jax_match']:.2%}, {pin['jax_dl']:.3g})")
+        floor = pin["jax_match"] - 0.005
+        check(match >= floor, f"statuses match on >= {floor:.2%} of rays")
+        check(med_rel < pin["dl_max"],
+              f"median relative landing-L error < {pin['dl_max']:g}")
+    # the instances of those paths, by any_medium_kernels' keys: the plume's
+    # ANY instance, and the 2D ANY one that both weights' runs took
+    runs["3d 12 harmonics"] = runs.pop("plume12")
+    runs["2d weights"] = (runs.pop("ps_half")[0] + runs.pop("de_half")[0],
+                          None)
+    de_mlt = MediumConfig(b0=B0_3D, ps_mlt=True, de_correction=True)
+    de_tilted = dataclasses.replace(preset("ensemble10k_tilted").medium,
+                                    de_correction=True)
+    for key, conf, env_over, cfg_over in (
+        ("3d weights", preset("ensemble10k_plume", medium=de_mlt), HALF,
+         None),
+        ("3d weights tilted", preset("ensemble10k_tilted", medium=de_tilted),
+         HALF, None),
+        ("2d six shells", preset("ensemble10k_local"), None,
+         dict(ds_local_shells=SIX_SHELLS)),
+        ("2d reference ps_weight", preset("ensemble10k", **REF),
+         dict(ps_weight=0.5), None),
+        ("2d autodiff six shells", preset("ensemble10k_local", **AD), None,
+         dict(ds_local_shells=SIX_SHELLS)),
+    ):
+        out, _, launches = override_run(conf, f"{key} float32", card,
+                                        env_over, cfg_over)
+        check(launches > 0 and out["team"] == 0,
+              f"{key}: {out['team']} of {launches} launches through the "
+              "team body")
+        runs[key] = (launches, None)
+    for key, med in (("3d autodiff 12 harmonics", h12),
+                     ("3d autodiff 0 harmonics",
+                      MediumConfig(b0=B0_3D, ps_mlt=True,
+                                   ps_mlt_harmonics=0))):
+        out, _, launches, calls = drive(
+            preset("ensemble10k_plume", medium=med, **AD), f"{key} float32",
+            card)
+        check(launches > 0 and calls == 0 and all(
+                  kw.get("grad_mode") == "autodiff" for kw in drive.kws),
+              f"{key}: stepped through the AD instances, never the plain "
+              "version")
+        check(np.isfinite(out["result"].u[out["valid"]]).all(),
+              "every final state is finite")
+        runs[key] = (launches, tail_timing(f"[35] {key} float32", card))
+    return runs
+
+
 def ad_cli(card):
     """Phase 34 (c): the CLI with grad_mode="autodiff" in a config file,
     `python -m raytrace_tpu_torch cut.json --out DIR` on the card (a cut of
@@ -5367,6 +5684,13 @@ def main():
     ad = ad_kernels(dev, card)
     ad_runs = ad_slices(card, {"ensemble10k": out4, "ensemble10k_3d": out3})
     ad_cli(card)
+
+    # ---- 35. every medium and step ceiling of the JAX package -------------
+    phase("[35] the media and ceilings the kernel once refused (fractional "
+          "weights, any harmonic and shell count, AD at 0 harmonics) vs "
+          "plain PyTorch, and their paths at full width")
+    anym = any_medium_kernels(dev, card)
+    any_runs = any_medium_paths(card)
     phase("[done]")
 
     def entry(name, launches, err, t, tail=None, team=False, floor=None):
@@ -5486,6 +5810,25 @@ def main():
               ad_runs["ensemble10k_tilted"][0],
               *ad["3d tilted", "bs3", "float32"],
               ad_runs["ensemble10k_tilted"][1]),
+        *(entry(f"step_chunk[{label},float32,bs3]", any_runs[key][0],
+                *anym[key], any_runs[key][1])
+          for key, label in (
+              ("3d 12 harmonics", "3d+any_medium(mlt, 12 harmonics)"),
+              ("2d weights", "2d_lat+any_medium(ps_weight 0.5, de_weight "
+                             "0.5)"),
+              ("3d weights", "3d+any_medium(mlt, ps_weight 0.5, de_weight "
+                             "0.5)"),
+              ("3d weights tilted", "3d+any_medium(mlt, ps_weight 0.5, "
+                                    "de_weight 0.5)+tilted_field"),
+              ("2d six shells", "2d_lat+any_medium(ds_local, 6 shells)"),
+              ("2d reference ps_weight", "2d_lat+any_medium(reference, "
+                                         "ps_weight 0.5)"),
+              ("3d autodiff 12 harmonics", "3d+autodiff_any(mlt, 12 "
+                                           "harmonics)"),
+              ("2d autodiff six shells", "2d_lat+autodiff_any(ds_local, 6 "
+                                         "shells)"),
+              ("3d autodiff 0 harmonics", "3d+autodiff(mlt, 0 harmonics)"),
+          )),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

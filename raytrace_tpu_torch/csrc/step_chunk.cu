@@ -85,12 +85,28 @@
 // the whole medium on dual numbers (forward mode, the tangents by torch's
 // formulas; the section "the autodiff gradient set" below), in every frame
 // and, in 3D, over every field.
+// Every medium and step ceiling the JAX package takes runs here. The media
+// above take what the JAX package's presets give: the plasmasphere and DE
+// weights 0 and 1, up to kMaxHarm MLT harmonics (none included) and up to
+// kMaxShells local-ceiling shells, all riding in the parameters. The rest
+// take two more medium values, each its instances' code at compile time
+// (`wide` below), so that the instances above keep theirs: ANY, the
+// extended chain under the reference scripts' modes (ALTX's code, and over
+// the non-axial fields EXT's) that also blends a fractional plasmasphere
+// or DE weight in the plain version's order and reads the MLT harmonics
+// and the shells past those of the parameters from buffers on the card;
+// and AD_ANY, the AD chain with those buffers (AD itself blends the
+// weights, and takes a shape of no harmonic as the zero-padded
+// coefficients give it: c0 with a tangent of zeros). Run-time branches for
+// these in the media above cost their instances up to 8% at the default
+// media (PERF.md).
 // Template instances: float and double x bs3, dopri5 and rk4 x the three
-// frames x the six media over the dipole (2 x 3 x 3 x 6 = 108), and x the
-// two non-axial fields in the 3D frame over FULL, EXT and AD (36): 144,
-// compiled in eleven parts (one per frame, one per non-axial field, one
-// for ALT, two for ALTX, three for AD) by parallel nvcc processes and
-// linked into one library (SC_PART below).
+// frames x the eight media over the dipole (2 x 3 x 3 x 8 = 144), and x the
+// two non-axial fields in the 3D frame over FULL, EXT, AD, ANY and AD_ANY
+// (60): 204, compiled in seventeen parts (one per frame, one per non-axial
+// field, one for ALT, two for ALTX, three for AD, three for ANY and three
+// for AD_ANY) by parallel nvcc processes and linked into one library
+// (SC_PART below).
 //
 // Design for the card, not block by block:
 //   - the carry of a ray lives in registers for all n_steps attempts and
@@ -273,12 +289,15 @@ constexpr int EXT = 2;    // the full chain with the ion species and ds_local
 constexpr int ALT = 3;    // AXI under the reference scripts' modes
 constexpr int ALTX = 4;   // EXT under the reference scripts' modes
 constexpr int AD = 5;     // the autodiff set over any medium and field
+constexpr int ANY = 6;    // ALTX (EXT over the non-axial fields) with any
+                          // weight, harmonic count and shell count
+constexpr int AD_ANY = 7;  // AD with any harmonic count and shell count
 constexpr int DIPOLE = 0;  // the centered dipole
 constexpr int TILTED = 1;  // the tilted dipole (3D frame, full medium)
 constexpr int IGRF = 2;    // the degree-3 IGRF truncation (likewise)
 constexpr int kThreads = 128;
-constexpr int kMaxHarm = 8;  // harmonics of the MLT plasmapause shape
-constexpr int kMaxShells = 4;  // shells of the local arc ceiling
+constexpr int kMaxHarm = 8;  // MLT harmonics in the parameters
+constexpr int kMaxShells = 4;  // local-ceiling shells in the parameters
 constexpr int kMaxIon = 3;     // ion species: protons, He+, O+
 
 // Warps of a team in the team body (the design note above), and which
@@ -333,19 +352,32 @@ __host__ __device__ constexpr bool stage_loop(int dtype, int stepper,
 // the media whose density is the full chain (AXI and ALT: the
 // axisymmetric one)
 __host__ __device__ constexpr bool full_density(int medium) {
-  return medium == FULL || medium == EXT || medium == ALTX;
+  return medium == FULL || medium == EXT || medium == ALTX || medium == ANY;
 }
 
 // the media of the extended chain: the Stix sums over the ion species and
 // the local arc ceiling at run time (AD: its own chain, with both)
 __host__ __device__ constexpr bool extended(int medium) {
-  return medium == EXT || medium == ALTX || medium == AD;
+  return medium == EXT || medium == ALTX || medium == AD || medium == ANY ||
+         medium == AD_ANY;
 }
 
 // the media that read the reference scripts' modes (p.ref_grads,
 // p.legacy_freq)
 __host__ __device__ constexpr bool ref_modes(int medium) {
-  return medium == ALT || medium == ALTX;
+  return medium == ALT || medium == ALTX || medium == ANY;
+}
+
+// the media of the autodiff set
+__host__ __device__ constexpr bool autodiff(int medium) {
+  return medium == AD || medium == AD_ANY;
+}
+
+// the media that take any weight, harmonic count and shell count: fused
+// chains that blend the weights, the harmonics and the shells past the
+// parameters' from their buffers on the card
+__host__ __device__ constexpr bool wide(int medium) {
+  return medium == ANY || medium == AD_ANY;
 }
 
 // state dimension of a frame; the group delay is the last component
@@ -356,9 +388,9 @@ struct FrameDim {
 
 }  // namespace
 
-// host-side scalars, all double (mirror of ops/step_chunk.py::StepParams):
-// 123 doubles, 984 bytes; the kernel's own KParams<double> stays near
-// 1.2 KB, far below the 4 KB a kernel's parameters may take
+// host-side scalars (mirror of ops/step_chunk.py::StepParams): 123 doubles
+// and two pointers, 1,000 bytes; the kernel's own KParams<double> stays
+// near 1.2 KB, far below the 4 KB a kernel's parameters may take
 struct StepParams {
   double b0, iono_n0, iono_decay, iono_r0, lppi, lppo, ne_lppi, ps_season,
       ps_trough, ps_weight, de_weight, root;
@@ -390,6 +422,11 @@ struct StepParams {
   // version does (1 / x formed in T): the GCPM scale and knee, the duct's
   // width
   double gcpm_lscale, gcpm_knee, duct_w;
+  // on the card, in T: the MLT coefficients past kMaxHarm harmonics (c, s
+  // of each) and the shells past kMaxShells ((L, width) of each), read by
+  // the wide media; NULL where there are none
+  const void* mlt_ext;
+  const void* shell_ext;
 };
 
 namespace {
@@ -434,6 +471,37 @@ struct KParams {
   T neg_decay, neg_decay_b, de_w, one_m_de_w, ps_w, neg2b0, negb0;
   T inv_smooth_t, inv_lscale_t, inv_knee_t, inv_duct_w_t;
 };
+
+// The wide media's kernel parameters: KParams and past it 1e6 ps_weight (a
+// product of Python floats in the plain version, formed in double) and the
+// buffers past the parameters. A struct of their own, so that the other
+// instances' parameters stay what they were: an instance that passes them
+// to an out-of-line right-hand side copies them to its stack, and a larger
+// copy changed its code. Every function takes KParams; the wide code reads
+// the rest through wide_params.
+template <typename T>
+struct KParamsWide : KParams<T> {
+  T ne_w;
+  const T* mlt_ext;
+  const T* shell_ext;
+};
+
+template <typename T, bool WIDE>
+struct ParamsOf {
+  using type = KParams<T>;
+};
+
+template <typename T>
+struct ParamsOf<T, true> {
+  using type = KParamsWide<T>;
+};
+
+// the rest of a wide instance's parameters (p is its KParamsWide)
+template <typename T>
+__device__ __forceinline__ const KParamsWide<T>& wide_params(
+    const KParams<T>& p) {
+  return static_cast<const KParamsWide<T>&>(p);
+}
 
 template <typename T>
 KParams<T> make_params(const StepParams& h, int stepper) {
@@ -544,6 +612,21 @@ KParams<T> make_params(const StepParams& h, int stepper) {
   p.inv_knee_t = inv_t(h.gcpm_knee);
   p.inv_duct_w_t = inv_t(h.duct_w);
   return p;
+}
+
+// an instance's parameters: KParams, or for the wide media KParamsWide
+template <typename T, bool WIDE>
+typename ParamsOf<T, WIDE>::type params_of(const StepParams& h, int stepper) {
+  if constexpr (WIDE) {
+    KParamsWide<T> p;
+    static_cast<KParams<T>&>(p) = make_params<T>(h, stepper);
+    p.ne_w = T(1.0e6 * h.ps_weight);
+    p.mlt_ext = static_cast<const T*>(h.mlt_ext);
+    p.shell_ext = static_cast<const T*>(h.shell_ext);
+    return p;
+  } else {
+    return make_params<T>(h, stepper);
+  }
 }
 
 __device__ __forceinline__ float d_sin(float x) { return sinf(x); }
@@ -698,8 +781,10 @@ __device__ __forceinline__ void de_factor(T r, T& de, T& de_r) {
 // models/medium.py::_mlt_shape: the Fourier plasmapause shape at a0 + phi
 // and its phi-slope by angle recursion (one sin, one cos), and the
 // day-night trough with its phi-slope. Unrolled to kMaxHarm so that every
-// coefficient index is a constant (no local copy of the parameters).
-template <typename T>
+// coefficient index is a constant (no local copy of the parameters); WIDE
+// (the wide media): the harmonics past it from their buffer, in a rolled
+// loop that goes on with the recursion and the sums in the same order.
+template <typename T, bool WIDE = false>
 __device__ __forceinline__ void mlt_shape(T phi, const KParams<T>& p,
                                           T& shape, T& dshape, T& trough_e,
                                           T& dtrough) {
@@ -720,6 +805,17 @@ __device__ __forceinline__ void mlt_shape(T phi, const KParams<T>& p,
     shape = shape + p.mlt_c[2 * k - 1] * ck + p.mlt_c[2 * k] * sk;
     dshape = dshape + T(k) * (p.mlt_c[2 * k] * ck - p.mlt_c[2 * k - 1] * sk);
   }
+  if constexpr (WIDE) {
+    for (int k = kMaxHarm + 1; k <= p.n_harm; ++k) {
+      const T sn = sk * c1a + ck * s1a;
+      const T cn = ck * c1a - sk * s1a;
+      sk = sn;
+      ck = cn;
+      const T* c = wide_params(p).mlt_ext + 2 * (k - kMaxHarm - 1);
+      shape = shape + c[0] * ck + c[1] * sk;
+      dshape = dshape + T(k) * (c[1] * ck - c[0] * sk);
+    }
+  }
   trough_e = p.ps_trough + p.ps_mlt_tamp * (c1a - p.cos_a0);
   dtrough = -p.ps_mlt_tamp * s1a;
 }
@@ -727,8 +823,11 @@ __device__ __forceinline__ void mlt_shape(T phi, const KParams<T>& p,
 // ops/fused.py::_ne_and_grads + _gcpm_and_grads + _compose_ne over the
 // whole medium: total density (m^-3) and its (r, lat) partials and, with
 // `mlt` (the 3D frame over the MLT-resolved medium, phi the longitude),
-// its phi partial; ne_phi is 0 otherwise. Every gate is a flag of p.
-template <typename T>
+// its phi partial; ne_phi is 0 otherwise. Every gate is a flag of p. WIDE
+// (the wide media): any harmonic count (mlt_shape), and the plasmasphere
+// and DE weights blended as the plain version blends them; else the
+// weights are 0 or 1, the flags p.ps_on and p.de_on.
+template <typename T, bool WIDE = false>
 __device__ __forceinline__ void ne_and_grads_full(T r, T sl, T cl, T phi,
                                                   bool mlt,
                                                   const KParams<T>& p, T& ne,
@@ -762,7 +861,7 @@ __device__ __forceinline__ void ne_and_grads_full(T r, T sl, T cl, T phi,
     T lppo_e = p.lppo, trough_e = p.ps_trough, dlppo = T(0), dtrough = T(0);
     if (mlt) {
       T shape, dshape;
-      mlt_shape(phi, p, shape, dshape, trough_e, dtrough);
+      mlt_shape<T, WIDE>(phi, p, shape, dshape, trough_e, dtrough);
       lppo_e = p.lppo * shape;
       dlppo = p.lppo * dshape;
     }
@@ -797,7 +896,7 @@ __device__ __forceinline__ void ne_and_grads_full(T r, T sl, T cl, T phi,
     T dlppi = T(0), dlppo = T(0), dg1i = T(0), dtrough = T(0);
     if (mlt) {  // models/medium.py::mlt_ps_params
       T shape, dshape;
-      mlt_shape(phi, p, shape, dshape, trough_e, dtrough);
+      mlt_shape<T, WIDE>(phi, p, shape, dshape, trough_e, dtrough);
       lppi_e = p.lppi * shape;
       dlppi = p.lppi * dshape;
       const T e_i = d_exp((T(2) - lppi_e) * recip(T(1.5)));
@@ -905,10 +1004,26 @@ __device__ __forceinline__ void ne_and_grads_full(T r, T sl, T cl, T phi,
   }
   T lat_term = dne_p * L_lat;
   if (p.gcpm_on) lat_term = lat_term + lat_direct;
-  ne = T(1.0e6) * (ni + ne_p * de);
-  ne_r = T(1.0e6) * (ni_r + (dne_p * L_r * de + ne_p * de_r));
-  ne_lat = (T(1.0e6) * de) * lat_term;
-  if (mlt) ne_phi = (T(1.0e6) * de) * ne_p_phi;
+  if constexpr (WIDE) {
+    // ops/fused.py::_compose_ne: de = w_de de + (1 - w_de), and with the
+    // plasmasphere's weight w: 1e6 (ni + (w ne_p) de), 1e6 (ni_r + w (...))
+    // and the angular partials scaled by (1e6 w) de, 1e6 w formed in double
+    T scale = wide_params(p).ne_w;
+    if (p.de_on) {
+      de = p.de_w * de + p.one_m_de_w;
+      de_r = p.de_w * de_r;
+      scale = wide_params(p).ne_w * de;
+    }
+    ne = T(1.0e6) * (ni + p.ps_w * ne_p * de);
+    ne_r = T(1.0e6) * (ni_r + p.ps_w * (dne_p * L_r * de + ne_p * de_r));
+    ne_lat = scale * lat_term;
+    if (mlt) ne_phi = scale * ne_p_phi;
+  } else {
+    ne = T(1.0e6) * (ni + ne_p * de);
+    ne_r = T(1.0e6) * (ni_r + (dne_p * L_r * de + ne_p * de_r));
+    ne_lat = (T(1.0e6) * de) * lat_term;
+    if (mlt) ne_phi = (T(1.0e6) * de) * ne_p_phi;
+  }
 }
 
 // ne_and_grads_full in three pieces: ne_head (the ionosphere and, with
@@ -1479,7 +1594,8 @@ __device__ __forceinline__ Mu2D<T> mu_grads_2d(T r, T lat, T chi, T f,
   T ne, ne_r, ne_lat;
   if constexpr (full_density(MEDIUM)) {
     T ne_phi;
-    ne_and_grads_full(r, sl, cl, T(0), false, p, ne, ne_r, ne_lat, ne_phi);
+    ne_and_grads_full<T, wide(MEDIUM)>(r, sl, cl, T(0), false, p, ne, ne_r,
+                                       ne_lat, ne_phi);
   } else {
     ne_and_grads(r, sl, cl, p, ne, ne_r, ne_lat);
   }
@@ -1692,8 +1808,8 @@ __device__ __forceinline__ void rhs_3d(const T u[7], T f, const KParams<T>& p,
   const Geo3D<T> g = geo_3d(r, sl, cl, u[3], u[4], u[5], p);
   T ne, ne_r, ne_lat, ne_phi = T(0);
   if constexpr (full_density(MEDIUM))
-    ne_and_grads_full(r, sl, cl, u[2], p.mlt_on, p, ne, ne_r, ne_lat,
-                      ne_phi);
+    ne_and_grads_full<T, wide(MEDIUM)>(r, sl, cl, u[2], p.mlt_on, p, ne,
+                                       ne_r, ne_lat, ne_phi);
   else
     ne_and_grads(r, sl, cl, p, ne, ne_r, ne_lat);
   T mu, dmu_dn, dmu_db, dmu_df, dmu_dc;
@@ -1706,7 +1822,7 @@ __device__ __forceinline__ void rhs_3d(const T u[7], T f, const KParams<T>& p,
                  T(0), out);
       return;
     }
-  } else if constexpr (MEDIUM == ALTX) {
+  } else if constexpr (MEDIUM == ALTX || MEDIUM == ANY) {
     if (p.ref_grads) {
       // the closed form reads the density without longitude (the JAX
       // package's gradients.py:161-169 calls medium.ne_total_m3 without
@@ -1715,8 +1831,8 @@ __device__ __forceinline__ void rhs_3d(const T u[7], T f, const KParams<T>& p,
       T ne_ref = ne, dmudphi = T(0);
       if (p.mlt_on) {
         T d_r, d_lat, d_phi;
-        ne_and_grads_full(r, sl, cl, u[2], false, p, ne_ref, d_r, d_lat,
-                          d_phi);
+        ne_and_grads_full<T, wide(MEDIUM)>(r, sl, cl, u[2], false, p, ne_ref,
+                                           d_r, d_lat, d_phi);
         dmudphi = dmu_dn * ne_phi;
       }
       rhs_3d_ref(u, f, g, ne_ref, ne_lat, mu, dmu_dn, dmu_db, dmu_df, dmu_dc,
@@ -2033,8 +2149,8 @@ __device__ __noinline__ void rhs_3d_general(const T u[7], T f,
   const T dcos_drho_p = (hp - cospsi * rp) * inv_rmag;
 
   T ne, ne_r, ne_lat, ne_mlon;
-  ne_and_grads_full(r, d_sin(g.mlat), d_cos(g.mlat), g.mlon, p.mlt_on, p, ne,
-                    ne_r, ne_lat, ne_mlon);
+  ne_and_grads_full<T, wide(MEDIUM)>(r, d_sin(g.mlat), d_cos(g.mlat), g.mlon,
+                                     p.mlt_on, p, ne, ne_r, ne_lat, ne_mlon);
   T dne_dt = ne_lat * g.mlat_t, dne_dp = ne_lat * g.mlat_p;
   if (p.mlt_on) {
     dne_dt = dne_dt + ne_mlon * g.mlon_t;
@@ -2368,8 +2484,12 @@ __device__ __forceinline__ Dual<T, W> ad_gcpm(const Dual<T, W>& L,
 }
 
 // medium.ne_total_m3 at (r, sin lat, cos lat) and, with `mlt` (the 3D
-// frame over the MLT-resolved medium), the longitude phi
-template <typename T, int W>
+// frame over the MLT-resolved medium), the longitude phi. A shape of no
+// harmonic is c0 with a tangent of zeros (the coefficients past c0 are
+// zero-padded), where the plain version has a constant: the same values,
+// every tangent it feeds unchanged. WIDE (AD_ANY): the harmonics past
+// kMaxHarm from their buffer, in a rolled loop
+template <typename T, int W, bool WIDE = false>
 __device__ __forceinline__ Dual<T, W> ad_ne_total(const Dual<T, W>& r,
                                                   const Dual<T, W>& sl,
                                                   const Dual<T, W>& cl,
@@ -2399,6 +2519,16 @@ __device__ __forceinline__ Dual<T, W> ad_ne_total(const Dual<T, W>& r,
       sk = sn;
       ck = cn;
       shape = (shape + p.mlt_c[2 * h - 1] * ck) + p.mlt_c[2 * h] * sk;
+    }
+    if constexpr (WIDE) {
+      for (int h = kMaxHarm + 1; h <= p.n_harm; ++h) {
+        const D sn = sk * c1a + ck * s1a;
+        const D cn = ck * c1a - sk * s1a;
+        sk = sn;
+        ck = cn;
+        const T* c = wide_params(p).mlt_ext + 2 * (h - kMaxHarm - 1);
+        shape = (shape + c[0] * ck) + c[1] * sk;
+      }
     }
     const D trough = p.ps_trough + p.ps_mlt_tamp * (c1a - p.cos_a0);
     if (p.gcpm_on) {  // medium.mlt_gcpm_params
@@ -2606,8 +2736,8 @@ __device__ __forceinline__ void ad_igrf(const Dual<T, W>& r,
   bp = (nt * inv_s) * sum_p;
 }
 
-// dispersion.mu_3d over the field FIELD
-template <typename T, int W, int FIELD>
+// dispersion.mu_3d over the field FIELD (WIDE: ad_ne_total's)
+template <typename T, int W, int FIELD, bool WIDE>
 __device__ __forceinline__ Dual<T, W> ad_mu_3d(const Dual<T, W> (&x)[7],
                                                const KParams<T>& p) {
   using D = Dual<T, W>;
@@ -2620,7 +2750,7 @@ __device__ __forceinline__ Dual<T, W> ad_mu_3d(const Dual<T, W> (&x)[7],
     const D sl = d_sin(lat), cl = d_cos(lat);
     const D br = (p.neg2b0 * inv_r3) * sl;
     const D bt = (p.negb0 * inv_r3) * cl;
-    const D ne = ad_ne_total(r, sl, cl, phi, p.mlt_on, p);
+    const D ne = ad_ne_total<T, W, WIDE>(r, sl, cl, phi, p.mlt_on, p);
     return ad_mu_3d_tail<T, W, T>(br, bt, T(0), x[3], x[4], x[5], ne, f, p);
   } else {
     const D st = d_sin(theta), ct = d_cos(theta);
@@ -2639,14 +2769,15 @@ __device__ __forceinline__ Dual<T, W> ad_mu_3d(const Dual<T, W> (&x)[7],
     }
     D mlat, mlon;
     ad_magnetic_coords(st, ct, sp, cp, m_r, p, mlat, mlon);
-    const D ne = ad_ne_total(r, d_sin(mlat), d_cos(mlat), mlon, p.mlt_on, p);
+    const D ne = ad_ne_total<T, W, WIDE>(r, d_sin(mlat), d_cos(mlat), mlon,
+                                         p.mlt_on, p);
     return ad_mu_3d_tail<T, W, D>(br, bt, bp, x[3], x[4], x[5], ne, f, p);
   }
 }
 
 // mu and its N partials at the inputs x: passes of W tangents each, input
 // i seeded with the unit tangent of its own index
-template <typename T, int FRAME, int FIELD, int N>
+template <typename T, int FRAME, int FIELD, int N, bool WIDE>
 __device__ __forceinline__ T ad_mu_grads(const T (&x)[N],
                                          const KParams<T>& p, T (&g)[N]) {
   constexpr int W = N == 7 ? kAdWidth3D : kAdWidth2D;
@@ -2663,7 +2794,7 @@ __device__ __forceinline__ T ad_mu_grads(const T (&x)[N],
     }
     D m;
     if constexpr (FRAME == KIM3D) {
-      m = ad_mu_3d<T, W, FIELD>(d, p);
+      m = ad_mu_3d<T, W, FIELD, WIDE>(d, p);
     } else if constexpr (FRAME == COLAT2D) {
       // dispersion.mu_2d_colat: lat = pi/2 - theta, formed in T
       m = ad_mu_2d(d[0], T(kPi / 2.0) - d[1], d[2], d[3], p);
@@ -2680,14 +2811,14 @@ __device__ __forceinline__ T ad_mu_grads(const T (&x)[N],
 
 // ops/rhs.py's right-hand sides over the autodiff set (gradients.py): the
 // 2D rows of rhs_2d_lat and rhs_2d_colat (legacy_freq_state: the frequency
-// read as f + T), or rhs_3d's Kimura rows
-template <typename T, int FRAME, int FIELD>
-__device__ __noinline__ void rhs_ad(const T* u, T f, const KParams<T>& p,
-                                    T* out) {
+// read as f + T), or rhs_3d's Kimura rows; WIDE: ad_ne_total's
+template <typename T, int FRAME, int FIELD, bool WIDE>
+__device__ __forceinline__ void rhs_ad_rows(const T* u, T f,
+                                            const KParams<T>& p, T* out) {
   if constexpr (FRAME == KIM3D) {
     const T x[7] = {u[0], u[1], u[2], u[3], u[4], u[5], f};
     T g[7];
-    const T mu = ad_mu_grads<T, FRAME, FIELD, 7>(x, p, g);
+    const T mu = ad_mu_grads<T, FRAME, FIELD, 7, WIDE>(x, p, g);
     kimura_rows(u, f, mu, g[0], g[1], g[2], g[3], g[4], g[5], g[6],
                 kim_trig(u), out);
   } else {
@@ -2695,7 +2826,7 @@ __device__ __noinline__ void rhs_ad(const T* u, T f, const KParams<T>& p,
     const T fr = p.legacy_freq ? f + u[3] : f;
     const T x[4] = {r, u[1], chi, fr};
     T g[4];
-    const T mu = ad_mu_grads<T, FRAME, FIELD, 4>(x, p, g);
+    const T mu = ad_mu_grads<T, FRAME, FIELD, 4, WIDE>(x, p, g);
     const T sc = d_sin(chi), cc = d_cos(chi);
     const T inv_mu2 = T(1) / (mu * mu);
     const T inv_mu2_r = inv_mu2 * (T(1) / r);
@@ -2712,6 +2843,19 @@ __device__ __noinline__ void rhs_ad(const T* u, T f, const KParams<T>& p,
   }
 }
 
+// the AD instances' right-hand side, and AD_ANY's
+template <typename T, int FRAME, int FIELD>
+__device__ __noinline__ void rhs_ad(const T* u, T f, const KParams<T>& p,
+                                    T* out) {
+  rhs_ad_rows<T, FRAME, FIELD, false>(u, f, p, out);
+}
+
+template <typename T, int FRAME, int FIELD>
+__device__ __noinline__ void rhs_ad_any(const T* u, T f, const KParams<T>& p,
+                                        T* out) {
+  rhs_ad_rows<T, FRAME, FIELD, true>(u, f, p, out);
+}
+
 #undef AD_LOOP
 
 // the frame's right-hand side; K > 0: the team body's (tm), else the
@@ -2722,6 +2866,9 @@ __device__ __forceinline__ void rhs(const T* u, T f, const KParams<T>& p,
   if constexpr (MEDIUM == AD) {
     static_assert(K == 0, "the AD instances take the one-thread body");
     rhs_ad<T, FRAME, FIELD>(u, f, p, out);
+  } else if constexpr (MEDIUM == AD_ANY) {
+    static_assert(K == 0, "the AD_ANY instances take the one-thread body");
+    rhs_ad_any<T, FRAME, FIELD>(u, f, p, out);
   } else if constexpr (FIELD != DIPOLE) {
     rhs_3d_general<T, MEDIUM, FIELD>(u, f, p, out);
   } else if constexpr (FRAME == KIM3D) {
@@ -2760,8 +2907,9 @@ __device__ __forceinline__ T arc_rate(const T u[N], const T k1[N]) {
 // integrate/solve.py::_local_arc_ceiling: r/4.5 tightened near each shell
 // to w + |r - L cos^2(lat)| (the knee first, in the JAX order), lat from
 // the frame's lat_sign/lat_offset map (events.lat_of), times frac. The
-// 1/4.5 is a product of Python floats there, formed in double here
-template <typename T>
+// 1/4.5 is a product of Python floats there, formed in double here. WIDE
+// (the wide media): the shells past kMaxShells from their buffer
+template <typename T, bool WIDE = false>
 __device__ __forceinline__ T local_arc_ceiling(const T* u,
                                                const KParams<T>& p) {
   const T r = u[0];
@@ -2773,12 +2921,18 @@ __device__ __forceinline__ T local_arc_ceiling(const T* u,
     if (k >= p.n_shells) break;
     g = jmin(g, p.shell_w[k] + d_abs(r - p.shell_l[k] * c2));
   }
+  if constexpr (WIDE) {
+    for (int k = kMaxShells; k < p.n_shells; ++k) {
+      const T* sh = wide_params(p).shell_ext + 2 * (k - kMaxShells);
+      g = jmin(g, sh[1] + d_abs(r - sh[0] * c2));
+    }
+  }
   return p.ds_local_frac * g;
 }
 
 // _step_one's step ceiling of the state (u, k1): dt_max, tightened by the
-// arc ceiling ds / (ds/dtau) where ds is ds_max or, in the EXT and ALTX
-// instances, the local ceiling (clamped by ds_max where that is on too)
+// arc ceiling ds / (ds/dtau) where ds is ds_max or, in the instances of
+// the extended media, the local ceiling (clamped by ds_max where that is on too)
 template <typename T, int N, int MEDIUM>
 __device__ __forceinline__ T step_ceiling(const T u[N], const T k1[N],
                                           const KParams<T>& p) {
@@ -2788,7 +2942,7 @@ __device__ __forceinline__ T step_ceiling(const T u[N], const T k1[N],
   T ds = p.ds_max;
   if constexpr (extended(MEDIUM)) {
     if (local) {
-      ds = local_arc_ceiling<T>(u, p);
+      ds = local_arc_ceiling<T, wide(MEDIUM)>(u, p);
       if (p.ds_on) ds = jmin(ds, p.ds_max);
     }
   }
@@ -3070,7 +3224,8 @@ __global__ void __launch_bounds__(K > 0 ? 32 * K : kThreads,
                       int* __restrict__ n_rej_g, int* __restrict__ rejected_g,
                       int* __restrict__ n_tiny_g, int* __restrict__ caution_g,
                       const T* __restrict__ f_g, long long B, int n_steps,
-                      bool finish, bool fresh, bool sparse, KParams<T> p) {
+                      bool finish, bool fresh, bool sparse,
+                      typename ParamsOf<T, wide(MEDIUM)>::type p) {
   constexpr int N = FrameDim<FRAME>::N;
   constexpr int DT = sizeof(T) == 8 ? 1 : 0;
   Team<T> tm{nullptr, 0, 0, true};
@@ -3325,7 +3480,8 @@ void launch(void** ptrs, long long B, int n_steps, int flags,
           (T*)ptrs[5], (T*)ptrs[6], (T*)ptrs[7], (int*)ptrs[8],
           (int*)ptrs[9], (int*)ptrs[10], (int*)ptrs[11], (int*)ptrs[12],
           (int*)ptrs[13], (const T*)ptrs[14], B, n_steps, (flags & 1) != 0,
-          (flags & 2) != 0, sparse, make_params<T>(h, STEPPER));
+          (flags & 2) != 0, sparse,
+          params_of<T, wide(MEDIUM)>(h, STEPPER));
 }
 
 template <typename T, int FRAME, int MEDIUM, int FIELD>
@@ -3356,13 +3512,15 @@ void launch_dtype(int dtype, int stepper, void** ptrs, long long B,
 
 // One host entry per (frame, medium, field) combination. A build in parts
 // (ops/step_chunk.py::build) compiles this source once per part with
-// -DSC_PARTS=11 -DSC_PART=k, each part defining the entries of one frame,
+// -DSC_PARTS=17 -DSC_PART=k, each part defining the entries of one frame,
 // one non-axial field, (part 5) the ALT medium in the three frames, the
-// ALTX medium in the 2D frames (part 6) and the 3D frame (part 7), or the
-// AD medium in the 2D frames (part 8), the 3D frame over the dipole and
-// the tilted dipole (part 9) and over IGRF (part 10) (and so instantiating
-// only their kernels), and links the parts into one library; without the
-// macros one object holds them all.
+// ALTX medium in the 2D frames (part 6) and the 3D frame (part 7), the AD
+// medium in the 2D frames (part 8), the 3D frame over the dipole and the
+// tilted dipole (part 9) and over IGRF (part 10), the ANY medium in the 2D
+// frames (part 11), the 3D frame (part 12) and over the non-axial fields
+// (part 13), or the AD_ANY medium as AD (parts 14-16) (and so
+// instantiating only their kernels), and links the parts into one
+// library; without the macros one object holds them all.
 #ifndef SC_PARTS
 #define SC_PARTS 1
 #define SC_PART 0
@@ -3401,6 +3559,16 @@ SC_ENTRY(launch_colat_ad);
 SC_ENTRY(launch_3d_ad);
 SC_ENTRY(launch_tilted_ad);
 SC_ENTRY(launch_igrf_ad);
+SC_ENTRY(launch_lat_any);
+SC_ENTRY(launch_3d_any);
+SC_ENTRY(launch_colat_any);
+SC_ENTRY(launch_tilted_any);
+SC_ENTRY(launch_igrf_any);
+SC_ENTRY(launch_lat_ad_any);
+SC_ENTRY(launch_3d_ad_any);
+SC_ENTRY(launch_colat_ad_any);
+SC_ENTRY(launch_tilted_ad_any);
+SC_ENTRY(launch_igrf_ad_any);
 
 #if SC_OWNS(0)
 SC_DEFINE(launch_lat_axi, LAT2D, AXI, DIPOLE)
@@ -3448,6 +3616,28 @@ SC_DEFINE(launch_tilted_ad, KIM3D, AD, TILTED)
 #if SC_OWNS(10)
 SC_DEFINE(launch_igrf_ad, KIM3D, AD, IGRF)
 #endif
+#if SC_OWNS(11)
+SC_DEFINE(launch_lat_any, LAT2D, ANY, DIPOLE)
+SC_DEFINE(launch_colat_any, COLAT2D, ANY, DIPOLE)
+#endif
+#if SC_OWNS(12)
+SC_DEFINE(launch_3d_any, KIM3D, ANY, DIPOLE)
+#endif
+#if SC_OWNS(13)
+SC_DEFINE(launch_tilted_any, KIM3D, ANY, TILTED)
+SC_DEFINE(launch_igrf_any, KIM3D, ANY, IGRF)
+#endif
+#if SC_OWNS(14)
+SC_DEFINE(launch_lat_ad_any, LAT2D, AD_ANY, DIPOLE)
+SC_DEFINE(launch_colat_ad_any, COLAT2D, AD_ANY, DIPOLE)
+#endif
+#if SC_OWNS(15)
+SC_DEFINE(launch_3d_ad_any, KIM3D, AD_ANY, DIPOLE)
+SC_DEFINE(launch_tilted_ad_any, KIM3D, AD_ANY, TILTED)
+#endif
+#if SC_OWNS(16)
+SC_DEFINE(launch_igrf_ad_any, KIM3D, AD_ANY, IGRF)
+#endif
 
 #if SC_OWNS(0)
 // ptrs: u, k1, u_prev, u_lo (n, B); t, dt, errold, dt_prev (B,) of T;
@@ -3460,9 +3650,15 @@ SC_DEFINE(launch_igrf_ad, KIM3D, AD, IGRF)
 // reference scripts' modes (h->ref_grads, h->legacy_freq: the ALT
 // instances), 4 = the extended chain (2) under those modes (the ALTX
 // instances), 5 = the autodiff set over any medium (the AD instances,
-// which read h->legacy_freq in 2D, never h->ref_grads); field 0 = the
+// which read h->legacy_freq in 2D, never h->ref_grads), 6 =
+// ANY, the ALTX instances (EXT's over the non-axial fields) with any
+// weight, harmonic count and shell count, 7 = AD_ANY, the AD instances with
+// any harmonic and shell count (the media 0-5 take the weights 0 and 1
+// alone, AD any weight, and at most kMaxHarm harmonics and kMaxShells
+// shells; h->mlt_ext and h->shell_ext hold the rest); field 0 = the
 // centered dipole, 1 = the tilted dipole, 2 = the IGRF truncation (the
-// last two only in the 3D frame over FULL, EXT and AD). flags: bit 0
+// last two only in the 3D frame over FULL, EXT, AD, ANY and AD_ANY, and
+// without the reference scripts' modes). flags: bit 0
 // (finish), after the loop, refine the rays that end on HIT_EARTH /
 // HIT_EQUATOR in place (integrate/solve.py::refine_events); bit 1 (fresh),
 // before it, k1 = rhs(u) for every ray (init_carry's right-hand side);
@@ -3476,35 +3672,39 @@ extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
   // [frame, or the non-axial field in rows 3 and 4][medium]
   using Entry = void (*)(int, int, void**, long long, int, int,
                          const StepParams&, cudaStream_t);
-  static const Entry kEntry[5][6] = {
+  static const Entry kEntry[5][8] = {
       {launch_lat_axi, launch_lat_full, launch_lat_ext, launch_lat_alt,
-       launch_lat_altx, launch_lat_ad},
+       launch_lat_altx, launch_lat_ad, launch_lat_any, launch_lat_ad_any},
       {launch_3d_axi, launch_3d_full, launch_3d_ext, launch_3d_alt,
-       launch_3d_altx, launch_3d_ad},
+       launch_3d_altx, launch_3d_ad, launch_3d_any, launch_3d_ad_any},
       {launch_colat_axi, launch_colat_full, launch_colat_ext,
-       launch_colat_alt, launch_colat_altx, launch_colat_ad},
+       launch_colat_alt, launch_colat_altx, launch_colat_ad,
+       launch_colat_any, launch_colat_ad_any},
       {nullptr, launch_tilted_full, launch_tilted_ext, nullptr, nullptr,
-       launch_tilted_ad},
+       launch_tilted_ad, launch_tilted_any, launch_tilted_ad_any},
       {nullptr, launch_igrf_full, launch_igrf_ext, nullptr, nullptr,
-       launch_igrf_ad},
+       launch_igrf_ad, launch_igrf_any, launch_igrf_ad_any},
   };
+  const bool fractional = (h->ps_weight != 0.0 && h->ps_weight != 1.0) ||
+                          (h->de_weight != 0.0 && h->de_weight != 1.0);
   if (B <= 0) return 0;
   if ((dtype != 0 && dtype != 1) ||
       (stepper != BS3 && stepper != DOPRI5 && stepper != RK4) ||
       (frame != LAT2D && frame != KIM3D && frame != COLAT2D) ||
-      (medium != AXI && medium != FULL && medium != EXT && medium != ALT &&
-       medium != ALTX && medium != AD) ||
+      medium < AXI || medium > AD_ANY ||
       (field != DIPOLE && field != TILTED && field != IGRF) ||
       (field != DIPOLE &&
-       (frame != KIM3D || medium == AXI || ref_modes(medium))) ||
-      (h->ref_grads != 0.0 && !ref_modes(medium)) ||
-      (h->legacy_freq != 0.0 && !ref_modes(medium) && medium != AD) ||
+       (frame != KIM3D || medium == AXI || medium == ALT || medium == ALTX)) ||
+      (h->ref_grads != 0.0 && (!ref_modes(medium) || field != DIPOLE)) ||
+      (h->legacy_freq != 0.0 && !ref_modes(medium) && !autodiff(medium)) ||
       (h->legacy_freq != 0.0 && frame == KIM3D) ||
-      (medium == AD && frame == KIM3D && h->ps_mlt != 0.0 &&
-       h->n_harm < 1.0) ||
-      h->n_harm < 0.0 || h->n_harm > kMaxHarm || h->n_shells < 0.0 ||
-      h->n_shells > kMaxShells || h->n_ion < 1.0 || h->n_ion > kMaxIon ||
-      (!extended(medium) && (h->n_ion != 1.0 || h->n_shells != 0.0)))
+      h->n_harm < 0.0 || h->n_shells < 0.0 ||
+      (h->n_harm > kMaxHarm && (!wide(medium) || h->mlt_ext == nullptr)) ||
+      (h->n_shells > kMaxShells &&
+       (!wide(medium) || h->shell_ext == nullptr)) ||
+      h->n_ion < 1.0 || h->n_ion > kMaxIon ||
+      (!extended(medium) && (h->n_ion != 1.0 || h->n_shells != 0.0)) ||
+      (fractional && !wide(medium) && !autodiff(medium)))
     return (int)cudaErrorInvalidValue;
   const int row = field == TILTED ? 3 : (field == IGRF ? 4 : frame);
   kEntry[row][medium](dtype, stepper, ptrs, B, n_steps, flags & 7, *h,

@@ -36,13 +36,13 @@ class EnvParams(NamedTuple):
     iono_n0: float                   # ionosphere fit amplitude, cm^-3
     iono_decay: float                # ionosphere fit decay, 1/RE
     iono_r0: float                   # ionosphere fit offset, RE
-    ps_weight: float                 # 1.0 = plasmasphere on, 0.0 = off
+    ps_weight: float                 # plasmasphere weight: 1.0 on, 0.0 off
     lppi: float                      # plasmapause inner limit, L
     lppo: float                      # plasmapause outer limit, L
     ne_lppi: float                   # branch-1 density at Lppi, cm^-3
     ps_season: float                 # CA1992 seasonal/solar coefficient
     ps_trough: float                 # 5800 + 300 mlt
-    de_weight: float                 # 1.0 = diffusive-equilibrium correction
+    de_weight: float                 # diffusive-equilibrium weight (1.0 on)
     ps_smooth: float = 0.0           # > 0: sigmoid plasmapause width, L
     iono_n0_b: float = 0.0           # nightside fit amplitude, cm^-3
     iono_decay_b: float = 0.0        # nightside fit decay, 1/RE
@@ -69,16 +69,6 @@ class EnvParams(NamedTuple):
     ps_mlt_c: tuple = ()             # Fourier shape (c0, c1, s1, ...)
     ps_mlt_tamp: float = 0.0         # trough day-night half-amplitude
     ps_mlt_c3: float = 0.0           # log10 trough density at the base knee
-
-
-def check_env(env: EnvParams):
-    """Require the plasmasphere and DE weights to be 0 or 1, the values
-    make_env gives them (NotImplementedError otherwise)."""
-    for name in ("ps_weight", "de_weight"):
-        if getattr(env, name) not in (0.0, 1.0):
-            raise NotImplementedError(
-                f"{name} must be 0 or 1 in the port; got {getattr(env, name)!r}"
-            )
 
 
 def make_env(
@@ -258,7 +248,6 @@ def make_env(
         ps_refill_lref=float(ps_refill_lref),
         **mlt_kw,
     )
-    check_env(env)
     return env
 
 
@@ -282,15 +271,17 @@ def _mlt_shape(phi, env: EnvParams):
     the Fourier plasmapause shape S(a0 + phi) with its phi-slope, and the
     day-night trough with its phi-slope. Harmonics by angle recursion:
     one sin and one cos, whatever the harmonic count. cos(a0) is an env
-    scalar formed on the host. Returns (shape, dshape, trough_e,
-    dtrough)."""
+    scalar formed on the host. With no harmonic the shape is the constant
+    c0, a tensor of phi's shape without a tangent (the JAX package's
+    Python float, which its tensor ops take). Returns (shape, dshape,
+    trough_e, dtrough)."""
     c = env.ps_mlt_c
     n_harm = (len(c) - 1) // 2
     ang = env.ps_mlt_a0 + phi
     s1a, c1a = torch.sin(ang), torch.cos(ang)
     sk, ck = s1a, c1a
-    shape = c[0]
     dshape = torch.zeros_like(s1a)
+    shape = c[0] if n_harm else dshape + c[0]
     for k in range(1, n_harm + 1):
         if k > 1:
             sk, ck = sk * c1a + ck * s1a, ck * c1a - sk * s1a
@@ -347,7 +338,6 @@ def ne_total_m3(r, lat, env: EnvParams, phi=None):
     phi: longitude (rad) for the MLT-resolved plasmasphere, which the 3D
     frame passes; without it (the 2D frames) the medium is its phi = 0
     meridian, the axisymmetric parameters."""
-    check_env(env)
     ne_i = ionosphere.ne_iono_cm3(r, env.iono_n0, env.iono_decay, env.iono_r0)
     if env.iono_mix != 1.0:
         ne_i = env.iono_mix * ne_i + (1.0 - env.iono_mix) * (
@@ -397,7 +387,6 @@ def require_dipole_2d(env: EnvParams):
 def b_mag(r, lat, env: EnvParams):
     """Dipole field magnitude at (r [RE], lat [rad]) in Tesla: the 2D
     (meridional) entry point, which refuses the non-axial fields."""
-    check_env(env)
     require_dipole_2d(env)
     return dipole.b_mag_lat(r, lat, env.b0)
 
@@ -405,7 +394,6 @@ def b_mag(r, lat, env: EnvParams):
 def b_vec(r, theta, phi, env: EnvParams):
     """Vector field (B_r, B_theta, B_phi) at geographic (r, theta, phi),
     by the static b_model selector."""
-    check_env(env)
     if env.b_model == "tilted":
         return dipole.b_vec_tilted(r, theta, phi, env.b0, env.b_tilt,
                                    env.b_tilt_phi)
@@ -419,7 +407,6 @@ def mlat_3d(r, theta, phi, env: EnvParams):
     the density models in the 3D frame: pi/2 - theta for the centered
     dipole, the tilted frame's latitude otherwise (for "igrf" the tilt of
     its degree-1 part, set by make_env)."""
-    check_env(env)
     if env.b_model in ("tilted", "igrf"):
         return dipole.magnetic_coords(theta, phi, env.b_tilt,
                                       env.b_tilt_phi)[0]
@@ -432,7 +419,6 @@ def mlon_3d(r, theta, phi, env: EnvParams):
     dipole, the tilted frame's azimuth (dipole.mlon_tilted) for
     tilted/IGRF: the plasmasphere's local-time structure rides the
     field."""
-    check_env(env)
     if env.b_model in ("tilted", "igrf"):
         return dipole.mlon_tilted(theta, phi, env.b_tilt, env.b_tilt_phi)
     return phi

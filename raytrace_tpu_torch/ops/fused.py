@@ -102,7 +102,6 @@ def _ne_and_grads(r, lat, env: medium.EnvParams, mlt=None):
     branch 2 moves with the plasmapause shape and its continuity
     density, branch 3 with the day-night trough level; the GCPM knee
     center and trough move alike)."""
-    medium.check_env(env)
     k = medium_consts(env)
     ni = env.iono_n0 * torch.exp(-env.iono_decay * (r - env.iono_r0))
     ni_r = -env.iono_decay * ni
@@ -502,7 +501,6 @@ def mu_and_grads_3d_medium(r, theta, phi, rho_r, rho_t, rho_p, f,
     with the density, field and wave-normal geometry the chain took, which
     the reference gradient set (ops/gradients.py) feeds to its closed form
     and Kimura chain (Bhat_phi = 0)."""
-    medium.check_env(env)
     lat = math.pi / 2.0 - theta
     sl, cl = torch.sin(lat), torch.cos(lat)
     q2 = 1.0 + 3.0 * sl * sl
@@ -602,7 +600,6 @@ def mu_and_grads_3d_general(r, theta, phi, rho_r, rho_t, rho_p, f,
     Values and partials equal torch.func.grad of dispersion.mu_3d; at
     tilt = 0 they reduce to mu_and_grads_3d's (to rounding: the magnetic
     longitude still passes through atan2)."""
-    medium.check_env(env)
     ((br, bt, bp, mlat, mlon), (br_r, bt_r, bp_r, _, _),
      (br_t, bt_t, bp_t, mlat_t, mlon_t),
      (br_p, bt_p, bp_p, mlat_p, mlon_p)) = field_geometry(r, theta, phi, env)

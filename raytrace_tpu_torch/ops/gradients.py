@@ -79,7 +79,6 @@ def _check_mode(grad_mode):
 def mu_grads_2d_lat(r, lat, chi, f, env: medium.EnvParams, grad_mode=FUSED,
                     root=1.0):
     """(mu, dmu/dr, dmu/dlat, dmu/dpsi, dmu/df) at a latitude-frame state."""
-    medium.check_env(env)
     medium.require_dipole_2d(env)
     _check_mode(grad_mode)
     if grad_mode != AUTODIFF:
@@ -100,7 +99,6 @@ def mu_grads_2d_colat(r, theta, chi, f, env: medium.EnvParams,
     """(mu, dmu/dr, dmu/dtheta, dmu/dpsi, dmu/df) at a colatitude-frame
     state. dip(theta) = dip(lat = pi/2 - theta), so the fused latitude
     chain serves, with dmu/dtheta = -dmu/dlat."""
-    medium.check_env(env)
     medium.require_dipole_2d(env)
     _check_mode(grad_mode)
     if grad_mode != AUTODIFF:
@@ -125,7 +123,6 @@ def mu_grads_3d(r, theta, phi, rho_r, rho_t, rho_p, f,
     the general chain (fused.mu_and_grads_3d_general). The reference
     set (built around the axial dipole's Kimura chain) refuses the
     non-axial fields."""
-    medium.check_env(env)
     _check_mode(grad_mode)
     if grad_mode == REFERENCE:
         require_reference_env(env)

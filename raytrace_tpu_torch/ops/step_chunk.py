@@ -29,6 +29,14 @@ every frame and field: the value chain of ops/dispersion.py over the
 whole medium, evaluated once on dual numbers whose tangents follow
 torch's forward-mode formulas, every medium feature, the species, the
 local ceiling and (2D) legacy_freq_state at run time.
+Two more medium codes take what the JAX package takes beyond its presets'
+media, each in instances of its own so that the others keep their code: a
+plasmasphere or DE weight other than 0 and 1, more than MAX_HARM MLT
+harmonics or more than MAX_SHELLS local-ceiling shells take ANY (the ALTX
+chain, or EXT's over the non-axial fields, with the weights blended and the
+harmonics and shells past those of the parameters read from buffers on
+the card, `_overflow`), and under the autodiff set, the counts take AD_ANY
+(AD blends the weights itself).
 
 Two flags end or start a trace inside the launch: `finish` refines, after
 the attempts, every ray that ends on HIT_EARTH or HIT_EQUATOR
@@ -94,14 +102,17 @@ NVCC_FLAGS = (
 )
 # the source compiles as PARTS objects at once (-DSC_PARTS, -DSC_PART: one
 # per frame, one per non-axial field, one for the reference scripts' modes
-# over the axisymmetric medium, two for them over the extended chain and
-# three for the autodiff set, csrc/step_chunk.cu), linked into one library
-PARTS = 11
+# over the axisymmetric medium, two for them over the extended chain, three
+# for the autodiff set, three for ANY and three for AD_ANY,
+# csrc/step_chunk.cu), linked into one library
+PARTS = 17
 
-# harmonics of the MLT plasmapause shape the kernel takes (kMaxHarm)
+# harmonics of the MLT plasmapause shape that ride in the kernel's
+# parameters (kMaxHarm); the ANY and AD_ANY instances read any further ones
+# from a buffer on the card (_overflow)
 MAX_HARM = 8
-# shells of the local arc ceiling the kernel takes: the knee and up to
-# three ds_local_shells (kMaxShells)
+# shells of the local arc ceiling that ride in its parameters, the knee
+# first (kMaxShells); any further ones likewise
 MAX_SHELLS = 4
 # ion species: protons, He+, O+ (kMaxIon)
 MAX_ION = 3
@@ -125,15 +136,18 @@ _STEPPER_CODE = {"bs3": 0, "dopri5": 1, "rk4": 2}
 _FIELD_CODE = {"dipole": 0, "tilted": 1, "igrf": 2}
 # the kernel's medium codes (medium_code): AXI, FULL, EXT, and ALT and ALTX,
 # the axisymmetric medium and the extended chain under the reference
-# scripts' modes, and AD, any medium and field under the autodiff set
-AXI, FULL, EXT, ALT, ALTX, AD = 0, 1, 2, 3, 4, 5
+# scripts' modes, AD, any medium and field under the autodiff set, and ANY
+# and AD_ANY, the extended chain and the autodiff set at any weight,
+# harmonic count and shell count
+AXI, FULL, EXT, ALT, ALTX, AD, ANY, AD_ANY = 0, 1, 2, 3, 4, 5, 6, 7
+_MEDIUM_NAMES = ("axi", "full", "ext", "alt", "altx", "ad", "any", "ad_any")
 
 
 class StepParams(ctypes.Structure):
     """Scalars passed to the kernel by value (mirror of the C struct
-    StepParams in csrc/step_chunk.cu; every field a double: 123 of
-    them, 984 bytes). The medium codes: AXI (0), FULL (1), EXT (2), ALT
-    (3), ALTX (4) and AD (5, the autodiff set; medium_code)."""
+    StepParams in csrc/step_chunk.cu; 123 doubles and two pointers, 1,000
+    bytes). The medium codes: AXI (0), FULL (1), EXT (2), ALT (3), ALTX
+    (4), AD (5, the autodiff set), ANY (6) and AD_ANY (7; medium_code)."""
 
     _fields_ = [(name, ctypes.c_double) for name in (
         # medium (make_env_lat feature set) and root
@@ -175,6 +189,10 @@ class StepParams(ctypes.Structure):
         # run dtype): the GCPM scale and knee, the duct's width
         ("gcpm_lscale", ctypes.c_double), ("gcpm_knee", ctypes.c_double),
         ("duct_w", ctypes.c_double),
+        # the MLT coefficients past MAX_HARM harmonics and the shells past
+        # MAX_SHELLS ((L, width) pairs), on the card in the run dtype
+        # (_overflow; NULL where there are none)
+        ("mlt_ext", ctypes.c_void_p), ("shell_ext", ctypes.c_void_p),
     ]
 
 
@@ -317,8 +335,7 @@ def ptxas_usage(log):
                  ("bs3", "dopri5", "rk4")[int(m[2])],
                  ("2d_lat", "3d", "2d_colat")[int(m[3])]]
         if m[4] is not None:
-            words.append(("axi", "full", "ext", "alt", "altx",
-                          "ad")[int(m[4])])
+            words.append(_MEDIUM_NAMES[int(m[4])])
         if m[5] is not None and int(m[5]):
             words.append(("dipole", "tilted", "igrf")[int(m[5])])
         if m[6] is not None and int(m[6]):
@@ -353,14 +370,21 @@ def medium_code(env, cfg: SolverConfig = None, grad_mode="fused",
     4 (ALTX): any other medium (FULL or EXT) under either mode, through the
     extended chain; 5 (AD): any medium and field under grad_mode="autodiff"
     (with or without legacy_freq_state), through the value chain on dual
-    numbers. Raises ValueError where the JAX package raises (the reference
-    set over a multi-ion medium or a non-axial field; legacy_freq_state in
-    3D is refused by the frame) and on an unknown grad_mode."""
+    numbers. Beyond the media those take (the plasmasphere and DE weights
+    0 and 1, at most MAX_HARM MLT harmonics and MAX_SHELLS local-ceiling
+    shells: `wide`), 6 (ANY): any medium under the fused or the reference
+    set, through the extended chain under the modes; 7 (AD_ANY): more
+    harmonics or shells under the autodiff set (AD blends any weight).
+    Raises ValueError where the JAX package raises (the reference set over
+    a multi-ion medium or a non-axial field; legacy_freq_state in 3D is
+    refused by the frame) and on an unknown grad_mode."""
     gradients._check_mode(grad_mode)
     if grad_mode == "autodiff":
-        return AD
+        return AD_ANY if wide(env, cfg, weights=False) else AD
     if grad_mode == "reference":
         gradients.require_reference_env(env)
+    if wide(env, cfg):
+        return ANY
     if grad_mode == "reference" or legacy_freq_state:
         return ALT if medium_code(env, cfg) == AXI else ALTX
     if (len(ion_species(env.eta_he, env.eta_o)) > 1
@@ -371,6 +395,16 @@ def medium_code(env, cfg: SolverConfig = None, grad_mode="fused",
             or env.duct_amp != 0.0 or medium.mlt_on(env)
             or env.b_model != "dipole")
     return FULL if full else AXI
+
+
+def wide(env, cfg: SolverConfig = None, weights=True):
+    """Whether env and cfg need the ANY or AD_ANY instances: more than
+    MAX_HARM MLT harmonics, more than MAX_SHELLS local-ceiling shells or
+    (`weights`) a plasmasphere or DE weight other than 0 and 1."""
+    return (_n_harm(env) > MAX_HARM
+            or (cfg is not None and len(_shells(cfg)) > MAX_SHELLS)
+            or (weights and (env.ps_weight not in (0.0, 1.0)
+                             or env.de_weight not in (0.0, 1.0))))
 
 
 def field_code(env):
@@ -413,11 +447,12 @@ def _params(env, cfg: SolverConfig, spec: events.StopSpec, root,
     def pad(xs, n):
         return (ctypes.c_double * n)(*(list(xs) + [0.0] * (n - len(xs))))
 
+    inline = shells[:MAX_SHELLS]
     return StepParams(**{k: float(v) for k, v in vals.items()},
                       ds_local_frac=float(cfg.ds_local_frac),
                       n_shells=float(len(shells)),
-                      shell_l=pad([float(x) for x, _ in shells], MAX_SHELLS),
-                      shell_w=pad([float(w) for _, w in shells], MAX_SHELLS),
+                      shell_l=pad([float(x) for x, _ in inline], MAX_SHELLS),
+                      shell_w=pad([float(w) for _, w in inline], MAX_SHELLS),
                       n_ion=float(len(ions)),
                       ion_fpe2=pad([x for x, _ in ions], MAX_ION),
                       ion_fce=pad([y for _, y in ions], MAX_ION),
@@ -426,13 +461,25 @@ def _params(env, cfg: SolverConfig, spec: events.StopSpec, root,
                       gcpm_lscale=float(env.gcpm_lscale),
                       gcpm_knee=float(env.gcpm_knee),
                       duct_w=float(env.duct_w),
-                      ps_mlt_c=(ctypes.c_double * (1 + 2 * MAX_HARM))(
-                          *(c + [0.0] * (1 + 2 * MAX_HARM - len(c)))),
+                      ps_mlt_c=pad(c[:1 + 2 * MAX_HARM], 1 + 2 * MAX_HARM),
                       b_mom=vec3(*dipole.moment_unit(env.b_tilt,
                                                      env.b_tilt_phi)),
                       b_xm=vec3(*xm), b_ym=vec3(*ym),
                       igrf=(ctypes.c_double * 15)(
                           *(env.igrf_coeffs or (0.0,) * 15)))
+
+
+def _overflow(env, cfg: SolverConfig, dtype, device):
+    """(MLT coefficients, shells) past what the kernel's parameters hold:
+    the coefficients of the harmonics past MAX_HARM, (c, s) of each, and
+    the (L, width) pairs of the shells past MAX_SHELLS, each a tensor of
+    the run dtype on `device` (cast from double, as the kernel casts its
+    parameters), or None where there are none."""
+    extra = ([float(x) for x in env.ps_mlt_c][1 + 2 * MAX_HARM:],
+             [float(v) for shell in _shells(cfg)[MAX_SHELLS:]
+              for v in shell])
+    return tuple(torch.tensor(x, dtype=torch.float64).to(device, dtype)
+                 if x else None for x in extra)
 
 
 def _shells(cfg: SolverConfig):
@@ -461,27 +508,10 @@ def _check(carry: RayCarry, f, env, cfg, spec, stepper, adaptive, frame,
             f"unknown frame {frame!r}; the step kernel has "
             f"{sorted(_FRAME_CODE)}"
         )
-    if len(_shells(cfg)) > MAX_SHELLS:
-        raise ValueError(
-            f"the local arc ceiling has {len(_shells(cfg))} shells (the knee "
-            f"and ds_local_shells); the kernel takes at most {MAX_SHELLS}"
-        )
     n = _FRAME_CODE[frame][1]
     check_supported(cfg, n - 1, adaptive, stepper)
-    medium.check_env(env)
     if frame != "3d":
         medium.require_dipole_2d(env)
-    n_harm = _n_harm(env)
-    if (code == AD and frame == "3d" and medium.mlt_on(env)
-            and n_harm < 1):
-        raise ValueError(
-            "the AD instances take the MLT plasmapause shape with at least "
-            "one harmonic (ps_mlt_harmonics >= 1)")
-    if n_harm > MAX_HARM:
-        raise ValueError(
-            f"the MLT plasmapause shape has {n_harm} harmonics; the kernel "
-            f"takes at most {MAX_HARM} (ps_mlt_harmonics)"
-        )
     if f.dim() != 1 or f.dtype not in (torch.float32, torch.float64):
         raise ValueError("f must be a (B,) float32 or float64 tensor")
     b = f.shape[0]
@@ -570,6 +600,10 @@ class ResidentCarry:
         )
         self._params = _params(env, cfg, spec, root, grad_mode,
                                legacy_freq_state)
+        # kept alive with the carry: the kernel reads them at every launch
+        self._ext = _overflow(env, cfg, f.dtype, f.device)
+        self._params.mlt_ext, self._params.shell_ext = (
+            None if x is None else x.data_ptr() for x in self._ext)
         self._codes = (0 if f.dtype == torch.float32 else 1,
                        _STEPPER_CODE[stepper if adaptive else "rk4"],
                        _FRAME_CODE[frame][0], code, field_code(env))

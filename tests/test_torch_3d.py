@@ -163,22 +163,36 @@ def test_rhs_3d_matches_jax(root):
                f"du[{j}]/dt")
 
 
-def test_unported_3d_media_raise():
+def test_3d_chains_take_fractional_weights_and_refuse_as_jax():
     """The multi-ion composition runs through the 3D chains
-    (tests/test_torch_variants.py holds them to the JAX package); what they
-    still refuse is a fractional plasmasphere weight (make_env gives 0 or
-    1); the reference gradient set (tests/test_torch_reference_mode.py)
-    refuses the multi-ion media and the non-axial fields, as the JAX
-    package does."""
+    (tests/test_torch_variants.py holds them to the JAX package), and so
+    does a fractional plasmasphere weight (make_env gives 0 or 1; an env's
+    _replace any other): mu and its partials as the JAX package's chain
+    gives them at ps_weight = 0.5, within 1e-12 of each output's scale
+    (tests/test_torch_any_medium.py holds every weight and medium); the
+    reference gradient set (tests/test_torch_reference_mode.py) refuses
+    the multi-ion media and the non-axial fields, as the JAX package
+    does."""
     x = torch.ones(2, dtype=torch.float64)
-    for kw, chain in ((dict(ps_mlt=True, eta_he=0.1), fused.mu_and_grads_3d),
-                      (dict(b_model="tilted", eta_o=0.1),
-                       fused.mu_and_grads_3d_general)):
-        env = env_from_numpy(j_make_env(**kw)._asdict())
+    pts = _points(41, n=64)
+    for kw, chain, j_chain in (
+            (dict(ps_mlt=True, eta_he=0.1), fused.mu_and_grads_3d,
+             j_fused.mu_and_grads_3d),
+            (dict(b_model="tilted", eta_o=0.1),
+             fused.mu_and_grads_3d_general,
+             j_fused.mu_and_grads_3d_general)):
+        je = j_make_env(**kw)
+        env = env_from_numpy(je._asdict())
         mu, grads = chain(x, x, x, x, x, x, x * 1e3, env)
         assert bool(torch.isfinite(mu).all())
-        with pytest.raises(NotImplementedError, match="0 or 1"):
-            chain(x, x, x, x, x, x, x * 1e3, env._replace(ps_weight=0.5))
+        half, j_half = env._replace(ps_weight=0.5), je._replace(ps_weight=0.5)
+        mu, grads = chain(*map(torch.tensor, pts), half)
+        jmu, jgrads = jax.vmap(lambda *a: j_chain(*a, j_half))(
+            *map(jnp.asarray, pts))
+        for got, want in zip((mu, *grads), (jmu, *jgrads)):
+            want = np.asarray(want)
+            assert float(np.abs(got.numpy() - want).max()) <= (
+                1e-12 * float(np.abs(want).max()))
     mu, grads = gradients.mu_grads_3d(x, x, x, x, x, x, x * 1e3, _envs()[1],
                                       grad_mode="reference")
     assert bool(torch.isfinite(mu).all()) and bool((grads[0] == 0).all())

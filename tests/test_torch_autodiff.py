@@ -435,12 +435,36 @@ def test_medium_code_and_refusals():
     with pytest.raises(ValueError, match="3D-only"):
         gradients.mu_grads_2d_lat(u2[:, 0], u2[:, 1], u2[:, 2], f, tilted,
                                   "autodiff")
-    # the MLT plasmapause needs a harmonic in the AD instances' chain (the
-    # value chain's mlt_ps_params takes a tensor shape)
+    # the MLT plasmapause at 0 harmonics, a constant shape (a tensor
+    # without a tangent in the value chain): the AD instances take it, and
+    # the step chunk's plain version over it is the JAX package's vmapped
+    # _step_one over its autodiff right-hand side (8 dopri5 steps from the
+    # same carry, 1e-12 of each component's scale)
     flat = medium.make_env(b0=B0_3D, ps_mlt=True, ps_mlt_harmonics=0)
-    with pytest.raises(ValueError, match="harmonic"):
-        sc.step_chunk(carry, f, flat, cfg, StopSpec(), stepper="bs3",
-                      n_steps=2, frame="3d", grad_mode="autodiff")
+    j_flat = j_medium.make_env(b0=B0_3D, ps_mlt=True, ps_mlt_harmonics=0)
+    assert env_from_numpy(j_flat._asdict()) == flat
+    assert sc.medium_code(flat, cfg, "autodiff") == sc.AD
+    rf = lambda u, ff: j_rhs.rhs_3d(u, ff, j_flat,  # noqa: E731
+                                    grad_mode="autodiff")
+    j_cfg, j_spec = JSolverConfig(), JStopSpec()
+    want = jax.vmap(lambda u, ff: j_init_carry(rf, u, ff, j_cfg))(
+        jnp.asarray(u0.numpy()), jnp.asarray(f.numpy()))
+    carry0 = _port_args(j_flat, j_cfg, j_spec, want, f.numpy())[0]
+    step = jax.jit(jax.vmap(partial(j_step_one, rf, cfg=j_cfg, spec=j_spec,
+                                    group_idx=6, adaptive=True,
+                                    stepper="dopri5")))
+    for _ in range(8):
+        want = step(want, jnp.asarray(f.numpy()))
+    got = carry_to_numpy(sc.step_chunk(
+        carry0, f, flat, cfg, StopSpec(), stepper="dopri5", n_steps=8,
+        frame="3d", grad_mode="autodiff"))
+    for name in ("status", "n_accept", "n_reject"):
+        np.testing.assert_array_equal(got[name],
+                                      np.asarray(getattr(want, name)))
+    for name in ("u", "k1", "t", "dt"):
+        w = np.asarray(getattr(want, name))
+        scale = np.maximum(np.abs(w).max(axis=0), 1e-300)
+        assert (np.abs(got[name] - w) <= 1e-12 * scale).all(), name
     # the rounds tracer takes the set in every frame
     ensemble.make_rounds_tracer(plume, device="cpu", dtype=torch.float64,
                                 frame="3d", grad_mode="autodiff")

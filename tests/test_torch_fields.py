@@ -145,7 +145,8 @@ def test_make_env_fields_match_jax(kw):
                                        rtol=1e-15, atol=0, err_msg=field)
     ce = env_from_numpy(je._asdict())
     assert ce == te
-    medium.check_env(ce)
+    assert bool(torch.isfinite(medium.ne_total_m3(
+        torch.full((2,), 2.0), torch.zeros(2), ce)).all())
     assert isinstance(ce.igrf_coeffs, tuple)
     assert all(type(c) is float for c in ce.igrf_coeffs)
     assert len(ce.igrf_coeffs) == (15 if te.b_model == "igrf" else 0)

@@ -104,6 +104,7 @@ inline void emu_launch(unsigned blocks, int threads,
 
 MAIN = r"""
 #include "stub.h"
+#include <cstddef>
 #include <cstdio>
 #include <cstdint>
 #include <cstring>
@@ -131,6 +132,19 @@ int main(int argc, char** argv) {
   }
   char hp[sizeof(team_ns::StepParams)];
   fread(hp, 1, sizeof hp, fh);
+  // the MLT coefficients and the shells past the parameters' (a count,
+  // then the values in the run dtype): their pointers into hp
+  std::vector<char> ext[2];
+  const size_t at[2] = {offsetof(team_ns::StepParams, mlt_ext),
+                        offsetof(team_ns::StepParams, shell_ext)};
+  for (int e = 0; e < 2; ++e) {
+    int64_t cnt;
+    fread(&cnt, 8, 1, fh);
+    ext[e].resize(cnt * it);
+    fread(ext[e].data(), 1, ext[e].size(), fh);
+    const void* ptr = cnt ? ext[e].data() : nullptr;
+    memcpy(hp + at[e], &ptr, sizeof ptr);
+  }
   fclose(fh);
   auto run = [&](bool team) {
     auto bufs = in;
@@ -337,9 +351,11 @@ _ORDER = (*sc._VEC, "t", "dt", "errold", "dt_prev", *sc._INT)
 
 
 def _host_run(host_kernel, case, carry, f, codes, n_steps, params, flags=0,
-              out=True):
+              out=True, ext=(None, None)):
     """One launch of the host build, through both bodies: flags 1 =
-    finish, 2 = fresh. Returns (the one-thread body's output carry as
+    finish, 2 = fresh; ext: the MLT coefficients and shells past the
+    parameters' (step_chunk._overflow on the CPU). Returns (the one-thread
+    body's output carry as
     {field: numpy array}, or None without `out`; the program's counts:
     team_warps, thread_warps, differ (values the two bodies' outputs
     differ in), stopped, attempts)."""
@@ -356,6 +372,10 @@ def _host_run(host_kernel, case, carry, f, codes, n_steps, params, flags=0,
                      .tobytes())
         fh.write(np.ascontiguousarray(f.numpy()).tobytes())
         fh.write(bytes(params))
+        for x in ext:
+            fh.write(np.int64(0 if x is None else x.numel()).tobytes())
+            if x is not None:
+                fh.write(x.numpy().tobytes())
     out_path = host_kernel / f"{case}_{n_steps}_{flags}.out"
     proc = subprocess.run([str(host_kernel / "kernel_host"), str(path)]
                           + ([str(out_path)] if out else []),
@@ -378,10 +398,12 @@ def _host_run(host_kernel, case, carry, f, codes, n_steps, params, flags=0,
     return got, stats
 
 
-def _host_launch(host_kernel, case, carry, f, codes, n_steps, params):
+def _host_launch(host_kernel, case, carry, f, codes, n_steps, params,
+                 ext=(None, None)):
     """One launch of the host build; returns the one-thread body's output
     carry as {field: numpy array}."""
-    return _host_run(host_kernel, case, carry, f, codes, n_steps, params)[0]
+    return _host_run(host_kernel, case, carry, f, codes, n_steps, params,
+                     ext=ext)[0]
 
 
 # the ALTX instances (the extended chain under the modes): the MLT plume
@@ -417,13 +439,16 @@ ALTX_CASES = {
 
 def _hold_to_plain(host_kernel, case, case_spec, code):
     """One case of ALT_CASES or ALTX_CASES (case_spec) through the host build,
-    whose medium code must be `code`, against the plain version."""
-    name, stepper, every, grad_mode, legacy, over = case_spec
+    whose medium code must be `code`, against the plain version. A case
+    spec may end in two more dicts: fields of the built env and of the
+    SolverConfig to replace."""
+    name, stepper, every, grad_mode, legacy, over, *more = case_spec
+    env_over, cfg_over = (*more, {}, {})[:2]
     conf = preset(name, dtype="float64", **over)
-    env = conf.medium.build()
+    env = conf.medium.build()._replace(**env_over)
     u0, f = _build_u0(conf, env, np.float64, torch.device("cpu"))
     u0, f = torch.as_tensor(u0[::every]), torch.as_tensor(f[::every])
-    cfg, spec = conf.solver(), conf.stop()
+    cfg, spec = conf.solver()._replace(**cfg_over), conf.stop()
     kw = dict(frame=conf.frame, root=conf.root, adaptive=conf.adaptive,
               grad_mode=grad_mode, legacy_freq_state=legacy)
     rhs_fn = rhs_mod.frame_rhs(conf.frame, env, conf.root, grad_mode,
@@ -434,13 +459,14 @@ def _hold_to_plain(host_kernel, case, case_spec, code):
              sc.medium_code(env, cfg, grad_mode, legacy), sc.field_code(env)]
     assert codes[2] == code
     params = sc._params(env, cfg, spec, conf.root, grad_mode, legacy)
+    ext = sc._overflow(env, cfg, f.dtype, "cpu")
     nudged = sc.step_chunk_reference(
         init_carry(rhs_fn, torch.nextafter(u0, torch.full_like(u0, np.inf)),
                    f, cfg), f, env, cfg, spec, stepper=stepper, n_steps=8,
         **kw)
     for n_steps, rtol in ((1, 1e-13), (8, 1e-6)):
         got = _host_launch(host_kernel, case, carry, f, codes, n_steps,
-                           params)
+                           params, ext)
         ref = sc.step_chunk_reference(carry, f, env, cfg, spec,
                                       stepper=stepper, n_steps=n_steps,
                                       **kw)
@@ -531,6 +557,104 @@ def test_ad_instances_match_plain_version_on_the_host(host_kernel, case):
     spread. A mutated tangent rule or a wrong constant of the chain misses
     by orders of magnitude more (a wrong IGRF coefficient: 1.0)."""
     _hold_to_plain(host_kernel, case, AD_CASES[case], sc.AD)
+
+
+# The media and step ceilings the kernel once refused: fractional
+# plasmasphere and DE weights, MLT shapes of 0 and 12 harmonics (the
+# coefficients past the parameters' eight from their buffer), six
+# local-ceiling shells (four in the parameters, two from the buffer). Over
+# (medium fields, env fields) of the plume: at 12 harmonics and at the
+# weights the launch takes the ANY instance, on the one-thread body in
+# both builds; MLT GCPM at 0 harmonics keeps the FULL instance, whose team
+# body must match the one-thread body bit for bit
+_PLUME_MLT = dict(b0=B0_3D, ps_mlt=True)
+ANY_MEDIA = {
+    "h12": (dict(_PLUME_MLT, ps_mlt_harmonics=12), {}),
+    "gcpm_h0": (dict(_PLUME_MLT, ps_mlt_harmonics=0, ps_model="gcpm"), {}),
+    "weights": (dict(_PLUME_MLT, de_correction=True, ps_smooth=0.05),
+                dict(ps_weight=0.5, de_weight=0.5)),
+}
+
+
+@pytest.mark.parametrize("dtype,stepper", [("float32", "bs3"),
+                                           ("float64", "dopri5")])
+@pytest.mark.parametrize("medium", sorted(ANY_MEDIA))
+def test_team_body_takes_any_medium_on_the_host(host_kernel, medium, dtype,
+                                                stepper):
+    med, env_over = ANY_MEDIA[medium]
+    conf = preset("ensemble10k_plume", dtype=dtype,
+                  medium=MediumConfig(**med))
+    env = conf.medium.build()._replace(**env_over)
+    np_dt = np.float32 if dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, torch.device("cpu"))
+    u0, f = torch.as_tensor(u0[::160]), torch.as_tensor(f[::160])
+    cfg, spec = conf.solver(), conf.stop()
+    codes = [sc._STEPPER_CODE[stepper], sc._FRAME_CODE["3d"][0],
+             sc.medium_code(env, cfg), sc.field_code(env)]
+    team = medium == "gcpm_h0"
+    assert codes[2] == (sc.FULL if team else sc.ANY)
+    carry = init_carry(rhs_mod.frame_rhs("3d", env)[0], u0, f, cfg)
+    _, got = _host_run(host_kernel, f"any_{medium}_{dtype}", carry, f, codes,
+                       32, sc._params(env, cfg, spec, conf.root), out=False,
+                       ext=sc._overflow(env, cfg, f.dtype, "cpu"))
+    assert got["team_warps"] == (4 if team else 0) and got["differ"] == 0
+    assert got["attempts"] == 32 * f.shape[0]
+
+
+# ... and each instance against the plain version, as the ALTX instances
+# are held (the last two dicts: env fields and SolverConfig fields to
+# replace): ANY in 2D at ps_weight 0.5 and in the colatitude frame at
+# de_weight 0.5, in 3D at 12 harmonics, over the tilted dipole at both
+# weights, with six shells, and under the reference set at ps_weight 0.5;
+# AD in 3D at 0 harmonics and in 2D at both weights; AD_ANY in 3D at 12
+# harmonics and in 2D with six shells (the six shells at a hundredth of
+# the ceiling, which then sets every step, so that the shells past the
+# parameters' four bind on the fan's high-latitude rays)
+_SIX_SHELLS = dict(ds_local_shells=((2.5, 0.05), (3.0, 0.1), (3.5, 0.1),
+                                    (5.0, 0.2), (6.0, 0.3)))
+_H12 = MediumConfig(**ANY_MEDIA["h12"][0])
+_H0 = MediumConfig(b0=B0_3D, ps_mlt=True, ps_mlt_harmonics=0)
+_DE_2D = MediumConfig(b0=B0_2D, de_correction=True)
+_HALF = dict(ps_weight=0.5, de_weight=0.5)
+_DE_TILTED = MediumConfig(b0=B0_3D, b_model="tilted", b_tilt=0.2,
+                          de_correction=True)
+_SIX_LOCAL = dict(_SIX_SHELLS, ds_local_frac=0.01)
+ANY_CASES = {
+    "lat_ps_half_f64_bs3": (sc.ANY, ("ensemble10k", "bs3", 100, "fused",
+                                     False, {}, dict(ps_weight=0.5))),
+    "colat_de_half_f64_dopri5": (sc.ANY, (
+        "ensemble10k", "dopri5", 100, "fused", False,
+        dict(frame="2d_colat", medium=_DE_2D), dict(de_weight=0.5))),
+    "plume_h12_f64_bs3": (sc.ANY, ("ensemble10k_plume", "bs3", 100, "fused",
+                                   False, dict(medium=_H12))),
+    "tilted_half_f64_rk4": (sc.ANY, (
+        "ensemble10k_tilted", "bs3", 100, "fused", False,
+        dict(medium=_DE_TILTED, adaptive=False, dt0=1.0e-3), _HALF)),
+    "local_six_shells_f64_bs3": (sc.ANY, ("ensemble10k_local", "bs3", 100,
+                                          "fused", False, {}, {},
+                                          _SIX_LOCAL)),
+    "plume_ps_half_ref_f64_bs3": (sc.ANY, (
+        "ensemble10k_plume", "bs3", 100, "reference", False, {},
+        dict(ps_weight=0.5))),
+    "ad_plume_h0_f64_bs3": (sc.AD, ("ensemble10k_plume", "bs3", 100,
+                                    "autodiff", False, dict(medium=_H0))),
+    "ad_plume_h12_f64_dopri5": (sc.AD_ANY, (
+        "ensemble10k_plume", "dopri5", 100, "autodiff", False,
+        dict(medium=_H12))),
+    "ad_lat_half_f64_bs3": (sc.AD, ("ensemble10k", "bs3", 100, "autodiff",
+                                    False, dict(medium=_DE_2D), _HALF)),
+    "ad_local_six_shells_f64_bs3": (sc.AD_ANY, (
+        "ensemble10k_local", "bs3", 100, "autodiff", False, {}, {},
+        _SIX_LOCAL)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ANY_CASES))
+def test_instances_take_any_medium_on_the_host(host_kernel, case):
+    """The ANY, AD and AD_ANY instances over the media and ceilings above
+    against step_chunk_reference, as the ALTX instances are held."""
+    code, spec = ANY_CASES[case]
+    _hold_to_plain(host_kernel, case, spec, code)
 
 
 # The trace's end inside the launch (finish: refine_events after the loop;

@@ -106,9 +106,10 @@ def test_plasmasphere_density_and_de_factor():
 
 
 # the multi-ion composition, alone and under the other media and the
-# fields: make_env builds it as the JAX package does; what the port still
-# refuses where a medium is used is a fractional plasmasphere weight
-# (make_env gives 0 or 1)
+# fields: make_env builds it as the JAX package does, and the density takes
+# a fractional plasmasphere weight (make_env gives 0 or 1; an env's
+# _replace any other) as the JAX package does, with the longitude of the
+# MLT-resolved medium where it has one
 @pytest.mark.parametrize("kw", [
     dict(eta_o=0.1), dict(b_model="igrf", eta_he=0.2),
     dict(ps_model="gcpm", eta_he=0.1),
@@ -118,12 +119,24 @@ def test_plasmasphere_density_and_de_factor():
          eta_o=0.1),
     dict(eta_he=0.05, eta_o=0.05),
 ])
-def test_unported_medium_gates_raise(kw):
+def test_fractional_plasmasphere_weight_matches_jax(kw):
     env = medium.make_env(**kw)
-    assert env == env_from_numpy(j_medium.make_env(**kw)._asdict())
-    with pytest.raises(NotImplementedError, match="0 or 1"):
-        medium.ne_total_m3(torch.ones(2), torch.zeros(2),
-                           env._replace(ps_weight=0.5))
+    je = j_medium.make_env(**kw)
+    assert env == env_from_numpy(je._asdict())
+    r, lat = _points(9)
+    phi = np.random.default_rng(10).uniform(-3.0, 3.0, r.size)
+    for w in (0.5, 1.0):
+        got = medium.ne_total_m3(torch.tensor(r), torch.tensor(lat),
+                                 env._replace(ps_weight=w),
+                                 phi=torch.tensor(phi))
+        want = j_medium.ne_total_m3(jnp.asarray(r), jnp.asarray(lat),
+                                    je._replace(ps_weight=w),
+                                    phi=jnp.asarray(phi))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=RTOL)
+        if w == 0.5:
+            half = got
+    assert bool((half < got).all())     # half the plasmasphere
 
 
 # ---- the colatitude magnitude and the signed mu^2 (tests/test_models.py:

@@ -211,16 +211,17 @@ def test_field_preset_json_equals_jax(name):
 def test_kernel_parameters_carry_the_field(name):
     """The scalars the kernel takes by value: the moment unit vector, the
     two rotated axes of the magnetic longitude (the host functions the
-    plain version calls) and the 15 Schmidt coefficients, among 984 bytes
-    in all (with the local ceiling's shells, the ion species, the
-    reference scripts' two mode flags and the three divisors of the AD
-    instances' value chain)."""
+    plain version calls) and the 15 Schmidt coefficients, among 1,000
+    bytes in all (with the local ceiling's shells, the ion species, the
+    reference scripts' two mode flags, the three divisors of the AD
+    instances' value chain and the pointers to the MLT coefficients and
+    shells past those the parameters hold)."""
     import ctypes
 
     conf = t_config.preset(name)
     env = conf.medium.build()
     p = sc._params(env, conf.solver(), conf.stop(), 1.0)
-    assert ctypes.sizeof(p) == 984
+    assert ctypes.sizeof(p) == 1000
     xm, ym = dipole.mlon_axes(env.b_tilt, env.b_tilt_phi)
     assert tuple(p.b_mom) == dipole.moment_unit(env.b_tilt, env.b_tilt_phi)
     assert tuple(p.b_xm) == xm and tuple(p.b_ym) == ym

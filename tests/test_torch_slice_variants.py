@@ -18,7 +18,6 @@ import torch
 import raytrace_tpu.config as j_config
 import raytrace_tpu.run as j_run
 import raytrace_tpu_torch.config as t_config
-import raytrace_tpu_torch.run as t_run
 from raytrace_tpu.integrate.solve import _step_one as j_step_one
 from raytrace_tpu.integrate.solve import init_carry as j_init_carry
 from raytrace_tpu.parallel.ensemble import _frame_rhs as j_frame_rhs
@@ -207,14 +206,34 @@ def test_kernel_parameters_carry_the_variants():
     assert sc.medium_code(base.medium.build(), cfg) == 2
     assert sc.medium_code(env._replace(eta_he=0.0, eta_o=0.0)) == 1
     assert sc.medium_code(base.medium.build(), base.solver()) == 0
-    # more shells than the kernel takes are refused before any launch
-    from raytrace_tpu_torch.integrate.solve import init_carry
-    from raytrace_tpu_torch.ops import rhs
-
-    u0, f = t_run._build_u0(conf, env, np.float64, torch.device("cpu"))
-    u0, f = torch.tensor(u0[:8]), torch.tensor(f[:8])
-    carry = init_carry(rhs.frame_rhs("2d_lat", env)[0], u0, f, cfg)
-    too_many = cfg._replace(ds_local_shells=((3.0, 0.1),) * sc.MAX_SHELLS)
-    with pytest.raises(ValueError, match="shells"):
-        sc.step_chunk(carry, f, env, too_many, conf.stop(), stepper="bs3",
-                      n_steps=1)
+    # more shells than the kernel's parameters hold: the first MAX_SHELLS
+    # ride there, the rest in a buffer on the card (_overflow), and the
+    # step chunk's plain version over them is the JAX package's (dopri5 at
+    # 1e-12 with the ceiling setting every step, as
+    # test_step_chunk_variant_matches_jax_steps holds the local case)
+    many = cfg._replace(ds_local_shells=((3.0, 0.1),) * sc.MAX_SHELLS)
+    p = sc._params(env, many, conf.stop(), -1.0)
+    assert p.n_shells == 1.0 + sc.MAX_SHELLS
+    assert list(p.shell_l) == [env.lppo] + [3.0] * (sc.MAX_SHELLS - 1)
+    assert sc._overflow(env, many, torch.float64, "cpu")[1].tolist() == [
+        3.0, 0.1]
+    j_conf = j_config.preset("ensemble10k_local", **CUT, **LOCAL)
+    j_conf.medium.duct_amp = 0.5
+    j_conf.medium.eta_he, j_conf.medium.eta_o = MULTI_ION.values()
+    j_env = j_conf.medium.build()
+    assert env_from_numpy(j_env._asdict()) == env
+    j_many = j_conf.solver()._replace(
+        ds_local_shells=((3.0, 0.1),) * sc.MAX_SHELLS)
+    u0, f = j_run._build_u0(j_conf, np.float64)
+    rf, gidx = j_frame_rhs("2d_lat", j_env, "fused", 1.0, False)
+    carry0 = jax.vmap(lambda u, ff: j_init_carry(rf, u, ff, j_many))(
+        jnp.asarray(u0), jnp.asarray(f))
+    step = jax.jit(jax.vmap(partial(j_step_one, rf, cfg=j_many,
+                                    spec=j_conf.stop(), group_idx=gidx,
+                                    adaptive=True, stepper="dopri5")))
+    want = carry0
+    for _ in range(24):
+        want = step(want, jnp.asarray(f))
+    got = sc.step_chunk(*_port_args(j_env, j_many, j_conf.stop(), carry0, f),
+                        stepper="dopri5", n_steps=24)
+    _assert_carries(carry_to_numpy(got), want, 1e-12)

@@ -127,16 +127,11 @@ def _small_carry(n=8, dtype=torch.float64):
 
 # what the kernel does not take: the steppers that were never in it (an
 # adaptive ros3pr or heun2; with adaptive=False any stepper runs rk4), an
-# unknown frame, more local-ceiling shells than it holds, a medium the
-# port refuses (a fractional plasmasphere weight), more MLT harmonics than
-# it holds, and carries of the wrong type, shape or device
+# unknown frame, and carries of the wrong type, shape or device
 @pytest.mark.parametrize("case,exc", [
     ("stepper", ValueError),
     ("frame", ValueError),
-    ("ds_local", ValueError),
     ("heun2", ValueError),
-    ("medium", NotImplementedError),
-    ("harmonics", ValueError),
     ("dtype", ValueError),
     ("shape", ValueError),
     ("int_field", ValueError),
@@ -149,15 +144,8 @@ def test_step_chunk_refuses_what_the_kernel_does_not_take(case, exc):
         kw["stepper"] = "ros3pr"
     elif case == "frame":
         kw["frame"] = "2d_meridian"
-    elif case == "ds_local":
-        cfg = cfg._replace(ds_local_knee=4.0,
-                           ds_local_shells=((3.0, 0.1),) * sc.MAX_SHELLS)
     elif case == "heun2":
         kw["stepper"] = "heun2"
-    elif case == "medium":
-        env = env._replace(ps_weight=0.5)
-    elif case == "harmonics":   # the kernel takes at most MAX_HARM
-        env = env._replace(ps_mlt=1.0, ps_mlt_c=(1.0,) + (0.0,) * 18)
     elif case == "dtype":
         carry = carry._replace(t=carry.t.float())
     elif case == "shape":
@@ -168,6 +156,67 @@ def test_step_chunk_refuses_what_the_kernel_does_not_take(case, exc):
         f = f.to("meta")
     with pytest.raises(exc):
         sc.step_chunk(carry, f, env, cfg, spec, **kw)
+
+
+# what the kernel once refused and takes now, held to the JAX package's
+# vmapped _step_one loop (24 dopri5 steps, 1e-12, as above): a fractional
+# plasmasphere weight (the 2D launch of _jax_setup), the local arc ceiling
+# over the knee and MAX_SHELLS more shells (the same launch), and the MLT
+# plasmapause shape of 12 harmonics, past the MAX_HARM that ride in the
+# kernel's parameters (the 3D plume launch at the ds_max ceiling, where the
+# ceiling sets the steps: tests/test_torch_slice_mlt.py)
+@pytest.mark.parametrize("case", ["medium", "ds_local", "harmonics"])
+def test_step_chunk_takes_what_it_once_refused(case):
+    from raytrace_tpu import config as j_config
+    from raytrace_tpu import run as j_run
+    from raytrace_tpu.models import make_env as j_make_env
+
+    env, _, cfg, spec, carry0, f = _jax_setup()
+    group_idx, frame = 3, "2d_lat"
+    if case == "medium":
+        env = env._replace(ps_weight=0.5)
+    elif case == "ds_local":
+        cfg = cfg._replace(ds_local_knee=4.0, ds_local_shells=tuple(
+            (3.0 + 0.5 * k, 0.1) for k in range(sc.MAX_SHELLS)))
+    else:
+        run_cfg = j_config.preset(
+            "ensemble10k_plume", dtype="float64", lats=(0.8, 1.0),
+            phis=(-2.0, 0.0, 2.0), chis=(-0.2, 0.2), freqs=(2000.0,),
+            dt0=1e-4, ds_max=0.002)
+        env = j_make_env(b0=3.12e-5, ps_mlt=True, ps_mlt_harmonics=12)
+        u0, f = j_run._build_u0(run_cfg, np.float64)
+        f = jnp.asarray(f)
+        cfg, spec = run_cfg.solver(), run_cfg.stop()
+        group_idx, frame = 6, "3d"
+    rhs_fn = {3: lambda u, ff: j_rhs.rhs_2d_lat(u, ff, env),
+              6: lambda u, ff: j_rhs.rhs_3d(u, ff, env)}[group_idx]
+    if case == "harmonics":
+        carry0 = jax.vmap(lambda u, ff: j_init_carry(rhs_fn, u, ff, cfg))(
+            jnp.asarray(u0), f)
+    step = jax.jit(jax.vmap(partial(j_step_one, rhs_fn, cfg=cfg, spec=spec,
+                                    group_idx=group_idx, adaptive=True,
+                                    stepper="dopri5")))
+    ref = carry0
+    for _ in range(N_STEPS):
+        ref = step(ref, f)
+    carry, ft, te, tcfg, tspec = _port_args(env, cfg, spec, carry0, f)
+    assert sc.medium_code(te, tcfg) == sc.ANY
+    got = carry_to_numpy(sc.step_chunk(carry, ft, te, tcfg, tspec,
+                                       stepper="dopri5", n_steps=N_STEPS,
+                                       frame=frame))
+    for name in RayCarry._fields:
+        want = np.asarray(getattr(ref, name))
+        if want.dtype.kind == "i":
+            np.testing.assert_array_equal(got[name], want, err_msg=name)
+        elif want.ndim == 2:   # per component against its scale
+            scale = np.maximum(np.abs(want).max(axis=0), 1e-300)
+            atol = 1e-12 if name == "u_lo" else 0.0
+            assert (np.abs(got[name] - want) <= 1e-12 * scale + atol).all(), \
+                name
+        else:
+            np.testing.assert_allclose(got[name], want, rtol=1e-12,
+                                       atol=1e-12 if name == "errold" else 0,
+                                       err_msg=name)
 
 
 def test_step_chunk_does_not_touch_its_input():
@@ -248,6 +297,58 @@ def test_ptxas_usage_names_the_ad_instances():
     assert census.instance_key("_ZN12_GLOBAL__N_117step_chunk_kernelIfLi0"
                                "ELi2ELi5ELi0ELi0EEEvPT_") == (
         "float bs3 2d_colat ad")
+
+
+def test_ptxas_usage_names_the_wide_instances():
+    """The ANY and AD_ANY instances (media 6 and 7) are named "any" and
+    "ad_any", with their field where it is not the dipole."""
+    from raytrace_tpu_torch import sass_census as census
+
+    assert census.instance_key("_ZN12_GLOBAL__N_117step_chunk_kernelIfLi0"
+                               "ELi1ELi6ELi1ELi0EEEvPT_") == (
+        "float bs3 3d any tilted")
+    assert census.instance_key("_ZN12_GLOBAL__N_117step_chunk_kernelIdLi2"
+                               "ELi0ELi7ELi0ELi0EEEvPT_") == (
+        "double rk4 2d_lat ad_any")
+
+
+# which instances a medium beyond the presets' takes (medium_code): the
+# weights other than 0 and 1, more MLT harmonics or more local-ceiling
+# shells than the kernel's parameters hold take ANY under the fused and
+# the reference sets and legacy_freq_state, and the counts take AD_ANY
+# under the autodiff set, which blends the weights in AD; a shape of no
+# harmonic and the presets' media keep their instances
+_PLUME = dict(b0=3.12e-5, ps_mlt=True)
+_KNEE = dict(ds_local_knee=4.0)
+
+
+@pytest.mark.parametrize("env_kw,cfg_kw,codes", [
+    ({}, {}, (sc.AXI, sc.ALT, sc.ALT, sc.AD)),
+    (dict(ps_weight=0.5), {}, (sc.ANY, sc.ANY, sc.ANY, sc.AD)),
+    (dict(de_weight=0.25), {}, (sc.ANY, sc.ANY, sc.ANY, sc.AD)),
+    (dict(_PLUME, ps_mlt_harmonics=0), {}, (sc.FULL, sc.ALTX, sc.ALTX,
+                                            sc.AD)),
+    (dict(_PLUME, ps_mlt_harmonics=sc.MAX_HARM), {}, (sc.FULL, sc.ALTX,
+                                                      sc.ALTX, sc.AD)),
+    (dict(_PLUME, ps_mlt_harmonics=sc.MAX_HARM + 1), {},
+     (sc.ANY, sc.ANY, sc.ANY, sc.AD_ANY)),
+    ({}, dict(_KNEE, ds_local_shells=((3.0, 0.1),) * (sc.MAX_SHELLS - 1)),
+     (sc.EXT, sc.ALTX, sc.ALTX, sc.AD)),
+    ({}, dict(_KNEE, ds_local_shells=((3.0, 0.1),) * sc.MAX_SHELLS),
+     (sc.ANY, sc.ANY, sc.ANY, sc.AD_ANY)),
+])
+def test_medium_code_takes_the_wide_instances(env_kw, cfg_kw, codes):
+    from raytrace_tpu_torch.models import medium
+
+    weights = {k: env_kw.pop(k) for k in ("ps_weight", "de_weight")
+               if k in env_kw}
+    env = medium.make_env(**{"b0": 3.12e-5, **env_kw})._replace(**weights)
+    cfg = SolverConfig()._replace(**cfg_kw)
+    got = (sc.medium_code(env, cfg), sc.medium_code(env, cfg, "reference"),
+           sc.medium_code(env, cfg, "fused", True),
+           sc.medium_code(env, cfg, "autodiff"))
+    assert got == codes
+    assert sc.wide(env, cfg) == (sc.ANY in codes)
 
 
 def test_sass_census_counts_the_attempt_loop():
