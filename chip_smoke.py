@@ -242,8 +242,8 @@ import numpy as np
 
 # attempts of a check against the plain version outside the main path's
 # first launch: over an instance's whole launch, and over every 10th ray
-SIDE_N = 128
-CUT_N = 32
+SIDE_N = 64
+CUT_N = 16
 
 # the TPU float32 record of ensemble10k (benchmarks/perf_r03b.json ->
 # auto_bs3_1x): physics, not speed
@@ -1889,10 +1889,14 @@ def field_cost(dtype_name, stepper, dev, card, n=512, reps=5):
     return res
 
 
-def field_slice(name, card):
+def field_slice(name, card, census):
     """Phases 12 and 13: a non-axial-field preset through run.run in
-    float32 and float64 against FIELD_PINS. Returns the float32 run's
-    kernel launches."""
+    float32 and float64 against FIELD_PINS; the float32 run's launches in
+    the tail layout (its merged tail) through the team body and the others
+    through the one-thread body, then its merged tail replayed
+    (tail_timing) and held in both bodies (tail_layouts, with (a)-(e) in
+    cycles an attempt). Returns the float32 run's kernel launches, the
+    tail's replay and tail_layouts' record."""
     from raytrace_tpu_torch.config import preset
 
     pin = FIELD_PINS[name]
@@ -1906,6 +1910,13 @@ def field_slice(name, card):
     n_hit = int(stats["n_hit_earth"])
     check(launches32 > 0, "the slice stepped through the kernel")
     check(ref_calls == 0, "the plain version was not called")
+    check(drive.sparse_launches > 0
+          and drive.team_launches == drive.sparse_launches,
+          f"{name} float32: its {drive.sparse_launches} launch(es) in the "
+          f"tail layout through the team body, the other "
+          f"{launches32 - drive.sparse_launches} through the one-thread body")
+    tail = tail_timing(f"{name} float32", card)
+    latency = tail_layouts(f"{name} float32", conf, card, census)
     check(abs(n_hit - pin["rec_hit"]) <= FIELD_HIT_RTOL * pin["rec_hit"],
           f"HIT_EARTH {n_hit} within {FIELD_HIT_RTOL:.0%} of the TPU record "
           f"{pin['rec_hit']} (the JAX package on a CPU: "
@@ -1955,32 +1966,66 @@ def field_slice(name, card):
           f"own: {pin['jax_match']:.2%})")
     check(med_rel < FIELD_F32_F64_MEDIAN_DL,
           f"median relative landing-L error < {FIELD_F32_F64_MEDIAN_DL:g}")
-    return launches32
+    return launches32, tail, latency
 
 
 def general_field_kernels(dev, card):
     """Phase 11. Returns {field: (max abs err, timing dict)} of the two
-    float32 bs3 instances, the ones on the main paths of phases 12-13."""
+    float32 bs3 instances, the ones on the main paths of phases 12-13
+    (their launches in the tail layout, of at most
+    step_chunk.layout_limit(True) = 264 rays, run on the team body, the
+    wider ones on the one-thread body; their float64, dopri5 and rk4
+    siblings keep the one-thread body)."""
     from raytrace_tpu_torch.config import MediumConfig
     from raytrace_tpu_torch.constants import B0_3D
     from raytrace_tpu_torch.ops import step_chunk as sc
 
     fields = {"tilted": "ensemble10k_tilted", "igrf": "ensemble10k_igrf"}
+    for k, code in (("tilted", 1), ("igrf", 2)):
+        warps = {(dt, st): (sc.team_warps(dt, st, 1, sc.FULL, code),
+                            sc.tail_layout(dt, st, 1, sc.FULL, code))
+                 for dt in (0, 1) for st in (0, 1, 2)}
+        check(warps == {key: (4, True) if key == (0, 0) else (0, False)
+                        for key in warps},
+              f"{k}: the float32 bs3 instance takes the team body in the "
+              f"tail layout, its siblings the one-thread body ({warps})")
+
+    def through(team, run, *a, **kw):
+        # run(*a, **kw), checking that its one kernel launch took the team
+        # body or did not
+        team0, launches0 = (sc.step_chunk.team_launches,
+                            sc.step_chunk.launches)
+        out = run(*a, **kw)
+        n = sc.step_chunk.launches - launches0
+        check(sc.step_chunk.team_launches - team0 == (n if team else 0),
+              f"{a[0]} {a[2]} {a[3]}: its {n} launch(es) through the "
+              f"{'team' if team else 'one-thread'} body")
+        return out
+
     errs, plain_ms = {}, {}
     for k, name in fields.items():
         # the slice's first launch: 10,240 rays, float32 bs3
-        errs[k], plain_ms[k] = bit_for_bit(k, name, "float32", "bs3", dev,
-                                           SIDE_N)
+        errs[k], plain_ms[k] = through(False, bit_for_bit, k, name,
+                                       "float32", "bs3", dev, SIDE_N)
+        # every 40th ray, 256: the tail layout, the team body
+        through(True, bit_for_bit, k, name, "float32", "bs3", dev, SIDE_N,
+                every=40)
         for stepper in ("bs3", "dopri5"):
-            bit_for_bit(k, name, "float64", stepper, dev, CUT_N, every=10)
+            through(False, bit_for_bit, k, name, "float64", stepper, dev,
+                    CUT_N, every=10)
     finish_fresh("tilted", "ensemble10k_tilted", "float32", "bs3", dev, 192,
                  64)
+    finish_fresh("tilted, team body", "ensemble10k_tilted", "float32",
+                 "bs3", dev, 192, 64, every=40, team=True)
     finish_fresh("IGRF", "ensemble10k_igrf", "float64", "dopri5", dev, 160,
                  32, every=10)
     # a tilted field with an axisymmetric density (ps_mlt off: the chain
-    # rule through mlat alone), and IGRF over the MLT-resolved GCPM
-    bit_for_bit("tilted field, axisymmetric density", "ensemble10k_plume",
-                "float32", "bs3", dev, CUT_N, every=10,
+    # rule through mlat alone), in both bodies, and IGRF over the
+    # MLT-resolved GCPM
+    for every in (10, 40):
+        through(every == 40, bit_for_bit,
+                "tilted field, axisymmetric density", "ensemble10k_plume",
+                "float32", "bs3", dev, CUT_N, every=every,
                 medium=MediumConfig(b0=B0_3D, b_model="tilted", b_tilt=0.2,
                                     b_tilt_phi=0.5))
     bit_for_bit("IGRF x MLT GCPM", "ensemble10k_plume", "float64", "dopri5",
@@ -2176,8 +2221,8 @@ def layout_of(b, flags_before):
     counter (step_chunk.sparse_launches, its value before the launch)."""
     from raytrace_tpu_torch.ops import step_chunk as sc
 
-    return ("tail (one ray a warp)"
-            if sc.step_chunk.sparse_launches > flags_before
+    return ("tail (one ray a warp, or the team body over the non-axial "
+            "fields)" if sc.step_chunk.sparse_launches > flags_before
             else "dense (32 rays a warp)")
 
 
@@ -2228,15 +2273,18 @@ def chain_layouts(frame, dev, card, n=CUT_N):
 
 
 def tail_layouts(what, conf, card, census, n=CUT_N):
-    """After a drive of conf (phases 4 and 16): its merged tail replayed in
-    the tail layout and in the dense one, the whole launch, bit for bit;
-    the tail layout against the plain version over the tail's first n
-    attempts; then (a)-(d) of latency_floor.measure_cell (the launch, the
+    """After a drive of conf (phases 4, 12, 13 and 16): its merged tail
+    replayed in the tail layout (one ray a warp, or over the non-axial
+    fields the team body) and in the dense one, the whole launch, bit for
+    bit; the tail layout against the plain version over the tail's first n
+    attempts; then (a)-(e) of latency_floor.measure_cell (the launch, the
     tail dense, its longest ray alone, one ray a warp, and the tail as the
     wrapper launches it) with clocks.sm, in cycles an attempt, beside the
-    attempt loop's size (census, sass_census.run_census; its chain is not
-    walkable through the stage loop, so the latency floor is PERF.md's,
-    from the unrolled parent). Returns measure_cell's record."""
+    attempt loop's size of each body of the instance (census,
+    sass_census.run_census; in 2D its chain is not walkable through the
+    stage loop, so the latency floor is PERF.md's, from the unrolled
+    parent) and the chain with what it waits on. Returns measure_cell's
+    record."""
     from raytrace_tpu_torch.integrate.events import StopSpec
     from raytrace_tpu_torch.integrate.solve import (
         RayCarry, SolverConfig, refine_events,
@@ -2282,10 +2330,15 @@ def tail_layouts(what, conf, card, census, n=CUT_N):
                        "bit with the plain version")
     tail = dict(tail, kw=cut)
     rec = measure_cell(conf, tail, crossover=False)
-    inst = census[f"float bs3 {conf.frame} axi"]
-    print(f"  {what}: attempt loop {inst['loop']:,} SASS instructions, "
-          f"{inst['loop_bytes']:,} bytes, {inst['inner_loop']:,} of them its "
-          "stage loop (sass_census)")
+    from raytrace_tpu_torch import sass_census
+    from raytrace_tpu_torch.latency_floor import instance_of
+
+    for key, inst in sass_census.bodies(census, instance_of(conf)).items():
+        print(f"  {what}, {key}: attempt loop {inst['loop']:,} SASS "
+              f"instructions, {inst['loop_bytes']:,} bytes, "
+              f"{inst['inner_loop']:,} of them its inner loop, chain with "
+              f"what it waits on {inst['chain_cycles_total']:,} cycles "
+              "(sass_census)")
     names = {"a": "(a) the launch, 10,240 rays x 512",
              "b": "(b) the merged tail, dense layout",
              "c": "(c) its longest ray alone, B = 1",
@@ -5102,6 +5155,16 @@ def main():
             print("   ", line.strip())
     for inst, use in sc.ptxas_usage(sc.BUILD_LOG).items():
         print(f"    {inst}: {use}")
+    # the SASS census of the redesigned instances' attempt loops (their
+    # sizes, read from phase 4 on) runs in a thread beside phases 2-4
+    from raytrace_tpu_torch import sass_census
+
+    census_pool = ThreadPoolExecutor(1)
+    census_job = census_pool.submit(
+        sass_census.run_census, sc.library_path(),
+        {"float bs3 2d_lat axi", "float bs3 2d_colat axi",
+         "float bs3 3d full tilted", "float bs3 3d full igrf"},
+        sass_census.entry_names(sc.BUILD_LOG))
 
     # ---- 2. kernel vs plain PyTorch on the card ---------------------------
     phase("[2] step kernel vs plain PyTorch", flush=True)
@@ -5141,13 +5204,8 @@ def main():
           f"{n_diff} values differ, max abs err {err_2d:.3e}")
     check(n_diff == 0, "main-path launch: kernel and plain version agree bit "
                        "for bit in every field")
-    # the redesigned instances at the edges of the tail layout, and
-    # the SASS census of their attempt loops (their sizes)
+    # the redesigned instances at the edges of the tail layout
     chain_layouts("2d_lat", dev, card)
-    from raytrace_tpu_torch import sass_census
-
-    census = sass_census.run_census(
-        sc.library_path(), {"float bs3 2d_lat axi", "float bs3 2d_colat axi"})
     # a trace's end and start inside the launch (finish, fresh), where the
     # fan's rays land: the whole fan in float32, every 10th ray in float64,
     # and with the equator stop on (HIT_EQUATOR)
@@ -5205,6 +5263,11 @@ def main():
     body(launches_2d, "ensemble10k float32", team=False)
     finished_on_card(ens, "ensemble10k float32", card)
     tails = {"2d": tail_timing("ensemble10k float32", card)}
+    t0 = time.perf_counter()
+    census = census_job.result()
+    census_pool.shutdown()
+    print(f"  SASS census of {len(census)} instance bodies (sass_census), "
+          f"waited {time.perf_counter() - t0:.1f} s for it", flush=True)
     floors = {"2d": tail_layouts("ensemble10k float32", ens, card, census)}
     check(abs(n_hit - REC_HIT_EARTH) <= 0.01 * REC_HIT_EARTH,
           f"HIT_EARTH {n_hit} within 1% of the TPU record {REC_HIT_EARTH}")
@@ -5581,9 +5644,11 @@ def main():
 
     # ---- 12, 13. the non-axial-field slices ------------------------------
     phase("[12] ensemble10k_tilted", flush=True)
-    launches_tilted = field_slice("ensemble10k_tilted", card)
+    launches_tilted, tails["tilted"], floors["tilted"] = field_slice(
+        "ensemble10k_tilted", card, census)
     phase("[13] ensemble10k_igrf", flush=True)
-    launches_igrf = field_slice("ensemble10k_igrf", card)
+    launches_igrf, tails["igrf"], floors["igrf"] = field_slice(
+        "ensemble10k_igrf", card, census)
 
     # ---- 14-18. the last variants: ds_local, colatitude, multi-ion, rk4 --
     phase("[14] instances of the local arc ceiling, the colatitude frame, "
@@ -5694,10 +5759,13 @@ def main():
     phase("[done]")
 
     def entry(name, launches, err, t, tail=None, team=False, floor=None):
-        # the body of the instance; with the time of the run's last
-        # launch, the merged tail where the run has one; with floor,
-        # tail_layouts' times in cycles an attempt
-        more = {"body": "team4" if team else "one-thread"}
+        # the body of the instance (team "tail": the team body in the tail
+        # layout, the one-thread body in wider launches); with the time of
+        # the run's last launch, the merged tail where the run has one;
+        # with floor, tail_layouts' times in cycles an attempt
+        more = {"body": {True: "team4", False: "one-thread",
+                         "tail": "team4 in the tail layout, else "
+                                 "one-thread"}[team]}
         if tail is not None:
             more.update(tail_ms=tail["ms"], tail_rays=tail["rays"],
                         tail_bucket=tail["bucket"],
@@ -5764,9 +5832,11 @@ def main():
         entry("step_chunk[3d+full_medium(mlt),float32,bs3](mr_fan_3d)",
               launches_mr, err_mr, t_mr, tails["mr"], team=True),
         entry("step_chunk[3d+full_medium(mlt)+tilted_field,float32,bs3]",
-              launches_tilted, *general["tilted"]),
+              launches_tilted, *general["tilted"], tails["tilted"],
+              floor=floors["tilted"], team="tail"),
         entry("step_chunk[3d+full_medium(mlt)+igrf_field,float32,bs3]",
-              launches_igrf, *general["igrf"]),
+              launches_igrf, *general["igrf"], tails["igrf"],
+              floor=floors["igrf"], team="tail"),
         entry("step_chunk[2d_lat+ds_local,float32,bs3]", launches_local,
               *variants["local"]),
         entry("step_chunk[2d_colat,float32,bs3]", launches_colat,

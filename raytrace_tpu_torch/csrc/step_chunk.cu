@@ -203,6 +203,21 @@
 //     controller and the Stix core redundantly: that one ran 1.0-2.2x
 //     slower than the one-thread body, the four warps issuing four times
 //     the remainder of each right-hand side (PERF.md).
+//   - both, in the float bs3 instances over the non-axial fields (those of
+//     ensemble10k_tilted and ensemble10k_igrf; general_team below): the
+//     team body (rhs_general_team: the field's geometry beside the
+//     density's head and its terms in L) in the tail layout, a launch of at
+//     most ops/step_chunk.py::TEAM_LAYOUT_MAX_RAYS rays, the one-thread
+//     body in wider ones (launch below). On one ray's chain the team body
+//     is the faster: the merged tails (4 and 18 rays) ran 0.80 / 0.81x the
+//     one-thread body's time, 15,040-15,390 / 15,760-16,410 cycles an
+//     attempt against 18,760-19,070 / 19,610-20,160. At the full launch,
+//     where 320 blocks share 132 SMs, its helpers' issue crowds the SMs:
+//     10,240 rays x 512 attempts ran 1.15 / 1.27x slower; at 528 rays 1.04-
+//     1.14x, at 132-264 0.76-0.91x (PERF.md). Tried and dropped: bs3's
+//     stage loop in warp 0 (the tails 1.24 / 1.16x the unrolled team's
+//     time) and warp 0's part of the right-hand side out of line (1.09 /
+//     1.12x).
 // The 7-state axisymmetric double dopri5 instance spills 64 bytes, and the
 // team body's double instances, held to 168 registers (kTeamBlocks
 // below), spill too (PERF.md lists -Xptxas -v).
@@ -305,11 +320,14 @@ constexpr int kMaxIon = 3;     // ion species: protons, He+, O+
 // A compile-time choice per instance, by the times measured against the
 // one-thread body at the full launch (10,240 rays x 512 attempts) and on
 // the merged tails (PERF.md): the 3D full chain over the dipole takes it in
-// every instance (faster at both shapes). Every other instance keeps the
-// one-thread body: the 2D axisymmetric chain ran 7-13% slower on the team
-// body in float bs3 and dopri5 and double bs3 and rk4, at the full launch
-// and on its runs' tails, and its double dopri5 instance, faster at the
-// full launch, ran raymain's one ray 8% slower.
+// every instance (faster at both shapes); over the non-axial fields its
+// float bs3 instances (general_team) take it in the tail layout alone
+// (faster on the tails, slower at the full launch). Every other instance
+// keeps the one-thread body: the 2D axisymmetric chain ran 7-13% slower on
+// the team body in float bs3 and dopri5 and double bs3 and rk4, at the full
+// launch and on its runs' tails, and its double dopri5 instance, faster at
+// the full launch, ran raymain's one ray 8% slower. The general-field
+// siblings (double, dopri5, rk4) are not measured on it yet (ROADMAP B4).
 constexpr int kTeamWarps = 4;
 // blocks of the team body resident on an SM that its register allocation
 // must leave room for: 10,240 rays are 320 blocks over 132 SMs (unbounded,
@@ -317,10 +335,20 @@ constexpr int kTeamWarps = 4;
 // the launch in two waves)
 constexpr int kTeamBlocks = 3;
 
+__host__ __device__ constexpr bool general_team(int dtype, int stepper,
+                                                int frame, int medium,
+                                                int field) {
+  return dtype == 0 && stepper == BS3 && frame == KIM3D && medium == FULL &&
+         field != DIPOLE;
+}
+
 constexpr int team_warps(int dtype, int stepper, int frame, int medium,
                          int field) {
-  return frame == KIM3D && medium == FULL && field == DIPOLE ? kTeamWarps
-                                                             : 0;
+  return frame == KIM3D && medium == FULL &&
+                 (field == DIPOLE ||
+                  general_team(dtype, stepper, frame, medium, field))
+             ? kTeamWarps
+             : 0;
 }
 
 // The one-thread body's redesign for one ray's chain (the note "one ray's
@@ -336,11 +364,12 @@ __host__ __device__ constexpr bool chain_instance(int dtype, int stepper,
          && medium == AXI && field == DIPOLE;
 }
 // the tail layout: a launch of few rays (the wrapper's threshold) runs one
-// ray a warp
+// ray a warp, or over the non-axial fields on the team body
 __host__ __device__ constexpr bool tail_layout(int dtype, int stepper,
                                                int frame, int medium,
                                                int field) {
-  return chain_instance(dtype, stepper, frame, medium, field);
+  return chain_instance(dtype, stepper, frame, medium, field) ||
+         general_team(dtype, stepper, frame, medium, field);
 }
 // one inlined right-hand side for bs3's three stages
 __host__ __device__ constexpr bool stage_loop(int dtype, int stepper,
@@ -1907,20 +1936,6 @@ __device__ __forceinline__ void rhs_3d_team(const T u[7], T f,
                        out);
 }
 
-// a helper warp of the team body: serves warp 0's right-hand sides until
-// warp 0 posts the exit (a live flag of -1 in every lane)
-template <typename T, int K>
-__device__ __forceinline__ void team_helper(T f, const KParams<T>& p,
-                                            const Team<T>& tm) {
-  for (;;) {
-    __syncthreads();  // warp 0 has posted the input
-    const T live = tm.xch[kIn3D * 32 + tm.lane];
-    if (live < T(0)) return;  // the same in every lane
-    if (live > T(0)) pieces_3d<T, K>(tm.xch, f, p, tm, tm.xch);
-    __syncthreads();  // the pieces are in
-  }
-}
-
 // The geometry of a non-axial field at one point and its tangents, every
 // one a scalar in a register (ops/fused.py::field_geometry): the field's
 // components, the magnetic latitude and longitude of the tilted frame, and
@@ -2111,6 +2126,13 @@ __device__ __forceinline__ void geometry_igrf(T r, T s, T c, T sp, T cp,
 // line of that length. The state and the derivative then pass through
 // local memory (u, out), which costs less than the fetches did. The
 // results do not change: no operation is reordered across the call.
+// In one ray's chain (measured on an H100 with clock64 in an instrumented
+// copy, the parts forced in sequence, cycles a call, tilted / IGRF): the
+// geometry 813 / 1,298, the magnetic coordinates and the density 2,658 / 2,731,
+// |B|, psi and the Stix quartic 1,517 / 1,548, the rows 668 / 667; the
+// attempt's three calls ~17,000 / 18,700 of its 20,200 / 22,000 cycles. The
+// float bs3 instances' tail layout splits it over a team
+// (rhs_general_team below).
 template <typename T, int MEDIUM, int FIELD>
 __device__ __noinline__ void rhs_3d_general(const T u[7], T f,
                                             const KParams<T>& p, T out[7]) {
@@ -2164,6 +2186,175 @@ __device__ __noinline__ void rhs_3d_general(const T u[7], T f,
               dmu_dn * dne_dp + dmu_db * bm_p + dmu_dc * dcos_dp,
               dmu_dc * dcos_drho_r, dmu_dc * dcos_drho_t,
               dmu_dc * dcos_drho_p, dmu_df, kim_trig(u), out);
+}
+
+// The same in the team body (general_team: the float bs3 instances over
+// FULL, those of ensemble10k_tilted and ensemble10k_igrf, in their tail
+// layout), split as rhs_3d_team splits rhs_3d. The chain's branches are independent: the field's
+// geometry does not depend on the density, and the density depends on the
+// magnetic coordinates alone, which come from the moment's components and
+// not from the field's tangents. Input: r, theta, phi and rho. Pieces:
+// helper 1 the field's geometry and fifteen tangents (geometry_tilted,
+// geometry_igrf), |B| with its partials, the unit field, cos psi and sin psi
+// with their tangents, and the Stix terms of the field; helper 2 the
+// magnetic coordinates with their tangents and the density's head at mlon
+// (ne_head); helper 3 the magnetic latitude again, for the density's terms
+// in L (ne_lterms), and the Kimura rows' trigonometry (the same operations
+// give the same bits, and cost no third barrier). Warp 0 then forms the
+// density's tail, the chain rule through (mlat, mlon), the quartic and the
+// rows. Every expression is rhs_3d_general's, with its operands in its
+// order, so the two bodies agree bit for bit.
+template <typename T>
+struct FieldPsi {
+  T bm_r, bm_t, bm_p, sinpsi, cospsi, dcos_dr, dcos_dt, dcos_dp, dcos_drho_r,
+      dcos_drho_t, dcos_drho_p;
+};
+
+template <typename T>
+struct MagTangents {
+  T mlat_t, mlat_p, mlon_t, mlon_p;
+};
+
+template <typename T>
+struct SlotsGen {
+  static constexpr int F = kIn3D + 1, S = F + n_slots<FieldPsi<T>, T>(),
+                       H = S + n_slots<StixField<T>, T>(),
+                       M = H + n_slots<NeHead<T>, T>(),
+                       B = M + n_slots<MagTangents<T>, T>(),
+                       K = B + n_slots<NeLTerms<T>, T>(),
+                       end = K + n_slots<KimTrig<T>, T>();
+};
+
+// helper 1: the field and the psi cosines at u (and |B| for the Stix terms)
+template <typename T, int FIELD>
+__device__ __forceinline__ FieldPsi<T> field_psi(const T u[kIn3D],
+                                                 const KParams<T>& p, T& bm) {
+  const T r = u[0], theta = u[1], phi = u[2];
+  const T rho_r = u[3], rho_t = u[4], rho_p = u[5];
+  const T st = d_sin(theta), ct = d_cos(theta);
+  const T sp = d_sin(phi), cp = d_cos(phi);
+  FieldGeom<T> g;
+  if constexpr (FIELD == TILTED)
+    geometry_tilted(r, st, ct, sp, cp, p, g);
+  else
+    geometry_igrf(r, st, ct, sp, cp, p, g);
+
+  FieldPsi<T> o;
+  bm = d_sqrt(g.br * g.br + g.bt * g.bt + g.bp * g.bp);
+  const T inv_bm = T(1) / bm;
+  o.bm_r = (g.br * g.br_r + g.bt * g.bt_r + g.bp * g.bp_r) * inv_bm;
+  o.bm_t = (g.br * g.br_t + g.bt * g.bt_t + g.bp * g.bp_t) * inv_bm;
+  o.bm_p = (g.br * g.br_p + g.bt * g.bt_p + g.bp * g.bp_p) * inv_bm;
+  const T hr = g.br * inv_bm, ht = g.bt * inv_bm, hp = g.bp * inv_bm;
+
+  const T inv_rmag = d_rsqrt(rho_r * rho_r + rho_t * rho_t + rho_p * rho_p);
+  const T rr = rho_r * inv_rmag, rt = rho_t * inv_rmag, rp = rho_p * inv_rmag;
+  o.cospsi = jmin(jmax(hr * rr + ht * rt + hp * rp, T(-1)), T(1));
+  const T c1 = ht * rp - hp * rt;
+  const T c2 = hp * rr - hr * rp;
+  const T c3 = hr * rt - ht * rr;
+  o.sinpsi = d_sqrt(c1 * c1 + c2 * c2 + c3 * c3);
+  o.dcos_dr =
+      ((g.br_r * rr + g.bt_r * rt + g.bp_r * rp) - o.cospsi * o.bm_r) * inv_bm;
+  o.dcos_dt =
+      ((g.br_t * rr + g.bt_t * rt + g.bp_t * rp) - o.cospsi * o.bm_t) * inv_bm;
+  o.dcos_dp =
+      ((g.br_p * rr + g.bt_p * rt + g.bp_p * rp) - o.cospsi * o.bm_p) * inv_bm;
+  o.dcos_drho_r = (hr - o.cospsi * rr) * inv_rmag;
+  o.dcos_drho_t = (ht - o.cospsi * rt) * inv_rmag;
+  o.dcos_drho_p = (hp - o.cospsi * rp) * inv_rmag;
+  return o;
+}
+
+// helpers 2 and 3: the magnetic coordinates at u (mlat, mlon and their
+// tangents; the field's members are not formed)
+template <typename T>
+__device__ __forceinline__ FieldGeom<T> mag_coords(const T u[kIn3D],
+                                                   const KParams<T>& p) {
+  const T st = d_sin(u[1]), ct = d_cos(u[1]);
+  const T sp = d_sin(u[2]), cp = d_cos(u[2]);
+  T m_r, m_t, m_p;
+  moment_components(st, ct, sp, cp, p, m_r, m_t, m_p);
+  FieldGeom<T> g;
+  magnetic_coords(st, ct, sp, cp, m_r, m_t, m_p, p, g);
+  return g;
+}
+
+template <typename T, int K, int FIELD>
+__device__ __forceinline__ void pieces_general(const T* x, T f,
+                                               const KParams<T>& p,
+                                               const Team<T>& tm, T* out) {
+  using S = SlotsGen<T>;
+  T u[kIn3D];
+#pragma unroll
+  for (int k = 0; k < kIn3D; ++k) u[k] = x[k * 32 + tm.lane];
+  if (serves<K>(tm, 0)) {
+    T bm;
+    put(out, tm.lane, S::F, field_psi<T, FIELD>(u, p, bm));
+    put(out, tm.lane, S::S, stix_field(bm, f));
+  }
+  if (serves<K>(tm, 1)) {
+    const FieldGeom<T> g = mag_coords(u, p);
+    put(out, tm.lane, S::M,
+        MagTangents<T>{g.mlat_t, g.mlat_p, g.mlon_t, g.mlon_p});
+    put(out, tm.lane, S::H, ne_head(u[0], g.mlon, p.mlt_on, p));
+  }
+  if (serves<K>(tm, 2)) {
+    const T mlat = mag_coords(u, p).mlat;
+    put(out, tm.lane, S::B, ne_lterms(u[0], d_sin(mlat), d_cos(mlat), p));
+    put(out, tm.lane, S::K, kim_trig(u));
+  }
+}
+
+template <typename T, int K>
+__device__ __forceinline__ void rhs_general_team(const T u[7], T f,
+                                                 const KParams<T>& p,
+                                                 T out[7],
+                                                 const Team<T>& tm) {
+  using S = SlotsGen<T>;
+  const T in[kIn3D] = {u[0], u[1], u[2], u[3], u[4], u[5]};
+  team_post(tm, in);
+  team_wait();
+  if (!tm.live) return;
+  const T* x = tm.xch;
+  T ne, ne_r, ne_lat, ne_mlon;
+  ne_tail(get<NeHead<T>>(x, tm.lane, S::H), get<NeLTerms<T>>(x, tm.lane, S::B),
+          p.mlt_on, p, ne, ne_r, ne_lat, ne_mlon);
+  const MagTangents<T> m = get<MagTangents<T>>(x, tm.lane, S::M);
+  T dne_dt = ne_lat * m.mlat_t, dne_dp = ne_lat * m.mlat_p;
+  if (p.mlt_on) {
+    dne_dt = dne_dt + ne_mlon * m.mlon_t;
+    dne_dp = dne_dp + ne_mlon * m.mlon_p;
+  }
+  const FieldPsi<T> g = get<FieldPsi<T>>(x, tm.lane, S::F);
+  T mu, dmu_dn, dmu_db, dmu_df, dmu_dc;
+  stix_protons<T, true>(ne, get<StixField<T>>(x, tm.lane, S::S), g.sinpsi,
+                        g.cospsi, p, mu, dmu_dn, dmu_db, dmu_df, dmu_dc);
+  kimura_rows(u, f, mu, dmu_dn * ne_r + dmu_db * g.bm_r + dmu_dc * g.dcos_dr,
+              dmu_dn * dne_dt + dmu_db * g.bm_t + dmu_dc * g.dcos_dt,
+              dmu_dn * dne_dp + dmu_db * g.bm_p + dmu_dc * g.dcos_dp,
+              dmu_dc * g.dcos_drho_r, dmu_dc * g.dcos_drho_t,
+              dmu_dc * g.dcos_drho_p, dmu_df, get<KimTrig<T>>(x, tm.lane, S::K),
+              out);
+}
+
+// a helper warp of the team body: serves warp 0's right-hand sides until
+// warp 0 posts the exit (a live flag of -1 in every lane)
+template <typename T, int K, int FIELD>
+__device__ __forceinline__ void team_helper(T f, const KParams<T>& p,
+                                            const Team<T>& tm) {
+  for (;;) {
+    __syncthreads();  // warp 0 has posted the input
+    const T live = tm.xch[kIn3D * 32 + tm.lane];
+    if (live < T(0)) return;  // the same in every lane
+    if (live > T(0)) {
+      if constexpr (FIELD == DIPOLE)
+        pieces_3d<T, K>(tm.xch, f, p, tm, tm.xch);
+      else
+        pieces_general<T, K, FIELD>(tm.xch, f, p, tm, tm.xch);
+    }
+    __syncthreads();  // the pieces are in
+  }
 }
 
 // ---- the autodiff gradient set (MEDIUM = AD) -----------------------------
@@ -2870,7 +3061,12 @@ __device__ __forceinline__ void rhs(const T* u, T f, const KParams<T>& p,
     static_assert(K == 0, "the AD_ANY instances take the one-thread body");
     rhs_ad_any<T, FRAME, FIELD>(u, f, p, out);
   } else if constexpr (FIELD != DIPOLE) {
-    rhs_3d_general<T, MEDIUM, FIELD>(u, f, p, out);
+    if constexpr (K > 0) {
+      static_assert(MEDIUM == FULL, "the general-field team body serves FULL");
+      rhs_general_team<T, K>(u, f, p, out, tm);
+    } else {
+      rhs_3d_general<T, MEDIUM, FIELD>(u, f, p, out);
+    }
   } else if constexpr (FRAME == KIM3D) {
     if constexpr (K > 0) {
       static_assert(MEDIUM == FULL, "the 3D team body serves FULL");
@@ -3233,7 +3429,7 @@ __global__ void __launch_bounds__(K > 0 ? 32 * K : kThreads,
   bool real = true;
   if constexpr (K == 0) {
     i = blockIdx.x * (long long)kThreads + threadIdx.x;
-    if constexpr (tail_layout(DT, STEPPER, FRAME, MEDIUM, FIELD)) {
+    if constexpr (chain_instance(DT, STEPPER, FRAME, MEDIUM, FIELD)) {
       // the tail layout: ray i on lane 0 of warp i of the launch, the
       // other lanes leave
       if (sparse) {
@@ -3255,7 +3451,7 @@ __global__ void __launch_bounds__(K > 0 ? 32 * K : kThreads,
     real = i < B;
     if (!real) i = B - 1;
     if (tm.warp > 0) {
-      team_helper<T, K>(f_g[i], p, tm);
+      team_helper<T, K, FIELD>(f_g[i], p, tm);
       return;
     }
   }
@@ -3462,18 +3658,16 @@ __global__ void __launch_bounds__(K > 0 ? 32 * K : kThreads,
   caution_g[i] = caution;
 }
 
-template <typename T, int STEPPER, int FRAME, int MEDIUM, int FIELD>
-void launch(void** ptrs, long long B, int n_steps, int flags,
-            const StepParams& h, cudaStream_t stream) {
-  constexpr int K =
-      team_warps(sizeof(T) == 8 ? 1 : 0, STEPPER, FRAME, MEDIUM, FIELD);
-  // flag bit 2: the tail layout, one ray a warp (its instances only)
-  const bool sparse =
-      (flags & 4) != 0 && tail_layout(sizeof(T) == 8 ? 1 : 0, STEPPER, FRAME,
-                                      MEDIUM, FIELD);
+// one launch of the body K (0: the one-thread body) of an instance
+template <typename T, int STEPPER, int FRAME, int MEDIUM, int FIELD, int K>
+void launch_body(void** ptrs, long long B, int n_steps, int flags,
+                 bool sparse, const StepParams& h, cudaStream_t stream) {
   const int rays = K > 0 ? 32 : (sparse ? kThreads / 32 : kThreads);
   const long long blocks = (B + rays - 1) / rays;
-  const size_t xch = K > 0 ? 32 * Slots3D<T>::end * sizeof(T) : 0;
+  const size_t xch =
+      K > 0 ? 32 * (FIELD == DIPOLE ? Slots3D<T>::end : SlotsGen<T>::end) *
+                  sizeof(T)
+            : 0;
   step_chunk_kernel<T, STEPPER, FRAME, MEDIUM, FIELD, K>
       <<<(unsigned)blocks, K > 0 ? 32 * K : kThreads, xch, stream>>>(
           (T*)ptrs[0], (T*)ptrs[1], (T*)ptrs[2], (T*)ptrs[3], (T*)ptrs[4],
@@ -3482,6 +3676,28 @@ void launch(void** ptrs, long long B, int n_steps, int flags,
           (int*)ptrs[13], (const T*)ptrs[14], B, n_steps, (flags & 1) != 0,
           (flags & 2) != 0, sparse,
           params_of<T, wide(MEDIUM)>(h, STEPPER));
+}
+
+template <typename T, int STEPPER, int FRAME, int MEDIUM, int FIELD>
+void launch(void** ptrs, long long B, int n_steps, int flags,
+            const StepParams& h, cudaStream_t stream) {
+  constexpr int DT = sizeof(T) == 8 ? 1 : 0;
+  constexpr int K = team_warps(DT, STEPPER, FRAME, MEDIUM, FIELD);
+  // flag bit 2: the tail layout (its instances only): one ray a warp, or
+  // over the non-axial fields the team body, whose instances run the
+  // launches outside it on the one-thread body
+  const bool sparse =
+      (flags & 4) != 0 && tail_layout(DT, STEPPER, FRAME, MEDIUM, FIELD);
+  if constexpr (general_team(DT, STEPPER, FRAME, MEDIUM, FIELD)) {
+    if (!sparse) {
+      launch_body<T, STEPPER, FRAME, MEDIUM, FIELD, 0>(ptrs, B, n_steps,
+                                                       flags, false, h,
+                                                       stream);
+      return;
+    }
+  }
+  launch_body<T, STEPPER, FRAME, MEDIUM, FIELD, K>(ptrs, B, n_steps, flags,
+                                                   sparse, h, stream);
 }
 
 template <typename T, int FRAME, int MEDIUM, int FIELD>

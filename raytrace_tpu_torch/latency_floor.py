@@ -4,12 +4,13 @@ one card: the launch, its merged tail, one ray alone, one ray a warp.
     python -m raytrace_tpu_torch.latency_floor [--against DIR] [--reps 5]
         [--cells ensemble10k,ensemble10k:frame=2d_colat]
 
-Each cell is a merged tail's name as kernel_ab takes it (a preset and its
-overrides, float32; ensemble10k:frame=2d_colat is the colatitude fan), and
-its instance the float32 bs3 one of its frame. For each, timed with CUDA
-events on the card, beside `clocks.sm` (nvidia-smi, read while the same
-launches run on), and converted to cycles per attempt of the ray
-that makes the most (a launch lasts as long as that ray's chain):
+Each cell is a merged tail's name as kernel_ab takes it (a preset and
+its overrides, float32; ensemble10k:frame=2d_colat is the colatitude
+fan), and its instance the float32 bs3 one of the preset's frame, medium
+and field (ensemble10k_tilted: "float bs3 3d full tilted"). For each,
+timed with CUDA events on the card, beside `clocks.sm` (nvidia-smi, read
+while the same launches run on), and converted to cycles per attempt of
+the ray that makes the most (a launch lasts as long as that ray's chain):
 
 - (a) the launch: every ray of the preset x 512 attempts from the launch
   carry;
@@ -21,17 +22,19 @@ that makes the most (a launch lasts as long as that ray's chain):
   lanes between them stopped (a ray that is not ACTIVE leaves at once), so
   every warp steps one ray whatever layout the checkout has;
 - (e) the tail as the wrapper launches it (the tail layout where the
-  checkout has it: at most ops/step_chunk.py::TAIL_LAYOUT_MAX_RAYS rays);
-- (f) where the checkout has the tail layout: launches of 132, 264, 528,
-  1,056 and 2,112 rays of the preset (evenly spaced) x 512 attempts in
-  both layouts, the numbers behind the threshold.
+  checkout has it: at most ops/step_chunk.py::layout_limit rays);
+- (f) where the checkout and the instance have the tail layout: launches
+  of 132, 264, 528, 1,056 and 2,112 rays of the preset (evenly spaced) x
+  512 attempts in both layouts, the numbers behind the threshold.
 
 Beside them the SASS census of the instance (sass_census: chain_cycles,
 inorder_cycles, the attempt loop's size in bytes and its inner loop's)
-and the latency floor: chain_cycles at the measured clock times the
-longest ray's attempts. A build whose attempt loop holds bs3's stage loop
-has no walkable chain (sass_census): take the floor from a checkout with
-the stages unrolled (the same operations), e.g. the parent's.
+and the latency floor: chain_cycles_total (the attempt loop's chain with
+the out-of-line right-hand side it calls or the team body's helper loop
+it waits on) at the measured clock times the longest ray's attempts. A
+build whose attempt loop holds bs3's stage loop has no walkable chain
+(sass_census): take the floor from a checkout with the stages unrolled
+(the same operations), e.g. the parent's.
 With --against DIR (another checkout's root, e.g. the parent unpacked
 with `git archive` into a directory that .gitignore lists) both
 checkouts build at once and the timings run in turns, other / this /
@@ -57,11 +60,24 @@ _CLOCK_READS = 3
 _CLOCK_AHEAD = 0.25
 
 
+def instance_of(conf):
+    """The float32 bs3 instance of a RunConfig as sass_census names it: its
+    frame, the medium code and the field its medium takes
+    (ops/step_chunk.py::medium_code, field_code)."""
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    env = conf.medium.build()
+    field = ("", " tilted", " igrf")[sc.field_code(env)]
+    medium = sc._MEDIUM_NAMES[sc.medium_code(env, conf.solver())]
+    return f"float bs3 {conf.frame} {medium}{field}"
+
+
 def _instance(cell):
+    from raytrace_tpu_torch.config import preset
     from raytrace_tpu_torch.kernel_ab import tail_spec
 
-    frame = tail_spec(cell)[2].get("frame", "2d_lat")
-    return f"float bs3 {frame} axi"
+    base, _dtype, over = tail_spec(cell)
+    return instance_of(preset(base, **over))
 
 
 def _clock_mhz():
@@ -165,17 +181,23 @@ def measure_cell(conf, tail, reps=5, tail_reps=3, crossover=True):
 
     dev = torch.device("cuda")
     has_layout = hasattr(sc, "TAIL_LAYOUT_MAX_RAYS")
-    own_max = getattr(sc, "TAIL_LAYOUT_MAX_RAYS", None)
+
+    # the tail layout's thresholds (the team body's too, where the
+    # checkout has one)
+    knobs = [k for k in ("TAIL_LAYOUT_MAX_RAYS", "TEAM_LAYOUT_MAX_RAYS")
+             if hasattr(sc, k)]
+    own = {k: getattr(sc, k) for k in knobs}
 
     def timed(launch, reps, longest, rays, limit=None):
-        # the tail layout's threshold at `limit` for these launches
-        if has_layout and limit is not None:
-            sc.TAIL_LAYOUT_MAX_RAYS = limit
+        # the tail layout's thresholds at `limit` for these launches
+        if limit is not None:
+            for k in knobs:
+                setattr(sc, k, limit)
         try:
             return _record(*_timed(launch, reps), longest, rays)
         finally:
-            if has_layout:
-                sc.TAIL_LAYOUT_MAX_RAYS = own_max
+            for k in knobs:
+                setattr(sc, k, own[k])
 
     rec = {}
     # (a) the launch
@@ -192,7 +214,12 @@ def measure_cell(conf, tail, reps=5, tail_reps=3, crossover=True):
 
     rec["a"] = timed(launch, reps * 16, int(_made(launch(), carry).max()),
                      f.shape[0])
-    # (f) the two layouts from 132 to 2,112 rays
+    # (f) the two layouts from 132 to 2,112 rays, where the instance takes
+    # the tail layout
+    if has_layout and crossover:
+        crossover = sc.tail_layout(
+            0, sc._STEPPER_CODE["bs3"], sc._FRAME_CODE[conf.frame][0],
+            sc.medium_code(env, cfg), sc.field_code(env))
     for b in CROSSOVER_RAYS if has_layout and crossover else ():
         rows = torch.linspace(0, f.shape[0] - 1, b, device=dev).long()
         c = RayCarry(*(x.index_select(0, rows) for x in carry))
@@ -319,25 +346,32 @@ def main():
     record = {"card": smi, "census": census, "turns": turns}
     for k in roots:
         for cell in turns[k][0]:
-            inst = census[k][_instance(cell)]
-            print(f"{k} {cell} ({_instance(cell)}): chain "
-                  f"{inst['chain_cycles']} cycles, in-order issue "
-                  f"{inst['inorder_cycles']} cycles, attempt loop "
-                  f"{inst['loop']} instructions, {inst['loop_bytes']:,} "
-                  f"bytes, its inner loop {inst['inner_loop']}; " + ", ".join(
-                      f"{c} {n}" for c, n in sorted(inst["by_class"].items())))
+            # each body of the instance (the one-thread body, and the team
+            # body where it runs the tail layout) with its latency floor
+            chains = {}
+            for key, inst in sass_census.bodies(census[k],
+                                                _instance(cell)).items():
+                chains[key] = inst["chain_cycles_total"]
+                print(f"{k} {cell} ({key}): chain {inst['chain_cycles']} "
+                      f"cycles ({chains[key]} with the calls and helpers it "
+                      f"waits on), in-order issue {inst['inorder_cycles']} "
+                      f"cycles, attempt loop {inst['loop']} instructions, "
+                      f"{inst['loop_bytes']:,} bytes, its inner loop "
+                      f"{inst['inner_loop']}; " + ", ".join(
+                          f"{c} {n}" for c, n in sorted(
+                              inst["by_class"].items())))
             for key in sorted(turns[k][0][cell]):
                 if key == "tail":
                     print(f"  tail: {turns[k][0][cell]['tail']}")
                     continue
                 rs = [t[cell][key] for t in turns[k]]
-                floor = [inst["chain_cycles"] * r["longest"]
-                         / (r["mhz"] * 1e3) for r in rs]
                 print(f"  ({key}) " + " / ".join(
                     f"{r['ms']:.3f} ms at {r['mhz']:.0f} MHz, "
                     f"{r['cycles_per_attempt']:.0f} cycles an attempt of "
                     f"the longest ({r['longest']:,}), latency floor "
-                    f"{fl:.3f} ms" for r, fl in zip(rs, floor)), flush=True)
+                    + ", ".join(f"{c * r['longest'] / (r['mhz'] * 1e3):.3f} "
+                                f"ms ({b})" for b, c in chains.items())
+                    for r in rs), flush=True)
     print(json.dumps(record))
     return 0
 

@@ -48,9 +48,12 @@ every ray (init_carry's right-hand side; the incoming k1 is not read).
   attempts: one thread per ray, or (the 3D full chain over the dipole) a
   team of four warps per 32 rays, one lane of each a ray: warp 0 steps
   them, three helper warps compute the pieces of each right-hand side
-  (`team_warps`). A launch of at most TAIL_LAYOUT_MAX_RAYS rays on an
-  instance that takes the tail layout (`tail_layout`: the main path's 2D
-  float bs3 instances) runs one ray a warp (`launch_flags`).
+  (`team_warps`). A launch of few rays (`layout_limit`: at most
+  TAIL_LAYOUT_MAX_RAYS, or TEAM_LAYOUT_MAX_RAYS) on an instance that
+  takes the tail layout (`tail_layout`, `launch_flags`) runs one ray a warp
+  (the main path's 2D float bs3 instances) or on the team body (the
+  float32 bs3 instances over the tilted dipole and IGRF, whose wider
+  launches run on the one-thread body).
   The kernel is built from the source at first use
   with nvcc for sm_90a into raytrace_tpu_torch/_build/ (rebuilt when the
   source changes; PARTS nvcc processes at once, linked into one library)
@@ -128,6 +131,14 @@ MAX_ION = 3
 # warp, 1,056 rays 2.40-2.42 against 2.21-2.26 ms, and its merged tail (41
 # rays padded to 256) 57.5 against 61.4 ms.
 TAIL_LAYOUT_MAX_RAYS = 528
+# The float32 bs3 instances over the non-axial fields run their tail
+# layout on the team body (four warps a ray, csrc/step_chunk.cu), in a launch
+# of at most this many rays (layout_limit). Measured on an H100 (latency_floor
+# (f), PERF.md), 512 attempts from the launch carry, team / one-thread body:
+# tilted 4.44 / 4.90 ms at 132 rays, 4.36 / 4.90 at 264, 5.50 / 4.88 at
+# 528; IGRF 4.15-4.24 / 5.50, 4.45 / 5.37, 5.68-5.77 / 5.45; at the full
+# 10,240 the team body ran 1.15x / 1.27x the one-thread body's time.
+TEAM_LAYOUT_MAX_RAYS = 264
 _VEC = ("u", "k1", "u_prev", "u_lo")
 _INT = ("status", "n_accept", "n_reject", "rejected", "n_tiny", "caution")
 # kernel stepper codes; rk4 is what adaptive=False runs, whatever the
@@ -300,11 +311,20 @@ def tail_layout(dtype, stepper, frame, medium, field):
                                                medium, field))
 
 
-def launch_flags(b, finish=False, fresh=False, layout=False):
+def layout_limit(team=False):
+    """The most rays of a launch in the tail layout: TAIL_LAYOUT_MAX_RAYS,
+    and on an instance whose tail layout is the team body (`team`) at
+    most TEAM_LAYOUT_MAX_RAYS too."""
+    return (min(TAIL_LAYOUT_MAX_RAYS, TEAM_LAYOUT_MAX_RAYS) if team
+            else TAIL_LAYOUT_MAX_RAYS)
+
+
+def launch_flags(b, finish=False, fresh=False, layout=False, limit=None):
     """The kernel's flag bits for a launch of b rays: 1 finish, 2 fresh,
     4 the tail layout, where the instance takes it (`layout`, tail_layout)
-    and b <= TAIL_LAYOUT_MAX_RAYS."""
-    sparse = bool(layout) and 0 < b <= TAIL_LAYOUT_MAX_RAYS
+    and b <= limit (layout_limit() by default)."""
+    limit = layout_limit() if limit is None else limit
+    sparse = bool(layout) and 0 < b <= limit
     return int(bool(finish)) | 2 * bool(fresh) | 4 * sparse
 
 
@@ -642,7 +662,8 @@ class ResidentCarry:
                 carry = refine_events(rhs_fn, carry, f, spec)
             self._carry = carry
             return
-        flags = launch_flags(f.shape[0], finish, fresh, self._layout)
+        flags = launch_flags(f.shape[0], finish, fresh, self._layout,
+                             layout_limit(self._team))
         with torch.cuda.device(f.device):
             rc = self._lib.step_chunk_launch(
                 *self._codes, self._ptrs, f.shape[0], int(n_steps), flags,
@@ -651,7 +672,11 @@ class ResidentCarry:
         if rc != 0:
             raise RuntimeError(
                 f"step_chunk kernel launch failed: CUDA error {rc}")
-        count_launch(flags, self._team)
+        # the team body: every launch of its instances, but over the
+        # non-axial fields (whose instances take the tail layout too) the
+        # launches in the tail layout alone
+        count_launch(flags, self._team and (bool(flags & 4)
+                                            or not self._layout))
 
     def carry(self) -> RayCarry:
         return self._carry if self._fields is None else self._views

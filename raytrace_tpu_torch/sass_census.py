@@ -28,14 +28,29 @@ the attempts) and reports over its body:
   chain: the loop runs three times, and its stage selection branches to
   code outside its span. Take an attempt's chain from a build with the
   stages unrolled (the same operations), e.g. the parent's with
-  --against.
+  --against;
+- `calls`: the code that the attempt loop CALLs (an out-of-line
+  right-hand side: rhs_3d_general of the one-thread general-field
+  instances, rhs_ad of the AD ones, placed after the kernel's code; not
+  the math library's slow paths, SLOW_PATH_MAX), with its call sites in
+  the loop and the census of its whole body as a chain of its own
+  (`chain_cycles`, `inorder_cycles`, `bytes`, `by_class`);
+- `helper_loop`: in a team-body instance, the census of the helpers'
+  loop (the pieces of a right-hand side, every role's code in address
+  order: its chain is the longest role's), and `rhs_per_attempt`, the
+  right-hand sides warp 0 waits for in an attempt (its barriers / 2);
+- `chain_cycles_total`: the attempt's chain with what it waits on
+  outside the loop's own code: `chain_cycles` plus, for each call site,
+  the callee's chain, plus `rhs_per_attempt` times the helper loop's
+  chain. The latency floor (latency_floor) takes this one.
 
 Both walk the code in address order, slow paths included (a division's
 or a sine's rarely taken branch), so they are estimates of the attempt's
 critical path, to set against the measured cycles per attempt (time /
 attempts x clocks.sm). Each record also holds `sha`, a digest of the
-instance's whole SASS text (opcodes and operands), so that two checkouts'
-instances can be seen to be the same code. Prints one line per instance
+instance's whole SASS text (opcodes and operands, its out-of-line
+functions included), so that two checkouts' instances can be seen to be
+the same code. Prints one line per instance
 (`--instances all`: every instance of the library) and, with --against,
 the instances whose SASS is the same in both checkouts and those that
 differ, and a JSON record as the last line. Needs the CUDA toolkit's
@@ -71,6 +86,10 @@ _CLASS = (
     ("int", r"(IMAD|IADD3|ISETP|LOP3|SHF|LEA|IABS|IMNMX|POPC|FLO|SEL|"
             r"PRMT|P2R|R2P|PLOP3|MOV|S2R|CS2R|ULDC|LDC|UMOV|S2UR)"),
 )
+# a callee of fewer instructions is a slow path of the math library
+# (call_census): those of the step kernel are 21-103 instructions, its
+# out-of-line right-hand sides thousands
+SLOW_PATH_MAX = 512
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
                    r"\s*([^;]*);")
 
@@ -105,32 +124,113 @@ def _regs(text):
     return re.findall(r"\b(U?R\d+|U?P\d)\b", text)
 
 
-def widest_loop(insns):
-    """(first, last) index of the widest backward branch's span, or
-    None."""
+def loops(insns):
+    """(first, last) index of every backward branch's span, the widest
+    first."""
     addr = {a: k for k, (a, *_rest) in enumerate(insns)}
-    best = None
+    spans = []
     for k, (a, _p, op, ops) in enumerate(insns):
         if op.startswith("BRA"):
             m = re.search(r"0x([0-9a-f]+)", ops)
             if m and int(m[1], 16) < a and int(m[1], 16) in addr:
-                span = (addr[int(m[1], 16)], k)
-                if best is None or span[1] - span[0] > best[1] - best[0]:
-                    best = span
-    return best
+                spans.append((addr[int(m[1], 16)], k))
+    return sorted(spans, key=lambda s: s[0] - s[1])
+
+
+def widest_loop(insns):
+    """(first, last) index of the widest backward branch's span, or
+    None."""
+    spans = loops(insns)
+    return spans[0] if spans else None
+
+
+def _barrier_counter(insns):
+    """count(span): the barriers in the span (first, last) of insns."""
+    before = [0]
+    for _a, _p, op, _o in insns:
+        before.append(before[-1] + (classify(op) == "barrier"))
+    return lambda span: before[span[1] + 1] - before[span[0]]
+
+
+def pass_loop(insns):
+    """The pass loop's span (around fresh's right-hand side, the attempts
+    and finish's): the widest loop, or in a team-body instance (one with
+    barriers) the widest loop that holds a loop with barriers, the
+    attempt loop (the helpers' loop holds barriers but no such loop, and
+    may be the wider one)."""
+    spans = loops(insns)
+    count = _barrier_counter(insns)
+    if not spans or not count((0, len(insns) - 1)):
+        return spans[0] if spans else None
+    barred = [t for t in spans if count(t)]
+    for s in spans:
+        if any(t != s and s[0] <= t[0] and t[1] <= s[1] for t in barred):
+            return s
+    return spans[0]
+
+
+def helper_loop(insns):
+    """The team body's helper loop: the widest loop with barriers outside
+    the pass loop, or None (a one-thread instance)."""
+    outer = pass_loop(insns)
+    count = _barrier_counter(insns)
+    for s in loops(insns):
+        if outer and (s[1] < outer[0] or s[0] > outer[1]) and count(s):
+            return s
+    return None
 
 
 def loop_body(insns):
     """The attempt loop's instructions: the widest backward branch's span
-    inside the widest one (the pass loop around fresh's right-hand side,
-    the attempts and finish's), or the widest span where it holds
+    inside the pass loop (pass_loop), or the pass loop where it holds
     none, or all of them where there is no backward branch."""
-    outer = widest_loop(insns)
+    outer = pass_loop(insns)
     if outer is None:
         return insns
     body = insns[outer[0]:outer[1] + 1]
     inner = widest_loop(body[:-1])
     return body[inner[0]:inner[1] + 1] if inner else body
+
+
+def callee(insns, ops):
+    """The instructions that a CALL with operands `ops` runs: the caller's
+    own listing from the target address (ptxas places a kernel's
+    out-of-line functions after its code) to its first RET, or None."""
+    m = re.search(r"0x([0-9a-f]+)", ops)
+    if m is None:
+        return None
+    at = int(m[1], 16)
+    start = next((k for k, x in enumerate(insns) if x[0] == at), None)
+    if start is None:
+        return None
+    end = next((k for k in range(start, len(insns))
+                if insns[k][2].startswith("RET")), len(insns) - 1)
+    return insns[start:end + 1]
+
+
+def call_census(insns, body):
+    """[{target, sites, instructions, chain_cycles, inorder_cycles, bytes,
+    by_class}] of the code that the body CALLs (an out-of-line right-hand
+    side), each target once. A call to fewer than SLOW_PATH_MAX
+    instructions is a slow path of the math library (a division's, a
+    square root's, a sine's far argument reduction), which the code
+    branches around on all but rare inputs, and is left out."""
+    out = {}
+    for _a, _pred, op, ops in body:
+        if not op.startswith("CALL"):
+            continue
+        target = ops.split()[-1] if ops else ""
+        if target in out:
+            out[target]["sites"] += 1
+            continue
+        code = callee(insns, ops)
+        if not code or len(code) < SLOW_PATH_MAX:
+            continue
+        counts, chain, inorder = census(code)
+        out[target] = dict(target=target, sites=1, instructions=len(code),
+                           chain_cycles=chain, inorder_cycles=inorder,
+                           bytes=code_bytes(code)[0], by_class=counts)
+    return list(out.values())
 
 
 def inner_loop(body):
@@ -198,29 +298,81 @@ def instance_key(name):
     return next(iter(key), None)
 
 
-def run_census(lib_path, wanted):
+def instance_census(insns):
+    """The census record of one instance's SASS (the keys of the module
+    docstring but `sha`)."""
+    body = loop_body(insns)
+    counts, chain, inorder = census(body)
+    size, size_by_class = code_bytes(body)
+    calls = call_census(insns, body)
+    rec = dict(instructions=len(insns), loop=len(body), by_class=counts,
+               chain_cycles=chain, inorder_cycles=inorder, loop_bytes=size,
+               bytes_by_class=size_by_class, inner_loop=inner_loop(body),
+               calls=calls)
+    total = chain + sum(c["sites"] * c["chain_cycles"] for c in calls)
+    span = helper_loop(insns)
+    if span is not None:
+        code = insns[span[0]:span[1] + 1]
+        hcounts, hchain, hinorder = census(code)
+        rec["helper_loop"] = dict(instructions=len(code),
+                                  chain_cycles=hchain,
+                                  inorder_cycles=hinorder,
+                                  bytes=code_bytes(code)[0],
+                                  by_class=hcounts)
+        rec["rhs_per_attempt"] = counts.get("barrier", 0) // 2
+        total += rec["rhs_per_attempt"] * hchain
+    rec["chain_cycles_total"] = total
+    return rec
+
+
+def bodies(census_out, inst):
+    """{key: record} of instance `inst` (named without the body's
+    "team<K>" suffix) in run_census's output: one body, or two where the
+    instance runs its tail layout on the team body (the general-field
+    float bs3 ones)."""
+    out = {key: rec for key, rec in census_out.items()
+           if re.sub(r" team\d+$", "", key) == inst}
+    if not out:
+        raise KeyError(inst)
+    return out
+
+
+def entry_names(build_log):
+    """The kernel entry points that ptxas compiled, from a build's log
+    (ops/step_chunk.py::BUILD_LOG), in their mangled form."""
+    return sorted(set(re.findall(r"Compiling entry function '([^']+)'",
+                                 build_log)))
+
+
+def run_census(lib_path, wanted, names=None):
+    """{instance key: census record} of the wanted instances (all where
+    wanted is None). names: the library's entry points (entry_names), so
+    that cuobjdump disassembles only the wanted ones (-fun); without
+    them, or where that dump misses a wanted instance, the whole library
+    is disassembled (over a minute on the machine with the card)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                          text=True, check=True).stdout
 
     def wants(name):
         key = instance_key(name)
         return key is not None and (
             wanted is None or re.sub(r" team\d+$", "", key) in wanted)
 
+    def dump(*only):
+        return subprocess.run([tool, "-sass", *only, lib_path],
+                              capture_output=True, text=True,
+                              check=not only).stdout
+
+    picked = [n for n in names or () if wanted is not None and wants(n)]
+    funcs = parse(dump("-fun", ",".join(picked)), wants) if picked else {}
+    if not picked or {instance_key(n) for n in funcs} != {
+            instance_key(n) for n in picked}:
+        funcs = parse(dump(), wants)
     out = {}
-    for name, insns in parse(sass, wants).items():
-        key = instance_key(name)
-        body = loop_body(insns)
-        counts, chain, inorder = census(body)
-        size, size_by_class = code_bytes(body)
+    for name, insns in funcs.items():
         text = "\n".join(f"{p} {op} {ops}" for _a, p, op, ops in insns)
-        out[key] = dict(instructions=len(insns), loop=len(body),
-                        by_class=counts, chain_cycles=chain,
-                        inorder_cycles=inorder, loop_bytes=size,
-                        bytes_by_class=size_by_class,
-                        inner_loop=inner_loop(body),
-                        sha=hashlib.sha256(text.encode()).hexdigest()[:16])
+        out[instance_key(name)] = dict(
+            instance_census(insns),
+            sha=hashlib.sha256(text.encode()).hexdigest()[:16])
     return out
 
 
@@ -231,7 +383,8 @@ def _child(root, wanted):
     from raytrace_tpu_torch.ops import step_chunk as sc
 
     sc.build()
-    print(json.dumps(run_census(sc.library_path(), wanted)))
+    print(json.dumps(run_census(sc.library_path(), wanted,
+                                entry_names(sc.BUILD_LOG))))
 
 
 def main():
@@ -267,7 +420,19 @@ def main():
                               sorted(c["by_class"].items()))
                   + f"; inner loop {c['inner_loop']} instructions; chain "
                     f"{c['chain_cycles']} cycles, in-order issue "
-                    f"{c['inorder_cycles']} cycles", flush=True)
+                    f"{c['inorder_cycles']} cycles" + "".join(
+                        f"; calls {x['target']} x {x['sites']} "
+                        f"({x['instructions']} instructions, chain "
+                        f"{x['chain_cycles']} cycles)"
+                        for x in c["calls"])
+                  + (f"; helper loop {c['helper_loop']['instructions']} "
+                     f"instructions, chain "
+                     f"{c['helper_loop']['chain_cycles']} cycles x "
+                     f"{c['rhs_per_attempt']} right-hand sides"
+                     if "helper_loop" in c else "")
+                  + f"; chain with what the loop waits on "
+                    f"{c['chain_cycles_total']} "
+                    "cycles", flush=True)
     if "other" in record:
         both = sorted(set(record["this"]) & set(record["other"]))
         same = [k for k in both

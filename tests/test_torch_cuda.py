@@ -296,12 +296,14 @@ def test_variant_presets_run_through_the_kernel(cuda, name, over):
 
 
 # the team body (one ray across four warps): the 3D full chain over the
-# dipole, in float and double, each stepper (every other instance keeps
-# the one-thread body)
+# dipole, in float and double, each stepper, and over the non-axial fields
+# its float bs3 instance (every other instance keeps the one-thread body)
 TEAM_INSTANCES = [("ensemble10k_plume", "float32", "bs3"),
                   ("ensemble10k_plume", "float64", "bs3"),
                   ("ensemble10k_plume", "float64", "dopri5"),
-                  ("ensemble10k_plume", "float32", "rk4")]
+                  ("ensemble10k_plume", "float32", "rk4"),
+                  ("ensemble10k_tilted", "float32", "bs3"),
+                  ("ensemble10k_igrf", "float32", "bs3")]
 
 
 def _team_launch(cuda, name, dtype, stepper, case):
@@ -356,9 +358,14 @@ def test_team_body_edges_match_plain_version_bitwise(cuda, name, dtype,
              sc._FRAME_CODE[kw["frame"]][0], sc.medium_code(env, cfg),
              sc.field_code(env))
     assert sc.team_warps(*codes) > 0
+    # over the non-axial fields the team body runs the launches of the tail
+    # layout (at most layout_limit(True) rays), the one-thread body the
+    # wider ones
+    on_team = (not sc.tail_layout(*codes)
+               or f.shape[0] <= sc.layout_limit(True))
     team = sc.step_chunk.team_launches
     got = sc.step_chunk(carry, f, env, cfg, spec, n_steps=n, **kw)
-    assert sc.step_chunk.team_launches == team + 1
+    assert sc.step_chunk.team_launches == team + on_team
     ref = sc.step_chunk_reference(carry, f, env, cfg, spec, n_steps=n, **kw)
     torch.cuda.synchronize()
     _assert_bitwise(got, ref)
@@ -380,8 +387,9 @@ def test_team_body_edges_match_plain_version_bitwise(cuda, name, dtype,
 
 def test_team_body_takes_the_measured_instances(cuda):
     """The body of each instance is the kernel source's compile-time
-    choice: the 3D full chain over the dipole in every instance, no other
-    frame, medium or field."""
+    choice: the 3D full chain over the dipole in every instance and over
+    the non-axial fields in the float bs3 one, no other frame or
+    medium."""
     for dtype in (0, 1):
         for stepper in (0, 1, 2):
             for frame in (0, 1, 2):
@@ -390,9 +398,16 @@ def test_team_body_takes_the_measured_instances(cuda):
                                   (0,)):
                         team = sc.team_warps(dtype, stepper, frame, medium,
                                              field)
-                        want = frame == 1 and medium == 1 and field == 0
+                        want = frame == 1 and medium == 1 and (
+                            field == 0 or (dtype, stepper) == (0, 0))
                         assert team == (4 if want else 0), (
                             dtype, stepper, frame, medium, field)
+                        # the tail layout: the 2D chain instances (one ray
+                        # a warp) and the general-field team instances
+                        layout = (dtype, stepper, medium, field) == (
+                            0, 0, 0, 0) and frame != 1 or (want and field)
+                        assert sc.tail_layout(dtype, stepper, frame, medium,
+                                              field) == bool(layout)
 
 
 # the media of the team body's density pieces (ne_head, ne_lterms,
@@ -441,6 +456,49 @@ def test_team_body_media_match_plain_version_bitwise(cuda, medium, dtype,
                         n_steps=256, frame="3d")
     assert sc.step_chunk.team_launches == team + 1
     ref = sc.step_chunk_reference(carry, f, env, cfg, spec, stepper=stepper,
+                                  n_steps=256, frame="3d")
+    torch.cuda.synchronize()
+    _assert_bitwise(got, ref)
+    made = (got.n_accept + got.n_reject) - (carry.n_accept + carry.n_reject)
+    assert int(made.min()) > 0   # every ray stepped
+
+
+# the non-axial fields of the general-field team body's presets
+TEAM_FIELDS = {"tilted": dict(b_model="tilted", b_tilt=0.2, b_tilt_phi=0.5),
+               "igrf": dict(b_model="igrf")}
+
+
+@pytest.mark.parametrize("medium", sorted(TEAM_MEDIA) + ["ca1992"])
+@pytest.mark.parametrize("field", sorted(TEAM_FIELDS))
+def test_general_team_body_media_match_plain_version_bitwise(cuda, field,
+                                                             medium):
+    """Every 40th ray of the field's fan (256 rays: the tail layout) over
+    each medium of TEAM_MEDIA and the axisymmetric CA1992 (the chain rule
+    through the magnetic latitude alone) through the general-field team
+    body, float32 bs3, 256 attempts: bit for bit with the plain
+    version."""
+    from raytrace_tpu_torch.config import MediumConfig
+    from raytrace_tpu_torch.constants import B0_3D
+
+    conf = preset(f"ensemble10k_{field}", dtype="float32",
+                  medium=MediumConfig(b0=B0_3D, **TEAM_FIELDS[field],
+                                      **TEAM_MEDIA.get(medium, {})))
+    env = conf.medium.build()
+    cfg, spec = conf.solver(), conf.stop()
+    u0, f = _build_u0(conf, env, np.float32, cuda)
+    u0 = torch.as_tensor(u0[::40], device=cuda)
+    f = torch.as_tensor(f[::40], device=cuda)
+    carry = init_carry(rhs.frame_rhs(conf.frame, env)[0], u0, f, cfg)
+    codes = (0, sc._STEPPER_CODE["bs3"], sc._FRAME_CODE["3d"][0],
+             sc.medium_code(env, cfg), sc.field_code(env))
+    assert codes[3:] == (sc.FULL, 1 if field == "tilted" else 2)
+    assert sc.team_warps(*codes) == 4 and sc.tail_layout(*codes)
+    assert f.shape[0] <= sc.layout_limit(True)
+    team = sc.step_chunk.team_launches
+    got = sc.step_chunk(carry, f, env, cfg, spec, stepper="bs3",
+                        n_steps=256, frame="3d")
+    assert sc.step_chunk.team_launches == team + 1
+    ref = sc.step_chunk_reference(carry, f, env, cfg, spec, stepper="bs3",
                                   n_steps=256, frame="3d")
     torch.cuda.synchronize()
     _assert_bitwise(got, ref)

@@ -255,11 +255,24 @@ MEDIA = {
     "no_ps": dict(plasmasphere=False, iono_mlt=True),
 }
 
+# the fields of the general-field presets, kept where a case's medium is
+# one of MEDIA
+_FIELDS = {"ensemble10k_tilted": dict(b_model="tilted", b_tilt=0.2,
+                                      b_tilt_phi=0.5),
+           "ensemble10k_igrf": dict(b_model="igrf")}
+# the media of the general-field team body beside its presets': the MLT
+# GCPM and the smoothed MLT plasmapause, no plasmasphere, the DE factor with
+# the refill, and the axisymmetric CA1992 (ps_mlt off: the chain rule
+# through the magnetic latitude alone)
+_GENERAL_MEDIA = ("gcpm_mlt", "smooth_mlt", "no_ps", "refill_de", "gcpm",
+                  "ca1992")
+
 # (preset, dtype, stepper, every, edge, medium): the team instances (the
-# 3D full chain over the dipole) against the one-thread body; edges as on
-# the card (B not a multiple of 32, rays stopped at entry, rays retiring by
-# ESCAPED and EVANESCENT, n_steps = 0); the medium is the preset's or one
-# of MEDIA
+# 3D full chain over the dipole, and the float32 bs3 one over each
+# non-axial field) against the one-thread body; edges as on the card (B
+# not a multiple of 32, rays stopped at entry, rays retiring by ESCAPED and
+# EVANESCENT, n_steps = 0, a launch with finish where rays land);
+# the medium is the preset's or one of MEDIA
 CASES = {
     "3d_full_f32_bs3_stops": ("ensemble10k_plume", "float32", "bs3", 100,
                               "stops", None),
@@ -275,6 +288,13 @@ CASES = {
                            m) for m in MEDIA},
     **{f"3d_{m}_f64_dopri5": ("ensemble10k_plume", "float64", "dopri5", 200,
                               "", m) for m in MEDIA},
+    **{f"{g}_f32_bs3_{e or 'preset'}": (f"ensemble10k_{g}", "float32",
+                                        "bs3", 100, e, None)
+       for g in ("tilted", "igrf")
+       for e in ("", "stops", "odd", "stopped", "zero", "finish")},
+    **{f"{g}_{m}_f32_bs3": (f"ensemble10k_{g}", "float32", "bs3", 100, "",
+                            m)
+       for g in ("tilted", "igrf") for m in _GENERAL_MEDIA},
 }
 
 
@@ -283,7 +303,8 @@ def test_team_body_matches_one_thread_body_on_the_host(host_kernel, case):
     name, dtype, stepper, every, edge, medium = CASES[case]
     over = dict(adaptive=False, dt0=1.0e6 / RE) if stepper == "rk4" else {}
     if medium is not None:
-        over["medium"] = MediumConfig(b0=B0_3D, **MEDIA[medium])
+        over["medium"] = MediumConfig(b0=B0_3D, **_FIELDS.get(name, {}),
+                                      **MEDIA.get(medium, {}))
     conf = preset(name, dtype=dtype, **over)
     env = conf.medium.build()
     np_dt = np.float32 if dtype == "float32" else np.float64
@@ -307,9 +328,25 @@ def test_team_body_matches_one_thread_body_on_the_host(host_kernel, case):
     codes = [sc._STEPPER_CODE[stepper if conf.adaptive else "rk4"],
              sc._FRAME_CODE[conf.frame][0], sc.medium_code(env, cfg),
              sc.field_code(env)]
-    _, got = _host_run(host_kernel, case, carry, f, codes, n_steps,
-                       sc._params(env, cfg, spec, conf.root), out=False)
+    params = sc._params(env, cfg, spec, conf.root)
+    assert codes[2] == sc.FULL and codes[3] == (name in _FIELDS) + (
+        name == "ensemble10k_igrf")
+    # over the non-axial fields the team body runs the launches in the
+    # tail layout (flag bit 4), the others the one-thread body
+    flags = 4 if name in _FIELDS else 0
+    if edge == "finish":
+        # 160 attempts first, then a launch of 48 with finish: rays refined
+        # at entry and rays that land inside it (fresh there would form k1
+        # at the wedge rays too, NaN, whose sign the host's arithmetic does
+        # not canonicalize as the card's does; the fresh test below holds
+        # fresh through both bodies at the launch carry)
+        carry = _carry_of(_host_run(host_kernel, case, carry, f, codes, 160,
+                                    params)[0])
+        flags |= 1
+    out, got = _host_run(host_kernel, case, carry, f, codes, n_steps, params,
+                         flags=flags, out=edge == "finish")
     assert got["team_warps"] == 4 and got["thread_warps"] == 0
+    assert got["tail_layout"] == (name in _FIELDS)
     assert got["differ"] == 0
     live = int((carry.status == 0).sum())
     if edge == "zero":
@@ -318,6 +355,48 @@ def test_team_body_matches_one_thread_body_on_the_host(host_kernel, case):
         assert got["attempts"] >= live * 10
     if edge == "stops":
         assert got["stopped"] > 0
+    if edge == "finish":
+        hit = out["status"] == events.HIT_EARTH
+        before = carry.status.numpy() == events.HIT_EARTH
+        assert before.any() and (hit & ~before).any()
+
+
+# (dtype, stepper) of the general-field instances over FULL: the float32 bs3
+# one takes the team body in the tail layout (ensemble10k_tilted's and
+# ensemble10k_igrf's), its double, dopri5 and rk4 siblings keep the
+# one-thread body
+_SIBLINGS = [("float32", "bs3", 4), ("float64", "bs3", 0),
+             ("float32", "dopri5", 0), ("float32", "rk4", 0),
+             ("float64", "dopri5", 0), ("float64", "rk4", 0)]
+
+
+@pytest.mark.parametrize("name", sorted(_FIELDS))
+@pytest.mark.parametrize("dtype,stepper,want", _SIBLINGS)
+def test_team_body_takes_the_general_field_float_bs3_instance(
+        host_kernel, name, dtype, stepper, want):
+    """team_warps is 4 for the float32 bs3 instance of each non-axial field
+    over the full chain, which takes the tail layout, and 0 for its
+    siblings, which do not; a launch of 0 attempts through each, in the
+    tail layout where it has it, leaves the carry as it was in both
+    builds."""
+    conf = preset(name, dtype=dtype)
+    env = conf.medium.build()
+    np_dt = np.float32 if dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, torch.device("cpu"))
+    u0, f = torch.as_tensor(u0[::1000]), torch.as_tensor(f[::1000])
+    cfg, spec = conf.solver(), conf.stop()
+    carry = init_carry(rhs_mod.frame_rhs(conf.frame, env)[0], u0, f, cfg)
+    codes = [sc._STEPPER_CODE[stepper], sc._FRAME_CODE[conf.frame][0],
+             sc.medium_code(env, cfg), sc.field_code(env)]
+    got, stats = _host_run(host_kernel, f"siblings_{name}_{dtype}_{stepper}",
+                           carry, f, codes, 0,
+                           sc._params(env, cfg, spec, conf.root), flags=4)
+    assert (stats["team_warps"], stats["thread_warps"]) == (want, 0)
+    assert stats["tail_layout"] == (want > 0)
+    assert stats["differ"] == 0 and stats["attempts"] == 0
+    for k in _ORDER:
+        np.testing.assert_array_equal(
+            got[k], getattr(carry, k).numpy(), err_msg=k)
 
 
 # (preset, dtype, stepper, every, grad_mode, legacy, overrides): the ALT
@@ -792,14 +871,16 @@ def test_finish_and_fresh_match_plain_version_on_the_host(host_kernel,
 
 
 @pytest.mark.parametrize("case", ["lat_f64", "3d_f64", "plume_team_f64",
-                                  "plume_team_f32"])
+                                  "plume_team_f32", "tilted_team_f32",
+                                  "igrf_team_f32"])
 def test_fresh_forms_init_carry_k1_on_the_host(host_kernel, case):
     """A launch of 0 attempts with fresh: k1 = rhs(u) for every ray, the
     team body bit for bit with the one-thread body, and every field within
     1e-13 of init_carry's carry (float64: the two math libraries in one
     right-hand side) or 1e-5 (float32)."""
     name = {"lat": "ensemble10k", "3d": "ensemble10k_3d",
-            "plume": "ensemble10k_plume"}[case.split("_")[0]]
+            "plume": "ensemble10k_plume", "tilted": "ensemble10k_tilted",
+            "igrf": "ensemble10k_igrf"}[case.split("_")[0]]
     dtype = "float32" if case.endswith("f32") else "float64"
     conf = preset(name, dtype=dtype)
     env = conf.medium.build()
@@ -811,11 +892,13 @@ def test_fresh_forms_init_carry_k1_on_the_host(host_kernel, case):
     codes = [sc._STEPPER_CODE["bs3"], sc._FRAME_CODE[conf.frame][0],
              sc.medium_code(env, cfg), sc.field_code(env)]
     want = init_carry(rhs_fn, u0, f, cfg)
+    # over the non-axial fields the team body in the tail layout (flag 4)
+    layout = 4 if case.startswith(("tilted", "igrf")) else 0
     got, stats = _host_run(host_kernel, case, init_carry(None, u0, f, cfg),
                            f, codes, 0, sc._params(env, cfg, spec, conf.root),
-                           flags=2)
+                           flags=2 | layout)
     assert stats["differ"] == 0 and stats["attempts"] == 0
-    assert stats["team_warps"] == (4 if case.startswith("plume") else 0)
+    assert stats["team_warps"] == (4 if "team" in case else 0)
     tol = 1e-5 if dtype == "float32" else 1e-13
     for k in RayCarry._fields:
         w = getattr(want, k).numpy()

@@ -7,6 +7,7 @@ float64) and check what the wrapper refuses. The CUDA kernel itself is
 held to the same plain version on the card (tests/test_torch_cuda.py and
 chip_smoke.py)."""
 
+import types
 from functools import partial
 
 import jax
@@ -384,6 +385,53 @@ def test_sass_census_counts_the_attempt_loop():
     assert inorder >= lat["fp32"] + lat["mufu"] + lat["fp32"]
 
 
+@pytest.mark.parametrize("listed", ["both", "one"])
+def test_sass_census_dumps_only_the_wanted_entry_points(monkeypatch,
+                                                        listed):
+    """run_census takes the wanted instances' mangled names from the
+    build's log and asks cuobjdump for those alone (-fun); where that
+    listing misses one of them, it disassembles the whole library."""
+    from raytrace_tpu_torch import sass_census as census
+
+    names = {"float bs3 2d_lat axi": "_ZN12_GLOBAL__N_117step_chunk_kernel"
+                                     "IfLi0ELi0ELi0ELi0ELi0EEEvPT_",
+             "float bs3 3d full tilted": "_ZN12_GLOBAL__N_117step_chunk_"
+                                         "kernelIfLi0ELi1ELi1ELi1ELi0EEEvPT_",
+             "double bs3 2d_lat axi": "_ZN12_GLOBAL__N_117step_chunk_kernel"
+                                      "IdLi0ELi0ELi0ELi0ELi0EEEvPT_"}
+    log = "".join(f"ptxas info    : Compiling entry function '{n}' for "
+                  f"'sm_90a'\n" for n in names.values())
+    assert census.entry_names(log) == sorted(names.values())
+
+    def listing(keys):
+        return "".join(
+            f"        Function : {names[k]}\n"
+            "        /*0000*/                   FADD R2, R0, R1 ;\n"
+            "        /*0010*/                   EXIT ;\n" for k in keys)
+
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd[2:-1])
+        if "-fun" in cmd:
+            keys = [k for k, n in names.items() if n in cmd[3].split(",")]
+            keys = keys if listed == "both" else keys[:1]
+        else:
+            keys = list(names)
+        return types.SimpleNamespace(stdout=listing(keys), returncode=0)
+
+    monkeypatch.setattr(census.subprocess, "run", fake_run)
+    wanted = {"float bs3 2d_lat axi", "float bs3 3d full tilted"}
+    out = census.run_census("lib.so", wanted, census.entry_names(log))
+    assert set(out) == wanted
+    picked = ",".join(names[k] for k in sorted(names) if k in wanted)
+    assert calls[0] == ["-fun", ",".join(sorted(picked.split(",")))]
+    assert calls[1:] == ([] if listed == "both" else [[]])
+    calls.clear()
+    assert set(census.run_census("lib.so", wanted)) == wanted
+    assert calls == [[]]
+
+
 def test_sass_census_sizes_the_attempt_loop():
     """The loop's size in bytes runs from its first instruction to the end
     of its backward branch, each instruction as wide as the address step
@@ -439,6 +487,23 @@ def test_tail_layout_rule(b, layout, want):
     assert sc.launch_flags(b, fresh=True, layout=layout) == 2 | want
 
 
+@pytest.mark.parametrize("b,team,want", [
+    (1, True, 4), (264, True, 4), (265, True, 0), (528, True, 0),
+    (264, False, 4), (528, False, 4), (529, False, 0)])
+def test_team_body_tail_layout_limit(b, team, want, monkeypatch):
+    """An instance whose tail layout is the team body (the float32 bs3 ones
+    over the non-axial fields) takes it at most TEAM_LAYOUT_MAX_RAYS = 264
+    rays (measured faster there, slower at 528); the one-ray-a-warp layout
+    keeps TAIL_LAYOUT_MAX_RAYS; both thresholds at 0 give the dense
+    layout."""
+    assert sc.TEAM_LAYOUT_MAX_RAYS == 264
+    assert sc.launch_flags(b, layout=True,
+                           limit=sc.layout_limit(team)) == want
+    assert sc.layout_limit(False) == sc.TAIL_LAYOUT_MAX_RAYS
+    monkeypatch.setattr(sc, "TAIL_LAYOUT_MAX_RAYS", 0)
+    assert sc.launch_flags(b, layout=True, limit=sc.layout_limit(team)) == 0
+
+
 def test_launch_counters_read_the_flag_bits(monkeypatch):
     """Each launch counts once, and once more on the counter of each of
     its flags: the team body, finish, fresh and the tail layout
@@ -479,3 +544,80 @@ def test_sass_census_finds_the_attempt_loop_inside_the_pass_loop():
     assert census.census(body)[1] == (
         lat["fp32"] + lat["mufu"] + lat["fp32"] + lat["fp32"]
         + lat["control"])
+
+
+def test_sass_census_follows_the_out_of_line_right_hand_side():
+    """An attempt loop that CALLs its right-hand side (the one-thread
+    general-field instances' rhs_3d_general, placed after the kernel's
+    code): the callee's chain counts once per call site in
+    chain_cycles_total; a call to a short piece of code (a division's slow
+    path) does not."""
+    from raytrace_tpu_torch import sass_census as census
+
+    pad = census.SLOW_PATH_MAX
+    slow_at = 0xe0 + 16 * pad
+    ops = {0x10: "FADD R1, R1, R2", 0x20: "CALL.REL.NOINC 0xa0",
+           0x30: "CALL.REL.NOINC 0xa0", 0x40: "FMUL R1, R1, R2",
+           0x50: f"CALL.REL.NOINC {slow_at:#x}",
+           0x60: "CALL.REL.NOINC 0xa0",
+           0x70: "@P1 BRA 0x20", 0x80: "@P2 BRA 0x10", 0x90: "EXIT",
+           # the right-hand side
+           0xa0: "MUFU.RSQ R4, R1", 0xb0: "FMUL R4, R4, R1",
+           0xc0: "FMUL R4, R4, R4",
+           **{0xd0 + 16 * k: "NOP" for k in range(pad)},
+           0xd0 + 16 * pad: "RET.REL.NODEC R20 0x0",
+           # a slow path
+           slow_at: "MUFU.RCP R6, R6",
+           slow_at + 0x10: "RET.REL.NODEC R20 0x0"}
+    sass = ("Function : _ZN12_GLOBAL__N_117step_chunk_kernelIfLi0ELi1ELi1E"
+            "Li1ELi0EEEvPT_\n" + "".join(
+                f"        /*{a:04x}*/  {op} ;\n" for a, op in ops.items()))
+    (_name, insns), = census.parse(sass).items()
+    rec = census.instance_census(insns)
+    (call,) = rec["calls"]
+    lat = census.LATENCY
+    chain = lat["mufu"] + 2 * lat["fp32"]
+    assert (call["target"], call["sites"], call["instructions"],
+            call["chain_cycles"]) == ("0xa0", 3, 4 + pad, chain)
+    assert rec["chain_cycles_total"] == rec["chain_cycles"] + 3 * chain
+    assert "helper_loop" not in rec
+
+
+def test_sass_census_finds_the_team_body_helper_loop():
+    """A team-body instance: the pass loop is the loop that holds the
+    attempt loop with warp 0's barriers, even where the helpers' loop
+    (two barriers, the pieces between them) is wider; the helper loop's
+    chain counts once for each right-hand side of an attempt (warp 0's
+    barriers / 2)."""
+    from raytrace_tpu_torch import sass_census as census
+
+    ops = {0x10: "FADD R1, R1, R2", 0x20: "BAR.SYNC.DEFER_BLOCKING 0x0",
+           0x30: "BAR.SYNC.DEFER_BLOCKING 0x0", 0x40: "LDS R3, [R0]",
+           0x50: "BAR.SYNC.DEFER_BLOCKING 0x0",
+           0x60: "BAR.SYNC.DEFER_BLOCKING 0x0", 0x70: "FMUL R1, R3, R1",
+           0x80: "@P1 BRA 0x20", 0x90: "@P2 BRA 0x10", 0xa0: "EXIT",
+           0xb0: "BAR.SYNC.DEFER_BLOCKING 0x0", 0xc0: "LDS R5, [R0]",
+           0xd0: "MUFU.SIN R6, R5", 0xe0: "MUFU.COS R7, R5",
+           0xf0: "FMUL R8, R6, R7", 0x100: "FMUL R8, R8, R6",
+           0x110: "FMUL R8, R8, R7", 0x120: "FADD R8, R8, R6",
+           0x130: "FMUL R8, R8, R5", 0x140: "STS [R0], R8",
+           0x150: "BAR.SYNC.DEFER_BLOCKING 0x0", 0x160: "@P3 BRA 0xb0",
+           0x170: "EXIT"}
+    sass = ("Function : _ZN12_GLOBAL__N_117step_chunk_kernelIfLi0ELi1ELi1E"
+            "Li1ELi4EEEvPT_\n" + "".join(
+                f"        /*{a:04x}*/  {op} ;\n" for a, op in ops.items()))
+    (name, insns), = census.parse(sass).items()
+    assert census.instance_key(name) == "float bs3 3d full tilted team4"
+    body = census.loop_body(insns)
+    assert (body[0][0], body[-1][0]) == (0x20, 0x80)
+    rec = census.instance_census(insns)
+    assert rec["rhs_per_attempt"] == 2
+    helper = rec["helper_loop"]
+    assert helper["instructions"] == 12
+    assert rec["chain_cycles_total"] == (rec["chain_cycles"]
+                                         + 2 * helper["chain_cycles"])
+    both = {"float bs3 3d full tilted team4": rec,
+            "float bs3 3d full tilted": {}, "float bs3 3d full igrf": {}}
+    assert census.bodies(both, "float bs3 3d full tilted") == {
+        "float bs3 3d full tilted team4": rec,
+        "float bs3 3d full tilted": {}}
