@@ -156,12 +156,14 @@ Phases, each printed as it runs; any failed check exits non-zero:
      and as CUDA graphs, bit for bit, with their ms per step;
  30. the 2D pitch-angle x momentum Fokker-Planck solver
      (fokker_planck_2d.py): (a) the CN/CG kernel (csrc/cn_pcg_2d.cu, one
-     launch an evolution) against its plain version through GraphLoop on
-     examples/chorus_acceleration.py's operator and seed, the first 180
-     CN steps in float64 and float32 (the snapshot and each step's CG
-     count), each timed per CN step beside the plain version's CUDA
-     graph and (4 steps) its eager loop, with the graph against the eager
-     loop bit for bit; (b) examples/chorus_acceleration.py and
+     launch an evolution on a thread-block cluster) against its plain
+     version through GraphLoop on examples/chorus_acceleration.py's
+     operator and seed, the first 180 CN steps in float64 and float32 (the
+     snapshot and each step's CG count), at the layout the wrapper picks
+     and at a second cluster size, each timed per CN step beside the
+     plain version's CUDA graph and (4 steps) its eager loop, with the
+     graph against the eager loop bit for bit, and beside the latency
+     floor of the layout's synchronisation skeleton; (b) examples/chorus_acceleration.py and
      examples/belt_competition.py as they run, through the kernel (the
      tensors from the port's bounce_averaged on the card, 1,440 CN steps
      with 8 snapshots), against the JAX package's float64 numbers on a
@@ -757,17 +759,6 @@ TWO_BELT_PINS = dict(
             0.351421542697638, 0.7115652946331127, 0.8768811397863312,
             0.9582274060986502]])
 
-# Phase 30: the 2D Fokker-Planck chain of examples/chorus_acceleration.py
-# and examples/belt_competition.py (L = 4.5, lower-band chorus of 100 pT,
-# H-band EMIC of 1 nT, a 48 x 56 (alpha_eq, p) grid from 30 keV to 6 MeV,
-# 1,440 CN steps of 120 s, 8 snapshots), in float64
-CHORUS = dict(l_shell=4.5, bw_chorus_pt=100.0, bw_emic_nt=1.0, dt=120.0,
-              n_steps=1440, n_snaps=8, n_a=48, n_p=56, e_min=30.0,
-              e_max=6000.0, e_fold=150.0, lat_cut=15.0, lat_cut_emic=20.0,
-              ba=dict(n_lat=32, n_grid=256, n_bisect=26,
-                      momentum_units="mc"))
-
-
 # The JAX package's float64 numbers of both examples on a CPU at their
 # sizes (tests/test_torch_fokker_planck_2d.py run as a script: the tensors
 # through its jitted bounce_averaged_jax, the evolutions through its
@@ -1194,119 +1185,6 @@ ANY_PINS = {
                     port_median_l=1.3105999306229832,
                     jax_match=0.889453125, jax_dl=2.307e-4, dl_max=3.5e-4),
 }
-
-
-def fp2d_grid(k, conf=CHORUS):
-    """The examples' grid, seed and wave spectra over `k` (a package's
-    side of the chain: its fokker_planck_2d, WaveSpectrum and the
-    electron gyrofrequency k.fce at the equator of L): (grid, e_c keV,
-    f0, chorus, emic)."""
-    import math
-
-    rl = 1.0 / conf["l_shell"]
-    a_lc = math.asin(math.sqrt(rl**3 / math.sqrt(4.0 - 3.0 * rl)))
-    grid = k.make_grid_2d(a_lc, conf["n_a"], k.p_from_energy(conf["e_min"]),
-                          k.p_from_energy(conf["e_max"]), conf["n_p"])
-    e_c = k.energy_from_p(grid.p_c)
-    f0 = np.exp(-e_c[None, :] / conf["e_fold"]) * np.ones((conf["n_a"], 1))
-    fce = k.fce
-    fcp = fce / 1836.15267
-    chorus = k.WaveSpectrum(bw_t=conf["bw_chorus_pt"] * 1e-12, f_m=0.30 * fce,
-                            df=0.10 * fce, f_lc=0.10 * fce, f_uc=0.45 * fce)
-    emic = k.WaveSpectrum(bw_t=conf["bw_emic_nt"] * 1e-9, f_m=0.6 * fcp,
-                          df=0.25 * fcp, f_lc=0.3 * fcp, f_uc=0.95 * fcp)
-    return grid, e_c, f0, chorus, emic
-
-
-def fp2d_tensors(k, grid, e_c, chorus, emic, conf=CHORUS):
-    """The bounce-averaged tensors (daa, dap, dpp) on the grid over `k`
-    (k.bounce_averaged on k.env), 'mc' units, float64 numpy: chorus
-    (whistler mode, |lam| <= 15 deg) and EMIC (n = -1, |lam| <= 20
-    deg)."""
-    def one(spec, mode, cut):
-        ba = k.bounce_averaged(e_c[None, :], grid.alpha_c[:, None],
-                               conf["l_shell"], k.env, spec,
-                               lat_cut_deg=cut, mode=mode, **conf["ba"])
-        return tuple(np.asarray(ba[q], np.float64)
-                     for q in ("daa", "dap", "dpp"))
-
-    return (one(chorus, "whistler", conf["lat_cut"]),
-            one(emic, "emic", conf["lat_cut_emic"]))
-
-
-def fp2d_for(dev, dtype, conf=CHORUS):
-    """The port's side of the 2D chain on `dev`, numpy in and out: the
-    operator and the evolution in `dtype` (the tensors are computed in
-    float64 and cast), evolve_cn_2d through the kernel on the card and
-    the plain version on the CPU."""
-    from types import SimpleNamespace
-
-    import torch
-
-    from raytrace_tpu_torch import diffusion, fokker_planck_2d as fp2
-    from raytrace_tpu_torch.constants import FCE_E
-    from raytrace_tpu_torch.models import medium
-    from raytrace_tpu_torch.models.medium import make_env_lat
-
-    env = make_env_lat()
-    one = torch.ones((), dtype=torch.float64)
-    fce = FCE_E * float(medium.b_mag(conf["l_shell"] * one, 0.0 * one, env))
-
-    def bounce_averaged(*a, **kw):
-        ba = diffusion.bounce_averaged(*a, device=dev, **kw)
-        return {q: v.cpu().numpy() for q, v in ba.items()
-                if isinstance(v, torch.Tensor)}
-
-    def make_operator_2d(grid, *ten):
-        return fp2.make_operator_2d(
-            grid, *(torch.tensor(t, device=dev).to(dtype) for t in ten))
-
-    def evolve(f0, op, dt, n, every):
-        x = torch.as_tensor(f0, device=dev).to(dtype)
-        f_end, snaps = fp2.evolve_cn_2d(x, op, dt, n, save_every=every)
-        return f_end.cpu().numpy(), snaps.cpu().numpy()
-
-    return SimpleNamespace(
-        env=env, fce=fce, dtype=dtype, WaveSpectrum=diffusion.WaveSpectrum,
-        bounce_averaged=bounce_averaged, make_grid_2d=fp2.make_grid_2d,
-        p_from_energy=fp2.p_from_energy, energy_from_p=fp2.energy_from_p,
-        make_operator_2d=make_operator_2d, evolve_cn_2d=evolve,
-        content_2d=lambda op, f: float(fp2.content_2d(op, f)),
-        mass=lambda op: op.mass.cpu().numpy().astype(np.float64))
-
-
-def fp2d_chain(k, grid, e_c, f0, t_ch, t_em, conf=CHORUS):
-    """examples/chorus_acceleration.py's evolution and
-    examples/belt_competition.py's two (chorus only, chorus + EMIC) over
-    `k`, whose make_operator_2d, evolve_cn_2d and content_2d take and
-    return numpy (`k.dtype` the evolution's). Returns the numbers the
-    examples print and plot: the snapshots' alpha_eq = 80 deg rows, the
-    1 and 3 MeV PSD gains there, content_2d at the end, the last
-    snapshots' 3 MeV pitch-angle profiles and the trapped > 1 MeV content
-    of every snapshot, and each evolution's wall (`walls`, host clock
-    around a call that returns numpy)."""
-    import math
-
-    n_steps, every = conf["n_steps"], conf["n_steps"] // conf["n_snaps"]
-    i80 = int(np.argmin(np.abs(grid.alpha_c - math.radians(80.0))))
-    j1, j3 = (int(np.argmin(np.abs(e_c - e))) for e in (1000.0, 3000.0))
-    sel = e_c >= 1000.0
-    out, walls = {}, {}
-    t_sum = tuple(a + b for a, b in zip(t_ch, t_em))
-    for name, ten in (("chorus", t_ch), ("sum", t_sum)):
-        op = k.make_operator_2d(grid, *ten)
-        t0 = time.perf_counter()
-        f_end, snaps = k.evolve_cn_2d(f0, op, conf["dt"], n_steps, every)
-        walls[name] = time.perf_counter() - t0
-        mass = k.mass(op)
-        out[name] = dict(
-            rows80=snaps[:, i80], f_end=f_end, snaps=snaps,
-            gain=[float(snaps[-1, i80, j] / f0[i80, j]) for j in (j1, j3)],
-            content=float(k.content_2d(op, f_end)),
-            prof3=snaps[-1, :, j3],
-            trapped=np.array([(s * mass)[:, sel].sum() for s in snaps]))
-    out["walls"] = walls
-    return out
 
 
 def lightning_chain(k, traj, st_t, f_g, env, conf=LIGHTNING):
@@ -4545,6 +4423,8 @@ def fp2d_stage(dev, card):
 
     from raytrace_tpu_torch import fokker_planck_2d as fp2
     from raytrace_tpu_torch import growth
+    from raytrace_tpu_torch.fp2d_examples import (
+        CHORUS, fp2d_chain, fp2d_for, fp2d_grid, fp2d_tensors)
     from raytrace_tpu_torch.ops import cn_pcg_2d as cg
 
     conf = CHORUS
@@ -4553,7 +4433,7 @@ def fp2d_stage(dev, card):
     print(f"  cn_pcg_2d built and loaded in {time.perf_counter() - t0:.1f} s"
           f" (nvcc {cg.BUILD_SECONDS:.1f} s)")
     for line in cg.BUILD_LOG.splitlines():
-        if any(w in line for w in ("registers", "spill")):
+        if any(w in line for w in ("Compiling entry", "registers", "spill")):
             print("   ", line.strip())
     k64 = fp2d_for(dev, torch.float64)
     grid, e_c, f0, chorus, emic = fp2d_grid(k64)
@@ -4584,6 +4464,18 @@ def fp2d_stage(dev, card):
         end.record()
         sync(dev)
         ms_k = start.elapsed_time(end)
+        lay = cg.cn_pcg_2d.last_layout
+        # the same 180 steps at a second cluster size: 8 blocks (portable)
+        # where the wrapper took 16, else 16
+        other = 8 if lay.cluster == 16 else 16
+        cg.cn_pcg_2d(x0, op, dt, 2, 0, tol, 500, other)
+        start.record()
+        _, snap_o, it_o = cg.cn_pcg_2d(x0, op, dt, every, every, tol, 500,
+                                       other)
+        end.record()
+        sync(dev)
+        ms_o = start.elapsed_time(end)
+        lay_o = cg.cn_pcg_2d.last_layout
         t0 = time.perf_counter()
         ref, snap_p = fp2.evolve_cn_2d_reference(x0, op, dt, every, every)
         sync(dev)
@@ -4602,6 +4494,13 @@ def fp2d_stage(dev, card):
         scale = float(snap_p.abs().max())
         dcount = int((it_k.long() - it_p.long()).abs().max())
         n_it = int(it_k.long().sum())
+        err_o = float((snap_o - snap_p).abs().max())
+        dcount_o = int((it_o.long() - it_p.long()).abs().max())
+        n_it_o = int(it_o.long().sum())
+        # the latency floor: the layout's synchronisation skeleton alone,
+        # us an iteration, times the launch's iterations
+        floor_us = cg.floor_us(dtype, lay.cluster, lay.threads)
+        floor_o = cg.floor_us(dtype, lay_o.cluster, lay_o.threads)
         setup_ops, iter_ops = cg_ops(op, 0.5 * dt)
         # the plain version takes the stop test (r.r) at both ends of an
         # iteration; the kernel once
@@ -4628,15 +4527,34 @@ def fp2d_stage(dev, card):
               f"its max; CG counts per step {int(it_k.min())}-"
               f"{int(it_k.max())}, kernel against plain within {dcount} "
               f"({int((it_k != it_p).sum())} of {every} steps differ)")
+        print(f"      layout: a cluster of {lay.cluster} blocks of "
+              f"{lay.threads} threads (instance {lay.variant}: "
+              f"{cg.VARIANTS[lay.variant]} cells a thread in registers), "
+              f"{lay.smem} bytes of shared memory a block; latency floor "
+              f"{floor_us:.3f} us an iteration, {floor_us * n_it / 1e3:.3f} "
+              f"ms for the launch's {n_it} iterations")
+        print(f"      a cluster of {lay_o.cluster} x {lay_o.threads}: "
+              f"{ms_o:.3f} ms ({ms_o / n_it_o * 1e3:.3f} us an iteration, "
+              f"floor {floor_o:.3f}); snapshot against plain "
+              f"{err_o / scale:.2e}, CG counts within {dcount_o}")
         check(err <= tol_snap[dtype] * scale and dcount <= tol_count[dtype],
               f"{name}: the kernel's snapshot within {tol_snap[dtype]:g} of "
               f"the plain version's max and its CG counts within "
               f"{tol_count[dtype]}")
+        check(err_o <= tol_snap[dtype] * scale
+              and dcount_o <= tol_count[dtype],
+              f"{name}: at a cluster of {lay_o.cluster} too")
         check(same4, f"{name}: the plain version through the CUDA graph "
                      "equals the eager loop bit for bit (4 steps)")
         record[name] = dict(err=err, timing=dict(
             ms=ms_k, plain_ms=ms_p, bound_ms=max(ops_ms, bytes_ms),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            cluster=lay.cluster, threads=lay.threads,
+            latency_floor_ms=floor_us * n_it / 1e3,
+            latency_floor_us_per_iteration=floor_us,
+            second_cluster=dict(cluster=lay_o.cluster, threads=lay_o.threads,
+                                ms=ms_o, us_per_iteration=ms_o / n_it_o * 1e3,
+                                max_abs_err=err_o),
             ms_per_cn_step=ms_k / every,
             cg_iterations_per_step=n_it / every,
             us_per_iteration=ms_k / n_it * 1e3,
@@ -4654,7 +4572,8 @@ def fp2d_stage(dev, card):
         out[name] = fp2d_chain(k, grid, e_c, f0, t_ch, t_em)
         launches[name] = cg.cn_pcg_2d.launches
         check(launches[name] == 2, f"{name}: the two evolutions took two "
-                                   f"kernel launches ({launches[name]})")
+                                   f"kernel launches ({launches[name]}, on "
+                                   f"{cg.cn_pcg_2d.last_layout})")
     o64, o32 = out["float64"], out["float32"]
     print(f"  (b) chorus_acceleration: {conf['n_steps']:,} CN steps of "
           f"{dt:g} s, float64 {o64['walls']['chorus']:.3f} s, float32 "
@@ -5796,8 +5715,9 @@ def main():
 
     def cg_entry(name, launches, err, t):
         # not the port of a TPU kernel: the JAX package runs this loop
-        # through XLA outside Pallas. ms, plain_ms and bound_ms: one launch
-        # of 180 CN steps (phase 30 (a)); launches: the examples' run
+        # through XLA outside Pallas. ms, plain_ms, bound_ms and
+        # latency_floor_ms: one launch of 180 CN steps (phase 30 (a)), on
+        # `cluster` blocks; launches: the examples' run
         more = {k: v for k, v in t.items()
                 if k not in ("ms", "plain_ms", "bound_ms", "bound_by")}
         return {

@@ -32,10 +32,30 @@ profile_run's --set takes it (ensemble10k:frame=2d_colat is the
 colatitude fan). Prints each checkout's registers
 and spills (-Xptxas -v), one line per launch with the two turns of each
 side and the ratio of the means, and a JSON record as the last line.
+
+The 2D solver's CN/CG kernel (`--cn-pcg`, csrc/cn_pcg_2d.cu) instead of
+the step kernel:
+
+    python -m raytrace_tpu_torch.kernel_ab --against DIR --cn-pcg
+        [--cn-steps 180]
+
+Each turn (other / this / this / other) builds its checkout's kernel and
+times, on examples/chorus_acceleration.py's operator (this checkout's
+fp2d_examples over the turn's package), float64 and float32, one launch
+of `--cn-steps` CN steps at the wrapper's own layout and, where the
+checkout has cluster layouts (ops/cn_pcg_2d.py::layout), at each cluster
+size, twice each with CUDA events: us a CG iteration, ms a CN step,
+beside the latency floor of the layout's synchronisation skeleton
+(floor_us); both examples' walls (fp2d_chain: host clock around each
+evolution, numpy out); random operators on small grids (SMALL; 40 CN
+steps of 0.05, the least of three launches) at the wrapper's layout and
+at each cluster size; the build's registers and spills. Prints a line per
+turn and a JSON record as the last line.
 """
 
 import contextlib
 import argparse
+import importlib.util
 import json
 import os
 import shutil
@@ -47,6 +67,8 @@ import time
 DEFAULT_PRESETS = "ensemble10k,ensemble10k_3d"
 _HERE = os.path.abspath(__file__)
 _ROOT = os.path.dirname(os.path.dirname(_HERE))
+# the small grids of --cn-pcg
+SMALL = ((20, 23), (24, 28), (32, 32), (40, 40))
 
 
 def _instances(presets):
@@ -169,8 +191,107 @@ def replay_tail(tail, reps, env=None):
                 longest=int(made.max()), out=out)
 
 
+def _cn_small_case(na, npp, dtype, dev, seed=31):
+    """A random SPD operator with a signed cross term on an na x npp grid
+    and its f0 (tests/test_torch_cuda.py's _fp2d_case)."""
+    import numpy as np
+    import torch
+
+    from raytrace_tpu_torch import fokker_planck_2d as fp2
+
+    rng = np.random.default_rng(seed)
+    a11 = rng.uniform(0.3, 3.0, (na, npp))
+    a22 = rng.uniform(0.3, 3.0, (na, npp))
+    a12 = rng.uniform(-0.95, 0.95, (na, npp)) * np.sqrt(a11 * a22)
+    g = fp2.make_grid_2d(np.radians(8.0), na, 0.5, 4.0, npp)
+    op = fp2.make_operator_2d(g, *(torch.tensor(a, device=dev).to(dtype)
+                                   for a in (a11, a12, a22)))
+    f0 = torch.tensor(rng.uniform(0.5, 1.5, (na, npp)),
+                      device=dev).to(dtype)
+    return op, f0
+
+
+def _cn_time(cg, x0, op, dt, n_steps, every, tol, reps, **kw):
+    """`reps` launches of n_steps timed with CUDA events after a warm-up:
+    (ms of each, CG iterations of the last, its layout or None)."""
+    import torch
+
+    cg.cn_pcg_2d(x0, op, dt, 2, 0, tol, 500, **kw)
+    ms = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        _, _, it = cg.cn_pcg_2d(x0, op, dt, n_steps, every, tol, 500, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return ms, int(it.long().sum()), getattr(cg.cn_pcg_2d, "last_layout",
+                                             None)
+
+
+def _cn_pcg_turn(steps):
+    """One --cn-pcg turn over the package on the path: {key: row}."""
+    import torch
+
+    from raytrace_tpu_torch import fokker_planck_2d as fp2
+    from raytrace_tpu_torch.ops import cn_pcg_2d as cg
+
+    # this checkout's recipe, over the turn's package (fp2d_examples
+    # imports the port by absolute name; a checkout from before the module
+    # has the same operator and evolution)
+    spec = importlib.util.spec_from_file_location(
+        "fp2d_examples", os.path.join(os.path.dirname(_HERE),
+                                      "fp2d_examples.py"))
+    fx = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fx)
+    dev = torch.device("cuda")
+    cg.build()
+    out = {"ptxas": [ln.strip() for ln in cg.BUILD_LOG.splitlines()
+                     if any(w in ln for w in ("Compiling entry",
+                                              "registers", "spill"))]}
+    clusters = getattr(cg, "CLUSTER_SIZES", ())
+
+    def row(ms, n_it, lay, dtype):
+        r = dict(ms=ms, n_it=n_it, us_per_iteration=[m / n_it * 1e3
+                                                     for m in ms])
+        if lay is not None:
+            r["layout"] = list(lay)
+            r["floor_us"] = cg.floor_us(dtype, lay.cluster, lay.threads)
+        return r
+
+    k64 = fx.fp2d_for(dev, torch.float64)
+    grid, e_c, f0, chorus, emic = fx.fp2d_grid(k64)
+    t_ch, t_em = fx.fp2d_tensors(k64, grid, e_c, chorus, emic)
+    dt = fx.CHORUS["dt"]
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[1]
+        op = fp2.make_operator_2d(grid, *(torch.as_tensor(t, device=dev)
+                                          .to(dtype) for t in t_ch))
+        x0 = torch.as_tensor(f0, device=dev).to(dtype)
+        tol = fp2.default_cg_tol(dtype)
+        for c in (None, *clusters):
+            kw = {} if c is None else {"cluster": c}
+            ms, n_it, lay = _cn_time(cg, x0, op, dt, steps, steps, tol, 2,
+                                     **kw)
+            r = row(ms, n_it, lay, dtype)
+            r["ms_per_cn_step"] = [m / steps for m in ms]
+            out[f"chorus/{name}/{'auto' if c is None else c}"] = r
+        out[f"walls/{name}"] = fx.fp2d_chain(
+            fx.fp2d_for(dev, dtype), grid, e_c, f0, t_ch, t_em)["walls"]
+        for na, npp in SMALL:
+            op, x0 = _cn_small_case(na, npp, dtype, dev)
+            for c in (None, *clusters):
+                kw = {} if c is None else {"cluster": c}
+                ms, n_it, lay = _cn_time(cg, x0, op, 0.05, 40, 0, tol, 3,
+                                         **kw)
+                out[f"small/{name}/{na}x{npp}/"
+                    f"{'auto' if c is None else c}"] = row(
+                        [min(ms)], n_it, lay, dtype)
+    return out
+
+
 def _child(root, mode, n, reps, presets, tails=None, tail_reps=3,
-           grad_mode="fused"):
+           grad_mode="fused", cn_steps=180):
     """Runs in a process of its own with `root`'s package on the path (and
     not this file's directory, which Python put first)."""
     here = os.path.dirname(_HERE)
@@ -188,6 +309,9 @@ def _child(root, mode, n, reps, presets, tails=None, tail_reps=3,
 
     assert raytrace_tpu_torch.__file__.startswith(root), \
         raytrace_tpu_torch.__file__
+    if mode == "cn_pcg":
+        print(json.dumps(_cn_pcg_turn(cn_steps)))
+        return
     if mode == "build":
         sc.build()
         print(json.dumps({"build_s": sc.BUILD_SECONDS, "log": sc.BUILD_LOG}))
@@ -248,7 +372,7 @@ def _run(root, mode, args, wait=True):
          "--n", str(args.n), "--reps", str(args.reps),
          "--presets", args.presets, "--tail-reps", str(args.tail_reps),
          "--tail-dir", args.tail_dir, "--tails", args.tails,
-         "--grad-mode", args.grad_mode],
+         "--grad-mode", args.grad_mode, "--cn-steps", str(args.cn_steps)],
         stdout=subprocess.PIPE, text=True)
     if not wait:
         return proc
@@ -261,6 +385,29 @@ def _result(proc, root):
         raise RuntimeError(f"the child for {root} failed "
                            f"(rc {proc.returncode}):\n{out}")
     return json.loads(out.strip().splitlines()[-1])
+
+
+def _cn_pcg_main(args):
+    """--cn-pcg: the turns other / this / this / other."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(f"card: {smi} (nvidia-smi)", flush=True)
+    roots = {"this": _ROOT, "other": os.path.abspath(args.against)}
+    turns = []
+    for tag in ("other", "this", "this", "other"):
+        rec = _run(roots[tag], "cn_pcg", args)
+        rec.update(turn=tag, root=roots[tag])
+        turns.append(rec)
+        brief = {k: [round(u, 3) for u in v["us_per_iteration"]]
+                 for k, v in rec.items() if k.startswith("chorus/")}
+        walls = {k: v for k, v in rec.items() if k.startswith("walls/")}
+        print(f"{tag} ({roots[tag]}): us an iteration {json.dumps(brief)}; "
+              f"walls {json.dumps(walls)}", flush=True)
+    print(json.dumps({"card": smi, "steps": args.cn_steps, "turns": turns}))
+    return 0
 
 
 def main():
@@ -277,6 +424,10 @@ def main():
     p.add_argument("--grad-mode", default="fused",
                    choices=("fused", "reference", "autodiff"),
                    help="the gradient set of every launch")
+    p.add_argument("--cn-pcg", action="store_true",
+                   help="time the 2D solver's CN/CG kernel instead")
+    p.add_argument("--cn-steps", type=int, default=180,
+                   help="CN steps of --cn-pcg's chorus launch")
     p.add_argument("--child", help=argparse.SUPPRESS)
     p.add_argument("--mode", default="time", help=argparse.SUPPRESS)
     p.add_argument("--tail-dir", default="", help=argparse.SUPPRESS)
@@ -286,10 +437,12 @@ def main():
         _child(os.path.abspath(args.child), args.mode, args.n, args.reps,
                args.presets,
                {t: os.path.join(args.tail_dir, f"{t}.pt") for t in tails},
-               args.tail_reps, args.grad_mode)
+               args.tail_reps, args.grad_mode, args.cn_steps)
         return 0
     if not args.against:
         p.error("--against DIR is required")
+    if args.cn_pcg:
+        return _cn_pcg_main(args)
     from .ops.step_chunk import ptxas_usage
 
     args.tail_dir = tempfile.mkdtemp(prefix="kernel_ab_tails_")

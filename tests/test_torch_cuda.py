@@ -913,15 +913,26 @@ def _fp2d_case(cuda, dtype, na=20, npp=23, seed=31, loss_cone="absorbing"):
                                               (torch.float32, 1e-5, 3)],
                          ids=["float64", "float32"])
 @pytest.mark.parametrize("loss_cone", ["absorbing", "reflecting"])
+@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8, 16],
+                         ids=["auto", "c1", "c2", "c4", "c8", "c16"])
 def test_cn_pcg_kernel_matches_plain_version(cuda, dtype, tol, dcount,
-                                             loss_cone):
+                                             loss_cone, cluster):
+    """The evolution at the layout the wrapper picks (auto, through
+    evolve_cn_2d) and at every cluster size it can pick."""
     from raytrace_tpu_torch.ops import cn_pcg_2d as cg
 
     fp2, op, f0 = _fp2d_case(cuda, dtype, loss_cone=loss_cone)
     launches = cg.cn_pcg_2d.launches
-    got, snaps = fp2.evolve_cn_2d(f0, op, 0.05, 23, save_every=5)
+    if cluster is None:
+        got, snaps = fp2.evolve_cn_2d(f0, op, 0.05, 23, save_every=5)
+        it_k = fp2.evolve_cn_2d.cg_iterations.cpu()
+    else:
+        got, snaps, it_k = cg.cn_pcg_2d(f0, op, 0.05, 23, 5,
+                                        fp2.default_cg_tol(dtype), 500,
+                                        cluster)
+        assert cg.cn_pcg_2d.last_layout.cluster == cluster
+        it_k = it_k.cpu()
     assert cg.cn_pcg_2d.launches == launches + 1
-    it_k = fp2.evolve_cn_2d.cg_iterations.cpu()
     want, ref = fp2.evolve_cn_2d_reference(f0, op, 0.05, 23, save_every=5)
     it_p = fp2.evolve_cn_2d.cg_iterations.cpu()
     torch.cuda.synchronize()
@@ -955,10 +966,58 @@ def test_cn_pcg_kernel_edges(cuda):
     got = fp2.evolve_cn_2d(f0, op, 0.05, 2)
     want = fp2.evolve_cn_2d_reference(f0, op, 0.05, 2)
     assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
-    big = dataclasses.replace(op, n_a=200, n_p=200)
-    with pytest.raises(ValueError, match="9386 cells"):
-        cg.cn_pcg_2d(torch.ones(200, 200, device=cuda, dtype=torch.float64),
+    big = dataclasses.replace(op, n_a=400, n_p=400)
+    with pytest.raises(ValueError, match="150176 cells"):
+        cg.cn_pcg_2d(torch.ones(400, 400, device=cuda, dtype=torch.float64),
                      big, 0.05, 1, 0, 1e-10, 10)
+
+
+def test_cn_pcg_kernel_past_the_old_limit(cuda):
+    """A grid between the one-block kernel's old limit (9,386 float64
+    cells) and the cluster's, held to the plain version at 1e-12."""
+    from raytrace_tpu_torch.ops import cn_pcg_2d as cg
+
+    fp2, op, f0 = _fp2d_case(cuda, torch.float64, na=160, npp=100)
+    assert 9386 < 160 * 100 <= cg.max_cells(torch.float64)
+    got = fp2.evolve_cn_2d(f0, op, 0.05, 3)
+    it_k = fp2.evolve_cn_2d.cg_iterations.cpu()
+    assert cg.cn_pcg_2d.last_layout.cluster > 1
+    want = fp2.evolve_cn_2d_reference(f0, op, 0.05, 3)
+    it_p = fp2.evolve_cn_2d.cg_iterations.cpu()
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+    assert int((it_k.long() - it_p.long()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("grid", [(270, 270), (64, 300)],
+                         ids=["270x270", "64x300"])
+def test_cn_pcg_kernel_state_in_global_memory(cuda, grid):
+    """Grids whose bands hold more than two cells a thread of 512 take the
+    instance that keeps the state in global memory (variant 0): one near
+    the cluster's limit (17 rows of 270 a block) and one just past the
+    register instances (4 rows of 300), held to the plain version at
+    1e-12 (float64). Steps of 0.002, whose solves converge (~180-210
+    iterations): at 0.05 these grids' solves stop at cg_maxiter short of
+    the tolerance, where any two reduction orders part by 1e-11 to 1e-10
+    of the max (the plain version against itself with f0 one ulp up, or
+    two layouts of the kernel's source on the CPU)."""
+    from raytrace_tpu_torch.ops import cn_pcg_2d as cg
+
+    fp2, op, f0 = _fp2d_case(cuda, torch.float64, na=grid[0], npp=grid[1])
+    launches = cg.cn_pcg_2d.launches
+    got, snaps = fp2.evolve_cn_2d(f0, op, 0.002, 4, save_every=2)
+    it_k = fp2.evolve_cn_2d.cg_iterations.cpu()
+    lay = cg.cn_pcg_2d.last_layout
+    assert cg.cn_pcg_2d.launches == launches + 1
+    assert (lay.cluster, lay.threads, cg.VARIANTS[lay.variant]) == (16, 512, 0)
+    want, ref = fp2.evolve_cn_2d_reference(f0, op, 0.002, 4, save_every=2)
+    it_p = fp2.evolve_cn_2d.cg_iterations.cpu()
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-12 * scale
+    assert float((snaps - ref).abs().max()) <= 1e-12 * scale
+    assert int((it_k.long() - it_p.long()).abs().max()) <= 1
+    assert 5 < int(it_k.min()) and int(it_p.max()) < 500
 
 
 # The main path's redesigned instances (the 2D float32 bs3 ones over the

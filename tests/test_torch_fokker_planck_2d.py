@@ -36,9 +36,8 @@ from raytrace_tpu.constants import FCE_E
 from raytrace_tpu.models import medium as j_medium
 from raytrace_tpu_torch import fokker_planck as t_fp1
 from raytrace_tpu_torch import fokker_planck_2d as T
+from raytrace_tpu_torch import fp2d_examples as fx
 from raytrace_tpu_torch import interop
-
-import chip_smoke
 
 jax.config.update("jax_enable_x64", True)
 
@@ -180,10 +179,10 @@ def test_refusals_and_the_device_convention():
 
     with pytest.raises(ValueError, match="CUDA"):
         cn_pcg_2d.cn_pcg_2d(torch.ones(4, 3), op, 1.0, 2, 0, 1e-6, 10)
-    big = dataclasses.replace(op, n_a=200, n_p=300)
-    with pytest.raises(ValueError, match="18773 cells"):
-        cn_pcg_2d.cn_pcg_2d(torch.ones(200, 300), big, 1.0, 2, 0, 1e-6, 10)
-    assert cn_pcg_2d.max_cells(torch.float64) == 9386
+    big = dataclasses.replace(op, n_a=600, n_p=600)
+    with pytest.raises(ValueError, match="300368 cells"):
+        cn_pcg_2d.cn_pcg_2d(torch.ones(600, 600), big, 1.0, 2, 0, 1e-6, 10)
+    assert cn_pcg_2d.max_cells(torch.float64) == 150176
 
 
 # ---- the eleven cases of tests/test_fokker_planck_2d.py ------------------
@@ -387,12 +386,12 @@ def test_save_every_remainder_still_evolved():
 # the cut of examples/chorus_acceleration.py: its L, spectra and seed on a
 # 12 x 14 grid, the bounce average at n_lat 12 / n_grid 96, 40 CN steps of
 # 120 s with 3 snapshots (every 13 steps: a remainder of 1)
-CUT = dict(chip_smoke.CHORUS, n_a=12, n_p=14, n_steps=40, n_snaps=3,
+CUT = dict(fx.CHORUS, n_a=12, n_p=14, n_steps=40, n_snaps=3,
            ba=dict(n_lat=12, n_grid=96, n_bisect=26, momentum_units="mc"))
 
 
 def _jax_ns():
-    """The JAX package's side of chip_smoke's 2D chain: the examples'
+    """The JAX package's side of the examples' 2D chain (fp2d_examples):
     jitted bounce_averaged_jax, numpy in and out."""
     def bounce_averaged(e, a, l_shell, env, spec, **kw):
         fn = jax.jit(functools.partial(j_diff.bounce_averaged_jax,
@@ -418,15 +417,15 @@ def _jax_ns():
 
 
 def _port_ns():
-    """The port's side on the CPU (chip_smoke.fp2d_for's recipe)."""
-    return chip_smoke.fp2d_for(torch.device("cpu"), torch.float64)
+    """The port's side on the CPU (fx.fp2d_for's recipe)."""
+    return fx.fp2d_for(torch.device("cpu"), torch.float64)
 
 
 @functools.lru_cache(maxsize=None)
 def _cut_setup():
     k = _jax_ns()
-    grid, e_c, f0, chorus, emic = chip_smoke.fp2d_grid(k, CUT)
-    t_ch, t_em = chip_smoke.fp2d_tensors(k, grid, e_c, chorus, emic, CUT)
+    grid, e_c, f0, chorus, emic = fx.fp2d_grid(k, CUT)
+    t_ch, t_em = fx.fp2d_tensors(k, grid, e_c, chorus, emic, CUT)
     return grid, e_c, f0, t_ch, t_em
 
 
@@ -436,10 +435,10 @@ def test_cut_tensors_match_jax():
     component's largest value (the bisected resonances, PR 10's band)."""
     grid, e_c, _, t_ch, t_em = _cut_setup()
     k = _port_ns()
-    g, e, _, chorus, emic = chip_smoke.fp2d_grid(k, CUT)
+    g, e, _, chorus, emic = fx.fp2d_grid(k, CUT)
     np.testing.assert_array_equal(e, e_c)
     assert abs(k.fce / _jax_ns().fce - 1.0) < 1e-14
-    g_ch, g_em = chip_smoke.fp2d_tensors(k, g, e, chorus, emic, CUT)
+    g_ch, g_em = fx.fp2d_tensors(k, g, e, chorus, emic, CUT)
     for got, want in zip(g_ch + g_em, t_ch + t_em):
         assert np.abs(want).max() > 0.0
         _close(got, want, 1e-9)
@@ -551,12 +550,12 @@ def test_masked_unrolled_iterations_change_nothing(unroll):
 
 
 def test_chain_recipe_runs_on_the_port():
-    """chip_smoke.fp2d_chain over the port on the CPU (the recipe phase
+    """fx.fp2d_chain over the port on the CPU (the recipe phase
     30 runs on the card) against the JAX module's on the cut: every
     number within 1e-10 of its largest value."""
     grid, e_c, f0, t_ch, t_em = _cut_setup()
-    got = chip_smoke.fp2d_chain(_port_ns(), grid, e_c, f0, t_ch, t_em, CUT)
-    want = chip_smoke.fp2d_chain(_jax_ns(), grid, e_c, f0, t_ch, t_em,
+    got = fx.fp2d_chain(_port_ns(), grid, e_c, f0, t_ch, t_em, CUT)
+    want = fx.fp2d_chain(_jax_ns(), grid, e_c, f0, t_ch, t_em,
                                  CUT)
     for name in ("chorus", "sum"):
         for key in ("rows80", "snaps", "f_end", "gain", "content", "prof3",
@@ -573,12 +572,12 @@ def main():
     import time
 
     k = _jax_ns()
-    conf = chip_smoke.CHORUS
-    grid, e_c, f0, chorus, emic = chip_smoke.fp2d_grid(k, conf)
+    conf = fx.CHORUS
+    grid, e_c, f0, chorus, emic = fx.fp2d_grid(k, conf)
     t0 = time.perf_counter()
-    t_ch, t_em = chip_smoke.fp2d_tensors(k, grid, e_c, chorus, emic, conf)
+    t_ch, t_em = fx.fp2d_tensors(k, grid, e_c, chorus, emic, conf)
     t1 = time.perf_counter()
-    out = chip_smoke.fp2d_chain(k, grid, e_c, f0, t_ch, t_em, conf)
+    out = fx.fp2d_chain(k, grid, e_c, f0, t_ch, t_em, conf)
     print(f"# tensors {t1 - t0:.1f} s, evolutions "
           f"{out['walls']['chorus']:.1f} / {out['walls']['sum']:.1f} s")
     if len(sys.argv) > 2 and sys.argv[1] == "--out":
