@@ -195,13 +195,22 @@ Phases, each printed as it runs; any failed check exits non-zero:
      over a cut of their launch, and the run-time flags of the same
      instances (legacy_freq_state, He+ and O+ at the EMIC root, the local
      ceiling); each instance timed at 10,240 rays x 512 attempts beside its
-     bound and the plain version's cut; (b) ensemble10k and
+     bound and the plain version's cut; the two with a group body (float32
+     bs3, 2D latitude and tilted dipole: a group of lanes a ray, a tangent
+     row a lane) in each body (one-thread, group), bit
+     for bit with the plain version on a cut of the launch and on each
+     captured merged tail of (b) (its first attempts with finish and
+     fresh; the whole tail, the bodies with one another), each body's ms
+     and cycles an attempt beside its latency floor; (b) ensemble10k and
      ensemble10k_3d through run.run in float32 and float64, the float64
      censuses against the JAX package's autodiff censuses on a CPU outside
      its own one-ulp spread (AD_PINS), float32 against float64 and
      against the float32 census on a CPU (AD_F32), the fused set's
      float32 run beside it; emic_heband, ensemble10k_tilted,
-     ensemble10k_local and raymain once in float32 against AD_F32; (c)
+     ensemble10k_local and raymain once in float32 against AD_F32; the
+     merged tails of ensemble10k, ensemble10k_local and ensemble10k_tilted
+     took the group body, and each of those runs again with every launch
+     on the one-thread body gives its results bit for bit; (c)
      the CLI with grad_mode="autodiff" in a config file against run.run,
      bit for bit.
 35.  The media and step ceilings the kernel once refused: (a) the ANY
@@ -1987,7 +1996,9 @@ def general_field_kernels(dev, card):
 def drive(conf, what, card):
     """One run of the slice through run.run on the card with the launch
     counts set to 0 just before; returns (out, wall, launches, calls).
-    drive.team_launches is the run's launches through the team body,
+    drive.team_launches is the run's launches through the team body (and
+    drive.group_launches through the group body; drive.sizes the rays of
+    each trace call's launch),
     drive.finish_launches and drive.fresh_launches those with each flag,
     drive.traces the trace calls on kernel pools (one launch each, or one
     a block of the trajectory channel), drive.post_refines the calls of
@@ -2003,6 +2014,7 @@ def drive(conf, what, card):
     sc.step_chunk.launches = 0
     sc.step_chunk.team_launches = 0
     sc.step_chunk.sparse_launches = 0
+    sc.step_chunk.group_launches = 0
     sc.step_chunk.finish_launches = 0
     sc.step_chunk.fresh_launches = 0
     sc.step_chunk_reference.calls = 0
@@ -2021,12 +2033,14 @@ def drive(conf, what, card):
     launches = sc.step_chunk.launches
     drive.team_launches = sc.step_chunk.team_launches
     drive.sparse_launches = sc.step_chunk.sparse_launches
+    drive.group_launches = sc.step_chunk.group_launches
     drive.finish_launches = sc.step_chunk.finish_launches
     drive.fresh_launches = sc.step_chunk.fresh_launches
     drive.post_refines, drive.init_rhs = len(post), sum(rhs_inits)
     drive.traces = len(seen)
     calls = sc.step_chunk_reference.calls
     drive.kws = [launch[-1] for launch in seen]
+    drive.sizes = [int(launch[1].shape[0]) for launch in seen]
     carry, f, env, cfg, spec, kw = seen[-1]
     drive.tail = dict(name=conf.name, env=env, carry=carry._asdict(), f=f,
                       kw=kw, cfg=cfg._asdict(), spec=spec._asdict(),
@@ -2041,7 +2055,8 @@ def drive(conf, what, card):
               f"{r['bucket']:5d} steps {r['steps']:5d} attempted "
               f"{r['attempted']:9d} wall {r['wall_s'] * 1e3:8.1f} ms")
     print(f"  step kernel launches {launches} ({drive.team_launches} through "
-          f"the team body, {drive.sparse_launches} in the tail layout, "
+          f"the team body, {drive.group_launches} through the group body, "
+          f"{drive.sparse_launches} in the tail layout, "
           f"{drive.finish_launches} with finish, "
           f"{drive.fresh_launches} with fresh), plain-version calls {calls}, "
           f"rays on the stiff pool {n_stiff}; refine_events after a launch "
@@ -3261,8 +3276,7 @@ def ad_kernels(dev, card):
         check(sc.medium_code(env, cfg, kw["grad_mode"]) == sc.AD
               and sc.team_warps(0, 0, sc._FRAME_CODE[kw["frame"]][0], sc.AD,
                                 sc.field_code(env)) == 0,
-              f"AD {row}: the launch takes the AD instances, one-thread "
-              "body")
+              f"AD {row}: the launch takes the AD instances, no team body")
         for st in ("bs3", "dopri5", "rk4"):
             more = {}
             if st == "rk4":
@@ -3293,6 +3307,142 @@ def ad_kernels(dev, card):
     ):
         bit_for_bit(f"AD {what}", name, dt_name, st, dev, CUT_N,
                     every=every, **AD, **over)
+    # the instances with a group body, in each body
+    for name in ("ensemble10k", "ensemble10k_tilted"):
+        ad_group_cut(name, dev)
+    ad_group_cut("ensemble10k", dev, legacy_freq_state=True)
+    return out
+
+
+# the runs whose instance has a group body (ops/step_chunk.py::group_lanes:
+# the float32 bs3 AD instances of the 2D latitude frame and of the tilted
+# dipole)
+GROUP_RUNS = ("ensemble10k", "ensemble10k_local", "ensemble10k_tilted")
+
+
+def group_bodies(what, carry, f, env, cfg, spec, kw, ref=None):
+    """One launch of an instance with a group body in each of its bodies
+    (latency_floor.GROUP_BODIES: the one-thread body, the group body),
+    each bit for bit with `ref` (a host carry: the plain version's) or,
+    without it, with the first body's; fails unless the group body's
+    launch, and only it, counted on step_chunk.group_launches. Returns
+    ({body: ms of its one launch, CUDA events}, the first body's output
+    carry)."""
+    import torch
+
+    from raytrace_tpu_torch.integrate.solve import RayCarry
+    from raytrace_tpu_torch.latency_floor import GROUP_BODIES
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    own = {"GROUP_MAX_RAYS": sc.GROUP_MAX_RAYS}
+    ms, first = {}, None
+    for body, knobs in GROUP_BODIES.items():
+        for k, v in knobs.items():
+            setattr(sc, k, v)
+        try:
+            before = sc.step_chunk.group_launches
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = sc.step_chunk(carry, f, env, cfg, spec, **kw)
+            e1.record()
+            torch.cuda.synchronize()
+        finally:
+            for k, v in own.items():
+                setattr(sc, k, v)
+        ms[body] = e0.elapsed_time(e1)
+        got = {k: getattr(out, k).cpu().numpy() for k in RayCarry._fields}
+        if first is None:
+            first = out
+            ref = got if ref is None else ref
+        n_diff = n_differ(got, ref)
+        print(f"  {what}, {body} body: {ms[body]:.3f} ms, {n_diff} values "
+              "differ", flush=True)
+        check(sc.step_chunk.group_launches - before
+              == (body != "one-thread"), f"{what}: the launch took the "
+                                         f"{body} body")
+        check(n_diff == 0, f"{what}, {body} body: bit for bit")
+    return ms, first
+
+
+def ad_group_cut(name, dev, **over):
+    """Phase 34 (a): a cut of the launch of an instance with a group body
+    (every 10th ray x CUT_N attempts, with fresh) in each body, bit for bit
+    with the plain version."""
+    from raytrace_tpu_torch.integrate.solve import RayCarry
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    carry, f, env, cfg, spec, kw = start(name, "float32", dev, every=10,
+                                         **AD, **over)
+    kw = dict(kw, stepper="bs3", n_steps=CUT_N)
+    ref = sc.step_chunk_reference(carry, f, env, cfg, spec, **kw)
+    group_bodies(f"AD {name} float32 bs3, {f.shape[0]:,} rays x {CUT_N} "
+                 "attempts", carry, f, env, cfg, spec, kw,
+                 {k: getattr(ref, k).cpu().numpy()
+                  for k in RayCarry._fields})
+
+
+def ad_group_tails(card, tails, census):
+    """Phase 34 (a) on the captured tails: the merged tail of each of
+    GROUP_RUNS (ad_slices' drive.tail) replayed whole in each body, bit for
+    bit with one another, and its first CUT_N attempts with finish and
+    fresh in each, bit for bit with the plain path (k1 = rhs(u),
+    step_chunk_reference, refine_events); each body's ms and cycles an
+    attempt of the longest ray, at clocks.sm read while the wrapper's
+    launches run (latency_floor._timed), beside the latency floor of each
+    body's SASS chain with what it waits on (census). Returns {preset:
+    {body: ms, ..., "as launched": ms, "mhz", "longest", "floor_ms":
+    {body: ms}}}."""
+    from raytrace_tpu_torch import sass_census
+    from raytrace_tpu_torch.config import preset
+    from raytrace_tpu_torch.integrate.events import StopSpec
+    from raytrace_tpu_torch.integrate.solve import (
+        RayCarry, SolverConfig, refine_events,
+    )
+    from raytrace_tpu_torch.latency_floor import _made, _timed, instance_of
+    from raytrace_tpu_torch.ops import rhs as rhs_mod
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    out = {}
+    for name in GROUP_RUNS:
+        tail = tails[name]
+        env, f = tail["env"], tail["f"]
+        carry = RayCarry(**tail["carry"])
+        cfg, spec = SolverConfig(**tail["cfg"]), StopSpec(**tail["spec"])
+        cut = {k: v for k, v in tail["kw"].items()
+               if k not in ("finish", "fresh")}
+        rhs_fn = rhs_mod.frame_rhs(cut.get("frame", "2d_lat"), env,
+                                   cut.get("root", 1.0), cut["grad_mode"],
+                                   cut.get("legacy_freq_state", False))[0]
+        what = (f"{name} autodiff float32, the merged tail "
+                f"({tail['round']['active']} rays in a bucket of "
+                f"{f.shape[0]})")
+        first = dict(cut, n_steps=CUT_N)
+        ref = sc.step_chunk_reference(
+            carry._replace(k1=rhs_fn(carry.u, f)), f, env, cfg, spec,
+            **first)
+        ref = refine_events(rhs_fn, ref, f, spec)
+        group_bodies(f"{what}, its first {CUT_N} attempts with finish and "
+                     "fresh", carry, f, env, cfg, spec,
+                     dict(first, finish=True, fresh=True),
+                     {k: getattr(ref, k).cpu().numpy()
+                      for k in RayCarry._fields})
+        ms, whole = group_bodies(f"{what}, whole", carry, f, env, cfg, spec,
+                                 cut)
+        longest = int(_made(whole, carry)[:tail["round"]["active"]].max())
+        ms["as launched"], mhz = _timed(
+            lambda: sc.step_chunk(carry, f, env, cfg, spec, **cut), 1)
+        floors = {key: inst["chain_cycles_total"] * longest / (mhz * 1e3)
+                  for key, inst in sass_census.bodies(
+                      census, instance_of(preset(name, **AD))).items()}
+        print(f"  {what}, at clocks.sm {mhz:.0f} MHz, the longest ray "
+              f"{longest:,} attempts: " + ", ".join(
+                  f"{b} {t:.3f} ms ({t * 1e3 * mhz / longest:,.0f} cycles "
+                  "an attempt)" for b, t in ms.items())
+              + "; latency floor " + ", ".join(
+                  f"{t:.3f} ms ({key})" for key, t in floors.items())
+              + f" on {card}", flush=True)
+        out[name] = dict(ms, mhz=mhz, longest=longest, floor_ms=floors)
     return out
 
 
@@ -3350,9 +3500,13 @@ def ad_slices(card, fused):
     and against the JAX package's float32 census (AD_F32), the fused set's
     float32 run of phases 4 and 6 (`fused`: {preset: out}) beside it;
     then emic_heband, ensemble10k_tilted, ensemble10k_local and raymain
-    once in float32 against the JAX package's float32 census. Returns
-    {preset: (the float32 run's launches, its last launch replayed)}."""
+    once in float32 against the JAX package's float32 census. The runs of
+    GROUP_RUNS: their merged tail took the group body, and the run again
+    with every launch on the one-thread body gives every result bit for
+    bit. Returns {preset: (the float32 run's launches, its last launch
+    replayed, that launch as drive.tail has it)}."""
     from raytrace_tpu_torch.config import preset
+    from raytrace_tpu_torch.ops import step_chunk as sc
 
     runs = {}
     for name in ("ensemble10k", "ensemble10k_3d", "emic_heband",
@@ -3366,11 +3520,49 @@ def ad_slices(card, fused):
                   kw.get("grad_mode") == "autodiff" for kw in drive.kws),
               f"{name} (autodiff) stepped through the AD instances, never "
               "the plain version")
-        body(launches, f"{name} autodiff float32", team=False)
+        if name in GROUP_RUNS:
+            # every launch of at most GROUP_MAX_RAYS[lanes] rays on the
+            # group body, the rest on the one-thread body
+            limit = sc.GROUP_MAX_RAYS[8 if name == "ensemble10k_tilted"
+                                      else 4]
+            want = sum(b <= limit for b in drive.sizes)
+            check(drive.team_launches == 0
+                  and drive.group_launches == want > 0,
+                  f"{name} autodiff float32: {drive.group_launches} of its "
+                  f"{launches} launches (of {drive.sizes} rays) went through "
+                  f"the group body, those of at most {limit} rays, the rest "
+                  "through the one-thread body")
+        else:
+            body(launches, f"{name} autodiff float32", team=False)
         check(np.isfinite(out32["result"].u[out32["valid"]]).all(),
               "every final state is finite")
+        tail = drive.tail
+        before = (sc.step_chunk.launches, sc.step_chunk.group_launches)
         runs[name] = (launches, tail_timing(f"{name} autodiff float32",
-                                            card))
+                                            card), tail)
+        if name in GROUP_RUNS:
+            replays = sc.step_chunk.launches - before[0]
+            took = sc.step_chunk.group_launches - before[1]
+            check(took == replays > 0,
+                  f"{name}: the merged tail ({tail['f'].shape[0]} rays) "
+                  f"took the group body ({took} of {replays} replays)")
+            own = sc.GROUP_MAX_RAYS
+            sc.GROUP_MAX_RAYS = {k: 0 for k in own}
+            try:
+                thread, _, _, _ = drive(
+                    conf, f"{name} autodiff float32, every launch on the "
+                          "one-thread body", card)
+            finally:
+                sc.GROUP_MAX_RAYS = own
+            check(drive.group_launches == 0, "no launch took the group body")
+            res, res1 = out32["result"], thread["result"]
+            fields = ("u", "t", "status", "n_accept", "n_reject")
+            n_diff = n_differ({k: np.asarray(getattr(res, k))
+                               for k in fields},
+                              {k: np.asarray(getattr(res1, k))
+                               for k in fields})
+            check(n_diff == 0, f"{name}: the run bit for bit with the run "
+                               "on the one-thread body")
         got, steps = census(out32)
         pin32 = AD_F32[name]
         who = pin32.get("by", "the JAX package's")
@@ -5082,7 +5274,8 @@ def main():
     census_job = census_pool.submit(
         sass_census.run_census, sc.library_path(),
         {"float bs3 2d_lat axi", "float bs3 2d_colat axi",
-         "float bs3 3d full tilted", "float bs3 3d full igrf"},
+         "float bs3 3d full tilted", "float bs3 3d full igrf",
+         "float bs3 2d_lat ad", "float bs3 3d ad tilted"},
         sass_census.entry_names(sc.BUILD_LOG))
 
     # ---- 2. kernel vs plain PyTorch on the card ---------------------------
@@ -5667,6 +5860,8 @@ def main():
           "and the slice's paths through run.run")
     ad = ad_kernels(dev, card)
     ad_runs = ad_slices(card, {"ensemble10k": out4, "ensemble10k_3d": out3})
+    ad_tails = ad_group_tails(card, {name: ad_runs[name][2]
+                                     for name in GROUP_RUNS}, census)
     ad_cli(card)
 
     # ---- 35. every medium and step ceiling of the JAX package -------------
@@ -5677,14 +5872,21 @@ def main():
     any_runs = any_medium_paths(card)
     phase("[done]")
 
-    def entry(name, launches, err, t, tail=None, team=False, floor=None):
+    def entry(name, launches, err, t, tail=None, team=False, floor=None,
+              group=None):
         # the body of the instance (team "tail": the team body in the tail
         # layout, the one-thread body in wider launches); with the time of
         # the run's last launch, the merged tail where the run has one;
-        # with floor, tail_layouts' times in cycles an attempt
+        # with floor, tail_layouts' times in cycles an attempt; with group,
+        # ad_group_tails' record of the merged tail in each body
         more = {"body": {True: "team4", False: "one-thread",
                          "tail": "team4 in the tail layout, else "
                                  "one-thread"}[team]}
+        if group is not None:
+            more["body"] = ("group body up to GROUP_MAX_RAYS "
+                            f"{sc.GROUP_MAX_RAYS} rays (by lanes a ray), "
+                            "else one-thread")
+            more["group_tail"] = group
         if tail is not None:
             more.update(tail_ms=tail["ms"], tail_rays=tail["rays"],
                         tail_bucket=tail["bucket"],
@@ -5791,7 +5993,12 @@ def main():
         *(cg_entry(name, *fp2d[name]) for name in ("float64", "float32")),
         entry("step_chunk[2d_lat+autodiff,float32,bs3]",
               ad_runs["ensemble10k"][0], *ad["2d_lat", "bs3", "float32"],
-              ad_runs["ensemble10k"][1]),
+              ad_runs["ensemble10k"][1], group=ad_tails["ensemble10k"]),
+        entry("step_chunk[2d_lat+ds_local+autodiff,float32,bs3]",
+              ad_runs["ensemble10k_local"][0],
+              *ad["2d_lat", "bs3", "float32"],
+              ad_runs["ensemble10k_local"][1],
+              group=ad_tails["ensemble10k_local"]),
         entry("step_chunk[3d+autodiff,float32,bs3]",
               ad_runs["ensemble10k_3d"][0],
               *ad["3d over the MLT plume", "bs3", "float32"],
@@ -5799,7 +6006,8 @@ def main():
         entry("step_chunk[3d+autodiff+tilted_field,float32,bs3]",
               ad_runs["ensemble10k_tilted"][0],
               *ad["3d tilted", "bs3", "float32"],
-              ad_runs["ensemble10k_tilted"][1]),
+              ad_runs["ensemble10k_tilted"][1],
+              group=ad_tails["ensemble10k_tilted"]),
         *(entry(f"step_chunk[{label},float32,bs3]", any_runs[key][0],
                 *anym[key], any_runs[key][1])
           for key, label in (

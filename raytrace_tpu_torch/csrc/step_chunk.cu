@@ -176,7 +176,8 @@
 // side (B3: slower on the tails, where the call is paid on every stage),
 // FMA contraction (~3%, and not bit for bit).
 //
-// Two bodies, chosen per instance at compile time (team_warps below):
+// Two bodies, chosen per instance at compile time (team_warps below), and
+// a third beside the one-thread body of two AD instances:
 //   - the one-thread body: one thread per ray, blocks of kThreads rays; a
 //     thread leaves its loop once its ray stops. The whole chain is
 //     inlined so that the compiler can interleave independent sub-chains
@@ -218,6 +219,29 @@
 //     stage loop in warp 0 (the tails 1.24 / 1.16x the unrolled team's
 //     time) and warp 0's part of the right-hand side out of line (1.09 /
 //     1.12x).
+//   - the group body, in the float bs3 AD instances of ensemble10k,
+//     ensemble10k_local and ensemble10k_tilted under the autodiff set
+//     (group_instance below): a ray is served by a group of G =
+//     group_lanes lanes of one warp (4 in 2D, N = 4; 8 in 3D, N = 7, the
+//     eighth lane seeding no input), in blocks of kThreads lanes. Every
+//     lane of a group loads the ray's carry and runs the attempt, the
+//     controller, the classification and the two-sum update on the same
+//     values: the branches read values only, so a group never diverges,
+//     and its first lane writes the carry back. What differs is the dual
+//     chain (ad_mu_grads_group): lane j seeds input j alone, so its chain
+//     is the value chain and one tangent row, where the one-thread body
+//     carries all N rows on one thread (1 + N rules an op; the rules of a
+//     quotient, a square root and a log are an IEEE division each), and
+//     shuffles within the group then hand every lane the N rows. Each row
+//     is computed alone from the values and its own row, so the two bodies
+//     agree bit for bit. A lane's out-of-line right-hand side is 0.61x
+//     (2D) / 0.52x (3D) the one-thread body's instructions; the merged
+//     tails ran 0.71x / 0.56x its time (PERF.md). A launch takes it by
+//     flag bit 3 where it measured faster (ops/step_chunk.py::
+//     GROUP_MAX_RAYS: in 2D every launch, over the tilted dipole those of
+//     one wave). Measured and dropped: one group a warp (the tails 1.03x /
+//     1.00x, 1.3-5.4x slower from 2,112 rays up) and the right-hand side
+//     inlined (the tails 1.13-1.57x, the full launch 1.05 / 1.30x).
 // The 7-state axisymmetric double dopri5 instance spills 64 bytes, and the
 // team body's double instances, held to 168 registers (kTeamBlocks
 // below), spill too (PERF.md lists -Xptxas -v).
@@ -376,6 +400,25 @@ __host__ __device__ constexpr bool stage_loop(int dtype, int stepper,
                                               int frame, int medium,
                                               int field) {
   return chain_instance(dtype, stepper, frame, medium, field);
+}
+// The AD instances redesigned for one ray's chain (the note "the group
+// body" above): the float bs3 ones of the 2D latitude frame over the dipole
+// (ensemble10k and ensemble10k_local under grad_mode="autodiff") and of
+// the 3D frame over the tilted dipole (ensemble10k_tilted). Each keeps its
+// one-thread body and has the group body beside it, which a launch takes
+// by flag bit 3 (ops/step_chunk.py::launch_flags: where it measured
+// faster). Their siblings keep the one-thread body alone (ROADMAP B4).
+__host__ __device__ constexpr bool group_instance(int dtype, int stepper,
+                                                  int frame, int medium,
+                                                  int field) {
+  return dtype == 0 && stepper == BS3 && medium == AD &&
+         ((frame == LAT2D && field == DIPOLE) ||
+          (frame == KIM3D && field == TILTED));
+}
+// the lanes of a group: one a seeded input (N = 4 in 2D, 7 in 3D), a
+// power of two
+__host__ __device__ constexpr int group_lanes(int frame) {
+  return frame == KIM3D ? 8 : 4;
 }
 
 // the media whose density is the full chain (AXI and ALT: the
@@ -2383,12 +2426,15 @@ __device__ __forceinline__ void team_helper(T f, const KParams<T>& p,
 // the operators taking a T leave its tangent out, as torch does for an
 // operand with no tangent. Every tangent row is computed alone from the
 // values and its own row, so W = N (one pass) and N passes of W = 1 give
-// the same bits; kAdWidth2D and kAdWidth3D choose (PERF.md). The medium's
+// the same bits. kAdWidth2D and kAdWidth3D choose one pass on one thread
+// (the value chain formed once; PERF.md section 6), and the group body N
+// passes of W = 1 on N lanes at once (ad_mu_grads_group). The medium's
 // features are run-time flags of KParams (as in FULL and EXT), the ion
 // species and the local ceiling too (as in EXT), legacy_freq_state in 2D
 // (as in ALTX). The right-hand side is a __noinline__ call, one body per
 // (T, frame, field) that the steppers' stages call, so that the dual chain
-// is compiled once per instance family.
+// is compiled once per instance family (the group body's too,
+// rhs_ad_group: PERF.md section 6).
 
 constexpr int kAdWidth2D = 4;  // tangents a pass in the 2D frames (N = 4)
 constexpr int kAdWidth3D = 7;  // and in the 3D frame (N = 7)
@@ -2966,6 +3012,20 @@ __device__ __forceinline__ Dual<T, W> ad_mu_3d(const Dual<T, W> (&x)[7],
   }
 }
 
+// the frame's mu at dual inputs d
+template <typename T, int W, int FRAME, int FIELD, bool WIDE, int N>
+__device__ __forceinline__ Dual<T, W> ad_mu(const Dual<T, W> (&d)[N],
+                                            const KParams<T>& p) {
+  if constexpr (FRAME == KIM3D) {
+    return ad_mu_3d<T, W, FIELD, WIDE>(d, p);
+  } else if constexpr (FRAME == COLAT2D) {
+    // dispersion.mu_2d_colat: lat = pi/2 - theta, formed in T
+    return ad_mu_2d(d[0], T(kPi / 2.0) - d[1], d[2], d[3], p);
+  } else {
+    return ad_mu_2d(d[0], d[1], d[2], d[3], p);
+  }
+}
+
 // mu and its N partials at the inputs x: passes of W tangents each, input
 // i seeded with the unit tangent of its own index
 template <typename T, int FRAME, int FIELD, int N, bool WIDE>
@@ -2983,15 +3043,7 @@ __device__ __forceinline__ T ad_mu_grads(const T (&x)[N],
 #pragma unroll
       for (int k = 0; k < W; ++k) d[i].t[k] = i == q + k ? T(1) : T(0);
     }
-    D m;
-    if constexpr (FRAME == KIM3D) {
-      m = ad_mu_3d<T, W, FIELD, WIDE>(d, p);
-    } else if constexpr (FRAME == COLAT2D) {
-      // dispersion.mu_2d_colat: lat = pi/2 - theta, formed in T
-      m = ad_mu_2d(d[0], T(kPi / 2.0) - d[1], d[2], d[3], p);
-    } else {
-      m = ad_mu_2d(d[0], d[1], d[2], d[3], p);
-    }
+    const D m = ad_mu<T, W, FRAME, FIELD, WIDE>(d, p);
     mu = m.v;
 #pragma unroll
     for (int k = 0; k < W; ++k)
@@ -3000,16 +3052,54 @@ __device__ __forceinline__ T ad_mu_grads(const T (&x)[N],
   return mu;
 }
 
+// ... the same on a group of G >= N lanes (the group body): lane j of the
+// group seeds input j alone (W = 1; a lane past N seeds none), so that it
+// forms the value chain and the one tangent row that the pass above forms
+// as its row j, by the same operations in the same order; the N rows then
+// reach every lane of the group by shuffles within it (the group's lanes
+// hold the same values, so they reach each shuffle together)
+template <typename T, int FRAME, int FIELD, int N, int G>
+__device__ __forceinline__ T ad_mu_grads_group(const T (&x)[N],
+                                               const KParams<T>& p,
+                                               T (&g)[N]) {
+  static_assert(G >= N && 32 % G == 0, "a group: N lanes or more of a warp");
+  using D = Dual<T, 1>;
+  const unsigned lane = threadIdx.x & 31u;
+  const int j = int(lane & unsigned(G - 1));
+  const unsigned mask = ((1u << G) - 1u) << (lane & ~unsigned(G - 1));
+  D d[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    d[i].v = x[i];
+    d[i].t[0] = i == j ? T(1) : T(0);
+  }
+  const D m = ad_mu<T, 1, FRAME, FIELD, false>(d, p);
+#pragma unroll
+  for (int k = 0; k < N; ++k) g[k] = __shfl_sync(mask, m.t[0], k, G);
+  return m.v;
+}
+
+// the partials of the one-thread body (G = 0) or of a group of G lanes
+template <typename T, int FRAME, int FIELD, int N, bool WIDE, int G>
+__device__ __forceinline__ T ad_partials(const T (&x)[N],
+                                         const KParams<T>& p, T (&g)[N]) {
+  if constexpr (G > 0)
+    return ad_mu_grads_group<T, FRAME, FIELD, N, G>(x, p, g);
+  else
+    return ad_mu_grads<T, FRAME, FIELD, N, WIDE>(x, p, g);
+}
+
 // ops/rhs.py's right-hand sides over the autodiff set (gradients.py): the
 // 2D rows of rhs_2d_lat and rhs_2d_colat (legacy_freq_state: the frequency
-// read as f + T), or rhs_3d's Kimura rows; WIDE: ad_ne_total's
-template <typename T, int FRAME, int FIELD, bool WIDE>
+// read as f + T), or rhs_3d's Kimura rows; WIDE: ad_ne_total's; G: the
+// lanes of a group in the group body, 0 in the one-thread body
+template <typename T, int FRAME, int FIELD, bool WIDE, int G = 0>
 __device__ __forceinline__ void rhs_ad_rows(const T* u, T f,
                                             const KParams<T>& p, T* out) {
   if constexpr (FRAME == KIM3D) {
     const T x[7] = {u[0], u[1], u[2], u[3], u[4], u[5], f};
     T g[7];
-    const T mu = ad_mu_grads<T, FRAME, FIELD, 7, WIDE>(x, p, g);
+    const T mu = ad_partials<T, FRAME, FIELD, 7, WIDE, G>(x, p, g);
     kimura_rows(u, f, mu, g[0], g[1], g[2], g[3], g[4], g[5], g[6],
                 kim_trig(u), out);
   } else {
@@ -3017,7 +3107,7 @@ __device__ __forceinline__ void rhs_ad_rows(const T* u, T f,
     const T fr = p.legacy_freq ? f + u[3] : f;
     const T x[4] = {r, u[1], chi, fr};
     T g[4];
-    const T mu = ad_mu_grads<T, FRAME, FIELD, 4, WIDE>(x, p, g);
+    const T mu = ad_partials<T, FRAME, FIELD, 4, WIDE, G>(x, p, g);
     const T sc = d_sin(chi), cc = d_cos(chi);
     const T inv_mu2 = T(1) / (mu * mu);
     const T inv_mu2_r = inv_mu2 * (T(1) / r);
@@ -3047,16 +3137,27 @@ __device__ __noinline__ void rhs_ad_any(const T* u, T f, const KParams<T>& p,
   rhs_ad_rows<T, FRAME, FIELD, true>(u, f, p, out);
 }
 
+// the group body's right-hand side (group_instance), G lanes a ray
+template <typename T, int FRAME, int FIELD, int G>
+__device__ __noinline__ void rhs_ad_group(const T* u, T f,
+                                          const KParams<T>& p, T* out) {
+  rhs_ad_rows<T, FRAME, FIELD, false, G>(u, f, p, out);
+}
+
 #undef AD_LOOP
 
-// the frame's right-hand side; K > 0: the team body's (tm), else the
-// one-thread body's
+// the frame's right-hand side; K > 0: the team body's (tm), K < 0: the
+// group body's (-K lanes a ray), else the one-thread body's
 template <typename T, int FRAME, int MEDIUM, int FIELD, int K>
 __device__ __forceinline__ void rhs(const T* u, T f, const KParams<T>& p,
                                     T* out, Team<T>& tm) {
   if constexpr (MEDIUM == AD) {
-    static_assert(K == 0, "the AD instances take the one-thread body");
-    rhs_ad<T, FRAME, FIELD>(u, f, p, out);
+    if constexpr (K < 0) {
+      rhs_ad_group<T, FRAME, FIELD, -K>(u, f, p, out);
+    } else {
+      static_assert(K == 0, "the AD instances take no team body");
+      rhs_ad<T, FRAME, FIELD>(u, f, p, out);
+    }
   } else if constexpr (MEDIUM == AD_ANY) {
     static_assert(K == 0, "the AD_ANY instances take the one-thread body");
     rhs_ad_any<T, FRAME, FIELD>(u, f, p, out);
@@ -3408,7 +3509,8 @@ __device__ __forceinline__ void refine_event(int status, const T u_prev[N],
 
 // K = 0: the one-thread body (a block of kThreads rays, one thread each);
 // K > 0: the team body (a block of K warps serving 32 rays, lane l of every
-// warp serving ray l)
+// warp serving ray l); K < 0: the group body (a block of kThreads lanes,
+// -K lanes a ray)
 template <typename T, int STEPPER, int FRAME, int MEDIUM, int FIELD, int K>
 __global__ void __launch_bounds__(K > 0 ? 32 * K : kThreads,
                                   K > 0 ? kTeamBlocks : 1)
@@ -3427,7 +3529,10 @@ __global__ void __launch_bounds__(K > 0 ? 32 * K : kThreads,
   Team<T> tm{nullptr, 0, 0, true};
   long long i;
   bool real = true;
-  if constexpr (K == 0) {
+  if constexpr (K < 0) {
+    i = (blockIdx.x * (long long)kThreads + threadIdx.x) / -K;
+    if (i >= B) return;
+  } else if constexpr (K == 0) {
     i = blockIdx.x * (long long)kThreads + threadIdx.x;
     if constexpr (chain_instance(DT, STEPPER, FRAME, MEDIUM, FIELD)) {
       // the tail layout: ray i on lane 0 of warp i of the launch, the
@@ -3458,16 +3563,17 @@ __global__ void __launch_bounds__(K > 0 ? 32 * K : kThreads,
   int status = status_g[i];
   // a ray that is not ACTIVE stays as it is (_step_one is a no-op there),
   // unless the launch computes its first right-hand side (fresh) or refines
-  // its event (finish): in the one-thread body its thread leaves; in the
-  // team body its lane of warp 0 rides along with its writes masked until
-  // the warp's last ray stops, and the helpers skip it
+  // its event (finish): in the one-thread body its thread leaves (in the
+  // group body its group, whose lanes read the same carry); in the team
+  // body its lane of warp 0 rides along with its writes masked until the
+  // warp's last ray stops, and the helpers skip it
   const bool touched = fresh || (finish && refines(status, p));
-  if constexpr (K == 0) {
+  if constexpr (K <= 0) {
     if (!touched && (status != ACTIVE || n_steps <= 0)) return;
   } else {
     if (!real) status = -1;
   }
-  const bool write_back = K == 0 || status == ACTIVE || (real && touched);
+  const bool write_back = K <= 0 || status == ACTIVE || (real && touched);
 
   T u[N], k1[N], u_prev[N], u_lo[N];
 #pragma unroll
@@ -3639,6 +3745,10 @@ __global__ void __launch_bounds__(K > 0 ? 32 * K : kThreads,
     __syncthreads();  // the helpers leave
   }
   if (!write_back) return;
+  if constexpr (K < 0) {
+    // the group's lanes hold the same carry: its first lane writes it
+    if ((threadIdx.x & unsigned(-K - 1)) != 0) return;
+  }
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     u_g[j * B + i] = u[j];
@@ -3662,7 +3772,9 @@ __global__ void __launch_bounds__(K > 0 ? 32 * K : kThreads,
 template <typename T, int STEPPER, int FRAME, int MEDIUM, int FIELD, int K>
 void launch_body(void** ptrs, long long B, int n_steps, int flags,
                  bool sparse, const StepParams& h, cudaStream_t stream) {
-  const int rays = K > 0 ? 32 : (sparse ? kThreads / 32 : kThreads);
+  const int rays = K > 0   ? 32
+                   : K < 0 ? kThreads / -K
+                           : (sparse ? kThreads / 32 : kThreads);
   const long long blocks = (B + rays - 1) / rays;
   const size_t xch =
       K > 0 ? 32 * (FIELD == DIPOLE ? Slots3D<T>::end : SlotsGen<T>::end) *
@@ -3693,6 +3805,14 @@ void launch(void** ptrs, long long B, int n_steps, int flags,
       launch_body<T, STEPPER, FRAME, MEDIUM, FIELD, 0>(ptrs, B, n_steps,
                                                        flags, false, h,
                                                        stream);
+      return;
+    }
+  }
+  // flag bit 3: the group body (its instances only)
+  if constexpr (group_instance(DT, STEPPER, FRAME, MEDIUM, FIELD)) {
+    if ((flags & 8) != 0) {
+      launch_body<T, STEPPER, FRAME, MEDIUM, FIELD, -group_lanes(FRAME)>(
+          ptrs, B, n_steps, flags, false, h, stream);
       return;
     }
   }
@@ -3879,8 +3999,9 @@ SC_DEFINE(launch_igrf_ad_any, KIM3D, AD_ANY, IGRF)
 // HIT_EQUATOR in place (integrate/solve.py::refine_events); bit 1 (fresh),
 // before it, k1 = rhs(u) for every ray (init_carry's right-hand side);
 // bit 2, the tail layout, one ray a warp (ignored by the instances that
-// step_chunk_tail_layout does not name). Launches on `stream` without
-// synchronising; returns cudaGetLastError().
+// step_chunk_tail_layout does not name); bit 3, the group body (ignored by
+// the instances that step_chunk_group_lanes does not name). Launches on
+// `stream` without synchronising; returns cudaGetLastError().
 extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
                                  int medium, int field, void** ptrs,
                                  long long B, int n_steps, int flags,
@@ -3923,7 +4044,7 @@ extern "C" int step_chunk_launch(int dtype, int stepper, int frame,
       (fractional && !wide(medium) && !autodiff(medium)))
     return (int)cudaErrorInvalidValue;
   const int row = field == TILTED ? 3 : (field == IGRF ? 4 : frame);
-  kEntry[row][medium](dtype, stepper, ptrs, B, n_steps, flags & 7, *h,
+  kEntry[row][medium](dtype, stepper, ptrs, B, n_steps, flags & 15, *h,
                       (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
@@ -3940,6 +4061,15 @@ extern "C" int step_chunk_team_warps(int dtype, int stepper, int frame,
 extern "C" int step_chunk_tail_layout(int dtype, int stepper, int frame,
                                       int medium, int field) {
   return tail_layout(dtype, stepper, frame, medium, field);
+}
+
+// The lanes a ray of the group body of the instance of these codes (flag
+// bit 3), or 0 where it has none.
+extern "C" int step_chunk_group_lanes(int dtype, int stepper, int frame,
+                                      int medium, int field) {
+  return group_instance(dtype, stepper, frame, medium, field)
+             ? group_lanes(frame)
+             : 0;
 }
 #endif
 

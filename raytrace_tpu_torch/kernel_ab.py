@@ -95,8 +95,9 @@ def recording_launches():
     # orig counts its launches on the module's `step_chunk`: this wrapper
     # while it stands in
     counts = [name for name in ("launches", "team_launches",
-                                "sparse_launches", "finish_launches",
-                                "fresh_launches") if hasattr(orig, name)]
+                                "sparse_launches", "group_launches",
+                                "finish_launches", "fresh_launches")
+              if hasattr(orig, name)]
     for name in counts:
         setattr(record, name, getattr(orig, name))
     sc.step_chunk = record
@@ -138,9 +139,10 @@ def capture_tail(name, path=None, grad_mode="fused"):
     from raytrace_tpu_torch.run import run
 
     base, dtype, over = tail_spec(name)
+    # a gradient set among the tail's overrides takes precedence
+    over = {"grad_mode": grad_mode, **over}
     with recording_launches() as seen:
-        out = run(preset(base, dtype=dtype, grad_mode=grad_mode, **over),
-                  device="cuda")
+        out = run(preset(base, dtype=dtype, **over), device="cuda")
     carry, f, _env, cfg, spec, kw = seen[-1]
     # the keywords of the reference scripts' modes only where they are on,
     # so that a checkout from before them replays the tail too; the

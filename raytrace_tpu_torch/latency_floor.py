@@ -27,6 +27,13 @@ the ray that makes the most (a launch lasts as long as that ray's chain):
   of 132, 264, 528, 1,056 and 2,112 rays of the preset (evenly spaced) x
   512 attempts in both layouts, the numbers behind the threshold.
 
+A cell of an instance with a group body (the float32 bs3 AD ones of
+ensemble10k, ensemble10k_local and ensemble10k_tilted under
+grad_mode=autodiff: ensemble10k:grad_mode=autodiff) also times (a) and
+the tail (g) in each body (GROUP_BODIES: the one-thread body, the group
+body), (f) in both up to 8,448 rays, (b) on the one-thread body and (d) on
+the group body.
+
 Beside them the SASS census of the instance (sass_census: chain_cycles,
 inorder_cycles, the attempt loop's size in bytes and its inner loop's)
 and the latency floor: chain_cycles_total (the attempt loop's chain with
@@ -43,6 +50,7 @@ record as the last line. Needs a CUDA device and the CUDA toolkit.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -62,13 +70,14 @@ _CLOCK_AHEAD = 0.25
 
 def instance_of(conf):
     """The float32 bs3 instance of a RunConfig as sass_census names it: its
-    frame, the medium code and the field its medium takes
-    (ops/step_chunk.py::medium_code, field_code)."""
+    frame, the medium code of its medium and gradient set and the field
+    its medium takes (ops/step_chunk.py::medium_code, field_code)."""
     from raytrace_tpu_torch.ops import step_chunk as sc
 
     env = conf.medium.build()
     field = ("", " tilted", " igrf")[sc.field_code(env)]
-    medium = sc._MEDIUM_NAMES[sc.medium_code(env, conf.solver())]
+    medium = sc._MEDIUM_NAMES[sc.medium_code(env, conf.solver(),
+                                             conf.grad_mode)]
     return f"float bs3 {conf.frame} {medium}{field}"
 
 
@@ -160,6 +169,17 @@ def _same(a, b):
                for x, y in zip(a, b))
 
 
+# the two bodies of an instance with a group body (ops/step_chunk.py::
+# group_lanes), each by the wrapper's thresholds (GROUP_MAX_RAYS, by lanes
+# a ray): the one-thread body and the group body
+GROUP_BODIES = {
+    "one-thread": {"GROUP_MAX_RAYS": {4: 0, 8: 0}},
+    "group": {"GROUP_MAX_RAYS": {4: 2 ** 31 - 1, 8: 2 ** 31 - 1}},
+}
+# (f) of such an instance: the crossover's launches and wider ones
+GROUP_CROSSOVER_RAYS = CROSSOVER_RAYS + (4224, 6336, 8448)
+
+
 def measure_cell(conf, tail, reps=5, tail_reps=3, crossover=True):
     """(a)-(f) of one cell on the card, by the package on the path: conf
     the preset's RunConfig (float32), tail a merged tail as
@@ -167,7 +187,11 @@ def measure_cell(conf, tail, reps=5, tail_reps=3, crossover=True):
     {"a": record, ..., "tail": the tail's rays, bucket, attempts, longest
     ray, that ray's attempts alone, and whether the spaced launch (d) gave
     every lane's fields bit for bit}; a record is {ms, mhz, longest, rays,
-    cycles_per_attempt}."""
+    cycles_per_attempt, and "body" where the instance has a group body}.
+    An instance with a group body (GROUP_BODIES) also has "a <body>" and
+    "g <body>": the launch and the tail in each body; (b) is its tail on
+    the one-thread body, (d) on the group body, and (f) its launches in
+    both bodies."""
     import numpy as np
     import torch
 
@@ -181,54 +205,80 @@ def measure_cell(conf, tail, reps=5, tail_reps=3, crossover=True):
 
     dev = torch.device("cuda")
     has_layout = hasattr(sc, "TAIL_LAYOUT_MAX_RAYS")
+    env = conf.medium.build()
+    cfg, spec = conf.solver(), conf.stop()
+    codes = (0, sc._STEPPER_CODE["bs3"], sc._FRAME_CODE[conf.frame][0],
+             sc.medium_code(env, cfg, conf.grad_mode), sc.field_code(env))
+    group = hasattr(sc, "group_lanes") and sc.group_lanes(*codes) > 0
 
     # the tail layout's thresholds (the team body's too, where the
     # checkout has one)
     knobs = [k for k in ("TAIL_LAYOUT_MAX_RAYS", "TEAM_LAYOUT_MAX_RAYS")
              if hasattr(sc, k)]
-    own = {k: getattr(sc, k) for k in knobs}
+    own = {k: getattr(sc, k)
+           for k in knobs + (["GROUP_MAX_RAYS"] if group else [])}
 
-    def timed(launch, reps, longest, rays, limit=None):
-        # the tail layout's thresholds at `limit` for these launches
+    @contextlib.contextmanager
+    def thresholds(limit=None, body=None):
+        # the tail layout's thresholds at `limit`, or the group body's
+        # thresholds of `body`, within the block
         if limit is not None:
             for k in knobs:
                 setattr(sc, k, limit)
+        for k, v in GROUP_BODIES.get(body, {}).items():
+            setattr(sc, k, v)
         try:
-            return _record(*_timed(launch, reps), longest, rays)
+            yield
         finally:
-            for k in knobs:
-                setattr(sc, k, own[k])
+            for k, v in own.items():
+                setattr(sc, k, v)
+
+    def timed(launch, reps, longest, rays, limit=None, body=None):
+        with thresholds(limit, body):
+            r = _record(*_timed(launch, reps), longest, rays)
+        if group:
+            r["body"] = body or "as launched"
+        return r
 
     rec = {}
     # (a) the launch
-    env = conf.medium.build()
     u0, f = _build_u0(conf, env, np.float32, dev)
     u0, f = torch.as_tensor(u0).to(dev), torch.as_tensor(f).to(dev)
-    rhs_fn = rhs_mod.frame_rhs(conf.frame, env, conf.root)[0]
-    cfg, spec = conf.solver(), conf.stop()
+    rhs_fn = rhs_mod.frame_rhs(conf.frame, env, conf.root,
+                               conf.grad_mode)[0]
     carry = init_carry(rhs_fn, u0, f, cfg)
-    kw = dict(stepper="bs3", frame=conf.frame, root=conf.root)
+    # the gradient set only where it is not the default, so that a
+    # checkout from before it measures the fused cells too
+    kw = dict(stepper="bs3", frame=conf.frame, root=conf.root,
+              **({} if conf.grad_mode == "fused"
+                 else {"grad_mode": conf.grad_mode}))
 
     def launch(c=carry, ff=f):
         return sc.step_chunk(c, ff, env, cfg, spec, n_steps=512, **kw)
 
-    rec["a"] = timed(launch, reps * 16, int(_made(launch(), carry).max()),
-                     f.shape[0])
-    # (f) the two layouts from 132 to 2,112 rays, where the instance takes
-    # the tail layout
-    if has_layout and crossover:
-        crossover = sc.tail_layout(
-            0, sc._STEPPER_CODE["bs3"], sc._FRAME_CODE[conf.frame][0],
-            sc.medium_code(env, cfg), sc.field_code(env))
-    for b in CROSSOVER_RAYS if has_layout and crossover else ():
+    longest = int(_made(launch(), carry).max())
+    rec["a"] = timed(launch, reps * 16, longest, f.shape[0])
+    for body in GROUP_BODIES if group else ():
+        rec[f"a {body}"] = timed(launch, reps * 16, longest, f.shape[0],
+                                 body=body)
+    # (f) the layouts from 132 to 2,112 rays, where the instance takes
+    # the tail layout or has a group body
+    if has_layout and crossover and not group:
+        crossover = sc.tail_layout(*codes)
+    sizes = GROUP_CROSSOVER_RAYS if group else CROSSOVER_RAYS
+    for b in sizes if has_layout and crossover else ():
         rows = torch.linspace(0, f.shape[0] - 1, b, device=dev).long()
         c = RayCarry(*(x.index_select(0, rows) for x in carry))
         fb = f.index_select(0, rows)
         lng = int(_made(launch(c, fb), c).max())
-        for name, limit in (("dense", 0), ("tail", b)):
+        for body in GROUP_BODIES if group else ():
+            rec[f"f {b} {body}"] = timed(lambda: launch(c, fb), reps * 4,
+                                         lng, b, body=body)
+        for name, limit in () if group else (("dense", 0), ("tail", b)):
             rec[f"f {b} {name}"] = timed(lambda: launch(c, fb), reps * 4,
                                          lng, b, limit)
-    # the merged tail: (b) dense, (e) as the wrapper launches it
+    # the merged tail: (b) dense (on the one-thread body), (e) as the
+    # wrapper launches it
     tcarry = RayCarry(**tail["carry"])
     tf = tail["f"]
     tcfg, tspec = SolverConfig(**tail["cfg"]), StopSpec(**tail["spec"])
@@ -239,17 +289,25 @@ def measure_cell(conf, tail, reps=5, tail_reps=3, crossover=True):
     made = _made(replay(), tcarry)[:tail["round"]["active"]]
     longest, ray = int(made.max()), int(made.argmax())
     bucket = int(tf.shape[0])
-    rec["b"] = timed(replay, tail_reps, longest, bucket, limit=0)
+    rec["b"] = timed(replay, tail_reps, longest, bucket,
+                     **({"body": "one-thread"} if group else {"limit": 0}))
     rec["e"] = timed(replay, tail_reps, longest, bucket)
+    for body in GROUP_BODIES if group else ():
+        rec[f"g {body}"] = timed(replay, tail_reps, longest, bucket,
+                                 body=body)
     # (c) the longest ray alone
     one = RayCarry(*(x[ray:ray + 1] for x in tcarry))
     f1 = tf[ray:ray + 1]
     alone = int(_made(replay(one, f1), one)[0])
     rec["c"] = timed(lambda: replay(one, f1), tail_reps, alone, 1)
-    # (d) one ray a warp, by spacing
+    # (d) one ray a warp, by spacing (the group body: 32 rays apart, each
+    # group in a warp of its own)
     sp, fsp, live = _spread(tcarry, tf, 32)
-    same = _same([x[live] for x in replay(sp, fsp)], replay())
-    rec["d"] = timed(lambda: replay(sp, fsp), tail_reps, longest, bucket)
+    spaced = "group" if group else None
+    with thresholds(body=spaced):
+        same = _same([x[live] for x in replay(sp, fsp)], replay())
+    rec["d"] = timed(lambda: replay(sp, fsp), tail_reps, longest, bucket,
+                     body=spaced)
     rec["tail"] = dict(rays=tail["round"]["active"], bucket=bucket,
                        attempts=int(made.sum()), longest=longest,
                        alone_attempts=alone, spread_same=same)

@@ -53,7 +53,11 @@ every ray (init_carry's right-hand side; the incoming k1 is not read).
   takes the tail layout (`tail_layout`, `launch_flags`) runs one ray a warp
   (the main path's 2D float bs3 instances) or on the team body (the
   float32 bs3 instances over the tilted dipole and IGRF, whose wider
-  launches run on the one-thread body).
+  launches run on the one-thread body). The float32 bs3 AD instances of
+  the 2D latitude frame and of the tilted dipole (`group_lanes`) also
+  have a group body, a group of lanes a ray, each lane with one tangent
+  row of the dual chain, which a launch of at most GROUP_MAX_RAYS rays
+  takes (`launch_flags`).
   The kernel is built from the source at first use
   with nvcc for sm_90a into raytrace_tpu_torch/_build/ (rebuilt when the
   source changes; PARTS nvcc processes at once, linked into one library)
@@ -64,8 +68,9 @@ every ray (init_carry's right-hand side; the incoming k1 is not read).
   and before `refine_events` (finish).
 
 `step_chunk.launches` counts kernel launches (`step_chunk.team_launches`
-those through the team body, `step_chunk.sparse_launches` those in the
-tail layout, `step_chunk.finish_launches` and
+those through the team body, `step_chunk.group_launches` those through the
+group body, `step_chunk.sparse_launches` those in the tail layout,
+`step_chunk.finish_launches` and
 `step_chunk.fresh_launches` those with each flag) and
 `step_chunk_reference.calls` counts calls of the plain version.
 """
@@ -139,6 +144,18 @@ TAIL_LAYOUT_MAX_RAYS = 528
 # 528; IGRF 4.15-4.24 / 5.50, 4.45 / 5.37, 5.68-5.77 / 5.45; at the full
 # 10,240 the team body ran 1.15x / 1.27x the one-thread body's time.
 TEAM_LAYOUT_MAX_RAYS = 264
+# The group body of two AD instances (csrc/step_chunk.cu, group_instance:
+# the float32 bs3 ones of the 2D latitude frame, 4 lanes a ray, and over
+# the tilted dipole, 8; each lane with one tangent row): a launch of at most
+# GROUP_MAX_RAYS[lanes] rays takes it (flag bit 8), where it measured
+# faster than the one-thread body (latency_floor (a) and (f) on an H100,
+# PERF.md): in 2D at every width (10,240 rays x 512 attempts 9.53 against
+# 12.14 ms, 132-2,112 rays 8.3-8.7 against 11.7-12.7, the merged tails
+# 0.71x); over the tilted dipole up to 6,336 rays, those of one wave (3
+# blocks of 16 rays an SM at 137 registers): 132-4,224 rays 11.7-12.0
+# against 20.9-21.6 ms, 6,336 14.1 against 21.6, 8,448 24.0 against 21.7,
+# 10,240 24.6 against 22.1, the merged tail 0.56x.
+GROUP_MAX_RAYS = {4: 2 ** 31 - 1, 8: 6336}
 _VEC = ("u", "k1", "u_prev", "u_lo")
 _INT = ("status", "n_accept", "n_reject", "rejected", "n_tiny", "caution")
 # kernel stepper codes; rk4 is what adaptive=False runs, whatever the
@@ -288,7 +305,8 @@ def build():
         ctypes.POINTER(StepParams), ctypes.c_void_p,
     ]
     lib.step_chunk_launch.restype = ctypes.c_int
-    for fn in (lib.step_chunk_team_warps, lib.step_chunk_tail_layout):
+    for fn in (lib.step_chunk_team_warps, lib.step_chunk_tail_layout,
+               lib.step_chunk_group_lanes):
         fn.argtypes = [ctypes.c_int] * 5
         fn.restype = ctypes.c_int
     _LIB = lib
@@ -311,6 +329,14 @@ def tail_layout(dtype, stepper, frame, medium, field):
                                                medium, field))
 
 
+def group_lanes(dtype, stepper, frame, medium, field):
+    """Lanes a ray of the group body of the kernel instance of these codes
+    (team_warps'), 0 where it has none; the source's compile-time
+    choice."""
+    return build().step_chunk_group_lanes(dtype, stepper, frame, medium,
+                                          field)
+
+
 def layout_limit(team=False):
     """The most rays of a launch in the tail layout: TAIL_LAYOUT_MAX_RAYS,
     and on an instance whose tail layout is the team body (`team`) at
@@ -319,13 +345,19 @@ def layout_limit(team=False):
             else TAIL_LAYOUT_MAX_RAYS)
 
 
-def launch_flags(b, finish=False, fresh=False, layout=False, limit=None):
+def launch_flags(b, finish=False, fresh=False, layout=False, limit=None,
+                 group=0):
     """The kernel's flag bits for a launch of b rays: 1 finish, 2 fresh,
     4 the tail layout, where the instance takes it (`layout`, tail_layout)
-    and b <= limit (layout_limit() by default)."""
+    and b <= limit (layout_limit() by default); on an instance with a
+    group body of `group` lanes a ray (group_lanes), 8 the group body
+    where b <= GROUP_MAX_RAYS[group]."""
+    flags = int(bool(finish)) | 2 * bool(fresh)
+    if group:
+        return flags | 8 * (0 < b <= GROUP_MAX_RAYS[group])
     limit = layout_limit() if limit is None else limit
     sparse = bool(layout) and 0 < b <= limit
-    return int(bool(finish)) | 2 * bool(fresh) | 4 * sparse
+    return flags | 4 * sparse
 
 
 def count_launch(flags, team=False):
@@ -336,6 +368,7 @@ def count_launch(flags, team=False):
     step_chunk.finish_launches += bool(flags & 1)
     step_chunk.fresh_launches += bool(flags & 2)
     step_chunk.sparse_launches += bool(flags & 4)
+    step_chunk.group_launches += bool(flags & 8)
 
 
 def ptxas_usage(log):
@@ -344,11 +377,13 @@ def ptxas_usage(log):
     step_chunk_kernel<T, STEPPER, FRAME, MEDIUM, FIELD, K> (or with fewer
     parameters, as builds before the full medium, the non-axial fields and
     the team body named them). An instance of the team body (K > 0 warps
-    a team) ends in "team<K>", e.g. "float bs3 3d full team4"."""
+    a team) ends in "team<K>", e.g. "float bs3 3d full team4", and of the
+    group body (K = -G, G lanes a ray) in "group<G>", e.g. "float bs3
+    2d_lat ad group4"."""
 
     def key(name):
         m = re.search(r"step_chunk_kernelI([fd])Li(\d)ELi(\d)E"
-                      r"(?:Li(\d)E)?(?:Li(\d)E)?(?:Li(\d+)E)?", name or "")
+                      r"(?:Li(\d)E)?(?:Li(\d)E)?(?:Li(n?\d+)E)?", name or "")
         if m is None:
             return None
         words = [("float", "double")[m[1] == "d"],
@@ -358,7 +393,9 @@ def ptxas_usage(log):
             words.append(_MEDIUM_NAMES[int(m[4])])
         if m[5] is not None and int(m[5]):
             words.append(("dipole", "tilted", "igrf")[int(m[5])])
-        if m[6] is not None and int(m[6]):
+        if m[6] is not None and m[6].startswith("n"):
+            words.append(f"group{int(m[6][1:])}")
+        elif m[6] is not None and int(m[6]):
             words.append(f"team{int(m[6])}")
         return " ".join(words)
 
@@ -636,6 +673,7 @@ class ResidentCarry:
         self._lib = build()
         self._team = bool(self._lib.step_chunk_team_warps(*self._codes))
         self._layout = bool(self._lib.step_chunk_tail_layout(*self._codes))
+        self._group = self._lib.step_chunk_group_lanes(*self._codes)
         # the stream current when the carry was made: every launch of the
         # carry queues there, in order
         self._stream = ctypes.c_void_p(
@@ -663,7 +701,7 @@ class ResidentCarry:
             self._carry = carry
             return
         flags = launch_flags(f.shape[0], finish, fresh, self._layout,
-                             layout_limit(self._team))
+                             layout_limit(self._team), self._group)
         with torch.cuda.device(f.device):
             rc = self._lib.step_chunk_launch(
                 *self._codes, self._ptrs, f.shape[0], int(n_steps), flags,
@@ -712,5 +750,6 @@ def step_chunk(carry: RayCarry, f, env, cfg: SolverConfig,
 step_chunk.launches = 0
 step_chunk.team_launches = 0    # those of them through the team body
 step_chunk.sparse_launches = 0  # ... in the tail layout, one ray a warp
+step_chunk.group_launches = 0   # ... through the group body
 step_chunk.finish_launches = 0  # ... with finish (the trace's end inside)
 step_chunk.fresh_launches = 0   # ... with fresh (its first k1 inside)

@@ -6,12 +6,14 @@
 Builds this checkout's kernel (and, with --against, another checkout's,
 as kernel_ab does), disassembles the library with `cuobjdump -sass` and,
 for each named instance (the keys of ops/step_chunk.py::ptxas_usage,
-without the body's "team<K>" suffix), finds the attempt loop (the widest
-backward branch inside the function's widest one, the pass loop around
-the attempts) and reports over its body:
+without the body's "team<K>" or "group<G>" suffix; each of its bodies),
+finds the attempt loop (the widest backward branch inside the function's
+widest one, the pass loop around the attempts) and reports over its
+body:
 
 - the instruction count by class (FP32, FP64, MUFU, conversions, branches
-  and control, barriers, shared and global memory, integer and other);
+  and control, barriers, shared memory with the warp shuffles, global
+  memory, integer and other);
 - `chain_cycles`: the longest path through the body's register
   dependencies, each instruction weighted by a latency of its class
   (LATENCY below: Hopper's fixed-latency pipes, and a nominal figure for
@@ -31,7 +33,9 @@ the attempts) and reports over its body:
   --against;
 - `calls`: the code that the attempt loop CALLs (an out-of-line
   right-hand side: rhs_3d_general of the one-thread general-field
-  instances, rhs_ad of the AD ones, placed after the kernel's code; not
+  instances, rhs_ad of the AD ones, rhs_ad_group of the AD group body
+  (a lane's value chain and tangent row, and its shuffles), placed after
+  the kernel's code; not
   the math library's slow paths, SLOW_PATH_MAX), with its call sites in
   the loop and the census of its whole body as a chain of its own
   (`chain_cycles`, `inorder_cycles`, `bytes`, `by_class`);
@@ -81,7 +85,7 @@ _CLASS = (
     ("barrier", r"BAR\b|BAR\."),
     ("control", r"(BRA|BSSY|BSYNC|CALL|RET|EXIT|WARPSYNC|BMOV|JMP|BREAK|"
                 r"NOP|YIELD|VOTE)"),
-    ("shared", r"(LDS|STS)\b"),
+    ("shared", r"(LDS|STS|SHFL)\b"),
     ("global", r"(LDG|STG|LDL|STL|LD|ST)\b"),
     ("int", r"(IMAD|IADD3|ISETP|LOP3|SHF|LEA|IABS|IMNMX|POPC|FLO|SEL|"
             r"PRMT|P2R|R2P|PLOP3|MOV|S2R|CS2R|ULDC|LDC|UMOV|S2UR)"),
@@ -289,6 +293,11 @@ def code_bytes(body):
     return body[-1][0] - body[0][0] + width, by_class
 
 
+def _base(key):
+    """An instance's key without its body's suffix."""
+    return re.sub(r" (team|group)\d+$", "", key)
+
+
 def instance_key(name):
     # the checkout's own naming (a child has that checkout on its path)
     from raytrace_tpu_torch.ops.step_chunk import ptxas_usage
@@ -327,11 +336,11 @@ def instance_census(insns):
 
 def bodies(census_out, inst):
     """{key: record} of instance `inst` (named without the body's
-    "team<K>" suffix) in run_census's output: one body, or two where the
-    instance runs its tail layout on the team body (the general-field
-    float bs3 ones)."""
+    "team<K>" or "group<G>" suffix) in run_census's output: one body, or
+    two where the instance runs its tail layout on the team body (the
+    general-field float bs3 ones) or has a group body (two AD ones)."""
     out = {key: rec for key, rec in census_out.items()
-           if re.sub(r" team\d+$", "", key) == inst}
+           if _base(key) == inst}
     if not out:
         raise KeyError(inst)
     return out
@@ -354,8 +363,7 @@ def run_census(lib_path, wanted, names=None):
 
     def wants(name):
         key = instance_key(name)
-        return key is not None and (
-            wanted is None or re.sub(r" team\d+$", "", key) in wanted)
+        return key is not None and (wanted is None or _base(key) in wanted)
 
     def dump(*only):
         return subprocess.run([tool, "-sass", *only, lib_path],

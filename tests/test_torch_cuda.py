@@ -1093,3 +1093,46 @@ def test_redesigned_chain_dense_matches_plain_version_bitwise(cuda, frame,
         ref = refine_events(rhs_fn, ref, f, spec)
     torch.cuda.synchronize()
     _assert_bitwise(got, ref)
+
+
+# The group body of the float32 bs3 AD instances (ops/step_chunk.py::
+# group_lanes) at launch sizes of one ray, 45 rays (partly filled warps and
+# blocks) and a merged tail's shape (27 rays padded to 256 lanes with
+# copies of the first, stopped)
+@pytest.mark.parametrize("b", [1, 45, "tail"])
+@pytest.mark.parametrize("name", ["ensemble10k", "ensemble10k_tilted"])
+def test_ad_group_body_matches_plain_version_bitwise(cuda, name, b):
+    """Every field bit for bit with the plain version (ops/dual.py's
+    rules) over 48 attempts with fresh and finish, the launch on the
+    group body (counted on step_chunk.group_launches)."""
+    from raytrace_tpu_torch.integrate.solve import refine_events
+
+    conf = preset(name, grad_mode="autodiff")
+    env = conf.medium.build()
+    cfg, spec = conf.solver(), conf.stop()
+    u0, f = _build_u0(conf, env, np.float32, cuda)
+    rows = (np.concatenate([np.arange(27) * 379, np.zeros(229, np.int64)])
+            if b == "tail" else np.arange(b) * (u0.shape[0] // b))
+    u0 = torch.as_tensor(u0[rows], device=cuda)
+    f = torch.as_tensor(f[rows], device=cuda)
+    rhs_fn, _ = rhs.frame_rhs(conf.frame, env, conf.root, "autodiff")
+    kw = dict(stepper="bs3", frame=conf.frame, root=conf.root,
+              grad_mode="autodiff")
+    codes = (0, 0, sc._FRAME_CODE[conf.frame][0],
+             sc.medium_code(env, cfg, "autodiff"), sc.field_code(env))
+    assert sc.group_lanes(*codes) == (8 if conf.frame == "3d" else 4)
+    carry = init_carry(rhs_fn, u0, f, cfg)
+    if b == "tail":
+        status = carry.status.clone()
+        status[27:] = events.MAX_STEPS
+        carry = carry._replace(status=status)
+    group = sc.step_chunk.group_launches
+    got = sc.step_chunk(carry._replace(k1=torch.full_like(carry.k1, np.nan)),
+                        f, env, cfg, spec, n_steps=48, finish=True,
+                        fresh=True, **kw)
+    assert sc.step_chunk.group_launches == group + 1
+    ref = sc.step_chunk_reference(carry, f, env, cfg, spec, n_steps=48,
+                                  **kw)
+    ref = refine_events(rhs_fn, ref, f, spec)
+    torch.cuda.synchronize()
+    _assert_bitwise(got, ref)

@@ -8,8 +8,10 @@ body (kTeamWarps = 0) with its stages unrolled in the dense layout (no
 stage loop, no tail layout: chain_instance false) -- and runs a launch
 through each: a block runs as
 one OS thread per CUDA thread, with a std::barrier for __syncthreads and
-a per-warp barrier for __any_sync, so the team body's warp roles, its
-shared-memory exchange and its barriers run as written. On the same
+a per-warp barrier for __any_sync and __shfl_sync, so the team body's
+warp roles, its shared-memory exchange and its barriers, and the group
+body's shuffles, run as written (the second build has no group body:
+group_instance false). On the same
 carry, made by the port's plain path on the CPU, the two bodies must give
 every field bit for bit (the host's libm stands in for the card's math on
 both sides). The ALT and ALTX instances (grad_mode="reference",
@@ -44,6 +46,7 @@ STUB = r"""
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <functional>
 #include <memory>
 #include <thread>
@@ -63,6 +66,7 @@ namespace emu {
 inline std::barrier<>* bar = nullptr;
 inline std::barrier<>* wbar[8];
 inline std::atomic<int> wor[8];
+inline unsigned long long wval[8][32];
 }
 inline void __syncthreads() { emu::bar->arrive_and_wait(); }
 inline int __any_sync(unsigned, int p) {
@@ -73,6 +77,20 @@ inline int __any_sync(unsigned, int p) {
   if (p) emu::wor[w] = 1;
   emu::wbar[w]->arrive_and_wait();
   return emu::wor[w].load();
+}
+// each lane posts its value, the warp's barrier, each reads its source
+// lane in its segment of `width` lanes, the barrier again; a lane that has
+// left has dropped out of its warp's barrier (emu_launch)
+template <typename V>
+inline V __shfl_sync(unsigned, V v, int src, int width = 32) {
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  std::memcpy(&emu::wval[w][lane], &v, sizeof v);
+  emu::wbar[w]->arrive_and_wait();
+  V out;
+  std::memcpy(&out, &emu::wval[w][(lane & ~(width - 1)) + src % width],
+              sizeof out);
+  emu::wbar[w]->arrive_and_wait();
+  return out;
 }
 typedef void* cudaStream_t;
 enum { cudaErrorInvalidValue = 1 };
@@ -96,6 +114,7 @@ inline void emu_launch(unsigned blocks, int threads,
         blockIdx = {b, 0, 0};
         threadIdx = {(unsigned)t, 0, 0};
         body();
+        emu::wbar[t / 32]->arrive_and_drop();
       });
     for (auto& th : ts) th.join();
   }
@@ -116,6 +135,18 @@ namespace thread_ns {
 #include "thread.inc"
 }
 int main(int argc, char** argv) {
+  if (argc > 1 && strcmp(argv[1], "--group-lanes") == 0) {
+    // the group body's lanes a ray of every instance: dtype stepper frame
+    // medium field lanes, one line each
+    for (int d = 0; d < 2; ++d)
+      for (int st = 0; st < 3; ++st)
+        for (int fr = 0; fr < 3; ++fr)
+          for (int m = 0; m < 8; ++m)
+            for (int fd = 0; fd < 3; ++fd)
+              printf("%d %d %d %d %d %d\n", d, st, fr, m, fd,
+                     team_ns::step_chunk_group_lanes_team(d, st, fr, m, fd));
+    return 0;
+  }
   FILE* fh = fopen(argv[1], "rb");
   int32_t dtype, n, codes[4], n_steps, flags;
   int64_t B;
@@ -179,14 +210,18 @@ int main(int argc, char** argv) {
     attempts += ((const int*)b[9].data())[i] + ((const int*)b[10].data())[i]
                 - ((const int*)in[9].data())[i] - ((const int*)in[10].data())[i];
   }
-  printf("team_warps %d thread_warps %d tail_layout %d differ %ld "
-         "stopped %ld attempts %ld\n",
+  printf("team_warps %d thread_warps %d tail_layout %d group_lanes %d "
+         "thread_group_lanes %d differ %ld stopped %ld attempts %ld\n",
          team_ns::step_chunk_team_warps_team(dtype, codes[0], codes[1],
                                              codes[2], codes[3]),
          thread_ns::step_chunk_team_warps_thread(dtype, codes[0], codes[1],
                                                  codes[2], codes[3]),
          team_ns::step_chunk_tail_layout_team(dtype, codes[0], codes[1],
                                               codes[2], codes[3]),
+         team_ns::step_chunk_group_lanes_team(dtype, codes[0], codes[1],
+                                              codes[2], codes[3]),
+         thread_ns::step_chunk_group_lanes_thread(dtype, codes[0], codes[1],
+                                                  codes[2], codes[3]),
          differ, stopped, attempts);
   return 0;
 }
@@ -210,13 +245,18 @@ def _host_source(src, tag, as_is):
                   f"int step_chunk_team_warps_{tag}")
     s = s.replace('extern "C" int step_chunk_tail_layout',
                   f"int step_chunk_tail_layout_{tag}")
+    s = s.replace('extern "C" int step_chunk_group_lanes',
+                  f"int step_chunk_group_lanes_{tag}")
     if not as_is:
-        # every instance on the one-thread body, its stages unrolled, in
-        # the dense layout
+        # every instance on the one-thread body (no team, no group body),
+        # its stages unrolled, in the dense layout
         s, n = re.subn(r"constexpr int kTeamWarps = \d+;",
                        "constexpr int kTeamWarps = 0;", s)
         assert n == 1
         s, n = re.subn(r"(constexpr bool chain_instance\([^)]*\) \{\n)"
+                       r"  return [^;]*;", r"\1  return false;", s)
+        assert n == 1
+        s, n = re.subn(r"(constexpr bool group_instance\([^)]*\) \{\n)"
                        r"  return [^;]*;", r"\1  return false;", s)
         assert n == 1
     return s
@@ -963,3 +1003,98 @@ def test_redesigned_chain_matches_the_unrolled_body_on_the_host(host_kernel,
                          f.double(), codes, 8, params, flags=2 | tail,
                          out=False)
     assert stats["differ"] == 0 and stats["tail_layout"] == 0
+
+
+# The group body of the float32 bs3 AD instances (csrc/step_chunk.cu,
+# group_instance: G lanes a ray, lane j with tangent row j of the dual chain,
+# the rows exchanged by __shfl_sync) against the second build's one-thread
+# AD body: (preset, legacy_freq_state). ensemble10k (with and without the
+# 2D frequency read as f + T) and ensemble10k_local (the local ceiling) take
+# the 2D latitude instance (G = 4), ensemble10k_tilted the tilted dipole's
+# (G = 8, the eighth lane seeding no input)
+GROUP_CASES = {
+    "lat": ("ensemble10k", False),
+    "lat_legacy": ("ensemble10k", True),
+    "local": ("ensemble10k_local", False),
+    "tilted": ("ensemble10k_tilted", False),
+}
+
+
+@pytest.mark.parametrize("fresh", [True, False])
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+def test_group_body_matches_the_one_thread_ad_body_on_the_host(
+        host_kernel, case, fresh):
+    """45 rays spread over the float32 fan (not a multiple of the group's
+    lanes or of 32: the last warp and block are partly filled; every 7th
+    ray stopped at entry, which with fresh forms its k1 and no attempt and
+    without it leaves at once) x 96 attempts, with fresh (k1 = rhs(u)
+    first, through the group body's right-hand side too) or from
+    init_carry's carry, through the group body (flag bit 8) of the build
+    as it stands and the one-thread AD body of the second build: every
+    field bit for bit."""
+    name, legacy = GROUP_CASES[case]
+    conf = preset(name, grad_mode="autodiff")
+    env = conf.medium.build()
+    u0, f = _build_u0(conf, env, np.float32, torch.device("cpu"))
+    u0, f = torch.as_tensor(u0[::230]), torch.as_tensor(f[::230])
+    assert f.shape[0] == 45
+    cfg, spec = conf.solver(), conf.stop()
+    rhs_fn = rhs_mod.frame_rhs(conf.frame, env, conf.root, "autodiff",
+                               legacy)[0]
+    carry = init_carry(None if fresh else rhs_fn, u0, f, cfg)
+    status = carry.status.clone()
+    status[::7] = events.MAX_PHASE_TIME
+    carry = carry._replace(status=status)
+    codes = [sc._STEPPER_CODE["bs3"], sc._FRAME_CODE[conf.frame][0],
+             sc.medium_code(env, cfg, "autodiff", legacy), sc.field_code(env)]
+    assert codes[2] == sc.AD
+    params = sc._params(env, cfg, spec, conf.root, "autodiff", legacy)
+    lanes = 8 if name == "ensemble10k_tilted" else 4
+    flags = sc.launch_flags(f.shape[0], fresh=fresh, group=lanes)
+    assert flags == 2 * fresh | 8
+    got, stats = _host_run(host_kernel, f"group_{case}_{fresh}", carry, f,
+                           codes, 96, params, flags=flags)
+    assert stats["group_lanes"] == lanes
+    assert stats["thread_group_lanes"] == 0 and stats["team_warps"] == 0
+    assert stats["differ"] == 0
+    live = int((carry.status == 0).sum())
+    assert 48 * live <= stats["attempts"] <= 96 * live
+    assert np.isfinite(got["k1"]).all() and np.isfinite(got["u"]).all()
+
+
+def test_wrapper_takes_the_group_body_for_exactly_its_instances(
+        host_kernel, monkeypatch):
+    """step_chunk_group_lanes names exactly the two instances, 4 lanes in
+    2D and 8 over the tilted dipole, and launch_flags sets the group
+    body's bit 8 only on them, up to GROUP_MAX_RAYS rays for their lanes:
+    every launch in 2D, up to one wave of 6,336 rays over the tilted
+    dipole, never the tail layout's bit 4; finish and fresh keep bits 1
+    and 2."""
+    out = subprocess.run([str(host_kernel / "kernel_host"), "--group-lanes"],
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    rows = [tuple(map(int, line.split())) for line in out.stdout.split("\n")
+            if line]
+    assert len(rows) == 2 * 3 * 3 * 8 * 3
+    named = {r[:5]: r[5] for r in rows if r[5]}
+    lat = (0, sc._STEPPER_CODE["bs3"], sc._FRAME_CODE["2d_lat"][0], sc.AD,
+           sc._FIELD_CODE["dipole"])
+    tilted = (0, sc._STEPPER_CODE["bs3"], sc._FRAME_CODE["3d"][0], sc.AD,
+              sc._FIELD_CODE["tilted"])
+    assert named == {lat: 4, tilted: 8}
+    top = 6336
+    assert sc.GROUP_MAX_RAYS == {4: 2 ** 31 - 1, 8: top}
+    for b in (1, 45, 256, 2112, top, top + 1, 10240):
+        for lanes, limit in sc.GROUP_MAX_RAYS.items():
+            want = 8 * (b <= limit)
+            assert sc.launch_flags(b, group=lanes) == want, (b, lanes)
+            assert sc.launch_flags(b, finish=True, fresh=True,
+                                   group=lanes) == 3 | want
+            # layout and limit are the other instances' (tail_layout)
+            assert sc.launch_flags(b, layout=True, limit=10 ** 9,
+                                   group=lanes) == want
+        assert sc.launch_flags(b) & 8 == 0
+        assert sc.launch_flags(b, layout=True) & 8 == 0
+    assert sc.launch_flags(0, group=4) == 0
+    monkeypatch.setattr(sc, "GROUP_MAX_RAYS", {4: 0, 8: 0})
+    assert sc.launch_flags(45, group=4) == 0

@@ -621,3 +621,43 @@ def test_sass_census_finds_the_team_body_helper_loop():
     assert census.bodies(both, "float bs3 3d full tilted") == {
         "float bs3 3d full tilted team4": rec,
         "float bs3 3d full tilted": {}}
+
+
+def test_ptxas_usage_names_the_group_body():
+    """The group body of an AD instance (K = -G lanes a ray, mangled as a
+    negative template value) is named with "group<G>" after its
+    instance's name, beside the one-thread body; sass_census.bodies gives
+    both under the instance's name."""
+    from raytrace_tpu_torch import sass_census as census
+
+    def line(k):
+        return (f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N"
+                f"_117step_chunk_kernelIfLi0ELi1ELi5ELi1EL{k}EEEvPT_'\n"
+                f"ptxas info    : Used {150 if k == 'i0' else 96} "
+                "registers\n")
+
+    use = sc.ptxas_usage(line("i0") + line("in8"))
+    assert use == {"float bs3 3d ad tilted": "150 registers, ",
+                   "float bs3 3d ad tilted group8": "96 registers, "}
+    assert census.instance_key("_ZN12_GLOBAL__N_117step_chunk_kernelIfLi0"
+                               "ELi0ELi5ELi0ELin4EEEvPT_") == (
+        "float bs3 2d_lat ad group4")
+    got = census.bodies({k: k for k in (*use, "float bs3 3d ad")},
+                        "float bs3 3d ad tilted")
+    assert sorted(got) == sorted(use)
+
+
+def test_launch_counters_count_the_group_body(monkeypatch):
+    """A launch with the group body's flag bit 8 counts on
+    step_chunk.group_launches; the group body takes no tail layout (bit
+    4), whatever the layout arguments say."""
+    names = ("launches", "group_launches", "sparse_launches")
+    for name in names:
+        monkeypatch.setattr(sc.step_chunk, name, 0)
+    monkeypatch.setattr(sc, "GROUP_MAX_RAYS", {4: 1000, 8: 100})
+    for b in (45, 500, 5000):
+        sc.count_launch(sc.launch_flags(b, finish=True, layout=True,
+                                        group=4))
+        sc.count_launch(sc.launch_flags(b, group=8))
+    sc.count_launch(sc.launch_flags(45, layout=True))
+    assert [getattr(sc.step_chunk, n) for n in names] == [7, 3, 1]
