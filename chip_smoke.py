@@ -195,8 +195,9 @@ Phases, each printed as it runs; any failed check exits non-zero:
      over a cut of their launch, and the run-time flags of the same
      instances (legacy_freq_state, He+ and O+ at the EMIC root, the local
      ceiling); each instance timed at 10,240 rays x 512 attempts beside its
-     bound and the plain version's cut; the two with a group body (float32
-     bs3, 2D latitude and tilted dipole: a group of lanes a ray, a tangent
+     bound and the plain version's cut; the four with a group body (bs3:
+     the 2D latitude frame in float32 and float64, the tilted dipole in
+     float32, the 3D dipole in float64; a group of lanes a ray, a tangent
      row a lane) in each body (one-thread, group), bit
      for bit with the plain version on a cut of the launch and on each
      captured merged tail of (b) (its first attempts with finish and
@@ -209,8 +210,10 @@ Phases, each printed as it runs; any failed check exits non-zero:
      float32 run beside it; emic_heband, ensemble10k_tilted,
      ensemble10k_local and raymain once in float32 against AD_F32; the
      merged tails of ensemble10k, ensemble10k_local and ensemble10k_tilted
-     took the group body, and each of those runs again with every launch
-     on the one-thread body gives its results bit for bit; (c)
+     in float32 and of ensemble10k and ensemble10k_3d in float64 took the
+     group body (and every launch within the wrapper's threshold), and
+     each of those runs again with every launch on the one-thread body
+     gives its results bit for bit; (c)
      the CLI with grad_mode="autodiff" in a config file against run.run,
      bit for bit.
 35.  The media and step ceilings the kernel once refused: (a) the ANY
@@ -3308,16 +3311,36 @@ def ad_kernels(dev, card):
         bit_for_bit(f"AD {what}", name, dt_name, st, dev, CUT_N,
                     every=every, **AD, **over)
     # the instances with a group body, in each body
-    for name in ("ensemble10k", "ensemble10k_tilted"):
-        ad_group_cut(name, dev)
+    for name, dt_name in GROUP_CUTS:
+        ad_group_cut(name, dev, dt_name)
     ad_group_cut("ensemble10k", dev, legacy_freq_state=True)
     return out
 
 
 # the runs whose instance has a group body (ops/step_chunk.py::group_lanes:
-# the float32 bs3 AD instances of the 2D latitude frame and of the tilted
-# dipole)
-GROUP_RUNS = ("ensemble10k", "ensemble10k_local", "ensemble10k_tilted")
+# the bs3 AD instances of the 2D latitude frame in float32 and float64, of
+# the tilted dipole in float32 and of the 3D dipole in float64), by preset
+# and dtype, and the launches phase 34 (a) cuts
+GROUP_RUNS = (("ensemble10k", "float32"), ("ensemble10k_local", "float32"),
+              ("ensemble10k_tilted", "float32"), ("ensemble10k", "float64"),
+              ("ensemble10k_3d", "float64"))
+GROUP_CUTS = (("ensemble10k", "float32"), ("ensemble10k_tilted", "float32"),
+              ("ensemble10k", "float64"), ("ensemble10k_3d", "float64"))
+
+
+def group_key(name, dt_name):
+    """The codes (dtype, stepper, frame, medium, field) of the bs3 AD
+    instance of a preset's autodiff run in a dtype: its key of
+    ops/step_chunk.py::GROUP_MAX_RAYS."""
+    from raytrace_tpu_torch.config import preset
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    conf = preset(name, dtype=dt_name, **AD)
+    env = conf.medium.build()
+    return (int(dt_name == "float64"), sc._STEPPER_CODE["bs3"],
+            sc._FRAME_CODE[conf.frame][0],
+            sc.medium_code(env, conf.solver(), "autodiff"),
+            sc.field_code(env))
 
 
 def group_bodies(what, carry, f, env, cfg, spec, kw, ref=None):
@@ -3331,15 +3354,12 @@ def group_bodies(what, carry, f, env, cfg, spec, kw, ref=None):
     import torch
 
     from raytrace_tpu_torch.integrate.solve import RayCarry
-    from raytrace_tpu_torch.latency_floor import GROUP_BODIES
+    from raytrace_tpu_torch.latency_floor import GROUP_BODIES, on_body
     from raytrace_tpu_torch.ops import step_chunk as sc
 
-    own = {"GROUP_MAX_RAYS": sc.GROUP_MAX_RAYS}
     ms, first = {}, None
-    for body, knobs in GROUP_BODIES.items():
-        for k, v in knobs.items():
-            setattr(sc, k, v)
-        try:
+    for body in GROUP_BODIES:
+        with on_body(sc, body):
             before = sc.step_chunk.group_launches
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
@@ -3347,9 +3367,6 @@ def group_bodies(what, carry, f, env, cfg, spec, kw, ref=None):
             out = sc.step_chunk(carry, f, env, cfg, spec, **kw)
             e1.record()
             torch.cuda.synchronize()
-        finally:
-            for k, v in own.items():
-                setattr(sc, k, v)
         ms[body] = e0.elapsed_time(e1)
         got = {k: getattr(out, k).cpu().numpy() for k in RayCarry._fields}
         if first is None:
@@ -3365,18 +3382,18 @@ def group_bodies(what, carry, f, env, cfg, spec, kw, ref=None):
     return ms, first
 
 
-def ad_group_cut(name, dev, **over):
+def ad_group_cut(name, dev, dt_name="float32", **over):
     """Phase 34 (a): a cut of the launch of an instance with a group body
-    (every 10th ray x CUT_N attempts, with fresh) in each body, bit for bit
-    with the plain version."""
+    (every 10th ray x CUT_N attempts) in each body, bit for bit with the
+    plain version."""
     from raytrace_tpu_torch.integrate.solve import RayCarry
     from raytrace_tpu_torch.ops import step_chunk as sc
 
-    carry, f, env, cfg, spec, kw = start(name, "float32", dev, every=10,
+    carry, f, env, cfg, spec, kw = start(name, dt_name, dev, every=10,
                                          **AD, **over)
     kw = dict(kw, stepper="bs3", n_steps=CUT_N)
     ref = sc.step_chunk_reference(carry, f, env, cfg, spec, **kw)
-    group_bodies(f"AD {name} float32 bs3, {f.shape[0]:,} rays x {CUT_N} "
+    group_bodies(f"AD {name} {dt_name} bs3, {f.shape[0]:,} rays x {CUT_N} "
                  "attempts", carry, f, env, cfg, spec, kw,
                  {k: getattr(ref, k).cpu().numpy()
                   for k in RayCarry._fields})
@@ -3384,15 +3401,16 @@ def ad_group_cut(name, dev, **over):
 
 def ad_group_tails(card, tails, census):
     """Phase 34 (a) on the captured tails: the merged tail of each of
-    GROUP_RUNS (ad_slices' drive.tail) replayed whole in each body, bit for
+    GROUP_RUNS (ad_slices' drive.tail, `tails` by preset and dtype)
+    replayed whole in each body, bit for
     bit with one another, and its first CUT_N attempts with finish and
     fresh in each, bit for bit with the plain path (k1 = rhs(u),
     step_chunk_reference, refine_events); each body's ms and cycles an
     attempt of the longest ray, at clocks.sm read while the wrapper's
     launches run (latency_floor._timed), beside the latency floor of each
-    body's SASS chain with what it waits on (census). Returns {preset:
-    {body: ms, ..., "as launched": ms, "mhz", "longest", "floor_ms":
-    {body: ms}}}."""
+    body's SASS chain with what it waits on (census). Returns {(preset,
+    dtype): {body: ms, ..., "as launched": ms, "mhz", "longest",
+    "floor_ms": {body: ms}}}."""
     from raytrace_tpu_torch import sass_census
     from raytrace_tpu_torch.config import preset
     from raytrace_tpu_torch.integrate.events import StopSpec
@@ -3404,8 +3422,7 @@ def ad_group_tails(card, tails, census):
     from raytrace_tpu_torch.ops import step_chunk as sc
 
     out = {}
-    for name in GROUP_RUNS:
-        tail = tails[name]
+    for (name, dt_name), tail in tails.items():
         env, f = tail["env"], tail["f"]
         carry = RayCarry(**tail["carry"])
         cfg, spec = SolverConfig(**tail["cfg"]), StopSpec(**tail["spec"])
@@ -3414,7 +3431,7 @@ def ad_group_tails(card, tails, census):
         rhs_fn = rhs_mod.frame_rhs(cut.get("frame", "2d_lat"), env,
                                    cut.get("root", 1.0), cut["grad_mode"],
                                    cut.get("legacy_freq_state", False))[0]
-        what = (f"{name} autodiff float32, the merged tail "
+        what = (f"{name} autodiff {dt_name}, the merged tail "
                 f"({tail['round']['active']} rays in a bucket of "
                 f"{f.shape[0]})")
         first = dict(cut, n_steps=CUT_N)
@@ -3434,7 +3451,8 @@ def ad_group_tails(card, tails, census):
             lambda: sc.step_chunk(carry, f, env, cfg, spec, **cut), 1)
         floors = {key: inst["chain_cycles_total"] * longest / (mhz * 1e3)
                   for key, inst in sass_census.bodies(
-                      census, instance_of(preset(name, **AD))).items()}
+                      census, instance_of(preset(name, dtype=dt_name,
+                                                 **AD))).items()}
         print(f"  {what}, at clocks.sm {mhz:.0f} MHz, the longest ray "
               f"{longest:,} attempts: " + ", ".join(
                   f"{b} {t:.3f} ms ({t * 1e3 * mhz / longest:,.0f} cycles "
@@ -3442,8 +3460,46 @@ def ad_group_tails(card, tails, census):
               + "; latency floor " + ", ".join(
                   f"{t:.3f} ms ({key})" for key, t in floors.items())
               + f" on {card}", flush=True)
-        out[name] = dict(ms, mhz=mhz, longest=longest, floor_ms=floors)
+        out[name, dt_name] = dict(ms, mhz=mhz, longest=longest,
+                                  floor_ms=floors)
     return out
+
+
+def group_run(conf, out, what, card):
+    """Phase 34 (b) on a run of GROUP_RUNS just made by drive(conf): every
+    launch of at most the wrapper's GROUP_MAX_RAYS rays for its instance
+    took the group body, the rest the one-thread body; its merged tail,
+    replayed (tail_timing), took the group body; the run again with every
+    launch on the one-thread body gives every result bit for bit. Returns
+    (the replay's timing, the run's drive.tail)."""
+    from raytrace_tpu_torch.latency_floor import on_body
+    from raytrace_tpu_torch.ops import step_chunk as sc
+
+    limit = sc.GROUP_MAX_RAYS[group_key(conf.name, conf.dtype)]
+    want = sum(b <= limit for b in drive.sizes)
+    check(drive.team_launches == 0 and drive.group_launches == want > 0,
+          f"{what}: {drive.group_launches} of its launches (of "
+          f"{drive.sizes} rays) went through the group body, those of at "
+          f"most {limit} rays, the rest through the one-thread body")
+    tail = drive.tail
+    before = (sc.step_chunk.launches, sc.step_chunk.group_launches)
+    timing = tail_timing(what, card)
+    replays = sc.step_chunk.launches - before[0]
+    took = sc.step_chunk.group_launches - before[1]
+    check(took == replays > 0,
+          f"{what}: the merged tail ({tail['f'].shape[0]} rays) took the "
+          f"group body ({took} of {replays} replays)")
+    with on_body(sc, "one-thread"):
+        thread, _, _, _ = drive(conf, f"{what}, every launch on the "
+                                      "one-thread body", card)
+    check(drive.group_launches == 0, "no launch took the group body")
+    res, res1 = out["result"], thread["result"]
+    fields = ("u", "t", "status", "n_accept", "n_reject")
+    n_diff = n_differ({k: np.asarray(getattr(res, k)) for k in fields},
+                      {k: np.asarray(getattr(res1, k)) for k in fields})
+    check(n_diff == 0, f"{what}: the run bit for bit with the run on the "
+                       "one-thread body")
+    return timing, tail
 
 
 def ad_pinned(out64, pin, what, lat_to_l):
@@ -3503,10 +3559,11 @@ def ad_slices(card, fused):
     once in float32 against the JAX package's float32 census. The runs of
     GROUP_RUNS: their merged tail took the group body, and the run again
     with every launch on the one-thread body gives every result bit for
-    bit. Returns {preset: (the float32 run's launches, its last launch
-    replayed, that launch as drive.tail has it)}."""
+    bit; so do the float64 runs of ensemble10k and ensemble10k_3d. Returns
+    {(preset, dtype): (the run's launches, its last launch replayed, that
+    launch as drive.tail has it)}: float32 for every preset, float64 for
+    those of AD_PINS."""
     from raytrace_tpu_torch.config import preset
-    from raytrace_tpu_torch.ops import step_chunk as sc
 
     runs = {}
     for name in ("ensemble10k", "ensemble10k_3d", "emic_heband",
@@ -3520,49 +3577,16 @@ def ad_slices(card, fused):
                   kw.get("grad_mode") == "autodiff" for kw in drive.kws),
               f"{name} (autodiff) stepped through the AD instances, never "
               "the plain version")
-        if name in GROUP_RUNS:
-            # every launch of at most GROUP_MAX_RAYS[lanes] rays on the
-            # group body, the rest on the one-thread body
-            limit = sc.GROUP_MAX_RAYS[8 if name == "ensemble10k_tilted"
-                                      else 4]
-            want = sum(b <= limit for b in drive.sizes)
-            check(drive.team_launches == 0
-                  and drive.group_launches == want > 0,
-                  f"{name} autodiff float32: {drive.group_launches} of its "
-                  f"{launches} launches (of {drive.sizes} rays) went through "
-                  f"the group body, those of at most {limit} rays, the rest "
-                  "through the one-thread body")
-        else:
-            body(launches, f"{name} autodiff float32", team=False)
         check(np.isfinite(out32["result"].u[out32["valid"]]).all(),
               "every final state is finite")
-        tail = drive.tail
-        before = (sc.step_chunk.launches, sc.step_chunk.group_launches)
-        runs[name] = (launches, tail_timing(f"{name} autodiff float32",
-                                            card), tail)
-        if name in GROUP_RUNS:
-            replays = sc.step_chunk.launches - before[0]
-            took = sc.step_chunk.group_launches - before[1]
-            check(took == replays > 0,
-                  f"{name}: the merged tail ({tail['f'].shape[0]} rays) "
-                  f"took the group body ({took} of {replays} replays)")
-            own = sc.GROUP_MAX_RAYS
-            sc.GROUP_MAX_RAYS = {k: 0 for k in own}
-            try:
-                thread, _, _, _ = drive(
-                    conf, f"{name} autodiff float32, every launch on the "
-                          "one-thread body", card)
-            finally:
-                sc.GROUP_MAX_RAYS = own
-            check(drive.group_launches == 0, "no launch took the group body")
-            res, res1 = out32["result"], thread["result"]
-            fields = ("u", "t", "status", "n_accept", "n_reject")
-            n_diff = n_differ({k: np.asarray(getattr(res, k))
-                               for k in fields},
-                              {k: np.asarray(getattr(res1, k))
-                               for k in fields})
-            check(n_diff == 0, f"{name}: the run bit for bit with the run "
-                               "on the one-thread body")
+        what = f"{name} autodiff float32"
+        if (name, "float32") in GROUP_RUNS:
+            runs[name, "float32"] = (launches,
+                                     *group_run(conf, out32, what, card))
+        else:
+            body(launches, what, team=False)
+            runs[name, "float32"] = (launches, tail_timing(what, card),
+                                     drive.tail)
         got, steps = census(out32)
         pin32 = AD_F32[name]
         who = pin32.get("by", "the JAX package's")
@@ -3584,11 +3608,13 @@ def ad_slices(card, fused):
         if name not in AD_PINS:
             continue
         pin = AD_PINS[name]
-        out64, _, launches64, calls = drive(
-            preset(name, dtype="float64", **AD), f"{name} autodiff float64",
-            card)
+        conf64 = preset(name, dtype="float64", **AD)
+        what = f"{name} autodiff float64"
+        out64, _, launches64, calls = drive(conf64, what, card)
         check(launches64 > 0 and calls == 0,
               "float64 stepped through the kernel, never the plain version")
+        runs[name, "float64"] = (launches64,
+                                 *group_run(conf64, out64, what, card))
         lat_to_l = ((lambda u: u[:, 0] / np.cos(u[:, 1]) ** 2)
                     if name == "ensemble10k"
                     else (lambda u: u[:, 0] / np.sin(u[:, 1]) ** 2))
@@ -5275,7 +5301,8 @@ def main():
         sass_census.run_census, sc.library_path(),
         {"float bs3 2d_lat axi", "float bs3 2d_colat axi",
          "float bs3 3d full tilted", "float bs3 3d full igrf",
-         "float bs3 2d_lat ad", "float bs3 3d ad tilted"},
+         "float bs3 2d_lat ad", "float bs3 3d ad tilted",
+         "double bs3 2d_lat ad", "double bs3 3d ad"},
         sass_census.entry_names(sc.BUILD_LOG))
 
     # ---- 2. kernel vs plain PyTorch on the card ---------------------------
@@ -5860,8 +5887,8 @@ def main():
           "and the slice's paths through run.run")
     ad = ad_kernels(dev, card)
     ad_runs = ad_slices(card, {"ensemble10k": out4, "ensemble10k_3d": out3})
-    ad_tails = ad_group_tails(card, {name: ad_runs[name][2]
-                                     for name in GROUP_RUNS}, census)
+    ad_tails = ad_group_tails(card, {run: ad_runs[run][2]
+                                     for run in GROUP_RUNS}, census)
     ad_cli(card)
 
     # ---- 35. every medium and step ceiling of the JAX package -------------
@@ -5884,8 +5911,9 @@ def main():
                                  "one-thread"}[team]}
         if group is not None:
             more["body"] = ("group body up to GROUP_MAX_RAYS "
-                            f"{sc.GROUP_MAX_RAYS} rays (by lanes a ray), "
-                            "else one-thread")
+                            f"{sc.GROUP_MAX_RAYS} rays (by the instance's "
+                            "dtype, stepper, frame, medium, field), else "
+                            "one-thread")
             more["group_tail"] = group
         if tail is not None:
             more.update(tail_ms=tail["ms"], tail_rays=tail["rays"],
@@ -5940,6 +5968,14 @@ def main():
             **more,
         }
 
+    def ad_entry(name, dt_name, row):
+        # entry's arguments for an AD instance: the run's launches, the
+        # instance's (a) record, its run's last launch replayed and, on a
+        # run of GROUP_RUNS, its tail in each body
+        launches, tail, _ = ad_runs[name, dt_name]
+        return (launches, *ad[row, "bs3", dt_name], tail,
+                False, None, ad_tails.get((name, dt_name)))
+
     print(json.dumps({"kernels": [
         entry("step_chunk[2d_lat,float32,bs3]", launches_2d, err_2d, t_2d,
               tails["2d"], floor=floors["2d"]),
@@ -5992,22 +6028,19 @@ def main():
               "attempts, the lightning fan)", launches_fan, err_fan, t_fan),
         *(cg_entry(name, *fp2d[name]) for name in ("float64", "float32")),
         entry("step_chunk[2d_lat+autodiff,float32,bs3]",
-              ad_runs["ensemble10k"][0], *ad["2d_lat", "bs3", "float32"],
-              ad_runs["ensemble10k"][1], group=ad_tails["ensemble10k"]),
+              *ad_entry("ensemble10k", "float32", "2d_lat")),
         entry("step_chunk[2d_lat+ds_local+autodiff,float32,bs3]",
-              ad_runs["ensemble10k_local"][0],
-              *ad["2d_lat", "bs3", "float32"],
-              ad_runs["ensemble10k_local"][1],
-              group=ad_tails["ensemble10k_local"]),
+              *ad_entry("ensemble10k_local", "float32", "2d_lat")),
         entry("step_chunk[3d+autodiff,float32,bs3]",
-              ad_runs["ensemble10k_3d"][0],
-              *ad["3d over the MLT plume", "bs3", "float32"],
-              ad_runs["ensemble10k_3d"][1]),
+              *ad_entry("ensemble10k_3d", "float32",
+                        "3d over the MLT plume")),
         entry("step_chunk[3d+autodiff+tilted_field,float32,bs3]",
-              ad_runs["ensemble10k_tilted"][0],
-              *ad["3d tilted", "bs3", "float32"],
-              ad_runs["ensemble10k_tilted"][1],
-              group=ad_tails["ensemble10k_tilted"]),
+              *ad_entry("ensemble10k_tilted", "float32", "3d tilted")),
+        entry("step_chunk[2d_lat+autodiff,float64,bs3]",
+              *ad_entry("ensemble10k", "float64", "2d_lat")),
+        entry("step_chunk[3d+autodiff,float64,bs3]",
+              *ad_entry("ensemble10k_3d", "float64",
+                        "3d over the MLT plume")),
         *(entry(f"step_chunk[{label},float32,bs3]", any_runs[key][0],
                 *anym[key], any_runs[key][1])
           for key, label in (

@@ -219,8 +219,9 @@
 //     stage loop in warp 0 (the tails 1.24 / 1.16x the unrolled team's
 //     time) and warp 0's part of the right-hand side out of line (1.09 /
 //     1.12x).
-//   - the group body, in the float bs3 AD instances of ensemble10k,
-//     ensemble10k_local and ensemble10k_tilted under the autodiff set
+//   - the group body, in the bs3 AD instances of ensemble10k and
+//     ensemble10k_local (float and double), ensemble10k_tilted (float) and
+//     ensemble10k_3d (double) under the autodiff set
 //     (group_instance below): a ray is served by a group of G =
 //     group_lanes lanes of one warp (4 in 2D, N = 4; 8 in 3D, N = 7, the
 //     eighth lane seeding no input), in blocks of kThreads lanes. Every
@@ -235,13 +236,20 @@
 //     shuffles within the group then hand every lane the N rows. Each row
 //     is computed alone from the values and its own row, so the two bodies
 //     agree bit for bit. A lane's out-of-line right-hand side is 0.61x
-//     (2D) / 0.52x (3D) the one-thread body's instructions; the merged
-//     tails ran 0.71x / 0.56x its time (PERF.md). A launch takes it by
-//     flag bit 3 where it measured faster (ops/step_chunk.py::
-//     GROUP_MAX_RAYS: in 2D every launch, over the tilted dipole those of
-//     one wave). Measured and dropped: one group a warp (the tails 1.03x /
-//     1.00x, 1.3-5.4x slower from 2,112 rays up) and the right-hand side
-//     inlined (the tails 1.13-1.57x, the full launch 1.05 / 1.30x).
+//     (2D) / 0.52x (3D) the one-thread body's instructions in float,
+//     0.63x / 0.56x in double (where it also drops the 3D instance's
+//     spills); the merged tails ran 0.71x / 0.56x its time in float,
+//     0.67x / 0.42x in double (PERF.md). A launch takes it by flag bit 3
+//     where it measured faster (ops/step_chunk.py::GROUP_MAX_RAYS: the
+//     float 2D instance at every width, the others up to one wave, or two
+//     in double 3D). Measured and dropped: one group a warp (the tails
+//     1.03x / 1.00x, 1.3-5.4x slower from 2,112 rays up), the right-hand
+//     side inlined (the tails 1.13-1.57x, the full launch 1.05 / 1.30x;
+//     in double the tails 1.25x), in double the group body held to three
+//     blocks an SM (168 registers: the full launch 0.63x / 0.80x its
+//     unbounded time, the tails 1.07x / 1.09x, the 3D one spilling 398
+//     bytes) and in 3D four lanes of two rows a ray (the one-ray tail
+//     1.55x).
 // The 7-state axisymmetric double dopri5 instance spills 64 bytes, and the
 // team body's double instances, held to 168 registers (kTeamBlocks
 // below), spill too (PERF.md lists -Xptxas -v).
@@ -404,16 +412,20 @@ __host__ __device__ constexpr bool stage_loop(int dtype, int stepper,
 // The AD instances redesigned for one ray's chain (the note "the group
 // body" above): the float bs3 ones of the 2D latitude frame over the dipole
 // (ensemble10k and ensemble10k_local under grad_mode="autodiff") and of
-// the 3D frame over the tilted dipole (ensemble10k_tilted). Each keeps its
-// one-thread body and has the group body beside it, which a launch takes
-// by flag bit 3 (ops/step_chunk.py::launch_flags: where it measured
-// faster). Their siblings keep the one-thread body alone (ROADMAP B4).
+// the 3D frame over the tilted dipole (ensemble10k_tilted), and the double
+// bs3 ones of the 2D latitude frame and the 3D frame over the dipole (the
+// float64 runs of ensemble10k, ensemble10k_local and ensemble10k_3d). Each
+// keeps its one-thread body and has the group body beside it, which a
+// launch takes by flag bit 3 (ops/step_chunk.py::launch_flags: where it
+// measured faster). Their siblings keep the one-thread body alone (ROADMAP
+// B4).
 __host__ __device__ constexpr bool group_instance(int dtype, int stepper,
                                                   int frame, int medium,
                                                   int field) {
-  return dtype == 0 && stepper == BS3 && medium == AD &&
+  return stepper == BS3 && medium == AD &&
          ((frame == LAT2D && field == DIPOLE) ||
-          (frame == KIM3D && field == TILTED));
+          (dtype == 0 && frame == KIM3D && field == TILTED) ||
+          (dtype == 1 && frame == KIM3D && field == DIPOLE));
 }
 // the lanes of a group: one a seeded input (N = 4 in 2D, 7 in 3D), a
 // power of two
@@ -3057,7 +3069,8 @@ __device__ __forceinline__ T ad_mu_grads(const T (&x)[N],
 // forms the value chain and the one tangent row that the pass above forms
 // as its row j, by the same operations in the same order; the N rows then
 // reach every lane of the group by shuffles within it (the group's lanes
-// hold the same values, so they reach each shuffle together)
+// hold the same values, so they reach each shuffle together; a double
+// goes as two 32-bit halves, both from the same lane)
 template <typename T, int FRAME, int FIELD, int N, int G>
 __device__ __forceinline__ T ad_mu_grads_group(const T (&x)[N],
                                                const KParams<T>& p,

@@ -130,9 +130,9 @@ def capture_tail(name, path=None, grad_mode="fused"):
     """Run the preset of tail `name` (tail_spec) through run.run on the
     card and return its last launch, the merged tail, as a dict: the
     carry's fields and f (on the card), the launch's keywords, cfg and
-    spec as dicts, the preset's overrides, and the last round's record
-    (active rays, bucket, attempts); saved with torch.save to `path` when
-    given."""
+    spec as dicts, the preset's dtype and overrides, and the last round's
+    record (active rays, bucket, attempts); saved with torch.save to
+    `path` when given."""
     import torch
 
     from raytrace_tpu_torch.config import preset
@@ -152,8 +152,8 @@ def capture_tail(name, path=None, grad_mode="fused"):
           if (k, v) not in (("grad_mode", "fused"),
                             ("legacy_freq_state", False))
           and k not in ("finish", "fresh")}
-    tail = dict(name=base, over=over, carry=carry._asdict(), f=f, kw=kw,
-                cfg=cfg._asdict(), spec=spec._asdict(),
+    tail = dict(name=base, dtype=dtype, over=over, carry=carry._asdict(),
+                f=f, kw=kw, cfg=cfg._asdict(), spec=spec._asdict(),
                 round=dict(out["rounds"][-1]))
     if path:
         torch.save(tail, path)

@@ -4,10 +4,12 @@ one card: the launch, its merged tail, one ray alone, one ray a warp.
     python -m raytrace_tpu_torch.latency_floor [--against DIR] [--reps 5]
         [--cells ensemble10k,ensemble10k:frame=2d_colat]
 
-Each cell is a merged tail's name as kernel_ab takes it (a preset and
-its overrides, float32; ensemble10k:frame=2d_colat is the colatitude
-fan), and its instance the float32 bs3 one of the preset's frame, medium
-and field (ensemble10k_tilted: "float bs3 3d full tilted"). For each,
+Each cell is a merged tail's name as kernel_ab takes it (a preset, its
+dtype, float32 unless one is named, and its overrides;
+ensemble10k:frame=2d_colat is the colatitude fan,
+ensemble10k:float64:grad_mode=autodiff the float64 autodiff run), and
+its instance the bs3 one of the cell's dtype, frame, medium and field
+(ensemble10k_tilted: "float bs3 3d full tilted"). For each,
 timed with CUDA events on the card, beside `clocks.sm` (nvidia-smi, read
 while the same launches run on), and converted to cycles per attempt of
 the ray that makes the most (a launch lasts as long as that ray's chain):
@@ -27,9 +29,9 @@ the ray that makes the most (a launch lasts as long as that ray's chain):
   of 132, 264, 528, 1,056 and 2,112 rays of the preset (evenly spaced) x
   512 attempts in both layouts, the numbers behind the threshold.
 
-A cell of an instance with a group body (the float32 bs3 AD ones of
-ensemble10k, ensemble10k_local and ensemble10k_tilted under
-grad_mode=autodiff: ensemble10k:grad_mode=autodiff) also times (a) and
+A cell of an instance with a group body (the bs3 AD ones of
+ops/step_chunk.py::GROUP_MAX_RAYS: ensemble10k:grad_mode=autodiff,
+ensemble10k:float64:grad_mode=autodiff, ...) also times (a) and
 the tail (g) in each body (GROUP_BODIES: the one-thread body, the group
 body), (f) in both up to 8,448 rays, (b) on the one-thread body and (d) on
 the group body.
@@ -69,24 +71,35 @@ _CLOCK_AHEAD = 0.25
 
 
 def instance_of(conf):
-    """The float32 bs3 instance of a RunConfig as sass_census names it: its
-    frame, the medium code of its medium and gradient set and the field
-    its medium takes (ops/step_chunk.py::medium_code, field_code)."""
+    """The bs3 instance of a RunConfig as sass_census names it: its dtype
+    ("float" or "double"), its frame, the medium code of its medium and
+    gradient set and the field its medium takes (ops/step_chunk.py::
+    medium_code, field_code)."""
     from raytrace_tpu_torch.ops import step_chunk as sc
 
     env = conf.medium.build()
     field = ("", " tilted", " igrf")[sc.field_code(env)]
     medium = sc._MEDIUM_NAMES[sc.medium_code(env, conf.solver(),
                                              conf.grad_mode)]
-    return f"float bs3 {conf.frame} {medium}{field}"
+    scalar = "double" if conf.dtype == "float64" else "float"
+    return f"{scalar} bs3 {conf.frame} {medium}{field}"
+
+
+def tail_config(tail):
+    """The RunConfig of a tail that kernel_ab.capture_tail saved: its
+    preset in its dtype (float32 where the tail names none) with its
+    overrides."""
+    from raytrace_tpu_torch.config import preset
+
+    return preset(tail["name"], dtype=tail.get("dtype", "float32"),
+                  **tail["over"])
 
 
 def _instance(cell):
-    from raytrace_tpu_torch.config import preset
     from raytrace_tpu_torch.kernel_ab import tail_spec
 
-    base, _dtype, over = tail_spec(cell)
-    return instance_of(preset(base, **over))
+    base, dtype, over = tail_spec(cell)
+    return instance_of(tail_config(dict(name=base, dtype=dtype, over=over)))
 
 
 def _clock_mhz():
@@ -170,19 +183,34 @@ def _same(a, b):
 
 
 # the two bodies of an instance with a group body (ops/step_chunk.py::
-# group_lanes), each by the wrapper's thresholds (GROUP_MAX_RAYS, by lanes
-# a ray): the one-thread body and the group body
-GROUP_BODIES = {
-    "one-thread": {"GROUP_MAX_RAYS": {4: 0, 8: 0}},
-    "group": {"GROUP_MAX_RAYS": {4: 2 ** 31 - 1, 8: 2 ** 31 - 1}},
-}
+# group_lanes), each by the threshold that on_body gives every instance's
+# entry of the wrapper's GROUP_MAX_RAYS: the one-thread body and the group
+# body
+GROUP_BODIES = {"one-thread": 0, "group": 2 ** 31 - 1}
+
+
+@contextlib.contextmanager
+def on_body(sc, body):
+    """Within the block every launch of an instance with a group body (of
+    the checkout whose ops/step_chunk.py is `sc`) takes `body`, one of
+    GROUP_BODIES: each entry of sc.GROUP_MAX_RAYS, whatever its key, set to
+    the body's threshold; None leaves the wrapper's own."""
+    own = sc.GROUP_MAX_RAYS
+    if body is not None:
+        sc.GROUP_MAX_RAYS = {k: GROUP_BODIES[body] for k in own}
+    try:
+        yield
+    finally:
+        sc.GROUP_MAX_RAYS = own
+
+
 # (f) of such an instance: the crossover's launches and wider ones
 GROUP_CROSSOVER_RAYS = CROSSOVER_RAYS + (4224, 6336, 8448)
 
 
 def measure_cell(conf, tail, reps=5, tail_reps=3, crossover=True):
     """(a)-(f) of one cell on the card, by the package on the path: conf
-    the preset's RunConfig (float32), tail a merged tail as
+    the cell's RunConfig (tail_config), tail a merged tail as
     kernel_ab.capture_tail gives it (its carry and f on the card). Returns
     {"a": record, ..., "tail": the tail's rays, bucket, attempts, longest
     ray, that ray's attempts alone, and whether the spaced launch (d) gave
@@ -207,7 +235,9 @@ def measure_cell(conf, tail, reps=5, tail_reps=3, crossover=True):
     has_layout = hasattr(sc, "TAIL_LAYOUT_MAX_RAYS")
     env = conf.medium.build()
     cfg, spec = conf.solver(), conf.stop()
-    codes = (0, sc._STEPPER_CODE["bs3"], sc._FRAME_CODE[conf.frame][0],
+    double = conf.dtype == "float64"
+    codes = (int(double), sc._STEPPER_CODE["bs3"],
+             sc._FRAME_CODE[conf.frame][0],
              sc.medium_code(env, cfg, conf.grad_mode), sc.field_code(env))
     group = hasattr(sc, "group_lanes") and sc.group_lanes(*codes) > 0
 
@@ -215,20 +245,18 @@ def measure_cell(conf, tail, reps=5, tail_reps=3, crossover=True):
     # checkout has one)
     knobs = [k for k in ("TAIL_LAYOUT_MAX_RAYS", "TEAM_LAYOUT_MAX_RAYS")
              if hasattr(sc, k)]
-    own = {k: getattr(sc, k)
-           for k in knobs + (["GROUP_MAX_RAYS"] if group else [])}
+    own = {k: getattr(sc, k) for k in knobs}
 
     @contextlib.contextmanager
     def thresholds(limit=None, body=None):
-        # the tail layout's thresholds at `limit`, or the group body's
-        # thresholds of `body`, within the block
+        # the tail layout's thresholds at `limit`, or every launch on the
+        # body `body` (on_body), within the block
         if limit is not None:
             for k in knobs:
                 setattr(sc, k, limit)
-        for k, v in GROUP_BODIES.get(body, {}).items():
-            setattr(sc, k, v)
         try:
-            yield
+            with on_body(sc, body if group else None):
+                yield
         finally:
             for k, v in own.items():
                 setattr(sc, k, v)
@@ -242,7 +270,7 @@ def measure_cell(conf, tail, reps=5, tail_reps=3, crossover=True):
 
     rec = {}
     # (a) the launch
-    u0, f = _build_u0(conf, env, np.float32, dev)
+    u0, f = _build_u0(conf, env, np.float64 if double else np.float32, dev)
     u0, f = torch.as_tensor(u0).to(dev), torch.as_tensor(f).to(dev)
     rhs_fn = rhs_mod.frame_rhs(conf.frame, env, conf.root,
                                conf.grad_mode)[0]
@@ -318,18 +346,16 @@ def _child(root, tails, reps, tail_reps):
     import torch
 
     import raytrace_tpu_torch
-    from raytrace_tpu_torch.config import preset
     from raytrace_tpu_torch.ops import step_chunk as sc
 
     assert raytrace_tpu_torch.__file__.startswith(root)
     sc.build()
     out = {"library": sc.library_path(), "cells": {}}
     for cell, path in tails.items():
-        # the tail as this checkout captured it, with its preset and
-        # overrides (float32)
+        # the tail as this checkout captured it
         tail = torch.load(path, weights_only=False)
-        out["cells"][cell] = measure_cell(
-            preset(tail["name"], **tail["over"]), tail, reps, tail_reps)
+        out["cells"][cell] = measure_cell(tail_config(tail), tail, reps,
+                                          tail_reps)
     print(json.dumps(out))
 
 

@@ -53,10 +53,11 @@ every ray (init_carry's right-hand side; the incoming k1 is not read).
   takes the tail layout (`tail_layout`, `launch_flags`) runs one ray a warp
   (the main path's 2D float bs3 instances) or on the team body (the
   float32 bs3 instances over the tilted dipole and IGRF, whose wider
-  launches run on the one-thread body). The float32 bs3 AD instances of
-  the 2D latitude frame and of the tilted dipole (`group_lanes`) also
-  have a group body, a group of lanes a ray, each lane with one tangent
-  row of the dual chain, which a launch of at most GROUP_MAX_RAYS rays
+  launches run on the one-thread body). The bs3 AD instances of the 2D
+  latitude frame (float32 and float64), of the tilted dipole (float32) and
+  of the 3D frame over the dipole (float64; `group_lanes`) also have a
+  group body, a group of lanes a ray, each lane with one tangent row of
+  the dual chain, which a launch of at most GROUP_MAX_RAYS[codes] rays
   takes (`launch_flags`).
   The kernel is built from the source at first use
   with nvcc for sm_90a into raytrace_tpu_torch/_build/ (rebuilt when the
@@ -144,18 +145,6 @@ TAIL_LAYOUT_MAX_RAYS = 528
 # 528; IGRF 4.15-4.24 / 5.50, 4.45 / 5.37, 5.68-5.77 / 5.45; at the full
 # 10,240 the team body ran 1.15x / 1.27x the one-thread body's time.
 TEAM_LAYOUT_MAX_RAYS = 264
-# The group body of two AD instances (csrc/step_chunk.cu, group_instance:
-# the float32 bs3 ones of the 2D latitude frame, 4 lanes a ray, and over
-# the tilted dipole, 8; each lane with one tangent row): a launch of at most
-# GROUP_MAX_RAYS[lanes] rays takes it (flag bit 8), where it measured
-# faster than the one-thread body (latency_floor (a) and (f) on an H100,
-# PERF.md): in 2D at every width (10,240 rays x 512 attempts 9.53 against
-# 12.14 ms, 132-2,112 rays 8.3-8.7 against 11.7-12.7, the merged tails
-# 0.71x); over the tilted dipole up to 6,336 rays, those of one wave (3
-# blocks of 16 rays an SM at 137 registers): 132-4,224 rays 11.7-12.0
-# against 20.9-21.6 ms, 6,336 14.1 against 21.6, 8,448 24.0 against 21.7,
-# 10,240 24.6 against 22.1, the merged tail 0.56x.
-GROUP_MAX_RAYS = {4: 2 ** 31 - 1, 8: 6336}
 _VEC = ("u", "k1", "u_prev", "u_lo")
 _INT = ("status", "n_accept", "n_reject", "rejected", "n_tiny", "caution")
 # kernel stepper codes; rk4 is what adaptive=False runs, whatever the
@@ -169,6 +158,35 @@ _FIELD_CODE = {"dipole": 0, "tilted": 1, "igrf": 2}
 # harmonic count and shell count
 AXI, FULL, EXT, ALT, ALTX, AD, ANY, AD_ANY = 0, 1, 2, 3, 4, 5, 6, 7
 _MEDIUM_NAMES = ("axi", "full", "ext", "alt", "altx", "ad", "any", "ad_any")
+# The group body of four AD instances (csrc/step_chunk.cu, group_instance:
+# the bs3 ones of the 2D latitude frame in float32 and float64, 4 lanes a
+# ray, over the tilted dipole in float32, 8, and over the dipole in the 3D
+# frame in float64, 8; each lane with one tangent row): a launch of at most
+# GROUP_MAX_RAYS[codes] rays, codes the instance's (dtype, stepper, frame,
+# medium, field) as step_chunk passes them, takes it (flag bit 8), where it
+# measured faster than the one-thread body (latency_floor (a) and (f) on an
+# H100, PERF.md), 512 attempts, group / one-thread body:
+# - float32 2D: every width (10,240 rays 9.53 against 12.14 ms, 132-2,112
+#   rays 8.3-8.7 against 11.7-12.7; the merged tails 0.71x);
+# - float32 tilted: up to 6,336 rays, those of one wave (3 blocks of 16
+#   rays an SM at 137 registers): 132-4,224 rays 11.7-12.0 against
+#   20.9-21.6 ms, 6,336 14.1 against 21.6, 8,448 24.0 against 21.7, 10,240
+#   24.6 against 22.1 (the merged tail 0.56x);
+# - float64 2D: up to 8,448 rays, one wave (2 blocks of 32 rays an SM at
+#   210 registers): 132-4,224 rays 13.4-13.7 against 19.9-20.2 ms, 6,336
+#   and 8,448 14.9-15.1 against 20.2, 10,240 28.2-28.4 against 20.1-20.3
+#   (the tails 0.67x);
+# - float64 3D: up to 8,448 rays, two waves (2 blocks of 16 rays an SM at
+#   255 registers): 132-2,112 rays 14.3-14.7 against 34.7-35.6 ms, 4,224
+#   15.5-15.7 against 35.6, 6,336 29.2-29.5 against 35.2-35.5, 8,448
+#   30.6-30.8 against 35.5, 10,240 42.0-42.4 against 35.2-35.5 (three
+#   waves; the one-ray tail 0.42x).
+GROUP_MAX_RAYS = {
+    (0, 0, 0, AD, 0): 2 ** 31 - 1,  # float32 bs3 2d_lat AD
+    (0, 0, 1, AD, 1): 6336,         # float32 bs3 3d AD, tilted dipole
+    (1, 0, 0, AD, 0): 8448,         # float64 bs3 2d_lat AD
+    (1, 0, 1, AD, 0): 8448,         # float64 bs3 3d AD, dipole
+}
 
 
 class StepParams(ctypes.Structure):
@@ -346,15 +364,15 @@ def layout_limit(team=False):
 
 
 def launch_flags(b, finish=False, fresh=False, layout=False, limit=None,
-                 group=0):
+                 group=None):
     """The kernel's flag bits for a launch of b rays: 1 finish, 2 fresh,
     4 the tail layout, where the instance takes it (`layout`, tail_layout)
     and b <= limit (layout_limit() by default); on an instance with a
-    group body of `group` lanes a ray (group_lanes), 8 the group body
-    where b <= GROUP_MAX_RAYS[group]."""
+    group body (group_lanes), `group` its codes, 8 the group body where b
+    <= GROUP_MAX_RAYS[group]."""
     flags = int(bool(finish)) | 2 * bool(fresh)
     if group:
-        return flags | 8 * (0 < b <= GROUP_MAX_RAYS[group])
+        return flags | 8 * (0 < b <= GROUP_MAX_RAYS[tuple(group)])
     limit = layout_limit() if limit is None else limit
     sparse = bool(layout) and 0 < b <= limit
     return flags | 4 * sparse
@@ -673,7 +691,10 @@ class ResidentCarry:
         self._lib = build()
         self._team = bool(self._lib.step_chunk_team_warps(*self._codes))
         self._layout = bool(self._lib.step_chunk_tail_layout(*self._codes))
-        self._group = self._lib.step_chunk_group_lanes(*self._codes)
+        # the instance's codes where it has a group body (GROUP_MAX_RAYS)
+        self._group = (self._codes
+                       if self._lib.step_chunk_group_lanes(*self._codes)
+                       else None)
         # the stream current when the carry was made: every launch of the
         # carry queues there, in order
         self._stream = ctypes.c_void_p(

@@ -1095,22 +1095,26 @@ def test_redesigned_chain_dense_matches_plain_version_bitwise(cuda, frame,
     _assert_bitwise(got, ref)
 
 
-# The group body of the float32 bs3 AD instances (ops/step_chunk.py::
-# group_lanes) at launch sizes of one ray, 45 rays (partly filled warps and
-# blocks) and a merged tail's shape (27 rays padded to 256 lanes with
-# copies of the first, stopped)
+# The group body of the bs3 AD instances (ops/step_chunk.py::group_lanes:
+# the 2D latitude frame in float32 and float64, the tilted dipole in
+# float32, the 3D dipole in float64) at launch sizes of one ray, 45 rays
+# (partly filled warps and blocks) and a merged tail's shape (27 rays
+# padded to 256 lanes with copies of the first, stopped)
 @pytest.mark.parametrize("b", [1, 45, "tail"])
-@pytest.mark.parametrize("name", ["ensemble10k", "ensemble10k_tilted"])
-def test_ad_group_body_matches_plain_version_bitwise(cuda, name, b):
+@pytest.mark.parametrize("name,dtype", [
+    ("ensemble10k", "float32"), ("ensemble10k_tilted", "float32"),
+    ("ensemble10k", "float64"), ("ensemble10k_3d", "float64")])
+def test_ad_group_body_matches_plain_version_bitwise(cuda, name, dtype, b):
     """Every field bit for bit with the plain version (ops/dual.py's
     rules) over 48 attempts with fresh and finish, the launch on the
     group body (counted on step_chunk.group_launches)."""
     from raytrace_tpu_torch.integrate.solve import refine_events
 
-    conf = preset(name, grad_mode="autodiff")
+    conf = preset(name, grad_mode="autodiff", dtype=dtype)
     env = conf.medium.build()
     cfg, spec = conf.solver(), conf.stop()
-    u0, f = _build_u0(conf, env, np.float32, cuda)
+    np_dt = np.float32 if dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, cuda)
     rows = (np.concatenate([np.arange(27) * 379, np.zeros(229, np.int64)])
             if b == "tail" else np.arange(b) * (u0.shape[0] // b))
     u0 = torch.as_tensor(u0[rows], device=cuda)
@@ -1118,9 +1122,10 @@ def test_ad_group_body_matches_plain_version_bitwise(cuda, name, b):
     rhs_fn, _ = rhs.frame_rhs(conf.frame, env, conf.root, "autodiff")
     kw = dict(stepper="bs3", frame=conf.frame, root=conf.root,
               grad_mode="autodiff")
-    codes = (0, 0, sc._FRAME_CODE[conf.frame][0],
+    codes = (int(dtype == "float64"), 0, sc._FRAME_CODE[conf.frame][0],
              sc.medium_code(env, cfg, "autodiff"), sc.field_code(env))
     assert sc.group_lanes(*codes) == (8 if conf.frame == "3d" else 4)
+    assert sc.GROUP_MAX_RAYS[codes] >= 256
     carry = init_carry(rhs_fn, u0, f, cfg)
     if b == "tail":
         status = carry.status.clone()

@@ -1005,18 +1005,31 @@ def test_redesigned_chain_matches_the_unrolled_body_on_the_host(host_kernel,
     assert stats["differ"] == 0 and stats["tail_layout"] == 0
 
 
-# The group body of the float32 bs3 AD instances (csrc/step_chunk.cu,
-# group_instance: G lanes a ray, lane j with tangent row j of the dual chain,
-# the rows exchanged by __shfl_sync) against the second build's one-thread
-# AD body: (preset, legacy_freq_state). ensemble10k (with and without the
-# 2D frequency read as f + T) and ensemble10k_local (the local ceiling) take
-# the 2D latitude instance (G = 4), ensemble10k_tilted the tilted dipole's
-# (G = 8, the eighth lane seeding no input)
+# The group body of the bs3 AD instances (csrc/step_chunk.cu,
+# group_instance: G lanes a ray, each lane with its tangent rows of the dual
+# chain, the rows exchanged by __shfl_sync) against the second build's
+# one-thread AD body: (preset, legacy_freq_state, dtype). ensemble10k (with
+# and without the 2D frequency read as f + T) and ensemble10k_local (the
+# local ceiling) take the 2D latitude instance (G = 4) in float32 and
+# float64, ensemble10k_tilted the tilted dipole's (float32, G = 8, the
+# eighth lane seeding no input) and ensemble10k_3d the 3D dipole's
+# (float64, G = group_lanes)
 GROUP_CASES = {
-    "lat": ("ensemble10k", False),
-    "lat_legacy": ("ensemble10k", True),
-    "local": ("ensemble10k_local", False),
-    "tilted": ("ensemble10k_tilted", False),
+    "lat": ("ensemble10k", False, "float32"),
+    "lat_legacy": ("ensemble10k", True, "float32"),
+    "local": ("ensemble10k_local", False, "float32"),
+    "tilted": ("ensemble10k_tilted", False, "float32"),
+    "lat_f64": ("ensemble10k", False, "float64"),
+    "local_f64": ("ensemble10k_local", False, "float64"),
+    "3d_f64": ("ensemble10k_3d", False, "float64"),
+}
+# the instances with a group body, by their codes (dtype, stepper, frame,
+# medium, field), and the group's lanes a ray
+_GROUP_INSTANCES = {
+    (0, 0, 0, sc.AD, 0): 4,   # float32 bs3 2d_lat AD
+    (0, 0, 1, sc.AD, 1): 8,   # float32 bs3 3d AD, tilted dipole
+    (1, 0, 0, sc.AD, 0): 4,   # float64 bs3 2d_lat AD
+    (1, 0, 1, sc.AD, 0): 8,   # float64 bs3 3d AD, dipole
 }
 
 
@@ -1024,18 +1037,19 @@ GROUP_CASES = {
 @pytest.mark.parametrize("case", sorted(GROUP_CASES))
 def test_group_body_matches_the_one_thread_ad_body_on_the_host(
         host_kernel, case, fresh):
-    """45 rays spread over the float32 fan (not a multiple of the group's
-    lanes or of 32: the last warp and block are partly filled; every 7th
-    ray stopped at entry, which with fresh forms its k1 and no attempt and
+    """45 rays spread over the fan (not a multiple of the group's lanes or
+    of 32: the last warp and block are partly filled; every 7th ray
+    stopped at entry, which with fresh forms its k1 and no attempt and
     without it leaves at once) x 96 attempts, with fresh (k1 = rhs(u)
     first, through the group body's right-hand side too) or from
     init_carry's carry, through the group body (flag bit 8) of the build
     as it stands and the one-thread AD body of the second build: every
-    field bit for bit."""
-    name, legacy = GROUP_CASES[case]
-    conf = preset(name, grad_mode="autodiff")
+    field bit for bit, in float32 and float64."""
+    name, legacy, dtype = GROUP_CASES[case]
+    conf = preset(name, grad_mode="autodiff", dtype=dtype)
     env = conf.medium.build()
-    u0, f = _build_u0(conf, env, np.float32, torch.device("cpu"))
+    np_dt = np.float32 if dtype == "float32" else np.float64
+    u0, f = _build_u0(conf, env, np_dt, torch.device("cpu"))
     u0, f = torch.as_tensor(u0[::230]), torch.as_tensor(f[::230])
     assert f.shape[0] == 45
     cfg, spec = conf.solver(), conf.stop()
@@ -1048,13 +1062,13 @@ def test_group_body_matches_the_one_thread_ad_body_on_the_host(
     codes = [sc._STEPPER_CODE["bs3"], sc._FRAME_CODE[conf.frame][0],
              sc.medium_code(env, cfg, "autodiff", legacy), sc.field_code(env)]
     assert codes[2] == sc.AD
+    key = (int(dtype == "float64"), *codes)
     params = sc._params(env, cfg, spec, conf.root, "autodiff", legacy)
-    lanes = 8 if name == "ensemble10k_tilted" else 4
-    flags = sc.launch_flags(f.shape[0], fresh=fresh, group=lanes)
+    flags = sc.launch_flags(f.shape[0], fresh=fresh, group=key)
     assert flags == 2 * fresh | 8
     got, stats = _host_run(host_kernel, f"group_{case}_{fresh}", carry, f,
                            codes, 96, params, flags=flags)
-    assert stats["group_lanes"] == lanes
+    assert stats["group_lanes"] == _GROUP_INSTANCES[key]
     assert stats["thread_group_lanes"] == 0 and stats["team_warps"] == 0
     assert stats["differ"] == 0
     live = int((carry.status == 0).sum())
@@ -1064,12 +1078,15 @@ def test_group_body_matches_the_one_thread_ad_body_on_the_host(
 
 def test_wrapper_takes_the_group_body_for_exactly_its_instances(
         host_kernel, monkeypatch):
-    """step_chunk_group_lanes names exactly the two instances, 4 lanes in
-    2D and 8 over the tilted dipole, and launch_flags sets the group
-    body's bit 8 only on them, up to GROUP_MAX_RAYS rays for their lanes:
-    every launch in 2D, up to one wave of 6,336 rays over the tilted
-    dipole, never the tail layout's bit 4; finish and fresh keep bits 1
-    and 2."""
+    """step_chunk_group_lanes names exactly the four instances (the bs3 AD
+    ones of the 2D latitude frame in float32 and float64 and of the 3D
+    frame over the tilted dipole in float32 and over the dipole in
+    float64), with their lanes a ray, and launch_flags sets the group
+    body's bit 8 only on them, up to GROUP_MAX_RAYS rays for each
+    instance's codes: every float32 2D launch, up to one wave of 6,336
+    rays over the tilted dipole, up to 8,448 rays in float64 (one wave in
+    2D, two in 3D); never the tail layout's bit 4; finish and fresh keep
+    bits 1 and 2."""
     out = subprocess.run([str(host_kernel / "kernel_host"), "--group-lanes"],
                          capture_output=True, text=True, timeout=60)
     assert out.returncode == 0, out.stderr
@@ -1081,20 +1098,27 @@ def test_wrapper_takes_the_group_body_for_exactly_its_instances(
            sc._FIELD_CODE["dipole"])
     tilted = (0, sc._STEPPER_CODE["bs3"], sc._FRAME_CODE["3d"][0], sc.AD,
               sc._FIELD_CODE["tilted"])
-    assert named == {lat: 4, tilted: 8}
-    top = 6336
-    assert sc.GROUP_MAX_RAYS == {4: 2 ** 31 - 1, 8: top}
-    for b in (1, 45, 256, 2112, top, top + 1, 10240):
-        for lanes, limit in sc.GROUP_MAX_RAYS.items():
+    lat64 = (1, *lat[1:])
+    dipole64 = (1, sc._STEPPER_CODE["bs3"], sc._FRAME_CODE["3d"][0], sc.AD,
+                sc._FIELD_CODE["dipole"])
+    assert named == _GROUP_INSTANCES
+    assert set(named) == {lat, tilted, lat64, dipole64}
+    top, top64 = 6336, 8448
+    assert sc.GROUP_MAX_RAYS == {lat: 2 ** 31 - 1, tilted: top,
+                                 lat64: top64, dipole64: top64}
+    for b in (1, 45, 256, 2112, top, top + 1, top64, top64 + 1, 10240):
+        for key, limit in sc.GROUP_MAX_RAYS.items():
             want = 8 * (b <= limit)
-            assert sc.launch_flags(b, group=lanes) == want, (b, lanes)
+            assert sc.launch_flags(b, group=key) == want, (b, key)
             assert sc.launch_flags(b, finish=True, fresh=True,
-                                   group=lanes) == 3 | want
+                                   group=key) == 3 | want
             # layout and limit are the other instances' (tail_layout)
             assert sc.launch_flags(b, layout=True, limit=10 ** 9,
-                                   group=lanes) == want
+                                   group=key) == want
         assert sc.launch_flags(b) & 8 == 0
         assert sc.launch_flags(b, layout=True) & 8 == 0
-    assert sc.launch_flags(0, group=4) == 0
-    monkeypatch.setattr(sc, "GROUP_MAX_RAYS", {4: 0, 8: 0})
-    assert sc.launch_flags(45, group=4) == 0
+    assert sc.launch_flags(0, group=lat) == 0
+    monkeypatch.setattr(sc, "GROUP_MAX_RAYS",
+                        {k: 0 for k in sc.GROUP_MAX_RAYS})
+    for key in _GROUP_INSTANCES:
+        assert sc.launch_flags(45, group=key) == 0

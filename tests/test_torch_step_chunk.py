@@ -654,10 +654,48 @@ def test_launch_counters_count_the_group_body(monkeypatch):
     names = ("launches", "group_launches", "sparse_launches")
     for name in names:
         monkeypatch.setattr(sc.step_chunk, name, 0)
-    monkeypatch.setattr(sc, "GROUP_MAX_RAYS", {4: 1000, 8: 100})
+    lat, tilted = (0, 0, 0, sc.AD, 0), (0, 0, 1, sc.AD, 1)
+    monkeypatch.setattr(sc, "GROUP_MAX_RAYS", {lat: 1000, tilted: 100})
     for b in (45, 500, 5000):
         sc.count_launch(sc.launch_flags(b, finish=True, layout=True,
-                                        group=4))
-        sc.count_launch(sc.launch_flags(b, group=8))
+                                        group=lat))
+        sc.count_launch(sc.launch_flags(b, group=tilted))
     sc.count_launch(sc.launch_flags(45, layout=True))
     assert [getattr(sc.step_chunk, n) for n in names] == [7, 3, 1]
+
+
+@pytest.mark.parametrize("cell,parsed,instance", [
+    ("ensemble10k:float64:grad_mode=autodiff",
+     ("ensemble10k", "float64", {"grad_mode": "autodiff"}),
+     "double bs3 2d_lat ad"),
+    ("ensemble10k_local:float64:grad_mode=autodiff",
+     ("ensemble10k_local", "float64", {"grad_mode": "autodiff"}),
+     "double bs3 2d_lat ad"),
+    ("ensemble10k_3d:float64:grad_mode=autodiff",
+     ("ensemble10k_3d", "float64", {"grad_mode": "autodiff"}),
+     "double bs3 3d ad"),
+    ("ensemble10k_tilted:grad_mode=autodiff",
+     ("ensemble10k_tilted", "float32", {"grad_mode": "autodiff"}),
+     "float bs3 3d ad tilted"),
+    ("ensemble10k:frame=2d_colat",
+     ("ensemble10k", "float32", {"frame": "2d_colat"}),
+     "float bs3 2d_colat axi"),
+])
+def test_tools_name_the_instance_of_a_cell(cell, parsed, instance):
+    """A cell of kernel_ab --tails and latency_floor --cells,
+    "preset[:dtype][:field=value...]", parses to its preset, dtype (float32
+    unless named) and overrides, and names the bs3 instance of its dtype
+    ("double ..." for a float64 cell) as sass_census names it; a captured
+    tail rebuilds its RunConfig in the dtype it was captured in (float32
+    for a tail saved without one)."""
+    from raytrace_tpu_torch import kernel_ab, latency_floor
+
+    assert kernel_ab.tail_spec(cell) == parsed
+    assert latency_floor._instance(cell) == instance
+    name, dtype, over = parsed
+    tail = dict(name=name, dtype=dtype, over=over)
+    conf = latency_floor.tail_config(tail)
+    assert (conf.name, conf.dtype) == (name, dtype)
+    assert all(getattr(conf, k) == v for k, v in over.items())
+    del tail["dtype"]
+    assert latency_floor.tail_config(tail).dtype == "float32"
